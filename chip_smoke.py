@@ -1,0 +1,608 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/H100 port (``src/repro_torch``) on one card.
+
+Run from the repository root, with one CUDA card visible:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero without the final result line):
+  a. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one
+     ``nvcc`` per source, all started together);
+  b. hold each kernel against its plain PyTorch version on the card at the
+     serving shapes and at wider shapes (ragged edges, GQA, 64 pages, an
+     inactive row, sentinel table entries): float32 within 2e-4 (the
+     reference registry's tolerance), bfloat16 within 2e-2, and the paged
+     kernel equal to the contiguous one bit for bit at block_kv == page;
+     then the smoke model on the card against the same model on the CPU;
+  c. serve full-width qwen1.5-0.5B (random weights from seed 0) through
+     ``repro_torch.launch.serve.serve_bench`` with the serve defaults, and
+     once more with 256-token prompts;
+  d. require paged == dense decode bit for bit and equal token counts;
+  e. require every kernel's launch count, taken over each serve run, > 0;
+  f. time each kernel at the main path's shapes with CUDA events;
+  g. profile full-width decode steps: wall vs device busy time per step.
+
+Output: one line per check and per serve run, a JSON ``kernels`` line, the
+card's name and power limit as ``nvidia-smi`` reports them, and as the
+last line ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from argparse import Namespace
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+F32_TOL, BF16_TOL, MODEL_TOL = 2e-4, 2e-2, 2e-4
+HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+SERVE = dict(arch="qwen1_5_0p5b", smoke=False, requests=16, prompt_len=32,
+             max_new=16, page=16, slots=4, rate=10.0, eos_id=None,
+             pool_blocks=None, seed=0, device="cuda")
+KERNELS = {
+    "ff_attention": dict(
+        source="src/repro_torch/kernels/csrc/ff_attention.cu",
+        replaces="src/repro/kernels/ff_attention/kernel.py:134"),
+    "ff_decode_attention": dict(
+        source="src/repro_torch/kernels/csrc/ff_decode_attention.cu",
+        replaces="src/repro/kernels/ff_decode_attention/kernel.py:225"),
+    "ff_paged_decode_attention": dict(
+        source="src/repro_torch/kernels/csrc/ff_decode_attention.cu",
+        replaces="src/repro/kernels/ff_decode_attention/kernel.py:125"),
+}
+
+failures = []
+
+
+def check(name, ok, detail):
+    print(f"{'PASS' if ok else 'FAIL'} {name}: {detail}", flush=True)
+    if not ok:
+        failures.append(name)
+
+
+def wrappers():
+    from repro_torch.kernels.ff_attention import attention
+    from repro_torch.kernels.ff_decode_attention import decode_attention
+    from repro_torch.runtime.paged_kv import paged_decode_attention
+    return {"ff_attention": attention, "ff_decode_attention": decode_attention,
+            "ff_paged_decode_attention": paged_decode_attention}
+
+
+def err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# inputs
+# ---------------------------------------------------------------------------
+
+
+def prefill_inputs(torch, dev, dtype, bh, groups, s, d, gen):
+    q = torch.randn(bh, s, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(bh // groups, s, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(bh // groups, s, d, generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def decode_inputs(torch, dev, dtype, b, h, kvh, d, page, n_pages, n_blocks,
+                  lengths, gen):
+    """A pool of stale random values, each row's reservation drawn from a
+    permutation (sentinels past it), the same K/V also as a contiguous
+    [B, S, KVH, D] cache viewed as [B, KVH, S, D]."""
+    from repro_torch.runtime.paged_kv import paged_gather
+    q = torch.randn(b, h, d, generator=gen, device=dev).to(dtype)
+    pool = torch.randn(n_blocks, 2, page, kvh, d, generator=gen,
+                       device=dev).to(dtype)
+    perm = torch.randperm(n_blocks, generator=gen, device=dev)
+    tables = torch.full((b, n_pages), n_blocks, dtype=torch.int32, device=dev)
+    used = 0
+    for i, n in enumerate(lengths):
+        need = -(-max(n, 1) // page) if n else 0
+        tables[i, :need] = perm[used:used + need].int()
+        used += need
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    k, v = paged_gather(pool, tables)
+    return q, pool, tables, lens, k, v
+
+
+# ---------------------------------------------------------------------------
+# b. kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_kernels(torch, dev, shapes):
+    from repro_torch.kernels.ff_attention import attention, attention_ref
+    from repro_torch.kernels.ff_decode_attention import (decode_attention,
+                                                         decode_attention_ref)
+    from repro_torch.runtime.paged_kv import (paged_decode_attention,
+                                              paged_decode_attention_ref)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    main_err = {k: 0.0 for k in KERNELS}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        tag = str(dtype).split(".")[1]
+        for label, (bh, groups, s, d), causal in (
+                ("serve", shapes["prefill"], True),
+                ("serve-256", shapes["prefill_256"], True),
+                ("wide", (16, 2, 1000, 64), True),
+                ("wide-noncausal", (16, 2, 1000, 64), False)):
+            q, k, v = prefill_inputs(torch, dev, dtype, bh, groups, s, d, gen)
+            out = attention(q, k, v, kv_groups=groups, causal=causal)
+            ref = attention_ref(q, k, v, kv_groups=groups, causal=causal)
+            torch.cuda.synchronize()
+            e = err(out, ref)
+            check(f"ff_attention {label} {tag} bh={bh} g={groups} s={s}",
+                  e <= tol and out.isfinite().all().item(),
+                  f"max|kernel-plain|={e:.3e} tol={tol}")
+            if label == "serve" and dtype == torch.bfloat16:
+                main_err["ff_attention"] = e
+        dec = shapes["decode"]
+        for label, (b, h, kvh, d, page, n_pages, nb, lengths) in (
+                ("serve", (dec["b"], dec["h"], dec["kvh"], dec["d"],
+                           dec["page"], dec["n_pages"], dec["n_blocks"],
+                           dec["lengths"])),
+                ("wide", (4, 16, 8, 64, 16, 64, 300, [0, 1000, 517, 1024]))):
+            q, pool, tables, lens, k, v = decode_inputs(
+                torch, dev, dtype, b, h, kvh, d, page, n_pages, nb, lengths,
+                gen)
+            out_c = decode_attention(q, k, v, lens, block_kv=page)
+            out_p = paged_decode_attention(q, pool, tables, lens)
+            ref_c = decode_attention_ref(q, k, v, lens, block_kv=page)
+            ref_p = paged_decode_attention_ref(q, pool, tables, lens)
+            torch.cuda.synchronize()
+            e_c, e_p = err(out_c, ref_c), err(out_p, ref_p)
+            inactive = [i for i, n in enumerate(lengths) if n == 0]
+            zero = all(out_p[i].eq(0).all().item() for i in inactive)
+            check(f"ff_decode_attention {label} {tag} b={b} h={h} kvh={kvh} "
+                  f"pages={n_pages}", e_c <= tol,
+                  f"max|kernel-plain|={e_c:.3e} tol={tol}")
+            check(f"ff_paged_decode_attention {label} {tag} b={b} h={h} "
+                  f"kvh={kvh} pages={n_pages}", e_p <= tol and zero,
+                  f"max|kernel-plain|={e_p:.3e} tol={tol}, "
+                  f"inactive rows exactly 0: {zero}")
+            check(f"paged == contiguous bitwise {label} {tag}",
+                  torch.equal(out_c, out_p), f"max diff {err(out_c, out_p)}")
+            if label == "serve" and dtype == torch.bfloat16:
+                main_err["ff_decode_attention"] = e_c
+                main_err["ff_paged_decode_attention"] = e_p
+    return main_err
+
+
+def check_model_small(torch, dev):
+    """The smoke model on the card against the same model (plain kernel
+    versions) on the CPU: prefill, then 3 decode steps dense and paged."""
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import build_model
+    from repro_torch.runtime.paged_kv import PagedKVCache
+    cfg = smoke_config("qwen1_5_0p5b").replace(decode_block_kv=8)
+    model = build_model(cfg)
+    params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    lens = [5, 19]
+    toks = torch.zeros(2, 19, dtype=torch.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = torch.randint(1, cfg.vocab, (n,),
+                                    generator=torch.Generator().manual_seed(i))
+
+    def run(device, paged):
+        params = tree_to(params_cpu, device, torch)
+        prefill = steps.make_prefill_step(model)
+        decode = steps.make_decode_step(model)
+        logits0, dense = prefill(params, {"tokens": toks.to(device)})
+        if paged:
+            kv = PagedKVCache(n_layers=cfg.n_layers, n_blocks=7, page=8,
+                              kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                              n_slots=2, n_pages_max=3, dtype=cfg.cdtype,
+                              device=device)
+            for i, n in enumerate(lens):
+                kv.admit(i, dense["k"][:, i], dense["v"][:, i], n, 24)
+            cache = kv.cache_view()
+        else:
+            cache = serve.pad_cache_to(dense, 19, 24, 2)
+        cur = toks[torch.arange(2), torch.tensor(lens) - 1].to(device)
+        lengths = (torch.tensor(lens, dtype=torch.int32) - 1).to(device)
+        out = [logits0]
+        for _ in range(3):
+            cur, logits, cache = decode(params, {"token": cur,
+                                                 "lengths": lengths}, cache)
+            out.append(logits)
+            lengths = lengths + 1
+        return [o.cpu() for o in out]
+
+    for paged in (False, True):
+        got, want = run(dev, paged), run(torch.device("cpu"), paged)
+        e = max(err(g, w) for g, w in zip(got, want))
+        same = all(torch.equal(g.argmax(-1), w.argmax(-1))
+                   for g, w in zip(got, want))
+        finite = all(g.isfinite().all().item() for g in got)
+        check(f"smoke model on card vs cpu ({'paged' if paged else 'dense'})",
+              e <= MODEL_TOL and same and finite,
+              f"max|logits diff|={e:.3e} tol={MODEL_TOL}, greedy equal: "
+              f"{same}, finite: {finite}")
+
+
+def tree_to(tree, device, torch):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device, torch) for k, v in tree.items()}
+    return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# c-e. the main path
+# ---------------------------------------------------------------------------
+
+
+def run_serve(torch, label, **overrides):
+    from repro_torch.launch import serve
+    wr = wrappers()
+    for w in wr.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    result = serve.serve_bench(Namespace(**{**SERVE, **overrides}))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wr.items()}
+    summary = {k: result[k] for k in ("prompt_len", "bitwise_max_abs_diff",
+                                      "token_count_parity")}
+    for name in ("lockstep", "paged"):
+        summary[name] = {k: result[name][k] for k in (
+            "tokens", "tokens_per_s", "p50_ms", "p99_ms", "decode_steps",
+            "decode_s", "prefill_s", "kv_util")}
+    summary.update(wall_s=wall, launches=launches)
+    print(f"serve[{label}] " + json.dumps(summary), flush=True)
+    check(f"serve[{label}] paged == dense bitwise",
+          result["bitwise_max_abs_diff"] == 0.0,
+          f"bitwise_max_abs_diff={result['bitwise_max_abs_diff']}")
+    check(f"serve[{label}] token parity", result["token_count_parity"]
+          and result["lockstep"]["tokens"] > 0,
+          f"lockstep {result['lockstep']['tokens']} vs paged "
+          f"{result['paged']['tokens']} tokens")
+    for name, n in launches.items():
+        check(f"serve[{label}] {name} launched", n > 0, f"{n} launches")
+    return launches
+
+
+def main_path_shapes(torch):
+    """The kernels' shapes on the default serve run, from its own trace."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    cfg = get_config(SERVE["arch"])
+    page, slots = SERVE["page"], SERVE["slots"]
+
+    def trace(prompt_len):
+        return serve.make_requests(
+            SERVE["requests"], prompt_len=prompt_len,
+            max_new=SERVE["max_new"], rate=SERVE["rate"], vocab=cfg.vocab,
+            seed=SERVE["seed"])
+
+    reqs = trace(SERVE["prompt_len"])
+    p_max = serve._bucket(max(len(r.prompt) for r in reqs))
+    n_pages = max(-(-(len(r.prompt) + r.max_new) // page) for r in reqs)
+    # lengths of the first lockstep batch halfway through its decode
+    lengths = [len(r.prompt) + SERVE["max_new"] // 2 for r in reqs[:slots]]
+    p256 = serve._bucket(max(len(r.prompt) for r in trace(256)))
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {"prefill": (slots * h, h // kvh, p_max, d),
+            "prefill_256": (slots * h, h // kvh, p256, d),
+            "decode": dict(b=slots, h=h, kvh=kvh, d=d, page=page,
+                           n_pages=n_pages, n_blocks=slots * n_pages,
+                           lengths=lengths)}
+
+
+# ---------------------------------------------------------------------------
+# f. timing
+# ---------------------------------------------------------------------------
+
+
+def time_ms(torch, fn, n, flush=None, batch=10):
+    """Mean device ms per call over ``n`` calls after warm-up, each call
+    bracketed by its own CUDA events. Calls are queued in batches behind a
+    ``torch.cuda._sleep`` so the device never waits on the host between a
+    call's events (a batch the host could not queue before the sleep ended
+    is measured again behind a longer sleep, or in smaller batches). With
+    ``flush`` (a buffer larger than the 50 MB L2) rewritten before every
+    call, outside its events, each call finds L2 cold."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    total, count, cycles = 0.0, 0, 2_000_000
+    deadline = time.perf_counter() + 120
+    while count < n:
+        if time.perf_counter() > deadline:
+            raise RuntimeError("timing: no batch measured within 120 s")
+        gate = torch.cuda.Event()
+        torch.cuda._sleep(cycles)
+        gate.record()
+        pairs = []
+        for _ in range(batch):
+            if flush is not None:
+                flush.zero_()
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            fn()
+            pair[1].record()
+            pairs.append(pair)
+        starved = gate.query()
+        torch.cuda.synchronize()
+        if starved:
+            # a longer sleep, then (the launch queue holds about a thousand
+            # entries and blocks the host when full) smaller batches
+            if cycles < 2 ** 28:
+                cycles *= 4
+            elif batch > 1:
+                batch //= 2
+            else:
+                raise RuntimeError("timing: the host cannot queue one call "
+                                   "ahead of the device")
+            continue
+        total += sum(a.elapsed_time(b) for a, b in pairs)
+        count += batch
+    return total / count
+
+
+def call_ms(torch, fn, n):
+    """Mean ms per call as the caller sees it from an idle device: host
+    work of the wrapper (checks, allocation, launch) plus device time."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    t = 0.0
+    for _ in range(n):
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        t += start.elapsed_time(end)
+    return t / n
+
+
+def gqa(groups):
+    return {"enable_gqa": True} if groups > 1 else {}
+
+
+def bound(nbytes, ops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_kernels(torch, dev, shapes):
+    import torch.nn.functional as F
+    from repro_torch.kernels.ff_attention import attention, attention_ref
+    from repro_torch.kernels.ff_decode_attention import (decode_attention,
+                                                         decode_attention_ref)
+    from repro_torch.runtime.paged_kv import (paged_decode_attention,
+                                              paged_decode_attention_ref)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dt = torch.bfloat16
+    item = 2
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = {}
+
+    bh, groups, s, d = shapes["prefill"]
+    q, k, v = prefill_inputs(torch, dev, dt, bh, groups, s, d, gen)
+    b, h = SERVE["slots"], bh // SERVE["slots"]
+    q4 = q.view(b, h, s, d)
+    k4 = k.view(b, h // groups, s, d)
+    v4 = v.view(b, h // groups, s, d)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * item
+    ops = 4 * d * bh * s * (s + 1) / 2           # causal (q, k) pairs
+    print("f. timing ff_attention", flush=True)
+    rows["ff_attention"] = dict(
+        shape=f"q[{bh},{s},{d}] kv[{bh // groups},{s},{d}] causal bf16",
+        ms=time_ms(torch, lambda: attention(q, k, v, kv_groups=groups), 200,
+                   flush),
+        ms_hot=time_ms(torch, lambda: attention(q, k, v, kv_groups=groups),
+                       200),
+        call_ms=call_ms(torch, lambda: attention(q, k, v, kv_groups=groups),
+                        100),
+        plain_ms=time_ms(torch, lambda: attention_ref(
+            q, k, v, kv_groups=groups), 20, flush),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, **gqa(groups)), 200, flush),
+        bound=bound(nbytes, ops, "bfloat16"))
+
+    dec = shapes["decode"]
+    q, pool, tables, lens, k, v = decode_inputs(
+        torch, dev, dt, dec["b"], dec["h"], dec["kvh"], dec["d"], dec["page"],
+        dec["n_pages"], dec["n_blocks"], dec["lengths"], gen)
+    page, kvh, d = dec["page"], dec["kvh"], dec["d"]
+    live = sum(min(n, dec["n_pages"] * page) for n in dec["lengths"])
+    q_out = 2 * q.numel() * item + lens.numel() * 4
+    kv_bytes = 2 * live * kvh * d * item
+    ops = 4 * dec["h"] * d * live
+    mask = (torch.arange(k.shape[2], device=dev)[None, :]
+            < lens[:, None])[:, None, None, :]
+    q_sdpa = q[:, :, None, :]
+    grp = dec["h"] // kvh
+    shape = (f"q[{dec['b']},{dec['h']},{d}] lengths={dec['lengths']} "
+             f"page={page} pages={dec['n_pages']} bf16")
+    print("f. timing ff_decode_attention", flush=True)
+    rows["ff_decode_attention"] = dict(
+        shape=shape + f" cache[{dec['b']},{kvh},{k.shape[2]},{d}]",
+        ms=time_ms(torch, lambda: decode_attention(q, k, v, lens,
+                                                   block_kv=page), 200, flush),
+        ms_hot=time_ms(torch, lambda: decode_attention(q, k, v, lens,
+                                                       block_kv=page), 200),
+        call_ms=call_ms(torch, lambda: decode_attention(q, k, v, lens,
+                                                        block_kv=page), 100),
+        plain_ms=time_ms(torch, lambda: decode_attention_ref(
+            q, k, v, lens, block_kv=page), 20, flush),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q_sdpa, k, v, attn_mask=mask, **gqa(grp)), 200, flush),
+        bound=bound(q_out + kv_bytes, ops, "bfloat16"))
+    print("f. timing ff_paged_decode_attention", flush=True)
+    rows["ff_paged_decode_attention"] = dict(
+        shape=shape + f" pool[{dec['n_blocks']},2,{page},{kvh},{d}]",
+        ms=time_ms(torch, lambda: paged_decode_attention(q, pool, tables,
+                                                         lens), 200, flush),
+        ms_hot=time_ms(torch, lambda: paged_decode_attention(q, pool, tables,
+                                                             lens), 200),
+        call_ms=call_ms(torch, lambda: paged_decode_attention(q, pool, tables,
+                                                              lens), 100),
+        plain_ms=time_ms(torch, lambda: paged_decode_attention_ref(
+            q, pool, tables, lens), 20, flush),
+        library_ms=None,             # no single PyTorch call reads a table
+        bound=bound(q_out + kv_bytes + tables.numel() * 4, ops, "bfloat16"))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# g. where a full-width decode step's time goes
+# ---------------------------------------------------------------------------
+
+
+def profile_decode(torch, dev, n_steps=8):
+    """Wall ms per full-width decode step (host clock after a
+    synchronize), the device's busy ms per step (kernel and copy times from
+    torch.profiler, summed; the device runs one stream), and the kernels
+    taking most of it, for the dense cache (lockstep) and the paged pool
+    (continuous batching) at the default serve shapes: the first
+    ``slots`` requests of the default trace, decoding from their prompts."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import build_model
+    from repro_torch.runtime.paged_kv import PagedKVCache
+    page, slots = SERVE["page"], SERVE["slots"]
+    cfg = get_config(SERVE["arch"]).replace(decode_block_kv=page)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    reqs = serve.make_requests(
+        SERVE["requests"], prompt_len=SERVE["prompt_len"],
+        max_new=SERVE["max_new"], rate=SERVE["rate"], vocab=cfg.vocab,
+        seed=SERVE["seed"])[:slots]
+    lens = np.array([len(r.prompt) for r in reqs], np.int32)
+    p_max = serve._bucket(int(lens.max()))
+    n_pages = -(-(p_max + 2 + 2 * n_steps) // page)
+    toks = np.zeros((slots, p_max), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, :len(r.prompt)] = r.prompt
+    prefill = steps.make_prefill_step(model)
+    decode = steps.make_decode_step(model)
+    _, dense = prefill(params, {"tokens": torch.as_tensor(toks, device=dev)})
+    out = {}
+    for kind in ("dense", "paged"):
+        if kind == "dense":
+            cache = serve.pad_cache_to(dense, p_max, n_pages * page, 2)
+        else:
+            kv = PagedKVCache(
+                n_layers=cfg.n_layers, n_blocks=slots * n_pages, page=page,
+                kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, n_slots=slots,
+                n_pages_max=n_pages, dtype=cfg.cdtype, device=dev)
+            for i, n in enumerate(lens):
+                kv.admit(i, dense["k"][:, i], dense["v"][:, i], int(n),
+                         n_pages * page)
+            cache = kv.cache_view()
+        state = {"cur": torch.as_tensor(toks[np.arange(slots), lens - 1],
+                                        device=dev),
+                 "len": torch.as_tensor(lens - 1, device=dev)}
+
+        def step():
+            state["cur"], _, _ = decode(
+                params, {"token": state["cur"], "lengths": state["len"]},
+                cache)
+            state["cur"].cpu()                   # the schedulers read it
+            state["len"] = state["len"] + 1
+
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n_steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_steps):
+                step()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us() / 1e3)
+        busy = sum(by_name.values()) / n_steps if by_name else None
+        top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:8]
+        out[kind] = {
+            "wall_ms_per_step": wall,
+            "device_ms_per_step": busy,
+            "device_busy_share": busy / wall if busy is not None else None,
+            "top_kernels_ms_per_step": [[n[:80], t / n_steps]
+                                        for n, t in top]}
+    print("profile " + json.dumps(out), flush=True)
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+
+    t0 = time.perf_counter()
+    built = _build.build()
+    for name, (secs, log) in built.items():
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"built {name}.cu in {secs:.1f} s; " + " | ".join(ptxas),
+              flush=True)
+    print(f"a. build: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    shapes = main_path_shapes(torch)
+    main_err = check_kernels(torch, dev, shapes)
+    check_model_small(torch, dev)
+
+    launches = run_serve(torch, "default")
+    run_serve(torch, "prompt-256", prompt_len=256)
+
+    rows = time_kernels(torch, dev, shapes)
+    profile_decode(torch, dev)
+    kernels = []
+    for name, meta in KERNELS.items():
+        r = rows[name]
+        bound_ms, bound_by = r.pop("bound")
+        kernels.append({"name": name, "route": "cuda", **meta,
+                        "launches": launches[name],
+                        "max_abs_err": main_err[name], **r,
+                        "bound_ms": bound_ms, "bound_by": bound_by})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+          else f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
+    if failures:
+        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}",
+              file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

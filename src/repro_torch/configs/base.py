@@ -1,0 +1,127 @@
+"""Architecture configuration schema (the port's copy of
+``repro.configs.base``).
+
+``ArchConfig`` keeps the reference's fields so configs read the same in
+both packages; ``cdtype``/``pdtype`` return torch dtypes. The port has one
+attention implementation, the CUDA kernels (with their plain PyTorch
+versions on the CPU), so ``attn_impl`` defaults to ``"ff"``; the
+reference's HLO path ``"xla"`` is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Dict, Optional
+
+import torch
+
+ARCH_IDS = (
+    "qwen1_5_0p5b",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    arch_id: str
+    family: str                    # dense | moe | hybrid | ssm | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None           # default d_model // n_heads
+    qkv_bias: bool = False
+    act: str = "swiglu"                       # swiglu | gelu
+    norm: str = "rmsnorm"                     # rmsnorm | layernorm
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+
+    # MoE
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+
+    # MLA (deepseek)
+    kv_lora_rank: int = 0
+    qk_rope_dim: int = 64
+    qk_nope_dim: int = 128
+    v_head_dim: int = 128
+
+    # SSM / hybrid
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    attn_every_n: int = 0
+    conv_width: int = 4
+
+    # encoder-decoder (whisper)
+    n_enc_layers: int = 0
+    n_frames: int = 1500
+
+    # VLM
+    n_patches: int = 256
+
+    # numerics
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    remat: str = "full"
+    optimizer: str = "adamw"
+
+    rule_overrides: Optional[Dict[str, object]] = None
+
+    # implementation switches
+    attn_impl: str = "ff"                     # ff (the CUDA kernels)
+    decode_block_kv: Optional[int] = None     # pin the decode-attention KV
+                                              # tile (None = heuristic);
+                                              # serving pins it to the page
+                                              # size so the contiguous path
+                                              # is bitwise-equal to the
+                                              # paged path
+    layer_graph: bool = False
+    scan_impl: str = "xla"
+    scan_layers: bool = True
+    loss_chunk: int = 0
+    scan_chunk: int = 64
+    moe_local_dispatch: bool = False
+    bf16_grads: bool = False
+    unroll_layers: int = 0
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to 128 (padded ids are never labels)."""
+        return -(-self.vocab // 128) * 128
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+    @property
+    def pdtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def _module(arch_id: str):
+    if arch_id not in ARCH_IDS:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported to repro_torch yet "
+            f"(ported: {', '.join(ARCH_IDS)})")
+    return importlib.import_module(f"repro_torch.configs.{arch_id}")
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    return _module(arch_id).CONFIG
+
+
+def smoke_config(arch_id: str) -> ArchConfig:
+    return _module(arch_id).SMOKE

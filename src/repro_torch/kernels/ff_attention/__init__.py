@@ -1,0 +1,4 @@
+from repro_torch.kernels.ff_attention.ops import (BLOCK_KV, BLOCK_Q,
+                                                 attention, attention_ref)
+
+__all__ = ["BLOCK_KV", "BLOCK_Q", "attention", "attention_ref"]

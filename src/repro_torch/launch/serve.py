@@ -1,0 +1,526 @@
+"""Serving driver: paged-KV continuous batching vs. padded lockstep (the
+port of ``repro/launch/serve.py``).
+
+Two schedulers over the same Poisson request trace:
+
+  * **lockstep** — FIFO static batches: wait until ``n_slots`` requests
+    have arrived, right-pad prompts into one prefill, then decode the
+    whole batch in lockstep over a dense right-padded KV cache
+    ``[L, B, S_max, KVH, hd]`` until its slowest row finishes.
+  * **paged** (continuous batching) — requests are admitted the moment a
+    decode slot and enough KV blocks are free, prefill is per request
+    (bucketed to power-of-2 prompt lengths), and every step retires
+    finished slots and recycles their blocks
+    (:class:`~repro_torch.runtime.paged_kv.PagedKVCache`). Decode attention
+    reads KV through the block table in the paged CUDA kernel.
+
+Both replay the trace on a virtual clock advanced by measured step times
+(no sleeping, real compute costs; on the card each clock reading follows a
+``torch.cuda.synchronize``), and both decode greedily with identical math:
+the dense path's KV tile is pinned to the page size
+(``cfg.decode_block_kv``), so paged decode is bitwise-identical to the
+contiguous path and the two schedulers emit token-for-token equal
+sequences. :func:`decode_parity_probe` checks the bitwise claim.
+
+Runs on the card unless asked for the CPU (the plain versions):
+  PYTHONPATH=src python -m repro_torch.launch.serve
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from collections import deque
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ARCH_IDS, get_config, smoke_config
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models import build_model
+from repro_torch.runtime.paged_kv import PagedKVCache
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device to serve on; raises when a GPU is asked for and none is
+    found (no silent fall back to the CPU)."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found; pass --device cpu to run "
+                           "the kernels' plain versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {name!r}")
+    return dev
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _ints(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.int32), device=device)
+
+
+def pad_cache_to(cache, s_from: int, s_max: int, seq_dims):
+    """Right-pad the declared sequence axes of a cache dict.
+
+    ``seq_dims`` names the sequence axis: an int applied to every leaf, or
+    a dict matching ``cache`` whose values are an axis index or None (None
+    = leaf has no sequence axis, left untouched)."""
+    if seq_dims is None:
+        raise TypeError("pad_cache_to requires seq_dims (an int axis or a "
+                        "per-leaf dict of axes); padding by shape match "
+                        "corrupts non-sequence dims that equal s_from")
+    if s_from == s_max:
+        return cache
+
+    def pad(x, axis):
+        if axis is None:
+            return x
+        if x.shape[axis] != s_from:
+            raise ValueError(
+                f"cache leaf {tuple(x.shape)} has {x.shape[axis]} at "
+                f"declared seq axis {axis}, expected {s_from}")
+        pads = [0, 0] * (x.dim() - 1 - axis) + [0, s_max - s_from]
+        return F.pad(x, pads)
+
+    if isinstance(seq_dims, int):
+        return {k: pad(x, seq_dims) for k, x in cache.items()}
+    return {k: pad(x, seq_dims[k]) for k, x in cache.items()}
+
+
+# ---------------------------------------------------------------------------
+# Load generator
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    arrival: float          # seconds on the trace clock
+    prompt: np.ndarray      # [len] int32
+    max_new: int
+
+
+def make_requests(n: int, *, prompt_len: int, max_new: int, rate: float,
+                  vocab: int, seed: int = 0) -> List[Request]:
+    """Poisson arrivals (rate req/s), prompt lengths uniform in
+    [4, prompt_len], per-request token budgets uniform in
+    [max(1, max_new//2), max_new]. The same numpy stream as the
+    reference, so both packages replay the same trace."""
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(1.0 / rate, size=n) if rate > 0 else np.zeros(n)
+    arrivals = np.cumsum(gaps)
+    reqs = []
+    for i in range(n):
+        plen = int(rng.integers(4, prompt_len + 1))
+        prompt = rng.integers(1, vocab, size=plen).astype(np.int32)
+        budget = int(rng.integers(max(1, max_new // 2), max_new + 1))
+        reqs.append(Request(i, float(arrivals[i]), prompt, budget))
+    return reqs
+
+
+def _bucket(n: int, lo: int = 8) -> int:
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def _summarize(emits: Dict[int, List[float]], requests: List[Request],
+               util_samples: List[float], prefill_s: float, decode_s: float,
+               steps: int) -> Dict[str, object]:
+    """Per-token latency (first token measured from arrival, later tokens
+    from the previous emit), throughput over the whole trace."""
+    lat = []
+    t_end = 0.0
+    total = 0
+    for r in requests:
+        prev = r.arrival
+        for t in emits.get(r.rid, []):
+            lat.append(t - prev)
+            prev = t
+            t_end = max(t_end, t)
+            total += 1
+    lat_ms = np.array(sorted(lat)) * 1e3
+    return {
+        "tokens": total,
+        "tokens_per_s": total / max(t_end, 1e-9),
+        "p50_ms": float(np.percentile(lat_ms, 50)) if total else None,
+        "p99_ms": float(np.percentile(lat_ms, 99)) if total else None,
+        "kv_util": float(np.mean(util_samples)) if util_samples else None,
+        "prefill_s": prefill_s,
+        "decode_s": decode_s,
+        "decode_steps": steps,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Scheduler 1: padded lockstep (the baseline)
+# ---------------------------------------------------------------------------
+
+
+def run_lockstep(model, params, cfg, requests: List[Request], *,
+                 n_slots: int, page: int,
+                 eos_id: Optional[int]) -> Dict[str, object]:
+    """Static FIFO batches over a dense right-padded cache, on the device
+    the parameters live on."""
+    dev = params["embed"].device
+    prefill = steps_lib.make_prefill_step(model)
+    decode = steps_lib.make_decode_step(model)
+    p_max = _bucket(max(len(r.prompt) for r in requests))
+    total_max = max(len(r.prompt) + r.max_new for r in requests)
+    s_max = max(-(-total_max // page) * page, -(-p_max // page) * page)
+
+    # warm up outside the clock (kernel build/load, library handles)
+    zeros = _ints(np.zeros(n_slots), dev)
+    _, wcache = prefill(params, {"tokens": _ints(np.zeros((n_slots, p_max)),
+                                                 dev)})
+    wcache = pad_cache_to(wcache, p_max, s_max, 2)
+    decode(params, {"token": zeros, "lengths": zeros}, wcache)
+    _sync(dev)
+
+    clock = 0.0
+    prefill_s = decode_s = 0.0
+    steps = 0
+    emits: Dict[int, List[float]] = {}
+    utils: List[float] = []
+    queue = deque(sorted(requests, key=lambda r: r.arrival))
+    while queue:
+        batch = [queue.popleft() for _ in range(min(n_slots, len(queue)))]
+        # static batching: the batch launches when its LAST request arrives
+        clock = max(clock, max(r.arrival for r in batch))
+        toks = np.zeros((n_slots, p_max), np.int32)
+        lens = np.zeros((n_slots,), np.int32)
+        for i, r in enumerate(batch):
+            toks[i, :len(r.prompt)] = r.prompt
+            lens[i] = len(r.prompt)
+
+        t0 = time.perf_counter()
+        _, cache = prefill(params, {"tokens": _ints(toks, dev)})
+        cache = pad_cache_to(cache, p_max, s_max, 2)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        clock += dt
+        prefill_s += dt
+
+        # re-feed each row's last prompt token at position len-1: the cache
+        # write is idempotent (same k/v), and the step's logits are exactly
+        # the model's next-token prediction at the prompt end
+        cur = _ints(toks[np.arange(n_slots), np.maximum(lens - 1, 0)], dev)
+        lengths = _ints(np.maximum(lens - 1, 0), dev)
+        produced = np.zeros(n_slots, np.int64)
+        active = np.array([i < len(batch) for i in range(n_slots)])
+        # lockstep's cost: the batch steps until its slowest row finishes
+        while active.any():
+            t0 = time.perf_counter()
+            nxt, _, cache = decode(params, {"token": cur, "lengths": lengths},
+                                   cache)
+            nxt_np = nxt.cpu().numpy()
+            _sync(dev)
+            dt = time.perf_counter() - t0
+            clock += dt
+            decode_s += dt
+            steps += 1
+            for i in np.nonzero(active)[0]:
+                r = batch[i]
+                tok = int(nxt_np[i])
+                emits.setdefault(r.rid, []).append(clock)
+                produced[i] += 1
+                if tok == eos_id or produced[i] >= r.max_new:
+                    active[i] = False      # retired; cache stays allocated
+            cur = nxt
+            lengths = lengths + 1
+            live = sum(lens[i] + produced[i] for i in range(len(batch)))
+            utils.append(live / (n_slots * s_max))
+    return _summarize(emits, requests, utils, prefill_s, decode_s, steps)
+
+
+# ---------------------------------------------------------------------------
+# Scheduler 2: paged continuous batching
+# ---------------------------------------------------------------------------
+
+
+def run_continuous(model, params, cfg, requests: List[Request], *,
+                   n_slots: int, page: int, eos_id: Optional[int],
+                   pool_blocks: Optional[int] = None) -> Dict[str, object]:
+    """Continuous batching over a :class:`PagedKVCache`: admit on arrival
+    into free slots, retire per step, recycle blocks."""
+    dev = params["embed"].device
+    prefill = steps_lib.make_prefill_step(model)
+    decode = steps_lib.make_decode_step(model)
+    n_pages_max = max(-(-(len(r.prompt) + r.max_new) // page)
+                      for r in requests)
+    if pool_blocks is None:
+        pool_blocks = n_slots * n_pages_max
+    # a single empty-pool admission must always fit, else admission stalls
+    pool_blocks = max(pool_blocks, n_pages_max)
+
+    def fresh_cache():
+        return PagedKVCache(
+            n_layers=cfg.n_layers, n_blocks=pool_blocks, page=page,
+            kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, n_slots=n_slots,
+            n_pages_max=n_pages_max, dtype=cfg.cdtype, device=dev)
+
+    buckets = sorted({_bucket(len(r.prompt)) for r in requests})
+
+    # warm up every prefill bucket, the admission scatter and decode
+    warm = fresh_cache()
+    for i, pb in enumerate(buckets):
+        _, wc = prefill(params, {"tokens": _ints(np.zeros((1, pb)), dev)})
+        warm.admit(i % n_slots, wc["k"][:, 0], wc["v"][:, 0], 4, 4)
+        warm.retire(i % n_slots)
+    zeros = _ints(np.zeros(n_slots), dev)
+    decode(params, {"token": zeros, "lengths": zeros}, warm.cache_view())
+    _sync(dev)
+
+    kv = fresh_cache()
+    clock = 0.0
+    prefill_s = decode_s = 0.0
+    steps = 0
+    emits: Dict[int, List[float]] = {}
+    utils: List[float] = []
+    utils_pool: List[float] = []
+    pending = deque(sorted(requests, key=lambda r: r.arrival))
+    slot_req: List[Optional[Request]] = [None] * n_slots
+    cur = np.zeros(n_slots, np.int32)
+    produced = np.zeros(n_slots, np.int64)
+
+    def active_mask():
+        return np.array([r is not None for r in slot_req])
+
+    while pending or active_mask().any():
+        # admit arrived requests into free slots while blocks allow
+        while pending and pending[0].arrival <= clock:
+            free = [i for i, r in enumerate(slot_req) if r is None]
+            if not free:
+                break
+            r = pending[0]
+            need = -(-(len(r.prompt) + r.max_new) // page)
+            if need > kv.allocator.n_free:
+                break                       # wait for a retirement
+            pending.popleft()
+            slot = free[0]
+            plen = len(r.prompt)
+            toks = np.zeros((1, _bucket(plen)), np.int32)
+            toks[0, :plen] = r.prompt
+            t0 = time.perf_counter()
+            _, pc = prefill(params, {"tokens": _ints(toks, dev)})
+            kv.admit(slot, pc["k"][:, 0], pc["v"][:, 0], plen,
+                     plen + r.max_new)
+            _sync(dev)
+            dt = time.perf_counter() - t0
+            clock += dt
+            prefill_s += dt
+            slot_req[slot] = r
+            cur[slot] = int(r.prompt[-1])
+            produced[slot] = 0
+            # first decode step re-feeds the last prompt token at
+            # position plen-1 (idempotent cache write, exact logits)
+            kv.lengths[slot] = plen - 1
+
+        act = active_mask()
+        if not act.any():
+            if pending:
+                clock = max(clock, pending[0].arrival)
+                continue
+            break
+
+        t0 = time.perf_counter()
+        nxt, _, new_caches = decode(
+            params, {"token": _ints(cur, dev), "lengths": _ints(kv.lengths,
+                                                                dev)},
+            kv.cache_view())
+        nxt_np = nxt.cpu().numpy()
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        clock += dt
+        decode_s += dt
+        steps += 1
+        kv.update_pool(new_caches["kv_pool"])
+        kv.append(act.astype(np.int32))
+        for slot in np.nonzero(act)[0]:
+            r = slot_req[slot]
+            tok = int(nxt_np[slot])
+            emits.setdefault(r.rid, []).append(clock)
+            produced[slot] += 1
+            if tok == eos_id or produced[slot] >= r.max_new:
+                kv.retire(slot)             # blocks recycle immediately
+                slot_req[slot] = None
+            else:
+                cur[slot] = tok
+        u = kv.utilization()
+        utils.append(u["util_vs_allocated"])
+        utils_pool.append(u["util_vs_pool"])
+    out = _summarize(emits, requests, utils, prefill_s, decode_s, steps)
+    out["kv_util_pool"] = (float(np.mean(utils_pool))
+                           if utils_pool else None)
+    out["pool_blocks"] = pool_blocks
+    out["page"] = page
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Bitwise parity probe (paged vs. contiguous decode on identical state)
+# ---------------------------------------------------------------------------
+
+
+def decode_parity_probe(model, params, cfg, *, page: int, n_steps: int = 3,
+                        seed: int = 0) -> float:
+    """Run ``n_steps`` greedy decode steps from the same prefill state
+    through (a) the dense right-padded cache and (b) the paged pool, and
+    return the max abs logits difference (0.0 = bitwise identical).
+    Requires ``cfg.decode_block_kv == page``."""
+    dev = params["embed"].device
+    rng = np.random.default_rng(seed)
+    b = 2
+    lens = np.array([11, 24], np.int32)
+    p_max = int(lens.max())
+    toks = np.zeros((b, p_max), np.int32)
+    for i in range(b):
+        toks[i, :lens[i]] = rng.integers(1, cfg.vocab, size=lens[i])
+    n_pages = -(-(p_max + n_steps) // page)
+    s_max = n_pages * page
+
+    prefill = steps_lib.make_prefill_step(model)
+    decode = steps_lib.make_decode_step(model)
+
+    _, dense = prefill(params, {"tokens": _ints(toks, dev)})
+    dense_cache = pad_cache_to(dense, p_max, s_max, 2)
+
+    kv = PagedKVCache(
+        n_layers=cfg.n_layers, n_blocks=b * n_pages + 2, page=page,
+        kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, n_slots=b,
+        n_pages_max=n_pages, dtype=cfg.cdtype, device=dev)
+    for i in range(b):
+        kv.admit(i, dense["k"][:, i], dense["v"][:, i], int(lens[i]), s_max)
+
+    cur_d = _ints(toks[np.arange(b), lens - 1], dev)
+    cur_p = cur_d
+    len_d = _ints(lens - 1, dev)
+    kv.lengths[:] = lens - 1
+    max_diff = 0.0
+    for _ in range(n_steps):
+        nd, logits_d, dense_cache = decode(
+            params, {"token": cur_d, "lengths": len_d}, dense_cache)
+        np_, logits_p, new_caches = decode(
+            params, {"token": cur_p, "lengths": _ints(kv.lengths, dev)},
+            kv.cache_view())
+        kv.update_pool(new_caches["kv_pool"])
+        kv.append(np.ones(b, np.int32))
+        diff = (logits_d.float() - logits_p.float()).abs().max().item()
+        max_diff = max(max_diff, diff)
+        cur_d, cur_p = nd, np_
+        len_d = len_d + 1
+    return max_diff
+
+
+# ---------------------------------------------------------------------------
+# Benchmark entry
+# ---------------------------------------------------------------------------
+
+
+def serve_bench(args) -> Dict[str, object]:
+    device = resolve_device(args.device)
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    # pin the dense path's KV tile to the page so lockstep decode is
+    # bitwise-identical to the paged kernel
+    cfg = cfg.replace(attn_impl="ff", decode_block_kv=args.page)
+    model = build_model(cfg)
+    requests = make_requests(
+        args.requests, prompt_len=args.prompt_len, max_new=args.max_new,
+        rate=args.rate, vocab=cfg.vocab, seed=args.seed)
+    # weights from a fixed seed, as the reference's key(0); --seed is the
+    # trace's
+    params = model.init(torch.Generator(device=device).manual_seed(0),
+                        device)
+    lockstep = run_lockstep(model, params, cfg, requests,
+                            n_slots=args.slots, page=args.page,
+                            eos_id=args.eos_id)
+    paged = run_continuous(model, params, cfg, requests, n_slots=args.slots,
+                           page=args.page, eos_id=args.eos_id,
+                           pool_blocks=args.pool_blocks)
+    bitwise = decode_parity_probe(model, params, cfg, page=args.page)
+    return {
+        "arch": args.arch,
+        "device": {"type": device.type,
+                   "name": (torch.cuda.get_device_name(device)
+                            if device.type == "cuda" else "cpu")},
+        "smoke": bool(args.smoke),
+        "impl": cfg.attn_impl,
+        "requests": args.requests,
+        "slots": args.slots,
+        "page": args.page,
+        "rate_req_per_s": args.rate,
+        "prompt_len": args.prompt_len,
+        "max_new": args.max_new,
+        "lockstep": lockstep,
+        "paged": paged,
+        "speedup_tokens_per_s": (paged["tokens_per_s"]
+                                 / max(lockstep["tokens_per_s"], 1e-9)),
+        "p99_ratio": (lockstep["p99_ms"] / max(paged["p99_ms"], 1e-9)
+                      if lockstep["p99_ms"] and paged["p99_ms"] else None),
+        "bitwise_max_abs_diff": bitwise,
+        "bitwise_identical": bitwise == 0.0,
+        "token_count_parity": lockstep["tokens"] == paged["tokens"],
+    }
+
+
+def add_serve_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen1_5_0p5b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--page", type=int, default=16,
+                    help="KV block (page) size in tokens; also pins the "
+                         "dense path's block_kv for bitwise parity")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="decode slots (batch rows) for both schedulers")
+    ap.add_argument("--rate", type=float, default=10.0,
+                    help="Poisson arrival rate, requests/s (0 = all at t=0)")
+    ap.add_argument("--eos-id", type=int, default=None,
+                    help="retire a slot when it emits this token")
+    ap.add_argument("--pool-blocks", type=int, default=None,
+                    help="paged pool size in blocks (default: slots x "
+                         "max pages per request)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a GPU) or cpu (the "
+                         "kernels' plain versions)")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    add_serve_args(ap)
+    ap.add_argument("--json", default=None,
+                    help="write the benchmark dict to this path")
+    args = ap.parse_args(argv)
+    result = serve_bench(args)
+    ls, pg = result["lockstep"], result["paged"]
+    print(f"impl={result['impl']} device={result['device']} "
+          f"requests={args.requests} slots={args.slots} page={args.page}")
+    for name, m in (("lockstep", ls), ("paged", pg)):
+        print(f"{name:9s}: {m['tokens']} tokens, "
+              f"{m['tokens_per_s']:.2f} tok/s, "
+              f"p50 {m['p50_ms']:.1f} ms, p99 {m['p99_ms']:.1f} ms, "
+              f"kv util {m['kv_util']:.2f}, "
+              f"decode {m['decode_s']:.3f} s / {m['decode_steps']} steps")
+    print(f"speedup x{result['speedup_tokens_per_s']:.2f} tok/s, "
+          f"p99 x{result['p99_ratio']:.2f}, "
+          f"bitwise diff {result['bitwise_max_abs_diff']:.1e}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(result, f, indent=2, sort_keys=True)
+        print(f"wrote {args.json}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

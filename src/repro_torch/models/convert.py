@@ -1,0 +1,47 @@
+"""Carry parameters across from the JAX reference.
+
+The reference initializes its models randomly (``BaseLM.init``); the two
+frameworks draw different bits from one seed, so the parity tests convert
+the reference's parameters instead. The input is the JAX parameter pytree
+as numpy arrays (``jax.tree.map(np.asarray, params)``): ``embed``,
+``stack.layers.{norm1, mixer.{wq,wk,wv,wo,bq,bk,bv}, norm2, ffn.{wi,wo}}``,
+``final_norm`` and ``unembed``. Layouts are kept, so the port computes on
+exactly the reference's tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models.registry import build_model
+
+
+def params_from_jax(np_tree: Dict[str, Any], cfg: ArchConfig,
+                    device="cpu") -> Dict[str, Any]:
+    """The port's parameters from the reference's (numpy) pytree; raises
+    if a leaf is missing, extra, or of another shape than the port's
+    spec."""
+    specs = build_model(cfg).param_specs()
+    want = {path: spec for path, spec in L.tree_leaves(specs)}
+    got = {path: leaf for path, leaf in L.tree_leaves(np_tree)}
+    if set(want) != set(got):
+        missing = sorted(".".join(p) for p in set(want) - set(got))
+        extra = sorted(".".join(p) for p in set(got) - set(want))
+        raise ValueError(f"parameter trees differ: missing {missing}, "
+                         f"extra {extra}")
+    out: Dict[str, Any] = {}
+    for path, spec in want.items():
+        arr = np.asarray(got[path])
+        if tuple(arr.shape) != tuple(spec.shape):
+            raise ValueError(f"{'.'.join(path)}: shape {arr.shape} != "
+                             f"{spec.shape}")
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = torch.tensor(arr, dtype=spec.dtype, device=device)
+    return out

@@ -1,0 +1,206 @@
+"""Shared building blocks of the dense decoder (the port of the parts of
+``repro/models/layers.py`` the serving path runs).
+
+Params are plain nested dicts of tensors, declared as :class:`ParamSpec`
+trees and laid out exactly as the reference's pytrees, so converted JAX
+parameters drop in unchanged (:mod:`repro_torch.models.convert`).
+
+The three attention dispatchers route to the CUDA kernel wrappers, which
+run their plain PyTorch versions for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ff_attention import attention as ff_attention
+from repro_torch.kernels.ff_decode_attention import \
+    decode_attention as ff_decode_attention
+from repro_torch.runtime.paged_kv import paged_decode_attention
+
+# ---------------------------------------------------------------------------
+# Param specs
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    dtype: torch.dtype = torch.float32
+    init: str = "normal"          # "normal" | "zeros" | "ones"
+    scale: Optional[float] = None  # override fan-in scale
+
+    def initializer(self, gen: torch.Generator, device) -> torch.Tensor:
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=self.dtype, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=self.dtype, device=device)
+        x = torch.randn(self.shape, generator=gen, dtype=self.dtype,
+                        device=device)
+        # fan-in = product of all non-output dims, skipping the stacked
+        # layer dim (a [d, heads, hd] projection scales by 1/sqrt(d))
+        dims = self.shape
+        if self.axes and self.axes[0] == "layers":
+            dims = dims[1:]
+        fan_in = max(math.prod(dims[:-1]), 1) if len(dims) >= 2 else dims[-1]
+        scale = self.scale if self.scale is not None else 1.0 / math.sqrt(
+            fan_in)
+        return scale * x
+
+
+def tree_leaves(tree, prefix=()):
+    """(path, leaf) pairs in sorted-key order, the order JAX flattens a
+    dict pytree in."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def init_params(specs, gen: torch.Generator, device) -> Dict[str, Any]:
+    """Materialize a spec tree from one seeded generator (leaves drawn in
+    the reference's flatten order; the bits differ from JAX's)."""
+    out: Dict[str, Any] = {}
+    for path, spec in tree_leaves(specs):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = spec.initializer(gen, device)
+    return out
+
+
+
+# ---------------------------------------------------------------------------
+# Norms / RoPE
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w.float()).to(dt)
+
+
+def norm_apply(kind: str, x, p):
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm {kind!r} is not ported")
+    return rmsnorm(x, p["w"])
+
+
+def norm_specs(kind: str, d: int) -> Dict[str, ParamSpec]:
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm {kind!r} is not ported")
+    return {"w": ParamSpec((d,), ("embed",), init="ones")}
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """Rotary embedding in f32, cast back. x: [..., S, H, D];
+    positions: [..., S]."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., :, None].float() * freqs          # [..., S, half]
+    cos = torch.cos(ang)[..., None, :]                      # [..., S, 1, half]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return rot.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention dispatchers (kernel wrappers)
+# ---------------------------------------------------------------------------
+
+
+def attention_op(q, k, v, *, causal: bool) -> torch.Tensor:
+    """q: [B,S,H,D]; k,v: [B,Skv,KVH,D] -> [B,S,H,D] through the prefill
+    kernel (which masks the ragged S edge itself: no padding)."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    qh = q.transpose(1, 2).reshape(b * h, s, d)
+    kh = k.transpose(1, 2).reshape(b * kvh, k.shape[1], d)
+    vh = v.transpose(1, 2).reshape(b * kvh, v.shape[1], d)
+    out = ff_attention(qh, kh, vh, kv_groups=h // kvh, causal=causal)
+    return out.reshape(b, h, s, d).transpose(1, 2)
+
+
+def decode_attention_op(q, k, v, lengths, *,
+                        block_kv: Optional[int] = None) -> torch.Tensor:
+    """q: [B,H,D] one token; k,v: [B,Skv,KVH,D] cache; lengths: [B].
+    ``block_kv`` pins the KV tile (serving pins it to the paged cache's
+    page size for bitwise parity); None picks the reference's heuristic.
+    The cache is padded up to a tile multiple (rows past ``lengths`` are
+    masked, so the padding is free of numerics)."""
+    kh = k.transpose(1, 2)
+    vh = v.transpose(1, 2)
+    skv = k.shape[1]
+    if block_kv is None:
+        if skv <= 128:
+            block_kv = -(-skv // 8) * 8
+        else:
+            block_kv = min((128, 64, 32),
+                           key=lambda blk: (-(-skv // blk) * blk, -blk))
+    pad = -skv % block_kv
+    if pad:
+        kh = F.pad(kh, (0, 0, 0, pad))
+        vh = F.pad(vh, (0, 0, 0, pad))
+    return ff_decode_attention(q, kh, vh, lengths, block_kv=block_kv)
+
+
+def paged_decode_attention_op(q, kv_pool, block_tables,
+                              lengths) -> torch.Tensor:
+    """Decode attention through a paged KV pool (continuous batching).
+    q: [B,H,D]; kv_pool: [nb, 2, page, KVH, D]; block_tables: [B, n_pages]
+    (entries >= nb are sentinels); lengths: [B] (0 = inactive slot)."""
+    return paged_decode_attention(q, kv_pool, block_tables, lengths)
+
+
+# ---------------------------------------------------------------------------
+# MLP / embedding
+# ---------------------------------------------------------------------------
+
+
+def mlp_specs(d: int, f: int, act: str) -> Dict[str, ParamSpec]:
+    if act != "swiglu":
+        raise NotImplementedError(f"activation {act!r} is not ported")
+    return {"wo": ParamSpec((f, d), ("mlp", "embed")),
+            "wi": ParamSpec((d, 2 * f), ("embed", "mlp"))}
+
+
+def mlp_apply(p, x, act: str) -> torch.Tensor:
+    if act != "swiglu":
+        raise NotImplementedError(f"activation {act!r} is not ported")
+    dt = x.dtype
+    gate, up = torch.chunk(x @ p["wi"].to(dt), 2, dim=-1)
+    return (F.silu(gate) * up) @ p["wo"].to(dt)
+
+
+def embed_specs(vocab: int, d: int) -> ParamSpec:
+    return ParamSpec((vocab, d), ("vocab", "embed"), scale=0.02)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                 compute_dtype) -> torch.Tensor:
+    return table[tokens.long()].to(compute_dtype)
+
+
+def unembed_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """x: [B,S,D] -> logits [B,S,V] over the padded vocab."""
+    return x @ table.t().to(x.dtype)

@@ -1,0 +1,150 @@
+"""Dense decoder-only transformer (GQA + RoPE): the port of
+``repro/models/transformer.py`` for the serving path.
+
+Params keep the reference's stacked ``[L, ...]`` layout; the stack is a
+plain loop over layers (no scan, no remat: serving runs no backward).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.runtime.paged_kv import scatter_token
+
+
+# ---------------------------------------------------------------------------
+# GQA attention mixer
+# ---------------------------------------------------------------------------
+
+
+def attn_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    s = {
+        "wq": L.ParamSpec((d, h, hd), ("embed", "heads", None)),
+        "wk": L.ParamSpec((d, kvh, hd), ("embed", "kv_heads", None)),
+        "wv": L.ParamSpec((d, kvh, hd), ("embed", "kv_heads", None)),
+        "wo": L.ParamSpec((h, hd, d), ("heads", None, "embed")),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = L.ParamSpec((h, hd), ("heads", None), init="zeros")
+        s["bk"] = L.ParamSpec((kvh, hd), ("kv_heads", None), init="zeros")
+        s["bv"] = L.ParamSpec((kvh, hd), ("kv_heads", None), init="zeros")
+    return s
+
+
+def _project(x, w, b=None):
+    """einsum("bsd,dhk->bshk") as one matmul, plus the optional bias."""
+    d, h, k = w.shape
+    y = (x @ w.reshape(d, h * k).to(x.dtype)).unflatten(-1, (h, k))
+    return y if b is None else y + b.to(x.dtype)
+
+
+def attn_apply(cfg: ArchConfig, p, x, *, positions, cache=None,
+               lengths=None) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x: [B,S,D]. cache (decode): dense {"k","v": [B,Smax,KVH,hd]} or
+    paged {"kv_pool", "block_tables"}; returns (out [B,S,D], new_cache).
+    Decode caches are updated in place (the reference returns new ones)."""
+    q = _project(x, p["wq"], p.get("bq"))
+    k = _project(x, p["wk"], p.get("bk"))
+    v = _project(x, p["wv"], p.get("bv"))
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    if cache is None:
+        out = L.attention_op(q, k, v, causal=True)
+        new_cache = {"k": k, "v": v}
+    elif "kv_pool" in cache:
+        # paged decode: append this token's K/V through the block table,
+        # then attend through it (sentinel entries drop the write and mask
+        # the read, so inactive continuous-batching slots are inert)
+        pool = scatter_token(cache["kv_pool"], cache["block_tables"],
+                             lengths, k[:, 0], v[:, 0],
+                             n_blocks=cache["kv_pool"].shape[0])
+        out = L.paged_decode_attention_op(
+            q[:, 0], pool, cache["block_tables"], lengths + 1)[:, None]
+        new_cache = {"kv_pool": pool, "block_tables": cache["block_tables"]}
+    else:
+        ck, cv = cache["k"], cache["v"]
+        # dynamic_update_slice clamps the start so the row fits
+        idx = lengths.long().clamp(0, ck.shape[1] - 1)
+        rows = torch.arange(x.shape[0], device=x.device)
+        ck[rows, idx] = k[:, 0]
+        cv[rows, idx] = v[:, 0]
+        out = L.decode_attention_op(q[:, 0], ck, cv, lengths + 1,
+                                    block_kv=cfg.decode_block_kv)[:, None]
+        new_cache = {"k": ck, "v": cv}
+    b, s, h, hd = out.shape
+    wo = p["wo"].reshape(h * hd, -1).to(x.dtype)
+    return out.reshape(b, s, h * hd) @ wo, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Dense FFN
+# ---------------------------------------------------------------------------
+
+
+def ffn_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    return L.mlp_specs(cfg.d_model, cfg.d_ff, cfg.act)
+
+
+def ffn_apply(cfg: ArchConfig, p, x):
+    return L.mlp_apply(p, x, cfg.act)
+
+
+# ---------------------------------------------------------------------------
+# Decoder stack
+# ---------------------------------------------------------------------------
+
+
+class DecoderStack:
+    """Stacked pre-norm decoder: params are stacked ``[L, ...]`` as in the
+    reference, and the layers run in a plain loop."""
+
+    def __init__(self, cfg: ArchConfig):
+        self.cfg = cfg
+
+    def layer_specs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        return {
+            "norm1": L.norm_specs(cfg.norm, cfg.d_model),
+            "mixer": attn_specs(cfg),
+            "norm2": L.norm_specs(cfg.norm, cfg.d_model),
+            "ffn": ffn_specs(cfg),
+        }
+
+    def specs(self) -> Dict[str, Any]:
+        n = self.cfg.n_layers
+        return {"layers": L.tree_map(
+            lambda s: L.ParamSpec((n, *s.shape), ("layers", *s.axes),
+                                  s.dtype, s.init, s.scale),
+            self.layer_specs())}
+
+    def _layer(self, p, x, positions, cache, lengths):
+        cfg = self.cfg
+        h = L.norm_apply(cfg.norm, x, p["norm1"])
+        attn_out, new_cache = attn_apply(cfg, p["mixer"], h,
+                                         positions=positions, cache=cache,
+                                         lengths=lengths)
+        x = x + attn_out
+        h = L.norm_apply(cfg.norm, x, p["norm2"])
+        x = x + ffn_apply(cfg, p["ffn"], h)
+        return x, new_cache
+
+    def __call__(self, params, x, *, positions, caches=None, lengths=None):
+        """x: [B,S,D]. caches: stacked ``[L, ...]`` leaves or None.
+        Returns (x, caches): prefill (``caches=None``) stacks the per-layer
+        K/V; decode returns the (in-place updated) caches."""
+        per_layer = []
+        for i in range(self.cfg.n_layers):
+            p = L.tree_map(lambda a: a[i], params["layers"])
+            cache = (L.tree_map(lambda a: a[i], caches)
+                     if caches is not None else None)
+            x, nc = self._layer(p, x, positions, cache, lengths)
+            per_layer.append(nc)
+        if caches is not None:
+            return x, caches
+        return x, {name: torch.stack([c[name] for c in per_layer])
+                   for name in per_layer[0]}
