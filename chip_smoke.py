@@ -10,17 +10,25 @@ Phases (any failure exits non-zero without the final result line):
      ``nvcc`` per source, all started together);
   b. hold each kernel against its plain PyTorch version on the card at the
      serving shapes and at wider shapes (ragged edges, GQA, 64 pages, an
-     inactive row, sentinel table entries): float32 within 2e-4 (the
-     reference registry's tolerance), bfloat16 within 2e-2, and the paged
-     kernel equal to the contiguous one bit for bit at block_kv == page;
-     then the smoke model on the card against the same model on the CPU;
+     inactive row, sentinel table entries; for the decode-layer kernels
+     B in {1, 13, 16}, RMSNorm off and on, both epilogues): float32 within
+     2e-4 (the reference registry's tolerance), bfloat16 within 2e-2, the
+     paged kernel equal to the contiguous one bit for bit at block_kv ==
+     page, and the one-launch MLP tail equal to its three staged launches
+     bit for bit; then a full-width decode layer on the card against its
+     plain version on the CPU, and the smoke model on the card against the
+     same model on the CPU (dense, paged and through the layer graph);
   c. serve full-width qwen1.5-0.5B (random weights from seed 0) through
-     ``repro_torch.launch.serve.serve_bench`` with the serve defaults, and
-     once more with 256-token prompts;
-  d. require paged == dense decode bit for bit and equal token counts;
-  e. require every kernel's launch count, taken over each serve run, > 0;
+     ``repro_torch.launch.serve.serve_bench`` with the serve defaults, once
+     more with 256-token prompts, and once with ``--layer-graph``;
+  d. require equal token counts, and paged == dense decode bit for bit on
+     the per-op runs (the layer graph rounds elsewhere in bf16: its
+     difference is printed and must be finite);
+  e. require each run's kernels' launch counts, taken over that run, > 0;
   f. time each kernel at the main path's shapes with CUDA events;
-  g. profile full-width decode steps: wall vs device busy time per step.
+  g. profile full-width decode steps (dense, paged, layer graph, timed in
+     alternating rounds): wall vs device busy time and device launches
+     per step.
 
 Output: one line per check and per serve run, a JSON ``kernels`` line, the
 card's name and power limit as ``nvidia-smi`` reports them, and as the
@@ -30,6 +38,7 @@ last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -44,7 +53,7 @@ HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 SERVE = dict(arch="qwen1_5_0p5b", smoke=False, requests=16, prompt_len=32,
              max_new=16, page=16, slots=4, rate=10.0, eos_id=None,
-             pool_blocks=None, seed=0, device="cuda")
+             pool_blocks=None, seed=0, layer_graph=False, device="cuda")
 KERNELS = {
     "ff_attention": dict(
         source="src/repro_torch/kernels/csrc/ff_attention.cu",
@@ -55,7 +64,18 @@ KERNELS = {
     "ff_paged_decode_attention": dict(
         source="src/repro_torch/kernels/csrc/ff_decode_attention.cu",
         replaces="src/repro/kernels/ff_decode_attention/kernel.py:125"),
+    "ff_layer_matmul": dict(
+        source="src/repro_torch/kernels/csrc/ff_layer.cu",
+        replaces="src/repro/kernels/ff_layer/kernel.py:39"),
+    "ff_layer_swiglu": dict(
+        source="src/repro_torch/kernels/csrc/ff_layer.cu",
+        replaces="src/repro/kernels/ff_layer/kernel.py:92"),
+    "ff_layer_mlp_tail": dict(
+        source="src/repro_torch/kernels/csrc/ff_layer.cu",
+        replaces="src/repro/core/graph.py:783"),
 }
+PER_OP = ("ff_attention", "ff_decode_attention", "ff_paged_decode_attention")
+LAYER_GRAPH = PER_OP + ("ff_layer_matmul", "ff_layer_mlp_tail")
 
 failures = []
 
@@ -69,9 +89,15 @@ def check(name, ok, detail):
 def wrappers():
     from repro_torch.kernels.ff_attention import attention
     from repro_torch.kernels.ff_decode_attention import decode_attention
+    from repro_torch.kernels.ff_layer import (ff_layer_matmul,
+                                              ff_layer_mlp_tail,
+                                              ff_layer_swiglu)
     from repro_torch.runtime.paged_kv import paged_decode_attention
     return {"ff_attention": attention, "ff_decode_attention": decode_attention,
-            "ff_paged_decode_attention": paged_decode_attention}
+            "ff_paged_decode_attention": paged_decode_attention,
+            "ff_layer_matmul": ff_layer_matmul,
+            "ff_layer_swiglu": ff_layer_swiglu,
+            "ff_layer_mlp_tail": ff_layer_mlp_tail}
 
 
 def err(a, b):
@@ -174,15 +200,145 @@ def check_kernels(torch, dev, shapes):
     return main_err
 
 
+def layer_inputs(torch, dev, dtype, m, lay, gen):
+    """Operands of the decode-layer kernels at ``m`` rows: the layer input
+    x, an attention output a, f32 norm weights, weights scaled by
+    1/sqrt(k), wg and wu as the two halves of one wi (as the model passes
+    them), rope positions."""
+    d, hq, f = lay["d"], lay["hq"], lay["f"]
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    wi = rn(d, 2 * f, scale=d ** -0.5).to(dtype)
+    return dict(x=rn(m, d).to(dtype), a=rn(m, hq).to(dtype),
+                nw1=1 + 0.1 * rn(d), nw2=1 + 0.1 * rn(d),
+                wq=rn(d, hq, scale=d ** -0.5).to(dtype),
+                bq=rn(hq, scale=0.1).to(dtype),
+                wo=rn(hq, d, scale=hq ** -0.5).to(dtype), wi=wi,
+                wg=wi[:, :f], wu=wi[:, f:],
+                wo2=rn(f, d, scale=f ** -0.5).to(dtype),
+                res=rn(m, hq).to(dtype), act=rn(m, f).to(dtype),
+                pos=torch.randint(0, 4096, (m,), generator=gen, device=dev))
+
+
+def tail_args(t):
+    return (t["a"], t["wo"], t["x"], t["nw2"], t["wg"], t["wu"], t["wo2"])
+
+
+def check_layer_kernels(torch, dev, shapes):
+    """The three decode-layer kernels against their plain versions: the
+    main path's q-projection (RMSNorm, q bias, RoPE), SwiGLU and MLP tail
+    at B = 4, then B in {1, 13, 16} with RMSNorm off and on and each
+    epilogue; the tail also against its three staged launches, bit for
+    bit."""
+    from repro_torch.kernels.ff_layer import (ff_layer_matmul,
+                                              ff_layer_matmul_ref,
+                                              ff_layer_mlp_tail,
+                                              ff_layer_mlp_tail_ref,
+                                              ff_layer_swiglu,
+                                              ff_layer_swiglu_ref,
+                                              mlp_tail_staged)
+    lay = shapes["layer"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    main_err = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        tag = str(dtype).split(".")[1]
+        for label, m in (("serve", lay["b"]), ("wide", 1), ("wide", 13),
+                         ("wide", 16)):
+            t = layer_inputs(torch, dev, dtype, m, lay, gen)
+            rope = dict(bias=t["bq"], positions=t["pos"],
+                        rope_theta=lay["theta"], head_dim=lay["hd"])
+            if label == "serve":
+                rope["positions"] = torch.tensor(lay["positions"], device=dev)
+                mm_cases = [("rmsnorm", "rope")]
+                sw_norms = [True]
+            else:
+                mm_cases = [(n, e) for n in ("plain", "rmsnorm")
+                            for e in ("none", "rope", "residual")]
+                sw_norms = [False, True]
+            for norm, epi in mm_cases:
+                kw = dict(norm_weight=t["nw1"] if norm == "rmsnorm" else None)
+                kw.update(rope if epi == "rope" else
+                          {"residual": t["res"]} if epi == "residual" else {})
+                out = ff_layer_matmul(t["x"], t["wq"], **kw)
+                ref = ff_layer_matmul_ref(t["x"], t["wq"], **kw)
+                torch.cuda.synchronize()
+                e = err(out, ref)
+                check(f"ff_layer_matmul {label} {tag} m={m} {norm} {epi}",
+                      e <= tol and out.isfinite().all().item(),
+                      f"max|kernel-plain|={e:.3e} tol={tol}")
+                if label == "serve" and dtype == torch.bfloat16:
+                    main_err["ff_layer_matmul"] = e
+            for norm in sw_norms:
+                nw = t["nw2"] if norm else None
+                out = ff_layer_swiglu(t["x"], t["wg"], t["wu"], norm_weight=nw)
+                ref = ff_layer_swiglu_ref(t["x"], t["wg"], t["wu"],
+                                          norm_weight=nw)
+                torch.cuda.synchronize()
+                e = err(out, ref)
+                check(f"ff_layer_swiglu {label} {tag} m={m} "
+                      f"{'rmsnorm' if norm else 'plain'}",
+                      e <= tol and out.isfinite().all().item(),
+                      f"max|kernel-plain|={e:.3e} tol={tol}")
+                if label == "serve" and dtype == torch.bfloat16:
+                    main_err["ff_layer_swiglu"] = e
+            fused = ff_layer_mlp_tail(*tail_args(t))
+            staged = mlp_tail_staged(*tail_args(t))
+            ref = ff_layer_mlp_tail_ref(*tail_args(t))
+            torch.cuda.synchronize()
+            e = err(fused, ref)
+            check(f"ff_layer_mlp_tail {label} {tag} m={m}",
+                  e <= tol and fused.isfinite().all().item(),
+                  f"max|kernel-plain|={e:.3e} tol={tol}")
+            check(f"ff_layer_mlp_tail == staged bitwise {label} {tag} m={m}",
+                  torch.equal(fused, staged),
+                  f"max diff {err(fused, staged)}")
+            if label == "serve" and dtype == torch.bfloat16:
+                main_err["ff_layer_mlp_tail"] = e
+    return main_err
+
+
+def check_decode_layer(torch, dev, shapes):
+    """A full-width decode layer on the card (three launches) against its
+    plain version on the CPU, bf16, at the main path's decode shapes."""
+    from repro_torch.models import layers as L
+    lay, dec = shapes["layer"], shapes["decode"]
+    b, kvh, hd, page = dec["b"], dec["kvh"], dec["d"], dec["page"]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    dt = torch.bfloat16
+    t = layer_inputs(torch, dev, dt, b, lay, gen)
+    cache = torch.randn(b, dec["n_pages"] * page, 2 * kvh, hd, generator=gen,
+                        device=dev).to(dt)       # [B, S, KVH, hd] views
+    lengths = torch.tensor(dec["lengths"], dtype=torch.int32, device=dev)
+    k, v = cache[:, :, :kvh].transpose(1, 2), cache[:, :, kvh:].transpose(1, 2)
+    args = (t["x"], t["nw1"], t["wq"], t["bq"], lengths - 1, k, v, lengths,
+            t["wo"], t["nw2"], t["wg"], t["wu"], t["wo2"])
+    out = L.decode_layer(*args, rope_theta=lay["theta"], block_kv=page).cpu()
+    ref = L.decode_layer_ref(*[a.cpu() for a in args],
+                             rope_theta=lay["theta"]).float()
+    e = err(out, ref)
+    excess = ((out.float() - ref).abs() - BF16_TOL * ref.abs()).max().item()
+    check(f"decode_layer full width bf16 card vs cpu b={b} "
+          f"h={lay['hq'] // hd}",
+          excess <= BF16_TOL and out.isfinite().all().item(),
+          f"max|card-cpu|={e:.3e}, beyond rtol: {excess:.3e} "
+          f"tol={BF16_TOL} (rel and abs)")
+
+
+
 def check_model_small(torch, dev):
     """The smoke model on the card against the same model (plain kernel
-    versions) on the CPU: prefill, then 3 decode steps dense and paged."""
+    versions) on the CPU: prefill, then 3 decode steps through the dense
+    cache, the paged pool and the layer graph (a dense cache)."""
     from repro_torch.configs.base import smoke_config
     from repro_torch.launch import serve, steps
     from repro_torch.models import build_model
     from repro_torch.runtime.paged_kv import PagedKVCache
     cfg = smoke_config("qwen1_5_0p5b").replace(decode_block_kv=8)
     model = build_model(cfg)
+    graph_model = build_model(cfg.replace(layer_graph=True))
     params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
     lens = [5, 19]
     toks = torch.zeros(2, 19, dtype=torch.int32)
@@ -190,12 +346,13 @@ def check_model_small(torch, dev):
         toks[i, :n] = torch.randint(1, cfg.vocab, (n,),
                                     generator=torch.Generator().manual_seed(i))
 
-    def run(device, paged):
+    def run(device, kind):
         params = tree_to(params_cpu, device, torch)
-        prefill = steps.make_prefill_step(model)
-        decode = steps.make_decode_step(model)
+        m = graph_model if kind == "layer-graph" else model
+        prefill = steps.make_prefill_step(m)
+        decode = steps.make_decode_step(m)
         logits0, dense = prefill(params, {"tokens": toks.to(device)})
-        if paged:
+        if kind == "paged":
             kv = PagedKVCache(n_layers=cfg.n_layers, n_blocks=7, page=8,
                               kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
                               n_slots=2, n_pages_max=3, dtype=cfg.cdtype,
@@ -215,13 +372,13 @@ def check_model_small(torch, dev):
             lengths = lengths + 1
         return [o.cpu() for o in out]
 
-    for paged in (False, True):
-        got, want = run(dev, paged), run(torch.device("cpu"), paged)
+    for kind in ("dense", "paged", "layer-graph"):
+        got, want = run(dev, kind), run(torch.device("cpu"), kind)
         e = max(err(g, w) for g, w in zip(got, want))
         same = all(torch.equal(g.argmax(-1), w.argmax(-1))
                    for g, w in zip(got, want))
         finite = all(g.isfinite().all().item() for g in got)
-        check(f"smoke model on card vs cpu ({'paged' if paged else 'dense'})",
+        check(f"smoke model on card vs cpu ({kind})",
               e <= MODEL_TOL and same and finite,
               f"max|logits diff|={e:.3e} tol={MODEL_TOL}, greedy equal: "
               f"{same}, finite: {finite}")
@@ -238,7 +395,11 @@ def tree_to(tree, device, torch):
 # ---------------------------------------------------------------------------
 
 
-def run_serve(torch, label, **overrides):
+def run_serve(torch, label, required, **overrides):
+    """One serve run with every launch count set to 0 just before it and
+    read just after; ``required`` names the kernels the run must launch.
+    Paged == dense bit for bit is required of the per-op runs; under the
+    layer graph the difference is printed and must be finite."""
     from repro_torch.launch import serve
     wr = wrappers()
     for w in wr.values():
@@ -256,15 +417,20 @@ def run_serve(torch, label, **overrides):
             "decode_s", "prefill_s", "kv_util")}
     summary.update(wall_s=wall, launches=launches)
     print(f"serve[{label}] " + json.dumps(summary), flush=True)
-    check(f"serve[{label}] paged == dense bitwise",
-          result["bitwise_max_abs_diff"] == 0.0,
-          f"bitwise_max_abs_diff={result['bitwise_max_abs_diff']}")
+    diff = result["bitwise_max_abs_diff"]
+    if overrides.get("layer_graph"):
+        check(f"serve[{label}] layer graph vs paged difference finite",
+              math.isfinite(diff), f"bitwise_max_abs_diff={diff}")
+    else:
+        check(f"serve[{label}] paged == dense bitwise", diff == 0.0,
+              f"bitwise_max_abs_diff={diff}")
     check(f"serve[{label}] token parity", result["token_count_parity"]
           and result["lockstep"]["tokens"] > 0,
           f"lockstep {result['lockstep']['tokens']} vs paged "
           f"{result['paged']['tokens']} tokens")
-    for name, n in launches.items():
-        check(f"serve[{label}] {name} launched", n > 0, f"{n} launches")
+    for name in required:
+        check(f"serve[{label}] {name} launched", launches[name] > 0,
+              f"{launches[name]} launches")
     return launches
 
 
@@ -292,7 +458,10 @@ def main_path_shapes(torch):
             "prefill_256": (slots * h, h // kvh, p256, d),
             "decode": dict(b=slots, h=h, kvh=kvh, d=d, page=page,
                            n_pages=n_pages, n_blocks=slots * n_pages,
-                           lengths=lengths)}
+                           lengths=lengths),
+            "layer": dict(b=slots, d=cfg.d_model, hq=h * d, f=cfg.d_ff,
+                          hd=d, theta=cfg.rope_theta,
+                          positions=[n - 1 for n in lengths])}
 
 
 # ---------------------------------------------------------------------------
@@ -457,18 +626,88 @@ def time_kernels(torch, dev, shapes):
     return rows
 
 
+def time_layer_kernels(torch, dev, shapes):
+    """The decode-layer kernels at the main path's shapes (B = 4, d 1024,
+    16 x 64 q columns, f 2816, bf16). No single PyTorch call computes
+    their fused functions, so ``library_ms`` times the same products alone
+    through ``torch.matmul``."""
+    from repro_torch.kernels.ff_layer import (ff_layer_matmul,
+                                              ff_layer_matmul_ref,
+                                              ff_layer_mlp_tail,
+                                              ff_layer_mlp_tail_ref,
+                                              ff_layer_swiglu,
+                                              ff_layer_swiglu_ref)
+    lay = shapes["layer"]
+    m, d, hq, f = lay["b"], lay["d"], lay["hq"], lay["f"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    t = layer_inputs(torch, dev, torch.bfloat16, m, lay, gen)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    item = 2
+    q_kw = dict(norm_weight=t["nw1"], bias=t["bq"], rope_theta=lay["theta"],
+                head_dim=lay["hd"],
+                positions=torch.tensor(lay["positions"], device=dev))
+    fused = {
+        "ff_layer_matmul": (
+            lambda: ff_layer_matmul(t["x"], t["wq"], **q_kw),
+            lambda: ff_layer_matmul_ref(t["x"], t["wq"], **q_kw),
+            lambda: torch.matmul(t["x"], t["wq"]),
+            f"a[{m},{d}] @ wq[{d},{hq}], RMSNorm, q bias, RoPE theta "
+            f"{lay['theta']:g}",
+            (m * d + d * hq + hq + m * hq) * item + d * 4 + m * 4,
+            2 * m * d * hq),
+        "ff_layer_swiglu": (
+            lambda: ff_layer_swiglu(t["x"], t["wg"], t["wu"],
+                                    norm_weight=t["nw2"]),
+            lambda: ff_layer_swiglu_ref(t["x"], t["wg"], t["wu"],
+                                        norm_weight=t["nw2"]),
+            lambda: torch.matmul(t["x"], t["wi"]),
+            f"x[{m},{d}] @ wg, wu[{d},{f}] (halves of wi), RMSNorm",
+            (m * d + 2 * d * f + m * f) * item + d * 4,
+            4 * m * d * f),
+        "ff_layer_mlp_tail": (
+            lambda: ff_layer_mlp_tail(*tail_args(t)),
+            lambda: ff_layer_mlp_tail_ref(*tail_args(t)),
+            lambda: (torch.matmul(t["a"], t["wo"]),
+                     torch.matmul(t["x"], t["wi"]),
+                     torch.matmul(t["act"], t["wo2"])),
+            f"a[{m},{hq}] @ wo[{hq},{d}] + x; RMSNorm, SwiGLU [{d},{f}]; "
+            f"@ wo2[{f},{d}] + h",
+            (m * hq + hq * d + 2 * m * d + 2 * d * f + f * d) * item + d * 4,
+            2 * m * (hq * d + 2 * d * f + f * d)),
+    }
+    rows = {}
+    for name, (kernel, plain, products, shape, nbytes, ops) in fused.items():
+        print(f"f. timing {name}", flush=True)
+        rows[name] = dict(
+            shape=shape + " bf16",
+            ms=time_ms(torch, kernel, 200, flush),
+            ms_hot=time_ms(torch, kernel, 200),
+            call_ms=call_ms(torch, kernel, 100),
+            plain_ms=time_ms(torch, plain, 20, flush),
+            library_ms=time_ms(torch, products, 200, flush),
+            library="products alone (torch.matmul), not the fused function",
+            bound=bound(nbytes, ops, "bfloat16"))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # g. where a full-width decode step's time goes
 # ---------------------------------------------------------------------------
 
 
-def profile_decode(torch, dev, n_steps=8):
+def profile_decode(torch, dev, n_steps=8, rounds=5):
     """Wall ms per full-width decode step (host clock after a
     synchronize), the device's busy ms per step (kernel and copy times from
-    torch.profiler, summed; the device runs one stream), and the kernels
-    taking most of it, for the dense cache (lockstep) and the paged pool
-    (continuous batching) at the default serve shapes: the first
-    ``slots`` requests of the default trace, decoding from their prompts."""
+    torch.profiler, summed; the device runs one stream), its launches per
+    step, and the kernels taking most of it, for the dense cache
+    (lockstep), the paged pool (continuous batching) and the layer graph
+    (lockstep with ``--layer-graph``) at the default serve shapes: the
+    first ``slots`` requests of the default trace, decoding from their
+    prompts. The host's speed drifts during a run, so the wall is taken
+    over ``rounds`` windows of ``n_steps`` steps, the three kinds in turn
+    (the order reversed every round), and reported as the median window
+    with every window beside it. Fails unless the layer graph runs one
+    MLP-tail kernel per layer per step."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -477,6 +716,7 @@ def profile_decode(torch, dev, n_steps=8):
     from repro_torch.models import build_model
     from repro_torch.runtime.paged_kv import PagedKVCache
     page, slots = SERVE["page"], SERVE["slots"]
+    kinds = ("dense", "paged", "layer-graph")
     cfg = get_config(SERVE["arch"]).replace(decode_block_kv=page)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
@@ -486,18 +726,18 @@ def profile_decode(torch, dev, n_steps=8):
         seed=SERVE["seed"])[:slots]
     lens = np.array([len(r.prompt) for r in reqs], np.int32)
     p_max = serve._bucket(int(lens.max()))
-    n_pages = -(-(p_max + 2 + 2 * n_steps) // page)
+    n_pages = -(-(p_max + 2 + (rounds + 1) * n_steps) // page)
     toks = np.zeros((slots, p_max), np.int32)
     for i, r in enumerate(reqs):
         toks[i, :len(r.prompt)] = r.prompt
     prefill = steps.make_prefill_step(model)
-    decode = steps.make_decode_step(model)
     _, dense = prefill(params, {"tokens": torch.as_tensor(toks, device=dev)})
-    out = {}
-    for kind in ("dense", "paged"):
-        if kind == "dense":
-            cache = serve.pad_cache_to(dense, p_max, n_pages * page, 2)
-        else:
+
+    def make_step(kind):
+        decode = steps.make_decode_step(
+            build_model(cfg.replace(layer_graph=True))
+            if kind == "layer-graph" else model)
+        if kind == "paged":
             kv = PagedKVCache(
                 n_layers=cfg.n_layers, n_blocks=slots * n_pages, page=page,
                 kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, n_slots=slots,
@@ -506,6 +746,8 @@ def profile_decode(torch, dev, n_steps=8):
                 kv.admit(i, dense["k"][:, i], dense["v"][:, i], int(n),
                          n_pages * page)
             cache = kv.cache_view()
+        else:
+            cache = serve.pad_cache_to(dense, p_max, n_pages * page, 2)
         state = {"cur": torch.as_tensor(toks[np.arange(slots), lens - 1],
                                         device=dev),
                  "len": torch.as_tensor(lens - 1, device=dev)}
@@ -516,33 +758,52 @@ def profile_decode(torch, dev, n_steps=8):
                 cache)
             state["cur"].cpu()                   # the schedulers read it
             state["len"] = state["len"] + 1
+        return step
 
+    step = {kind: make_step(kind) for kind in kinds}
+    walls = {kind: [] for kind in kinds}
+    for kind in kinds:
         for _ in range(2):
-            step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n_steps):
-            step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n_steps
+            step[kind]()
+    for r in range(rounds):
+        for kind in (kinds if r % 2 == 0 else kinds[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                step[kind]()
+            torch.cuda.synchronize()
+            walls[kind].append((time.perf_counter() - t0) * 1e3 / n_steps)
+    out = {}
+    for kind in kinds:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n_steps):
-                step()
+                step[kind]()
             torch.cuda.synchronize()
-        by_name = {}
+        by_name, count = {}, {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 by_name[e.name] = (by_name.get(e.name, 0.0)
                                    + e.time_range.elapsed_us() / 1e3)
+                count[e.name] = count.get(e.name, 0) + 1
         busy = sum(by_name.values()) / n_steps if by_name else None
+        wall = float(np.median(walls[kind]))
         top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:8]
+        tails = sum(c for n, c in count.items() if "mlp_tail_kernel" in n)
         out[kind] = {
             "wall_ms_per_step": wall,
+            "wall_ms_per_step_windows": walls[kind],
             "device_ms_per_step": busy,
             "device_busy_share": busy / wall if busy is not None else None,
-            "top_kernels_ms_per_step": [[n[:80], t / n_steps]
+            "device_launches_per_step": sum(count.values()) / n_steps,
+            "mlp_tail_launches_per_step": tails / n_steps,
+            "top_kernels_ms_per_step": [[n[:80], t / n_steps,
+                                         count[n] / n_steps]
                                         for n, t in top]}
+        if kind == "layer-graph":
+            check("profile: one MLP-tail launch per layer per step",
+                  tails == cfg.n_layers * n_steps,
+                  f"{tails / n_steps} per step, {cfg.n_layers} layers")
     print("profile " + json.dumps(out), flush=True)
 
 
@@ -572,12 +833,18 @@ def main() -> int:
 
     shapes = main_path_shapes(torch)
     main_err = check_kernels(torch, dev, shapes)
+    main_err.update(check_layer_kernels(torch, dev, shapes))
+    check_decode_layer(torch, dev, shapes)
     check_model_small(torch, dev)
 
-    launches = run_serve(torch, "default")
-    run_serve(torch, "prompt-256", prompt_len=256)
+    launches = run_serve(torch, "default", PER_OP)
+    run_serve(torch, "prompt-256", PER_OP, prompt_len=256)
+    launches.update({k: v for k, v in run_serve(
+        torch, "layer-graph", LAYER_GRAPH, layer_graph=True).items()
+        if k.startswith("ff_layer")})
 
     rows = time_kernels(torch, dev, shapes)
+    rows.update(time_layer_kernels(torch, dev, shapes))
     profile_decode(torch, dev)
     kernels = []
     for name, meta in KERNELS.items():
@@ -587,6 +854,10 @@ def main() -> int:
                         "launches": launches[name],
                         "max_abs_err": main_err[name], **r,
                         "bound_ms": bound_ms, "bound_by": bound_by})
+        if name == "ff_layer_swiglu":
+            kernels[-1]["note"] = ("on the main path its work runs inside "
+                                   "ff_layer_mlp_tail; launched standalone "
+                                   "by phase b")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

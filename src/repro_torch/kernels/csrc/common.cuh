@@ -1,4 +1,4 @@
-// Shared helpers of the repro_torch attention kernels.
+// Shared helpers of the repro_torch kernels.
 //
 // Each kernel source includes this header once and is built on its own
 // into a shared library with a plain C interface (kernels/_build.py).

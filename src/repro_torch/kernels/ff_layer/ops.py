@@ -1,0 +1,357 @@
+"""The decode layer's projection kernels: wrappers, plain versions and
+launchers of ``csrc/ff_layer.cu``.
+
+Replaces the TPU kernels of ``repro/kernels/ff_layer/kernel.py``
+(``build_matmul_program``, ``build_swiglu_program``) and the fused chain
+oproj -> gateup -> down of the ``decode_layer`` StreamGraph
+(``repro/models/layers.py:build_decode_layer_graph``, one pallas_call by
+``repro/core/graph.py:_compile_chain``):
+
+  * :func:`ff_layer_matmul` — ``maybe_rmsnorm(a) @ b`` with an optional
+    q-bias + RoPE or residual epilogue (the graph's qproj, oproj and down
+    nodes);
+  * :func:`ff_layer_swiglu` — ``silu(maybe_rmsnorm(x) @ wg) *
+    (maybe_rmsnorm(x) @ wu)`` (the gateup node);
+  * :func:`ff_layer_mlp_tail` — oproj + residual -> RMSNorm + SwiGLU ->
+    down + residual as one cooperative launch (the fused chain).
+
+What bounds them on the H100: at decode a few rows meet a whole weight
+matrix, about 2 operations per weight byte, so each is bound by device
+memory (the weight bytes over 3.35 TB/s). The kernels give each block one
+column tile over all rows, with coalesced 16-byte weight loads; the tail
+keeps its intermediates in an L2-resident scratch buffer instead of a
+second and third launch. ``csrc/ff_layer.cu`` says more.
+
+Each plain version repeats its kernel's rounding points (normalised rows
+rounded to the input type before the product, f32 sums, the product
+rounded to the output type before the epilogue, SwiGLU rounded once), and
+the plain MLP tail is the staged composition of the other two, as the
+kernel's tail is of its stages.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_VEC = {torch.float32: 4, torch.bfloat16: 8}   # columns per 16-byte load
+_MAX_K = 8192                                 # staged rows: 4 x k f32 smem
+_EPILOGUE = {"none": 0, "rope": 1, "residual": 2}
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def rms_ref(x: torch.Tensor, nw: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm as the reference's ``_rms``: f32 mean square, rsqrt(+eps),
+    times the f32 weight, rounded to the input type."""
+    x32 = x.float()
+    x32 = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True)
+                            + eps)
+    return (x32 * nw.float()).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def rope_freqs(theta: float, half: int, device: torch.device
+               ) -> torch.Tensor:
+    """``theta ** (-j / half)`` for j < half, f32, made once per device."""
+    return theta ** (-torch.arange(half, dtype=torch.float32,
+                                   device=device) / half)
+
+
+def rope_bias_ref(val, bias, positions, *, rope_theta: float,
+                  head_dim: int) -> torch.Tensor:
+    """The qproj epilogue: ``val`` (already in its output type) plus the q
+    bias in f32, rotated per head of ``head_dim`` by the positions' angles
+    in f32, rounded back."""
+    m, n = val.shape
+    half = head_dim // 2
+    v = val.float()
+    if bias is not None:
+        v = v + bias.float()
+    ang = positions.float()[:, None] * rope_freqs(float(rope_theta), half,
+                                                  val.device)
+    c = torch.cos(ang)[:, None, :]
+    s = torch.sin(ang)[:, None, :]
+    vh = v.view(m, n // head_dim, head_dim)
+    x1, x2 = vh[..., :half], vh[..., half:]
+    out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    return out.reshape(m, n).to(val.dtype)
+
+
+def ff_layer_matmul_ref(a, b, *, norm_weight=None, eps: float = 1e-6,
+                        bias=None, positions=None, rope_theta=None,
+                        head_dim=None, residual=None) -> torch.Tensor:
+    """Plain version of :func:`ff_layer_matmul`."""
+    dt = a.dtype
+    if norm_weight is not None:
+        a = rms_ref(a, norm_weight, eps)
+    val = torch.matmul(a.float(), b.float()).to(dt)
+    if positions is not None:
+        return rope_bias_ref(val, bias, positions, rope_theta=rope_theta,
+                             head_dim=head_dim)
+    if residual is not None:
+        return val + residual
+    return val
+
+
+def ff_layer_swiglu_ref(x, wg, wu, *, norm_weight=None,
+                        eps: float = 1e-6) -> torch.Tensor:
+    """Plain version of :func:`ff_layer_swiglu`."""
+    if norm_weight is not None:
+        x = rms_ref(x, norm_weight, eps)
+    xf = x.float()
+    g = torch.matmul(xf, wg.float())
+    u = torch.matmul(xf, wu.float())
+    return (g * torch.sigmoid(g) * u).to(x.dtype)
+
+
+def ff_layer_mlp_tail_ref(a, wo, x, nw2, wg, wu, wo2, *,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """Plain version of :func:`ff_layer_mlp_tail`: the staged composition
+    of the two plain versions above."""
+    h = ff_layer_matmul_ref(a, wo, residual=x)
+    act = ff_layer_swiglu_ref(h, wg, wu, norm_weight=nw2, eps=eps)
+    return ff_layer_matmul_ref(act, wo2, residual=h)
+
+
+def mlp_tail_staged(a, wo, x, nw2, wg, wu, wo2, *,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """The MLP tail as three wrapper calls (three launches on the card):
+    what :func:`ff_layer_mlp_tail` must equal bit for bit."""
+    h = ff_layer_matmul(a, wo, residual=x)
+    act = ff_layer_swiglu(h, wg, wu, norm_weight=nw2, eps=eps)
+    return ff_layer_matmul(act, wo2, residual=h)
+
+
+# ---------------------------------------------------------------------------
+# checks and launchers
+# ---------------------------------------------------------------------------
+
+
+def _device_of(*tensors) -> torch.device:
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"ff_layer operands must be on one device, got "
+                         f"{sorted(str(d) for d in devs)}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"ff_layer runs on cpu or cuda, not {dev}")
+    return dev
+
+
+def _check_act(name, t, dtype, shape):
+    if t.dtype != dtype or dtype not in _SUFFIX:
+        raise TypeError(f"{name}: ff_layer takes float32 or bfloat16 "
+                        f"operands of one type; got {t.dtype}, {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} {tuple(t.shape)} != {tuple(shape)}")
+
+
+def _check_weight(name, w, dtype, rows, cols=None):
+    if w.dim() != 2 or w.shape[0] != rows or (cols is not None
+                                              and w.shape[1] != cols):
+        raise ValueError(f"{name} {tuple(w.shape)} is not "
+                         f"[{rows}, {cols if cols is not None else 'n'}]")
+    _check_act(name, w, dtype, w.shape)
+
+
+def _check_norm(nw, k):
+    if nw is not None and (nw.shape != (k,) or nw.dtype != torch.float32):
+        raise ValueError(f"norm weight {tuple(nw.shape)} {nw.dtype} is not "
+                         f"float32 [{k}]")
+
+
+def _check_cuda_layout(acts, weights):
+    """What the kernels read: activations contiguous, weights with a
+    contiguous last dim (any row stride: ``wi[:, :f]`` is taken as it
+    is)."""
+    for t in acts:
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"operand {tuple(t.shape)} with strides "
+                             f"{t.stride()} is not contiguous")
+    for w in weights:
+        if w.stride(-1) != 1:
+            raise ValueError(f"weight {tuple(w.shape)} with strides "
+                             f"{w.stride()} has no contiguous last dim")
+
+
+def _check_k(k):
+    if k > _MAX_K:
+        raise ValueError(f"k={k} > {_MAX_K}: the kernel stages 4 rows of k "
+                         f"f32 values in shared memory")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(kernel: str, dtype: torch.dtype):
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    args = {
+        "ff_layer_matmul": [p, p, ll, p, p, i, i, i, f, i, p, p, p, i, p, p],
+        "ff_layer_swiglu": [p, p, p, ll, p, p, i, i, i, f, p],
+        "ff_layer_mlp_tail": [p, p, ll, p, p, p, p, ll, p, ll, p, p, p, i, i,
+                              i, i, f, p],
+    }[kernel]
+    return _build.bind("ff_layer", f"{kernel}_{_SUFFIX[dtype]}", args)
+
+
+def _launch(kernel: str, dtype, device, *args) -> None:
+    rc = _entry(kernel, dtype)(*args, _build.stream_ptr(device))
+    _build.check("ff_layer", kernel, rc)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def ff_layer_matmul(a, b, *, norm_weight=None, eps: float = 1e-6,
+                    bias=None, positions=None, rope_theta=None,
+                    head_dim=None, residual=None) -> torch.Tensor:
+    """``out = epilogue(round(maybe_rmsnorm(a) @ b))``.
+
+    a: [m, k]; b: [k, n] (f32 or bf16, one type); ``norm_weight``: [k] f32
+    turns on the RMSNorm prologue. Epilogue, at most one of:
+      * RoPE: ``positions`` [m] (int), ``rope_theta`` and ``head_dim`` (n a
+        multiple of it), optional q ``bias`` [n]: the value plus the bias
+        in f32, rotated per head, rounded back;
+      * ``residual`` [m, n]: added in the output type.
+    Returns [m, n] in a's type. CPU tensors run
+    :func:`ff_layer_matmul_ref`; CUDA tensors launch the kernel."""
+    if a.dim() != 2:
+        raise ValueError(f"a {tuple(a.shape)} is not [m, k]")
+    m, k = a.shape
+    dt = a.dtype
+    _check_weight("b", b, dt, k)
+    n = b.shape[1]
+    _check_norm(norm_weight, k)
+    rope = positions is not None
+    if rope and residual is not None:
+        raise ValueError("ff_layer_matmul takes one epilogue: RoPE or a "
+                         "residual, not both")
+    if bias is not None and not rope:
+        raise ValueError("the q bias rides the RoPE epilogue: pass "
+                         "positions, rope_theta and head_dim with it")
+    if rope:
+        if head_dim is None or rope_theta is None or head_dim % 2 \
+                or n % head_dim:
+            raise ValueError(f"RoPE needs an even head_dim dividing n={n} "
+                             f"and rope_theta; got {head_dim}, {rope_theta}")
+        if positions.shape != (m,) or positions.is_floating_point():
+            raise ValueError(f"positions {tuple(positions.shape)} "
+                             f"{positions.dtype} are not integer [{m}]")
+        if bias is not None:
+            _check_act("bias", bias, dt, (n,))
+    if residual is not None:
+        _check_act("residual", residual, dt, (m, n))
+    dev = _device_of(a, b, norm_weight, bias, positions, residual)
+    kw = dict(norm_weight=norm_weight, eps=eps, bias=bias,
+              positions=positions, rope_theta=rope_theta, head_dim=head_dim,
+              residual=residual)
+    if dev.type == "cpu":
+        return ff_layer_matmul_ref(a, b, **kw)
+    _check_k(k)
+    _check_cuda_layout((a, norm_weight, bias, residual), (b,))
+    freqs = pos = None
+    if rope:
+        if (head_dim // 2) % _VEC[dt]:
+            raise ValueError(f"head_dim/2={head_dim // 2} is not a multiple "
+                             f"of {_VEC[dt]} columns (one 16-byte load)")
+        freqs = rope_freqs(float(rope_theta), head_dim // 2, dev)
+        pos = positions.to(torch.int32).contiguous()
+    out = torch.empty(m, n, dtype=dt, device=dev)
+    epi = "rope" if rope else "residual" if residual is not None else "none"
+    _launch("ff_layer_matmul", dt, dev, a.data_ptr(), b.data_ptr(),
+            b.stride(0), _ptr(norm_weight), out.data_ptr(), m, n, k, eps,
+            _EPILOGUE[epi], _ptr(bias), _ptr(pos), _ptr(freqs),
+            head_dim or 0, _ptr(residual))
+    ff_layer_matmul.launches += 1
+    return out
+
+
+def ff_layer_swiglu(x, wg, wu, *, norm_weight=None,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """``silu(maybe_rmsnorm(x) @ wg) * (maybe_rmsnorm(x) @ wu)`` in f32,
+    rounded once. x: [m, k]; wg, wu: [k, f] with one row stride (the two
+    halves of ``wi`` are taken as they are); ``norm_weight``: [k] f32.
+    Returns [m, f]. CPU tensors run :func:`ff_layer_swiglu_ref`; CUDA
+    tensors launch the kernel."""
+    if x.dim() != 2:
+        raise ValueError(f"x {tuple(x.shape)} is not [m, k]")
+    m, k = x.shape
+    dt = x.dtype
+    _check_weight("wg", wg, dt, k)
+    _check_weight("wu", wu, dt, k, wg.shape[1])
+    _check_norm(norm_weight, k)
+    dev = _device_of(x, wg, wu, norm_weight)
+    if dev.type == "cpu":
+        return ff_layer_swiglu_ref(x, wg, wu, norm_weight=norm_weight,
+                                   eps=eps)
+    _check_k(k)
+    _check_cuda_layout((x, norm_weight), (wg, wu))
+    if wg.stride(0) != wu.stride(0):
+        raise ValueError("wg and wu need one row stride")
+    f = wg.shape[1]
+    out = torch.empty(m, f, dtype=dt, device=dev)
+    _launch("ff_layer_swiglu", dt, dev, x.data_ptr(), wg.data_ptr(),
+            wu.data_ptr(), wg.stride(0), _ptr(norm_weight), out.data_ptr(),
+            m, f, k, eps)
+    ff_layer_swiglu.launches += 1
+    return out
+
+
+def ff_layer_mlp_tail(a, wo, x, nw2, wg, wu, wo2, *,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """The decode layer after attention, in one launch:
+    ``h = round(a @ wo) + x``; ``act = swiglu(rmsnorm(h, nw2))``;
+    ``out = round(act @ wo2) + h``.
+
+    a: [m, hq] attention output (heads flattened); wo: [hq, d]; x: [m, d]
+    the layer input; nw2: [d] f32; wg, wu: [d, f] (one row stride); wo2:
+    [f, d]. Returns [m, d]. CPU tensors run :func:`ff_layer_mlp_tail_ref`;
+    CUDA tensors launch the cooperative kernel, whose grid is sized to what
+    can be resident at once (a refused launch raises)."""
+    if a.dim() != 2:
+        raise ValueError(f"a {tuple(a.shape)} is not [m, hq]")
+    m, hq = a.shape
+    dt = a.dtype
+    _check_weight("wo", wo, dt, hq)
+    d = wo.shape[1]
+    _check_act("x", x, dt, (m, d))
+    _check_norm(nw2, d)
+    _check_weight("wg", wg, dt, d)
+    f = wg.shape[1]
+    _check_weight("wu", wu, dt, d, f)
+    _check_weight("wo2", wo2, dt, f, d)
+    dev = _device_of(a, wo, x, nw2, wg, wu, wo2)
+    if dev.type == "cpu":
+        return ff_layer_mlp_tail_ref(a, wo, x, nw2, wg, wu, wo2, eps=eps)
+    _check_k(max(hq, d, f))
+    _check_cuda_layout((a, x, nw2), (wo, wg, wu, wo2))
+    if wg.stride(0) != wu.stride(0):
+        raise ValueError("wg and wu need one row stride")
+    scratch = torch.empty(m * (d + f), dtype=dt, device=dev)
+    h, act = scratch[:m * d], scratch[m * d:]
+    out = torch.empty(m, d, dtype=dt, device=dev)
+    _launch("ff_layer_mlp_tail", dt, dev, a.data_ptr(), wo.data_ptr(),
+            wo.stride(0), x.data_ptr(), nw2.data_ptr(), wg.data_ptr(),
+            wu.data_ptr(), wg.stride(0), wo2.data_ptr(), wo2.stride(0),
+            h.data_ptr(), act.data_ptr(), out.data_ptr(), m, hq, d, f, eps)
+    ff_layer_mlp_tail.launches += 1
+    return out
+
+
+ff_layer_matmul.launches = 0
+ff_layer_swiglu.launches = 0
+ff_layer_mlp_tail.launches = 0

@@ -22,9 +22,16 @@ the dense path's KV tile is pinned to the page size
 contiguous path and the two schedulers emit token-for-token equal
 sequences. :func:`decode_parity_probe` checks the bitwise claim.
 
+With ``--layer-graph`` the lockstep scheduler's decode steps go through
+the whole-layer ``decode_layer`` kernels instead; their rounding points
+differ from the per-op layer's in bf16, so the probe then reports a small
+non-zero difference (the reference's does too).
+
 Runs on the card unless asked for the CPU (the plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --layer-graph
 """
 
 from __future__ import annotations
@@ -432,6 +439,10 @@ def serve_bench(args) -> Dict[str, object]:
     # pin the dense path's KV tile to the page so lockstep decode is
     # bitwise-identical to the paged kernel
     cfg = cfg.replace(attn_impl="ff", decode_block_kv=args.page)
+    if args.layer_graph:
+        # route dense-cache decode steps through the whole-layer
+        # decode_layer kernels (the paged scheduler keeps the per-op path)
+        cfg = cfg.replace(layer_graph=True)
     model = build_model(cfg)
     requests = make_requests(
         args.requests, prompt_len=args.prompt_len, max_new=args.max_new,
@@ -491,6 +502,11 @@ def add_serve_args(ap: argparse.ArgumentParser) -> None:
                     help="paged pool size in blocks (default: slots x "
                          "max pages per request)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layer-graph", action="store_true",
+                    help="run each dense-cache (lockstep) decode step "
+                         "through the whole-layer decode_layer kernels: "
+                         "q-projection with RMSNorm/bias/RoPE, attention, "
+                         "and the MLP tail as one launch")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu (the "
                          "kernels' plain versions)")

@@ -5,8 +5,8 @@ Params are plain nested dicts of tensors, declared as :class:`ParamSpec`
 trees and laid out exactly as the reference's pytrees, so converted JAX
 parameters drop in unchanged (:mod:`repro_torch.models.convert`).
 
-The three attention dispatchers route to the CUDA kernel wrappers, which
-run their plain PyTorch versions for CPU tensors.
+The three attention dispatchers and :func:`decode_layer` route to the CUDA
+kernel wrappers, which run their plain PyTorch versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.ff_attention import attention as ff_attention
 from repro_torch.kernels.ff_decode_attention import \
     decode_attention as ff_decode_attention
+from repro_torch.kernels.ff_layer import ff_layer_matmul, ff_layer_mlp_tail
+from repro_torch.kernels.ff_layer.ops import rope_freqs
 from repro_torch.runtime.paged_kv import paged_decode_attention
 
 # ---------------------------------------------------------------------------
@@ -204,3 +206,88 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
 def unembed_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """x: [B,S,D] -> logits [B,S,V] over the padded vocab."""
     return x @ table.t().to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The whole decode layer (the port of the decode_layer StreamGraph)
+# ---------------------------------------------------------------------------
+
+
+def _pad_cache(c: torch.Tensor, block_kv: int) -> torch.Tensor:
+    """[B, KVH, S, hd] right-padded to a multiple of ``block_kv`` rows
+    (rows past ``lengths`` are masked: the padding is free of numerics)."""
+    pad = -c.shape[2] % block_kv
+    return F.pad(c, (0, 0, 0, pad)) if pad else c
+
+
+def decode_layer(x, nw1, wq, bq, positions, k_cache, v_cache, lengths, wo,
+                 nw2, wg, wu, wo2, *, rope_theta: float = 10000.0,
+                 eps: float = 1e-6,
+                 block_kv: Optional[int] = None) -> torch.Tensor:
+    """One transformer decode step (post cache-update) as the reference's
+    whole-layer ``decode_layer`` graph computes it, in three launches:
+    q-projection (RMSNorm prologue, q-bias + RoPE epilogue), decode
+    attention at ``block_kv`` (default 128, as the reference), and the MLP
+    tail (out-projection + residual -> RMSNorm + SwiGLU -> down-projection
+    + residual) as one kernel.
+
+    x: [B, D] current-token hidden states; nw1/nw2: [D] f32 RMSNorm
+    weights; wq: [D, H*hd] (bq: [H*hd] or None); positions: [B] rope
+    positions of the current token; k_cache/v_cache: [B, KVH, S, hd]
+    post-update (views are taken as they are); lengths: [B] live prefix
+    *including* the current token; wo: [H*hd, D]; wg/wu: [D, F]; wo2:
+    [F, D]. Returns [B, D]. The query group is taken as it is and ragged
+    edges are masked: no padded heads, rows or projections."""
+    b = x.shape[0]
+    hd = k_cache.shape[3]
+    h = wq.shape[1] // hd
+    q = ff_layer_matmul(x, wq, norm_weight=nw1.float(), eps=eps, bias=bq,
+                        positions=positions, rope_theta=rope_theta,
+                        head_dim=hd)
+    bkv = int(block_kv or 128)
+    a = ff_decode_attention(q.view(b, h, hd), _pad_cache(k_cache, bkv),
+                            _pad_cache(v_cache, bkv), lengths, block_kv=bkv)
+    return ff_layer_mlp_tail(a.view(b, h * hd), wo, x, nw2.float(), wg, wu,
+                             wo2, eps=eps)
+
+
+def decode_layer_ref(x, nw1, wq, bq, positions, k_cache, v_cache, lengths,
+                     wo, nw2, wg, wu, wo2, *, rope_theta: float = 10000.0,
+                     eps: float = 1e-6,
+                     block_kv: Optional[int] = None) -> torch.Tensor:
+    """Plain version of :func:`decode_layer` (the port of the reference's
+    ``_decode_layer_ref``), at the same arguments: one softmax over the
+    whole cache instead of tiles (``block_kv`` is unused), the graph's
+    rounding points elsewhere. A row with ``lengths == 0`` attends to
+    nothing."""
+    del block_kv
+    b, _ = x.shape
+    _, kvh, s, hd = k_cache.shape
+    n, half, dt = wq.shape[1], hd // 2, x.dtype
+    xn = rmsnorm(x, nw1, eps)
+    q = torch.matmul(xn.float(), wq.float()).to(dt).float()
+    if bq is not None:
+        q = q + bq.float()
+    ang = positions.float()[:, None] * rope_freqs(float(rope_theta), half,
+                                                  x.device)
+    c = torch.cos(ang)[:, None, :]
+    s_ = torch.sin(ang)[:, None, :]
+    qh = q.view(b, n // hd, hd)
+    x1, x2 = qh[..., :half], qh[..., half:]
+    qh = torch.cat([x1 * c - x2 * s_, x1 * s_ + x2 * c], dim=-1)
+    q4 = qh.view(b, kvh, n // (kvh * hd), hd).to(dt)
+    scores = torch.einsum("bkgd,bksd->bkgs", q4.float(),
+                          k_cache.float()) / math.sqrt(hd)
+    lens = lengths.to(torch.int64).view(b, 1, 1, 1)
+    valid = torch.arange(s, device=x.device).view(1, 1, 1, s) < lens
+    scores = torch.where(valid, scores, -1e30)
+    attn = torch.einsum("bkgs,bksd->bkgd", torch.softmax(scores, dim=-1),
+                        v_cache.float())
+    attn = torch.where(lens > 0, attn, 0.0)
+    a = attn.to(dt).reshape(b, n)
+    hh = torch.matmul(a.float(), wo.float()).to(dt) + x
+    hn = rmsnorm(hh, nw2, eps).float()
+    g32 = torch.matmul(hn, wg.float())
+    u32 = torch.matmul(hn, wu.float())
+    m = (g32 * torch.sigmoid(g32) * u32).to(dt)
+    return torch.matmul(m.float(), wo2.float()).to(dt) + hh

@@ -43,6 +43,18 @@ def _project(x, w, b=None):
     return y if b is None else y + b.to(x.dtype)
 
 
+def _write_token(cache, k, v, lengths):
+    """Write this token's K/V ([B,1,KVH,hd]) into the dense cache at
+    ``lengths``, in place; returns the cache's k and v."""
+    ck, cv = cache["k"], cache["v"]
+    # dynamic_update_slice clamps the start so the row fits
+    idx = lengths.long().clamp(0, ck.shape[1] - 1)
+    rows = torch.arange(k.shape[0], device=k.device)
+    ck[rows, idx] = k[:, 0]
+    cv[rows, idx] = v[:, 0]
+    return ck, cv
+
+
 def attn_apply(cfg: ArchConfig, p, x, *, positions, cache=None,
                lengths=None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x: [B,S,D]. cache (decode): dense {"k","v": [B,Smax,KVH,hd]} or
@@ -67,12 +79,7 @@ def attn_apply(cfg: ArchConfig, p, x, *, positions, cache=None,
             q[:, 0], pool, cache["block_tables"], lengths + 1)[:, None]
         new_cache = {"kv_pool": pool, "block_tables": cache["block_tables"]}
     else:
-        ck, cv = cache["k"], cache["v"]
-        # dynamic_update_slice clamps the start so the row fits
-        idx = lengths.long().clamp(0, ck.shape[1] - 1)
-        rows = torch.arange(x.shape[0], device=x.device)
-        ck[rows, idx] = k[:, 0]
-        cv[rows, idx] = v[:, 0]
+        ck, cv = _write_token(cache, k, v, lengths)
         out = L.decode_attention_op(q[:, 0], ck, cv, lengths + 1,
                                     block_kv=cfg.decode_block_kv)[:, None]
         new_cache = {"k": ck, "v": cv}
@@ -124,6 +131,12 @@ class DecoderStack:
 
     def _layer(self, p, x, positions, cache, lengths):
         cfg = self.cfg
+        # the reference's routing (its mixer and FFN checks always hold
+        # here: the port's stack has the attention mixer and a dense FFN)
+        if (cfg.layer_graph and cache is not None and "kv_pool" not in cache
+                and x.shape[1] == 1 and cfg.norm == "rmsnorm"
+                and cfg.act == "swiglu"):
+            return self._decode_layer_graph(p, x, positions, cache, lengths)
         h = L.norm_apply(cfg.norm, x, p["norm1"])
         attn_out, new_cache = attn_apply(cfg, p["mixer"], h,
                                          positions=positions, cache=cache,
@@ -132,6 +145,31 @@ class DecoderStack:
         h = L.norm_apply(cfg.norm, x, p["norm2"])
         x = x + ffn_apply(cfg, p["ffn"], h)
         return x, new_cache
+
+    def _decode_layer_graph(self, p, x, positions, cache, lengths):
+        """One dense-cache decode step through :func:`L.decode_layer`
+        (q-projection, attention and the MLP tail in three launches). The
+        K/V projection and the cache write stay outside it, as in the
+        reference, where they are XLA ops."""
+        cfg = self.cfg
+        dt = x.dtype
+        mp, fp = p["mixer"], p["ffn"]
+        h1 = L.norm_apply(cfg.norm, x, p["norm1"])
+        k = L.rope(_project(h1, mp["wk"], mp.get("bk")), positions,
+                   cfg.rope_theta)
+        v = _project(h1, mp["wv"], mp.get("bv"))
+        ck, cv = _write_token(cache, k, v, lengths)
+        d, h_q, hd = cfg.d_model, cfg.n_heads, cfg.hd
+        wi = fp["wi"].to(dt)
+        f = wi.shape[1] // 2
+        out = L.decode_layer(
+            x[:, 0], p["norm1"]["w"], mp["wq"].to(dt).reshape(d, h_q * hd),
+            mp["bq"].to(dt).reshape(h_q * hd) if cfg.qkv_bias else None,
+            positions[:, -1], ck.transpose(1, 2), cv.transpose(1, 2),
+            lengths + 1, mp["wo"].to(dt).reshape(h_q * hd, d),
+            p["norm2"]["w"], wi[:, :f], wi[:, f:], fp["wo"].to(dt),
+            rope_theta=cfg.rope_theta, block_kv=cfg.decode_block_kv)
+        return out[:, None], {"k": ck, "v": cv}
 
     def __call__(self, params, x, *, positions, caches=None, lengths=None):
         """x: [B,S,D]. caches: stacked ``[L, ...]`` leaves or None.
