@@ -18,6 +18,12 @@ Phases (any failure exits non-zero without the final result line):
      bit for bit; then a full-width decode layer on the card against its
      plain version on the CPU, and the smoke model on the card against the
      same model on the CPU (dense, paged and through the layer graph);
+     then the library kernels (matmul, gather, attention -> projection,
+     MoE dispatch -> expert) at full width and at ragged shapes, float32
+     within 5e-4 and bfloat16 within 2e-2 (relative and absolute), the
+     gather exactly, and each fused launch (attention_proj, the MoE
+     dispatch, the paged kernel) equal to its staged composition bit for
+     bit;
   c. serve full-width qwen1.5-0.5B (random weights from seed 0) through
      ``repro_torch.launch.serve.serve_bench`` with the serve defaults, once
      more with 256-token prompts, and once with ``--layer-graph``;
@@ -25,7 +31,13 @@ Phases (any failure exits non-zero without the final result line):
      the per-op runs (the layer graph rounds elsewhere in bf16: its
      difference is printed and must be finite);
   e. require each run's kernels' launch counts, taken over that run, > 0;
-  f. time each kernel at the main path's shapes with CUDA events;
+     then drive the library path (``repro_torch.ops.matmul`` / ``gather``,
+     ``attention_proj``, ``moe_dispatch_ffn``, the staged paged decode) at
+     full width with the counts set to 0 just before, require each of its
+     kernels launched, and hold its outputs against the same calls on CPU
+     copies of the operands (plain versions);
+  f. time each kernel at the main path's shapes with CUDA events, and each
+     fused launch against its staged composition;
   g. profile full-width decode steps (dense, paged, layer graph, timed in
      alternating rounds): wall vs device busy time and device launches
      per step.
@@ -49,6 +61,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 F32_TOL, BF16_TOL, MODEL_TOL = 2e-4, 2e-2, 2e-4
+LIB_F32_TOL = 5e-4                    # the reference registry's graph tol
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 SERVE = dict(arch="qwen1_5_0p5b", smoke=False, requests=16, prompt_len=32,
@@ -73,9 +86,34 @@ KERNELS = {
     "ff_layer_mlp_tail": dict(
         source="src/repro_torch/kernels/csrc/ff_layer.cu",
         replaces="src/repro/core/graph.py:783"),
+    "ff_matmul": dict(
+        source="src/repro_torch/kernels/csrc/ff_matmul.cu",
+        replaces="src/repro/kernels/ff_matmul/kernel.py:94"),
+    "ff_gather": dict(
+        source="src/repro_torch/kernels/csrc/ff_gather.cu",
+        replaces="src/repro/kernels/ff_gather/kernel.py:66"),
+    "ff_attention_proj": dict(
+        source="src/repro_torch/kernels/csrc/ff_attention_proj.cu",
+        replaces="src/repro/models/layers.py:448"),
+    "ff_dispatch_matmul": dict(
+        source="src/repro_torch/kernels/csrc/ff_matmul.cu",
+        replaces="src/repro/models/moe.py:222"),
 }
 PER_OP = ("ff_attention", "ff_decode_attention", "ff_paged_decode_attention")
 LAYER_GRAPH = PER_OP + ("ff_layer_matmul", "ff_layer_mlp_tail")
+LIBRARY = ("ff_matmul", "ff_gather", "ff_attention_proj", "ff_dispatch_matmul")
+# full-width shapes of the library path: (label, m, k, n) products,
+# (label, rows, cols, n, dtype) gathers, (bh, s, d, d_out) for
+# attention_proj, (tokens, d_model, n_dispatch, d_ff, t_out) for the MoE
+LIB = dict(
+    matmul=(("qwen1.5-0.5B wi, 4 x 256-token prefill", 1024, 1024, 5632),
+            ("reference registry bench_kwargs", 4096, 4096, 4096)),
+    gather=(("qwen1.5-0.5B embedding lookup", 152064, 1024, 1024,
+             "bfloat16"),
+            ("reference registry bench_kwargs", 1 << 20, 512, 1 << 20,
+             "float32")),
+    attention_proj=(64, 256, 64, 1024),
+    moe=(512, 2048, 64, 1408, 64))
 
 failures = []
 
@@ -87,7 +125,9 @@ def check(name, ok, detail):
 
 
 def wrappers():
-    from repro_torch.kernels.ff_attention import attention
+    from repro_torch.kernels.ff_attention import attention, attention_proj
+    from repro_torch.kernels.ff_gather import gather
+    from repro_torch.kernels.ff_matmul import dispatch_matmul, matmul
     from repro_torch.kernels.ff_decode_attention import decode_attention
     from repro_torch.kernels.ff_layer import (ff_layer_matmul,
                                               ff_layer_mlp_tail,
@@ -97,7 +137,9 @@ def wrappers():
             "ff_paged_decode_attention": paged_decode_attention,
             "ff_layer_matmul": ff_layer_matmul,
             "ff_layer_swiglu": ff_layer_swiglu,
-            "ff_layer_mlp_tail": ff_layer_mlp_tail}
+            "ff_layer_mlp_tail": ff_layer_mlp_tail, "ff_matmul": matmul,
+            "ff_gather": gather, "ff_attention_proj": attention_proj,
+            "ff_dispatch_matmul": dispatch_matmul}
 
 
 def err(a, b):
@@ -298,6 +340,395 @@ def check_layer_kernels(torch, dev, shapes):
             if label == "serve" and dtype == torch.bfloat16:
                 main_err["ff_layer_mlp_tail"] = e
     return main_err
+
+
+def within(out, ref, tol):
+    """(ok, max |out - ref|): ok when |out - ref| <= tol + tol * |ref|
+    everywhere (relative and absolute: from magnitude 4 a bfloat16 step
+    exceeds 2e-2) and every output is finite."""
+    ref = ref.float()
+    diff = (out.float() - ref).abs()
+    ok = bool((diff <= tol + tol * ref.abs()).all().item()
+              and out.isfinite().all().item())
+    return ok, diff.max().item()
+
+
+def rn(torch, gen, dev, *shape, scale=1.0, dtype=None):
+    x = torch.randn(*shape, generator=gen, device=dev) * scale
+    return x if dtype is None else x.to(dtype)
+
+
+def matmul_operands(torch, dev, gen, m, k, n, a_dtype, b_dtype=None):
+    return (rn(torch, gen, dev, m, k, dtype=a_dtype),
+            rn(torch, gen, dev, k, n, scale=k ** -0.5,
+               dtype=b_dtype or a_dtype))
+
+
+def gather_operands(torch, dev, gen, rows, cols, n, dtype):
+    """A table and n indices drawn with repeats, in no order."""
+    return (rn(torch, gen, dev, rows, cols, dtype=dtype),
+            torch.randint(0, rows, (n,), generator=gen, device=dev,
+                          dtype=torch.int32))
+
+
+def attn_proj_operands(torch, dev, gen, bh, s, d, d_out, dtype, groups=1):
+    return (rn(torch, gen, dev, bh, s, d, dtype=dtype),
+            rn(torch, gen, dev, bh // groups, s, d, dtype=dtype),
+            rn(torch, gen, dev, bh // groups, s, d, dtype=dtype),
+            rn(torch, gen, dev, d, d_out, scale=d ** -0.5, dtype=dtype))
+
+
+def moe_operands(torch, dev, gen, t, d, n, f, t_out, dtype):
+    """(idx, tokens, w1, comb) in the order of moe_dispatch_ffn."""
+    return (torch.randint(0, t, (n,), generator=gen, device=dev,
+                          dtype=torch.int32),
+            rn(torch, gen, dev, t, d, dtype=dtype),
+            rn(torch, gen, dev, d, f, scale=d ** -0.5, dtype=dtype),
+            torch.randint(0, n, (t_out,), generator=gen, device=dev,
+                          dtype=torch.int32))
+
+
+def check_library_kernels(torch, dev, shapes):
+    """The library kernels against their plain versions at the full-width
+    shapes of LIB and at ragged ones (m, n, k not multiples of any tile,
+    odd gather n, a 7-element row), float32 within 5e-4 and bfloat16
+    within 2e-2, the gather exactly; every (A, B) type pair of the matmul;
+    each fused launch equal to its staged composition bit for bit: the
+    MoE dispatch to gather then matmul, attention_proj to attention then
+    matmul, the paged kernel to gather then contiguous decode."""
+    from repro_torch.kernels.ff_attention import (attention, attention_proj,
+                                                  attention_proj_ref)
+    from repro_torch.kernels.ff_gather import gather, gather_ref
+    from repro_torch.kernels.ff_matmul import (dispatch_matmul,
+                                               dispatch_matmul_ref, matmul,
+                                               matmul_ref)
+    from repro_torch.models import moe as M
+    from repro_torch.runtime import paged_kv as P
+    gen = torch.Generator(device=dev).manual_seed(6)
+    main_err = {}
+    bf16, f32 = torch.bfloat16, torch.float32
+    for dtype in (bf16, f32):
+        tol = BF16_TOL if dtype == bf16 else LIB_F32_TOL
+        tag = str(dtype).split(".")[1]
+        main = dtype == bf16
+        cases = [(lbl, m, k, n, dtype, dtype) for lbl, m, k, n in
+                 LIB["matmul"]]
+        cases += [("ragged", 333, 70, 517, dtype, other)
+                  for other in (bf16, f32)]
+        for lbl, m, k, n, ta, tb in cases:
+            a, b = matmul_operands(torch, dev, gen, m, k, n, ta, tb)
+            out = matmul(a, b)
+            ok, e = within(out, matmul_ref(a, b), max(
+                BF16_TOL if t == bf16 else LIB_F32_TOL for t in (ta, tb)))
+            check(f"ff_matmul {lbl} {tag} x {str(tb)[6:]} {m}x{k}x{n}", ok,
+                  f"max|kernel-plain|={e:.3e} tol={tol} (rel and abs)")
+            if main and lbl == LIB["matmul"][0][0]:
+                main_err["ff_matmul"] = e
+        cases = [(lbl, r, c, n) for lbl, r, c, n, t in LIB["gather"]
+                 if t == tag] + [("ragged", 500, 7, 1001),
+                                 ("ragged", 500, 64, 333)]
+        for lbl, r, c, n in cases:
+            table, idx = gather_operands(torch, dev, gen, r, c, n, dtype)
+            out = gather(table, idx)
+            same = torch.equal(out, gather_ref(table, idx))
+            check(f"ff_gather {lbl} {tag} [{r},{c}] n={n} exact", same,
+                  f"max diff {err(out, gather_ref(table, idx))}")
+            if main and lbl == LIB["gather"][0][0]:
+                main_err["ff_gather"] = err(out, gather_ref(table, idx))
+            del table, out
+        for lbl, (bh, s, d, d_out), groups, causal in (
+                ("full", LIB["attention_proj"], 1, True),
+                ("ragged", (6, 77, 64, 200), 3, True),
+                ("ragged-noncausal", (4, 45, 32, 72), 1, False)):
+            q, k, v, w = attn_proj_operands(torch, dev, gen, bh, s, d, d_out,
+                                            dtype, groups)
+            fused = attention_proj(q, k, v, w, kv_groups=groups,
+                                   causal=causal)
+            staged = matmul(attention(q, k, v, kv_groups=groups,
+                                      causal=causal).reshape(bh * s, d), w)
+            ok, e = within(fused, attention_proj_ref(
+                q, k, v, w, kv_groups=groups, causal=causal), tol)
+            check(f"ff_attention_proj {lbl} {tag} bh={bh} g={groups} s={s} "
+                  f"d_out={d_out}", ok,
+                  f"max|kernel-plain|={e:.3e} tol={tol} (rel and abs)")
+            check(f"ff_attention_proj == attention then matmul bitwise "
+                  f"{lbl} {tag}", torch.equal(fused, staged),
+                  f"max diff {err(fused, staged)}")
+            if main and lbl == "full":
+                main_err["ff_attention_proj"] = e
+        for lbl, (t, d, n, f, t_out) in (("full", LIB["moe"]),
+                                         ("ragged", (100, 70, 24, 130, 16))):
+            idx, tokens, w1, comb = moe_operands(torch, dev, gen, t, d, n, f,
+                                                 t_out, dtype)
+            fused = dispatch_matmul(tokens, idx, w1)
+            staged = matmul(gather(tokens, idx), w1)
+            ok, e = within(fused, dispatch_matmul_ref(tokens, idx, w1), tol)
+            check(f"ff_dispatch_matmul {lbl} {tag} tokens[{t},{d}] n={n} "
+                  f"d_ff={f}", ok,
+                  f"max|kernel-plain|={e:.3e} tol={tol} (rel and abs)")
+            check(f"ff_dispatch_matmul == gather then matmul bitwise {lbl} "
+                  f"{tag}", torch.equal(fused, staged),
+                  f"max diff {err(fused, staged)}")
+            out = M.moe_dispatch_ffn(idx, tokens, w1, comb)
+            unf = M._moe_graph_unfused(idx, tokens, w1, comb)
+            check(f"moe_dispatch_ffn == unfused bitwise {lbl} {tag}",
+                  torch.equal(out, unf), f"max diff {err(out, unf)}")
+            if main and lbl == "full":
+                main_err["ff_dispatch_matmul"] = e
+        dec = shapes["decode"]
+        q, pool, tables, lens, _, _ = decode_inputs(
+            torch, dev, dtype, dec["b"], dec["h"], dec["kvh"], dec["d"],
+            dec["page"], dec["n_pages"], dec["n_blocks"], dec["lengths"],
+            gen)
+        idx = P.gather_indices(tables, page=dec["page"], kv_heads=dec["kvh"],
+                               n_blocks=dec["n_blocks"])
+        staged = P.paged_decode_unfused(q, pool, idx, lens)
+        fused = P.paged_decode_attention(q, pool, tables, lens)
+        check(f"paged decode == gather then decode bitwise serve {tag}",
+              torch.equal(staged, fused), f"max diff {err(staged, fused)}")
+    return main_err
+
+
+def library_path(torch, dev, shapes, gen):
+    """The calls of the library path at full width: (name, function,
+    operands) with operands on the card."""
+    from repro_torch import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.runtime import paged_kv as P
+    bf16 = torch.bfloat16
+    calls = []
+    for lbl, m, k, n in LIB["matmul"]:
+        calls.append((f"ops.matmul {lbl}", ops.matmul,
+                      matmul_operands(torch, dev, gen, m, k, n, bf16)))
+    for lbl, r, c, n, t in LIB["gather"]:
+        calls.append((f"ops.gather {lbl}", ops.gather, gather_operands(
+            torch, dev, gen, r, c, n, getattr(torch, t))))
+    calls.append(("attention_proj", L.attention_proj, attn_proj_operands(
+        torch, dev, gen, *LIB["attention_proj"], bf16)))
+    calls.append(("moe_dispatch_ffn", M.moe_dispatch_ffn, moe_operands(
+        torch, dev, gen, *LIB["moe"], bf16)))
+    dec = shapes["decode"]
+    q, pool, tables, lens, _, _ = decode_inputs(
+        torch, dev, bf16, dec["b"], dec["h"], dec["kvh"], dec["d"],
+        dec["page"], dec["n_pages"], dec["n_blocks"], dec["lengths"], gen)
+    idx = P.gather_indices(tables, page=dec["page"], kv_heads=dec["kvh"],
+                           n_blocks=dec["n_blocks"])
+    calls.append(("staged paged decode", P.paged_decode_unfused,
+                  (q, pool, idx, lens)))
+    return calls
+
+
+def run_library_path(torch, dev, shapes):
+    """The library path once at full width, every launch count set to 0
+    just before and read just after; each of its kernels must have
+    launched. Each output is then held against the same call on CPU copies
+    of the operands (the plain versions): bfloat16 within 2e-2, float32
+    within 5e-4 (relative and absolute), gathers exactly."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    calls = library_path(torch, dev, shapes, gen)
+    wr = wrappers()
+    for w in wr.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    outs = [fn(*args) for _, fn, args in calls]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: wr[name].launches for name in LIBRARY}
+    print("library path " + json.dumps({"wall_s": wall,
+                                        "launches": launches}), flush=True)
+    for name in LIBRARY:
+        check(f"library path {name} launched", launches[name] > 0,
+              f"{launches[name]} launches")
+    for (label, fn, args), out in zip(calls, outs):
+        want = fn(*[a.cpu() for a in args])
+        if "gather" in label:
+            ok, e = torch.equal(out.cpu(), want), err(out.cpu(), want)
+            tol = "exact"
+        else:
+            tol = BF16_TOL if out.dtype == torch.bfloat16 else LIB_F32_TOL
+            ok, e = within(out.cpu(), want, tol)
+        check(f"library path {label} card vs cpu "
+              f"{tuple(out.shape)} {str(out.dtype)[6:]}", ok,
+              f"max|card-cpu|={e:.3e} tol={tol}")
+        del want
+    return launches
+
+
+def uniq(idx):
+    return int(idx.unique().numel())
+
+
+def time_library_kernels(torch, dev, shapes):
+    """The library kernels at the full widths of LIB (bf16 unless LIB says
+    otherwise), each against its bound, its plain version and the library
+    calls computing the same function (torch.matmul; torch.index_select;
+    SDPA then torch.matmul; index_select then torch.matmul), and each fused
+    launch against its staged composition: attention_proj against
+    attention then matmul, moe_dispatch_ffn (dispatch launch + combine
+    gather) against gather, matmul, gather, and the paged kernel against
+    gather then contiguous decode, with each staged launch timed alone too.
+    Bytes count each input read once (a gathered table: its distinct
+    indexed rows) and each output written once; the staged bounds add the
+    intermediates' round trips."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ff_attention import (attention, attention_proj,
+                                                  attention_proj_ref)
+    from repro_torch.kernels.ff_decode_attention import decode_attention
+    from repro_torch.kernels.ff_gather import gather, gather_ref
+    from repro_torch.kernels.ff_matmul import (dispatch_matmul,
+                                               dispatch_matmul_ref, matmul,
+                                               matmul_ref)
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.runtime import paged_kv as P
+    gen = torch.Generator(device=dev).manual_seed(8)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    bf16 = torch.bfloat16
+
+    def row(shape, kernel, plain, library, nbytes, ops, dtype, n,
+            library_note=None):
+        print(f"f. timing {shape}", flush=True)
+        r = dict(shape=shape, ms=time_ms(torch, kernel, n, flush),
+                 ms_hot=time_ms(torch, kernel, n),
+                 call_ms=call_ms(torch, kernel, max(n // 2, 5)),
+                 plain_ms=time_ms(torch, plain, max(n // 10, 5), flush),
+                 library_ms=time_ms(torch, library, n, flush),
+                 bound=bound(nbytes, ops, dtype))
+        if library_note:
+            r["library"] = library_note
+        return r
+
+    rows = {name: [] for name in LIBRARY}
+    for lbl, m, k, n in LIB["matmul"]:
+        a, b = matmul_operands(torch, dev, gen, m, k, n, bf16)
+        reps = 10 if m * n * k > 2 ** 34 else 100
+        rows["ff_matmul"].append(row(
+            f"a[{m},{k}] @ b[{k},{n}] bf16 ({lbl})", lambda: matmul(a, b),
+            lambda: matmul_ref(a, b), lambda: torch.matmul(a, b),
+            (m * k + k * n + m * n) * 2, 2 * m * n * k, "bfloat16", reps))
+        del a, b
+    for lbl, r, c, n, t in LIB["gather"]:
+        table, idx = gather_operands(torch, dev, gen, r, c, n,
+                                     getattr(torch, t))
+        item = table.element_size()
+        rows["ff_gather"].append(row(
+            f"table[{r},{c}] {t}, idx[{n}] ({lbl})",
+            lambda: gather(table, idx), lambda: gather_ref(table, idx),
+            lambda: torch.index_select(table, 0, idx),
+            (uniq(idx) + n) * c * item + n * 4, 0, t,
+            20 if n > 2 ** 16 else 200))
+        del table, idx
+    graphs = {}
+
+    bh, s, d, d_out = LIB["attention_proj"]
+    q, k, v, w = attn_proj_operands(torch, dev, gen, bh, s, d, d_out, bf16)
+    b_, h_ = SERVE["slots"], bh // SERVE["slots"]
+    q4, k4, v4 = (x.view(b_, h_, s, d) for x in (q, k, v))
+    io = (3 * bh * s * d + d * d_out + bh * s * d_out) * 2
+    ops = 4 * d * bh * s * (s + 1) / 2 + 2 * bh * s * d * d_out
+    sdpa_mm = lambda: torch.matmul(F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True).reshape(bh * s, d), w)
+    shape = f"q/k/v[{bh},{s},{d}] causal, w[{d},{d_out}] bf16"
+    rows["ff_attention_proj"].append(row(
+        shape, lambda: attention_proj(q, k, v, w),
+        lambda: attention_proj_ref(q, k, v, w), sdpa_mm, io, ops,
+        "bfloat16", 100, "SDPA then torch.matmul"))
+    inter = attention(q, k, v).reshape(bh * s, d)
+    graphs["attention_proj"] = dict(
+        shape=shape,
+        fused_ms=rows["ff_attention_proj"][0]["ms"],
+        unfused_ms=time_ms(torch, lambda: L._attention_proj_unfused(
+            q, k, v, w), 100, flush),
+        unfused_parts_ms=dict(
+            attention=time_ms(torch, lambda: attention(q, k, v), 100, flush),
+            matmul=time_ms(torch, lambda: matmul(inter, w), 100, flush)),
+        library_ms=rows["ff_attention_proj"][0]["library_ms"],
+        fused_bound=bound(io, ops, "bfloat16"),
+        unfused_bound=bound(io + 2 * bh * s * d * 2, ops, "bfloat16"))
+
+    t, d, n, f, t_out = LIB["moe"]
+    idx, tokens, w1, comb = moe_operands(torch, dev, gen, t, d, n, f, t_out,
+                                         bf16)
+    disp = (uniq(idx) * d + d * f + n * f) * 2 + n * 4
+    shape = (f"tokens[{t},{d}], idx[{n}], w1[{d},{f}] bf16 (the MoE "
+             f"dispatch -> expert launch)")
+    rows["ff_dispatch_matmul"].append(row(
+        shape, lambda: dispatch_matmul(tokens, idx, w1),
+        lambda: dispatch_matmul_ref(tokens, idx, w1),
+        lambda: torch.matmul(torch.index_select(tokens, 0, idx), w1),
+        disp, 2 * n * d * f, "bfloat16", 100,
+        "index_select then torch.matmul"))
+    combine = (uniq(comb) + t_out) * f * 2 + t_out * 4
+    h = gather(tokens, idx)
+    y = matmul(h, w1)
+    graphs["moe_dispatch_ffn"] = dict(
+        shape=shape.replace("(the MoE dispatch -> expert launch)",
+                            f"comb[{t_out}]"),
+        fused_ms=time_ms(torch, lambda: M.moe_dispatch_ffn(
+            idx, tokens, w1, comb), 100, flush),
+        unfused_ms=time_ms(torch, lambda: M._moe_graph_unfused(
+            idx, tokens, w1, comb), 100, flush),
+        unfused_parts_ms=dict(
+            dispatch_gather=time_ms(torch, lambda: gather(tokens, idx), 100,
+                                    flush),
+            matmul=time_ms(torch, lambda: matmul(h, w1), 100, flush),
+            combine_gather=time_ms(torch, lambda: gather(y, comb), 100,
+                                   flush)),
+        library_ms=time_ms(torch, lambda: torch.index_select(torch.matmul(
+            torch.index_select(tokens, 0, idx), w1), 0, comb), 100, flush),
+        fused_bound=bound(disp + combine, 2 * n * d * f, "bfloat16"),
+        unfused_bound=bound(disp + combine + 2 * n * d * 2, 2 * n * d * f,
+                            "bfloat16"))
+
+    dec = shapes["decode"]
+    q, pool, tables, lens, _, _ = decode_inputs(
+        torch, dev, bf16, dec["b"], dec["h"], dec["kvh"], dec["d"],
+        dec["page"], dec["n_pages"], dec["n_blocks"], dec["lengths"], gen)
+    idx = P.gather_indices(tables, page=dec["page"], kv_heads=dec["kvh"],
+                           n_blocks=dec["n_blocks"])
+    live = sum(min(x, dec["n_pages"] * dec["page"]) for x in dec["lengths"])
+    q_out = 2 * q.numel() * 2 + lens.numel() * 4
+    kv_bytes = 2 * live * dec["kvh"] * dec["d"] * 2
+    ops = 4 * dec["h"] * dec["d"] * live
+    rows_bytes = idx.numel() * dec["d"] * 2  # every gathered row, once
+    table = pool.reshape(-1, dec["d"])
+    cache = gather(table, idx).view(2, dec["b"], dec["kvh"], -1, dec["d"])
+    graphs["paged_decode"] = dict(
+        shape=(f"q[{dec['b']},{dec['h']},{dec['d']}] lengths="
+               f"{dec['lengths']} page={dec['page']} pages={dec['n_pages']} "
+               f"bf16"),
+        fused_ms=time_ms(torch, lambda: P.paged_decode_attention(
+            q, pool, tables, lens), 200, flush),
+        unfused_ms=time_ms(torch, lambda: P.paged_decode_unfused(
+            q, pool, idx, lens), 200, flush),
+        unfused_parts_ms=dict(
+            gather=time_ms(torch, lambda: gather(table, idx), 200, flush),
+            decode=time_ms(torch, lambda: decode_attention(
+                q, cache[0], cache[1], lens, block_kv=dec["page"]), 200,
+                flush)),
+        library_ms=None,
+        fused_bound=bound(q_out + kv_bytes + tables.numel() * 4, ops,
+                          "bfloat16"),
+        # the gather reads and writes every row of the tables, the decode
+        # reads back the live ones
+        unfused_bound=bound(q_out + idx.numel() * 4 + 2 * rows_bytes
+                            + kv_bytes, ops, "bfloat16"))
+    print("graphs " + json.dumps(graphs), flush=True)
+    out = {}
+    for name, (first, *more) in rows.items():
+        out[name] = first
+        if more:
+            first["more"] = [split_bound(r) for r in more]
+    return out
+
+
+def split_bound(r):
+    """A timing row with its ``bound`` pair as ``bound_ms`` and
+    ``bound_by``."""
+    r = dict(r)
+    r["bound_ms"], r["bound_by"] = r.pop("bound")
+    return r
 
 
 def check_decode_layer(torch, dev, shapes):
@@ -834,6 +1265,7 @@ def main() -> int:
     shapes = main_path_shapes(torch)
     main_err = check_kernels(torch, dev, shapes)
     main_err.update(check_layer_kernels(torch, dev, shapes))
+    main_err.update(check_library_kernels(torch, dev, shapes))
     check_decode_layer(torch, dev, shapes)
     check_model_small(torch, dev)
 
@@ -842,18 +1274,18 @@ def main() -> int:
     launches.update({k: v for k, v in run_serve(
         torch, "layer-graph", LAYER_GRAPH, layer_graph=True).items()
         if k.startswith("ff_layer")})
+    launches.update(run_library_path(torch, dev, shapes))
 
     rows = time_kernels(torch, dev, shapes)
     rows.update(time_layer_kernels(torch, dev, shapes))
+    rows.update(time_library_kernels(torch, dev, shapes))
     profile_decode(torch, dev)
     kernels = []
     for name, meta in KERNELS.items():
-        r = rows[name]
-        bound_ms, bound_by = r.pop("bound")
         kernels.append({"name": name, "route": "cuda", **meta,
                         "launches": launches[name],
-                        "max_abs_err": main_err[name], **r,
-                        "bound_ms": bound_ms, "bound_by": bound_by})
+                        "max_abs_err": main_err[name],
+                        **split_bound(rows[name])})
         if name == "ff_layer_swiglu":
             kernels[-1]["note"] = ("on the main path its work runs inside "
                                    "ff_layer_mlp_tail; launched standalone "

@@ -9,5 +9,8 @@ for CPU tensors (the CPU tests) and launches the kernel for CUDA tensors.
 
 Ported so far: the serving path of ``launch/serve.py`` for the dense
 decoder family (qwen1.5-0.5B): prefill flash attention, contiguous and
-paged decode attention, the paged KV runtime and both schedulers.
+paged decode attention, the paged KV runtime and both schedulers; the
+whole-layer decode graph (``--layer-graph``); the library entry points of
+``ops`` (``matmul``, ``gather``, ``attention``, ``decode_attention``) and
+the ``attention_proj`` and ``moe_dispatch_ffn`` graphs.
 """

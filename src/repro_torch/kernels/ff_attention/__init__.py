@@ -1,4 +1,7 @@
 from repro_torch.kernels.ff_attention.ops import (BLOCK_KV, BLOCK_Q,
-                                                 attention, attention_ref)
+                                                 attention, attention_proj,
+                                                 attention_proj_ref,
+                                                 attention_ref)
 
-__all__ = ["BLOCK_KV", "BLOCK_Q", "attention", "attention_ref"]
+__all__ = ["BLOCK_KV", "BLOCK_Q", "attention", "attention_proj",
+           "attention_proj_ref", "attention_ref"]

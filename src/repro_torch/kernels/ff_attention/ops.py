@@ -1,9 +1,15 @@
-"""Prefill flash attention: wrapper, plain version, launch count.
+"""Prefill flash attention and attention -> out-projection: wrappers,
+plain versions, launch counts.
 
-Replaces the TPU kernel ``repro/kernels/ff_attention/kernel.py``
-(``build_program`` / ``flash_attention_ff``, wrapper ``ops.py:_apply``).
-The CUDA kernel is ``csrc/ff_attention.cu``; its note says what bounds it
-on the H100 and what its design does about that.
+:func:`attention` replaces the TPU kernel
+``repro/kernels/ff_attention/kernel.py`` (``build_program`` /
+``flash_attention_ff``, wrapper ``ops.py:_apply``); its CUDA kernel is
+``csrc/ff_attention.cu``. :func:`attention_proj` replaces the
+``attention_proj`` StreamGraph (``repro/models/layers.py:
+build_attention_proj_graph``, the attention output streamed into the
+``ff_matmul`` out-projection in one launch); its CUDA kernel is
+``csrc/ff_attention_proj.cu``. Each kernel's note says what bounds it on
+the H100 and what its design does about that.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ff_matmul.ops import matmul_ref
 
 BLOCK_Q = 32      # q rows per CUDA block (csrc/ff_attention.cu kBlockQ)
 BLOCK_KV = 32     # K/V rows per tile (csrc/ff_attention.cu kBlockKV)
@@ -110,3 +117,64 @@ def attention(q, k, v, *, kv_groups: int = 1,
 
 
 attention.launches = 0
+
+
+def attention_proj_ref(q, k, v, w, *, kv_groups: int = 1,
+                       causal: bool = True) -> torch.Tensor:
+    """Plain version of the fused kernel, rounding where the reference
+    graph rounds: the attention output in q's type (the graph's attention
+    program writes its ring in the operand type), then the product in f32,
+    rounded once. q: [BH, S, D]; k, v: [BKVH, Skv, D]; w: [D, D_out] ->
+    [BH*S, D_out]."""
+    bh, s, d = q.shape
+    a = attention_ref(q, k, v, kv_groups=kv_groups, causal=causal)
+    return matmul_ref(a.reshape(bh * s, d), w)
+
+
+@functools.lru_cache(maxsize=None)
+def _proj_entry(dtype: torch.dtype):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.bind("ff_attention_proj",
+                       f"ff_attention_proj_{_SUFFIX[dtype]}",
+                       [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
+                        p])
+
+
+def attention_proj(q, k, v, w, *, kv_groups: int = 1,
+                   causal: bool = True) -> torch.Tensor:
+    """Attention over [BH, S, D] q and [BKVH, Skv, D] k/v, then the
+    out-projection by w [D, D_out] (q's type), in one launch: the
+    [BH, S, D] intermediate stays on chip. Returns [BH*S, D_out], equal
+    bit for bit to ``matmul(attention(q, k, v).reshape(BH*S, D), w)``.
+    CPU tensors run :func:`attention_proj_ref`; CUDA tensors launch the
+    kernel."""
+    _check(q, k, v, kv_groups)
+    if w.dim() != 2 or w.shape[0] != q.shape[2]:
+        raise ValueError(f"w {tuple(w.shape)} is not [{q.shape[2]}, D_out]")
+    if w.dtype != q.dtype:
+        raise TypeError(f"w must have q's type {q.dtype}, not {w.dtype}")
+    if w.device != q.device:
+        raise ValueError("w must be on q's device")
+    if q.device.type == "cpu":
+        return attention_proj_ref(q, k, v, w, kv_groups=kv_groups,
+                                  causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_proj runs on cpu or cuda, not "
+                         f"{q.device}")
+    bh, s, d = q.shape
+    if d > _MAX_D:
+        raise ValueError(f"head dim {d} > {_MAX_D}")
+    q, k, v, w = q.contiguous(), k.contiguous(), v.contiguous(), \
+        w.contiguous()
+    out = torch.empty((bh * s, w.shape[1]), dtype=q.dtype, device=q.device)
+    rc = _proj_entry(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              w.data_ptr(), out.data_ptr(), bh, s,
+                              k.shape[1], d, w.shape[1], kv_groups,
+                              int(causal), 1.0 / math.sqrt(d),
+                              _build.stream_ptr(q.device))
+    _build.check("ff_attention_proj", "ff_attention_proj", rc)
+    attention_proj.launches += 1
+    return out
+
+
+attention_proj.launches = 0

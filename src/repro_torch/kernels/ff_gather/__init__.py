@@ -1,0 +1,3 @@
+from repro_torch.kernels.ff_gather.ops import gather, gather_ref
+
+__all__ = ["gather", "gather_ref"]

@@ -5,8 +5,9 @@ Params are plain nested dicts of tensors, declared as :class:`ParamSpec`
 trees and laid out exactly as the reference's pytrees, so converted JAX
 parameters drop in unchanged (:mod:`repro_torch.models.convert`).
 
-The three attention dispatchers and :func:`decode_layer` route to the CUDA
-kernel wrappers, which run their plain PyTorch versions for CPU tensors.
+The three attention dispatchers, :func:`decode_layer` and
+:func:`attention_proj` route to the CUDA kernel wrappers, which run their
+plain PyTorch versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -18,7 +19,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import ops
 from repro_torch.kernels.ff_attention import attention as ff_attention
+from repro_torch.kernels.ff_attention import \
+    attention_proj as ff_attention_proj
 from repro_torch.kernels.ff_decode_attention import \
     decode_attention as ff_decode_attention
 from repro_torch.kernels.ff_layer import ff_layer_matmul, ff_layer_mlp_tail
@@ -172,6 +176,44 @@ def paged_decode_attention_op(q, kv_pool, block_tables,
     q: [B,H,D]; kv_pool: [nb, 2, page, KVH, D]; block_tables: [B, n_pages]
     (entries >= nb are sentinels); lengths: [B] (0 = inactive slot)."""
     return paged_decode_attention(q, kv_pool, block_tables, lengths)
+
+
+# ---------------------------------------------------------------------------
+# Attention -> out-projection (the port of the attention_proj StreamGraph)
+# ---------------------------------------------------------------------------
+
+
+def _attention_proj_ref(q, k, v, w) -> torch.Tensor:
+    """The reference's f32 oracle: causal attention and the projection in
+    f32, cast once to q's type. In bf16 it rounds elsewhere than the graph
+    (which writes the attention output in q's type before the product);
+    :func:`repro_torch.kernels.ff_attention.attention_proj_ref` rounds as
+    the graph does."""
+    bh, s, d = q.shape
+    scores = torch.einsum("bsd,btd->bst", q.float(),
+                          k.float()) / math.sqrt(d)
+    mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    scores = torch.where(mask, scores, -1e30)
+    attn = torch.einsum("bst,btd->bsd", torch.softmax(scores, dim=-1),
+                        v.float())
+    return (attn.reshape(bh * s, d) @ w.float()).to(q.dtype)
+
+
+def _attention_proj_unfused(q, k, v, w) -> torch.Tensor:
+    """Attention then projection as two separate ``repro_torch.ops`` calls:
+    the [BH, S, D] intermediate round-trips HBM. The reference pins the
+    projection to the graph's tile (``block=``) so that only the lowering
+    differs; the port's kernels pick their own tiles, so nothing is
+    pinned."""
+    bh, s, d = q.shape
+    a = ops.attention(q, k, v, causal=True)
+    return ops.matmul(a.reshape(bh * s, d), w)
+
+
+# The entry point is the fused launch itself: the reference's entry
+# resolves a graph plan first, the port has none to resolve. On the card
+# it equals _attention_proj_unfused bit for bit.
+attention_proj = ff_attention_proj
 
 
 # ---------------------------------------------------------------------------

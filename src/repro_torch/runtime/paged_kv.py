@@ -16,6 +16,9 @@
     table itself; the reference fused an ``ff_gather`` producer into the
     attention consumer for this), with :func:`paged_decode_attention_ref`
     as its plain version.
+  * :func:`gather_indices` / :func:`paged_decode_unfused` — the staged
+    baseline of the paged kernel: gather the step's pool rows
+    (``ff_gather``), then contiguous decode.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ff_decode_attention import ops as dec_ops
+from repro_torch.kernels.ff_gather import gather
 
 
 # ---------------------------------------------------------------------------
@@ -87,6 +91,46 @@ def paged_decode_attention(q, kv_pool, block_tables,
 
 
 paged_decode_attention.launches = 0
+
+
+def gather_indices(block_tables, *, page: int, kv_heads: int,
+                   n_blocks: int) -> torch.Tensor:
+    """Row indices into one layer's pool viewed as rows
+    ``[nb*2*page*KVH, hd]`` for one decode step, int32.
+
+    ``block_tables``: [B, n_pages] (entries >= ``n_blocks`` are sentinels;
+    they clip to a real row and the length mask discards what they fetch).
+    The order is [2, B, KVH, n_pages*page]: every K row of the step, then
+    every V row, so the gathered rows are the contiguous caches
+    ``K = rows[0]`` and ``V = rows[1]`` of shape [B, KVH, S, hd]. The
+    reference orders the same rows [B, KVH, n_pages, 2, page] (each page's
+    K rows, then its V rows: one ``ff_gather`` word per page); the port's
+    decode kernel reads K and V as two caches, so they are taken apart in
+    the index rather than by copying the gathered rows."""
+    bt = torch.as_tensor(block_tables).long().clamp(0, n_blocks - 1)
+    dev = bt.device
+    which = torch.arange(2, device=dev).view(2, 1, 1, 1, 1)
+    off = torch.arange(page, device=dev)
+    heads = torch.arange(kv_heads, device=dev).view(1, 1, kv_heads, 1, 1)
+    # [2, B, KVH, n_pages, page]: row = ((blk*2 + which)*page + off)*KVH + h
+    rows = ((bt[None, :, None, :, None] * 2 + which) * page + off) \
+        * kv_heads + heads
+    return rows.reshape(-1).int()
+
+
+def paged_decode_unfused(q, kv_pool, idx, lengths) -> torch.Tensor:
+    """Staged paged decode (the port of the reference's ``_paged_unfused``):
+    gather the step's pool rows through ``idx`` (from
+    :func:`gather_indices`), then contiguous decode at ``block_kv ==
+    page``: the gathered cache round-trips HBM. q: [B, H, d]; kv_pool:
+    [nb, 2, page, KVH, d]; lengths: [B]. Equals
+    :func:`paged_decode_attention` bit for bit: both read the same values
+    in the same tile order."""
+    _, _, page, kvh, d = kv_pool.shape
+    rows = gather(kv_pool.reshape(-1, d), idx)
+    cache = rows.view(2, q.shape[0], kvh, -1, d)
+    return dec_ops.decode_attention(q, cache[0], cache[1], lengths,
+                                    block_kv=page)
 
 
 # ---------------------------------------------------------------------------

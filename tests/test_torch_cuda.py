@@ -11,12 +11,18 @@ the card's machine need not have):
 Tolerances: float32 2e-4 (the reference registry's), bfloat16 2e-2; the
 paged kernel equals the contiguous one bit for bit at block_kv == page,
 and the one-launch MLP tail equals its three staged launches bit for bit.
+The library kernels and graphs (matmul, gather, attention_proj,
+moe_dispatch_ffn) are held at float32 5e-4 (the reference registry's tol
+of both graphs) and bfloat16 2e-2, each relative and absolute; the gather
+and every fused launch against its staged composition at exactly 0.
 """
 
 import pytest
 import torch
 
-from repro_torch.kernels.ff_attention import attention, attention_ref
+from repro_torch.kernels.ff_attention import (attention, attention_proj,
+                                             attention_proj_ref,
+                                             attention_ref)
 from repro_torch.kernels.ff_decode_attention import (decode_attention,
                                                      decode_attention_ref)
 from repro_torch.kernels.ff_layer import (ff_layer_matmul,
@@ -26,7 +32,12 @@ from repro_torch.kernels.ff_layer import (ff_layer_matmul,
                                           ff_layer_swiglu,
                                           ff_layer_swiglu_ref,
                                           mlp_tail_staged)
+from repro_torch.kernels.ff_gather import gather, gather_ref
+from repro_torch.kernels.ff_matmul import (dispatch_matmul,
+                                           dispatch_matmul_ref, matmul,
+                                           matmul_ref)
 from repro_torch.models import layers as TL
+from repro_torch.models import moe as TM
 from repro_torch.runtime import paged_kv
 
 pytestmark = pytest.mark.cuda
@@ -170,3 +181,134 @@ def test_decode_layer_on_card_matches_plain(cuda, dtype):
     ref = TL.decode_layer_ref(*args, rope_theta=1e6).float()
     tol = TOL[dtype]                         # relative and absolute
     assert ((out.float() - ref).abs() <= tol + tol * ref.abs()).all()
+
+
+LIB_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
+
+
+def _within(out, ref, tol):
+    """|out - ref| <= tol + tol * |ref| everywhere (relative and absolute:
+    an output of magnitude 4 or more has a bfloat16 step above 2e-2)."""
+    ref = ref.float()
+    return bool(((out.float() - ref).abs() <= tol + tol * ref.abs()).all())
+
+
+@pytest.mark.parametrize("out_dtype", DTYPES, ids=["out_f32", "out_bf16"])
+@pytest.mark.parametrize("a_dtype,b_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)],
+    ids=["f32_f32", "f32_bf16", "bf16_f32", "bf16_bf16"])
+@pytest.mark.parametrize("m,n,k", [(64, 64, 64), (77, 133, 70),
+                                   (1, 5, 3), (300, 1000, 1024)])
+def test_matmul_matches_plain(cuda, a_dtype, b_dtype, out_dtype, m, n, k):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    a = _randn(g, m, k).to(a_dtype)
+    b = _randn(g, k, n, scale=k ** -0.5).to(b_dtype)
+    n0 = matmul.launches
+    out = matmul(a, b, out_dtype=out_dtype)
+    assert matmul.launches == n0 + 1 and out.dtype == out_dtype
+    tol = max(LIB_TOL[t] for t in (a_dtype, b_dtype, out_dtype))
+    assert _within(out, matmul_ref(a, b, out_dtype), tol)
+
+
+def test_matmul_takes_row_strided_operands(cuda):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    a = _randn(g, 40, 96)[:, 8:72]                   # row stride 96
+    b = _randn(g, 64, 200, scale=0.125)[:, 3:131]    # row stride 200
+    assert _within(matmul(a, b), matmul_ref(a, b), LIB_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,c", [(1, 128), (333, 64), (1000, 7), (64, 1024)])
+def test_gather_is_an_exact_copy(cuda, dtype, n, c):
+    """Repeated, unsorted indices; odd n; a row of 7 elements (copied in
+    4- or 2-byte units) and rows of 16-byte multiples."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    table = _randn(g, 500, c).to(dtype)
+    idx = torch.randint(0, 500, (n,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    n0 = gather.launches
+    out = gather(table, idx)
+    assert gather.launches == n0 + 1
+    assert torch.equal(out, gather_ref(table, idx))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,d,f", [(64, 2048, 1408), (24, 70, 130)])
+def test_dispatch_matmul_equals_gather_then_matmul(cuda, dtype, n, d, f):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    tokens = _randn(g, 512, d).to(dtype)
+    idx = torch.randint(0, 512, (n,), generator=g, device=cuda)
+    w = _randn(g, d, f, scale=d ** -0.5).to(dtype)
+    n0, m0, g0 = (dispatch_matmul.launches, matmul.launches,
+                  gather.launches)
+    fused = dispatch_matmul(tokens, idx, w)
+    assert (dispatch_matmul.launches, matmul.launches,
+            gather.launches) == (n0 + 1, m0, g0)
+    assert torch.equal(fused, matmul(gather(tokens, idx), w))
+    assert _within(fused, dispatch_matmul_ref(tokens, idx, w),
+                   LIB_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bh,groups,s,d,d_out,causal", [
+    (64, 1, 256, 64, 1024, True), (6, 3, 77, 64, 200, True),
+    (4, 1, 45, 32, 64, False)])
+def test_attention_proj_equals_staged_launches(cuda, dtype, bh, groups, s,
+                                               d, d_out, causal):
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q = _randn(g, bh, s, d).to(dtype)
+    k = _randn(g, bh // groups, s, d).to(dtype)
+    v = _randn(g, bh // groups, s, d).to(dtype)
+    w = _randn(g, d, d_out, scale=d ** -0.5).to(dtype)
+    n0, a0, m0 = (attention_proj.launches, attention.launches,
+                  matmul.launches)
+    fused = attention_proj(q, k, v, w, kv_groups=groups, causal=causal)
+    assert (attention_proj.launches, attention.launches,
+            matmul.launches) == (n0 + 1, a0, m0)
+    staged = matmul(attention(q, k, v, kv_groups=groups,
+                              causal=causal).reshape(bh * s, d), w)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, staged)
+    assert _within(fused, attention_proj_ref(q, k, v, w, kv_groups=groups,
+                                             causal=causal), LIB_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_graph_entry_points_on_card(cuda, dtype):
+    """attention_proj and moe_dispatch_ffn equal their unfused
+    compositions bit for bit, and are within tolerance of the plain
+    versions; the MoE entry keeps the reference's multiple-of-8 rule."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (_randn(g, 4, 96, 64, scale=0.5).to(dtype) for _ in range(3))
+    w = _randn(g, 64, 256, scale=0.125).to(dtype)
+    out = TL.attention_proj(q, k, v, w)
+    assert torch.equal(out, TL._attention_proj_unfused(q, k, v, w))
+    assert _within(out, attention_proj_ref(q, k, v, w), LIB_TOL[dtype])
+    tokens = _randn(g, 96, 128).to(dtype)
+    idx = torch.randint(0, 96, (64,), generator=g, device=cuda)
+    w1 = _randn(g, 128, 256, scale=128 ** -0.5).to(dtype)
+    comb = torch.randint(0, 64, (40,), generator=g, device=cuda)
+    out = TM.moe_dispatch_ffn(idx, tokens, w1, comb)
+    assert torch.equal(out, TM._moe_graph_unfused(idx, tokens, w1, comb))
+    assert _within(out, TM.moe_dispatch_ffn_ref(idx, tokens, w1, comb),
+                   LIB_TOL[dtype])
+    with pytest.raises(ValueError):
+        TM.moe_dispatch_ffn(idx[:60], tokens, w1, comb)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_staged_paged_decode_equals_fused(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    nb, page, kvh, d, b, h, npg = 20, 16, 2, 64, 3, 4, 5
+    pool = _randn(g, nb, 2, page, kvh, d).to(dtype)
+    tables = torch.randperm(nb, generator=g, device=cuda)[:b * npg]
+    tables = tables.view(b, npg).int()
+    tables[2] = nb                                  # inactive slot
+    lens = torch.tensor([37, npg * page, 0], dtype=torch.int32, device=cuda)
+    q = _randn(g, b, h, d).to(dtype)
+    idx = paged_kv.gather_indices(tables, page=page, kv_heads=kvh,
+                                  n_blocks=nb)
+    staged = paged_kv.paged_decode_unfused(q, pool, idx, lens)
+    fused = paged_kv.paged_decode_attention(q, pool, tables, lens)
+    assert torch.equal(staged, fused)
