@@ -40,7 +40,7 @@ __global__ void __launch_bounds__(kThreads)
     attention_proj_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ w,
                           T* __restrict__ out, int s, int skv, int d,
-                          int d_out, int kv_groups, int causal, float scale) {
+                          int d_out, int causal, float scale) {
   extern __shared__ float smem[];
   const repro::attn::Tile t = repro::attn::carve(smem, d);
   ProjSlab& slab =
@@ -48,8 +48,9 @@ __global__ void __launch_bounds__(kThreads)
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBlockQ;
   const int rows = min(kBlockQ, s - q0);
-  repro::attn::attend<T>(t, q, k, v, bh, q0, rows, s, skv, d, kv_groups,
-                         causal, scale);
+  // one KV head per q head (kv_groups 1), as the reference graph's
+  repro::attn::attend<T>(t, q, k, v, bh, q0, rows, s, skv, d, 1, causal,
+                         scale);
   // the ring word: the attention tile in the operand type (the q tile's
   // shared memory is free again); rows past the ragged edge are 0
   float* a_s = t.q_s;
@@ -73,8 +74,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* w,
-           void* out, int bh, int s, int skv, int d, int d_out, int kv_groups,
-           int causal, float scale, void* stream) {
+           void* out, int bh, int s, int skv, int d, int d_out, int causal,
+           float scale, void* stream) {
   if (bh == 0 || s == 0 || d_out == 0) return 0;
   const size_t smem = smem_bytes(d);
   cudaError_t err = repro::allow_smem(attention_proj_kernel<T>, smem);
@@ -83,7 +84,7 @@ int launch(const void* q, const void* k, const void* v, const void* w,
   attention_proj_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(w),
-      static_cast<T*>(out), s, skv, d, d_out, kv_groups, causal, scale);
+      static_cast<T*>(out), s, skv, d, d_out, causal, scale);
   return cudaGetLastError();
 }
 
@@ -92,10 +93,10 @@ int launch(const void* q, const void* k, const void* v, const void* w,
 #define REPRO_ATTENTION_PROJ_ENTRY(SUFFIX, T)                                 \
   extern "C" int ff_attention_proj_##SUFFIX(                                  \
       const void* q, const void* k, const void* v, const void* w, void* out,  \
-      int bh, int s, int skv, int d, int d_out, int kv_groups, int causal,    \
-      float scale, void* stream) {                                            \
-    return launch<T>(q, k, v, w, out, bh, s, skv, d, d_out, kv_groups,        \
-                     causal, scale, stream);                                  \
+      int bh, int s, int skv, int d, int d_out, int causal, float scale,      \
+      void* stream) {                                                         \
+    return launch<T>(q, k, v, w, out, bh, s, skv, d, d_out, causal, scale,    \
+                     stream);                                                 \
   }
 
 REPRO_ATTENTION_PROJ_ENTRY(f32, float)

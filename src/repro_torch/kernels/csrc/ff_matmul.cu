@@ -73,28 +73,34 @@ int launch(const void* a, const void* b, const void* rows, void* c, int m,
 
 }  // namespace
 
-// ff_matmul_<A>_<B>_<out>: c[m,n] = a[m,k] @ b[k,n];
-// ff_matmul_gather_<A>_<B>_<out>: c[m,n] = a[rows[0:m], :] @ b[k,n].
+// ff_matmul_<A>_<B>_<out>: c[m,n] = a[m,k] @ b[k,n] for every type triple;
+// ff_matmul_gather_<T>: c[m,n] = a[rows[0:m], :] @ b[k,n], all of type T
+// (the MoE dispatch's tokens, weight and output share one type).
 // Operands have unit column stride and the given row strides.
-#define REPRO_MATMUL_ENTRIES(SA, TA, SB, TB, SO, TO)                          \
+#define REPRO_MATMUL_ENTRY(SA, TA, SB, TB, SO, TO)                           \
   extern "C" int ff_matmul_##SA##_##SB##_##SO(                                \
       const void* a, const void* b, void* c, int m, int n, int k,             \
       long long lda, long long ldb, long long ldc, void* stream) {            \
     return launch<TA, TB, TO, false>(a, b, nullptr, c, m, n, k, lda, ldb,     \
                                      ldc, stream);                            \
-  }                                                                           \
-  extern "C" int ff_matmul_gather_##SA##_##SB##_##SO(                         \
-      const void* a, const void* rows, const void* b, void* c, int m, int n,  \
-      int k, long long lda, long long ldb, long long ldc, void* stream) {     \
-    return launch<TA, TB, TO, true>(a, b, rows, c, m, n, k, lda, ldb, ldc,    \
-                                    stream);                                  \
   }
 
-#define REPRO_MATMUL_OUTS(SA, TA, SB, TB)                  \
-  REPRO_MATMUL_ENTRIES(SA, TA, SB, TB, f32, float)         \
-  REPRO_MATMUL_ENTRIES(SA, TA, SB, TB, bf16, __nv_bfloat16)
+#define REPRO_MATMUL_OUTS(SA, TA, SB, TB)                \
+  REPRO_MATMUL_ENTRY(SA, TA, SB, TB, f32, float)         \
+  REPRO_MATMUL_ENTRY(SA, TA, SB, TB, bf16, __nv_bfloat16)
 
 REPRO_MATMUL_OUTS(f32, float, f32, float)
 REPRO_MATMUL_OUTS(f32, float, bf16, __nv_bfloat16)
 REPRO_MATMUL_OUTS(bf16, __nv_bfloat16, f32, float)
 REPRO_MATMUL_OUTS(bf16, __nv_bfloat16, bf16, __nv_bfloat16)
+
+#define REPRO_MATMUL_GATHER_ENTRY(S, T)                                      \
+  extern "C" int ff_matmul_gather_##S(                                        \
+      const void* a, const void* rows, const void* b, void* c, int m, int n,  \
+      int k, long long lda, long long ldb, long long ldc, void* stream) {     \
+    return launch<T, T, T, true>(a, b, rows, c, m, n, k, lda, ldb, ldc,       \
+                                 stream);                                     \
+  }
+
+REPRO_MATMUL_GATHER_ENTRY(f32, float)
+REPRO_MATMUL_GATHER_ENTRY(bf16, __nv_bfloat16)

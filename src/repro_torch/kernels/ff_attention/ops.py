@@ -119,15 +119,14 @@ def attention(q, k, v, *, kv_groups: int = 1,
 attention.launches = 0
 
 
-def attention_proj_ref(q, k, v, w, *, kv_groups: int = 1,
-                       causal: bool = True) -> torch.Tensor:
+def attention_proj_ref(q, k, v, w, *, causal: bool = True) -> torch.Tensor:
     """Plain version of the fused kernel, rounding where the reference
     graph rounds: the attention output in q's type (the graph's attention
     program writes its ring in the operand type), then the product in f32,
-    rounded once. q: [BH, S, D]; k, v: [BKVH, Skv, D]; w: [D, D_out] ->
+    rounded once. q: [BH, S, D]; k, v: [BH, Skv, D]; w: [D, D_out] ->
     [BH*S, D_out]."""
     bh, s, d = q.shape
-    a = attention_ref(q, k, v, kv_groups=kv_groups, causal=causal)
+    a = attention_ref(q, k, v, causal=causal)
     return matmul_ref(a.reshape(bh * s, d), w)
 
 
@@ -136,19 +135,17 @@ def _proj_entry(dtype: torch.dtype):
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("ff_attention_proj",
                        f"ff_attention_proj_{_SUFFIX[dtype]}",
-                       [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
-                        p])
+                       [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p])
 
 
-def attention_proj(q, k, v, w, *, kv_groups: int = 1,
-                   causal: bool = True) -> torch.Tensor:
-    """Attention over [BH, S, D] q and [BKVH, Skv, D] k/v, then the
-    out-projection by w [D, D_out] (q's type), in one launch: the
+def attention_proj(q, k, v, w, *, causal: bool = True) -> torch.Tensor:
+    """Attention over [BH, S, D] q and [BH, Skv, D] k/v (one KV head per q
+    head, as the reference graph's), then the out-projection by w [D, D_out] (q's type), in one launch: the
     [BH, S, D] intermediate stays on chip. Returns [BH*S, D_out], equal
     bit for bit to ``matmul(attention(q, k, v).reshape(BH*S, D), w)``.
     CPU tensors run :func:`attention_proj_ref`; CUDA tensors launch the
     kernel."""
-    _check(q, k, v, kv_groups)
+    _check(q, k, v, 1)
     if w.dim() != 2 or w.shape[0] != q.shape[2]:
         raise ValueError(f"w {tuple(w.shape)} is not [{q.shape[2]}, D_out]")
     if w.dtype != q.dtype:
@@ -156,8 +153,7 @@ def attention_proj(q, k, v, w, *, kv_groups: int = 1,
     if w.device != q.device:
         raise ValueError("w must be on q's device")
     if q.device.type == "cpu":
-        return attention_proj_ref(q, k, v, w, kv_groups=kv_groups,
-                                  causal=causal)
+        return attention_proj_ref(q, k, v, w, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"attention_proj runs on cpu or cuda, not "
                          f"{q.device}")
@@ -169,8 +165,7 @@ def attention_proj(q, k, v, w, *, kv_groups: int = 1,
     out = torch.empty((bh * s, w.shape[1]), dtype=q.dtype, device=q.device)
     rc = _proj_entry(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               w.data_ptr(), out.data_ptr(), bh, s,
-                              k.shape[1], d, w.shape[1], kv_groups,
-                              int(causal), 1.0 / math.sqrt(d),
+                              k.shape[1], d, w.shape[1], int(causal), 1.0 / math.sqrt(d),
                               _build.stream_ptr(q.device))
     _build.check("ff_attention_proj", "ff_attention_proj", rc)
     attention_proj.launches += 1

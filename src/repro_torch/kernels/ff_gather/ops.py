@@ -19,9 +19,10 @@ _UNITS = (16, 8, 4, 2)          # copy units of the kernel, in bytes
 
 
 def gather_ref(table, idx) -> torch.Tensor:
-    """Plain version of the kernel: ``table[idx]`` (raises on an index
-    outside ``[0, R)``)."""
-    return table[idx.long()]
+    """Plain version of the kernel: ``table[idx]`` through
+    ``index_select``, which raises ``IndexError`` on an index outside
+    ``[0, R)`` (negative ones included: they do not wrap)."""
+    return torch.index_select(table, 0, idx.long())
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,9 +50,10 @@ def gather(table, idx) -> torch.Tensor:
     """``table[idx]``: table [R, C] float32 or bfloat16, idx [n] int32 or
     int64, any n. Returns [n, C], an exact copy of the indexed rows.
 
-    Every index must lie in ``[0, R)``: the plain version raises outside
-    it, the kernel does not check (that would cost a host sync per call)
-    and reads whatever lies there. CPU tensors run :func:`gather_ref`;
+    Every index must lie in ``[0, R)``: the plain version raises
+    ``IndexError`` outside it (a negative index too), the kernel does not
+    check (that would cost a host sync per call) and reads whatever lies
+    there. CPU tensors run :func:`gather_ref`;
     CUDA tensors launch the kernel."""
     check_gather_inputs(table, idx)
     if table.device.type == "cpu":

@@ -32,19 +32,24 @@ def matmul_ref(a, b, out_dtype=None) -> torch.Tensor:
     return torch.matmul(a.float(), b.float()).to(out_dtype or a.dtype)
 
 
-def dispatch_matmul_ref(tokens, idx, b, out_dtype=None) -> torch.Tensor:
+def dispatch_matmul_ref(tokens, idx, b) -> torch.Tensor:
     """Plain version of the gathered launch: ``matmul_ref(tokens[idx], b)``."""
-    return matmul_ref(gather_ref(tokens, idx), b, out_dtype)
+    return matmul_ref(gather_ref(tokens, idx), b)
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(gathered: bool, ta, tb, to):
+    """ff_matmul_<A>_<B>_<out> for every type triple; the gathered entry
+    ff_matmul_gather_<T> only for one type throughout (the MoE dispatch's
+    tokens, weight and output share it)."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    name = "ff_matmul_gather" if gathered else "ff_matmul"
-    args = [p, p] + ([p] if gathered else []) + [p, i, i, i, ll, ll, ll, p]
-    return _build.bind("ff_matmul",
-                       f"{name}_{_SUFFIX[ta]}_{_SUFFIX[tb]}_{_SUFFIX[to]}",
-                       args)
+    if gathered:
+        name = f"ff_matmul_gather_{_SUFFIX[ta]}"
+        args = [p, p, p, p, i, i, i, ll, ll, ll, p]
+    else:
+        name = f"ff_matmul_{_SUFFIX[ta]}_{_SUFFIX[tb]}_{_SUFFIX[to]}"
+        args = [p, p, p, i, i, i, ll, ll, ll, p]
+    return _build.bind("ff_matmul", name, args)
 
 
 def _check(a, b, out_dtype):
@@ -99,21 +104,23 @@ def matmul(a, b, *, out_dtype=None) -> torch.Tensor:
 matmul.launches = 0
 
 
-def dispatch_matmul(tokens, idx, b, *, out_dtype=None) -> torch.Tensor:
+def dispatch_matmul(tokens, idx, b) -> torch.Tensor:
     """``tokens[idx] @ b`` in one launch, the rows of A read through
     ``idx`` (the dispatched buffer is never written): tokens [T, k], idx
     [n] int32 or int64 with every index in ``[0, T)`` (unchecked on the
-    card, as :func:`repro_torch.kernels.ff_gather.gather`), b [k, d_ff].
-    Returns [n, d_ff] in ``out_dtype`` (default: the tokens' type), equal
-    bit for bit to ``matmul(gather(tokens, idx), b)``. CPU tensors run
+    card, as :func:`repro_torch.kernels.ff_gather.gather`), b [k, d_ff] of
+    the tokens' type. Returns [n, d_ff] in the tokens' type, equal bit for
+    bit to ``matmul(gather(tokens, idx), b)``. CPU tensors run
     :func:`dispatch_matmul_ref`; CUDA tensors launch the kernel."""
-    out_dtype = out_dtype or tokens.dtype
     check_gather_inputs(tokens, idx)
-    _check(tokens, b, out_dtype)
+    _check(tokens, b, tokens.dtype)
+    if b.dtype != tokens.dtype:
+        raise TypeError(f"dispatch_matmul wants b of the tokens' type "
+                        f"{tokens.dtype}, not {b.dtype}")
     if tokens.device.type == "cpu":
-        return dispatch_matmul_ref(tokens, idx, b, out_dtype)
+        return dispatch_matmul_ref(tokens, idx, b)
     out = _launch(tokens, idx.to(torch.int32).contiguous(), b, idx.shape[0],
-                  out_dtype)
+                  tokens.dtype)
     dispatch_matmul.launches += 1
     return out
 

@@ -13,8 +13,10 @@ paged kernel equals the contiguous one bit for bit at block_kv == page,
 and the one-launch MLP tail equals its three staged launches bit for bit.
 The library kernels and graphs (matmul, gather, attention_proj,
 moe_dispatch_ffn) are held at float32 5e-4 (the reference registry's tol
-of both graphs) and bfloat16 2e-2, each relative and absolute; the gather
-and every fused launch against its staged composition at exactly 0.
+of both graphs) and bfloat16 2e-2, each relative and absolute and chosen
+by the output's type; the gather and every fused launch against its
+staged composition at exactly 0. These tests take small and ragged
+shapes; chip_smoke.py checks the same kernels at full model width.
 """
 
 import pytest
@@ -207,8 +209,9 @@ def test_matmul_matches_plain(cuda, a_dtype, b_dtype, out_dtype, m, n, k):
     n0 = matmul.launches
     out = matmul(a, b, out_dtype=out_dtype)
     assert matmul.launches == n0 + 1 and out.dtype == out_dtype
-    tol = max(LIB_TOL[t] for t in (a_dtype, b_dtype, out_dtype))
-    assert _within(out, matmul_ref(a, b, out_dtype), tol)
+    # both sides get the same operand values and differ only in the order
+    # of the f32 sums, so the output's type alone sets the tolerance
+    assert _within(out, matmul_ref(a, b, out_dtype), LIB_TOL[out_dtype])
 
 
 def test_matmul_takes_row_strided_operands(cuda):
@@ -234,7 +237,7 @@ def test_gather_is_an_exact_copy(cuda, dtype, n, c):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,d,f", [(64, 2048, 1408), (24, 70, 130)])
+@pytest.mark.parametrize("n,d,f", [(40, 96, 77), (24, 70, 130)])
 def test_dispatch_matmul_equals_gather_then_matmul(cuda, dtype, n, d, f):
     g = torch.Generator(device=cuda).manual_seed(9)
     tokens = _randn(g, 512, d).to(dtype)
@@ -251,27 +254,23 @@ def test_dispatch_matmul_equals_gather_then_matmul(cuda, dtype, n, d, f):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("bh,groups,s,d,d_out,causal", [
-    (64, 1, 256, 64, 1024, True), (6, 3, 77, 64, 200, True),
-    (4, 1, 45, 32, 64, False)])
-def test_attention_proj_equals_staged_launches(cuda, dtype, bh, groups, s,
-                                               d, d_out, causal):
+@pytest.mark.parametrize("bh,s,d,d_out,causal", [
+    (3, 100, 64, 96, True), (4, 45, 32, 64, False)])
+def test_attention_proj_equals_staged_launches(cuda, dtype, bh, s, d, d_out,
+                                               causal):
     g = torch.Generator(device=cuda).manual_seed(10)
-    q = _randn(g, bh, s, d).to(dtype)
-    k = _randn(g, bh // groups, s, d).to(dtype)
-    v = _randn(g, bh // groups, s, d).to(dtype)
+    q, k, v = (_randn(g, bh, s, d).to(dtype) for _ in range(3))
     w = _randn(g, d, d_out, scale=d ** -0.5).to(dtype)
     n0, a0, m0 = (attention_proj.launches, attention.launches,
                   matmul.launches)
-    fused = attention_proj(q, k, v, w, kv_groups=groups, causal=causal)
+    fused = attention_proj(q, k, v, w, causal=causal)
     assert (attention_proj.launches, attention.launches,
             matmul.launches) == (n0 + 1, a0, m0)
-    staged = matmul(attention(q, k, v, kv_groups=groups,
-                              causal=causal).reshape(bh * s, d), w)
+    staged = matmul(attention(q, k, v, causal=causal).reshape(bh * s, d), w)
     torch.cuda.synchronize()
     assert torch.equal(fused, staged)
-    assert _within(fused, attention_proj_ref(q, k, v, w, kv_groups=groups,
-                                             causal=causal), LIB_TOL[dtype])
+    assert _within(fused, attention_proj_ref(q, k, v, w, causal=causal),
+                   LIB_TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -115,6 +115,29 @@ def test_gather_takes_int64_indices_and_raises_out_of_range(gather_case):
         gather_ref(t, torch.tensor([96], dtype=torch.int32))
 
 
+@pytest.mark.parametrize("bad", [-1, -96], ids=["minus1", "minusR"])
+def test_gather_rejects_negative_indices(gather_case, bad):
+    """A negative index lies outside the contract [0, R): the CPU path
+    raises rather than wrap to a row from the end of the table."""
+    table, idx = gather_case
+    t = torch.from_numpy(table)
+    i = torch.from_numpy(idx).clone()
+    i[7] = bad
+    with pytest.raises(IndexError):
+        gather(t, i)
+    with pytest.raises(IndexError):
+        dispatch_matmul(t, i, torch.zeros(128, 8))
+
+
+def test_dispatch_matmul_wants_one_type(gather_case):
+    """Tokens and weight share one type, as the reference graph's expert
+    matmul (built with the tokens' dtype) has it."""
+    table, idx = gather_case
+    t, i = torch.from_numpy(table), torch.from_numpy(idx)
+    with pytest.raises(TypeError):
+        dispatch_matmul(t, i, torch.zeros(128, 8, dtype=torch.bfloat16))
+
+
 def test_dispatch_matmul_plain_is_gather_then_matmul(gather_case):
     table, idx = gather_case
     t, i = torch.from_numpy(table), torch.from_numpy(idx)
