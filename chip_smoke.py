@@ -23,7 +23,14 @@ Phases (any failure exits non-zero without the final result line):
      within 5e-4 and bfloat16 within 2e-2 (relative and absolute), the
      gather exactly, and each fused launch (attention_proj, the MoE
      dispatch, the paged kernel) equal to its staged composition bit for
-     bit;
+     bit; then the gated linear-attention scan (ff_chunk_scan) at both
+     recurrent models' prefill shapes (rwkv6-7b exclusive with u, zamba2
+     inclusive; B = 4, S = 256, their stream types and f32), at a ragged
+     S = 200 with chunk 32/64/128 and on a strong decay, float32 within
+     3e-5 of max |plain| and bfloat16 within 2e-2; attention and decode
+     attention at zamba2's head dim 80; the smoke rwkv6 and zamba2 models
+     on the card against the CPU (prefill, 3 greedy decode steps) and
+     their f32 prefill -> decode handoff gap within 1e-3;
   c. serve full-width qwen1.5-0.5B (random weights from seed 0) through
      ``repro_torch.launch.serve.serve_bench`` with the serve defaults, once
      more with 256-token prompts, and once with ``--layer-graph``;
@@ -35,14 +42,22 @@ Phases (any failure exits non-zero without the final result line):
      ``attention_proj``, ``moe_dispatch_ffn``, the staged paged decode) at
      full width with the counts set to 0 just before, require each of its
      kernels launched, and hold its outputs against the same calls on CPU
-     copies of the operands (plain versions);
-  f. time each kernel at the main path's shapes with CUDA events, and each
-     fused launch against its staged composition;
+     copies of the operands (plain versions); then full-width rwkv6-7b
+     and zamba2-2.7b (random f32 weights from seed 0, one model at a
+     time): with the counts set to 0, one prefill of 4 x 256-token prompts
+     and 16 greedy decode steps through ``repro_torch.launch.steps``,
+     requiring finite logits, exactly one ff_chunk_scan launch per layer
+     and (zamba2) attention launches; prefill and decode times, peak
+     memory, the bf16 handoff gap and a decode-step profile;
+  f. time each kernel at the main path's shapes with CUDA events (the
+     chunk scan at both recurrent models' prefill shapes), and each fused
+     launch against its staged composition;
   g. profile full-width decode steps (dense, paged, layer graph, timed in
      alternating rounds): wall vs device busy time and device launches
      per step.
 
-Output: one line per check and per serve run, a JSON ``kernels`` line, the
+Output: one line per check, per serve run and per recurrent model
+(``model[...]``), a JSON ``kernels`` line, the
 card's name and power limit as ``nvidia-smi`` reports them, and as the
 last line ``{"ok": true, "device": {...}}``.
 """
@@ -98,6 +113,9 @@ KERNELS = {
     "ff_dispatch_matmul": dict(
         source="src/repro_torch/kernels/csrc/ff_matmul.cu",
         replaces="src/repro/models/moe.py:222"),
+    "ff_chunk_scan": dict(
+        source="src/repro_torch/kernels/csrc/ff_chunk_scan.cu",
+        replaces="src/repro/kernels/ff_chunk_scan/kernel.py:170"),
 }
 PER_OP = ("ff_attention", "ff_decode_attention", "ff_paged_decode_attention")
 LAYER_GRAPH = PER_OP + ("ff_layer_matmul", "ff_layer_mlp_tail")
@@ -114,6 +132,13 @@ LIB = dict(
              "float32")),
     attention_proj=(64, 256, 64, 1024),
     moe=(512, 2048, 64, 1408, 64))
+# the recurrent families' path: 4 prompts of 256 tokens, one prefill, then
+# greedy decode steps; random f32 weights from seed 0
+SSM = dict(archs=("rwkv6_7b", "zamba2_2p7b"), batch=4, prompt=256,
+           decode_steps=16)
+SCAN_F32_TOL = 3e-5          # relative to max |plain|, the reference's bound
+HANDOFF_TOL = 1e-3           # the reference registry's ff_chunk_scan tol
+SSM_MODEL_TOL = 1e-3         # smoke SSMs card vs CPU: the same tol
 
 failures = []
 
@@ -132,6 +157,7 @@ def wrappers():
     from repro_torch.kernels.ff_layer import (ff_layer_matmul,
                                               ff_layer_mlp_tail,
                                               ff_layer_swiglu)
+    from repro_torch.kernels.ff_chunk_scan import chunk_scan
     from repro_torch.runtime.paged_kv import paged_decode_attention
     return {"ff_attention": attention, "ff_decode_attention": decode_attention,
             "ff_paged_decode_attention": paged_decode_attention,
@@ -139,7 +165,7 @@ def wrappers():
             "ff_layer_swiglu": ff_layer_swiglu,
             "ff_layer_mlp_tail": ff_layer_mlp_tail, "ff_matmul": matmul,
             "ff_gather": gather, "ff_attention_proj": attention_proj,
-            "ff_dispatch_matmul": dispatch_matmul}
+            "ff_dispatch_matmul": dispatch_matmul, "ff_chunk_scan": chunk_scan}
 
 
 def err(a, b):
@@ -821,6 +847,405 @@ def tree_to(tree, device, torch):
 
 
 # ---------------------------------------------------------------------------
+# b (slice 4). the chunk scan, attention at head dim 80, the smoke SSMs
+# ---------------------------------------------------------------------------
+
+
+def scan_shapes():
+    """The chunk scan's shapes on the two models' prefill: (label, bh, n, p,
+    exclusive), at SSM's batch and prompt length."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import mamba2, rwkv6
+    rw, zb = get_config("rwkv6_7b"), get_config("zamba2_2p7b")
+    nh, hd = rwkv6._dims(rw)
+    _, znh, zn, zhd = mamba2._dims(zb)
+    b = SSM["batch"]
+    return (("rwkv6-7b", b * nh, hd, hd, True),
+            ("zamba2-2.7b", b * znh, zn, zhd, False))
+
+
+def scan_operands(torch, dev, gen, bh, s, n, p, exclusive, dtype,
+                  model_types=False, heads=1):
+    """q, k, v, log_w, u as the reference test draws them. With
+    ``model_types`` the streams take the model's types: RWKV6 (exclusive)
+    bf16 q/k/v/log_w and an f32 u, Mamba2 (inclusive) bf16 q/k/v and an
+    f32 log_w. With ``heads`` > 1 they are laid out as Mamba2 lays them
+    out: q and k shared by ``heads`` consecutive rows, log_w one value per
+    row and step, expanded across N (views; the wrapper copies them)."""
+    rows = bh // heads
+    q = rn(torch, gen, dev, rows, s, n, scale=0.5)
+    k = rn(torch, gen, dev, rows, s, n, scale=0.5)
+    if heads > 1:
+        q, k = (x[:, None].expand(rows, heads, s, n).reshape(bh, s, n)
+                for x in (q, k))
+        lw = -0.5 * torch.exp(rn(torch, gen, dev, bh, s, 1)).expand(bh, s, n)
+    else:
+        lw = -0.5 * torch.exp(rn(torch, gen, dev, bh, s, n))
+    v = rn(torch, gen, dev, bh, s, p)
+    u = rn(torch, gen, dev, bh, n, scale=0.3) if exclusive else None
+    if model_types:
+        lw_t = dtype if exclusive else torch.float32
+        return q.to(dtype), k.to(dtype), v.to(dtype), lw.to(lw_t), u
+    return q.to(dtype), k.to(dtype), v.to(dtype), lw.to(dtype), u
+
+
+def scan_err(out, plain):
+    return err(out, plain) / (plain.float().abs().max().item() + 1e-6)
+
+
+def check_scan_kernel(torch, dev):
+    """ff_chunk_scan against its plain version on the card: both models'
+    prefill shapes (B = 4, S = 256, the models' stream types and f32),
+    then a ragged S = 200 at chunk 32/64/128, f32 and bf16, with and
+    without u, and the strong-decay case (lw = -3, a chunk's decay
+    e^-192). f32 within 3e-5 of max |plain|, bf16 within 2e-2; the f32
+    cases also against the naive scan."""
+    from repro_torch.kernels.ff_chunk_scan import (chunk_scan,
+                                                   chunk_scan_plain,
+                                                   chunk_scan_ref)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    s = SSM["prompt"]
+    main_err = None
+    cases = []
+    for label, bh, n, p, exclusive in scan_shapes():
+        heads = 1 if exclusive else bh // SSM["batch"]
+        for dtype in (torch.bfloat16, torch.float32):
+            cases.append((f"{label} path", bh, s, n, p, exclusive, 64, dtype,
+                          dtype == torch.bfloat16, heads))
+    for chunk in (32, 64, 128):
+        for dtype in (torch.bfloat16, torch.float32):
+            for exclusive in (False, True):
+                cases.append((f"ragged chunk={chunk}", 8, 200, 64, 64,
+                              exclusive, chunk, dtype, False, 1))
+    for (label, bh, s_, n, p, exclusive, chunk, dtype, model_types,
+         heads) in cases:
+        ops_ = scan_operands(torch, dev, gen, bh, s_, n, p, exclusive, dtype,
+                             model_types, heads)
+        kw = dict(inclusive=not exclusive, chunk=chunk)
+        out = chunk_scan(*ops_, **kw)
+        plain = chunk_scan_plain(*ops_, **kw)
+        torch.cuda.synchronize()
+        tol = BF16_TOL if dtype == torch.bfloat16 else SCAN_F32_TOL
+        e = scan_err(out, plain)
+        detail = f"max|kernel-plain|/max|plain|={e:.3e} tol={tol}"
+        ok = e < tol and out.isfinite().all().item()
+        if dtype == torch.float32:
+            e_ref = scan_err(out, chunk_scan_ref(*ops_,
+                                                 inclusive=not exclusive))
+            ok = ok and e_ref < tol
+            detail += f", vs naive scan {e_ref:.3e}"
+        mode = "exclusive+u" if exclusive else "inclusive"
+        tag = str(dtype).split(".")[1] + (" model types" if model_types
+                                          else "")
+        check(f"ff_chunk_scan {label} {tag} {mode} bh={bh} s={s_} n={n} "
+              f"p={p}", ok, detail)
+        if label == "rwkv6-7b path" and model_types:
+            main_err = err(out, plain)
+    ones = torch.ones(2, 256, 64, device=dev)
+    lw = torch.full((2, 256, 64), -3.0, device=dev)
+    for exclusive in (False, True):
+        u = torch.ones(2, 64, device=dev) if exclusive else None
+        out = chunk_scan(ones, ones, ones, lw, u, inclusive=not exclusive)
+        ref = chunk_scan_ref(ones, ones, ones, lw, u, inclusive=not exclusive)
+        e = err(out, ref)
+        ok = bool(out.isfinite().all().item() and torch.allclose(
+            out, ref, rtol=1e-4, atol=1e-5))
+        check(f"ff_chunk_scan strong decay lw=-3 "
+              f"{'exclusive+u' if exclusive else 'inclusive'}", ok,
+              f"finite, max|kernel-naive|={e:.3e} (rtol 1e-4, atol 1e-5)")
+    return {"ff_chunk_scan": main_err}
+
+
+def check_attention_hd80(torch, dev):
+    """Zamba2's shared attention block at its head dim 80 (32 heads, MHA):
+    the prefill kernel over 4 x 256 tokens and the decode kernel over a
+    cache of 256 + 16 rows (tiles of 16), each against its plain
+    version."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.ff_attention import attention, attention_ref
+    from repro_torch.kernels.ff_decode_attention import (decode_attention,
+                                                         decode_attention_ref)
+    cfg = get_config("zamba2_2p7b")
+    b, h, d, s = SSM["batch"], cfg.n_heads, cfg.hd, SSM["prompt"]
+    gen = torch.Generator(device=dev).manual_seed(10)
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        tag = str(dtype).split(".")[1]
+        q, k, v = prefill_inputs(torch, dev, dtype, b * h, 1, s, d, gen)
+        out = attention(q, k, v)
+        e = err(out, attention_ref(q, k, v))
+        check(f"ff_attention zamba2 hd={d} {tag} bh={b * h} s={s}",
+              e <= tol and out.isfinite().all().item(),
+              f"max|kernel-plain|={e:.3e} tol={tol}")
+        skv = -(-(s + SSM["decode_steps"]) // 16) * 16
+        q = rn(torch, gen, dev, b, h, d, dtype=dtype)
+        kc = rn(torch, gen, dev, b, h, skv, d, dtype=dtype)
+        vc = rn(torch, gen, dev, b, h, skv, d, dtype=dtype)
+        lens = torch.tensor([s + 1, s + 7, s + 16, s + 3], dtype=torch.int32,
+                            device=dev)
+        out = decode_attention(q, kc, vc, lens, block_kv=16)
+        e = err(out, decode_attention_ref(q, kc, vc, lens, block_kv=16))
+        check(f"ff_decode_attention zamba2 hd={d} {tag} b={b} h={h} "
+              f"skv={skv}", e <= tol and out.isfinite().all().item(),
+              f"max|kernel-plain|={e:.3e} tol={tol}")
+
+
+def ssm_generate(torch, model, params, tokens, n_steps):
+    """The recurrent families' path through ``launch/steps.py``: one
+    prefill of ``tokens`` [B, S], then ``n_steps`` greedy decode steps from
+    its last logits (the hybrid's attention caches padded to S + n_steps
+    first). Returns (logits of each step, prefill s, decode s)."""
+    from repro_torch.launch import serve, steps
+    prefill = steps.make_prefill_step(model)
+    decode = steps.make_decode_step(model)
+    b, s = tokens.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if model.cfg.family == "hybrid":
+        cache = serve.pad_cache_to(cache, s, s + n_steps,
+                                   {"mamba": None, "attn": 1})
+    cur = torch.argmax(logits, dim=-1).to(torch.int32)
+    lengths = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+    out = [logits]
+    for _ in range(n_steps):
+        cur, lg, cache = decode(params, {"token": cur, "lengths": lengths},
+                                cache)
+        out.append(lg)
+        lengths = lengths + 1
+    torch.cuda.synchronize()
+    return out, t1 - t0, time.perf_counter() - t1
+
+
+def handoff_gap(torch, model, params, tokens):
+    """max |prefill(t[:S+1]) - (prefill(t[:S]) then one decode step of
+    t[S])| over the logits: the prefill's final state handed to decode."""
+    from repro_torch.launch import serve, steps
+    prefill = steps.make_prefill_step(model)
+    decode = steps.make_decode_step(model)
+    b, s1 = tokens.shape
+    s = s1 - 1
+    whole, _ = prefill(params, {"tokens": tokens})
+    _, cache = prefill(params, {"tokens": tokens[:, :s]})
+    if model.cfg.family == "hybrid":
+        cache = serve.pad_cache_to(cache, s, s1, {"mamba": None, "attn": 1})
+    lengths = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+    _, step, _ = decode(params, {"token": tokens[:, s], "lengths": lengths},
+                        cache)
+    return err(whole, step)
+
+
+def check_ssm_small(torch, dev):
+    """The smoke RWKV6 and Zamba2 models (f32) on the card against the same
+    models (plain kernel versions) on the CPU: prefill of two 40-token
+    prompts, then 3 greedy decode steps, logits within 1e-3 (the reference
+    registry's ff_chunk_scan tolerance) and greedy tokens equal; and the
+    handoff gap on the card within 1e-3."""
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.models import build_model
+    for arch in SSM["archs"]:
+        cfg = smoke_config(arch)
+        model = build_model(cfg)
+        params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+        toks = torch.randint(1, cfg.vocab, (2, 41), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(1))
+        got, _, _ = ssm_generate(torch, model, tree_to(params_cpu, dev, torch),
+                                 toks[:, :40].to(dev), 3)
+        want, _, _ = ssm_generate(torch, model, params_cpu, toks[:, :40], 3)
+        got = [g.cpu() for g in got]
+        e = max(err(g, w) for g, w in zip(got, want))
+        same = all(torch.equal(g.argmax(-1), w.argmax(-1))
+                   for g, w in zip(got, want))
+        finite = all(g.isfinite().all().item() for g in got)
+        check(f"smoke {arch} on card vs cpu (prefill, 3 decode steps)",
+              e <= SSM_MODEL_TOL and same and finite,
+              f"max|logits diff|={e:.3e} tol={SSM_MODEL_TOL}, greedy equal: "
+              f"{same}, finite: {finite}")
+        gap = handoff_gap(torch, model, tree_to(params_cpu, dev, torch),
+                          toks.to(dev))
+        check(f"smoke {arch} handoff gap f32 on card", gap <= HANDOFF_TOL,
+              f"max|prefill(S+1) - prefill(S)+decode|={gap:.3e} "
+              f"tol={HANDOFF_TOL}")
+
+
+def run_ssm_models(torch, dev):
+    """Full-width rwkv6-7b, then zamba2-2.7b on the card (random f32 weights
+    from seed 0, bf16 compute): a warm-up prefill, then with every launch
+    count set to 0 one prefill of SSM's 4 x 256-token prompts and 16
+    greedy decode steps through ``launch/steps.py``. Requires finite
+    logits, exactly one ff_chunk_scan launch per layer in the prefill, and
+    for Zamba2 attention launches in prefill and decode; prints the
+    prefill ms, decode ms per step, tokens/s, peak memory, the bf16
+    handoff gap (printed, required finite) and a profile of the decode
+    step. Returns the chunk scan's launches per model."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    b, s, n_steps = SSM["batch"], SSM["prompt"], SSM["decode_steps"]
+    wr = wrappers()
+    scan_launches = {}
+    for arch in SSM["archs"]:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(x.numel() for _, x in L.tree_leaves(params))
+        toks = torch.randint(1, cfg.vocab, (b, s + 1), dtype=torch.int32,
+                             device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(2))
+        ssm_generate(torch, model, params, toks[:, :s], 1)       # warm-up
+        for w in wr.values():
+            w.launches = 0
+        logits, prefill_s, decode_s = ssm_generate(torch, model, params,
+                                                   toks[:, :s], n_steps)
+        launches = {name: w.launches for name, w in wr.items()
+                    if w.launches}
+        gap = handoff_gap(torch, model, params, toks)
+        prof = profile_ssm_decode(torch, model, params, toks[:, :s])
+        finite = all(lg.isfinite().all().item() for lg in logits)
+        summary = dict(
+            arch=arch, params=n_params, init_s=init_s, batch=b, prompt=s,
+            decode_steps=n_steps, prefill_ms=prefill_s * 1e3,
+            decode_ms_per_step=decode_s * 1e3 / n_steps,
+            decode_tokens_per_s=b * n_steps / decode_s,
+            prefill_tokens_per_s=b * s / prefill_s,
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            handoff_gap_bf16=gap, launches=launches, decode_profile=prof)
+        print(f"model[{arch}] " + json.dumps(summary), flush=True)
+        check(f"model[{arch}] logits finite and of shape "
+              f"[{b}, {cfg.padded_vocab}]",
+              finite and all(lg.shape == (b, cfg.padded_vocab)
+                             for lg in logits), f"finite: {finite}")
+        got = launches.get("ff_chunk_scan", 0)
+        check(f"model[{arch}] ff_chunk_scan one launch per layer",
+              got == cfg.n_layers,
+              f"{got} launches in one prefill, {cfg.n_layers} layers")
+        if cfg.family == "hybrid":
+            for name in ("ff_attention", "ff_decode_attention"):
+                check(f"model[{arch}] {name} launched",
+                      launches.get(name, 0) > 0,
+                      f"{launches.get(name, 0)} launches")
+        check(f"model[{arch}] handoff gap bf16 finite", math.isfinite(gap),
+              f"{gap:.3e}")
+        scan_launches[arch] = got
+        del params, model, logits
+    torch.cuda.empty_cache()
+    return scan_launches
+
+
+def profile_ssm_decode(torch, model, params, tokens, n_steps=8):
+    """Where a full-width decode step's time goes: wall ms per step over
+    ``n_steps`` steps (each ending in a host read of the token, as a
+    scheduler's would), then one profiled window of as many steps: the
+    device's busy ms per step (kernel and copy times from torch.profiler),
+    its share of the wall, device launches per step and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve, steps
+    prefill = steps.make_prefill_step(model)
+    decode = steps.make_decode_step(model)
+    b, s = tokens.shape
+    logits, cache = prefill(params, {"tokens": tokens})
+    if model.cfg.family == "hybrid":
+        cache = serve.pad_cache_to(cache, s, s + 3 * n_steps + 2,
+                                   {"mamba": None, "attn": 1})
+    state = {"cur": torch.argmax(logits, dim=-1).to(torch.int32),
+             "len": torch.full((b,), s, dtype=torch.int32,
+                               device=tokens.device), "cache": cache}
+
+    def step():
+        state["cur"], _, state["cache"] = decode(
+            params, {"token": state["cur"], "lengths": state["len"]},
+            state["cache"])
+        state["cur"].cpu()
+        state["len"] = state["len"] + 1
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+    by_name, count = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+            count[e.name] = count.get(e.name, 0) + 1
+    busy = sum(by_name.values()) / n_steps if by_name else None
+    top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:6]
+    return {"wall_ms_per_step": wall, "device_ms_per_step": busy,
+            "device_busy_share": busy / wall if busy is not None else None,
+            "device_launches_per_step": sum(count.values()) / n_steps,
+            "top_kernels_ms_per_step": [[n[:80], t / n_steps,
+                                         count[n] / n_steps]
+                                        for n, t in top]}
+
+
+def time_scan_kernel(torch, dev, scan_launches):
+    """ff_chunk_scan at both models' prefill shapes with their stream types
+    (contiguous operands: the kernel's own time, no copy): cold and warm
+    device ms, call_ms, the plain version's ms, and the bound: the larger of
+    the bytes (each operand read once in its type, the output written once)
+    over 3.35 TB/s and the reference cost model's operations
+    (``ops.py:chunk_scan_cost``) over 989 TFLOP/s. No single PyTorch call
+    computes this scan, so there is no library time."""
+    from repro_torch.kernels.ff_chunk_scan import chunk_scan, chunk_scan_plain
+    gen = torch.Generator(device=dev).manual_seed(11)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    s, chunk = SSM["prompt"], 64
+    rows = []
+    for (label, bh, n, p, exclusive), arch in zip(scan_shapes(),
+                                                  SSM["archs"]):
+        heads = 1 if exclusive else bh // SSM["batch"]
+        args = [x.contiguous() if x is not None else None
+                for x in scan_operands(torch, dev, gen, bh, s, n, p,
+                                       exclusive, torch.bfloat16, True,
+                                       heads)]
+        kw = dict(inclusive=not exclusive, chunk=chunk)
+        out = chunk_scan(*args, **kw)
+        nbytes = sum(x.numel() * x.element_size() for x in args
+                     if x is not None) + out.numel() * out.element_size()
+        per_chunk = 2.0 * chunk * n * p * 2 + chunk * chunk * (n + p)
+        ops = bh * (s // chunk) * per_chunk
+        types = "/".join(str(x.dtype)[6:] if x is not None else "-"
+                         for x in args)
+        print(f"f. timing ff_chunk_scan {label}", flush=True)
+        rows.append(dict(
+            shape=(f"{label} prefill: q/k/log_w[{bh},{s},{n}] v[{bh},{s},"
+                   f"{p}]{' u[%d,%d]' % (bh, n) if exclusive else ''} "
+                   f"({types}), {'exclusive+u' if exclusive else 'inclusive'}"
+                   f", chunk {chunk}, subtile 16"),
+            launches_on_path=scan_launches.get(arch),
+            ms=time_ms(torch, lambda: chunk_scan(*args, **kw), 100, flush),
+            ms_hot=time_ms(torch, lambda: chunk_scan(*args, **kw), 100),
+            call_ms=call_ms(torch, lambda: chunk_scan(*args, **kw), 50),
+            plain_ms=time_ms(torch, lambda: chunk_scan_plain(*args, **kw),
+                             10, flush),
+            library_ms=None,
+            library="none: no single PyTorch call computes this scan",
+            bound=bound(nbytes, ops, "bfloat16")))
+        del args, out
+    first, *more = rows
+    first["more"] = [split_bound(r) for r in more]
+    return {"ff_chunk_scan": first}
+
+
+# ---------------------------------------------------------------------------
 # c-e. the main path
 # ---------------------------------------------------------------------------
 
@@ -1267,6 +1692,9 @@ def main() -> int:
     main_err.update(check_library_kernels(torch, dev, shapes))
     check_decode_layer(torch, dev, shapes)
     check_model_small(torch, dev)
+    main_err.update(check_scan_kernel(torch, dev))
+    check_attention_hd80(torch, dev)
+    check_ssm_small(torch, dev)
 
     launches = run_serve(torch, "default", PER_OP)
     run_serve(torch, "prompt-256", PER_OP, prompt_len=256)
@@ -1274,10 +1702,13 @@ def main() -> int:
         torch, "layer-graph", LAYER_GRAPH, layer_graph=True).items()
         if k.startswith("ff_layer")})
     launches.update(run_library_path(torch, dev, shapes))
+    scan_launches = run_ssm_models(torch, dev)
+    launches["ff_chunk_scan"] = sum(scan_launches.values())
 
     rows = time_kernels(torch, dev, shapes)
     rows.update(time_layer_kernels(torch, dev, shapes))
     rows.update(time_library_kernels(torch, dev, shapes))
+    rows.update(time_scan_kernel(torch, dev, scan_launches))
     profile_decode(torch, dev)
     kernels = []
     for name, meta in KERNELS.items():
@@ -1289,6 +1720,8 @@ def main() -> int:
             kernels[-1]["note"] = ("on the main path its work runs inside "
                                    "ff_layer_mlp_tail; launched standalone "
                                    "by phase b")
+        if name == "ff_chunk_scan":
+            kernels[-1]["launches_by_path"] = scan_launches
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

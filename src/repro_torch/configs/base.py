@@ -5,7 +5,8 @@
 both packages; ``cdtype``/``pdtype`` return torch dtypes. The port has one
 attention implementation, the CUDA kernels (with their plain PyTorch
 versions on the CPU), so ``attn_impl`` defaults to ``"ff"``; the
-reference's HLO path ``"xla"`` is not ported.
+reference's HLO path ``"xla"`` is not ported. The same holds for the
+gated linear-attention scan: ``scan_impl`` defaults to ``"ff"``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import torch
 
 ARCH_IDS = (
     "qwen1_5_0p5b",
+    "rwkv6_7b",
+    "zamba2_2p7b",
 )
 
 
@@ -82,7 +85,10 @@ class ArchConfig:
                                               # is bitwise-equal to the
                                               # paged path
     layer_graph: bool = False
-    scan_impl: str = "xla"
+    scan_impl: str = "ff"                     # ff (the CUDA chunk-scan
+                                              # kernel); the reference's
+                                              # "xla"/"xla_tiled" twins are
+                                              # not ported
     scan_layers: bool = True
     loss_chunk: int = 0
     scan_chunk: int = 64

@@ -25,7 +25,8 @@ from typing import Dict, Iterable, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNEL_SOURCES = ("ff_attention", "ff_decode_attention", "ff_layer",
-                  "ff_matmul", "ff_gather", "ff_attention_proj")
+                  "ff_matmul", "ff_gather", "ff_attention_proj",
+                  "ff_chunk_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

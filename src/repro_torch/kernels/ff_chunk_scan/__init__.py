@@ -1,0 +1,6 @@
+from repro_torch.kernels.ff_chunk_scan.ops import (chunk_scan,
+                                                   chunk_scan_plain,
+                                                   chunk_scan_ref,
+                                                   smem_bytes)
+
+__all__ = ["chunk_scan", "chunk_scan_plain", "chunk_scan_ref", "smem_bytes"]

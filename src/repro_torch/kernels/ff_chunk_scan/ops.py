@@ -1,0 +1,213 @@
+"""Gated linear-attention scan (Mamba2 / RWKV6): wrapper, plain versions,
+launch count.
+
+Replaces the TPU kernel ``repro/kernels/ff_chunk_scan/kernel.py``
+(``build_program`` / ``_chunk_body`` / ``chunk_scan_ff``, wrapper
+``ops.py:_apply``). Per ``bh`` row it runs the recurrence
+
+    h_t = diag(exp(lw_t)) h_{t-1} + k_t (x) v_t
+    inclusive (Mamba2):        y_t = q_t . h_t
+    exclusive (RWKV6, bonus u): y_t = q_t . (h_{t-1} + diag(u) k_t (x) v_t)
+
+with the ``[N, P]`` state carried in f32 across chunks of ``chunk`` rows
+and the chunk's terms in the decay-to-boundary factorization, so that
+every exponent is <= 0. The CUDA kernel is ``csrc/ff_chunk_scan.cu``; its
+note says what bounds it on the H100.
+
+:func:`chunk_scan_ref` is the naive per-step scan (the oracle, reference
+``ref.py:chunk_scan_ref``); :func:`chunk_scan_plain` is the kernel's
+chunked factorization in PyTorch, which CPU tensors run. The reference's
+XLA twin (``chunk_scan_xla``) is not ported: the port has no XLA path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+
+_DTYPES = (torch.float32, torch.bfloat16)
+SMEM_LIMIT = 232448          # shared memory one block may use (227 KB)
+
+
+def chunk_scan_ref(q, k, v, log_w, u=None, *,
+                   inclusive: bool = True) -> torch.Tensor:
+    """The naive scan, one step at a time, in f32 (the reference's oracle;
+    like it, the result is float32 whatever the operand types). q, k, log_w
+    [BH, S, N]; v [BH, S, P]; u [BH, N] or None."""
+    q, k, v = q.float(), k.float(), v.float()
+    lw = torch.clamp(log_w.float(), max=0.0)
+    bh, s, n = q.shape
+    h = torch.zeros(bh, n, v.shape[2], dtype=torch.float32, device=q.device)
+    ys = []
+    for t in range(s):
+        kv = k[:, t, :, None] * v[:, t, None, :]
+        h_new = torch.exp(lw[:, t])[:, :, None] * h + kv
+        if inclusive:
+            eff = h_new
+        else:
+            eff = h + (u.float()[:, :, None] * kv if u is not None else 0.0)
+        ys.append(torch.einsum("bn,bnp->bp", q[:, t], eff))
+        h = h_new
+    return torch.stack(ys, dim=1)
+
+
+def _chunk_body(q, k, v, lw, u, h, *, subtile: int, inclusive: bool):
+    """One chunk of the scan for every row at once, all f32, in the
+    kernel's order of terms (reference ``kernel.py:_chunk_body``). q, k, lw
+    [BH, L, N]; v [BH, L, P]; u [BH, N] or None; h [BH, N, P]. Returns
+    (y [BH, L, P], h_new [BH, N, P])."""
+    bh, L, n = q.shape
+    t = subtile
+    cw = torch.cumsum(lw, dim=1)                 # inclusive cumsum
+    cq = cw if inclusive else cw - lw            # the q side's exponent
+    keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril(
+        0 if inclusive else -1)
+    ys = []
+    for i in range(L // t):
+        t0 = i * t
+        rows = slice(t0, t0 + t)
+        cw_b = cw[:, t0 - 1] if t0 else torch.zeros_like(cw[:, 0])
+        # the carried state: q decayed from the chunk's start
+        inter = torch.matmul(q[:, rows] * torch.exp(cq[:, rows]), h)
+        # earlier tiles through the boundary b = t0 - 1: both exponents <= 0
+        q_i = q[:, rows] * torch.exp(cq[:, rows] - cw_b[:, None])
+        k_b = k[:, :t0] * torch.exp(cw_b[:, None] - cw[:, :t0])
+        s_pre = torch.matmul(q_i, k_b.transpose(1, 2))        # [BH, t, t0]
+        # the diagonal tile: exact pairwise exponents, clamped at 0 where
+        # masked
+        e = torch.clamp(cq[:, rows, None, :] - cw[:, None, rows, :], max=0.0)
+        s_diag = (q[:, rows, None, :] * torch.exp(e)
+                  * k[:, None, rows, :]).sum(-1)              # [BH, t, t]
+        s_diag = torch.where(keep, s_diag, 0.0)
+        scores = torch.cat([s_pre, s_diag], dim=2)
+        ys.append(inter + torch.matmul(scores, v[:, :t0 + t]))
+    y = torch.cat(ys, dim=1)
+    if u is not None:
+        # the bonus: the current token, undecayed
+        y = y + (q * u[:, None, :] * k).sum(-1, keepdim=True) * v
+    k2 = k * torch.exp(cw[:, -1:] - cw)
+    h_new = torch.exp(cw[:, -1])[:, :, None] * h + torch.matmul(
+        k2.transpose(1, 2), v)
+    return y, h_new
+
+
+def chunk_scan_plain(q, k, v, log_w, u=None, *, chunk: int = 64,
+                     subtile: int = 16,
+                     inclusive: bool = True) -> torch.Tensor:
+    """Plain version of the kernel: S padded up to a multiple of ``chunk``
+    (``log_w = 0``, ``q = k = v = 0``, reference ``ops.py:277-278``),
+    ``log_w`` clamped at 0, the chunks in order with the state carried in
+    f32, each chunk by :func:`_chunk_body`, the output cut back to S in q's
+    type."""
+    st = _subtile(chunk, subtile)
+    bh, s, n = q.shape
+    pad = -s % chunk
+    qf, kf, vf = (F.pad(x.float(), (0, 0, 0, pad)) for x in (q, k, v))
+    lw = F.pad(torch.clamp(log_w.float(), max=0.0), (0, 0, 0, pad))
+    uf = u.float() if u is not None else None
+    h = torch.zeros(bh, n, v.shape[2], dtype=torch.float32, device=q.device)
+    ys = []
+    for c0 in range(0, s + pad, chunk):
+        c = slice(c0, c0 + chunk)
+        y, h = _chunk_body(qf[:, c], kf[:, c], vf[:, c], lw[:, c], uf, h,
+                           subtile=st, inclusive=inclusive)
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :s].to(q.dtype)
+
+
+def _subtile(chunk: int, subtile: int) -> int:
+    """The reference's rule (``ops.py:274-276``): the subtile is at most
+    the chunk and must divide it."""
+    if chunk < 1 or subtile < 1:
+        raise ValueError(f"chunk={chunk} and subtile={subtile} must be >= 1")
+    st = min(subtile, chunk)
+    if chunk % st != 0:
+        raise ValueError(f"chunk={chunk} not a multiple of subtile={st}")
+    return st
+
+
+def smem_bytes(n: int, p: int, chunk: int, subtile: int) -> int:
+    """Dynamic shared memory of one block (``csrc/ff_chunk_scan.cu``
+    ``smem_floats``): q, k, the cumsum and the q-side exponent as
+    [chunk, N+1] f32 tiles, the decayed prefix k [chunk-subtile, N+1], v
+    [chunk, P], the state [N, P], two [subtile, N+1] q tiles, the scores
+    [subtile, chunk], the bonus per row and four [N] vectors."""
+    np_ = n + 1
+    floats = (4 * chunk * np_ + (chunk - subtile) * np_ + chunk * p + n * p
+              + 2 * subtile * np_ + subtile * chunk + chunk + 4 * n)
+    return 4 * floats
+
+
+def _check(q, k, v, log_w, u, inclusive):
+    if q.dim() != 3 or k.shape != q.shape or log_w.shape != q.shape:
+        raise ValueError(f"chunk_scan wants q, k, log_w of one shape [BH, S, "
+                         f"N]; got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(log_w.shape)}")
+    if v.dim() != 3 or v.shape[:2] != q.shape[:2]:
+        raise ValueError(f"v {tuple(v.shape)} is not [BH, S, P] for q "
+                         f"{tuple(q.shape)}")
+    if u is not None:
+        if inclusive:
+            raise ValueError("u is the exclusive mode's bonus; the inclusive "
+                             "scan takes none")
+        if u.shape != (q.shape[0], q.shape[2]):
+            raise ValueError(f"u {tuple(u.shape)} is not [BH, N] = "
+                             f"{(q.shape[0], q.shape[2])}")
+    for x in (q, k, v, log_w) + ((u,) if u is not None else ()):
+        if x.dtype not in _DTYPES:
+            raise TypeError(f"chunk_scan takes float32 or bfloat16 operands, "
+                            f"not {x.dtype}")
+        if x.device != q.device:
+            raise ValueError("every operand must be on q's device")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"chunk_scan runs on cpu or cuda, not {q.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.bind("ff_chunk_scan", "ff_chunk_scan",
+                       [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p])
+
+
+def chunk_scan(q, k, v, log_w, u=None, *, chunk: int = 64, subtile: int = 16,
+               inclusive: bool = True) -> torch.Tensor:
+    """The gated linear-attention scan: q, k, log_w [BH, S, N], v [BH, S,
+    P], u [BH, N] (the exclusive mode's bonus) or None; each operand float32
+    or bfloat16 on its own. Any S: the ragged last chunk is padded with
+    ``log_w = 0`` and ``k = v = 0``. ``log_w`` is clamped at 0. Returns [BH,
+    S, P] in q's type. CPU tensors run :func:`chunk_scan_plain`; CUDA
+    tensors launch the kernel (one block per row, chunks in order)."""
+    st = _subtile(chunk, subtile)
+    _check(q, k, v, log_w, u, inclusive)
+    if q.device.type == "cpu":
+        return chunk_scan_plain(q, k, v, log_w, u, chunk=chunk, subtile=st,
+                                inclusive=inclusive)
+    bh, s, n = q.shape
+    p = v.shape[2]
+    smem = smem_bytes(n, p, chunk, st)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"chunk_scan at N={n}, P={p}, chunk={chunk}, "
+                         f"subtile={st} needs {smem} bytes of shared memory "
+                         f"per block; the H100 gives {SMEM_LIMIT}")
+    q, k, v, log_w = (x.contiguous() for x in (q, k, v, log_w))
+    u = u.contiguous() if u is not None else None
+    out = torch.empty((bh, s, p), dtype=q.dtype, device=q.device)
+    types = sum(bit for bit, x in ((1, q), (2, k), (4, v), (8, log_w),
+                                   (16, u))
+                if x is not None and x.dtype == torch.bfloat16)
+    rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+                  u.data_ptr() if u is not None else None, out.data_ptr(),
+                  bh, s, n, p, chunk, st, int(inclusive), types,
+                  _build.stream_ptr(q.device))
+    _build.check("ff_chunk_scan", "ff_chunk_scan", rc)
+    chunk_scan.launches += 1
+    return out
+
+
+chunk_scan.launches = 0

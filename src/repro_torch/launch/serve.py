@@ -75,11 +75,15 @@ def _ints(x, device) -> torch.Tensor:
 
 
 def pad_cache_to(cache, s_from: int, s_max: int, seq_dims):
-    """Right-pad the declared sequence axes of a cache dict.
+    """Right-pad the declared sequence axes of a cache pytree (nested dicts
+    and lists of tensors).
 
     ``seq_dims`` names the sequence axis: an int applied to every leaf, or
-    a dict matching ``cache`` whose values are an axis index or None (None
-    = leaf has no sequence axis, left untouched)."""
+    a pytree matching ``cache`` whose values are an axis index or None (None
+    = no sequence axis, left untouched); an int or None given for a
+    subtree applies to each of its leaves. The hybrid family pads its
+    ``attn[i]`` leaves and leaves its Mamba2 states alone:
+    ``{"mamba": None, "attn": 1}``."""
     if seq_dims is None:
         raise TypeError("pad_cache_to requires seq_dims (an int axis or a "
                         "per-leaf dict of axes); padding by shape match "
@@ -97,9 +101,17 @@ def pad_cache_to(cache, s_from: int, s_max: int, seq_dims):
         pads = [0, 0] * (x.dim() - 1 - axis) + [0, s_max - s_from]
         return F.pad(x, pads)
 
-    if isinstance(seq_dims, int):
-        return {k: pad(x, seq_dims) for k, x in cache.items()}
-    return {k: pad(x, seq_dims[k]) for k, x in cache.items()}
+    def walk(node, dims):
+        if isinstance(node, dict):
+            return {k: walk(x, dims if dims is None or isinstance(dims, int)
+                            else dims[k]) for k, x in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(
+                walk(x, dims if dims is None or isinstance(dims, int)
+                     else dims[i]) for i, x in enumerate(node))
+        return pad(node, dims)
+
+    return walk(cache, seq_dims)
 
 
 # ---------------------------------------------------------------------------
@@ -434,8 +446,18 @@ def decode_parity_probe(model, params, cfg, *, page: int, n_steps: int = 3,
 
 
 def serve_bench(args) -> Dict[str, object]:
-    device = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family in ("ssm", "hybrid"):
+        # no dense "k" cache to pad or page, and a recurrent state would take
+        # the lockstep re-feed of the last prompt token twice; the
+        # reference's schedulers cannot run these families either
+        raise SystemExit(
+            f"serve: {args.arch} ({cfg.family}) is not served by these "
+            f"schedulers: they keep a dense or paged K/V cache, which the "
+            f"{cfg.family} family does not have. Drive it through "
+            f"repro_torch.launch.steps (make_prefill_step, "
+            f"make_decode_step) instead.")
+    device = resolve_device(args.device)
     # pin the dense path's KV tile to the page so lockstep decode is
     # bitwise-identical to the paged kernel
     cfg = cfg.replace(attn_impl="ff", decode_block_kv=args.page)

@@ -3,10 +3,19 @@
 The reference initializes its models randomly (``BaseLM.init``); the two
 frameworks draw different bits from one seed, so the parity tests convert
 the reference's parameters instead. The input is the JAX parameter pytree
-as numpy arrays (``jax.tree.map(np.asarray, params)``): ``embed``,
-``stack.layers.{norm1, mixer.{wq,wk,wv,wo,bq,bk,bv}, norm2, ffn.{wi,wo}}``,
-``final_norm`` and ``unembed``. Layouts are kept, so the port computes on
-exactly the reference's tensors.
+as numpy arrays (``jax.tree.map(np.asarray, params)``), checked against
+the port's ``param_specs`` of the same family:
+
+- dense: ``embed``, ``stack.layers.{norm1, mixer.{wq,wk,wv,wo,bq,bk,bv},
+  norm2, ffn.{wi,wo}}``, ``final_norm``, ``unembed``;
+- ssm (RWKV6): ``embed``, ``ln0``, ``layers.{ln1, tm.*, ln2, cm.*}``
+  stacked ``[L, ...]``, ``final_norm``, ``unembed``;
+- hybrid (Zamba2): ``embed``, ``stack.mamba_layers.{norm, mixer.*}``
+  stacked ``[L, ...]``, ``stack.shared.{norm1, attn.*, norm2, ffn.*}``,
+  ``final_norm``, ``unembed``.
+
+Layouts are kept, so the port computes on exactly the reference's
+tensors.
 """
 
 from __future__ import annotations

@@ -39,7 +39,7 @@ class ParamSpec:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
     dtype: torch.dtype = torch.float32
-    init: str = "normal"          # "normal" | "zeros" | "ones"
+    init: str = "normal"          # "normal" | "zeros" | "ones" | "small"
     scale: Optional[float] = None  # override fan-in scale
 
     def initializer(self, gen: torch.Generator, device) -> torch.Tensor:
@@ -49,6 +49,8 @@ class ParamSpec:
             return torch.ones(self.shape, dtype=self.dtype, device=device)
         x = torch.randn(self.shape, generator=gen, dtype=self.dtype,
                         device=device)
+        if self.init == "small":
+            return 0.01 * x
         # fan-in = product of all non-output dims, skipping the stacked
         # layer dim (a [d, heads, hd] projection scales by 1/sqrt(d))
         dims = self.shape
@@ -58,6 +60,14 @@ class ParamSpec:
         scale = self.scale if self.scale is not None else 1.0 / math.sqrt(
             fan_in)
         return scale * x
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheSpec:
+    """Shape and type of one cache leaf (the port's stand-in for the
+    reference's ``jax.ShapeDtypeStruct`` in its ``*_cache_spec``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 def tree_leaves(tree, prefix=()):
@@ -102,16 +112,28 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     return (x * w.float()).to(dt)
 
 
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with f32 statistics, cast back to x's type."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
+
+
 def norm_apply(kind: str, x, p):
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported")
-    return rmsnorm(x, p["w"])
+    if kind == "rmsnorm":
+        return rmsnorm(x, p["w"])
+    return layernorm(x, p["w"], p["b"])
 
 
 def norm_specs(kind: str, d: int) -> Dict[str, ParamSpec]:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported")
-    return {"w": ParamSpec((d,), ("embed",), init="ones")}
+    s = {"w": ParamSpec((d,), ("embed",), init="ones")}
+    if kind == "layernorm":
+        s["b"] = ParamSpec((d,), ("embed",), init="zeros")
+    return s
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float

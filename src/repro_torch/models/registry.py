@@ -4,7 +4,9 @@ family with the serving entry points.
   prefill -> prefill(params, batch)            -> (last-token logits, cache)
   decode  -> decode_step(params, batch, cache) -> (logits, cache)
 
-Only the dense family is ported; :func:`build_model` raises
+Ported: the dense family (``DenseLM``), the ssm family (``RWKVLM``) and the
+hybrid family (``ZambaLM``), each with ``param_specs``, ``prefill`` and
+``decode_step`` (``loss`` waits for training); :func:`build_model` raises
 ``NotImplementedError`` for the others.
 """
 
@@ -15,8 +17,9 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import hybrid
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
 
 
 class BaseLM:
@@ -76,7 +79,119 @@ class DenseLM(BaseLM):
     pass
 
 
-_FAMILIES = {"dense": DenseLM}
+class ZambaLM(BaseLM):
+    """zamba2 hybrid (Mamba2 + shared attention). A decode cache's
+    ``attn[i]`` leaves must be longer than the prompt (see
+    :mod:`repro_torch.models.hybrid`)."""
+
+    def __init__(self, cfg: ArchConfig):
+        self.cfg = cfg
+
+    def param_specs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        return {
+            "embed": L.embed_specs(cfg.padded_vocab, cfg.d_model),
+            "stack": hybrid.specs(cfg),
+            "final_norm": L.norm_specs(cfg.norm, cfg.d_model),
+            "unembed": L.ParamSpec((cfg.padded_vocab, cfg.d_model),
+                                   ("vocab", "embed")),
+        }
+
+    def _trunk(self, params, batch, *, caches=None, lengths=None):
+        cfg = self.cfg
+        if "token" in batch:
+            x = L.embed_lookup(params["embed"], batch["token"][:, None],
+                               cfg.cdtype)
+            positions = lengths[:, None]
+        else:
+            x = L.embed_lookup(params["embed"], batch["tokens"], cfg.cdtype)
+            positions = torch.arange(x.shape[1], device=x.device)
+        x, new_caches = hybrid.forward(cfg, params["stack"], x,
+                                       positions=positions, caches=caches,
+                                       lengths=lengths)
+        return L.norm_apply(cfg.norm, x, params["final_norm"]), new_caches
+
+    def prefill(self, params, batch):
+        x, caches = self._trunk(params, batch)
+        logits = L.unembed_logits(x[:, -1:], params["unembed"])[:, 0]
+        return logits, caches
+
+    def decode_step(self, params, batch, caches):
+        lengths = batch["lengths"].to(torch.int32)
+        x, new_caches = self._trunk(params, batch, caches=caches,
+                                    lengths=lengths)
+        logits = L.unembed_logits(x, params["unembed"])[:, 0]
+        return logits, new_caches
+
+
+class RWKVLM(BaseLM):
+    """rwkv6: token-shift time and channel mixing, attention-free. Its
+    cache is the per-layer recurrent state, stacked ``[L, ...]``."""
+
+    def __init__(self, cfg: ArchConfig):
+        self.cfg = cfg
+
+    def param_specs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        one = {
+            "ln1": L.norm_specs("layernorm", cfg.d_model),
+            "tm": rwkv6.time_mix_specs(cfg),
+            "ln2": L.norm_specs("layernorm", cfg.d_model),
+            "cm": rwkv6.channel_mix_specs(cfg),
+        }
+        stacked = L.tree_map(
+            lambda s: L.ParamSpec((cfg.n_layers, *s.shape),
+                                  ("layers", *s.axes), s.dtype, s.init,
+                                  s.scale), one)
+        return {
+            "embed": L.embed_specs(cfg.padded_vocab, cfg.d_model),
+            "ln0": L.norm_specs("layernorm", cfg.d_model),
+            "layers": stacked,
+            "final_norm": L.norm_specs("layernorm", cfg.d_model),
+            "unembed": L.ParamSpec((cfg.padded_vocab, cfg.d_model),
+                                   ("vocab", "embed")),
+        }
+
+    def _layer(self, p, x, cache):
+        cfg = self.cfg
+        h = L.norm_apply("layernorm", x, p["ln1"])
+        tm_out, tm_cache = rwkv6.time_mix_apply(cfg, p["tm"], h, cache=cache)
+        x = x + tm_out
+        h = L.norm_apply("layernorm", x, p["ln2"])
+        cm_out, cm_cache = rwkv6.channel_mix_apply(cfg, p["cm"], h,
+                                                   cache=cache)
+        return x + cm_out, {**tm_cache, **cm_cache}
+
+    def _trunk(self, params, x, caches):
+        per_layer = []
+        for i in range(self.cfg.n_layers):
+            p = L.tree_map(lambda a: a[i], params["layers"])
+            c = (L.tree_map(lambda a: a[i], caches)
+                 if caches is not None else None)
+            x, nc = self._layer(p, x, c)
+            per_layer.append(nc)
+        new_caches = {name: torch.stack([c[name] for c in per_layer])
+                      for name in per_layer[0]}
+        return L.norm_apply("layernorm", x, params["final_norm"]), new_caches
+
+    def _embed(self, params, tokens):
+        x = L.embed_lookup(params["embed"], tokens, self.cfg.cdtype)
+        return L.norm_apply("layernorm", x, params["ln0"])
+
+    def prefill(self, params, batch):
+        x, caches = self._trunk(params, self._embed(params, batch["tokens"]),
+                                None)
+        logits = L.unembed_logits(x[:, -1:], params["unembed"])[:, 0]
+        return logits, caches
+
+    def decode_step(self, params, batch, caches):
+        x = self._embed(params, batch["token"][:, None])
+        x, new_caches = self._trunk(params, x, caches)
+        logits = L.unembed_logits(x, params["unembed"])[:, 0]
+        return logits, new_caches
+
+
+_FAMILIES = {"dense": DenseLM, "ssm": RWKVLM, "hybrid": ZambaLM}
 
 
 def build_model(cfg: ArchConfig):
@@ -88,5 +203,9 @@ def build_model(cfg: ArchConfig):
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r}: repro_torch runs attention "
             f"through its kernels only (attn_impl='ff')")
+    if cfg.scan_impl != "ff":
+        raise NotImplementedError(
+            f"scan_impl={cfg.scan_impl!r}: repro_torch runs the gated "
+            f"linear-attention scan through its kernel only (scan_impl='ff')")
     return _FAMILIES[cfg.family](cfg)
 

@@ -88,6 +88,16 @@ def attn_apply(cfg: ArchConfig, p, x, *, positions, cache=None,
     return out.reshape(b, s, h * hd) @ wo, new_cache
 
 
+def attn_cache_spec(cfg: ArchConfig, batch: int, s_max: int):
+    """The dense KV cache's leaves and their logical axes."""
+    shape = (batch, s_max, cfg.n_kv_heads, cfg.hd)
+    spec = {"k": L.CacheSpec(shape, cfg.cdtype),
+            "v": L.CacheSpec(shape, cfg.cdtype)}
+    axes = {"k": ("batch", "kv", "kv_heads", None),
+            "v": ("batch", "kv", "kv_heads", None)}
+    return spec, axes
+
+
 # ---------------------------------------------------------------------------
 # Dense FFN
 # ---------------------------------------------------------------------------

@@ -7,8 +7,7 @@ itself, imported here by name::
     from repro_torch import ops
     c = ops.matmul(a, b)              # CUDA tensors launch the kernel,
     rows = ops.gather(table, idx)     # CPU tensors run its plain version
-
-``chunk_scan`` arrives with the slice that ports its kernel.
+    y = ops.chunk_scan(q, k, v, log_w, u, inclusive=False)
 """
 
 from __future__ import annotations
@@ -16,13 +15,16 @@ from __future__ import annotations
 from typing import Tuple
 
 from repro_torch.kernels.ff_attention import attention
+from repro_torch.kernels.ff_chunk_scan import chunk_scan
 from repro_torch.kernels.ff_decode_attention import decode_attention
 from repro_torch.kernels.ff_gather import gather
 from repro_torch.kernels.ff_matmul import matmul
 
-__all__ = ["attention", "decode_attention", "gather", "matmul", "names"]
+__all__ = ["attention", "chunk_scan", "decode_attention", "gather", "matmul",
+           "names"]
 
 
 def names() -> Tuple[str, ...]:
     """Short names of every entry point, sorted."""
-    return ("attention", "decode_attention", "gather", "matmul")
+    return ("attention", "chunk_scan", "decode_attention", "gather",
+            "matmul")

@@ -15,8 +15,11 @@ The library kernels and graphs (matmul, gather, attention_proj,
 moe_dispatch_ffn) are held at float32 5e-4 (the reference registry's tol
 of both graphs) and bfloat16 2e-2, each relative and absolute and chosen
 by the output's type; the gather and every fused launch against its
-staged composition at exactly 0. These tests take small and ragged
-shapes; chip_smoke.py checks the same kernels at full model width.
+staged composition at exactly 0. The chunk scan is held at float32 3e-5
+and bfloat16 2e-2 of max |plain| (the reference kernel test's bound),
+its strong-decay case at rtol 1e-4 / atol 1e-5. These tests take small
+and ragged shapes; chip_smoke.py checks the same kernels at full model
+width.
 """
 
 import pytest
@@ -25,6 +28,8 @@ import torch
 from repro_torch.kernels.ff_attention import (attention, attention_proj,
                                              attention_proj_ref,
                                              attention_ref)
+from repro_torch.kernels.ff_chunk_scan import (chunk_scan, chunk_scan_plain,
+                                               chunk_scan_ref)
 from repro_torch.kernels.ff_decode_attention import (decode_attention,
                                                      decode_attention_ref)
 from repro_torch.kernels.ff_layer import (ff_layer_matmul,
@@ -311,3 +316,84 @@ def test_staged_paged_decode_equals_fused(cuda, dtype):
     staged = paged_kv.paged_decode_unfused(q, pool, idx, lens)
     fused = paged_kv.paged_decode_attention(q, pool, tables, lens)
     assert torch.equal(staged, fused)
+
+
+def _scan_inputs(g, bh, s, n, p, exclusive):
+    q = _randn(g, bh, s, n, scale=0.5)
+    k = _randn(g, bh, s, n, scale=0.5)
+    v = _randn(g, bh, s, p)
+    lw = -0.5 * torch.exp(_randn(g, bh, s, n))
+    u = _randn(g, bh, n, scale=0.3) if exclusive else None
+    return q, k, v, lw, u
+
+
+def _scan_err(out, plain):
+    return _err(out, plain) / (plain.float().abs().max().item() + 1e-6)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("exclusive", [False, True],
+                         ids=["inclusive", "exclusive_u"])
+@pytest.mark.parametrize("bh,s,n,p,chunk", [
+    (3, 200, 64, 64, 64), (2, 77, 16, 32, 32), (2, 300, 64, 64, 128),
+    (1, 64, 16, 16, 16)])
+def test_chunk_scan_kernel_matches_plain(cuda, dtype, exclusive, bh, s, n, p,
+                                         chunk):
+    """float32 within 3e-5 of max |plain| (the reference kernel test's
+    bound), bfloat16 streams within 2e-2 of it."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v, lw, u = _scan_inputs(g, bh, s, n, p, exclusive)
+    q, k, v, lw = (x.to(dtype) for x in (q, k, v, lw))
+    n0 = chunk_scan.launches
+    out = chunk_scan(q, k, v, lw, u, inclusive=not exclusive, chunk=chunk)
+    assert chunk_scan.launches == n0 + 1
+    plain = chunk_scan_plain(q, k, v, lw, u, inclusive=not exclusive,
+                             chunk=chunk)
+    assert out.dtype == dtype and out.shape == (bh, s, p)
+    tol = 3e-5 if dtype == torch.float32 else 2e-2
+    assert _scan_err(out, plain) < tol
+    if dtype == torch.float32:
+        ref = chunk_scan_ref(q, k, v, lw, u, inclusive=not exclusive)
+        assert _scan_err(out, ref) < tol
+
+
+@pytest.mark.parametrize("exclusive", [False, True],
+                         ids=["mamba2_types", "rwkv6_types"])
+def test_chunk_scan_takes_a_type_per_stream(cuda, exclusive):
+    """Mamba2: bf16 q/k/v, f32 log_w, q and k shared by the 4 heads of a
+    row and log_w one value per head and step (expanded views); RWKV6:
+    bf16 q/k/v/log_w, f32 u."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    bf = torch.bfloat16
+    q, k, v, lw, u = _scan_inputs(g, 8, 130, 64, 64, exclusive)
+    q, k, v = q.to(bf), k.to(bf), v.to(bf)
+    if exclusive:
+        lw = lw.to(bf)
+    else:
+        q, k = (x[:2, None].expand(2, 4, 130, 64).reshape(8, 130, 64)
+                for x in (q, k))
+        lw = lw[:, :, :1].expand(8, 130, 64)
+    out = chunk_scan(q, k, v, lw, u, inclusive=not exclusive)
+    plain = chunk_scan_plain(q, k, v, lw, u, inclusive=not exclusive)
+    assert _scan_err(out, plain) < 2e-2
+
+
+def test_chunk_scan_strong_decay_stays_finite(cuda):
+    """lw = -3: a chunk decays by e^-192; every exponent stays <= 0."""
+    ones = torch.ones(2, 256, 64, device=cuda)
+    lw = torch.full((2, 256, 64), -3.0, device=cuda)
+    for exclusive in (False, True):
+        u = torch.ones(2, 64, device=cuda) if exclusive else None
+        out = chunk_scan(ones, ones, ones, lw, u, inclusive=not exclusive)
+        assert out.isfinite().all()
+        ref = chunk_scan_ref(ones, ones, ones, lw, u,
+                             inclusive=not exclusive)
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+
+
+def test_chunk_scan_refuses_what_does_not_fit(cuda):
+    x = torch.zeros(1, 128, 128, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        chunk_scan(x, x, x, x, chunk=128)
+    with pytest.raises(ValueError):                  # mixed devices
+        chunk_scan(x, x.cpu(), x, x)

@@ -21,6 +21,7 @@ from repro.core.program import PipePolicy
 from repro.kernels.ff_matmul.ref import matmul_ref as jax_matmul_ref
 from repro_torch import ops
 from repro_torch.kernels.ff_attention import attention
+from repro_torch.kernels.ff_chunk_scan import chunk_scan
 from repro_torch.kernels.ff_decode_attention import decode_attention
 from repro_torch.kernels.ff_gather import gather, gather_ref
 from repro_torch.kernels.ff_matmul import (dispatch_matmul,
@@ -149,11 +150,11 @@ def test_dispatch_matmul_plain_is_gather_then_matmul(gather_case):
 
 
 def test_ops_names_are_the_reference_entry_points_ported_so_far():
-    """Every reference entry point but ``chunk_scan`` (its slice is next),
-    each the kernel wrapper itself."""
-    assert set(ops.names()) == set(repro.ops.names()) - {"chunk_scan"}
-    assert (ops.matmul, ops.gather, ops.attention, ops.decode_attention) == (
-        matmul, gather, attention, decode_attention)
+    """Every reference entry point, each the kernel wrapper itself."""
+    assert ops.names() == tuple(repro.ops.names())
+    assert (ops.matmul, ops.gather, ops.attention, ops.decode_attention,
+            ops.chunk_scan) == (matmul, gather, attention, decode_attention,
+                                chunk_scan)
 
 
 def test_wrappers_reject_what_they_do_not_take():
