@@ -23,7 +23,9 @@ Phases (any failure exits non-zero without the final result line):
      within 5e-4 and bfloat16 within 2e-2 (relative and absolute), the
      gather exactly, and each fused launch (attention_proj, the MoE
      dispatch, the paged kernel) equal to its staged composition bit for
-     bit; then the gated linear-attention scan (ff_chunk_scan) at both
+     bit, and the bf16 product and dispatch equal across the ring's depth
+     {1, 2, 4} x streams {1, 2} bit for bit (plus a row-strided bf16
+     operand pair that TMA cannot describe); then the gated linear-attention scan (ff_chunk_scan) at both
      recurrent models' prefill shapes (rwkv6-7b exclusive with u, zamba2
      inclusive; B = 4, S = 256, their stream types and f32), at a ragged
      S = 200 with chunk 32/64/128 and on a strong decay, float32 within
@@ -51,7 +53,10 @@ Phases (any failure exits non-zero without the final result line):
      memory, the bf16 handoff gap and a decode-step profile;
   f. time each kernel at the main path's shapes with CUDA events (the
      chunk scan at both recurrent models' prefill shapes), and each fused
-     launch against its staged composition;
+     launch against its staged composition; then the paper's depth
+     experiment: the matmul at both LIB shapes and the MoE dispatch at
+     every ring depth {1, 2, 3, 4, 6} x streams {1, 2} (a ``depth_sweep``
+     line);
   g. profile full-width decode steps (dense, paged, layer graph, timed in
      alternating rounds): wall vs device busy time and device launches
      per step.
@@ -450,6 +455,18 @@ def check_library_kernels(torch, dev, shapes):
                   f"max|kernel-plain|={e:.3e} tol={tol} (rel and abs)")
             if main and lbl == LIB["matmul"][0][0]:
                 main_err["ff_matmul"] = e
+            if main and ta == tb:
+                check_pipe_bitwise(torch, f"ff_matmul {lbl} {m}x{k}x{n}",
+                                   lambda **kw: matmul(a, b, **kw), out)
+        if main:
+            # rows TMA cannot describe: a row stride of 203 elements, B
+            # read from an odd column
+            a = rn(torch, gen, dev, 150, 203, dtype=dtype)[:, 3:195]
+            b = rn(torch, gen, dev, 192, 300, scale=0.07,
+                   dtype=dtype)[:, 1:261]
+            ok, e = within(matmul(a, b), matmul_ref(a, b), tol)
+            check(f"ff_matmul row-strided {tag} 150x192x260", ok,
+                  f"max|kernel-plain|={e:.3e} tol={tol} (rel and abs)")
         cases = [(lbl, r, c, n) for lbl, r, c, n, t in LIB["gather"]
                  if t == tag] + [("ragged", 500, 7, 1001),
                                  ("ragged", 500, 64, 333)]
@@ -494,6 +511,11 @@ def check_library_kernels(torch, dev, shapes):
             check(f"ff_dispatch_matmul == gather then matmul bitwise {lbl} "
                   f"{tag}", torch.equal(fused, staged),
                   f"max diff {err(fused, staged)}")
+            if main:
+                check_pipe_bitwise(
+                    torch, f"ff_dispatch_matmul {lbl}",
+                    lambda **kw: dispatch_matmul(tokens, idx, w1, **kw),
+                    fused)
             out = M.moe_dispatch_ffn(idx, tokens, w1, comb)
             unf = M._moe_graph_unfused(idx, tokens, w1, comb)
             check(f"moe_dispatch_ffn == unfused bitwise {lbl} {tag}",
@@ -512,6 +534,19 @@ def check_library_kernels(torch, dev, shapes):
         check(f"paged decode == gather then decode bitwise serve {tag}",
               torch.equal(staged, fused), f"max diff {err(staged, fused)}")
     return main_err
+
+
+PIPE_GRID = [(d, st) for d in (1, 2, 4) for st in (1, 2)]
+
+
+def check_pipe_bitwise(torch, label, fn, want):
+    """The bf16 product at every (depth, streams) of PIPE_GRID equals
+    ``want`` (the default's) bit for bit: the ring changes when a tile
+    lands, not what is summed."""
+    bad = [(d, st) for d, st in PIPE_GRID
+           if not torch.equal(fn(depth=d, streams=st), want)]
+    check(f"{label} bitwise across depth x streams {PIPE_GRID}", not bad,
+          f"differs at {bad}" if bad else "all equal")
 
 
 def library_path(torch, dev, shapes, gen):
@@ -746,6 +781,48 @@ def time_library_kernels(torch, dev, shapes):
         if more:
             first["more"] = [split_bound(r) for r in more]
     return out
+
+
+SWEEP_DEPTHS = (1, 2, 3, 4, 6)
+SWEEP_STREAMS = (1, 2)
+
+
+def depth_sweep(torch, dev):
+    """The paper's depth experiment on this card: rows 8 (both LIB shapes)
+    and 8b, device ms per call with L2 cold, at every depth of
+    SWEEP_DEPTHS that fits in shared memory and every streams of
+    SWEEP_STREAMS. Printed as one ``depth_sweep`` JSON line."""
+    from repro_torch.kernels.ff_matmul import dispatch_matmul, matmul
+    from repro_torch.kernels.ff_matmul.ops import (DEFAULT_DEPTH,
+                                                   DEFAULT_STREAMS,
+                                                   MAX_DEPTH)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    bf16 = torch.bfloat16
+    cases = []
+    for lbl, m, k, n in LIB["matmul"]:
+        a, b = matmul_operands(torch, dev, gen, m, k, n, bf16)
+        cases.append((f"ff_matmul a[{m},{k}] @ b[{k},{n}] ({lbl})",
+                      lambda a=a, b=b, **kw: matmul(a, b, **kw),
+                      10 if m * n * k > 2 ** 34 else 100))
+    t, d, n, f, t_out = LIB["moe"]
+    idx, tokens, w1, _ = moe_operands(torch, dev, gen, t, d, n, f, t_out,
+                                      bf16)
+    cases.append((f"ff_dispatch_matmul tokens[{t},{d}] idx[{n}] "
+                  f"w1[{d},{f}]",
+                  lambda **kw: dispatch_matmul(tokens, idx, w1, **kw), 100))
+    sweep = dict(default={"depth": DEFAULT_DEPTH,
+                          "streams": DEFAULT_STREAMS},
+                 depths=[x for x in SWEEP_DEPTHS if x <= MAX_DEPTH],
+                 streams=list(SWEEP_STREAMS), ms={})
+    for label, fn, reps in cases:
+        print(f"f. depth sweep {label}", flush=True)
+        sweep["ms"][label] = {
+            f"depth={x} streams={st}": time_ms(
+                torch, lambda x=x, st=st: fn(depth=x, streams=st), reps,
+                flush)
+            for x in sweep["depths"] for st in sweep["streams"]}
+    print("depth_sweep " + json.dumps(sweep), flush=True)
 
 
 def split_bound(r):
@@ -1708,6 +1785,7 @@ def main() -> int:
     rows = time_kernels(torch, dev, shapes)
     rows.update(time_layer_kernels(torch, dev, shapes))
     rows.update(time_library_kernels(torch, dev, shapes))
+    depth_sweep(torch, dev)
     rows.update(time_scan_kernel(torch, dev, scan_launches))
     profile_decode(torch, dev)
     kernels = []

@@ -16,23 +16,118 @@
 // the prefill kernel's body (ff_attention.cuh) over the K/V tiles, rounds
 // the finished tile to the operand type where the reference graph writes
 // it into its ring, keeps it in shared memory as the A operand, and walks
-// D_out in 64-column tiles through the product body of ff_matmul.cuh, with
-// w streamed from L2. Both bodies are the ones the standalone kernels run,
-// and every output is one fmaf chain over D in order, so the result equals
-// ff_attention followed by ff_matmul bit for bit.
+// D_out in tiles, with w streamed from L2, through the product body that
+// the standalone matmul runs on the same types (ff_matmul.cuh):
+//   * bf16: the block is one warpgroup; the A tile is stored 128-byte
+//     swizzled, padded from 32 to wgmma's 64 rows and to whole 64-deep k
+//     slabs with zeros, and w is staged slab by slab (128 columns by 64
+//     k, two buffers filled by cp.async) for wgmma m64n128k16, the
+//     matmul's instruction shape: every output is the same chain of k16
+//     steps in k order from 0.f as in the matmul, which never splits k
+//     this small (ops.py _plan);
+//   * f32: the CUDA-core body in 64-column tiles, every output one fmaf
+//     chain over D in order.
+// So the result equals ff_attention followed by ff_matmul bit for bit.
 
 #include "ff_attention.cuh"
 #include "ff_matmul.cuh"
 
+#include <type_traits>
+
 namespace {
 
+namespace mm = repro::mm;
 using repro::attn::kBlockQ;
 using repro::attn::kThreads;
 constexpr int kBN = 64;
-using ProjSlab = repro::mm::Slab<kBlockQ, kBN>;
+using ProjSlab = mm::Slab<kBlockQ, kBN>;
 
+template <typename T>
+constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+
+// Shared memory after the attention body's: the f32 slab, or (bf16) the
+// 1024-aligned A tile of whole k slabs and two B slabs.
+template <typename T>
 size_t smem_bytes(int d) {
-  return sizeof(float) * repro::attn::smem_floats(d) + sizeof(ProjSlab);
+  const size_t attn = sizeof(float) * repro::attn::smem_floats(d);
+  if (!kTensorCores<T>) return attn + sizeof(ProjSlab);
+  return attn + 1024 + size_t((d + mm::kWgK - 1) / mm::kWgK) * mm::kASlab +
+         2 * mm::kBSlab;
+}
+
+// out[0:rows, :] = A @ w on the tensor cores, A the finished attention
+// tile; ``tail`` is the shared memory past the attention body's.
+__device__ void project_wgmma(const repro::attn::Tile& t, unsigned char* tail,
+                              const __nv_bfloat16* __restrict__ w,
+                              __nv_bfloat16* __restrict__ out, int rows,
+                              int d, int d_out) {
+  unsigned char* a_s =
+      tail + ((1024 - (repro::ring::smem_addr(tail) & 1023)) & 1023);
+  const int slabs = (d + mm::kWgK - 1) / mm::kWgK;
+  const int width = slabs * mm::kWgK;
+  unsigned char* b_s = a_s + slabs * mm::kASlab;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  // the ring word: the attention tile in bf16; rows past the tile's
+  // ragged edge, rows 32..63 and k past d are 0
+  for (int i = threadIdx.x; i < mm::kWgM * width; i += kThreads) {
+    const int r = i / width, kk = i % width;
+    *reinterpret_cast<__nv_bfloat16*>(
+        a_s + (kk / mm::kWgK) * mm::kASlab +
+        repro::ring::sw128(r, kk % mm::kWgK)) =
+        (r < rows && kk < d)
+            ? repro::attn::out_elem<__nv_bfloat16>(t, r * d + kk, d)
+            : zero;
+  }
+  // the words of w: (128-column tile, 64-deep k slab), k innermost, into
+  // two buffers, so the copy of word g+1 overlaps the products of word g;
+  // 16-byte cp.async where w's rows allow it, element copies otherwise,
+  // zeros past d and d_out
+  const bool vec = reinterpret_cast<uintptr_t>(w) % 16 == 0 && d_out % 8 == 0;
+  auto fetch = [&](int g, unsigned char* buf) {
+    const int n0 = (g / slabs) * mm::kWgN, k0 = (g % slabs) * mm::kWgK;
+    if (vec) {
+      for (int e = threadIdx.x; e < mm::kWgK * mm::kWgN / 8; e += kThreads) {
+        const int r = e / (mm::kWgN / 8), c = (e % (mm::kWgN / 8)) * 8;
+        const int bytes =
+            k0 + r < d ? max(0, min(16, 2 * (d_out - (n0 + c)))) : 0;
+        repro::ring::cp_async_16(
+            buf + (c >> 6) * mm::kBHalf + repro::ring::sw128(r, c & 63),
+            bytes ? w + (long long)(k0 + r) * d_out + n0 + c : w, bytes);
+      }
+      repro::ring::cp_async_commit();
+    } else {
+      for (int e = threadIdx.x; e < mm::kWgK * mm::kWgN; e += kThreads) {
+        const int r = e / mm::kWgN, c = e % mm::kWgN;
+        *reinterpret_cast<__nv_bfloat16*>(buf + (c >> 6) * mm::kBHalf +
+                                          repro::ring::sw128(r, c & 63)) =
+            (k0 + r < d && n0 + c < d_out)
+                ? w[(long long)(k0 + r) * d_out + n0 + c]
+                : zero;
+      }
+    }
+  };
+  const int words = ((d_out + mm::kWgN - 1) / mm::kWgN) * slabs;
+  float acc[mm::kWgAcc];
+  fetch(0, b_s);
+  for (int g = 0; g < words; ++g) {
+    unsigned char* buf = b_s + (g & 1) * mm::kBSlab;
+    const int s = g % slabs, n0 = (g / slabs) * mm::kWgN;
+    if (vec) repro::ring::cp_async_wait_all();
+    repro::ring::fence_async_smem();
+    __syncthreads();   // word g landed; word g-1's products are done
+    if (s == 0) {
+#pragma unroll
+      for (int i = 0; i < mm::kWgAcc; ++i) acc[i] = 0.f;
+    }
+    mm::wg_fence();
+    mm::mma_slab(acc, repro::ring::smem_addr(a_s + s * mm::kASlab),
+                 repro::ring::smem_addr(buf));
+    mm::wg_commit();
+    if (g + 1 < words) fetch(g + 1, b_s + ((g + 1) & 1) * mm::kBSlab);
+    mm::wg_wait<0>(acc);
+    if (s == slabs - 1)
+      mm::store_frag(acc, out + n0, d_out, rows, d_out - n0);
+  }
 }
 
 template <typename T>
@@ -43,32 +138,37 @@ __global__ void __launch_bounds__(kThreads)
                           int d_out, int causal, float scale) {
   extern __shared__ float smem[];
   const repro::attn::Tile t = repro::attn::carve(smem, d);
-  ProjSlab& slab =
-      *reinterpret_cast<ProjSlab*>(smem + repro::attn::smem_floats(d));
+  float* tail = smem + repro::attn::smem_floats(d);
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBlockQ;
   const int rows = min(kBlockQ, s - q0);
   // one KV head per q head (kv_groups 1), as the reference graph's
   repro::attn::attend<T>(t, q, k, v, bh, q0, rows, s, skv, d, 1, causal,
                          scale);
-  // the ring word: the attention tile in the operand type (the q tile's
-  // shared memory is free again); rows past the ragged edge are 0
-  float* a_s = t.q_s;
-  for (int i = threadIdx.x; i < kBlockQ * d; i += kThreads)
-    a_s[i] = (i / d < rows)
-                 ? repro::to_f(repro::attn::out_elem<T>(t, i, d))
-                 : 0.f;
-  __syncthreads();
-  auto load_a = [&](int r, int kk) -> float {
-    return kk < d ? a_s[r * d + kk] : 0.f;
-  };
   T* ob = out + (size_t(bh) * s + q0) * d_out;
-  for (int n0 = 0; n0 < d_out; n0 += kBN) {
-    float acc[repro::mm::kTM][repro::mm::kTN];
-    repro::mm::product_tile<kBlockQ, kBN, kThreads>(acc, slab, load_a, w,
-                                                    d_out, d, n0, d_out);
-    repro::mm::store_tile<kBlockQ, kBN, kThreads>(acc, ob, d_out, rows, n0,
-                                                  d_out);
+  if constexpr (kTensorCores<T>) {
+    project_wgmma(t, reinterpret_cast<unsigned char*>(tail), w, ob, rows, d,
+                  d_out);
+  } else {
+    ProjSlab& slab = *reinterpret_cast<ProjSlab*>(tail);
+    // the ring word: the attention tile in the operand type (the q tile's
+    // shared memory is free again); rows past the ragged edge are 0
+    float* a_s = t.q_s;
+    for (int i = threadIdx.x; i < kBlockQ * d; i += kThreads)
+      a_s[i] = (i / d < rows)
+                   ? repro::to_f(repro::attn::out_elem<T>(t, i, d))
+                   : 0.f;
+    __syncthreads();
+    auto load_a = [&](int r, int kk) -> float {
+      return kk < d ? a_s[r * d + kk] : 0.f;
+    };
+    for (int n0 = 0; n0 < d_out; n0 += kBN) {
+      float acc[mm::kTM][mm::kTN];
+      mm::product_tile<kBlockQ, kBN, kThreads>(acc, slab, load_a, w, d_out,
+                                               d, n0, d_out);
+      mm::store_tile<kBlockQ, kBN, kThreads>(acc, ob, d_out, rows, n0,
+                                             d_out);
+    }
   }
 }
 
@@ -77,7 +177,7 @@ int launch(const void* q, const void* k, const void* v, const void* w,
            void* out, int bh, int s, int skv, int d, int d_out, int causal,
            float scale, void* stream) {
   if (bh == 0 || s == 0 || d_out == 0) return 0;
-  const size_t smem = smem_bytes(d);
+  const size_t smem = smem_bytes<T>(d);
   cudaError_t err = repro::allow_smem(attention_proj_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((s + kBlockQ - 1) / kBlockQ, bh);

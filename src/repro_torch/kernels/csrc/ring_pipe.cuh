@@ -1,0 +1,161 @@
+// The ring pipe on Hopper: the port of the reference's RingPipe and
+// GatherRingPipe (src/repro/core/emitter.py, lowered by
+// src/repro/core/program.py compile_program), the VMEM ring of ``depth``
+// words fed by async DMAs that joins a kernel's memory stage to its
+// compute stage.
+//
+// Here the ring is ``depth`` stages of dynamic shared memory, each with a
+// ``full`` and an ``empty`` mbarrier. One producer warp waits on
+// empty[s], then fills stage s and arrives on full[s]; the consumers wait
+// on full[s], compute, and arrive on empty[s]. Word g lives in stage
+// g % depth, in phase (g / depth) & 1, so the producer runs up to
+// ``depth`` words ahead of the consumers. At depth 1 it cannot fetch word
+// g+1 before word g is released: the synchronous copy-then-compute
+// baseline of the reference's Pipe (src/repro/core/pipe.py).
+//
+// A stage is filled by up to three kinds of copies, all completing on
+// full[s]:
+//   * TMA boxes (cp.async.bulk.tensor, one elected lane, counted by
+//     mbarrier.arrive.expect_tx): a tile whose base is 16-byte aligned and
+//     whose row stride is a multiple of 16 bytes. ``streams`` splits each
+//     tile copy into that many boxes of rows/streams rows;
+//   * per-row cp.async of 16 bytes with zero fill (every lane, tracked by
+//     cp.async.mbarrier.arrive.noinc): the rows of a gathered tile, which
+//     TMA cannot address, when they are 16-byte aligned;
+//   * element loads and shared-memory stores (every lane, then a proxy
+//     fence and mbarrier.arrive): anything else (row strides that are not
+//     a multiple of 16 bytes, such as k = 70 in bf16).
+// So full[s] expects 1 + 2 * 32 arrivals a phase (the elected lane's
+// expect_tx, and from every lane one cp.async-tracked and one plain
+// arrival), whatever mix of copies the stage took, plus the TMA bytes.
+//
+// Whatever the copy, a stage ends up holding the same bytes: the tile's
+// elements in the swizzled layout below, zeros past the tensor's edges.
+// So what the consumers compute does not depend on depth, streams or the
+// copy path (the bit-for-bit contract of ff_matmul.cuh). The ring bounds
+// nothing itself: it has to hide each stage's copy latency behind the
+// compute of the stages before it, and its users' notes give their
+// bounds. It carries bf16 tiles only; the f32 and mixed f32/bf16 products
+// of ff_matmul keep the CUDA-core body, which does not use it.
+//
+// Tiles are stored as the 128-byte swizzle that TMA's SWIZZLE_128B writes
+// and wgmma's 128B layout reads: a tile of rows of 64 bf16 (128 bytes),
+// where the 16-byte chunk c of row r sits at chunk c ^ (r % 8), in
+// 1024-byte aligned atoms of 8 rows.
+#pragma once
+
+#include <cuda.h>
+
+#include "common.cuh"
+
+namespace repro {
+namespace ring {
+
+constexpr int kProducerLanes = 32;
+constexpr int kFullArrivals = 1 + 2 * kProducerLanes;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Make the barriers' initialisation visible to the async proxy (TMA).
+__device__ __forceinline__ void fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Order this thread's generic-proxy shared-memory accesses before later
+// async-proxy ones (wgmma reading a tile written by st.shared/cp.async).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void arrive_expect_tx(uint64_t* bar,
+                                                 uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// One arrival on ``bar`` once every cp.async this thread issued so far
+// has landed (the barrier's expected count already includes it).
+__device__ __forceinline__ void arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// 2-D TMA box: columns from c0, rows from r0 of the tensor map, into
+// ``dst``; completes ``bytes`` (the full box) on ``bar``. Out-of-range
+// elements arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int r0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(r0)
+      : "memory");
+}
+
+// 16 bytes from ``src`` into ``dst``, of which the first ``src_bytes``
+// (0..16) are read and the rest filled with zeros.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// Close this thread's cp.async copies into a group / wait for all of them.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// Byte offset of bf16 element (r, c), c < 64, in a 128-byte swizzled tile.
+__host__ __device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + ((c & 7) << 1);
+}
+
+// Word g of a ring of ``depth`` stages: its stage and mbarrier phase.
+struct Slot {
+  int stage;
+  uint32_t phase;
+  __device__ __forceinline__ Slot(int g, int depth)
+      : stage(g % depth), phase((g / depth) & 1) {}
+};
+
+}  // namespace ring
+}  // namespace repro

@@ -14,8 +14,9 @@ and the one-launch MLP tail equals its three staged launches bit for bit.
 The library kernels and graphs (matmul, gather, attention_proj,
 moe_dispatch_ffn) are held at float32 5e-4 (the reference registry's tol
 of both graphs) and bfloat16 2e-2, each relative and absolute and chosen
-by the output's type; the gather and every fused launch against its
-staged composition at exactly 0. The chunk scan is held at float32 3e-5
+by the output's type; the gather, every fused launch against its staged
+composition, and the bf16 product across the ring's depth and streams
+at exactly 0. The chunk scan is held at float32 3e-5
 and bfloat16 2e-2 of max |plain| (the reference kernel test's bound),
 its strong-decay case at rtol 1e-4 / atol 1e-5. These tests take small
 and ragged shapes; chip_smoke.py checks the same kernels at full model
@@ -224,6 +225,61 @@ def test_matmul_takes_row_strided_operands(cuda):
     a = _randn(g, 40, 96)[:, 8:72]                   # row stride 96
     b = _randn(g, 64, 200, scale=0.125)[:, 3:131]    # row stride 200
     assert _within(matmul(a, b), matmul_ref(a, b), LIB_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("m,n,k", [(200, 257, 130), (64, 384, 2048)],
+                         ids=["ragged", "split_k"])
+def test_bf16_matmul_is_bitwise_across_depth_and_streams(cuda, m, n, k):
+    """The ring's depth and streams change when a tile lands, not what is
+    summed: the bf16 product and the gathered launch give the same bits
+    at every (depth, streams)."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    a = _randn(g, m, k).to(torch.bfloat16)
+    b = _randn(g, k, n, scale=k ** -0.5).to(torch.bfloat16)
+    idx = torch.randint(0, m, (m,), generator=g, device=cuda)
+    base = matmul(a, b, depth=1, streams=1)
+    base_g = dispatch_matmul(a, idx, b, depth=1, streams=1)
+    for depth in (1, 2, 4):
+        for streams in (1, 2):
+            assert torch.equal(matmul(a, b, depth=depth, streams=streams),
+                               base)
+            assert torch.equal(dispatch_matmul(a, idx, b, depth=depth,
+                                               streams=streams), base_g)
+    assert _within(base, matmul_ref(a, b), LIB_TOL[torch.bfloat16])
+
+
+def test_bf16_matmul_takes_unaligned_and_row_strided_operands(cuda):
+    """Rows TMA cannot describe (k = 70: 140-byte rows; a row-strided A
+    and B at odd element offsets) are copied into the same ring by the
+    producer's element path."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    bf = torch.bfloat16
+    a = _randn(g, 333, 70).to(bf)
+    b = _randn(g, 70, 517, scale=70 ** -0.5).to(bf)
+    assert _within(matmul(a, b), matmul_ref(a, b), LIB_TOL[bf])
+    a = _randn(g, 150, 203).to(bf)[:, 3:195]          # row stride 203
+    b = _randn(g, 192, 300, scale=0.07).to(bf)[:, 1:261]
+    for out_dtype in DTYPES:
+        assert _within(matmul(a, b, out_dtype=out_dtype),
+                       matmul_ref(a, b, out_dtype), LIB_TOL[out_dtype])
+
+
+def test_split_k_matmul_matches_plain(cuda):
+    """Few output tiles: k is split over the SMs and the partials summed
+    in split order; the gathered launch takes the same split."""
+    from repro_torch.kernels.ff_matmul.ops import _plan, _sm_count
+    g = torch.Generator(device=cuda).manual_seed(14)
+    m, n, k = 64, 1408, 2048
+    assert _plan(m, n, k, torch.bfloat16, torch.bfloat16,
+                 _sm_count(0)).split > 1
+    tokens = _randn(g, 512, k).to(torch.bfloat16)
+    idx = torch.randint(0, 512, (m,), generator=g, device=cuda)
+    w = _randn(g, k, n, scale=k ** -0.5).to(torch.bfloat16)
+    a = gather(tokens, idx)
+    for out_dtype in DTYPES:
+        assert _within(matmul(a, w, out_dtype=out_dtype),
+                       matmul_ref(a, w, out_dtype), LIB_TOL[out_dtype])
+    assert torch.equal(dispatch_matmul(tokens, idx, w), matmul(a, w))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
