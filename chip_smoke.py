@@ -23,16 +23,19 @@ Phases (any failure exits non-zero without the final result line):
      within 5e-4 and bfloat16 within 2e-2 (relative and absolute), the
      gather exactly, and each fused launch (attention_proj, the MoE
      dispatch, the paged kernel) equal to its staged composition bit for
-     bit, and the bf16 product and dispatch equal across the ring's depth
-     {1, 2, 4} x streams {1, 2} bit for bit (plus a row-strided bf16
-     operand pair that TMA cannot describe); then the gated linear-attention scan (ff_chunk_scan) at both
-     recurrent models' prefill shapes (rwkv6-7b exclusive with u, zamba2
-     inclusive; B = 4, S = 256, their stream types and f32), at a ragged
+     bit, and the bf16 kernels on the ring (the product, the dispatch,
+     attention at the 256-token serve shape, attention_proj) equal across
+     the ring's depth {1, 2, 4} x streams {1, 2} bit for bit (plus a
+     row-strided bf16 operand pair that TMA cannot describe); then the
+     gated linear-attention scan (ff_chunk_scan) at both recurrent models'
+     prefill shapes (rwkv6-7b exclusive with u, zamba2 inclusive; B = 4,
+     S = 256, their stream types and f32) at chunk 64 and 256, at a ragged
      S = 200 with chunk 32/64/128 and on a strong decay, float32 within
      3e-5 of max |plain| and bfloat16 within 2e-2; attention and decode
-     attention at zamba2's head dim 80; the smoke rwkv6 and zamba2 models
-     on the card against the CPU (prefill, 3 greedy decode steps) and
-     their f32 prefill -> decode handoff gap within 1e-3;
+     attention at zamba2's head dim 80, attention at head dim 128 (qwen2-
+     72b's heads, GQA 8); the smoke rwkv6 and zamba2 models on the card
+     against the CPU (prefill, 3 greedy decode steps) and their f32
+     prefill -> decode handoff gap within 1e-3;
   c. serve full-width qwen1.5-0.5B (random weights from seed 0) through
      ``repro_torch.launch.serve.serve_bench`` with the serve defaults, once
      more with 256-token prompts, and once with ``--layer-graph``;
@@ -51,10 +54,12 @@ Phases (any failure exits non-zero without the final result line):
      requiring finite logits, exactly one ff_chunk_scan launch per layer
      and (zamba2) attention launches; prefill and decode times, peak
      memory, the bf16 handoff gap and a decode-step profile;
-  f. time each kernel at the main path's shapes with CUDA events (the
-     chunk scan at both recurrent models' prefill shapes), and each fused
-     launch against its staged composition; then the paper's depth
-     experiment: the matmul at both LIB shapes and the MoE dispatch at
+  f. time each kernel at the main path's shapes with CUDA events
+     (attention also at the 256-token prefill, q/k/v [64,256,64], SDPA
+     beside it; the chunk scan at both recurrent models' prefill shapes),
+     and each fused launch against its staged composition; then the
+     paper's depth experiment: the matmul at both LIB shapes, the MoE
+     dispatch, and attention and attention_proj at q/k/v [64,256,64], at
      every ring depth {1, 2, 3, 4, 6} x streams {1, 2} (a ``depth_sweep``
      line);
   g. profile full-width decode steps (dense, paged, layer graph, timed in
@@ -241,6 +246,11 @@ def check_kernels(torch, dev, shapes):
                   f"max|kernel-plain|={e:.3e} tol={tol}")
             if label == "serve" and dtype == torch.bfloat16:
                 main_err["ff_attention"] = e
+            if label == "serve-256" and dtype == torch.bfloat16:
+                check_pipe_bitwise(
+                    torch, f"ff_attention {label} bh={bh} s={s}",
+                    lambda **kw: attention(q, k, v, kv_groups=groups,
+                                           causal=causal, **kw), out)
         dec = shapes["decode"]
         for label, (b, h, kvh, d, page, n_pages, nb, lengths) in (
                 ("serve", (dec["b"], dec["h"], dec["kvh"], dec["d"],
@@ -498,6 +508,10 @@ def check_library_kernels(torch, dev, shapes):
                   f"max diff {err(fused, staged)}")
             if main and lbl == "full":
                 main_err["ff_attention_proj"] = e
+                check_pipe_bitwise(
+                    torch, f"ff_attention_proj {lbl} bh={bh} s={s}",
+                    lambda **kw: attention_proj(q, k, v, w, causal=causal,
+                                                **kw), fused)
         for lbl, (t, d, n, f, t_out) in (("full", LIB["moe"]),
                                          ("ragged", (100, 70, 24, 130, 16))):
             idx, tokens, w1, comb = moe_operands(torch, dev, gen, t, d, n, f,
@@ -540,9 +554,10 @@ PIPE_GRID = [(d, st) for d in (1, 2, 4) for st in (1, 2)]
 
 
 def check_pipe_bitwise(torch, label, fn, want):
-    """The bf16 product at every (depth, streams) of PIPE_GRID equals
-    ``want`` (the default's) bit for bit: the ring changes when a tile
-    lands, not what is summed."""
+    """A bf16 kernel on the ring (the product, the dispatch, attention,
+    attention_proj) at every (depth, streams) of PIPE_GRID equals ``want``
+    (the default's) bit for bit: the ring changes when a tile lands, not
+    what is computed."""
     bad = [(d, st) for d, st in PIPE_GRID
            if not torch.equal(fn(depth=d, streams=st), want)]
     check(f"{label} bitwise across depth x streams {PIPE_GRID}", not bad,
@@ -789,9 +804,12 @@ SWEEP_STREAMS = (1, 2)
 
 def depth_sweep(torch, dev):
     """The paper's depth experiment on this card: rows 8 (both LIB shapes)
-    and 8b, device ms per call with L2 cold, at every depth of
-    SWEEP_DEPTHS that fits in shared memory and every streams of
-    SWEEP_STREAMS. Printed as one ``depth_sweep`` JSON line."""
+    and 8b, then row 1 and row 8a at q/k/v [64,256,64] (qwen's 4 x
+    256-token prefill; 8a into d_model 1024), device ms per call with L2
+    cold, at every depth of SWEEP_DEPTHS that fits in shared memory and
+    every streams of SWEEP_STREAMS. Printed as one ``depth_sweep`` JSON
+    line."""
+    from repro_torch.kernels import ff_attention as A
     from repro_torch.kernels.ff_matmul import dispatch_matmul, matmul
     from repro_torch.kernels.ff_matmul.ops import (DEFAULT_DEPTH,
                                                    DEFAULT_STREAMS,
@@ -804,24 +822,37 @@ def depth_sweep(torch, dev):
         a, b = matmul_operands(torch, dev, gen, m, k, n, bf16)
         cases.append((f"ff_matmul a[{m},{k}] @ b[{k},{n}] ({lbl})",
                       lambda a=a, b=b, **kw: matmul(a, b, **kw),
-                      10 if m * n * k > 2 ** 34 else 100))
+                      10 if m * n * k > 2 ** 34 else 100, MAX_DEPTH))
     t, d, n, f, t_out = LIB["moe"]
     idx, tokens, w1, _ = moe_operands(torch, dev, gen, t, d, n, f, t_out,
                                       bf16)
     cases.append((f"ff_dispatch_matmul tokens[{t},{d}] idx[{n}] "
                   f"w1[{d},{f}]",
-                  lambda **kw: dispatch_matmul(tokens, idx, w1, **kw), 100))
+                  lambda **kw: dispatch_matmul(tokens, idx, w1, **kw), 100,
+                  MAX_DEPTH))
+    bh, s, d, d_out = LIB["attention_proj"]
+    q, k, v, w = attn_proj_operands(torch, dev, gen, bh, s, d, d_out, bf16)
+    cases.append((f"ff_attention q/k/v[{bh},{s},{d}] causal",
+                  lambda **kw: A.attention(q, k, v, **kw), 100,
+                  A.max_depth(d)))
+    cases.append((f"ff_attention_proj q/k/v[{bh},{s},{d}] causal, "
+                  f"w[{d},{d_out}]",
+                  lambda **kw: A.attention_proj(q, k, v, w, **kw), 100,
+                  A.max_depth(d)))
     sweep = dict(default={"depth": DEFAULT_DEPTH,
                           "streams": DEFAULT_STREAMS},
-                 depths=[x for x in SWEEP_DEPTHS if x <= MAX_DEPTH],
-                 streams=list(SWEEP_STREAMS), ms={})
-    for label, fn, reps in cases:
+                 default_attention={"depth": A.DEFAULT_DEPTH,
+                                    "streams": A.DEFAULT_STREAMS},
+                 depths=list(SWEEP_DEPTHS), streams=list(SWEEP_STREAMS),
+                 ms={})
+    for label, fn, reps, max_depth in cases:
         print(f"f. depth sweep {label}", flush=True)
         sweep["ms"][label] = {
             f"depth={x} streams={st}": time_ms(
                 torch, lambda x=x, st=st: fn(depth=x, streams=st), reps,
                 flush)
-            for x in sweep["depths"] for st in sweep["streams"]}
+            for x in sweep["depths"] if x <= max_depth
+            for st in sweep["streams"]}
     print("depth_sweep " + json.dumps(sweep), flush=True)
 
 
@@ -972,8 +1003,8 @@ def scan_err(out, plain):
 
 def check_scan_kernel(torch, dev):
     """ff_chunk_scan against its plain version on the card: both models'
-    prefill shapes (B = 4, S = 256, the models' stream types and f32),
-    then a ragged S = 200 at chunk 32/64/128, f32 and bf16, with and
+    prefill shapes (B = 4, S = 256, the models' stream types and f32) at
+    chunk 64 and at chunk 256 (the reference autotuner's largest), then a ragged S = 200 at chunk 32/64/128, f32 and bf16, with and
     without u, and the strong-decay case (lw = -3, a chunk's decay
     e^-192). f32 within 3e-5 of max |plain|, bf16 within 2e-2; the f32
     cases also against the naive scan."""
@@ -986,9 +1017,12 @@ def check_scan_kernel(torch, dev):
     cases = []
     for label, bh, n, p, exclusive in scan_shapes():
         heads = 1 if exclusive else bh // SSM["batch"]
-        for dtype in (torch.bfloat16, torch.float32):
-            cases.append((f"{label} path", bh, s, n, p, exclusive, 64, dtype,
-                          dtype == torch.bfloat16, heads))
+        for chunk in (64, 256):
+            for dtype in (torch.bfloat16, torch.float32):
+                cases.append((f"{label} path" + (f" chunk={chunk}" if
+                                                 chunk != 64 else ""),
+                              bh, s, n, p, exclusive, chunk, dtype,
+                              dtype == torch.bfloat16, heads))
     for chunk in (32, 64, 128):
         for dtype in (torch.bfloat16, torch.float32):
             for exclusive in (False, True):
@@ -1033,11 +1067,16 @@ def check_scan_kernel(torch, dev):
     return {"ff_chunk_scan": main_err}
 
 
-def check_attention_hd80(torch, dev):
+# a dense config's head dim 128: qwen2-72b's 64 q heads over 8 KV heads
+# (src/repro/configs/qwen2_72b.py), one prompt of 256 tokens
+HD128 = dict(heads=64, kv_heads=8, d=128, s=256)
+
+
+def check_attention_head_dims(torch, dev):
     """Zamba2's shared attention block at its head dim 80 (32 heads, MHA):
     the prefill kernel over 4 x 256 tokens and the decode kernel over a
-    cache of 256 + 16 rows (tiles of 16), each against its plain
-    version."""
+    cache of 256 + 16 rows (tiles of 16), each against its plain version;
+    then the prefill kernel at head dim 128 (HD128, GQA 8)."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.ff_attention import attention, attention_ref
     from repro_torch.kernels.ff_decode_attention import (decode_attention,
@@ -1064,6 +1103,14 @@ def check_attention_hd80(torch, dev):
         e = err(out, decode_attention_ref(q, kc, vc, lens, block_kv=16))
         check(f"ff_decode_attention zamba2 hd={d} {tag} b={b} h={h} "
               f"skv={skv}", e <= tol and out.isfinite().all().item(),
+              f"max|kernel-plain|={e:.3e} tol={tol}")
+        hh, g = HD128["heads"], HD128["heads"] // HD128["kv_heads"]
+        q, k, v = prefill_inputs(torch, dev, dtype, hh, g, HD128["s"],
+                                 HD128["d"], gen)
+        out = attention(q, k, v, kv_groups=g)
+        e = err(out, attention_ref(q, k, v, kv_groups=g))
+        check(f"ff_attention hd={HD128['d']} {tag} bh={hh} g={g} "
+              f"s={HD128['s']}", e <= tol and out.isfinite().all().item(),
               f"max|kernel-plain|={e:.3e} tol={tol}")
 
 
@@ -1490,28 +1537,32 @@ def time_kernels(torch, dev, shapes):
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     rows = {}
 
-    bh, groups, s, d = shapes["prefill"]
-    q, k, v = prefill_inputs(torch, dev, dt, bh, groups, s, d, gen)
-    b, h = SERVE["slots"], bh // SERVE["slots"]
-    q4 = q.view(b, h, s, d)
-    k4 = k.view(b, h // groups, s, d)
-    v4 = v.view(b, h // groups, s, d)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * item
-    ops = 4 * d * bh * s * (s + 1) / 2           # causal (q, k) pairs
-    print("f. timing ff_attention", flush=True)
-    rows["ff_attention"] = dict(
-        shape=f"q[{bh},{s},{d}] kv[{bh // groups},{s},{d}] causal bf16",
-        ms=time_ms(torch, lambda: attention(q, k, v, kv_groups=groups), 200,
-                   flush),
-        ms_hot=time_ms(torch, lambda: attention(q, k, v, kv_groups=groups),
-                       200),
-        call_ms=call_ms(torch, lambda: attention(q, k, v, kv_groups=groups),
-                        100),
-        plain_ms=time_ms(torch, lambda: attention_ref(
-            q, k, v, kv_groups=groups), 20, flush),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, **gqa(groups)), 200, flush),
-        bound=bound(nbytes, ops, "bfloat16"))
+    attn_rows = []
+    for key in ("prefill", "prefill_256"):
+        bh, groups, s, d = shapes[key]
+        q, k, v = prefill_inputs(torch, dev, dt, bh, groups, s, d, gen)
+        b, h = SERVE["slots"], bh // SERVE["slots"]
+        q4 = q.view(b, h, s, d)
+        k4 = k.view(b, h // groups, s, d)
+        v4 = v.view(b, h // groups, s, d)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * item
+        ops = 4 * d * bh * s * (s + 1) / 2           # causal (q, k) pairs
+        print(f"f. timing ff_attention {key}", flush=True)
+        attn_rows.append(dict(
+            shape=f"q[{bh},{s},{d}] kv[{bh // groups},{s},{d}] causal bf16",
+            ms=time_ms(torch, lambda: attention(q, k, v, kv_groups=groups),
+                       200, flush),
+            ms_hot=time_ms(torch, lambda: attention(q, k, v,
+                                                    kv_groups=groups), 200),
+            call_ms=call_ms(torch, lambda: attention(q, k, v,
+                                                     kv_groups=groups), 100),
+            plain_ms=time_ms(torch, lambda: attention_ref(
+                q, k, v, kv_groups=groups), 20, flush),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True, **gqa(groups)), 200, flush),
+            bound=bound(nbytes, ops, "bfloat16")))
+    rows["ff_attention"] = attn_rows[0]
+    rows["ff_attention"]["more"] = [split_bound(r) for r in attn_rows[1:]]
 
     dec = shapes["decode"]
     q, pool, tables, lens, k, v = decode_inputs(
@@ -1770,7 +1821,7 @@ def main() -> int:
     check_decode_layer(torch, dev, shapes)
     check_model_small(torch, dev)
     main_err.update(check_scan_kernel(torch, dev))
-    check_attention_hd80(torch, dev)
+    check_attention_head_dims(torch, dev)
     check_ssm_small(torch, dev)
 
     launches = run_serve(torch, "default", PER_OP)

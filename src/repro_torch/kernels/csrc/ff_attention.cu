@@ -7,74 +7,183 @@
 // and p rounded to the V type before the PV product (kernel.py:90-91).
 //
 // Bound on this card: causal prefill does 2*BH*S^2*D operations over
-// (2+2*BKVH/BH)*BH*S*D elements moved, so at the serving lengths
-// (S <= a few hundred) it is bound by launch and latency, and at long S by
-// the tensor cores (989 TFLOP/s bf16). This first kernel does the products
-// with scalar FMAs from shared memory, so it is bound by shared-memory
-// bandwidth, far from either roof.
+// (2+2*BKVH/BH)*BH*S*D elements moved: at qwen's 4 x 256-token prefill
+// (q/k/v [64,256,64]) 0.54 GFLOP over 8.4 MB, 2.5 us of HBM against 0.54
+// us of tensor cores, so bytes bound it; at the serving lengths the
+// launch and the latency of one KV tile's fill and products set the time;
+// at long S the tensor cores (989 TFLOP/s bf16) do.
 //
-// Design: one block of 128 threads per (bh, q tile of 32 rows), looping over
-// K/V tiles of 32 rows staged in shared memory (the TPU's sequential grid
-// axis kj becomes this loop; the running m, l and acc live in shared memory
-// in f32). The body is ff_attention.cuh, shared with ff_attention_proj.cu.
-// The TPU wrapper padded S to the block; here the ragged q and KV edges are
-// masked in the kernel, so no padded copy is made. Faster designs (wgmma,
-// TMA rings, warp specialisation) are for later work.
+// Design (bf16; the body is ff_attention.cuh namespace wg): one block per
+// (bh, q tile of 64 rows), one consumer warpgroup and one producer warp.
+// The producer fills a ring_pipe.cuh ring of ``depth`` stages with K and V
+// tiles of 64 rows by TMA (``streams`` boxes a tile; 3-D maps, so a head's
+// ragged end is zero-filled), or with element copies where TMA cannot
+// describe the tensor; the consumer runs QK^T and PV on wgmma with the
+// online softmax in registers, and releases each stage when its PV is
+// done. depth = 1 is the synchronous copy-then-compute baseline; at depth
+// >= 2 the next tile's fill overlaps this tile's products. The TPU's
+// sequential grid axis kj becomes the consumer's loop over the ring; the
+// TPU wrapper padded S to the block, here the ragged q and KV edges are
+// masked in the kernel, so no padded copy is made. f32 keeps the CUDA-core
+// body (namespace f32: 128 threads per 32-row tile, scalar fmaf products
+// from shared memory; depth and streams do not apply), which bounds it by
+// shared-memory bandwidth.
 
 #include "ff_attention.cuh"
 
 namespace {
 
-using repro::attn::kBlockQ;
-using repro::attn::kThreads;
+namespace ring = repro::ring;
+namespace wg = repro::attn::wg;
+namespace f32 = repro::attn::f32;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int s,
-                     int skv, int d, int kv_groups, int causal, float scale) {
+// ---------------------------------------------------------------------------
+// f32: the CUDA cores
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(f32::kThreads)
+    attention_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ out,
+                         int s, int skv, int d, int kv_groups, int causal,
+                         float scale) {
   extern __shared__ float smem[];
-  const repro::attn::Tile t = repro::attn::carve(smem, d);
+  const f32::Tile t = f32::carve(smem, d);
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int rows = min(kBlockQ, s - q0);
-  repro::attn::attend<T>(t, q, k, v, bh, q0, rows, s, skv, d, kv_groups,
-                         causal, scale);
-  T* ob = out + (size_t(bh) * s + q0) * d;
-  for (int i = threadIdx.x; i < rows * d; i += kThreads)
-    ob[i] = repro::attn::out_elem<T>(t, i, d);
+  const int q0 = blockIdx.x * f32::kBlockQ;
+  const int rows = min(f32::kBlockQ, s - q0);
+  f32::attend(t, q, k, v, bh, q0, rows, s, skv, d, kv_groups, causal, scale);
+  float* ob = out + (size_t(bh) * s + q0) * d;
+  for (int i = threadIdx.x; i < rows * d; i += f32::kThreads)
+    ob[i] = f32::out_elem(t, i, d);
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int bh,
-           int s, int skv, int d, int kv_groups, int causal, float scale,
-           void* stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, int bh,
+               int s, int skv, int d, int kv_groups, int causal, float scale,
+               void* stream) {
   if (bh == 0 || s == 0) return 0;
-  const size_t smem = sizeof(float) * repro::attn::smem_floats(d);
-  cudaError_t err = repro::allow_smem(attention_kernel<T>, smem);
+  const size_t smem = sizeof(float) * f32::smem_floats(d);
+  cudaError_t err = repro::allow_smem(attention_f32_kernel, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((s + kBlockQ - 1) / kBlockQ, bh);
-  attention_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), s, skv, d, kv_groups,
-      causal, scale);
+  dim3 grid((s + f32::kBlockQ - 1) / f32::kBlockQ, bh);
+  attention_f32_kernel<<<grid, f32::kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), s, skv, d,
+      kv_groups, causal, scale);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16: the ring pipe feeding wgmma
+// ---------------------------------------------------------------------------
+
+template <int kSlabs>
+__global__ void __launch_bounds__(wg::kThreads,
+                                  kSlabs == 1 ? 3 : (kSlabs == 2 ? 2 : 1))
+    attention_wg_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const wg::Args p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const wg::Ring rg = wg::carve(smem_raw, kSlabs, p.depth);
+  wg::init(rg, p.depth);
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * wg::kBlockQ;
+  const int rows = min(wg::kBlockQ, p.s - q0);
+  const int n_kv = wg::kv_tiles(p, q0, rows);
+  if (threadIdx.x >= wg::kConsumers) {
+    wg::produce(p, &map_q, &map_k, &map_v, rg, kSlabs, bh, q0, n_kv);
+    return;
+  }
+  float o[kSlabs][32], l[2];
+  wg::attend<kSlabs>(p, rg, q0, n_kv, o, l);
+  // the finished tile: column pairs as one store where d is even
+  const int t = threadIdx.x;
+  __nv_bfloat16* ob = p.out + (size_t(bh) * p.s + q0) * p.d;
+  const bool pairs = (p.d & 1) == 0;
+#pragma unroll
+  for (int c = 0; c < kSlabs; ++c)
+#pragma unroll
+    for (int j = 0; j < 32; j += 2) {
+      const int r = wg::frag_row(t, j), col = 64 * c + wg::frag_col(t, j);
+      if (r >= rows || col >= p.d) continue;
+      const float x0 = wg::finish(o[c][j], l, j);
+      const float x1 = wg::finish(o[c][j + 1], l, j + 1);
+      __nv_bfloat16* dst = ob + size_t(r) * p.d + col;
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0,
+                                                                        x1);
+      } else {
+        dst[0] = __float2bfloat16_rn(x0);
+        if (col + 1 < p.d) dst[1] = __float2bfloat16_rn(x1);
+      }
+    }
+}
+
+template <int kSlabs>
+int launch_wg_slabs(const wg::Args& p, const CUtensorMap& mq,
+                    const CUtensorMap& mk, const CUtensorMap& mv, int bh,
+                    size_t smem, cudaStream_t stream) {
+  static const cudaError_t opted = cudaFuncSetAttribute(
+      attention_wg_kernel<kSlabs>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kMaxSmem);
+  if (opted != cudaSuccess) return opted;
+  dim3 grid((p.s + wg::kBlockQ - 1) / wg::kBlockQ, bh);
+  attention_wg_kernel<kSlabs><<<grid, wg::kThreads, smem, stream>>>(mq, mk,
+                                                                    mv, p);
+  return cudaGetLastError();
+}
+
+int launch_wg(const void* q, const void* k, const void* v, void* out, int bh,
+              int s, int skv, int d, int kv_groups, int causal, float scale,
+              int depth, int streams, void* stream) {
+  if (bh == 0 || s == 0) return 0;
+  const int slabs = (d + 63) / 64;
+  if (d < 1 || slabs > wg::kMaxSlabs || depth < 1 || streams < 1 ||
+      wg::kBlockQ % streams || wg::kBlockQ / streams < 8)
+    return cudaErrorInvalidValue;
+  const size_t smem = wg::smem_bytes(slabs, depth);
+  if (smem > size_t(wg::kMaxSmem)) return cudaErrorInvalidValue;
+  const int box = wg::kBlockQ / streams;
+  wg::Args p{static_cast<const __nv_bfloat16*>(q),
+             static_cast<const __nv_bfloat16*>(k),
+             static_cast<const __nv_bfloat16*>(v), nullptr,
+             static_cast<__nv_bfloat16*>(out), s, skv, d, 0, kv_groups,
+             causal, scale, depth, streams, wg::kElem, wg::kElem,
+             wg::kElem};
+  CUtensorMap mq{}, mk{}, mv{};
+  if (ring::tma_ok(q, d))
+    p.q_copy = ring::encode_3d(&mq, q, d, s, bh, box) ? wg::kTma : -1;
+  if (skv > 0 && ring::tma_ok(k, d) && ring::tma_ok(v, d))
+    p.kv_copy = ring::encode_3d(&mk, k, d, skv, bh / kv_groups, box) &&
+                        ring::encode_3d(&mv, v, d, skv, bh / kv_groups, box)
+                    ? wg::kTma : -1;
+  if (p.q_copy < 0 || p.kv_copy < 0) return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (slabs) {
+    case 1: return launch_wg_slabs<1>(p, mq, mk, mv, bh, smem, st);
+    case 2: return launch_wg_slabs<2>(p, mq, mk, mv, bh, smem, st);
+    case 3: return launch_wg_slabs<3>(p, mq, mk, mv, bh, smem, st);
+    default: return launch_wg_slabs<4>(p, mq, mk, mv, bh, smem, st);
+  }
 }
 
 }  // namespace
 
+// out [BH, S, D] = attention(q [BH, S, D], k/v [BH / kv_groups, Skv, D]),
+// all contiguous. The bf16 entry takes the ring's depth and streams.
 extern "C" int ff_attention_f32(const void* q, const void* k, const void* v,
                                 void* out, int bh, int s, int skv, int d,
                                 int kv_groups, int causal, float scale,
                                 void* stream) {
-  return launch<float>(q, k, v, out, bh, s, skv, d, kv_groups, causal, scale,
-                       stream);
+  return launch_f32(q, k, v, out, bh, s, skv, d, kv_groups, causal, scale,
+                    stream);
 }
 
 extern "C" int ff_attention_bf16(const void* q, const void* k, const void* v,
                                  void* out, int bh, int s, int skv, int d,
                                  int kv_groups, int causal, float scale,
-                                 void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, bh, s, skv, d, kv_groups,
-                               causal, scale, stream);
+                                 int depth, int streams, void* stream) {
+  return launch_wg(q, k, v, out, bh, s, skv, d, kv_groups, causal, scale,
+                   depth, streams, stream);
 }

@@ -10,194 +10,320 @@
 //
 // Bound on this card: q, k, v and w read once, the [BH*S, D_out] output
 // written once; at serving widths (D 64, D_out 1024) the output dominates
-// the bytes, so the fused edge saves only the intermediate's round trip.
+// the bytes (33.5 MB of the 39.8 MB at q/k/v [64,256,64], about 0.012 ms
+// at 3.35 TB/s), so the fused edge saves only the intermediate's round
+// trip.
 //
-// Design: one block of 128 threads per (bh, q tile of 32 rows). It runs
-// the prefill kernel's body (ff_attention.cuh) over the K/V tiles, rounds
-// the finished tile to the operand type where the reference graph writes
-// it into its ring, keeps it in shared memory as the A operand, and walks
-// D_out in tiles, with w streamed from L2, through the product body that
-// the standalone matmul runs on the same types (ff_matmul.cuh):
-//   * bf16: the block is one warpgroup; the A tile is stored 128-byte
-//     swizzled, padded from 32 to wgmma's 64 rows and to whole 64-deep k
-//     slabs with zeros, and w is staged slab by slab (128 columns by 64
-//     k, two buffers filled by cp.async) for wgmma m64n128k16, the
-//     matmul's instruction shape: every output is the same chain of k16
-//     steps in k order from 0.f as in the matmul, which never splits k
-//     this small (ops.py _plan);
-//   * f32: the CUDA-core body in 64-column tiles, every output one fmaf
-//     chain over D in order.
-// So the result equals ff_attention followed by ff_matmul bit for bit.
+// Design (bf16): the prefill kernel's block and body (ff_attention.cuh
+// namespace wg: one consumer warpgroup on a 64-row q tile, one producer
+// warp filling a ring of ``depth`` K/V stages by TMA, QK^T and PV on
+// wgmma). When the tile is finished, the consumers round it to bf16 where
+// the reference graph writes it into its ring and store it, 128-byte
+// swizzled and zero past d and past the tile's ragged rows, over the q
+// tile's slabs, which is exactly the A tile of the projection: 64 real
+// rows, wgmma's M. The producer goes on filling the same ring with the
+// words of w, a 64-deep k slab by 128 columns each (TMA boxes, ``streams``
+// a half, or element copies where w's rows are not 16-byte aligned), and
+// the consumers run the standalone matmul's product body on them
+// (ff_matmul.cuh mma_slab: wgmma m64n128k16, the matmul's only instruction
+// shape, every output one chain of k16 steps in k order from 0.f; the
+// matmul never splits k this small, ops.py _plan). So the result equals
+// ff_attention followed by ff_matmul bit for bit. Each finished 64 x 128
+// output tile goes out through the stage its last word of w arrived in,
+// as whole 16-byte rows. Shared memory is the q tile and the ring alone
+// (41 KB at D 64, depth 2), so several blocks share an SM.
+//
+// f32: the CUDA-core bodies (ff_attention.cuh namespace f32, then the
+// product body of ff_matmul.cuh in 64-column tiles, every output one fmaf
+// chain over D in order); depth and streams do not apply.
 
 #include "ff_attention.cuh"
 #include "ff_matmul.cuh"
 
-#include <type_traits>
-
 namespace {
 
 namespace mm = repro::mm;
-using repro::attn::kBlockQ;
-using repro::attn::kThreads;
+namespace ring = repro::ring;
+namespace wg = repro::attn::wg;
+namespace f32 = repro::attn::f32;
+
+// ---------------------------------------------------------------------------
+// f32: the CUDA cores
+// ---------------------------------------------------------------------------
+
 constexpr int kBN = 64;
-using ProjSlab = mm::Slab<kBlockQ, kBN>;
+using ProjSlab = mm::Slab<f32::kBlockQ, kBN>;
 
-template <typename T>
-constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
-
-// Shared memory after the attention body's: the f32 slab, or (bf16) the
-// 1024-aligned A tile of whole k slabs and two B slabs.
-template <typename T>
-size_t smem_bytes(int d) {
-  const size_t attn = sizeof(float) * repro::attn::smem_floats(d);
-  if (!kTensorCores<T>) return attn + sizeof(ProjSlab);
-  return attn + 1024 + size_t((d + mm::kWgK - 1) / mm::kWgK) * mm::kASlab +
-         2 * mm::kBSlab;
+size_t f32_smem_bytes(int d) {
+  return sizeof(float) * f32::smem_floats(d) + sizeof(ProjSlab);
 }
 
-// out[0:rows, :] = A @ w on the tensor cores, A the finished attention
-// tile; ``tail`` is the shared memory past the attention body's.
-__device__ void project_wgmma(const repro::attn::Tile& t, unsigned char* tail,
-                              const __nv_bfloat16* __restrict__ w,
-                              __nv_bfloat16* __restrict__ out, int rows,
-                              int d, int d_out) {
-  unsigned char* a_s =
-      tail + ((1024 - (repro::ring::smem_addr(tail) & 1023)) & 1023);
-  const int slabs = (d + mm::kWgK - 1) / mm::kWgK;
-  const int width = slabs * mm::kWgK;
-  unsigned char* b_s = a_s + slabs * mm::kASlab;
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  // the ring word: the attention tile in bf16; rows past the tile's
-  // ragged edge, rows 32..63 and k past d are 0
-  for (int i = threadIdx.x; i < mm::kWgM * width; i += kThreads) {
-    const int r = i / width, kk = i % width;
-    *reinterpret_cast<__nv_bfloat16*>(
-        a_s + (kk / mm::kWgK) * mm::kASlab +
-        repro::ring::sw128(r, kk % mm::kWgK)) =
-        (r < rows && kk < d)
-            ? repro::attn::out_elem<__nv_bfloat16>(t, r * d + kk, d)
-            : zero;
-  }
-  // the words of w: (128-column tile, 64-deep k slab), k innermost, into
-  // two buffers, so the copy of word g+1 overlaps the products of word g;
-  // 16-byte cp.async where w's rows allow it, element copies otherwise,
-  // zeros past d and d_out
-  const bool vec = reinterpret_cast<uintptr_t>(w) % 16 == 0 && d_out % 8 == 0;
-  auto fetch = [&](int g, unsigned char* buf) {
-    const int n0 = (g / slabs) * mm::kWgN, k0 = (g % slabs) * mm::kWgK;
-    if (vec) {
-      for (int e = threadIdx.x; e < mm::kWgK * mm::kWgN / 8; e += kThreads) {
-        const int r = e / (mm::kWgN / 8), c = (e % (mm::kWgN / 8)) * 8;
-        const int bytes =
-            k0 + r < d ? max(0, min(16, 2 * (d_out - (n0 + c)))) : 0;
-        repro::ring::cp_async_16(
-            buf + (c >> 6) * mm::kBHalf + repro::ring::sw128(r, c & 63),
-            bytes ? w + (long long)(k0 + r) * d_out + n0 + c : w, bytes);
-      }
-      repro::ring::cp_async_commit();
-    } else {
-      for (int e = threadIdx.x; e < mm::kWgK * mm::kWgN; e += kThreads) {
-        const int r = e / mm::kWgN, c = e % mm::kWgN;
-        *reinterpret_cast<__nv_bfloat16*>(buf + (c >> 6) * mm::kBHalf +
-                                          repro::ring::sw128(r, c & 63)) =
-            (k0 + r < d && n0 + c < d_out)
-                ? w[(long long)(k0 + r) * d_out + n0 + c]
-                : zero;
-      }
-    }
-  };
-  const int words = ((d_out + mm::kWgN - 1) / mm::kWgN) * slabs;
-  float acc[mm::kWgAcc];
-  fetch(0, b_s);
-  for (int g = 0; g < words; ++g) {
-    unsigned char* buf = b_s + (g & 1) * mm::kBSlab;
-    const int s = g % slabs, n0 = (g / slabs) * mm::kWgN;
-    if (vec) repro::ring::cp_async_wait_all();
-    repro::ring::fence_async_smem();
-    __syncthreads();   // word g landed; word g-1's products are done
-    if (s == 0) {
-#pragma unroll
-      for (int i = 0; i < mm::kWgAcc; ++i) acc[i] = 0.f;
-    }
-    mm::wg_fence();
-    mm::mma_slab(acc, repro::ring::smem_addr(a_s + s * mm::kASlab),
-                 repro::ring::smem_addr(buf));
-    mm::wg_commit();
-    if (g + 1 < words) fetch(g + 1, b_s + ((g + 1) & 1) * mm::kBSlab);
-    mm::wg_wait<0>(acc);
-    if (s == slabs - 1)
-      mm::store_frag(acc, out + n0, d_out, rows, d_out - n0);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    attention_proj_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ w,
-                          T* __restrict__ out, int s, int skv, int d,
-                          int d_out, int causal, float scale) {
+__global__ void __launch_bounds__(f32::kThreads)
+    attention_proj_f32_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ w,
+                              float* __restrict__ out, int s, int skv, int d,
+                              int d_out, int causal, float scale) {
   extern __shared__ float smem[];
-  const repro::attn::Tile t = repro::attn::carve(smem, d);
-  float* tail = smem + repro::attn::smem_floats(d);
+  const f32::Tile t = f32::carve(smem, d);
+  ProjSlab& slab =
+      *reinterpret_cast<ProjSlab*>(smem + f32::smem_floats(d));
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int rows = min(kBlockQ, s - q0);
+  const int q0 = blockIdx.x * f32::kBlockQ;
+  const int rows = min(f32::kBlockQ, s - q0);
   // one KV head per q head (kv_groups 1), as the reference graph's
-  repro::attn::attend<T>(t, q, k, v, bh, q0, rows, s, skv, d, 1, causal,
-                         scale);
-  T* ob = out + (size_t(bh) * s + q0) * d_out;
-  if constexpr (kTensorCores<T>) {
-    project_wgmma(t, reinterpret_cast<unsigned char*>(tail), w, ob, rows, d,
-                  d_out);
-  } else {
-    ProjSlab& slab = *reinterpret_cast<ProjSlab*>(tail);
-    // the ring word: the attention tile in the operand type (the q tile's
-    // shared memory is free again); rows past the ragged edge are 0
-    float* a_s = t.q_s;
-    for (int i = threadIdx.x; i < kBlockQ * d; i += kThreads)
-      a_s[i] = (i / d < rows)
-                   ? repro::to_f(repro::attn::out_elem<T>(t, i, d))
-                   : 0.f;
-    __syncthreads();
-    auto load_a = [&](int r, int kk) -> float {
-      return kk < d ? a_s[r * d + kk] : 0.f;
-    };
-    for (int n0 = 0; n0 < d_out; n0 += kBN) {
-      float acc[mm::kTM][mm::kTN];
-      mm::product_tile<kBlockQ, kBN, kThreads>(acc, slab, load_a, w, d_out,
-                                               d, n0, d_out);
-      mm::store_tile<kBlockQ, kBN, kThreads>(acc, ob, d_out, rows, n0,
-                                             d_out);
-    }
+  f32::attend(t, q, k, v, bh, q0, rows, s, skv, d, 1, causal, scale);
+  float* ob = out + (size_t(bh) * s + q0) * d_out;
+  // the ring word: the finished attention tile (the q tile's shared memory
+  // is free again); rows past the ragged edge are 0
+  float* a_s = t.q_s;
+  for (int i = threadIdx.x; i < f32::kBlockQ * d; i += f32::kThreads)
+    a_s[i] = (i / d < rows) ? f32::out_elem(t, i, d) : 0.f;
+  __syncthreads();
+  auto load_a = [&](int r, int kk) -> float {
+    return kk < d ? a_s[r * d + kk] : 0.f;
+  };
+  for (int n0 = 0; n0 < d_out; n0 += kBN) {
+    float acc[mm::kTM][mm::kTN];
+    mm::product_tile<f32::kBlockQ, kBN, f32::kThreads>(acc, slab, load_a, w,
+                                                       d_out, d, n0, d_out);
+    mm::store_tile<f32::kBlockQ, kBN, f32::kThreads>(acc, ob, d_out, rows,
+                                                     n0, d_out);
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* w,
-           void* out, int bh, int s, int skv, int d, int d_out, int causal,
-           float scale, void* stream) {
+int launch_f32(const void* q, const void* k, const void* v, const void* w,
+               void* out, int bh, int s, int skv, int d, int d_out,
+               int causal, float scale, void* stream) {
   if (bh == 0 || s == 0 || d_out == 0) return 0;
-  const size_t smem = smem_bytes<T>(d);
-  cudaError_t err = repro::allow_smem(attention_proj_kernel<T>, smem);
+  const size_t smem = f32_smem_bytes(d);
+  cudaError_t err = repro::allow_smem(attention_proj_f32_kernel, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((s + kBlockQ - 1) / kBlockQ, bh);
-  attention_proj_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(w),
-      static_cast<T*>(out), s, skv, d, d_out, causal, scale);
+  dim3 grid((s + f32::kBlockQ - 1) / f32::kBlockQ, bh);
+  attention_proj_f32_kernel<<<grid, f32::kThreads, smem,
+                              (cudaStream_t)stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(w),
+      static_cast<float*>(out), s, skv, d, d_out, causal, scale);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16: the attention body, then the projection on the same ring
+// ---------------------------------------------------------------------------
+
+// The producer's words of w after the attention's: word i is k slab
+// i % slabs of the 128-column tile i / slabs, in stage (g0 + i) % depth,
+// laid out as ff_matmul.cu's B slab (two 64-column halves).
+__device__ inline void produce_w(const wg::Args& p, const CUtensorMap* map_w,
+                                 const wg::Ring& rg, int slabs, int g0,
+                                 int words) {
+  const int lane = threadIdx.x & 31;
+  const int rows = 64 / p.streams;
+  const bool elem = p.w_copy == wg::kElem;
+  for (int i = 0; i < words; ++i) {
+    const ring::Slot s(g0 + i, p.depth);
+    ring::wait(&rg.empty[s.stage], s.phase ^ 1);
+    unsigned char* b = rg.stages + size_t(s.stage) * rg.stage_bytes;
+    uint64_t* bar = &rg.full[s.stage];
+    const int n0 = (i / slabs) * mm::kWgN, k0 = (i % slabs) * mm::kWgK;
+    if (lane == 0) {
+      ring::arrive_expect_tx(bar, elem ? 0 : mm::kBSlab);
+      if (!elem)
+        for (int h = 0; h < 2; ++h)
+          for (int j = 0; j < p.streams; ++j)
+            ring::tma_load_2d(b + h * mm::kBHalf + j * rows * 128, map_w,
+                              bar, n0 + 64 * h, k0 + j * rows);
+    }
+    if (elem)
+      for (int e = lane; e < mm::kWgK * mm::kWgN; e += 32) {
+        const int r = e / mm::kWgN, c = e % mm::kWgN;
+        *reinterpret_cast<__nv_bfloat16*>(b + (c >> 6) * mm::kBHalf +
+                                          ring::sw128(r, c & 63)) =
+            (k0 + r < p.d && n0 + c < p.d_out)
+                ? p.w[(long long)(k0 + r) * p.d_out + n0 + c]
+                : __float2bfloat16_rn(0.f);
+      }
+    wg::filled(bar, elem);
+  }
+}
+
+// Store the warpgroup's 64 x 128 accumulators to ``out`` (row stride ldo)
+// as bf16 through ``buf`` (16 KB of shared memory whose products are
+// done): the fragments rounded into rows of 16-byte chunks (chunk c of
+// row r at c ^ (r % 8), so neither side conflicts on banks), then each
+// row written out in 16-byte stores where ldo and out allow, rows >=
+// ``rows`` and columns >= ``cols`` dropped. The same roundings as
+// mm::store_frag, so the same bits; the buffer is free again once this
+// thread returns.
+__device__ inline void store_staged(const float (&d)[mm::kWgAcc],
+                                    unsigned char* buf,
+                                    __nv_bfloat16* __restrict__ out,
+                                    long long ldo, int rows, int cols) {
+  const int t = threadIdx.x;
+  auto at = [&](int r, int c16) {
+    return buf + r * 256 + ((c16 ^ (r & 7)) << 4);
+  };
+#pragma unroll
+  for (int j = 0; j < mm::kWgAcc; j += 2) {
+    const int r = mm::frag_row(t, j), c = mm::frag_col(t, j);
+    *reinterpret_cast<__nv_bfloat162*>(at(r, c >> 3) + (c & 7) * 2) =
+        __floats2bfloat162_rn(d[j], d[j + 1]);
+  }
+  wg::consumers_sync();
+  const bool vec = ldo % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  for (int e = t; e < mm::kWgM * 16; e += wg::kConsumers) {
+    const int r = e >> 4, c16 = e & 15, c = c16 * 8;
+    if (r >= rows || c >= cols) continue;
+    const uint4 x = *reinterpret_cast<const uint4*>(at(r, c16));
+    __nv_bfloat16* dst = out + r * ldo + c;
+    if (vec && c + 8 <= cols) {
+      *reinterpret_cast<uint4*>(dst) = x;
+    } else {
+      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&x);
+      for (int k = 0; k < 8 && c + k < cols; ++k) dst[k] = h[k];
+    }
+  }
+  ring::fence_async_smem();   // before the producer's TMA refills buf
+}
+
+template <int kSlabs>
+__global__ void __launch_bounds__(wg::kThreads,
+                                  kSlabs == 1 ? 3 : (kSlabs == 2 ? 2 : 1))
+    attention_proj_wg_kernel(const __grid_constant__ CUtensorMap map_q,
+                             const __grid_constant__ CUtensorMap map_k,
+                             const __grid_constant__ CUtensorMap map_v,
+                             const __grid_constant__ CUtensorMap map_w,
+                             const wg::Args p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const wg::Ring rg = wg::carve(smem_raw, kSlabs, p.depth);
+  wg::init(rg, p.depth);
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * wg::kBlockQ;
+  const int rows = min(wg::kBlockQ, p.s - q0);
+  const int n_kv = wg::kv_tiles(p, q0, rows);
+  const int words = (p.d_out + mm::kWgN - 1) / mm::kWgN * kSlabs;
+  if (threadIdx.x >= wg::kConsumers) {
+    wg::produce(p, &map_q, &map_k, &map_v, rg, kSlabs, bh, q0, n_kv);
+    produce_w(p, &map_w, rg, kSlabs, n_kv, words);
+    return;
+  }
+  {
+    float o[kSlabs][32], l[2];
+    wg::attend<kSlabs>(p, rg, q0, n_kv, o, l);
+    // the ring word: the finished tile in bf16 over the q tile's slabs (the
+    // projection's K-major A tile), zeros past d and the ragged rows
+    const int t = threadIdx.x;
+#pragma unroll
+    for (int c = 0; c < kSlabs; ++c)
+#pragma unroll
+      for (int j = 0; j < 32; j += 2) {
+        const int r = wg::frag_row(t, j), col = 64 * c + wg::frag_col(t, j);
+        const bool live = r < rows;
+        const float x0 = live && col < p.d ? wg::finish(o[c][j], l, j) : 0.f;
+        const float x1 =
+            live && col + 1 < p.d ? wg::finish(o[c][j + 1], l, j + 1) : 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(
+            rg.q + c * wg::kSlabBytes + ring::sw128(r, col & 63)) =
+            __floats2bfloat162_rn(x0, x1);
+      }
+  }
+  ring::fence_async_smem();
+  wg::consumers_sync();
+  __nv_bfloat16* ob = p.out + (size_t(bh) * p.s + q0) * p.d_out;
+  const uint32_t a = ring::smem_addr(rg.q);
+  float acc[mm::kWgAcc];
+  for (int i = 0; i < words; ++i) {
+    const ring::Slot s(n_kv + i, p.depth);
+    ring::wait(&rg.full[s.stage], s.phase);
+    if (p.w_copy == wg::kElem) ring::fence_async_smem();
+    const int sl = i % kSlabs, n0 = (i / kSlabs) * mm::kWgN;
+    if (sl == 0) {
+#pragma unroll
+      for (int x = 0; x < mm::kWgAcc; ++x) acc[x] = 0.f;
+    }
+    unsigned char* stage = rg.stages + size_t(s.stage) * rg.stage_bytes;
+    mm::wg_fence();
+    mm::mma_slab(acc, a + sl * wg::kSlabBytes, ring::smem_addr(stage));
+    mm::wg_commit();
+    mm::wg_wait<0>(acc);
+    if (sl == kSlabs - 1)
+      store_staged(acc, stage, ob + n0, p.d_out, rows, p.d_out - n0);
+    ring::arrive(&rg.empty[s.stage]);
+  }
+}
+
+template <int kSlabs>
+int launch_wg_slabs(const wg::Args& p, const CUtensorMap& mq,
+                    const CUtensorMap& mk, const CUtensorMap& mv,
+                    const CUtensorMap& mw, int bh, size_t smem,
+                    cudaStream_t stream) {
+  static const cudaError_t opted = cudaFuncSetAttribute(
+      attention_proj_wg_kernel<kSlabs>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kMaxSmem);
+  if (opted != cudaSuccess) return opted;
+  dim3 grid((p.s + wg::kBlockQ - 1) / wg::kBlockQ, bh);
+  attention_proj_wg_kernel<kSlabs><<<grid, wg::kThreads, smem, stream>>>(
+      mq, mk, mv, mw, p);
+  return cudaGetLastError();
+}
+
+int launch_wg(const void* q, const void* k, const void* v, const void* w,
+              void* out, int bh, int s, int skv, int d, int d_out,
+              int causal, float scale, int depth, int streams, void* stream) {
+  if (bh == 0 || s == 0 || d_out == 0) return 0;
+  const int slabs = (d + 63) / 64;
+  if (d < 1 || slabs > wg::kMaxSlabs || depth < 1 || streams < 1 ||
+      wg::kBlockQ % streams || wg::kBlockQ / streams < 8)
+    return cudaErrorInvalidValue;
+  const size_t smem = wg::smem_bytes(slabs, depth);
+  if (smem > size_t(wg::kMaxSmem)) return cudaErrorInvalidValue;
+  const int box = wg::kBlockQ / streams;
+  wg::Args p{static_cast<const __nv_bfloat16*>(q),
+             static_cast<const __nv_bfloat16*>(k),
+             static_cast<const __nv_bfloat16*>(v),
+             static_cast<const __nv_bfloat16*>(w),
+             static_cast<__nv_bfloat16*>(out), s, skv, d, d_out, 1, causal,
+             scale, depth, streams, wg::kElem, wg::kElem, wg::kElem};
+  CUtensorMap mq{}, mk{}, mv{}, mw{};
+  if (ring::tma_ok(q, d))
+    p.q_copy = ring::encode_3d(&mq, q, d, s, bh, box) ? wg::kTma : -1;
+  if (skv > 0 && ring::tma_ok(k, d) && ring::tma_ok(v, d))
+    p.kv_copy = ring::encode_3d(&mk, k, d, skv, bh, box) &&
+                        ring::encode_3d(&mv, v, d, skv, bh, box)
+                    ? wg::kTma : -1;
+  if (ring::tma_ok(w, d_out))
+    p.w_copy = ring::encode(&mw, w, d_out, d, d_out, box) ? wg::kTma : -1;
+  if (p.q_copy < 0 || p.kv_copy < 0 || p.w_copy < 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (slabs) {
+    case 1: return launch_wg_slabs<1>(p, mq, mk, mv, mw, bh, smem, st);
+    case 2: return launch_wg_slabs<2>(p, mq, mk, mv, mw, bh, smem, st);
+    case 3: return launch_wg_slabs<3>(p, mq, mk, mv, mw, bh, smem, st);
+    default: return launch_wg_slabs<4>(p, mq, mk, mv, mw, bh, smem, st);
+  }
 }
 
 }  // namespace
 
-#define REPRO_ATTENTION_PROJ_ENTRY(SUFFIX, T)                                 \
-  extern "C" int ff_attention_proj_##SUFFIX(                                  \
-      const void* q, const void* k, const void* v, const void* w, void* out,  \
-      int bh, int s, int skv, int d, int d_out, int causal, float scale,      \
-      void* stream) {                                                         \
-    return launch<T>(q, k, v, w, out, bh, s, skv, d, d_out, causal, scale,    \
-                     stream);                                                 \
-  }
+// out [BH*S, D_out] = attention(q, k, v [BH, S|Skv, D]) @ w [D, D_out], all
+// contiguous. The bf16 entry takes the ring's depth and streams.
+extern "C" int ff_attention_proj_f32(const void* q, const void* k,
+                                     const void* v, const void* w, void* out,
+                                     int bh, int s, int skv, int d, int d_out,
+                                     int causal, float scale, void* stream) {
+  return launch_f32(q, k, v, w, out, bh, s, skv, d, d_out, causal, scale,
+                    stream);
+}
 
-REPRO_ATTENTION_PROJ_ENTRY(f32, float)
-REPRO_ATTENTION_PROJ_ENTRY(bf16, __nv_bfloat16)
+extern "C" int ff_attention_proj_bf16(const void* q, const void* k,
+                                      const void* v, const void* w,
+                                      void* out, int bh, int s, int skv,
+                                      int d, int d_out, int causal,
+                                      float scale, int depth, int streams,
+                                      void* stream) {
+  return launch_wg(q, k, v, w, out, bh, s, skv, d, d_out, causal, scale,
+                   depth, streams, stream);
+}

@@ -289,47 +289,6 @@ __global__ void reduce_kernel(const float* __restrict__ ws,
   }
 }
 
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess)
-      f = nullptr;
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
-bool tma_ok(const void* p, long long ld) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (ld * 2) % 16 == 0;
-}
-
-// A [rows, cols] bf16 tensor with row stride ld, read in 128-byte swizzled
-// boxes of 64 columns by box_rows rows, zeros past the edges.
-bool encode(CUtensorMap* map, const void* base, int cols, int rows,
-            long long ld, int box_rows) {
-  EncodeTiled fn = encoder();
-  if (!fn) return false;
-  cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
-  cuuint64_t strides[1] = {cuuint64_t(ld) * 2};
-  cuuint32_t box[2] = {64, cuuint32_t(box_rows)};
-  cuuint32_t unit[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-            const_cast<void*>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename TO>
 int launch_wgmma(const void* a, const void* rows, const void* b, void* c,
                  void* ws, int m, int n, int k, long long lda, long long ldb,
@@ -346,12 +305,13 @@ int launch_wgmma(const void* a, const void* rows, const void* b, void* c,
          m, n, k, lda, ldb, ldc, depth, streams, split, kElem, kElem};
   CUtensorMap map_a{}, map_b{};
   if (k > 0) {
-    if (tma_ok(a, lda))
+    if (ring::tma_ok(a, lda))
       p.a_copy = rows ? kAsync
-                      : (encode(&map_a, a, k, m, lda, kTileM / streams)
+                      : (ring::encode(&map_a, a, k, m, lda, kTileM / streams)
                              ? kTma : -1);
-    if (tma_ok(b, ldb))
-      p.b_copy = encode(&map_b, b, n, k, ldb, kSlabK / streams) ? kTma : -1;
+    if (ring::tma_ok(b, ldb))
+      p.b_copy = ring::encode(&map_b, b, n, k, ldb, kSlabK / streams)
+                     ? kTma : -1;
     if (p.a_copy < 0 || p.b_copy < 0) return cudaErrorInvalidValue;
   }
   static const cudaError_t opted = cudaFuncSetAttribute(

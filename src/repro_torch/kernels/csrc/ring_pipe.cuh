@@ -126,6 +126,20 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// 3-D TMA box: columns from c0, rows from r0, of slice z (a head) of the
+// tensor map; rows past the slice's end arrive as zeros, never the next
+// slice's.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int r0,
+                                            int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(r0), "r"(z)
+      : "memory");
+}
+
 // 16 bytes from ``src`` into ``dst``, of which the first ``src_bytes``
 // (0..16) are read and the rest filled with zeros.
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
@@ -156,6 +170,75 @@ struct Slot {
   __device__ __forceinline__ Slot(int g, int depth)
       : stage(g % depth), phase((g / depth) & 1) {}
 };
+
+// ---------------------------------------------------------------------------
+// Host side: tensor maps for the TMA copies. cuTensorMapEncodeTiled lives
+// in libcuda, not in the runtime; it is found through the runtime's
+// entry-point query, so nothing links against libcuda. Maps are encoded on
+// every call.
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// TMA can describe a bf16 tensor with this base and row stride (elements).
+inline bool tma_ok(const void* p, long long ld) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (ld * 2) % 16 == 0;
+}
+
+// A [rows, cols] bf16 tensor with row stride ld, read in 128-byte swizzled
+// boxes of 64 columns by box_rows rows, zeros past the edges.
+inline bool encode(CUtensorMap* map, const void* base, int cols, int rows,
+                   long long ld, int box_rows) {
+  EncodeTiled fn = encoder();
+  if (!fn) return false;
+  cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  cuuint64_t strides[1] = {cuuint64_t(ld) * 2};
+  cuuint32_t box[2] = {64, cuuint32_t(box_rows)};
+  cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A contiguous [slices, rows, cols] bf16 tensor (attention's heads), read
+// in 128-byte swizzled boxes of 64 columns by box_rows rows of one slice,
+// zeros past each slice's rows and past the columns.
+inline bool encode_3d(CUtensorMap* map, const void* base, int cols, int rows,
+                      int slices, int box_rows) {
+  EncodeTiled fn = encoder();
+  if (!fn) return false;
+  cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows),
+                        cuuint64_t(slices)};
+  cuuint64_t strides[2] = {cuuint64_t(cols) * 2,
+                           cuuint64_t(cols) * 2 * cuuint64_t(rows)};
+  cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
+  cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace ring
 }  // namespace repro

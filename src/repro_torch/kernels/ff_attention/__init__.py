@@ -1,7 +1,10 @@
 from repro_torch.kernels.ff_attention.ops import (BLOCK_KV, BLOCK_Q,
-                                                 attention, attention_proj,
+                                                 DEFAULT_DEPTH,
+                                                 DEFAULT_STREAMS, attention,
+                                                 attention_proj,
                                                  attention_proj_ref,
-                                                 attention_ref)
+                                                 attention_ref, max_depth)
 
-__all__ = ["BLOCK_KV", "BLOCK_Q", "attention", "attention_proj",
-           "attention_proj_ref", "attention_ref"]
+__all__ = ["BLOCK_KV", "BLOCK_Q", "DEFAULT_DEPTH", "DEFAULT_STREAMS",
+           "attention", "attention_proj", "attention_proj_ref",
+           "attention_ref", "max_depth"]

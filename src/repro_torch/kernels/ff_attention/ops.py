@@ -8,8 +8,16 @@ plain versions, launch counts.
 ``attention_proj`` StreamGraph (``repro/models/layers.py:
 build_attention_proj_graph``, the attention output streamed into the
 ``ff_matmul`` out-projection in one launch); its CUDA kernel is
-``csrc/ff_attention_proj.cu``. Each kernel's note says what bounds it on
-the H100 and what its design does about that.
+``csrc/ff_attention_proj.cu``. Both run the bodies of
+``csrc/ff_attention.cuh``; each kernel's note says what bounds it on the
+H100 and what its design does about that.
+
+``depth`` and ``streams`` are the reference's ``flash_attention_ff``
+keywords: the stages of the shared-memory ring that carries the K and V
+tiles to the tensor cores (bf16), and the boxes each tile copy is split
+into (``depth=1`` is the synchronous copy-then-compute baseline). They
+are checked for both types and change when a tile lands, never what is
+computed.
 """
 
 from __future__ import annotations
@@ -23,17 +31,68 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ff_matmul.ops import matmul_ref
 
-BLOCK_Q = 32      # q rows per CUDA block (csrc/ff_attention.cu kBlockQ)
-BLOCK_KV = 32     # K/V rows per tile (csrc/ff_attention.cu kBlockKV)
+# q rows per CUDA block and K/V rows per tile, by type (csrc/
+# ff_attention.cuh: bf16 the wgmma body wg, f32 the CUDA-core body f32)
+BLOCK_Q = {torch.bfloat16: 64, torch.float32: 32}
+BLOCK_KV = {torch.bfloat16: 64, torch.float32: 32}
 _NEG_INF = -1e30
 _MAX_D = 256
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# the bf16 ring (csrc/ff_attention.cuh wg::smem_bytes): a stage holds a K
+# and a V tile of 64 rows by d padded to 64-column slabs of 8 KB each
+_SLAB_BYTES = 64 * 64 * 2
+_MAX_SMEM = 232448                  # 227 KB of shared memory a block
+_MIN_STREAM_ROWS = 8                # one 128-byte swizzle atom of rows
+DEFAULT_DEPTH = 2
+DEFAULT_STREAMS = 1
+
+
+def _smem_bytes(d: int, depth: int) -> int:
+    """Shared memory of the bf16 block at head dim ``d`` and ring
+    ``depth``: 1024 bytes of alignment slack, the q tile, the stages, and
+    two mbarriers a stage plus the q tile's."""
+    slabs = -(-d // 64)
+    return 1024 + slabs * _SLAB_BYTES * (1 + 2 * depth) + 8 * (2 * depth + 1)
+
+
+def max_depth(d: int) -> int:
+    """The deepest ring that fits one block's shared memory at head dim
+    ``d``."""
+    depth = 1
+    while _smem_bytes(d, depth + 1) <= _MAX_SMEM:
+        depth += 1
+    return depth
+
+
+def _pipe(depth, streams, d):
+    """``depth`` and ``streams`` (None: the defaults), checked as the
+    reference's ``Pipe`` checks them against this kernel's tiles: each at
+    least 1, ``streams`` dividing the 64-row tiles into boxes of at least
+    8 rows (one swizzle atom), ``depth`` stages fitting in shared memory
+    at head dim ``d``."""
+    depth = DEFAULT_DEPTH if depth is None else depth
+    streams = DEFAULT_STREAMS if streams is None else streams
+    if depth < 1:
+        raise ValueError(f"pipe depth must be >= 1, got {depth}")
+    if streams < 1:
+        raise ValueError(f"pipe streams must be >= 1, got {streams}")
+    rows = BLOCK_KV[torch.bfloat16]
+    if rows % streams or rows // streams < _MIN_STREAM_ROWS:
+        raise ValueError(f"streams={streams} must split the tile's {rows} "
+                         f"rows into boxes of at least {_MIN_STREAM_ROWS} "
+                         f"rows")
+    if d <= _MAX_D and depth > max_depth(d):
+        raise ValueError(f"depth {depth} needs {_smem_bytes(d, depth)} "
+                         f"bytes of shared memory at head dim {d}; at most "
+                         f"{max_depth(d)} stages fit in {_MAX_SMEM}")
+    return depth, streams
 
 
 def attention_ref(q, k, v, *, kv_groups: int = 1, causal: bool = True,
-                  block_kv: int = BLOCK_KV) -> torch.Tensor:
+                  block_kv=None) -> torch.Tensor:
     """Plain version of the kernel: the same online softmax over K/V tiles
-    of ``block_kv`` rows, in f32, with ``p`` rounded to V's type before the
+    of ``block_kv`` rows (default: the kernel's tile for q's type,
+    :data:`BLOCK_KV`), in f32, with ``p`` rounded to V's type before the
     PV product. q: [BH, S, D]; k, v: [BKVH, Skv, D] -> [BH, S, D].
 
     All q rows are processed at once; tiles past a row's diagonal add
@@ -41,6 +100,7 @@ def attention_ref(q, k, v, *, kv_groups: int = 1, causal: bool = True,
     equals the kernel's per-q-tile skipping."""
     bh, s, d = q.shape
     skv = k.shape[1]
+    block_kv = block_kv or BLOCK_KV[q.dtype]
     kk = k.repeat_interleave(kv_groups, dim=0)
     vv = v.repeat_interleave(kv_groups, dim=0)
     scale = 1.0 / math.sqrt(d)
@@ -72,9 +132,13 @@ def attention_ref(q, k, v, *, kv_groups: int = 1, causal: bool = True,
 
 @functools.lru_cache(maxsize=None)
 def _entry(dtype: torch.dtype):
+    """ff_attention_bf16 takes the ring's depth and streams after the
+    scale; ff_attention_f32 does not."""
     p, i = ctypes.c_void_p, ctypes.c_int
+    pipe = [i, i] if dtype == torch.bfloat16 else []
     return _build.bind("ff_attention", f"ff_attention_{_SUFFIX[dtype]}",
-                       [p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p])
+                       [p, p, p, p, i, i, i, i, i, i, ctypes.c_float, *pipe,
+                        p])
 
 
 def _check(q, k, v, kv_groups):
@@ -92,12 +156,20 @@ def _check(q, k, v, kv_groups):
         raise ValueError("q, k and v must be on one device")
 
 
-def attention(q, k, v, *, kv_groups: int = 1,
-              causal: bool = True) -> torch.Tensor:
+def _pipe_args(dtype, depth, streams):
+    return (depth, streams) if dtype == torch.bfloat16 else ()
+
+
+def attention(q, k, v, *, kv_groups: int = 1, causal: bool = True,
+              depth=None, streams=None) -> torch.Tensor:
     """Flash attention over [BH, S, D] q and [BKVH, Skv, D] k/v (q head
-    ``bh`` reads KV head ``bh // kv_groups``). CPU tensors run
-    :func:`attention_ref`; CUDA tensors launch the kernel."""
+    ``bh`` reads KV head ``bh // kv_groups``). ``depth`` and ``streams``
+    (default :data:`DEFAULT_DEPTH`, :data:`DEFAULT_STREAMS`) size the ring
+    that feeds the tensor cores (bf16); they are checked for both types and
+    do not change the result. CPU tensors run :func:`attention_ref`; CUDA
+    tensors launch the kernel."""
     _check(q, k, v, kv_groups)
+    depth, streams = _pipe(depth, streams, q.shape[2])
     if q.device.type == "cpu":
         return attention_ref(q, k, v, kv_groups=kv_groups, causal=causal)
     if q.device.type != "cuda":
@@ -110,6 +182,7 @@ def attention(q, k, v, *, kv_groups: int = 1,
     rc = _entry(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          out.data_ptr(), bh, s, k.shape[1], d, kv_groups,
                          int(causal), 1.0 / math.sqrt(d),
+                         *_pipe_args(q.dtype, depth, streams),
                          _build.stream_ptr(q.device))
     _build.check("ff_attention", "ff_attention", rc)
     attention.launches += 1
@@ -133,19 +206,25 @@ def attention_proj_ref(q, k, v, w, *, causal: bool = True) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _proj_entry(dtype: torch.dtype):
     p, i = ctypes.c_void_p, ctypes.c_int
+    pipe = [i, i] if dtype == torch.bfloat16 else []
     return _build.bind("ff_attention_proj",
                        f"ff_attention_proj_{_SUFFIX[dtype]}",
-                       [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p])
+                       [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float,
+                        *pipe, p])
 
 
-def attention_proj(q, k, v, w, *, causal: bool = True) -> torch.Tensor:
+def attention_proj(q, k, v, w, *, causal: bool = True, depth=None,
+                   streams=None) -> torch.Tensor:
     """Attention over [BH, S, D] q and [BH, Skv, D] k/v (one KV head per q
-    head, as the reference graph's), then the out-projection by w [D, D_out] (q's type), in one launch: the
+    head, as the reference graph's), then the out-projection by w [D,
+    D_out] (q's type), in one launch: the
     [BH, S, D] intermediate stays on chip. Returns [BH*S, D_out], equal
-    bit for bit to ``matmul(attention(q, k, v).reshape(BH*S, D), w)``.
-    CPU tensors run :func:`attention_proj_ref`; CUDA tensors launch the
-    kernel."""
+    bit for bit to ``matmul(attention(q, k, v).reshape(BH*S, D), w)`` at
+    any ``depth`` and ``streams`` of either (as :func:`attention`'s: the
+    projection's words of w ride the same ring). CPU tensors run
+    :func:`attention_proj_ref`; CUDA tensors launch the kernel."""
     _check(q, k, v, 1)
+    depth, streams = _pipe(depth, streams, q.shape[2])
     if w.dim() != 2 or w.shape[0] != q.shape[2]:
         raise ValueError(f"w {tuple(w.shape)} is not [{q.shape[2]}, D_out]")
     if w.dtype != q.dtype:
@@ -165,7 +244,9 @@ def attention_proj(q, k, v, w, *, causal: bool = True) -> torch.Tensor:
     out = torch.empty((bh * s, w.shape[1]), dtype=q.dtype, device=q.device)
     rc = _proj_entry(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               w.data_ptr(), out.data_ptr(), bh, s,
-                              k.shape[1], d, w.shape[1], int(causal), 1.0 / math.sqrt(d),
+                              k.shape[1], d, w.shape[1], int(causal),
+                              1.0 / math.sqrt(d),
+                              *_pipe_args(q.dtype, depth, streams),
                               _build.stream_ptr(q.device))
     _build.check("ff_attention_proj", "ff_attention_proj", rc)
     attention_proj.launches += 1

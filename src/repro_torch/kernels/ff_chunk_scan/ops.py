@@ -133,13 +133,15 @@ def _subtile(chunk: int, subtile: int) -> int:
 
 def smem_bytes(n: int, p: int, chunk: int, subtile: int) -> int:
     """Dynamic shared memory of one block (``csrc/ff_chunk_scan.cu``
-    ``smem_floats``): q, k, the cumsum and the q-side exponent as
-    [chunk, N+1] f32 tiles, the decayed prefix k [chunk-subtile, N+1], v
-    [chunk, P], the state [N, P], two [subtile, N+1] q tiles, the scores
-    [subtile, chunk], the bonus per row and four [N] vectors."""
+    ``smem_floats``): the chunk's cumsum [chunk, N+1] and the state [N, P]
+    in f32; per subtile q, k, the q-side exponent, the two scaled q tiles
+    and a block of earlier k [subtile, N+1], the subtile's v, a block of
+    earlier v and the intra sums [subtile, P], the scores [subtile,
+    subtile], the bonus per row, and three [N] vectors. Only the cumsum
+    grows with the chunk."""
     np_ = n + 1
-    floats = (4 * chunk * np_ + (chunk - subtile) * np_ + chunk * p + n * p
-              + 2 * subtile * np_ + subtile * chunk + chunk + 4 * n)
+    floats = (chunk * np_ + n * p + 6 * subtile * np_ + 3 * subtile * p
+              + subtile * subtile + subtile + 3 * n)
     return 4 * floats
 
 
@@ -182,7 +184,8 @@ def chunk_scan(q, k, v, log_w, u=None, *, chunk: int = 64, subtile: int = 16,
     or bfloat16 on its own. Any S: the ragged last chunk is padded with
     ``log_w = 0`` and ``k = v = 0``. ``log_w`` is clamped at 0. Returns [BH,
     S, P] in q's type. CPU tensors run :func:`chunk_scan_plain`; CUDA
-    tensors launch the kernel (one block per row, chunks in order)."""
+    tensors launch the kernel (one block per row, chunks in order, a chunk
+    staged a subtile at a time)."""
     st = _subtile(chunk, subtile)
     _check(q, k, v, log_w, u, inclusive)
     if q.device.type == "cpu":

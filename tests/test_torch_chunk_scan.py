@@ -81,6 +81,17 @@ def test_chunk_scan_matches_reference_kernel_and_oracle(bh, s, n, p,
     assert _rel(chunk_scan_ref(*ts, inclusive=inclusive), ref) < F32_REL_TOL
 
 
+@pytest.mark.parametrize("inclusive", [True, False],
+                         ids=["inclusive", "exclusive_u"])
+def test_plain_version_at_chunk_256_matches_the_oracle(inclusive):
+    """Chunk 256, the largest the reference's autotuner tries, with S = 300
+    (a ragged second chunk), against the reference's naive scan."""
+    ts = _torch(_inputs(2, 300, 16, 16, inclusive, seed=11))
+    out = chunk_scan_plain(*ts, inclusive=inclusive, chunk=256)
+    ref = repro.ops.chunk_scan(*_jax(ts), inclusive=inclusive, policy=REF)
+    assert _rel(out, ref) < F32_REL_TOL
+
+
 def test_strong_decay_stays_finite():
     """lw = -3 everywhere: a chunk decays by e^-192; every exponent of the
     factorization is <= 0, so nothing overflows."""
@@ -169,8 +180,11 @@ def test_plain_version_is_the_wrapper_on_the_cpu_and_counts_no_launch():
 
 
 def test_shared_memory_fits_the_path_shapes():
-    """Both models' shapes (N = P = 64, chunk 64, subtile 16) and chunk 128
-    fit one block's 227 KB of shared memory."""
-    assert smem_bytes(64, 64, 64, 16) < 232448
-    assert smem_bytes(64, 64, 128, 16) < 232448
-    assert smem_bytes(128, 128, 128, 16) > 232448
+    """Every chunk the reference's autotuner tries, and the smaller ones,
+    fit one block's 227 KB at N = P = 64 (subtile 16): only the cumsum
+    grows with the chunk. N = P = 128 fits at chunk 128, not at 256."""
+    for chunk in (16, 32, 64, 128, 256):
+        assert smem_bytes(64, 64, chunk, 16) < 232448
+    assert smem_bytes(64, 64, 256, 16) == 122048
+    assert smem_bytes(128, 128, 128, 16) < 232448
+    assert smem_bytes(128, 128, 256, 16) > 232448

@@ -15,12 +15,12 @@ The library kernels and graphs (matmul, gather, attention_proj,
 moe_dispatch_ffn) are held at float32 5e-4 (the reference registry's tol
 of both graphs) and bfloat16 2e-2, each relative and absolute and chosen
 by the output's type; the gather, every fused launch against its staged
-composition, and the bf16 product across the ring's depth and streams
-at exactly 0. The chunk scan is held at float32 3e-5
-and bfloat16 2e-2 of max |plain| (the reference kernel test's bound),
-its strong-decay case at rtol 1e-4 / atol 1e-5. These tests take small
-and ragged shapes; chip_smoke.py checks the same kernels at full model
-width.
+composition, and the bf16 product and attention across the ring's depth
+and streams at exactly 0. The chunk scan is held at float32 3e-5 and
+bfloat16 2e-2 of max |plain| (the reference kernel test's bound) at every
+chunk up to 256, its strong-decay case at rtol 1e-4 / atol 1e-5. These
+tests take small and ragged shapes; chip_smoke.py checks the same kernels
+at full model width.
 """
 
 import pytest
@@ -76,6 +76,73 @@ def test_prefill_kernel_matches_plain(cuda, dtype, causal):
     assert attention.launches == n + 1
     ref = attention_ref(q, k, v, kv_groups=2, causal=causal)
     assert _err(out, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("d", [64, 80, 128, 20, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_attention_at_every_head_dim(cuda, d, causal):
+    """The tensor-core body at qwen's 64, zamba2's 80 (padded to 128), the
+    dense configs' 128, 256 (four slabs) and 20 (element copies: TMA cannot
+    describe a 40-byte row), GQA 2, ragged S, within 2e-2 of the plain
+    version."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    bf = torch.bfloat16
+    q = torch.randn(6, 150, d, generator=g, device=cuda).to(bf)
+    k = torch.randn(3, 150, d, generator=g, device=cuda).to(bf)
+    v = torch.randn(3, 150, d, generator=g, device=cuda).to(bf)
+    out = attention(q, k, v, kv_groups=2, causal=causal)
+    ref = attention_ref(q, k, v, kv_groups=2, causal=causal)
+    assert out.isfinite().all() and _err(out, ref) <= TOL[bf]
+
+
+def test_bf16_attention_takes_unaligned_operands(cuda):
+    """Operands whose base is not 16-byte aligned go through element
+    copies and give the same bits as aligned copies of them."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    bf = torch.bfloat16
+    n = 4 * 77 * 64
+    buf = torch.randn(3 * n + 1, generator=g, device=cuda).to(bf)
+    q, k, v = (buf[1 + i * n:1 + (i + 1) * n].view(4, 77, 64)
+               for i in range(3))
+    out = attention(q, k, v)
+    assert torch.equal(out, attention(q.clone(), k.clone(), v.clone()))
+    assert _err(out, attention_ref(q, k, v)) <= TOL[bf]
+
+
+@pytest.mark.parametrize("s,skv,causal", [(256, 256, True), (77, 77, True),
+                                          (100, 70, False)])
+def test_bf16_attention_is_bitwise_across_depth_and_streams(cuda, s, skv,
+                                                            causal):
+    """The ring's depth and streams change when a K/V tile lands, not what
+    is computed: the same bits at every (depth, streams)."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    bf = torch.bfloat16
+    q = torch.randn(8, s, 64, generator=g, device=cuda).to(bf)
+    k = torch.randn(4, skv, 64, generator=g, device=cuda).to(bf)
+    v = torch.randn(4, skv, 64, generator=g, device=cuda).to(bf)
+    base = attention(q, k, v, kv_groups=2, causal=causal, depth=1, streams=1)
+    for depth in (1, 2, 4):
+        for streams in (1, 2):
+            assert torch.equal(attention(q, k, v, kv_groups=2, causal=causal,
+                                         depth=depth, streams=streams), base)
+    assert _err(base, attention_ref(q, k, v, kv_groups=2,
+                                    causal=causal)) <= TOL[bf]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_gqa_ragged_kv_never_reads_the_next_head(cuda, causal):
+    """Skv = 70 is ragged against the 64-row tiles: the second tile of KV
+    head 0 ends where KV head 1 begins. Head 1 is all inf; the outputs of
+    the q heads that read head 0 stay finite and within tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    bf = torch.bfloat16
+    q = torch.randn(4, 100, 64, generator=g, device=cuda).to(bf)
+    k = torch.randn(2, 70, 64, generator=g, device=cuda).to(bf)
+    v = torch.randn(2, 70, 64, generator=g, device=cuda).to(bf)
+    k[1], v[1] = float("inf"), float("inf")
+    out = attention(q, k, v, kv_groups=2, causal=causal)
+    ref = attention_ref(q[:2], k[:1], v[:1], kv_groups=2, causal=causal)
+    assert out[:2].isfinite().all() and _err(out[:2], ref) <= TOL[bf]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -316,7 +383,8 @@ def test_dispatch_matmul_equals_gather_then_matmul(cuda, dtype, n, d, f):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bh,s,d,d_out,causal", [
-    (3, 100, 64, 96, True), (4, 45, 32, 64, False)])
+    (3, 100, 64, 96, True), (4, 45, 32, 64, False), (2, 128, 64, 256, True),
+    (3, 70, 80, 130, True)])
 def test_attention_proj_equals_staged_launches(cuda, dtype, bh, s, d, d_out,
                                                causal):
     g = torch.Generator(device=cuda).manual_seed(10)
@@ -332,6 +400,21 @@ def test_attention_proj_equals_staged_launches(cuda, dtype, bh, s, d, d_out,
     assert torch.equal(fused, staged)
     assert _within(fused, attention_proj_ref(q, k, v, w, causal=causal),
                    LIB_TOL[dtype])
+
+
+def test_attention_proj_is_bitwise_across_depth_and_streams(cuda):
+    """The projection's words of w ride the attention's ring: the fused
+    launch gives the same bits at every (depth, streams), equal to the
+    staged launches."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    bf = torch.bfloat16
+    q, k, v = (_randn(g, 4, 200, 64).to(bf) for _ in range(3))
+    w = _randn(g, 64, 300, scale=0.125).to(bf)
+    staged = matmul(attention(q, k, v).reshape(800, 64), w)
+    for depth in (1, 2, 4):
+        for streams in (1, 2):
+            assert torch.equal(attention_proj(q, k, v, w, depth=depth,
+                                              streams=streams), staged)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -392,7 +475,7 @@ def _scan_err(out, plain):
                          ids=["inclusive", "exclusive_u"])
 @pytest.mark.parametrize("bh,s,n,p,chunk", [
     (3, 200, 64, 64, 64), (2, 77, 16, 32, 32), (2, 300, 64, 64, 128),
-    (1, 64, 16, 16, 16)])
+    (1, 64, 16, 16, 16), (2, 600, 64, 64, 256), (2, 200, 128, 128, 128)])
 def test_chunk_scan_kernel_matches_plain(cuda, dtype, exclusive, bh, s, n, p,
                                          chunk):
     """float32 within 3e-5 of max |plain| (the reference kernel test's
@@ -434,6 +517,27 @@ def test_chunk_scan_takes_a_type_per_stream(cuda, exclusive):
     assert _scan_err(out, plain) < 2e-2
 
 
+@pytest.mark.parametrize("exclusive", [False, True],
+                         ids=["mamba2_types", "rwkv6_types"])
+def test_chunk_scan_runs_at_chunk_256(cuda, exclusive):
+    """The largest chunk the reference's autotuner tries, at N = P = 64 on
+    both models' stream types (as test_chunk_scan_takes_a_type_per_stream),
+    S = 300 (a ragged second chunk): within 2e-2 of max |plain|."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    bf = torch.bfloat16
+    q, k, v, lw, u = _scan_inputs(g, 8, 300, 64, 64, exclusive)
+    q, k, v = q.to(bf), k.to(bf), v.to(bf)
+    if exclusive:
+        lw = lw.to(bf)
+    else:
+        q, k = (x[:2, None].expand(2, 4, 300, 64).reshape(8, 300, 64)
+                for x in (q, k))
+        lw = lw[:, :, :1].expand(8, 300, 64)
+    kw = dict(inclusive=not exclusive, chunk=256)
+    out = chunk_scan(q, k, v, lw, u, **kw)
+    assert _scan_err(out, chunk_scan_plain(q, k, v, lw, u, **kw)) < 2e-2
+
+
 def test_chunk_scan_strong_decay_stays_finite(cuda):
     """lw = -3: a chunk decays by e^-192; every exponent stays <= 0."""
     ones = torch.ones(2, 256, 64, device=cuda)
@@ -448,8 +552,10 @@ def test_chunk_scan_strong_decay_stays_finite(cuda):
 
 
 def test_chunk_scan_refuses_what_does_not_fit(cuda):
-    x = torch.zeros(1, 128, 128, device=cuda)
+    """N = P = 128 at chunk 256: the cumsum alone is 132 KB, with the
+    state and the subtile tiles 274,368 bytes."""
+    x = torch.zeros(1, 256, 128, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        chunk_scan(x, x, x, x, chunk=128)
+        chunk_scan(x, x, x, x, chunk=256)
     with pytest.raises(ValueError):                  # mixed devices
         chunk_scan(x, x.cpu(), x, x)

@@ -16,7 +16,9 @@ import repro
 from repro.core.program import PipePolicy
 from repro.models import layers as JL
 from repro.runtime import paged_kv as jpk
-from repro_torch.kernels.ff_attention import attention
+from repro_torch.kernels.ff_attention import (BLOCK_KV, attention,
+                                              attention_proj, attention_ref,
+                                              max_depth)
 from repro_torch.kernels.ff_decode_attention import decode_attention
 from repro_torch.models import layers as TL
 from repro_torch.runtime import paged_kv as tpk
@@ -65,6 +67,61 @@ def test_prefill_attention_matches_reference(causal, s):
                               block_kv=16, policy=POLICY)
     port = attention(_t(q), _t(k), _t(v), kv_groups=groups, causal=causal)
     _close(port, ref)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 80])
+def test_plain_attention_at_the_tensor_core_tiling(d, causal):
+    """The plain version at the bf16 kernel's KV tiling (64 rows, its order
+    of rescales), in f32, against the reference's Pallas kernel: head dims
+    16 and 80 (zamba2's, which the kernel pads to two 64-column slabs),
+    GQA 2, S ragged against the 64-row tiles: 150 causal, 160 non-causal
+    (the reference refuses a ragged Skv there: its padded keys would take
+    softmax mass)."""
+    rng = np.random.default_rng(6)
+    bh, groups, s = 4, 2, 150 if causal else 160
+    q = rng.standard_normal((bh, s, d)).astype(np.float32)
+    k = rng.standard_normal((bh // groups, s, d)).astype(np.float32)
+    v = rng.standard_normal((bh // groups, s, d)).astype(np.float32)
+    ref = repro.ops.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              kv_groups=groups, causal=causal, block_q=16,
+                              block_kv=16, policy=POLICY)
+    port = attention_ref(_t(q), _t(k), _t(v), kv_groups=groups,
+                         causal=causal, block_kv=BLOCK_KV[torch.bfloat16])
+    _close(port, ref)
+
+
+def test_attention_pipe_keywords_are_checked_and_keep_the_result():
+    """``depth`` and ``streams`` are validated for both types and, on the
+    CPU, leave the plain result as it is."""
+    rng = np.random.default_rng(7)
+    q, k, v = (_t(rng.standard_normal((2, 40, 16)).astype(np.float32))
+               for _ in range(3))
+    w = _t(rng.standard_normal((16, 24)).astype(np.float32))
+    before = (attention.launches, attention_proj.launches)
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b, c, ww = (x.to(dtype) for x in (q, k, v, w))
+        base = attention(a, b, c)
+        base_p = attention_proj(a, b, c, ww)
+        for depth in (1, 2, 4):
+            for streams in (1, 2, 8):
+                assert torch.equal(attention(a, b, c, depth=depth,
+                                             streams=streams), base)
+                assert torch.equal(attention_proj(a, b, c, ww, depth=depth,
+                                                  streams=streams), base_p)
+        for bad in (dict(depth=0), dict(streams=0), dict(streams=3),
+                    dict(streams=16), dict(depth=max_depth(16) + 1)):
+            with pytest.raises(ValueError):
+                attention(a, b, c, **bad)
+            with pytest.raises(ValueError):
+                attention_proj(a, b, c, ww, **bad)
+    assert (attention.launches, attention_proj.launches) == before
+    # the deepest ring shrinks with the head dim: 6 stages at 80 (two
+    # slabs), 3 at 256 (four)
+    assert (max_depth(64), max_depth(80), max_depth(256)) == (13, 6, 3)
+    with pytest.raises(ValueError, match="depth 4"):
+        attention(torch.zeros(1, 8, 256), torch.zeros(1, 8, 256),
+                  torch.zeros(1, 8, 256), depth=4)
 
 
 def test_decode_attention_matches_reference():
