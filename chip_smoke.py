@@ -24,7 +24,9 @@ Phases (any failure exits non-zero without the final result line):
      gather exactly, and each fused launch (attention_proj, the MoE
      dispatch, the paged kernel) equal to its staged composition bit for
      bit, and the bf16 kernels on the ring (the product, the dispatch,
-     attention at the 256-token serve shape, attention_proj) equal across
+     attention at the 256-token serve shape, attention_proj, and at the
+     serve shape the decode layer's q-projection, SwiGLU and MLP tail)
+     equal across
      the ring's depth {1, 2, 4} x streams {1, 2} bit for bit (plus a
      row-strided bf16 operand pair that TMA cannot describe); then the
      gated linear-attention scan (ff_chunk_scan) at both recurrent models'
@@ -59,12 +61,14 @@ Phases (any failure exits non-zero without the final result line):
      beside it; the chunk scan at both recurrent models' prefill shapes),
      and each fused launch against its staged composition; then the
      paper's depth experiment: the matmul at both LIB shapes, the MoE
-     dispatch, and attention and attention_proj at q/k/v [64,256,64], at
+     dispatch, attention and attention_proj at q/k/v [64,256,64], and
+     the decode layer's q-projection, SwiGLU and MLP tail at B = 4, at
      every ring depth {1, 2, 3, 4, 6} x streams {1, 2} (a ``depth_sweep``
      line);
   g. profile full-width decode steps (dense, paged, layer graph, timed in
      alternating rounds): wall vs device busy time and device launches
-     per step.
+     per step; for the layer graph the MLP tail's and the q-projection's
+     launches (one each a layer, checked) and device ms per step.
 
 Output: one line per check, per serve run and per recurrent model
 (``model[...]``), a JSON ``kernels`` line, the
@@ -380,6 +384,17 @@ def check_layer_kernels(torch, dev, shapes):
                   f"max diff {err(fused, staged)}")
             if label == "serve" and dtype == torch.bfloat16:
                 main_err["ff_layer_mlp_tail"] = e
+                q_kw = dict(norm_weight=t["nw1"], **rope)
+                for name, fn in (
+                        ("ff_layer_matmul qproj", lambda **p: ff_layer_matmul(
+                            t["x"], t["wq"], **q_kw, **p)),
+                        ("ff_layer_swiglu", lambda **p: ff_layer_swiglu(
+                            t["x"], t["wg"], t["wu"], norm_weight=t["nw2"],
+                            **p)),
+                        ("ff_layer_mlp_tail", lambda **p: ff_layer_mlp_tail(
+                            *tail_args(t), **p))):
+                    check_pipe_bitwise(torch, f"{name} serve bf16 m={m}", fn,
+                                       fn())
     return main_err
 
 
@@ -802,14 +817,16 @@ SWEEP_DEPTHS = (1, 2, 3, 4, 6)
 SWEEP_STREAMS = (1, 2)
 
 
-def depth_sweep(torch, dev):
+def depth_sweep(torch, dev, shapes):
     """The paper's depth experiment on this card: rows 8 (both LIB shapes)
     and 8b, then row 1 and row 8a at q/k/v [64,256,64] (qwen's 4 x
-    256-token prefill; 8a into d_model 1024), device ms per call with L2
-    cold, at every depth of SWEEP_DEPTHS that fits in shared memory and
-    every streams of SWEEP_STREAMS. Printed as one ``depth_sweep`` JSON
-    line."""
+    256-token prefill; 8a into d_model 1024), then rows 4-6 at the serve
+    shape (B = 4), device ms per call with L2 cold, at every depth of
+    SWEEP_DEPTHS that fits in shared memory and every streams of
+    SWEEP_STREAMS. Printed as one ``depth_sweep`` JSON line."""
     from repro_torch.kernels import ff_attention as A
+    from repro_torch.kernels import ff_layer as FL
+    from repro_torch.kernels.ff_layer import ops as FLO
     from repro_torch.kernels.ff_matmul import dispatch_matmul, matmul
     from repro_torch.kernels.ff_matmul.ops import (DEFAULT_DEPTH,
                                                    DEFAULT_STREAMS,
@@ -839,10 +856,27 @@ def depth_sweep(torch, dev):
                   f"w[{d},{d_out}]",
                   lambda **kw: A.attention_proj(q, k, v, w, **kw), 100,
                   A.max_depth(d)))
+    lay = shapes["layer"]
+    t = layer_inputs(torch, dev, bf16, lay["b"], lay, gen)
+    q_kw = dict(norm_weight=t["nw1"], bias=t["bq"], rope_theta=lay["theta"],
+                head_dim=lay["hd"],
+                positions=torch.tensor(lay["positions"], device=dev,
+                                       dtype=torch.int32))
+    for label, fn in (
+            ("qproj", lambda **kw: FL.ff_layer_matmul(t["x"], t["wq"],
+                                                      **q_kw, **kw)),
+            ("swiglu", lambda **kw: FL.ff_layer_swiglu(
+                t["x"], t["wg"], t["wu"], norm_weight=t["nw2"], **kw)),
+            ("mlp_tail", lambda **kw: FL.ff_layer_mlp_tail(*tail_args(t),
+                                                           **kw))):
+        cases.append((f"ff_layer {label} B={lay['b']} (serve)", fn, 100,
+                      FLO.MAX_DEPTH))
     sweep = dict(default={"depth": DEFAULT_DEPTH,
                           "streams": DEFAULT_STREAMS},
                  default_attention={"depth": A.DEFAULT_DEPTH,
                                     "streams": A.DEFAULT_STREAMS},
+                 default_layer={"depth": FLO.DEFAULT_DEPTH,
+                                "streams": FLO.DEFAULT_STREAMS},
                  depths=list(SWEEP_DEPTHS), streams=list(SWEEP_STREAMS),
                  ms={})
     for label, fn, reps, max_depth in cases:
@@ -1611,15 +1645,18 @@ def time_kernels(torch, dev, shapes):
 
 def time_layer_kernels(torch, dev, shapes):
     """The decode-layer kernels at the main path's shapes (B = 4, d 1024,
-    16 x 64 q columns, f 2816, bf16). No single PyTorch call computes
-    their fused functions, so ``library_ms`` times the same products alone
-    through ``torch.matmul``."""
+    16 x 64 q columns, f 2816, bf16; int32 positions, as the decode step
+    passes them, so no cast is timed with the q-projection). No single
+    PyTorch call computes their fused functions, so ``library_ms`` times
+    the same products alone through ``torch.matmul``. The MLP tail's row
+    also times its staged composition (three launches, ``staged_ms``)."""
     from repro_torch.kernels.ff_layer import (ff_layer_matmul,
                                               ff_layer_matmul_ref,
                                               ff_layer_mlp_tail,
                                               ff_layer_mlp_tail_ref,
                                               ff_layer_swiglu,
-                                              ff_layer_swiglu_ref)
+                                              ff_layer_swiglu_ref,
+                                              mlp_tail_staged)
     lay = shapes["layer"]
     m, d, hq, f = lay["b"], lay["d"], lay["hq"], lay["f"]
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1628,7 +1665,8 @@ def time_layer_kernels(torch, dev, shapes):
     item = 2
     q_kw = dict(norm_weight=t["nw1"], bias=t["bq"], rope_theta=lay["theta"],
                 head_dim=lay["hd"],
-                positions=torch.tensor(lay["positions"], device=dev))
+                positions=torch.tensor(lay["positions"], device=dev,
+                                       dtype=torch.int32))
     fused = {
         "ff_layer_matmul": (
             lambda: ff_layer_matmul(t["x"], t["wq"], **q_kw),
@@ -1670,6 +1708,12 @@ def time_layer_kernels(torch, dev, shapes):
             library_ms=time_ms(torch, products, 200, flush),
             library="products alone (torch.matmul), not the fused function",
             bound=bound(nbytes, ops, "bfloat16"))
+    def staged():
+        return mlp_tail_staged(*tail_args(t))
+
+    tail = rows["ff_layer_mlp_tail"]
+    tail["staged_ms"] = time_ms(torch, staged, 200, flush)
+    tail["staged_ms_hot"] = time_ms(torch, staged, 200)
     return rows
 
 
@@ -1773,6 +1817,7 @@ def profile_decode(torch, dev, n_steps=8, rounds=5):
         wall = float(np.median(walls[kind]))
         top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:8]
         tails = sum(c for n, c in count.items() if "mlp_tail_kernel" in n)
+        qprojs = sum(c for n, c in count.items() if "matmul_kernel" in n)
         out[kind] = {
             "wall_ms_per_step": wall,
             "wall_ms_per_step_windows": walls[kind],
@@ -1780,6 +1825,13 @@ def profile_decode(torch, dev, n_steps=8, rounds=5):
             "device_busy_share": busy / wall if busy is not None else None,
             "device_launches_per_step": sum(count.values()) / n_steps,
             "mlp_tail_launches_per_step": tails / n_steps,
+            "mlp_tail_ms_per_step": sum(
+                v for n, v in by_name.items()
+                if "mlp_tail_kernel" in n) / n_steps,
+            "qproj_launches_per_step": qprojs / n_steps,
+            "qproj_ms_per_step": sum(
+                v for n, v in by_name.items()
+                if "matmul_kernel" in n) / n_steps,
             "top_kernels_ms_per_step": [[n[:80], t / n_steps,
                                          count[n] / n_steps]
                                         for n, t in top]}
@@ -1787,6 +1839,9 @@ def profile_decode(torch, dev, n_steps=8, rounds=5):
             check("profile: one MLP-tail launch per layer per step",
                   tails == cfg.n_layers * n_steps,
                   f"{tails / n_steps} per step, {cfg.n_layers} layers")
+            check("profile: one q-projection launch per layer per step",
+                  qprojs == cfg.n_layers * n_steps,
+                  f"{qprojs / n_steps} per step, {cfg.n_layers} layers")
     print("profile " + json.dumps(out), flush=True)
 
 
@@ -1836,7 +1891,7 @@ def main() -> int:
     rows = time_kernels(torch, dev, shapes)
     rows.update(time_layer_kernels(torch, dev, shapes))
     rows.update(time_library_kernels(torch, dev, shapes))
-    depth_sweep(torch, dev)
+    depth_sweep(torch, dev, shapes)
     rows.update(time_scan_kernel(torch, dev, scan_launches))
     profile_decode(torch, dev)
     kernels = []

@@ -17,10 +17,17 @@ oproj -> gateup -> down of the ``decode_layer`` StreamGraph
 
 What bounds them on the H100: at decode a few rows meet a whole weight
 matrix, about 2 operations per weight byte, so each is bound by device
-memory (the weight bytes over 3.35 TB/s). The kernels give each block one
-column tile over all rows, with coalesced 16-byte weight loads; the tail
-keeps its intermediates in an L2-resident scratch buffer instead of a
-second and third launch. ``csrc/ff_layer.cu`` says more.
+memory (the weight bytes over 3.35 TB/s), and what keeps it from that is
+the latency of getting enough bytes in flight. In bf16 the work is tiles
+of 64 output columns times a split of k (:func:`_plan`, from the shapes
+and the SM count alone, so every SM streams); each block feeds its weight
+rows through a ring of ``depth`` shared-memory stages (``streams``
+sub-copies a stage, the reference's ``Pipe`` arguments; ``depth=1`` is the
+synchronous copy-then-compute baseline), and the last block of a tile sums
+the splits' partials in split order from a workspace the wrapper
+allocates. The f32 kernels keep one column tile a block over all rows.
+The tail keeps its intermediates in an L2-resident scratch buffer instead
+of a second and third launch. ``csrc/ff_layer.cu`` says more.
 
 Each plain version repeats its kernel's rounding points (normalised rows
 rounded to the input type before the product, f32 sums, the product
@@ -33,15 +40,106 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ff_matmul.ops import _sm_count
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # columns per 16-byte load
 _MAX_K = 8192                                 # staged rows: 4 x k f32 smem
 _EPILOGUE = {"none": 0, "rope": 1, "residual": 2}
+# the bf16 ring (csrc/ff_layer.cu): tiles of 64 output columns, 16 KB ring
+# stages, the partial tile of a split [rows, 64] (SwiGLU: g and u, 128)
+_TILE = 64
+_STAGE_BYTES = 16384
+_PARTIAL_COLS = {"matmul": 64, "swiglu": 128}
+_MAX_SPLIT_ROWS = 2048          # a split's k rows staged: 4 x 2048 f32
+_MIN_SPLIT_ROWS = 32
+_MAX_SMEM = 232448              # 227 KB of shared memory a block
+_REF_BLOCK_M = 8                # the reference programs' row block
+DEFAULT_DEPTH = 2               # the reference's (kernel.py, layers.py)
+DEFAULT_STREAMS = 1
+
+
+class Plan(NamedTuple):
+    tiles: int                  # column tiles of 64
+    split: int                  # k split over this many blocks a tile
+
+
+def _plan(n: int, k: int, sm_count: int) -> Plan:
+    """The bf16 launch's tiles and k split, from the output columns ``n``,
+    the depth ``k`` and the SM count alone: the standalone kernels and the
+    MLP tail's stages get the same plan at the same shape, so they sum in
+    the same order. As many splits as keep tiles x splits within one block
+    an SM (the cooperative tail's grid: 128 of 132 at qwen's projections,
+    132 at its gate/up), no fewer than 32 rows a split, no more than 2048
+    (what a block stages of its rows)."""
+    tiles = max(1, -(-n // _TILE))
+    split = min(max(1, sm_count // tiles), max(1, k // _MIN_SPLIT_ROWS))
+    return Plan(tiles, max(split, -(-k // _MAX_SPLIT_ROWS)))
+
+
+def _tile_columns(n: int, t: int, head_dim: Optional[int] = None) -> list:
+    """The output columns of bf16 tile ``t`` in the tile's order, as
+    ``csrc/ff_layer.cu`` ``mm_col`` places them (a SwiGLU tile takes the
+    same columns of wg and of wu): 64 in order, or with RoPE 32 columns of
+    the first halves of heads, then the same columns of the second halves,
+    in chunks of 8. Columns past n are dropped."""
+    if head_dim is None:
+        return list(range(t * _TILE, min(n, (t + 1) * _TILE)))
+    half = head_dim // 2
+    per_head = half // 8
+    cols = []
+    for second in (0, half):
+        for pair in range(t * 4, min(t * 4 + 4, n // 16)):
+            head = pair // per_head
+            c0 = head * head_dim + (pair - head * per_head) * 8 + second
+            cols += range(c0, c0 + 8)
+    return cols
+
+
+def _split_rows(k: int, split: int) -> list:
+    """The k rows ``[lo, hi)`` of each split, as ``csrc/ff_layer.cu``
+    ``split_lo`` cuts them: ``s * k // split`` rounded down to a multiple
+    of 8, so the activation slices of a k % 8 == 0 row are 16-byte
+    aligned."""
+    lo = [s * k // split // 8 * 8 for s in range(split)] + [k]
+    return list(zip(lo[:-1], lo[1:]))
+
+
+def _smem_bytes(depth: int, split_rows: int = _MAX_SPLIT_ROWS + 8) -> int:
+    """Shared memory of a bf16 block (csrc/ff_layer.cu ring_smem_bytes):
+    the stages and their two mbarriers, 4 rows of the split's k slice in
+    f32 (by default the most a plan gives: ``_split_rows`` rounds bounds
+    down to 8), four warps' and the block's sums, the rows' rsqrt, a
+    flag."""
+    return (depth * (_STAGE_BYTES + 16) + 4 * (4 * split_rows + 5 * 512 + 4)
+            + 16)
+
+
+MAX_DEPTH = max(d for d in range(1, 64) if _smem_bytes(d) <= _MAX_SMEM)
+
+
+def _pipe(depth: int, streams: int) -> None:
+    """``depth`` and ``streams`` checked as the reference's ``Pipe`` checks
+    them on its programs' activation stream (a tile of 8 rows): each at
+    least 1, ``streams`` dividing 8; ``depth`` stages must also fit in
+    shared memory. A 16 KB stage holds 64 or 128 weight rows, so each
+    sub-copy is at least 8 rows."""
+    if depth < 1:
+        raise ValueError(f"pipe depth must be >= 1, got {depth}")
+    if streams < 1:
+        raise ValueError(f"pipe streams must be >= 1, got {streams}")
+    if _REF_BLOCK_M % streams:
+        raise ValueError(f"streams={streams} must divide the reference's "
+                         f"{_REF_BLOCK_M}-row blocks")
+    if depth > MAX_DEPTH:
+        raise ValueError(f"depth {depth} needs {_smem_bytes(depth)} bytes "
+                         f"of shared memory; at most {MAX_DEPTH} stages "
+                         f"fit in {_MAX_SMEM}")
 
 
 # ---------------------------------------------------------------------------
@@ -122,13 +220,14 @@ def ff_layer_mlp_tail_ref(a, wo, x, nw2, wg, wu, wo2, *,
     return ff_layer_matmul_ref(act, wo2, residual=h)
 
 
-def mlp_tail_staged(a, wo, x, nw2, wg, wu, wo2, *,
-                    eps: float = 1e-6) -> torch.Tensor:
+def mlp_tail_staged(a, wo, x, nw2, wg, wu, wo2, *, eps: float = 1e-6,
+                    **pipe) -> torch.Tensor:
     """The MLP tail as three wrapper calls (three launches on the card):
-    what :func:`ff_layer_mlp_tail` must equal bit for bit."""
-    h = ff_layer_matmul(a, wo, residual=x)
-    act = ff_layer_swiglu(h, wg, wu, norm_weight=nw2, eps=eps)
-    return ff_layer_matmul(act, wo2, residual=h)
+    what :func:`ff_layer_mlp_tail` must equal bit for bit. ``pipe``:
+    ``depth``/``streams`` of every launch."""
+    h = ff_layer_matmul(a, wo, residual=x, **pipe)
+    act = ff_layer_swiglu(h, wg, wu, norm_weight=nw2, eps=eps, **pipe)
+    return ff_layer_matmul(act, wo2, residual=h, **pipe)
 
 
 # ---------------------------------------------------------------------------
@@ -197,11 +296,13 @@ def _ptr(t):
 def _entry(kernel: str, dtype: torch.dtype):
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
+    ring = [i, i, i, p, p]            # depth, streams, split, ws, tickets
     args = {
-        "ff_layer_matmul": [p, p, ll, p, p, i, i, i, f, i, p, p, p, i, p, p],
-        "ff_layer_swiglu": [p, p, p, ll, p, p, i, i, i, f, p],
+        "ff_layer_matmul": [p, p, ll, p, p, i, i, i, f, i, p, p, p, i, p]
+        + ring + [p],
+        "ff_layer_swiglu": [p, p, p, ll, p, p, i, i, i, f] + ring + [p],
         "ff_layer_mlp_tail": [p, p, ll, p, p, p, p, ll, p, ll, p, p, p, i, i,
-                              i, i, f, p],
+                              i, i, f, i, i, i, i, i, p, p, p],
     }[kernel]
     return _build.bind("ff_layer", f"{kernel}_{_SUFFIX[dtype]}", args)
 
@@ -211,6 +312,75 @@ def _launch(kernel: str, dtype, device, *args) -> None:
     _build.check("ff_layer", kernel, rc)
 
 
+_TICKETS: Dict[tuple, torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """Two words of the MLP tail's grid barrier, then the split
+    reduction's tickets, one a column tile; zeroed once per device and
+    stream: every launch leaves the count and the tickets at 0 again (the
+    last block to arrive resets them), so no launch clears them."""
+    key = (device, _build.stream_ptr(device))
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n + 2:
+        buf = torch.zeros(max(n + 2, 1024), dtype=torch.int32,
+                          device=device)
+        _TICKETS[key] = buf
+    return buf
+
+
+def _ring(dtype, device, m: int, stages) -> Tuple[list, Optional[
+        torch.Tensor], Optional[torch.Tensor]]:
+    """Each stage's k split, the workspace of the splits' f32 partial tiles
+    (the largest stage's) and the tickets, for launches of ``stages``
+    ``[(kind, n, k), ...]`` at ``m`` rows. f32 does not split."""
+    if dtype != torch.bfloat16:
+        return [1] * len(stages), None, None
+    sms = _sm_count(device.index)
+    plans = [(_plan(n, k, sms), _PARTIAL_COLS[kind])
+             for kind, n, k in stages]
+    words = max(pl.tiles * pl.split * m * cols if pl.split > 1 else 0
+                for pl, cols in plans)
+    ws = (torch.empty(words, dtype=torch.float32, device=device)
+          if words else None)
+    return ([pl.split for pl, _ in plans], ws,
+            _tickets(device, max(pl.tiles for pl, _ in plans)))
+
+
+def _launch_matmul(a, b, out, *, norm_weight, eps, epilogue, bias, pos,
+                   freqs, head_dim, residual, depth, streams) -> None:
+    (m, k), n = a.shape, b.shape[1]
+    (split,), ws, tickets = _ring(a.dtype, a.device, m, [("matmul", n, k)])
+    _launch("ff_layer_matmul", a.dtype, a.device, a.data_ptr(),
+            b.data_ptr(), b.stride(0), _ptr(norm_weight), out.data_ptr(), m,
+            n, k, eps, _EPILOGUE[epilogue], _ptr(bias), _ptr(pos),
+            _ptr(freqs), head_dim or 0, _ptr(residual), depth, streams,
+            split, _ptr(ws), _ptr(tickets))
+
+
+def _launch_swiglu(x, wg, wu, out, *, norm_weight, eps, depth,
+                   streams) -> None:
+    (m, k), f = x.shape, wg.shape[1]
+    (split,), ws, tickets = _ring(x.dtype, x.device, m, [("swiglu", f, k)])
+    _launch("ff_layer_swiglu", x.dtype, x.device, x.data_ptr(),
+            wg.data_ptr(), wu.data_ptr(), wg.stride(0), _ptr(norm_weight),
+            out.data_ptr(), m, f, k, eps, depth, streams, split, _ptr(ws),
+            _ptr(tickets))
+
+
+def _launch_tail(a, wo, x, nw2, wg, wu, wo2, out, scratch, *, eps, depth,
+                 streams) -> None:
+    (m, hq), d, f = a.shape, wo.shape[1], wg.shape[1]
+    splits, ws, tickets = _ring(a.dtype, a.device, m, [
+        ("matmul", d, hq), ("swiglu", f, d), ("matmul", d, f)])
+    h, act = scratch[:m * d], scratch[m * d:]
+    _launch("ff_layer_mlp_tail", a.dtype, a.device, a.data_ptr(),
+            wo.data_ptr(), wo.stride(0), x.data_ptr(), nw2.data_ptr(),
+            wg.data_ptr(), wu.data_ptr(), wg.stride(0), wo2.data_ptr(),
+            wo2.stride(0), h.data_ptr(), act.data_ptr(), out.data_ptr(), m,
+            hq, d, f, eps, depth, streams, *splits, _ptr(ws), _ptr(tickets))
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -218,7 +388,8 @@ def _launch(kernel: str, dtype, device, *args) -> None:
 
 def ff_layer_matmul(a, b, *, norm_weight=None, eps: float = 1e-6,
                     bias=None, positions=None, rope_theta=None,
-                    head_dim=None, residual=None) -> torch.Tensor:
+                    head_dim=None, residual=None, depth: int = DEFAULT_DEPTH,
+                    streams: int = DEFAULT_STREAMS) -> torch.Tensor:
     """``out = epilogue(round(maybe_rmsnorm(a) @ b))``.
 
     a: [m, k]; b: [k, n] (f32 or bf16, one type); ``norm_weight``: [k] f32
@@ -227,8 +398,11 @@ def ff_layer_matmul(a, b, *, norm_weight=None, eps: float = 1e-6,
         multiple of it), optional q ``bias`` [n]: the value plus the bias
         in f32, rotated per head, rounded back;
       * ``residual`` [m, n]: added in the output type.
-    Returns [m, n] in a's type. CPU tensors run
-    :func:`ff_layer_matmul_ref`; CUDA tensors launch the kernel."""
+    ``depth``/``streams``: the bf16 weight ring's stages and sub-copies a
+    stage (:func:`_pipe`); the result does not depend on them. Returns
+    [m, n] in a's type. CPU tensors run :func:`ff_layer_matmul_ref`; CUDA
+    tensors launch the kernel."""
+    _pipe(depth, streams)
     if a.dim() != 2:
         raise ValueError(f"a {tuple(a.shape)} is not [m, k]")
     m, k = a.shape
@@ -272,21 +446,23 @@ def ff_layer_matmul(a, b, *, norm_weight=None, eps: float = 1e-6,
         pos = positions.to(torch.int32).contiguous()
     out = torch.empty(m, n, dtype=dt, device=dev)
     epi = "rope" if rope else "residual" if residual is not None else "none"
-    _launch("ff_layer_matmul", dt, dev, a.data_ptr(), b.data_ptr(),
-            b.stride(0), _ptr(norm_weight), out.data_ptr(), m, n, k, eps,
-            _EPILOGUE[epi], _ptr(bias), _ptr(pos), _ptr(freqs),
-            head_dim or 0, _ptr(residual))
+    _launch_matmul(a, b, out, norm_weight=norm_weight, eps=eps, epilogue=epi,
+                   bias=bias, pos=pos, freqs=freqs, head_dim=head_dim,
+                   residual=residual, depth=depth, streams=streams)
     ff_layer_matmul.launches += 1
     return out
 
 
-def ff_layer_swiglu(x, wg, wu, *, norm_weight=None,
-                    eps: float = 1e-6) -> torch.Tensor:
+def ff_layer_swiglu(x, wg, wu, *, norm_weight=None, eps: float = 1e-6,
+                    depth: int = DEFAULT_DEPTH,
+                    streams: int = DEFAULT_STREAMS) -> torch.Tensor:
     """``silu(maybe_rmsnorm(x) @ wg) * (maybe_rmsnorm(x) @ wu)`` in f32,
     rounded once. x: [m, k]; wg, wu: [k, f] with one row stride (the two
-    halves of ``wi`` are taken as they are); ``norm_weight``: [k] f32.
-    Returns [m, f]. CPU tensors run :func:`ff_layer_swiglu_ref`; CUDA
-    tensors launch the kernel."""
+    halves of ``wi`` are taken as they are); ``norm_weight``: [k] f32;
+    ``depth``/``streams`` as :func:`ff_layer_matmul`. Returns [m, f]. CPU
+    tensors run :func:`ff_layer_swiglu_ref`; CUDA tensors launch the
+    kernel."""
+    _pipe(depth, streams)
     if x.dim() != 2:
         raise ValueError(f"x {tuple(x.shape)} is not [m, k]")
     m, k = x.shape
@@ -302,26 +478,27 @@ def ff_layer_swiglu(x, wg, wu, *, norm_weight=None,
     _check_cuda_layout((x, norm_weight), (wg, wu))
     if wg.stride(0) != wu.stride(0):
         raise ValueError("wg and wu need one row stride")
-    f = wg.shape[1]
-    out = torch.empty(m, f, dtype=dt, device=dev)
-    _launch("ff_layer_swiglu", dt, dev, x.data_ptr(), wg.data_ptr(),
-            wu.data_ptr(), wg.stride(0), _ptr(norm_weight), out.data_ptr(),
-            m, f, k, eps)
+    out = torch.empty(m, wg.shape[1], dtype=dt, device=dev)
+    _launch_swiglu(x, wg, wu, out, norm_weight=norm_weight, eps=eps,
+                   depth=depth, streams=streams)
     ff_layer_swiglu.launches += 1
     return out
 
 
-def ff_layer_mlp_tail(a, wo, x, nw2, wg, wu, wo2, *,
-                      eps: float = 1e-6) -> torch.Tensor:
+def ff_layer_mlp_tail(a, wo, x, nw2, wg, wu, wo2, *, eps: float = 1e-6,
+                      depth: int = DEFAULT_DEPTH,
+                      streams: int = DEFAULT_STREAMS) -> torch.Tensor:
     """The decode layer after attention, in one launch:
     ``h = round(a @ wo) + x``; ``act = swiglu(rmsnorm(h, nw2))``;
     ``out = round(act @ wo2) + h``.
 
     a: [m, hq] attention output (heads flattened); wo: [hq, d]; x: [m, d]
     the layer input; nw2: [d] f32; wg, wu: [d, f] (one row stride); wo2:
-    [f, d]. Returns [m, d]. CPU tensors run :func:`ff_layer_mlp_tail_ref`;
+    [f, d]; ``depth``/``streams`` as :func:`ff_layer_matmul`, for all three
+    stages. Returns [m, d]. CPU tensors run :func:`ff_layer_mlp_tail_ref`;
     CUDA tensors launch the cooperative kernel, whose grid is sized to what
     can be resident at once (a refused launch raises)."""
+    _pipe(depth, streams)
     if a.dim() != 2:
         raise ValueError(f"a {tuple(a.shape)} is not [m, hq]")
     m, hq = a.shape
@@ -342,12 +519,9 @@ def ff_layer_mlp_tail(a, wo, x, nw2, wg, wu, wo2, *,
     if wg.stride(0) != wu.stride(0):
         raise ValueError("wg and wu need one row stride")
     scratch = torch.empty(m * (d + f), dtype=dt, device=dev)
-    h, act = scratch[:m * d], scratch[m * d:]
     out = torch.empty(m, d, dtype=dt, device=dev)
-    _launch("ff_layer_mlp_tail", dt, dev, a.data_ptr(), wo.data_ptr(),
-            wo.stride(0), x.data_ptr(), nw2.data_ptr(), wg.data_ptr(),
-            wu.data_ptr(), wg.stride(0), wo2.data_ptr(), wo2.stride(0),
-            h.data_ptr(), act.data_ptr(), out.data_ptr(), m, hq, d, f, eps)
+    _launch_tail(a, wo, x, nw2, wg, wu, wo2, out, scratch, eps=eps,
+                 depth=depth, streams=streams)
     ff_layer_mlp_tail.launches += 1
     return out
 

@@ -223,7 +223,7 @@ def _tail_inputs(g, dtype, m, hq=1024, d=1024, f=2816):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("m", [1, 4, 13])
+@pytest.mark.parametrize("m", [1, 4, 13, 16])
 def test_mlp_tail_is_one_launch_equal_to_the_staged_kernels(cuda, dtype, m):
     args = _tail_inputs(torch.Generator(device=cuda).manual_seed(4), dtype, m)
     n_tail, n_mm, n_sw = (ff_layer_mlp_tail.launches,
@@ -235,6 +235,129 @@ def test_mlp_tail_is_one_launch_equal_to_the_staged_kernels(cuda, dtype, m):
     torch.cuda.synchronize()
     assert torch.equal(fused, staged)
     assert _err(fused, ff_layer_mlp_tail_ref(*args)) <= TOL[dtype]
+
+
+PIPES = [(d, st) for d in (1, 2, 4) for st in (1, 2)]
+
+
+def _layer_calls(g, m, k=1024, n=1024, f=2816, hd=64):
+    """The bf16 decode-layer kernels at m rows: the qproj (RMSNorm, q bias,
+    RoPE), SwiGLU (RMSNorm) and the MLP tail, each as (call(**pipe),
+    plain())."""
+    bf = torch.bfloat16
+    x = _randn(g, m, k).to(bf)
+    wq = _randn(g, k, n, scale=k ** -0.5).to(bf)
+    q_kw = dict(norm_weight=1 + 0.1 * _randn(g, k),
+                bias=_randn(g, n, scale=0.1).to(bf), rope_theta=1e6,
+                head_dim=hd, positions=torch.randint(0, 4096, (m,),
+                                                     generator=g,
+                                                     device=g.device))
+    wi = _randn(g, k, 2 * f, scale=k ** -0.5).to(bf)
+    nw = 1 + 0.1 * _randn(g, k)
+    tail = _tail_inputs(g, bf, m, n, k, f)
+    return {
+        "qproj": (lambda **p: ff_layer_matmul(x, wq, **q_kw, **p),
+                  lambda: ff_layer_matmul_ref(x, wq, **q_kw)),
+        "swiglu": (lambda **p: ff_layer_swiglu(x, wi[:, :f], wi[:, f:],
+                                               norm_weight=nw, **p),
+                   lambda: ff_layer_swiglu_ref(x, wi[:, :f], wi[:, f:],
+                                               norm_weight=nw)),
+        "tail": (lambda **p: ff_layer_mlp_tail(*tail, **p),
+                 lambda: ff_layer_mlp_tail_ref(*tail)),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["qproj", "swiglu", "tail"])
+def test_bf16_layer_kernels_are_bitwise_across_depth_and_streams(cuda,
+                                                                 kernel):
+    """The serve shape (4 rows, d 1024, 16 heads of 64, f 2816): the
+    weight ring's depth and streams change when rows land, not what is
+    summed."""
+    call, plain = _layer_calls(torch.Generator(device=cuda).manual_seed(21),
+                               4)[kernel]
+    base = call(depth=1, streams=1)
+    for depth, streams in PIPES:
+        assert torch.equal(call(depth=depth, streams=streams), base)
+    assert _err(base, plain()) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("m", [1, 4, 13, 16])
+def test_bf16_mlp_tail_equals_staged_at_every_pipe(cuda, m):
+    args = _tail_inputs(torch.Generator(device=cuda).manual_seed(22),
+                        torch.bfloat16, m)
+    for depth, streams in ((1, 1), (2, 1), (4, 2)):
+        fused = ff_layer_mlp_tail(*args, depth=depth, streams=streams)
+        assert torch.equal(fused, mlp_tail_staged(*args, depth=depth,
+                                                  streams=streams))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,n", [(1000, 1024), (1024, 1000), (777, 100),
+                                 (3000, 72)],
+                         ids=["ragged_k", "ragged_n", "both", "split_93"])
+def test_ff_layer_ragged_k_and_n_match_plain(cuda, dtype, k, n):
+    """A k the split does not divide evenly, n not a multiple of the
+    64-column tile (the ragged tile masked): every epilogue's columns and
+    SwiGLU's, against the plain versions; the tail at the same widths."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    m = 5
+    a = _randn(g, m, k).to(dtype)
+    b = _randn(g, k, n, scale=k ** -0.5).to(dtype)
+    nw = 1 + 0.1 * _randn(g, k)
+    for kw in ({}, {"norm_weight": nw},
+               {"residual": _randn(g, m, n).to(dtype)}):
+        assert _err(ff_layer_matmul(a, b, **kw),
+                    ff_layer_matmul_ref(a, b, **kw)) <= TOL[dtype]
+    wi = _randn(g, k, 2 * n, scale=k ** -0.5).to(dtype)
+    assert _err(ff_layer_swiglu(a, wi[:, :n], wi[:, n:], norm_weight=nw),
+                ff_layer_swiglu_ref(a, wi[:, :n], wi[:, n:],
+                                    norm_weight=nw)) <= TOL[dtype]
+    tail = _tail_inputs(g, dtype, m, hq=k, d=n, f=k)
+    fused = ff_layer_mlp_tail(*tail)
+    assert torch.equal(fused, mlp_tail_staged(*tail))
+    assert _err(fused, ff_layer_mlp_tail_ref(*tail)) <= TOL[dtype]
+
+
+def test_bf16_layer_weights_of_any_row_stride(cuda):
+    """Weights whose row stride is not a multiple of 16 bytes (and a base
+    off 16 bytes) take the producer's element path into the same ring:
+    the same bits as the contiguous copy, which takes cp.async."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    bf = torch.bfloat16
+    m, k, n, f = 4, 1024, 1024, 2816
+    x = _randn(g, m, k).to(bf)
+    b = _randn(g, k, n + 3, scale=k ** -0.5).to(bf)[:, 1:n + 1]
+    q_kw = dict(positions=torch.arange(m, device=cuda), rope_theta=1e6,
+                head_dim=64)
+    for kw in ({}, q_kw):
+        assert torch.equal(ff_layer_matmul(x, b, **kw),
+                           ff_layer_matmul(x, b.contiguous(), **kw))
+    wi = _randn(g, k, 2 * f + 5, scale=k ** -0.5).to(bf)
+    wg, wu = wi[:, 1:f + 1], wi[:, f + 1:2 * f + 1]
+    assert torch.equal(ff_layer_swiglu(x, wg, wu),
+                       ff_layer_swiglu(x, wg.contiguous(), wu.contiguous()))
+    assert _err(ff_layer_swiglu(x, wg, wu),
+                ff_layer_swiglu_ref(x, wg, wu)) <= TOL[bf]
+
+
+def test_bf16_layer_tickets_leave_no_state(cuda):
+    """The split reduction's tickets reset themselves: the same launch
+    twice in a row, and after launches of other shapes, gives the same
+    bits."""
+    calls = _layer_calls(torch.Generator(device=cuda).manual_seed(25), 4)
+    first = {name: call() for name, (call, _) in calls.items()}
+    for _ in range(2):
+        for name, (call, _) in calls.items():
+            assert torch.equal(call(), first[name])
+    torch.cuda.synchronize()
+
+
+def test_ff_layer_refuses_a_pipe_the_reference_refuses(cuda):
+    a = torch.zeros(4, 64, device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros(64, 64, device=cuda, dtype=torch.bfloat16)
+    for depth, streams in ((0, 1), (2, 0), (2, 3)):
+        with pytest.raises(ValueError):
+            ff_layer_matmul(a, b, depth=depth, streams=streams)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
