@@ -32,8 +32,10 @@ Phases (any failure exits non-zero without the final result line):
      gated linear-attention scan (ff_chunk_scan) at both recurrent models'
      prefill shapes (rwkv6-7b exclusive with u, zamba2 inclusive; B = 4,
      S = 256, their stream types and f32) at chunk 64 and 256, at a ragged
-     S = 200 with chunk 32/64/128 and on a strong decay, float32 within
-     3e-5 of max |plain| and bfloat16 within 2e-2; attention and decode
+     S = 200 with chunk 32/64/128, at N = P = 128 with chunk 256 and on a
+     strong decay (f32 and bf16), float32 within 3e-5 of max |plain| and
+     bfloat16 within 2e-2, and the bf16 scan at both models' shapes equal
+     across the ring's depth {1, 2, 4} x streams {1, 2}; attention and decode
      attention at zamba2's head dim 80, attention at head dim 128 (qwen2-
      72b's heads, GQA 8); the smoke rwkv6 and zamba2 models on the card
      against the CPU (prefill, 3 greedy decode steps) and their f32
@@ -55,14 +57,16 @@ Phases (any failure exits non-zero without the final result line):
      and 16 greedy decode steps through ``repro_torch.launch.steps``,
      requiring finite logits, exactly one ff_chunk_scan launch per layer
      and (zamba2) attention launches; prefill and decode times, peak
-     memory, the bf16 handoff gap and a decode-step profile;
+     memory, the bf16 handoff gap, a prefill profile (device busy time
+     and the scan's share of it) and a decode-step profile;
   f. time each kernel at the main path's shapes with CUDA events
      (attention also at the 256-token prefill, q/k/v [64,256,64], SDPA
-     beside it; the chunk scan at both recurrent models' prefill shapes),
-     and each fused launch against its staged composition; then the
-     paper's depth experiment: the matmul at both LIB shapes, the MoE
-     dispatch, attention and attention_proj at q/k/v [64,256,64], and
-     the decode layer's q-projection, SwiGLU and MLP tail at B = 4, at
+     beside it; the chunk scan at both recurrent models' prefill shapes
+     at chunk 64 and 256), and each fused launch against its staged
+     composition; then the paper's depth experiment: the matmul at both
+     LIB shapes, the MoE dispatch, attention and attention_proj at q/k/v
+     [64,256,64], the chunk scan at both models' prefill shapes, and the
+     decode layer's q-projection, SwiGLU and MLP tail at B = 4, at
      every ring depth {1, 2, 3, 4, 6} x streams {1, 2} (a ``depth_sweep``
      line);
   g. profile full-width decode steps (dense, paged, layer graph, timed in
@@ -78,6 +82,7 @@ last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import subprocess
@@ -820,7 +825,8 @@ SWEEP_STREAMS = (1, 2)
 def depth_sweep(torch, dev, shapes):
     """The paper's depth experiment on this card: rows 8 (both LIB shapes)
     and 8b, then row 1 and row 8a at q/k/v [64,256,64] (qwen's 4 x
-    256-token prefill; 8a into d_model 1024), then rows 4-6 at the serve
+    256-token prefill; 8a into d_model 1024), row 9 at both recurrent
+    models' prefill shapes (chunk 64), then rows 4-6 at the serve
     shape (B = 4), device ms per call with L2 cold, at every depth of
     SWEEP_DEPTHS that fits in shared memory and every streams of
     SWEEP_STREAMS. Printed as one ``depth_sweep`` JSON line."""
@@ -862,6 +868,17 @@ def depth_sweep(torch, dev, shapes):
                 head_dim=lay["hd"],
                 positions=torch.tensor(lay["positions"], device=dev,
                                        dtype=torch.int32))
+    from repro_torch.kernels.ff_chunk_scan import chunk_scan
+    from repro_torch.kernels.ff_chunk_scan import ops as SO
+    for label, bh, n, p, exclusive in scan_shapes():
+        heads = 1 if exclusive else bh // SSM["batch"]
+        sargs = [x.contiguous() if x is not None else None
+                 for x in scan_operands(torch, dev, gen, bh, SSM["prompt"],
+                                        n, p, exclusive, bf16, True, heads)]
+        cases.append((f"ff_chunk_scan {label} prefill, chunk 64",
+                      lambda sargs=sargs, inc=not exclusive, **kw:
+                      chunk_scan(*sargs, inclusive=inc, chunk=64, **kw),
+                      100, SO.max_depth(n, p, sargs[3].dtype)))
     for label, fn in (
             ("qproj", lambda **kw: FL.ff_layer_matmul(t["x"], t["wq"],
                                                       **q_kw, **kw)),
@@ -877,6 +894,8 @@ def depth_sweep(torch, dev, shapes):
                                     "streams": A.DEFAULT_STREAMS},
                  default_layer={"depth": FLO.DEFAULT_DEPTH,
                                 "streams": FLO.DEFAULT_STREAMS},
+                 default_scan={"depth": SO.DEFAULT_DEPTH,
+                               "streams": SO.DEFAULT_STREAMS},
                  depths=list(SWEEP_DEPTHS), streams=list(SWEEP_STREAMS),
                  ms={})
     for label, fn, reps, max_depth in cases:
@@ -1038,10 +1057,13 @@ def scan_err(out, plain):
 def check_scan_kernel(torch, dev):
     """ff_chunk_scan against its plain version on the card: both models'
     prefill shapes (B = 4, S = 256, the models' stream types and f32) at
-    chunk 64 and at chunk 256 (the reference autotuner's largest), then a ragged S = 200 at chunk 32/64/128, f32 and bf16, with and
-    without u, and the strong-decay case (lw = -3, a chunk's decay
-    e^-192). f32 within 3e-5 of max |plain|, bf16 within 2e-2; the f32
-    cases also against the naive scan."""
+    chunk 64 and at chunk 256 (the reference autotuner's largest), then a
+    ragged S = 200 at chunk 32/64/128 and N = P = 128 at chunk 256 with S
+    = 300, f32 and bf16, with and without u, and the strong-decay case (lw
+    = -3, a chunk's decay e^-192) in f32 and bf16. f32 within 3e-5 of max
+    |plain|, bf16 within 2e-2; the f32 cases also against the naive scan.
+    The bf16 scan (the ring body) at both models' prefill shapes is then
+    equal bit for bit across the ring's depth x streams (PIPE_GRID)."""
     from repro_torch.kernels.ff_chunk_scan import (chunk_scan,
                                                    chunk_scan_plain,
                                                    chunk_scan_ref)
@@ -1062,6 +1084,10 @@ def check_scan_kernel(torch, dev):
             for exclusive in (False, True):
                 cases.append((f"ragged chunk={chunk}", 8, 200, 64, 64,
                               exclusive, chunk, dtype, False, 1))
+    for dtype in (torch.bfloat16, torch.float32):
+        for exclusive in (False, True):
+            cases.append(("N=P=128 chunk=256", 4, 300, 128, 128, exclusive,
+                          256, dtype, False, 1))
     for (label, bh, s_, n, p, exclusive, chunk, dtype, model_types,
          heads) in cases:
         ops_ = scan_operands(torch, dev, gen, bh, s_, n, p, exclusive, dtype,
@@ -1086,18 +1112,29 @@ def check_scan_kernel(torch, dev):
               f"p={p}", ok, detail)
         if label == "rwkv6-7b path" and model_types:
             main_err = err(out, plain)
+        if label.endswith("path") and model_types:
+            check_pipe_bitwise(torch, f"ff_chunk_scan {label} {mode}",
+                               lambda **pk: chunk_scan(*ops_, **kw, **pk),
+                               out)
     ones = torch.ones(2, 256, 64, device=dev)
     lw = torch.full((2, 256, 64), -3.0, device=dev)
     for exclusive in (False, True):
         u = torch.ones(2, 64, device=dev) if exclusive else None
-        out = chunk_scan(ones, ones, ones, lw, u, inclusive=not exclusive)
         ref = chunk_scan_ref(ones, ones, ones, lw, u, inclusive=not exclusive)
+        mode = "exclusive+u" if exclusive else "inclusive"
+        out = chunk_scan(ones, ones, ones, lw, u, inclusive=not exclusive)
         e = err(out, ref)
         ok = bool(out.isfinite().all().item() and torch.allclose(
             out, ref, rtol=1e-4, atol=1e-5))
-        check(f"ff_chunk_scan strong decay lw=-3 "
-              f"{'exclusive+u' if exclusive else 'inclusive'}", ok,
+        check(f"ff_chunk_scan strong decay lw=-3 float32 {mode}", ok,
               f"finite, max|kernel-naive|={e:.3e} (rtol 1e-4, atol 1e-5)")
+        b = ones.to(torch.bfloat16)
+        out = chunk_scan(b, b, b, lw, u, inclusive=not exclusive)
+        e = scan_err(out, ref)
+        check(f"ff_chunk_scan strong decay lw=-3 bfloat16 {mode}",
+              bool(out.isfinite().all().item()) and e < BF16_TOL,
+              f"finite, max|kernel-naive|/max|naive|={e:.3e} "
+              f"tol={BF16_TOL}")
     return {"ff_chunk_scan": main_err}
 
 
@@ -1236,8 +1273,9 @@ def run_ssm_models(torch, dev):
     logits, exactly one ff_chunk_scan launch per layer in the prefill, and
     for Zamba2 attention launches in prefill and decode; prints the
     prefill ms, decode ms per step, tokens/s, peak memory, the bf16
-    handoff gap (printed, required finite) and a profile of the decode
-    step. Returns the chunk scan's launches per model."""
+    handoff gap (printed, required finite), a profile of the prefill (the
+    scan's share of its device time) and one of the decode step. Returns
+    the chunk scan's launches per model."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import build_model
     from repro_torch.models import layers as L
@@ -1266,6 +1304,7 @@ def run_ssm_models(torch, dev):
         launches = {name: w.launches for name, w in wr.items()
                     if w.launches}
         gap = handoff_gap(torch, model, params, toks)
+        pre = profile_ssm_prefill(torch, model, params, toks[:, :s])
         prof = profile_ssm_decode(torch, model, params, toks[:, :s])
         finite = all(lg.isfinite().all().item() for lg in logits)
         summary = dict(
@@ -1275,7 +1314,8 @@ def run_ssm_models(torch, dev):
             decode_tokens_per_s=b * n_steps / decode_s,
             prefill_tokens_per_s=b * s / prefill_s,
             peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-            handoff_gap_bf16=gap, launches=launches, decode_profile=prof)
+            handoff_gap_bf16=gap, launches=launches, prefill_profile=pre,
+            decode_profile=prof)
         print(f"model[{arch}] " + json.dumps(summary), flush=True)
         check(f"model[{arch}] logits finite and of shape "
               f"[{b}, {cfg.padded_vocab}]",
@@ -1296,6 +1336,43 @@ def run_ssm_models(torch, dev):
         del params, model, logits
     torch.cuda.empty_cache()
     return scan_launches
+
+
+def profile_ssm_prefill(torch, model, params, tokens):
+    """Where a full-width prefill's time goes: its wall ms (host clock
+    around one synchronised prefill), then one profiled prefill: the
+    device's busy ms (kernel and copy times from torch.profiler), device
+    launches, and the chunk scan's kernels' device ms and launches, with
+    the scan's share of the busy time and of the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import steps
+    prefill = steps.make_prefill_step(model)
+    prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    busy = scan = 0.0
+    launches = scan_launches = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3
+            busy += ms
+            launches += 1
+            if "scan_kernel" in e.name:
+                scan += ms
+                scan_launches += 1
+    return {"wall_ms": wall, "device_ms": busy,
+            "device_busy_share": busy / wall, "device_launches": launches,
+            "scan_device_ms": scan, "scan_launches": scan_launches,
+            "scan_share_of_device": scan / busy if busy else None,
+            "scan_share_of_wall": scan / wall}
 
 
 def profile_ssm_decode(torch, model, params, tokens, n_steps=8):
@@ -1356,19 +1433,27 @@ def profile_ssm_decode(torch, model, params, tokens, n_steps=8):
 
 def time_scan_kernel(torch, dev, scan_launches):
     """ff_chunk_scan at both models' prefill shapes with their stream types
-    (contiguous operands: the kernel's own time, no copy): cold and warm
-    device ms, call_ms, the plain version's ms, and the bound: the larger of
-    the bytes (each operand read once in its type, the output written once)
-    over 3.35 TB/s and the reference cost model's operations
-    (``ops.py:chunk_scan_cost``) over 989 TFLOP/s. No single PyTorch call
-    computes this scan, so there is no library time."""
+    (contiguous operands: the kernel's own time, no copy), at chunk 64 (the
+    models' own) and 256: cold and warm device ms, call_ms, the plain
+    version's ms, the ring body's blocks a row and blocks an SM, and the
+    bound: the larger of the bytes (each operand read once in its type,
+    the output written once) over 3.35 TB/s and the reference cost model's
+    operations (``ops.py:chunk_scan_cost``) over 989 TFLOP/s. No single
+    PyTorch call computes this scan, so there is no library time."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ff_chunk_scan import chunk_scan, chunk_scan_plain
+    from repro_torch.kernels.ff_chunk_scan import ops as SO
     gen = torch.Generator(device=dev).manual_seed(11)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
-    s, chunk = SSM["prompt"], 64
+    occupancy = _build.load("ff_chunk_scan").ff_chunk_scan_ring_occupancy
+    occupancy.argtypes = [ctypes.c_int] * 4
+    s = SSM["prompt"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
-    for (label, bh, n, p, exclusive), arch in zip(scan_shapes(),
-                                                  SSM["archs"]):
+    for (label, bh, n, p, exclusive), arch, chunk in (
+            (shape, arch, chunk)
+            for shape, arch in zip(scan_shapes(), SSM["archs"])
+            for chunk in (64, 256)):
         heads = 1 if exclusive else bh // SSM["batch"]
         args = [x.contiguous() if x is not None else None
                 for x in scan_operands(torch, dev, gen, bh, s, n, p,
@@ -1382,13 +1467,28 @@ def time_scan_kernel(torch, dev, scan_launches):
         ops = bh * (s // chunk) * per_chunk
         types = "/".join(str(x.dtype)[6:] if x is not None else "-"
                          for x in args)
-        print(f"f. timing ff_chunk_scan {label}", flush=True)
+        plan = SO._plan(bh, s, n, p, chunk, sms)
+        print(f"f. timing ff_chunk_scan {label} chunk {chunk}", flush=True)
+        # the same call with P cut into two slices of 32 columns (each
+        # block repeats its row's cumsum and exponents), against _plan's
+        plan_of = SO._plan
+        SO._plan = lambda *a: plan_of(*a)._replace(slices=2,
+                                                   cols=plan_of(*a).cols // 2)
+        try:
+            two_slices_ms = time_ms(torch, lambda: chunk_scan(*args, **kw),
+                                    50, flush)
+        finally:
+            SO._plan = plan_of
         rows.append(dict(
             shape=(f"{label} prefill: q/k/log_w[{bh},{s},{n}] v[{bh},{s},"
                    f"{p}]{' u[%d,%d]' % (bh, n) if exclusive else ''} "
                    f"({types}), {'exclusive+u' if exclusive else 'inclusive'}"
                    f", chunk {chunk}, subtile 16"),
-            launches_on_path=scan_launches.get(arch),
+            launches_on_path=scan_launches.get(arch) if chunk == 64 else 0,
+            blocks=plan.blocks, slices=plan.slices,
+            blocks_per_sm=occupancy(n, int(args[3].dtype == torch.bfloat16),
+                                    plan.cols, SO.DEFAULT_DEPTH),
+            ms_two_slices=two_slices_ms,
             ms=time_ms(torch, lambda: chunk_scan(*args, **kw), 100, flush),
             ms_hot=time_ms(torch, lambda: chunk_scan(*args, **kw), 100),
             call_ms=call_ms(torch, lambda: chunk_scan(*args, **kw), 50),

@@ -11,8 +11,21 @@ Replaces the TPU kernel ``repro/kernels/ff_chunk_scan/kernel.py``
 
 with the ``[N, P]`` state carried in f32 across chunks of ``chunk`` rows
 and the chunk's terms in the decay-to-boundary factorization, so that
-every exponent is <= 0. The CUDA kernel is ``csrc/ff_chunk_scan.cu``; its
-note says what bounds it on the H100.
+every exponent is <= 0. The CUDA kernels are in ``csrc/ff_chunk_scan.cu``;
+its note says what bounds them on the H100.
+
+Which body a CUDA call runs is decided by the operands' types and shapes
+alone (:func:`_body`): the ring body (``ring_scan_kernel``: the rows
+streamed 16 at a time through a ``depth``-stage shared-memory ring, the
+products on the tensor cores, the state on chip) when q, k and v are
+bfloat16, N is 16, 32, 64 or 128, P a multiple of 16, ``chunk`` a multiple
+of 16 and the subtile 16; the CUDA-core body (``chunk_scan_kernel``, f32
+fmaf chains) otherwise. ``depth`` and ``streams`` are the reference's
+``chunk_scan_ff`` keywords (its ``Pipe``, default 2 and 1; ``depth=1`` is
+the synchronous copy-then-compute baseline), checked as its ``Pipe``
+checks them for every call; the CPU plain version and the CUDA-core body
+ignore them. :func:`_plan` cuts P into slices of columns so that the ring
+body's blocks cover the SMs.
 
 :func:`chunk_scan_ref` is the naive per-step scan (the oracle, reference
 ``ref.py:chunk_scan_ref``); :func:`chunk_scan_plain` is the kernel's
@@ -24,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +46,12 @@ from repro_torch.kernels import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232448          # shared memory one block may use (227 KB)
+DEFAULT_DEPTH = 2            # the reference's chunk_scan_ff defaults
+DEFAULT_STREAMS = 1
+RING_N = (16, 32, 64, 128)   # N the ring body is built for
+_WORD_ROWS = 16              # rows of a ring word: one subtile
+_COLS = 16                   # columns of P per consumer warp
+_MAX_COLS = 128              # columns of one ring block (eight warps)
 
 
 def chunk_scan_ref(q, k, v, log_w, u=None, *,
@@ -132,17 +152,114 @@ def _subtile(chunk: int, subtile: int) -> int:
 
 
 def smem_bytes(n: int, p: int, chunk: int, subtile: int) -> int:
-    """Dynamic shared memory of one block (``csrc/ff_chunk_scan.cu``
-    ``smem_floats``): the chunk's cumsum [chunk, N+1] and the state [N, P]
-    in f32; per subtile q, k, the q-side exponent, the two scaled q tiles
-    and a block of earlier k [subtile, N+1], the subtile's v, a block of
-    earlier v and the intra sums [subtile, P], the scores [subtile,
-    subtile], the bonus per row, and three [N] vectors. Only the cumsum
-    grows with the chunk."""
+    """Dynamic shared memory of one CUDA-core block holding ``p`` columns
+    (``csrc/ff_chunk_scan.cu`` ``smem_floats``): the chunk's cumsum
+    [chunk, N+1] and the state [N, p] in f32; per subtile q, k, the q-side
+    exponent, the two scaled q tiles and a block of earlier k [subtile,
+    N+1], the subtile's v, a block of earlier v and the intra sums
+    [subtile, p], the scores [subtile, subtile], the bonus per row, and
+    three [N] vectors. Only the cumsum grows with the chunk."""
     np_ = n + 1
     floats = (chunk * np_ + n * p + 6 * subtile * np_ + 3 * subtile * p
               + subtile * subtile + subtile + 3 * n)
     return 4 * floats
+
+
+def ring_smem_bytes(n: int, cols: int, w_bytes: int, depth: int) -> int:
+    """Dynamic shared memory of one ring block of ``cols`` columns
+    (``csrc/ff_chunk_scan.cu`` ``Layout``): ``depth`` stages of 16 rows (q
+    and k [16, N+8] bf16, v [16, cols+8] bf16, log_w [16, N+4] f32 or [16,
+    N+8] bf16 by ``w_bytes``); two derived buffers (q decayed two ways and
+    k decayed, [16, N+8] bf16 each, the cumsum [17, N+4] f32, the diagonal
+    scores [16, 24] bf16, the bonus [16] and two [N] decays in f32); u and
+    the carried cumsum [3, N] f32; the carried state h [N, cols] f32; two
+    mbarriers a stage. Nothing grows with the chunk."""
+    ns, cs = n + 8, n + 4
+    ws = (n + 4) * 4 if w_bytes == 4 else (n + 8) * 2
+    stage = 2 * 16 * ns * 2 + 16 * (cols + 8) * 2 + 16 * ws
+    buf = 3 * 16 * ns * 2 + 17 * cs * 4 + 16 * 24 * 2 + 16 * 4 + 2 * n * 4
+    return depth * stage + 2 * buf + 3 * n * 4 + n * cols * 4 + 16 * depth
+
+
+@functools.lru_cache(maxsize=None)
+def max_depth(n: int, p: int, w_dtype: torch.dtype = torch.float32) -> int:
+    """The deepest ring that fits one block's shared memory at state width
+    ``n`` and ``p`` columns (a block takes at most 128 of them) with log_w
+    of type ``w_dtype``."""
+    cols, w_bytes = min(p, _MAX_COLS), torch.finfo(w_dtype).bits // 8
+    depth = 1
+    while ring_smem_bytes(n, cols, w_bytes, depth + 1) <= SMEM_LIMIT:
+        depth += 1
+    return depth
+
+
+def _pipe(depth: int, streams: int, chunk: int) -> None:
+    """``depth`` and ``streams`` checked as the reference's ``Pipe``
+    checks them for the scan's (chunk, N) tiles (``core/pipe.py``): each
+    at least 1, ``streams`` dividing the chunk's rows."""
+    if depth < 1:
+        raise ValueError(f"pipe depth must be >= 1, got {depth}")
+    if streams < 1:
+        raise ValueError(f"pipe streams must be >= 1, got {streams}")
+    if chunk % streams:
+        raise ValueError(f"tile leading dim {chunk} not divisible by "
+                         f"streams={streams}")
+
+
+class Plan(NamedTuple):
+    """The ring body's grid: ``slices`` blocks of ``cols`` columns (``cols
+    // 16`` consumer warps and one producer warp) for each of the ``bh``
+    rows, ``blocks`` in all, each walking all of its row's chunks in
+    order."""
+    slices: int
+    cols: int
+    blocks: int
+
+
+def _plan(bh: int, s: int, n: int, p: int, chunk: int,
+          sm_count: int) -> Plan:
+    """The ring body's split of P, from the shapes and the SM count alone:
+    one block per row with every column (the shared work of a row, its
+    cumsum and exponents, is then done once), at most 128 columns a block;
+    P is halved while the doubled blocks still fit on the SMs, down to 16
+    columns a block (each slice repeats the row's cumsum and exponents, so
+    a split pays only where SMs would otherwise idle). A row's chunks stay
+    in one block, in order: at the models' prefill shapes (256 and 320
+    rows) the rows alone cover the card, and the state never leaves the
+    chip. ``s``, ``n`` and ``chunk`` do not change it: a block walks all
+    of its row's chunks, and its shared memory does not grow with them."""
+    units = p // _COLS
+    slices = -(-p // _MAX_COLS)
+    while units % slices:
+        slices += 1
+    while bh * slices * 2 <= sm_count and units % (2 * slices) == 0:
+        slices *= 2
+    return Plan(slices=slices, cols=p // slices, blocks=bh * slices)
+
+
+def _fma_slices(n: int, p: int, chunk: int, st: int) -> int:
+    """The CUDA-core body's split of P: the fewest slices (a divisor of P)
+    whose block fits in shared memory."""
+    for slices in range(1, p + 1):
+        if p % slices == 0 and smem_bytes(n, p // slices, chunk,
+                                          st) <= SMEM_LIMIT:
+            return slices
+    raise ValueError(f"chunk_scan at N={n}, chunk={chunk}, subtile={st} "
+                     f"needs {smem_bytes(n, 1, chunk, st)} bytes of shared "
+                     f"memory per block even at one column; the H100 gives "
+                     f"{SMEM_LIMIT}")
+
+
+def _body(q, k, v, chunk: int, st: int) -> str:
+    """``"ring"`` (the tensor-core body) when q, k and v are bfloat16, N is
+    16, 32, 64 or 128, P a multiple of 16, the chunk a multiple of 16 and
+    the subtile 16; ``"fma"`` (the CUDA-core body) otherwise."""
+    bf = torch.bfloat16
+    if (q.dtype == bf and k.dtype == bf and v.dtype == bf
+            and q.shape[2] in RING_N and v.shape[2] % _COLS == 0
+            and chunk % _WORD_ROWS == 0 and st == _WORD_ROWS):
+        return "ring"
+    return "fma"
 
 
 def _check(q, k, v, log_w, u, inclusive):
@@ -171,44 +288,78 @@ def _check(q, k, v, log_w, u, inclusive):
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
+def _entry(body: str):
     p, i = ctypes.c_void_p, ctypes.c_int
+    if body == "ring":
+        return _build.bind("ff_chunk_scan", "ff_chunk_scan_ring",
+                           [p, p, p, p, p, p] + [i] * 10 + [p])
     return _build.bind("ff_chunk_scan", "ff_chunk_scan",
-                       [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p])
+                       [p, p, p, p, p, p] + [i] * 9 + [p])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _aligned(x):
+    """``x`` contiguous, copied if its data is not 16-byte aligned (the
+    ring body reads 16 bytes a copy)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def chunk_scan(q, k, v, log_w, u=None, *, chunk: int = 64, subtile: int = 16,
-               inclusive: bool = True) -> torch.Tensor:
+               inclusive: bool = True, depth: int = DEFAULT_DEPTH,
+               streams: int = DEFAULT_STREAMS) -> torch.Tensor:
     """The gated linear-attention scan: q, k, log_w [BH, S, N], v [BH, S,
     P], u [BH, N] (the exclusive mode's bonus) or None; each operand float32
     or bfloat16 on its own. Any S: the ragged last chunk is padded with
-    ``log_w = 0`` and ``k = v = 0``. ``log_w`` is clamped at 0. Returns [BH,
-    S, P] in q's type. CPU tensors run :func:`chunk_scan_plain`; CUDA
-    tensors launch the kernel (one block per row, chunks in order, a chunk
-    staged a subtile at a time)."""
+    ``log_w = 0`` and ``k = v = 0``. ``log_w`` is clamped at 0. ``depth``
+    and ``streams``: the ring's stages and the parts each stage is copied
+    in (the reference's ``Pipe``; checked for every call, used by the ring
+    body only). Returns [BH, S, P] in q's type. CPU tensors run
+    :func:`chunk_scan_plain`; CUDA tensors launch the body :func:`_body`
+    picks (one launch)."""
     st = _subtile(chunk, subtile)
+    _pipe(depth, streams, chunk)
     _check(q, k, v, log_w, u, inclusive)
     if q.device.type == "cpu":
         return chunk_scan_plain(q, k, v, log_w, u, chunk=chunk, subtile=st,
                                 inclusive=inclusive)
     bh, s, n = q.shape
     p = v.shape[2]
-    smem = smem_bytes(n, p, chunk, st)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"chunk_scan at N={n}, P={p}, chunk={chunk}, "
-                         f"subtile={st} needs {smem} bytes of shared memory "
-                         f"per block; the H100 gives {SMEM_LIMIT}")
-    q, k, v, log_w = (x.contiguous() for x in (q, k, v, log_w))
+    body = _body(q, k, v, chunk, st)
+    if body == "ring":
+        deepest = max_depth(n, p, log_w.dtype)
+        if depth > deepest:
+            raise ValueError(
+                f"depth {depth} needs more than the {SMEM_LIMIT} bytes of "
+                f"shared memory of a block at N={n}, P={p}; at most "
+                f"{deepest} stages fit")
+        slices = _plan(bh, s, n, p, chunk,
+                       _sm_count(q.device.index or 0)).slices
+        q, k, v, log_w = (_aligned(x) for x in (q, k, v, log_w))
+    else:
+        slices = _fma_slices(n, p, chunk, st)
+        q, k, v, log_w = (x.contiguous() for x in (q, k, v, log_w))
     u = u.contiguous() if u is not None else None
     out = torch.empty((bh, s, p), dtype=q.dtype, device=q.device)
     types = sum(bit for bit, x in ((1, q), (2, k), (4, v), (8, log_w),
                                    (16, u))
                 if x is not None and x.dtype == torch.bfloat16)
-    rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
-                  u.data_ptr() if u is not None else None, out.data_ptr(),
-                  bh, s, n, p, chunk, st, int(inclusive), types,
-                  _build.stream_ptr(q.device))
-    _build.check("ff_chunk_scan", "ff_chunk_scan", rc)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+            u.data_ptr() if u is not None else None, out.data_ptr())
+    stream = _build.stream_ptr(q.device)
+    if body == "ring":
+        rc = _entry(body)(*ptrs, bh, s, n, p, chunk, int(inclusive), types,
+                          slices, depth, streams, stream)
+        name = "ff_chunk_scan_ring"
+    else:
+        rc = _entry(body)(*ptrs, bh, s, n, p, chunk, st, int(inclusive),
+                          types, slices, stream)
+        name = "ff_chunk_scan"
+    _build.check("ff_chunk_scan", name, rc)
     chunk_scan.launches += 1
     return out
 

@@ -20,6 +20,7 @@ from repro.core.program import PipePolicy
 from repro_torch import ops
 from repro_torch.kernels.ff_chunk_scan import (chunk_scan, chunk_scan_plain,
                                                chunk_scan_ref, smem_bytes)
+from repro_torch.kernels.ff_chunk_scan import ops as scan_ops
 
 FF = PipePolicy(mode="ff", interpret=True)
 REF = PipePolicy(mode="ref")
@@ -181,10 +182,16 @@ def test_plain_version_is_the_wrapper_on_the_cpu_and_counts_no_launch():
 
 def test_shared_memory_fits_the_path_shapes():
     """Every chunk the reference's autotuner tries, and the smaller ones,
-    fit one block's 227 KB at N = P = 64 (subtile 16): only the cumsum
-    grows with the chunk. N = P = 128 fits at chunk 128, not at 256."""
+    fit one CUDA-core block's 227 KB at N = P = 64 (subtile 16): only the
+    cumsum grows with the chunk. N = P = 128 fits at chunk 128 in one
+    block, and at 256 once the wrapper splits P into two slices of 64
+    columns; the ring body's shared memory does not grow with the chunk
+    and fits at N = P = 128 at its default depth."""
     for chunk in (16, 32, 64, 128, 256):
         assert smem_bytes(64, 64, chunk, 16) < 232448
     assert smem_bytes(64, 64, 256, 16) == 122048
     assert smem_bytes(128, 128, 128, 16) < 232448
     assert smem_bytes(128, 128, 256, 16) > 232448
+    assert scan_ops._fma_slices(128, 128, 256, 16) == 2
+    assert smem_bytes(128, 64, 256, 16) <= 232448
+    assert scan_ops.ring_smem_bytes(128, 128, 4, 2) <= 232448

@@ -18,7 +18,9 @@ by the output's type; the gather, every fused launch against its staged
 composition, and the bf16 product and attention across the ring's depth
 and streams at exactly 0. The chunk scan is held at float32 3e-5 and
 bfloat16 2e-2 of max |plain| (the reference kernel test's bound) at every
-chunk up to 256, its strong-decay case at rtol 1e-4 / atol 1e-5. These
+chunk up to 256 (N = P = 128 too), its strong-decay case at rtol 1e-4 /
+atol 1e-5, and the bf16 scan across the ring's depth and streams at
+exactly 0. These
 tests take small and ragged shapes; chip_smoke.py checks the same kernels
 at full model width.
 """
@@ -30,7 +32,7 @@ from repro_torch.kernels.ff_attention import (attention, attention_proj,
                                              attention_proj_ref,
                                              attention_ref)
 from repro_torch.kernels.ff_chunk_scan import (chunk_scan, chunk_scan_plain,
-                                               chunk_scan_ref)
+                                               chunk_scan_ref, max_depth)
 from repro_torch.kernels.ff_decode_attention import (decode_attention,
                                                      decode_attention_ref)
 from repro_torch.kernels.ff_layer import (ff_layer_matmul,
@@ -598,7 +600,8 @@ def _scan_err(out, plain):
                          ids=["inclusive", "exclusive_u"])
 @pytest.mark.parametrize("bh,s,n,p,chunk", [
     (3, 200, 64, 64, 64), (2, 77, 16, 32, 32), (2, 300, 64, 64, 128),
-    (1, 64, 16, 16, 16), (2, 600, 64, 64, 256), (2, 200, 128, 128, 128)])
+    (1, 64, 16, 16, 16), (2, 600, 64, 64, 256), (2, 200, 128, 128, 128),
+    (2, 300, 128, 128, 256)])
 def test_chunk_scan_kernel_matches_plain(cuda, dtype, exclusive, bh, s, n, p,
                                          chunk):
     """float32 within 3e-5 of max |plain| (the reference kernel test's
@@ -675,10 +678,42 @@ def test_chunk_scan_strong_decay_stays_finite(cuda):
 
 
 def test_chunk_scan_refuses_what_does_not_fit(cuda):
-    """N = P = 128 at chunk 256: the cumsum alone is 132 KB, with the
-    state and the subtile tiles 274,368 bytes."""
-    x = torch.zeros(1, 256, 128, device=cuda)
+    """f32 N = 256 at chunk 256: the CUDA-core body's cumsum alone is 263
+    KB, whatever the split of P; and a bf16 ring deeper than
+    ``max_depth``. (N = P = 128 at chunk 256 runs: two slices of P on the
+    CUDA-core body, test_chunk_scan_kernel_matches_plain.)"""
+    x = torch.zeros(1, 256, 256, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         chunk_scan(x, x, x, x, chunk=256)
+    b = torch.zeros(1, 256, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        chunk_scan(b, b, b, b, depth=max_depth(64, 64, b.dtype) + 1)
     with pytest.raises(ValueError):                  # mixed devices
         chunk_scan(x, x.cpu(), x, x)
+
+
+@pytest.mark.parametrize("exclusive", [False, True],
+                         ids=["mamba2_types", "rwkv6_types"])
+def test_chunk_scan_is_bitwise_across_depth_and_streams(cuda, exclusive):
+    """The bf16 ring body at both models' stream types and N = P = 64 over
+    four 64-row chunks: the ring's depth and streams change when a word
+    lands, not what is computed."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    bf = torch.bfloat16
+    q, k, v, lw, u = _scan_inputs(g, 8, 256, 64, 64, exclusive)
+    q, k, v = q.to(bf), k.to(bf), v.to(bf)
+    lw = lw.to(bf) if exclusive else lw
+    kw = dict(inclusive=not exclusive)
+    want = chunk_scan(q, k, v, lw, u, **kw)
+    for depth in (1, 2, 4):
+        for streams in (1, 2):
+            got = chunk_scan(q, k, v, lw, u, depth=depth, streams=streams,
+                             **kw)
+            assert torch.equal(got, want), (depth, streams)
+
+
+def test_chunk_scan_checks_depth_and_streams(cuda):
+    x = torch.zeros(1, 64, 16, device=cuda, dtype=torch.bfloat16)
+    for bad in (dict(depth=0), dict(streams=0), dict(streams=3)):
+        with pytest.raises(ValueError):
+            chunk_scan(x, x, x, x, **bad)
