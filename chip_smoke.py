@@ -10,7 +10,11 @@ Phases (any failure exits non-zero without the final result line):
      ``nvcc`` per source, all started together);
   b. hold each kernel against its plain PyTorch version on the card at the
      serving shapes and at wider shapes (ragged edges, GQA, 64 pages, an
-     inactive row, sentinel table entries; for the decode-layer kernels
+     inactive row, sentinel table entries; decode attention also at the
+     prompt-256 and long shapes of phase f, at GQA 6 with pages of 8 and
+     a length past the cache, its split shapes and zamba2's head dim 80
+     bitwise across the ring's depth {1, 2, 4} x streams {1, 2}, paged
+     == contiguous at each; for the decode-layer kernels
      B in {1, 13, 16}, RMSNorm off and on, both epilogues): float32 within
      2e-4 (the reference registry's tolerance), bfloat16 within 2e-2, the
      paged kernel equal to the contiguous one bit for bit at block_kv ==
@@ -61,18 +65,27 @@ Phases (any failure exits non-zero without the final result line):
      and the scan's share of it) and a decode-step profile;
   f. time each kernel at the main path's shapes with CUDA events
      (attention also at the 256-token prefill, q/k/v [64,256,64], SDPA
-     beside it; the chunk scan at both recurrent models' prefill shapes
-     at chunk 64 and 256), and each fused launch against its staged
+     beside it; decode attention, contiguous and paged, at the default
+     serve run's lengths, at the prompt-256 run's and on a long cache of
+     4 x 16 KV heads at lengths 4096/3500/2900/2048, masked SDPA beside
+     the contiguous one; the chunk scan at both recurrent models' prefill
+     shapes at chunk 64 and 256), and each fused launch against its staged
      composition; then the paper's depth experiment: the matmul at both
      LIB shapes, the MoE dispatch, attention and attention_proj at q/k/v
      [64,256,64], the chunk scan at both models' prefill shapes, and the
-     decode layer's q-projection, SwiGLU and MLP tail at B = 4, at
+     decode layer's q-projection, SwiGLU and MLP tail at B = 4, and both
+     decode-attention kernels at the prompt-256 and long shapes, at
      every ring depth {1, 2, 3, 4, 6} x streams {1, 2} (a ``depth_sweep``
      line);
   g. profile full-width decode steps (dense, paged, layer graph, timed in
      alternating rounds): wall vs device busy time and device launches
-     per step; for the layer graph the MLP tail's and the q-projection's
+     per step, the decode-attention kernels' ms, launches and share of
+     the busy time; for the layer graph the MLP tail's and the q-projection's
      launches (one each a layer, checked) and device ms per step.
+
+``python3 chip_smoke.py --decode-timing`` builds the kernels and runs
+only phase f's decode-attention timing (one ``decode_timing`` line): run
+it in two trees in one call to compare their decode bodies.
 
 Output: one line per check, per serve run and per recurrent model
 (``model[...]``), a JSON ``kernels`` line, the
@@ -155,6 +168,9 @@ LIB = dict(
 # greedy decode steps; random f32 weights from seed 0
 SSM = dict(archs=("rwkv6_7b", "zamba2_2p7b"), batch=4, prompt=256,
            decode_steps=16)
+# a long-document decode on qwen1.5-0.5B (32K context): the serve run's 4
+# slots at these lengths over 256 pages of 16 (a 64 MiB pool, 51.4 MB live)
+DECODE_LONG = dict(n_pages=256, lengths=[4096, 3500, 2900, 2048])
 SCAN_F32_TOL = 3e-5          # relative to max |plain|, the reference's bound
 HANDOFF_TOL = 1e-3           # the reference registry's ff_chunk_scan tol
 SSM_MODEL_TOL = 1e-3         # smoke SSMs card vs CPU: the same tol
@@ -216,7 +232,7 @@ def decode_inputs(torch, dev, dtype, b, h, kvh, d, page, n_pages, n_blocks,
     tables = torch.full((b, n_pages), n_blocks, dtype=torch.int32, device=dev)
     used = 0
     for i, n in enumerate(lengths):
-        need = -(-max(n, 1) // page) if n else 0
+        need = min(n_pages, -(-n // page))
         tables[i, :need] = perm[used:used + need].int()
         used += need
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -260,12 +276,14 @@ def check_kernels(torch, dev, shapes):
                     torch, f"ff_attention {label} bh={bh} s={s}",
                     lambda **kw: attention(q, k, v, kv_groups=groups,
                                            causal=causal, **kw), out)
-        dec = shapes["decode"]
         for label, (b, h, kvh, d, page, n_pages, nb, lengths) in (
-                ("serve", (dec["b"], dec["h"], dec["kvh"], dec["d"],
-                           dec["page"], dec["n_pages"], dec["n_blocks"],
-                           dec["lengths"])),
-                ("wide", (4, 16, 8, 64, 16, 64, 300, [0, 1000, 517, 1024]))):
+                *((lbl, tuple(shapes[key][f] for f in (
+                    "b", "h", "kvh", "d", "page", "n_pages", "n_blocks",
+                    "lengths"))) for lbl, key in (
+                        ("serve", "decode"), ("serve-256", "decode_256"),
+                        ("long", "decode_long"))),
+                ("wide", (4, 16, 8, 64, 16, 64, 300, [0, 1000, 517, 1024])),
+                ("gqa-page8", (3, 12, 2, 64, 8, 40, 200, [333, 0, 17]))):
             q, pool, tables, lens, k, v = decode_inputs(
                 torch, dev, dtype, b, h, kvh, d, page, n_pages, nb, lengths,
                 gen)
@@ -286,10 +304,34 @@ def check_kernels(torch, dev, shapes):
                   f"inactive rows exactly 0: {zero}")
             check(f"paged == contiguous bitwise {label} {tag}",
                   torch.equal(out_c, out_p), f"max diff {err(out_c, out_p)}")
+            if label != "serve":
+                check_decode_pipe(torch, f"{label} {tag}", q, k, v, pool,
+                                  tables, lens, page, out_c)
             if label == "serve" and dtype == torch.bfloat16:
                 main_err["ff_decode_attention"] = e_c
                 main_err["ff_paged_decode_attention"] = e_p
     return main_err
+
+
+def check_decode_pipe(torch, label, q, k, v, pool, tables, lens, page,
+                      want):
+    """Both decode kernels at every (depth, streams) of PIPE_GRID equal
+    ``want`` (the contiguous kernel at the defaults) bit for bit: the ring
+    changes when a word lands, never what is summed, and the paged kernel
+    reads the same words as the contiguous one."""
+    from repro_torch.kernels.ff_decode_attention import decode_attention
+    from repro_torch.runtime.paged_kv import paged_decode_attention
+    bad = []
+    for depth, st in PIPE_GRID:
+        out_c = decode_attention(q, k, v, lens, block_kv=page, depth=depth,
+                                 streams=st)
+        out_p = paged_decode_attention(q, pool, tables, lens, depth=depth,
+                                       streams=st)
+        if not (torch.equal(out_c, want) and torch.equal(out_p, want)):
+            bad.append((depth, st))
+    check(f"decode contiguous and paged {label} bitwise across depth x "
+          f"streams {PIPE_GRID}", not bad,
+          f"differs at {bad}" if bad else "all equal")
 
 
 def layer_inputs(torch, dev, dtype, m, lay, gen):
@@ -827,7 +869,8 @@ def depth_sweep(torch, dev, shapes):
     and 8b, then row 1 and row 8a at q/k/v [64,256,64] (qwen's 4 x
     256-token prefill; 8a into d_model 1024), row 9 at both recurrent
     models' prefill shapes (chunk 64), then rows 4-6 at the serve
-    shape (B = 4), device ms per call with L2 cold, at every depth of
+    shape (B = 4), then rows 2 and 3 at ``decode_256`` and
+    ``decode_long``, device ms per call with L2 cold, at every depth of
     SWEEP_DEPTHS that fits in shared memory and every streams of
     SWEEP_STREAMS. Printed as one ``depth_sweep`` JSON line."""
     from repro_torch.kernels import ff_attention as A
@@ -888,6 +931,25 @@ def depth_sweep(torch, dev, shapes):
                                                            **kw))):
         cases.append((f"ff_layer {label} B={lay['b']} (serve)", fn, 100,
                       FLO.MAX_DEPTH))
+    from repro_torch.kernels.ff_decode_attention import ops as DO
+    from repro_torch.runtime.paged_kv import paged_decode_attention
+    for key in ("decode_256", "decode_long"):
+        dec = shapes[key]
+        dq, pool, tables, lens, dk, dv = decode_inputs(
+            torch, dev, bf16, dec["b"], dec["h"], dec["kvh"], dec["d"],
+            dec["page"], dec["n_pages"], dec["n_blocks"], dec["lengths"],
+            gen)
+        deepest = DO.max_depth(dec["d"], bf16, dec["h"] // dec["kvh"])
+        cases.append((f"ff_decode_attention {key}",
+                      lambda dq=dq, dk=dk, dv=dv, lens=lens, pg=dec["page"],
+                      **kw: DO.decode_attention(dq, dk, dv, lens,
+                                                block_kv=pg, **kw),
+                      100, deepest))
+        cases.append((f"ff_paged_decode_attention {key}",
+                      lambda dq=dq, pool=pool, tables=tables, lens=lens,
+                      **kw: paged_decode_attention(dq, pool, tables, lens,
+                                                   **kw),
+                      100, deepest))
     sweep = dict(default={"depth": DEFAULT_DEPTH,
                           "streams": DEFAULT_STREAMS},
                  default_attention={"depth": A.DEFAULT_DEPTH,
@@ -896,6 +958,8 @@ def depth_sweep(torch, dev, shapes):
                                 "streams": FLO.DEFAULT_STREAMS},
                  default_scan={"depth": SO.DEFAULT_DEPTH,
                                "streams": SO.DEFAULT_STREAMS},
+                 default_decode={"depth": DO.DEFAULT_DEPTH,
+                                 "streams": DO.DEFAULT_STREAMS},
                  depths=list(SWEEP_DEPTHS), streams=list(SWEEP_STREAMS),
                  ms={})
     for label, fn, reps, max_depth in cases:
@@ -1146,8 +1210,10 @@ HD128 = dict(heads=64, kv_heads=8, d=128, s=256)
 def check_attention_head_dims(torch, dev):
     """Zamba2's shared attention block at its head dim 80 (32 heads, MHA):
     the prefill kernel over 4 x 256 tokens and the decode kernel over a
-    cache of 256 + 16 rows (tiles of 16), each against its plain version;
-    then the prefill kernel at head dim 128 (HD128, GQA 8)."""
+    cache of 256 + 16 rows (tiles of 16, split over 4 blocks a row), each
+    against its plain version, and both decode kernels bitwise across
+    depth x streams; then the prefill kernel at head dim 128 (HD128, GQA
+    8)."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.ff_attention import attention, attention_ref
     from repro_torch.kernels.ff_decode_attention import (decode_attention,
@@ -1164,17 +1230,18 @@ def check_attention_head_dims(torch, dev):
         check(f"ff_attention zamba2 hd={d} {tag} bh={b * h} s={s}",
               e <= tol and out.isfinite().all().item(),
               f"max|kernel-plain|={e:.3e} tol={tol}")
-        skv = -(-(s + SSM["decode_steps"]) // 16) * 16
-        q = rn(torch, gen, dev, b, h, d, dtype=dtype)
-        kc = rn(torch, gen, dev, b, h, skv, d, dtype=dtype)
-        vc = rn(torch, gen, dev, b, h, skv, d, dtype=dtype)
-        lens = torch.tensor([s + 1, s + 7, s + 16, s + 3], dtype=torch.int32,
-                            device=dev)
+        pages = -(-(s + SSM["decode_steps"]) // 16)
+        skv = pages * 16
+        q, pool, tables, lens, kc, vc = decode_inputs(
+            torch, dev, dtype, b, h, h, d, 16, pages, b * pages,
+            [s + 1, s + 7, s + 16, s + 3], gen)
         out = decode_attention(q, kc, vc, lens, block_kv=16)
         e = err(out, decode_attention_ref(q, kc, vc, lens, block_kv=16))
         check(f"ff_decode_attention zamba2 hd={d} {tag} b={b} h={h} "
               f"skv={skv}", e <= tol and out.isfinite().all().item(),
               f"max|kernel-plain|={e:.3e} tol={tol}")
+        check_decode_pipe(torch, f"zamba2 hd={d} {tag}", q, kc, vc, pool,
+                          tables, lens, 16, out)
         hh, g = HD128["heads"], HD128["heads"] // HD128["kv_heads"]
         q, k, v = prefill_inputs(torch, dev, dtype, hh, g, HD128["s"],
                                  HD128["d"], gen)
@@ -1565,13 +1632,24 @@ def main_path_shapes(torch):
     n_pages = max(-(-(len(r.prompt) + r.max_new) // page) for r in reqs)
     # lengths of the first lockstep batch halfway through its decode
     lengths = [len(r.prompt) + SERVE["max_new"] // 2 for r in reqs[:slots]]
-    p256 = serve._bucket(max(len(r.prompt) for r in trace(256)))
+    reqs256 = trace(256)
+    p256 = serve._bucket(max(len(r.prompt) for r in reqs256))
+    pages256 = max(-(-(len(r.prompt) + r.max_new) // page) for r in reqs256)
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     return {"prefill": (slots * h, h // kvh, p_max, d),
             "prefill_256": (slots * h, h // kvh, p256, d),
             "decode": dict(b=slots, h=h, kvh=kvh, d=d, page=page,
                            n_pages=n_pages, n_blocks=slots * n_pages,
                            lengths=lengths),
+            # the prompt-256 run's first slots at prompt + 8
+            "decode_256": dict(b=slots, h=h, kvh=kvh, d=d, page=page,
+                               n_pages=pages256, n_blocks=slots * pages256,
+                               lengths=[len(r.prompt) + 8
+                                        for r in reqs256[:slots]]),
+            "decode_long": dict(b=slots, h=h, kvh=kvh, d=d, page=page,
+                                n_pages=DECODE_LONG["n_pages"],
+                                n_blocks=slots * DECODE_LONG["n_pages"],
+                                lengths=DECODE_LONG["lengths"]),
             "layer": dict(b=slots, d=cfg.d_model, hq=h * d, f=cfg.d_ff,
                           hd=d, theta=cfg.rope_theta,
                           positions=[n - 1 for n in lengths])}
@@ -1661,10 +1739,6 @@ def bound(nbytes, ops, dtype):
 def time_kernels(torch, dev, shapes):
     import torch.nn.functional as F
     from repro_torch.kernels.ff_attention import attention, attention_ref
-    from repro_torch.kernels.ff_decode_attention import (decode_attention,
-                                                         decode_attention_ref)
-    from repro_torch.runtime.paged_kv import (paged_decode_attention,
-                                              paged_decode_attention_ref)
     gen = torch.Generator(device=dev).manual_seed(2)
     dt = torch.bfloat16
     item = 2
@@ -1698,49 +1772,79 @@ def time_kernels(torch, dev, shapes):
     rows["ff_attention"] = attn_rows[0]
     rows["ff_attention"]["more"] = [split_bound(r) for r in attn_rows[1:]]
 
-    dec = shapes["decode"]
-    q, pool, tables, lens, k, v = decode_inputs(
-        torch, dev, dt, dec["b"], dec["h"], dec["kvh"], dec["d"], dec["page"],
-        dec["n_pages"], dec["n_blocks"], dec["lengths"], gen)
-    page, kvh, d = dec["page"], dec["kvh"], dec["d"]
-    live = sum(min(n, dec["n_pages"] * page) for n in dec["lengths"])
-    q_out = 2 * q.numel() * item + lens.numel() * 4
-    kv_bytes = 2 * live * kvh * d * item
-    ops = 4 * dec["h"] * d * live
-    mask = (torch.arange(k.shape[2], device=dev)[None, :]
-            < lens[:, None])[:, None, None, :]
-    q_sdpa = q[:, :, None, :]
-    grp = dec["h"] // kvh
-    shape = (f"q[{dec['b']},{dec['h']},{d}] lengths={dec['lengths']} "
-             f"page={page} pages={dec['n_pages']} bf16")
-    print("f. timing ff_decode_attention", flush=True)
-    rows["ff_decode_attention"] = dict(
-        shape=shape + f" cache[{dec['b']},{kvh},{k.shape[2]},{d}]",
-        ms=time_ms(torch, lambda: decode_attention(q, k, v, lens,
-                                                   block_kv=page), 200, flush),
-        ms_hot=time_ms(torch, lambda: decode_attention(q, k, v, lens,
-                                                       block_kv=page), 200),
-        call_ms=call_ms(torch, lambda: decode_attention(q, k, v, lens,
-                                                        block_kv=page), 100),
-        plain_ms=time_ms(torch, lambda: decode_attention_ref(
-            q, k, v, lens, block_kv=page), 20, flush),
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q_sdpa, k, v, attn_mask=mask, **gqa(grp)), 200, flush),
-        bound=bound(q_out + kv_bytes, ops, "bfloat16"))
-    print("f. timing ff_paged_decode_attention", flush=True)
-    rows["ff_paged_decode_attention"] = dict(
-        shape=shape + f" pool[{dec['n_blocks']},2,{page},{kvh},{d}]",
-        ms=time_ms(torch, lambda: paged_decode_attention(q, pool, tables,
-                                                         lens), 200, flush),
-        ms_hot=time_ms(torch, lambda: paged_decode_attention(q, pool, tables,
-                                                             lens), 200),
-        call_ms=call_ms(torch, lambda: paged_decode_attention(q, pool, tables,
-                                                              lens), 100),
-        plain_ms=time_ms(torch, lambda: paged_decode_attention_ref(
-            q, pool, tables, lens), 20, flush),
-        library_ms=None,             # no single PyTorch call reads a table
-        bound=bound(q_out + kv_bytes + tables.numel() * 4, ops, "bfloat16"))
+    rows.update(time_decode(torch, dev, shapes))
     return rows
+
+
+DECODE_TIMED = ("decode", "decode_256", "decode_long")
+
+
+def time_decode(torch, dev, shapes):
+    """Rows 2 and 3 at each shape of DECODE_TIMED (bf16, block_kv ==
+    page, the wrappers' default depth and streams): device ms L2 cold and
+    warm, ``call_ms``, the plain version, masked SDPA (contiguous only) and
+    the bytes bound of the live K/V, q, out, lengths (and the table). The
+    plain version's tile loop at ``decode_long`` is more launches than the
+    device's queue holds, so there it is timed from an idle device
+    (``plain_call_ms``, host-bound). The first shape gives each row, the
+    others its ``more``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ff_decode_attention import (decode_attention,
+                                                         decode_attention_ref)
+    from repro_torch.runtime.paged_kv import (paged_decode_attention,
+                                              paged_decode_attention_ref)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    dt, item = torch.bfloat16, 2
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = {"ff_decode_attention": [], "ff_paged_decode_attention": []}
+    for key in DECODE_TIMED:
+        dec = shapes[key]
+        q, pool, tables, lens, k, v = decode_inputs(
+            torch, dev, dt, dec["b"], dec["h"], dec["kvh"], dec["d"],
+            dec["page"], dec["n_pages"], dec["n_blocks"], dec["lengths"],
+            gen)
+        page, kvh, d = dec["page"], dec["kvh"], dec["d"]
+        live = sum(min(n, dec["n_pages"] * page) for n in dec["lengths"])
+        q_out = 2 * q.numel() * item + lens.numel() * 4
+        kv_bytes = 2 * live * kvh * d * item
+        ops = 4 * dec["h"] * d * live
+        mask = (torch.arange(k.shape[2], device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        q_sdpa = q[:, :, None, :]
+        grp = dec["h"] // kvh
+        shape = (f"{key}: q[{dec['b']},{dec['h']},{d}] "
+                 f"lengths={dec['lengths']} page={page} "
+                 f"pages={dec['n_pages']} bf16")
+        long = key == "decode_long"
+        for name, fn, plain, library, extra, table in (
+                ("ff_decode_attention",
+                 lambda: decode_attention(q, k, v, lens, block_kv=page),
+                 lambda: decode_attention_ref(q, k, v, lens, block_kv=page),
+                 lambda: F.scaled_dot_product_attention(
+                     q_sdpa, k, v, attn_mask=mask, **gqa(grp)),
+                 f" cache[{dec['b']},{kvh},{k.shape[2]},{d}]", 0),
+                ("ff_paged_decode_attention",
+                 lambda: paged_decode_attention(q, pool, tables, lens),
+                 lambda: paged_decode_attention_ref(q, pool, tables, lens),
+                 None,                # no single PyTorch call reads a table
+                 f" pool[{dec['n_blocks']},2,{page},{kvh},{d}]",
+                 tables.numel() * 4)):
+            print(f"f. timing {name} {key}", flush=True)
+            row = dict(
+                shape=shape + extra, ms=time_ms(torch, fn, 200, flush),
+                ms_hot=time_ms(torch, fn, 200),
+                call_ms=call_ms(torch, fn, 100),
+                plain_ms=None if long else time_ms(torch, plain, 20, flush),
+                library_ms=(time_ms(torch, library, 200, flush)
+                            if library else None),
+                bound=bound(q_out + kv_bytes + table, ops, "bfloat16"))
+            if long:
+                row["plain_call_ms"] = call_ms(torch, plain, 5)
+            rows[name].append(row)
+    out = {}
+    for name, (first, *more) in rows.items():
+        out[name] = dict(first, more=[split_bound(r) for r in more])
+    return out
 
 
 def time_layer_kernels(torch, dev, shapes):
@@ -1918,6 +2022,9 @@ def profile_decode(torch, dev, n_steps=8, rounds=5):
         top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:8]
         tails = sum(c for n, c in count.items() if "mlp_tail_kernel" in n)
         qprojs = sum(c for n, c in count.items() if "matmul_kernel" in n)
+        decodes = sum(c for n, c in count.items() if "decode_kernel" in n)
+        decode_ms = sum(v for n, v in by_name.items()
+                        if "decode_kernel" in n) / n_steps
         out[kind] = {
             "wall_ms_per_step": wall,
             "wall_ms_per_step_windows": walls[kind],
@@ -1928,6 +2035,9 @@ def profile_decode(torch, dev, n_steps=8, rounds=5):
             "mlp_tail_ms_per_step": sum(
                 v for n, v in by_name.items()
                 if "mlp_tail_kernel" in n) / n_steps,
+            "decode_attention_launches_per_step": decodes / n_steps,
+            "decode_attention_ms_per_step": decode_ms,
+            "decode_attention_share": (decode_ms / busy if busy else None),
             "qproj_launches_per_step": qprojs / n_steps,
             "qproj_ms_per_step": sum(
                 v for n, v in by_name.items()
@@ -1949,6 +2059,14 @@ def profile_decode(torch, dev, n_steps=8, rounds=5):
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "CUDA card (see the module docstring).")
+    ap.add_argument("--decode-timing", action="store_true",
+                    help="build, then only time the decode-attention rows "
+                    "(phase f's time_decode) and print them as one "
+                    "decode_timing line: to compare two trees in one call")
+    opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1970,6 +2088,11 @@ def main() -> int:
     print(f"a. build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     shapes = main_path_shapes(torch)
+    if opts.decode_timing:
+        rows = time_decode(torch, dev, shapes)
+        print("decode_timing " + json.dumps(
+            {k: split_bound(r) for k, r in rows.items()}), flush=True)
+        return 0
     main_err = check_kernels(torch, dev, shapes)
     main_err.update(check_layer_kernels(torch, dev, shapes))
     main_err.update(check_library_kernels(torch, dev, shapes))

@@ -61,15 +61,19 @@ def paged_decode_attention_ref(q, kv_pool, block_tables,
                                         block_kv=kv_pool.shape[2])
 
 
-def paged_decode_attention(q, kv_pool, block_tables,
-                           lengths) -> torch.Tensor:
+def paged_decode_attention(q, kv_pool, block_tables, lengths, *,
+                           depth: int = dec_ops.DEFAULT_DEPTH,
+                           streams: int = dec_ops.DEFAULT_STREAMS
+                           ) -> torch.Tensor:
     """Decode attention for one new token through the block table.
 
     q: [B, H, d]; kv_pool: [n_blocks, 2, page, KVH, d] (one layer's pool);
     block_tables: [B, n_pages] int (entries >= n_blocks are sentinels);
-    lengths: [B] (0 = inactive slot, whose output is exactly 0). Returns
-    [B, H, d]. CPU tensors run :func:`paged_decode_attention_ref`; CUDA
-    tensors launch the kernel."""
+    lengths: [B] (0 = inactive slot, whose output is exactly 0).
+    ``depth`` and ``streams`` size the kernel's ring (the reference's
+    ``Pipe`` arguments on its merged ``2 * page``-row K+V word); they
+    never change the result. Returns [B, H, d]. CPU tensors run
+    :func:`paged_decode_attention_ref`; CUDA tensors launch the kernel."""
     if kv_pool.dim() != 5 or kv_pool.shape[1] != 2:
         raise ValueError(f"kv_pool {tuple(kv_pool.shape)} is not "
                          f"[nb, 2, page, KVH, d]")
@@ -80,12 +84,15 @@ def paged_decode_attention(q, kv_pool, block_tables,
                          f"[{q.shape[0]}, n_pages]")
     if block_tables.device != q.device:
         raise ValueError("block_tables must be on q's device")
+    dec_ops._pipe(depth, streams, 2 * kv_pool.shape[2], d, q.dtype,
+                  q.shape[1] // kvh)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, kv_pool, block_tables, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"paged decode attention runs on cpu or cuda, "
                          f"not {q.device}")
-    out = dec_ops.launch_paged(q, kv_pool, block_tables, lengths)
+    out = dec_ops.launch_paged(q, kv_pool, block_tables, lengths,
+                               depth=depth, streams=streams)
     paged_decode_attention.launches += 1
     return out
 

@@ -10,7 +10,10 @@ the card's machine need not have):
 
 Tolerances: float32 2e-4 (the reference registry's), bfloat16 2e-2; the
 paged kernel equals the contiguous one bit for bit at block_kv == page,
-and the one-launch MLP tail equals its three staged launches bit for bit.
+both decode kernels equal themselves across the ring's depth and streams
+bit for bit (short and split rows, zamba2's head dim 80, pages of 1 to
+32 rows, unaligned caches), and the one-launch MLP tail equals its three
+staged launches bit for bit.
 The library kernels and graphs (matmul, gather, attention_proj,
 moe_dispatch_ffn) are held at float32 5e-4 (the reference registry's tol
 of both graphs) and bfloat16 2e-2, each relative and absolute and chosen
@@ -147,23 +150,120 @@ def test_gqa_ragged_kv_never_reads_the_next_head(cuda, causal):
     assert out[:2].isfinite().all() and _err(out[:2], ref) <= TOL[bf]
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_decode_kernels_match_plain_and_each_other(cuda, dtype):
-    g = torch.Generator(device=cuda).manual_seed(1)
-    nb, page, kvh, d, b, h, npg = 20, 16, 2, 64, 3, 4, 5
-    pool = torch.randn(nb, 2, page, kvh, d, generator=g, device=cuda).to(dtype)
-    tables = torch.randperm(nb, generator=g, device=cuda)[:b * npg]
+PIPES = [(d, st) for d in (1, 2, 4) for st in (1, 2)]
+
+
+def _decode_case(dev, dtype, seed, nb, page, kvh, d, b, h, npg, lens):
+    """A pool of stale values, a permuted table (row i's pages past its
+    length are sentinels), the same K/V gathered into a contiguous
+    cache."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pool = torch.randn(nb, 2, page, kvh, d, generator=g, device=dev)
+    pool = pool.to(dtype)
+    tables = torch.randperm(nb, generator=g, device=dev)[:b * npg]
     tables = tables.view(b, npg).int()
-    tables[2] = nb                                  # inactive slot
-    lens = torch.tensor([37, npg * page, 0], dtype=torch.int32, device=cuda)
-    q = torch.randn(b, h, d, generator=g, device=cuda).to(dtype)
+    for i, n in enumerate(lens):
+        tables[i, -(-n // page):] = nb                 # sentinels
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn(b, h, d, generator=g, device=dev).to(dtype)
     k, v = paged_kv.paged_gather(pool, tables)
-    dense = decode_attention(q, k, v, lens, block_kv=page)
-    paged = paged_kv.paged_decode_attention(q, pool, tables, lens)
-    assert torch.equal(dense, paged)
+    return q, pool, tables, lens, k, v
+
+
+def _decode_both(q, pool, tables, lens, k, v, **pipe):
+    page = pool.shape[2]
+    dense = decode_attention(q, k, v, lens, block_kv=page, **pipe)
+    paged = paged_kv.paged_decode_attention(q, pool, tables, lens, **pipe)
+    return dense, paged
+
+
+@pytest.mark.parametrize("pipe", PIPES, ids=[f"d{d}s{s}" for d, s in PIPES])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernels_match_plain_and_each_other(cuda, dtype, pipe):
+    """At every ring depth x streams: paged == contiguous, both equal to
+    the default setting bit for bit, within tolerance of the plain
+    version, inactive rows exactly 0, sentinel entries clipped."""
+    nb, page, kvh, d, b, h, npg = 20, 16, 2, 64, 3, 4, 5
+    q, pool, tables, lens, k, v = _decode_case(
+        cuda, dtype, 1, nb, page, kvh, d, b, h, npg, [37, npg * page, 0])
+    tables[2] = nb                                  # inactive slot
+    dense, paged = _decode_both(q, pool, tables, lens, k, v,
+                                depth=pipe[0], streams=pipe[1])
+    want, _ = _decode_both(q, pool, tables, lens, k, v)
+    assert torch.equal(dense, paged) and torch.equal(dense, want)
     assert _err(dense, decode_attention_ref(q, k, v, lens,
                                             block_kv=page)) <= TOL[dtype]
     assert paged[2].eq(0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_at_zamba2_head_dim(cuda, dtype):
+    """Zamba2's attention: 32 heads of 80 (MHA), a cache of 272 rows
+    (17 pages of 16), one row past the cache; split over blocks."""
+    from repro_torch.kernels.ff_decode_attention import ops as DO
+    b, h, d, page, npg = 4, 32, 80, 16, 17
+    q, pool, tables, lens, k, v = _decode_case(
+        cuda, dtype, 5, b * npg, page, h, d, b, h, npg, [257, 263, 272, 259])
+    lens[3] = 300                                   # past the cache
+    assert DO._plan(b, h, d, dtype, npg * page, 132).split > 1
+    want, paged = _decode_both(q, pool, tables, lens, k, v)
+    assert torch.equal(want, paged)
+    assert _err(want, decode_attention_ref(q, k, v, lens,
+                                           block_kv=page)) <= TOL[dtype]
+    for depth, st in PIPES:
+        assert all(torch.equal(o, want) for o in _decode_both(
+            q, pool, tables, lens, k, v, depth=depth, streams=st))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("page", [16, 8, 32, 1])
+def test_long_decode_takes_the_split_path(cuda, dtype, page):
+    """A long cache (2048 rows, GQA 3) split over many blocks a row; the
+    tickets reset themselves, so a second launch gives the same bits."""
+    from repro_torch.kernels.ff_decode_attention import ops as DO
+    b, kvh, h, d, npg = 3, 2, 6, 64, 2048 // page
+    q, pool, tables, lens, k, v = _decode_case(
+        cuda, dtype, 6, b * npg + 3, page, kvh, d, b, h, npg,
+        [2048, 1500, 33])
+    assert DO._plan(b, kvh, d, dtype, npg * page, 132).split > 1
+    want, paged = _decode_both(q, pool, tables, lens, k, v)
+    assert torch.equal(want, paged)
+    assert _err(want, decode_attention_ref(q, k, v, lens,
+                                           block_kv=page)) <= TOL[dtype]
+    for depth, st in PIPES:
+        if page % st == 0:                          # as the reference's Pipe
+            assert all(torch.equal(o, want) for o in _decode_both(
+                q, pool, tables, lens, k, v, depth=depth, streams=st))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_takes_unaligned_caches(cuda, dtype):
+    """Head dim 70 (rows not a multiple of 16 bytes) and a cache view at
+    an odd offset: the producer's element copies, against the plain
+    version."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    b, kvh, h, s, d = 2, 2, 4, 96, 70
+    q = torch.randn(b, h, d, generator=g, device=cuda).to(dtype)
+    big = torch.randn(b, kvh, s, d + 3, generator=g, device=cuda).to(dtype)
+    k, v = big[..., 1:d + 1], big[..., 2:d + 2]
+    lens = torch.tensor([95, 40], dtype=torch.int32, device=cuda)
+    out = decode_attention(q, k, v, lens, block_kv=32)
+    ref = decode_attention_ref(q, k, v, lens, block_kv=32)
+    assert _err(out, ref) <= TOL[dtype]
+    for depth, st in PIPES:
+        assert torch.equal(decode_attention(q, k, v, lens, block_kv=32,
+                                            depth=depth, streams=st), out)
+
+
+def test_decode_refuses_a_pipe_the_reference_refuses(cuda):
+    q, pool, tables, lens, k, v = _decode_case(
+        cuda, torch.bfloat16, 1, 8, 16, 2, 64, 2, 4, 2, [20, 5])
+    for bad in (dict(depth=0), dict(streams=0), dict(streams=3),
+                dict(depth=10 ** 4)):
+        with pytest.raises(ValueError):
+            decode_attention(q, k, v, lens, block_kv=16, **bad)
+        with pytest.raises(ValueError):
+            paged_kv.paged_decode_attention(q, pool, tables, lens, **bad)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
