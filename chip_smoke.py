@@ -44,9 +44,11 @@ Phases (any failure exits non-zero without the final result line):
      72b's heads, GQA 8); the smoke rwkv6 and zamba2 models on the card
      against the CPU (prefill, 3 greedy decode steps) and their f32
      prefill -> decode handoff gap within 1e-3;
-  c. serve full-width qwen1.5-0.5B (random weights from seed 0) through
-     ``repro_torch.launch.serve.serve_bench`` with the serve defaults, once
-     more with 256-token prompts, and once with ``--layer-graph``;
+  c. serve full-width qwen1.5-0.5B (random weights from seed 0, cast once)
+     through ``repro_torch.launch.serve.serve_bench`` with the serve
+     defaults, once more with 256-token prompts, and once with
+     ``--layer-graph``: every prefill bucket and decode step a CUDA graph
+     captured once per signature and replayed (``launch/steps.py``);
   d. require equal token counts, and paged == dense decode bit for bit on
      the per-op runs (the layer graph rounds elsewhere in bf16: its
      difference is printed and must be finite);
@@ -62,7 +64,8 @@ Phases (any failure exits non-zero without the final result line):
      requiring finite logits, exactly one ff_chunk_scan launch per layer
      and (zamba2) attention launches; prefill and decode times, peak
      memory, the bf16 handoff gap, a prefill profile (device busy time
-     and the scan's share of it) and a decode-step profile;
+     and the scan's share of it) and a decode-step profile, each compiled
+     and eager (``compiled=False``) in the same call;
   f. time each kernel at the main path's shapes with CUDA events
      (attention also at the 256-token prefill, q/k/v [64,256,64], SDPA
      beside it; decode attention, contiguous and paged, at the default
@@ -77,11 +80,20 @@ Phases (any failure exits non-zero without the final result line):
      decode-attention kernels at the prompt-256 and long shapes, at
      every ring depth {1, 2, 3, 4, 6} x streams {1, 2} (a ``depth_sweep``
      line);
-  g. profile full-width decode steps (dense, paged, layer graph, timed in
-     alternating rounds): wall vs device busy time and device launches
-     per step, the decode-attention kernels' ms, launches and share of
-     the busy time; for the layer graph the MLP tail's and the q-projection's
-     launches (one each a layer, checked) and device ms per step.
+  then each step kind replayed from its CUDA graph against the same step
+     run eagerly from the same inputs, bit for bit (qwen's dense, paged
+     and layer-graph decode and a prefill bucket at full width; the smoke
+     rwkv6 and zamba2 prefill and decode in bf16), a replay's launch
+     counts equal to an eager step's, and the cast-once weights equal to
+     the per-use cast;
+  g. profile full-width decode steps (dense, paged, layer graph; each
+     compiled and eager, the six timed in alternating rounds in one
+     call): wall vs device busy time, device kernels and host launch
+     calls per step (a replay is one ``cudaGraphLaunch``), the
+     decode-attention kernels' ms, launches and share of the busy time;
+     for the layer graph the MLP tail's and the q-projection's launches
+     (one each a layer, checked) and device ms per step (a ``profile``
+     line keyed "<kind> compiled" / "<kind> eager").
 
 ``python3 chip_smoke.py --decode-timing`` builds the kernels and runs
 only phase f's decode-attention timing (one ``decode_timing`` line): run
@@ -1045,13 +1057,15 @@ def check_model_small(torch, dev):
             cache = serve.pad_cache_to(dense, 19, 24, 2)
         cur = toks[torch.arange(2), torch.tensor(lens) - 1].to(device)
         lengths = (torch.tensor(lens, dtype=torch.int32) - 1).to(device)
-        out = [logits0]
+        out = [logits0.cpu()]
         for _ in range(3):
             cur, logits, cache = decode(params, {"token": cur,
                                                  "lengths": lengths}, cache)
-            out.append(logits)
+            out.append(logits.cpu())     # the next replay overwrites it
+            if kind == "paged":
+                kv.update(cache)
             lengths = lengths + 1
-        return [o.cpu() for o in out]
+        return out
 
     for kind in ("dense", "paged", "layer-graph"):
         got, want = run(dev, kind), run(torch.device("cpu"), kind)
@@ -1252,14 +1266,15 @@ def check_attention_head_dims(torch, dev):
               f"max|kernel-plain|={e:.3e} tol={tol}")
 
 
-def ssm_generate(torch, model, params, tokens, n_steps):
-    """The recurrent families' path through ``launch/steps.py``: one
-    prefill of ``tokens`` [B, S], then ``n_steps`` greedy decode steps from
-    its last logits (the hybrid's attention caches padded to S + n_steps
-    first). Returns (logits of each step, prefill s, decode s)."""
+def ssm_generate(torch, model, params, tokens, n_steps, compiled=True):
+    """The recurrent families' path through ``launch/steps.py`` (compiled
+    steps on the card unless ``compiled`` is False): one prefill of
+    ``tokens`` [B, S], then ``n_steps`` greedy decode steps from its last
+    logits (the hybrid's attention caches padded to S + n_steps first).
+    Returns (logits of each step, prefill s, decode s)."""
     from repro_torch.launch import serve, steps
-    prefill = steps.make_prefill_step(model)
-    decode = steps.make_decode_step(model)
+    prefill = steps.make_prefill_step(model, compiled=compiled)
+    decode = steps.make_decode_step(model, compiled=compiled)
     b, s = tokens.shape
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1271,11 +1286,11 @@ def ssm_generate(torch, model, params, tokens, n_steps):
                                    {"mamba": None, "attn": 1})
     cur = torch.argmax(logits, dim=-1).to(torch.int32)
     lengths = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
-    out = [logits]
+    out = [logits.clone()]
     for _ in range(n_steps):
         cur, lg, cache = decode(params, {"token": cur, "lengths": lengths},
                                 cache)
-        out.append(lg)
+        out.append(lg.clone())          # the next replay overwrites lg
         lengths = lengths + 1
     torch.cuda.synchronize()
     return out, t1 - t0, time.perf_counter() - t1
@@ -1334,15 +1349,17 @@ def check_ssm_small(torch, dev):
 
 def run_ssm_models(torch, dev):
     """Full-width rwkv6-7b, then zamba2-2.7b on the card (random f32 weights
-    from seed 0, bf16 compute): a warm-up prefill, then with every launch
-    count set to 0 one prefill of SSM's 4 x 256-token prompts and 16
-    greedy decode steps through ``launch/steps.py``. Requires finite
+    from seed 0, cast once to bf16 where only bf16 is read, bf16
+    compute): a warm-up prefill, then with every launch count set to 0
+    one prefill of SSM's 4 x 256-token prompts and 16 greedy decode steps
+    through ``launch/steps.py``'s compiled steps. Requires finite
     logits, exactly one ff_chunk_scan launch per layer in the prefill, and
     for Zamba2 attention launches in prefill and decode; prints the
     prefill ms, decode ms per step, tokens/s, peak memory, the bf16
     handoff gap (printed, required finite), a profile of the prefill (the
-    scan's share of its device time) and one of the decode step. Returns
-    the chunk scan's launches per model."""
+    scan's share of its device time) and of the decode step, each
+    compiled and eager in turn. Returns the chunk scan's launches per
+    model."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import build_model
     from repro_torch.models import layers as L
@@ -1355,7 +1372,8 @@ def run_ssm_models(torch, dev):
         cfg = get_config(arch)
         model = build_model(cfg)
         t0 = time.perf_counter()
-        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        params = model.cast_params(
+            model.init(torch.Generator(device=dev).manual_seed(0), dev))
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         n_params = sum(x.numel() for _, x in L.tree_leaves(params))
@@ -1371,7 +1389,9 @@ def run_ssm_models(torch, dev):
         launches = {name: w.launches for name, w in wr.items()
                     if w.launches}
         gap = handoff_gap(torch, model, params, toks)
-        pre = profile_ssm_prefill(torch, model, params, toks[:, :s])
+        pre = {mode: profile_ssm_prefill(torch, model, params, toks[:, :s],
+                                         compiled=mode == "compiled")
+               for mode in ("compiled", "eager")}
         prof = profile_ssm_decode(torch, model, params, toks[:, :s])
         finite = all(lg.isfinite().all().item() for lg in logits)
         summary = dict(
@@ -1405,16 +1425,16 @@ def run_ssm_models(torch, dev):
     return scan_launches
 
 
-def profile_ssm_prefill(torch, model, params, tokens):
+def profile_ssm_prefill(torch, model, params, tokens, compiled=True):
     """Where a full-width prefill's time goes: its wall ms (host clock
-    around one synchronised prefill), then one profiled prefill: the
-    device's busy ms (kernel and copy times from torch.profiler), device
-    launches, and the chunk scan's kernels' device ms and launches, with
-    the scan's share of the busy time and of the wall."""
-    from torch.autograd import DeviceType
+    around one synchronised prefill, after one unclocked), then one
+    profiled prefill: the device's busy ms (kernel and copy times from
+    torch.profiler), device kernels, host launch calls, and the chunk
+    scan's kernels' device ms and launches, with the scan's share of the
+    busy time and of the wall."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import steps
-    prefill = steps.make_prefill_step(model)
+    prefill = steps.make_prefill_step(model, compiled=compiled)
     prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1425,77 +1445,54 @@ def profile_ssm_prefill(torch, model, params, tokens):
                              ProfilerActivity.CUDA]) as prof:
         prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
-    busy = scan = 0.0
-    launches = scan_launches = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms = e.time_range.elapsed_us() / 1e3
-            busy += ms
-            launches += 1
-            if "scan_kernel" in e.name:
-                scan += ms
-                scan_launches += 1
+    p = device_profile(prof, 1)
+    scan = sum(t for n, t in p["by_name"].items() if "scan_kernel" in n)
+    busy = p["device_ms"]
     return {"wall_ms": wall, "device_ms": busy,
-            "device_busy_share": busy / wall, "device_launches": launches,
-            "scan_device_ms": scan, "scan_launches": scan_launches,
+            "device_busy_share": busy / wall if busy else None,
+            "device_kernels": p["device_kernels"],
+            "host_launch_calls": p["host_launch_calls"],
+            "host_copy_calls": p["host_copy_calls"],
+            "scan_device_ms": scan,
+            "scan_launches": sum(c for n, c in p["count"].items()
+                                 if "scan_kernel" in n),
             "scan_share_of_device": scan / busy if busy else None,
             "scan_share_of_wall": scan / wall}
 
 
-def profile_ssm_decode(torch, model, params, tokens, n_steps=8):
-    """Where a full-width decode step's time goes: wall ms per step over
-    ``n_steps`` steps (each ending in a host read of the token, as a
-    scheduler's would), then one profiled window of as many steps: the
-    device's busy ms per step (kernel and copy times from torch.profiler),
-    its share of the wall, device launches per step and the top kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def profile_ssm_decode(torch, model, params, tokens, n_steps=8, rounds=3):
+    """Where a full-width decode step's time goes, compiled and eager in
+    turn (``profile_steps``), each from its own prefill of ``tokens``
+    (the hybrid's attention caches padded for every step)."""
     from repro_torch.launch import serve, steps
-    prefill = steps.make_prefill_step(model)
-    decode = steps.make_decode_step(model)
     b, s = tokens.shape
-    logits, cache = prefill(params, {"tokens": tokens})
-    if model.cfg.family == "hybrid":
-        cache = serve.pad_cache_to(cache, s, s + 3 * n_steps + 2,
-                                   {"mamba": None, "attn": 1})
-    state = {"cur": torch.argmax(logits, dim=-1).to(torch.int32),
-             "len": torch.full((b,), s, dtype=torch.int32,
-                               device=tokens.device), "cache": cache}
 
-    def step():
-        state["cur"], _, state["cache"] = decode(
-            params, {"token": state["cur"], "lengths": state["len"]},
-            state["cache"])
-        state["cur"].cpu()
-        state["len"] = state["len"] + 1
+    def make_step(compiled):
+        prefill = steps.make_prefill_step(model, compiled=compiled)
+        decode = steps.make_decode_step(model, compiled=compiled)
+        logits, cache = prefill(params, {"tokens": tokens})
+        if model.cfg.family == "hybrid":
+            cache = serve.pad_cache_to(
+                cache, s, s + (rounds + 2) * n_steps + 2,
+                {"mamba": None, "attn": 1})
+        state = {"cur": torch.argmax(logits, dim=-1).to(torch.int32),
+                 "len": torch.full((b,), s, dtype=torch.int32,
+                                   device=tokens.device), "cache": cache}
 
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_steps):
-        step()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / n_steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_steps):
-            step()
-        torch.cuda.synchronize()
-    by_name, count = {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
-            count[e.name] = count.get(e.name, 0) + 1
-    busy = sum(by_name.values()) / n_steps if by_name else None
-    top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:6]
-    return {"wall_ms_per_step": wall, "device_ms_per_step": busy,
-            "device_busy_share": busy / wall if busy is not None else None,
-            "device_launches_per_step": sum(count.values()) / n_steps,
-            "top_kernels_ms_per_step": [[n[:80], t / n_steps,
-                                         count[n] / n_steps]
-                                        for n, t in top]}
+        def step():
+            state["cur"], _, state["cache"] = decode(
+                params, {"token": state["cur"], "lengths": state["len"]},
+                state["cache"])
+            state["cur"].cpu()               # as a scheduler reads it
+            state["len"] = state["len"] + 1
+        return step
+
+    out = profile_steps(torch, {"compiled": make_step(True),
+                                "eager": make_step(False)}, n_steps, rounds)
+    for p in out.values():
+        for key in ("by_name", "count"):
+            del p[key]
+    return out
 
 
 def time_scan_kernel(torch, dev, scan_launches):
@@ -1922,26 +1919,271 @@ def time_layer_kernels(torch, dev, shapes):
 
 
 # ---------------------------------------------------------------------------
+# the compiled steps against the eager ones
+# ---------------------------------------------------------------------------
+
+
+def tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_clone(v) for v in tree)
+    return tree.clone()
+
+
+def tree_equal(torch, a, b):
+    from repro_torch.launch.steps import _flatten
+    la, lb = [], []
+    return (_flatten(a, la) == _flatten(b, lb)
+            and all(torch.equal(x, y) for x, y in zip(la, lb)))
+
+
+def counted(torch, fn):
+    """Every kernel wrapper's launch count over one call of ``fn`` (the
+    counts set to 0 just before), after the device finished."""
+    wr = wrappers()
+    for w in wr.values():
+        w.launches = 0
+    fn()
+    torch.cuda.synchronize()
+    return {name: w.launches for name, w in wr.items() if w.launches}
+
+
+def check_compiled_steps(torch, dev):
+    """Each step kind replayed from a CUDA graph against the same step run
+    eagerly (``compiled=False``) from the same inputs, bit for bit: the
+    logits, the greedy tokens and every cache leaf it returns, over two
+    steps (the first call warms up, captures and replays, the second only
+    replays). The kinds: qwen1.5-0.5B at full width (random weights from
+    seed 0, cast once) decoding through the dense cache, the paged pool
+    and the layer graph at the default serve shapes, and its prefill at
+    the default run's first bucket (4 x 32 tokens); rwkv6-7b and
+    zamba2-2.7b at smoke width in bf16, prefill and decode (phase e runs
+    them at full width). Then a replayed step's launch counts against an
+    eager step's (equal: the counts mean device launches), and the
+    cast-once weights against the per-use cast (eager prefill and decode
+    logits equal bit for bit)."""
+    import numpy as np
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import build_model
+    from repro_torch.runtime.paged_kv import PagedKVCache
+    page, slots = SERVE["page"], SERVE["slots"]
+    cfg = get_config(SERVE["arch"]).replace(decode_block_kv=page)
+    model = build_model(cfg)
+    models = {"dense": model, "paged": model,
+              "layer-graph": build_model(cfg.replace(layer_graph=True))}
+    per_use = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    params = model.cast_params(per_use)
+    reqs = serve.make_requests(
+        SERVE["requests"], prompt_len=SERVE["prompt_len"],
+        max_new=SERVE["max_new"], rate=SERVE["rate"], vocab=cfg.vocab,
+        seed=SERVE["seed"])[:slots]
+    lens = np.array([len(r.prompt) for r in reqs], np.int32)
+    p_max = serve._bucket(int(lens.max()))
+    n_pages = -(-(p_max + 4) // page)
+    toks = np.zeros((slots, p_max), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, :len(r.prompt)] = r.prompt
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    prefill_e = steps.make_prefill_step(model, compiled=False)
+    want = tree_clone(prefill_e(params, batch))
+    got = [tree_clone(steps.make_prefill_step(model)(params, batch))
+           for _ in range(2)]
+    check(f"compiled qwen prefill ({slots} x {p_max}) == eager bitwise, "
+          f"capture and replay", all(tree_equal(torch, g, want)
+                                     for g in got),
+          "logits and K/V caches")
+    check("cast-once weights == per-use cast (qwen prefill logits)",
+          torch.equal(prefill_e(per_use, batch)[0], want[0]),
+          "bitwise, bf16")
+    dense = want[1]
+
+    def cache_for(kind):
+        if kind != "paged":
+            return serve.pad_cache_to(dense, p_max, n_pages * page, 2)
+        kv = PagedKVCache(
+            n_layers=cfg.n_layers, n_blocks=slots * n_pages + 1, page=page,
+            kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, n_slots=slots,
+            n_pages_max=n_pages, dtype=cfg.cdtype, device=dev)
+        for i, n in enumerate(lens):
+            kv.admit(i, dense["k"][:, i], dense["v"][:, i], int(n),
+                     n_pages * page)
+        return kv.cache_view()
+
+    start = {"token": torch.as_tensor(toks[np.arange(slots), lens - 1],
+                                      device=dev),
+             "lengths": torch.as_tensor(lens - 1, device=dev)}
+    for kind, m in models.items():
+        sides = {}
+        for compiled in (True, False):
+            decode = steps.make_decode_step(m, compiled=compiled)
+            b, cache, outs = dict(start), cache_for(kind), []
+            for _ in range(2):
+                nxt, lg, cache = decode(params, b, cache)
+                outs.append(tree_clone((nxt, lg, cache)))
+                b = {"token": nxt, "lengths": b["lengths"] + 1}
+            sides[compiled] = outs
+        check(f"compiled qwen {kind} decode == eager bitwise, capture and "
+              f"replay", all(tree_equal(torch, c, e)
+                             for c, e in zip(sides[True], sides[False])),
+              "next tokens, logits and the cache written, two steps")
+        cache = cache_for(kind)
+        eager = counted(torch, lambda: steps.make_decode_step(
+            m, compiled=False)(params, dict(start), tree_clone(cache)))
+        replay = counted(torch, lambda: steps.make_decode_step(m)(
+            params, dict(start), cache))
+        check(f"compiled qwen {kind} decode: a replay counts the eager "
+              f"step's launches", replay == eager and replay,
+              f"replay {replay}, eager {eager}")
+    cache = cache_for("dense")
+    check("cast-once weights == per-use cast (qwen dense decode logits)",
+          torch.equal(steps.make_decode_step(model, compiled=False)(
+              params, dict(start), tree_clone(cache))[1],
+              steps.make_decode_step(model, compiled=False)(
+              per_use, dict(start), cache)[1]), "bitwise, bf16")
+
+    for arch in SSM["archs"]:
+        scfg = smoke_config(arch).replace(compute_dtype="bfloat16")
+        smodel = build_model(scfg)
+        sparams = smodel.cast_params(smodel.init(
+            torch.Generator(device=dev).manual_seed(0), dev))
+        stoks = torch.randint(1, scfg.vocab, (2, 40), dtype=torch.int32,
+                              device=dev, generator=torch.Generator(
+                                  device=dev).manual_seed(1))
+        sides = {}
+        for compiled in (True, False):
+            prefill = steps.make_prefill_step(smodel, compiled=compiled)
+            decode = steps.make_decode_step(smodel, compiled=compiled)
+            logits, cache = prefill(sparams, {"tokens": stoks})
+            outs = [tree_clone((logits, cache))]
+            if scfg.family == "hybrid":
+                cache = serve.pad_cache_to(tree_clone(cache), 40, 42,
+                                           {"mamba": None, "attn": 1})
+            b = {"token": torch.argmax(logits, -1).to(torch.int32),
+                 "lengths": torch.full((2,), 40, dtype=torch.int32,
+                                       device=dev)}
+            for _ in range(2):
+                nxt, lg, cache = decode(sparams, b, cache)
+                outs.append(tree_clone((nxt, lg, cache)))
+                b = {"token": nxt, "lengths": b["lengths"] + 1}
+            sides[compiled] = outs
+        check(f"compiled smoke {arch} bf16 prefill and decode == eager "
+              f"bitwise", all(tree_equal(torch, c, e)
+                              for c, e in zip(sides[True], sides[False])),
+              "logits, next tokens and the states, prefill and two decode "
+              "steps")
+
+
+# ---------------------------------------------------------------------------
 # g. where a full-width decode step's time goes
 # ---------------------------------------------------------------------------
 
 
+# the CUDA runtime calls that put kernels on the device (a graph's replay
+# is one cudaGraphLaunch), and those that copy or set memory
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
+                "cudaGraphLaunch", "cuGraphLaunch")
+COPY_CALLS = ("cudaMemcpyAsync", "cudaMemsetAsync", "cuMemcpyAsync",
+              "cuMemsetD8Async", "cuMemsetD32Async")
+
+
+def device_profile(prof, n_steps):
+    """A torch.profiler window of ``n_steps`` steps, per step: the
+    device's busy ms (kernel and copy times, summed; one stream), device
+    kernels and copies, host launch calls (kernel and graph launches) and
+    host copy calls; with each device op's total ms and count."""
+    from torch.autograd import DeviceType
+    by_name, count = {}, {}
+    launches = copies = graphs = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+            count[e.name] = count.get(e.name, 0) + 1
+        elif e.name in LAUNCH_CALLS:
+            launches += 1
+            graphs += "Graph" in e.name
+        elif e.name in COPY_CALLS:
+            copies += 1
+    busy = sum(by_name.values()) / n_steps if by_name else None
+    return {"device_ms": busy,
+            "device_kernels": sum(c for n, c in count.items()
+                                  if "Memcpy" not in n
+                                  and "Memset" not in n) / n_steps,
+            "device_ops": sum(count.values()) / n_steps,
+            "host_launch_calls": launches / n_steps,
+            "host_graph_launches": graphs / n_steps,
+            "host_copy_calls": copies / n_steps,
+            "by_name": by_name, "count": count}
+
+
+def profile_steps(torch, steps, n_steps, rounds):
+    """Wall ms per step of each of ``steps`` (name -> a function running
+    one step that ends in a host read, as a scheduler's does): two
+    unclocked steps each, then ``rounds`` windows of ``n_steps`` steps,
+    the steps in turn (the order reversed every other round: the host's
+    speed drifts, so only windows of one call are compared), the median
+    window with every window beside it; then one profiled window each
+    (``device_profile``): busy ms and share, device kernels, host launch
+    calls per step and the top device ops."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    names = list(steps)
+    walls = {name: [] for name in names}
+    for name in names:
+        for _ in range(2):
+            steps[name]()
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                steps[name]()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3 / n_steps)
+    out = {}
+    for name in names:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_steps):
+                steps[name]()
+            torch.cuda.synchronize()
+        p = device_profile(prof, n_steps)
+        wall = float(np.median(walls[name]))
+        busy = p["device_ms"]
+        top = sorted(p["by_name"].items(), key=lambda kv_: -kv_[1])[:8]
+        out[name] = {
+            "wall_ms_per_step": wall,
+            "wall_ms_per_step_windows": walls[name],
+            "device_ms_per_step": busy,
+            "device_busy_share": busy / wall if busy is not None else None,
+            "device_kernels_per_step": p["device_kernels"],
+            "device_ops_per_step": p["device_ops"],
+            "host_launch_calls_per_step": p["host_launch_calls"],
+            "host_graph_launches_per_step": p["host_graph_launches"],
+            "host_copy_calls_per_step": p["host_copy_calls"],
+            "top_kernels_ms_per_step": [[n[:80], t / n_steps,
+                                         p["count"][n] / n_steps]
+                                        for n, t in top],
+            "by_name": p["by_name"], "count": p["count"]}
+    return out
+
+
 def profile_decode(torch, dev, n_steps=8, rounds=5):
-    """Wall ms per full-width decode step (host clock after a
-    synchronize), the device's busy ms per step (kernel and copy times from
-    torch.profiler, summed; the device runs one stream), its launches per
-    step, and the kernels taking most of it, for the dense cache
+    """Where a full-width serve decode step's time goes, compiled (CUDA
+    graphs, the schedulers' default) and eager, for the dense cache
     (lockstep), the paged pool (continuous batching) and the layer graph
     (lockstep with ``--layer-graph``) at the default serve shapes: the
     first ``slots`` requests of the default trace, decoding from their
-    prompts. The host's speed drifts during a run, so the wall is taken
-    over ``rounds`` windows of ``n_steps`` steps, the three kinds in turn
-    (the order reversed every round), and reported as the median window
-    with every window beside it. Fails unless the layer graph runs one
-    MLP-tail kernel per layer per step."""
+    prompts, weights cast once. The six steps are timed in turn in one
+    call (``profile_steps``); per step: wall (median window and every
+    window), busy ms and share, device kernels, host launch calls, and
+    the decode-attention kernels', MLP tail's and q-projection's ms and
+    launches. Fails unless the layer graph runs one MLP-tail kernel and
+    one q-projection per layer per step, compiled and eager."""
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import get_config
     from repro_torch.launch import serve, steps
     from repro_torch.models import build_model
@@ -1950,7 +2192,9 @@ def profile_decode(torch, dev, n_steps=8, rounds=5):
     kinds = ("dense", "paged", "layer-graph")
     cfg = get_config(SERVE["arch"]).replace(decode_block_kv=page)
     model = build_model(cfg)
-    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    graph_model = build_model(cfg.replace(layer_graph=True))
+    params = model.cast_params(
+        model.init(torch.Generator(device=dev).manual_seed(0), dev))
     reqs = serve.make_requests(
         SERVE["requests"], prompt_len=SERVE["prompt_len"],
         max_new=SERVE["max_new"], rate=SERVE["rate"], vocab=cfg.vocab,
@@ -1963,11 +2207,12 @@ def profile_decode(torch, dev, n_steps=8, rounds=5):
         toks[i, :len(r.prompt)] = r.prompt
     prefill = steps.make_prefill_step(model)
     _, dense = prefill(params, {"tokens": torch.as_tensor(toks, device=dev)})
+    dense = {k: x.clone() for k, x in dense.items()}
 
-    def make_step(kind):
+    def make_step(kind, compiled):
         decode = steps.make_decode_step(
-            build_model(cfg.replace(layer_graph=True))
-            if kind == "layer-graph" else model)
+            graph_model if kind == "layer-graph" else model,
+            compiled=compiled)
         if kind == "paged":
             kv = PagedKVCache(
                 n_layers=cfg.n_layers, n_blocks=slots * n_pages, page=page,
@@ -1981,78 +2226,50 @@ def profile_decode(torch, dev, n_steps=8, rounds=5):
             cache = serve.pad_cache_to(dense, p_max, n_pages * page, 2)
         state = {"cur": torch.as_tensor(toks[np.arange(slots), lens - 1],
                                         device=dev),
-                 "len": torch.as_tensor(lens - 1, device=dev)}
+                 "len": torch.as_tensor(lens - 1, device=dev),
+                 "cache": cache}
 
         def step():
-            state["cur"], _, _ = decode(
+            state["cur"], _, state["cache"] = decode(
                 params, {"token": state["cur"], "lengths": state["len"]},
-                cache)
+                state["cache"])
             state["cur"].cpu()                   # the schedulers read it
             state["len"] = state["len"] + 1
         return step
 
-    step = {kind: make_step(kind) for kind in kinds}
-    walls = {kind: [] for kind in kinds}
-    for kind in kinds:
-        for _ in range(2):
-            step[kind]()
-    for r in range(rounds):
-        for kind in (kinds if r % 2 == 0 else kinds[::-1]):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n_steps):
-                step[kind]()
-            torch.cuda.synchronize()
-            walls[kind].append((time.perf_counter() - t0) * 1e3 / n_steps)
-    out = {}
-    for kind in kinds:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n_steps):
-                step[kind]()
-            torch.cuda.synchronize()
-        by_name, count = {}, {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = (by_name.get(e.name, 0.0)
-                                   + e.time_range.elapsed_us() / 1e3)
-                count[e.name] = count.get(e.name, 0) + 1
-        busy = sum(by_name.values()) / n_steps if by_name else None
-        wall = float(np.median(walls[kind]))
-        top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:8]
-        tails = sum(c for n, c in count.items() if "mlp_tail_kernel" in n)
-        qprojs = sum(c for n, c in count.items() if "matmul_kernel" in n)
-        decodes = sum(c for n, c in count.items() if "decode_kernel" in n)
-        decode_ms = sum(v for n, v in by_name.items()
-                        if "decode_kernel" in n) / n_steps
-        out[kind] = {
-            "wall_ms_per_step": wall,
-            "wall_ms_per_step_windows": walls[kind],
-            "device_ms_per_step": busy,
-            "device_busy_share": busy / wall if busy is not None else None,
-            "device_launches_per_step": sum(count.values()) / n_steps,
-            "mlp_tail_launches_per_step": tails / n_steps,
-            "mlp_tail_ms_per_step": sum(
-                v for n, v in by_name.items()
-                if "mlp_tail_kernel" in n) / n_steps,
-            "decode_attention_launches_per_step": decodes / n_steps,
-            "decode_attention_ms_per_step": decode_ms,
-            "decode_attention_share": (decode_ms / busy if busy else None),
-            "qproj_launches_per_step": qprojs / n_steps,
-            "qproj_ms_per_step": sum(
-                v for n, v in by_name.items()
-                if "matmul_kernel" in n) / n_steps,
-            "top_kernels_ms_per_step": [[n[:80], t / n_steps,
-                                         count[n] / n_steps]
-                                        for n, t in top]}
-        if kind == "layer-graph":
-            check("profile: one MLP-tail launch per layer per step",
-                  tails == cfg.n_layers * n_steps,
-                  f"{tails / n_steps} per step, {cfg.n_layers} layers")
-            check("profile: one q-projection launch per layer per step",
-                  qprojs == cfg.n_layers * n_steps,
-                  f"{qprojs / n_steps} per step, {cfg.n_layers} layers")
-    print("profile " + json.dumps(out), flush=True)
+    runs = profile_steps(torch, {
+        f"{kind} {mode}": make_step(kind, mode == "compiled")
+        for kind in kinds for mode in ("compiled", "eager")},
+        n_steps, rounds)
+    for name, r in runs.items():
+        by_name, count = r.pop("by_name"), r.pop("count")
+
+        def ms(tag):
+            return sum(v for n, v in by_name.items() if tag in n) / n_steps
+
+        def calls(tag):
+            return sum(c for n, c in count.items() if tag in n) / n_steps
+
+        r.update(decode_attention_launches_per_step=calls("decode_kernel"),
+                 decode_attention_ms_per_step=ms("decode_kernel"),
+                 decode_attention_share=(ms("decode_kernel")
+                                         / r["device_ms_per_step"]
+                                         if r["device_ms_per_step"]
+                                         else None),
+                 mlp_tail_launches_per_step=calls("mlp_tail_kernel"),
+                 mlp_tail_ms_per_step=ms("mlp_tail_kernel"),
+                 qproj_launches_per_step=calls("matmul_kernel"),
+                 qproj_ms_per_step=ms("matmul_kernel"))
+        if name.startswith("layer-graph"):
+            check(f"profile {name}: one MLP-tail launch per layer per step",
+                  r["mlp_tail_launches_per_step"] == cfg.n_layers,
+                  f"{r['mlp_tail_launches_per_step']} per step, "
+                  f"{cfg.n_layers} layers")
+            check(f"profile {name}: one q-projection launch per layer per "
+                  f"step", r["qproj_launches_per_step"] == cfg.n_layers,
+                  f"{r['qproj_launches_per_step']} per step, "
+                  f"{cfg.n_layers} layers")
+    print("profile " + json.dumps(runs), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2116,6 +2333,7 @@ def main() -> int:
     rows.update(time_library_kernels(torch, dev, shapes))
     depth_sweep(torch, dev, shapes)
     rows.update(time_scan_kernel(torch, dev, scan_launches))
+    check_compiled_steps(torch, dev)
     profile_decode(torch, dev)
     kernels = []
     for name, meta in KERNELS.items():

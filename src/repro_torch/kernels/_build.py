@@ -116,3 +116,11 @@ def stream_ptr(device) -> int:
     """PyTorch's current stream on ``device``: kernels launch on it."""
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def capturing(device) -> bool:
+    """Whether PyTorch's current stream on ``device`` is capturing a CUDA
+    graph (never on the CPU)."""
+    import torch
+    return (torch.device(device).type == "cuda"
+            and torch.cuda.is_current_stream_capturing())

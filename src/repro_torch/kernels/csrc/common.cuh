@@ -8,6 +8,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <utility>
+
 namespace repro {
 
 // The reference kernels mask with -1e30, not -inf: exp(-1e30 - m) is
@@ -51,6 +53,27 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// A cooperative launch (every block resident at once, so a grid barrier
+// cannot deadlock) through cudaLaunchKernelEx with the cooperative
+// attribute: stream capture records it as a cooperative kernel node, so a
+// CUDA graph replays it with the same guarantee.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_cooperative(void (*kernel)(Params...), int grid,
+                                      int threads, size_t smem, void* stream,
+                                      Args&&... args) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(grid);
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, kernel, std::forward<Args>(args)...);
 }
 
 }  // namespace repro

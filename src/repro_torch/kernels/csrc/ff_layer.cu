@@ -474,12 +474,8 @@ int launch_tail(const MatmulArgs<T>& oproj, const SwigluArgs<T>& gateup,
   int grid = per_sm * sms;
   grid = grid < tiles ? grid : tiles;
   if (grid < 1) grid = 1;  // nothing fits: let the launch report it
-  MatmulArgs<T> a1 = oproj, a3 = down;
-  SwigluArgs<T> a2 = gateup;
-  void* args[] = {&a1, &a2, &a3, &k_max};
-  err = cudaLaunchCooperativeKernel((const void*)mlp_tail_kernel<T>,
-                                    dim3(grid), dim3(kThreads), args, smem,
-                                    (cudaStream_t)stream);
+  err = repro::launch_cooperative(mlp_tail_kernel<T>, grid, kThreads, smem,
+                                  stream, oproj, gateup, down, k_max);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -1175,13 +1171,9 @@ int launch_ring_tail(const MatmulArgs<bf16>& oproj,
   items = max(items, ring_tiles(down) * down.split);
   int grid = min(per_sm * sms, items);
   if (grid < 1) grid = 1;  // nothing fits: let the launch report it
-  MatmulArgs<bf16> a1 = oproj, a3 = down;
-  SwigluArgs<bf16> a2 = gateup;
-  Pipe a4 = pp;
-  void* args[] = {&a1, &a2, &a3, &a4, &ks_max, &bar};
-  err = cudaLaunchCooperativeKernel((const void*)ring_mlp_tail_kernel,
-                                    dim3(grid), dim3(kRingThreads), args,
-                                    smem, (cudaStream_t)stream);
+  err = repro::launch_cooperative(ring_mlp_tail_kernel, grid, kRingThreads,
+                                  smem, stream, oproj, gateup, down, pp,
+                                  ks_max, bar);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -226,22 +226,49 @@ def _sms(index: int) -> int:
     return _sm_count(index)
 
 
+def scratch_size(b: int, kvh: int, group: int, d: int, dtype: torch.dtype,
+                 s: int, sm_count: int) -> Tuple[int, int]:
+    """(tickets, f32 workspace words) a launch needs: one ticket a (b, kv
+    head) row, and the splits' partials (acc, m and l of each query head)
+    when :func:`_plan` splits. A pure function of the shapes: the plan
+    uses the cache rows ``s``, not the lengths, and a call never uses
+    more splits than the plan (:func:`_split_words`), so the size covers
+    every call at these shapes."""
+    split = _plan(b, kvh, d, dtype, s, sm_count).split
+    return b * kvh, (b * kvh * split * group * (d + 2) if split > 1 else 0)
+
+
 _SCRATCH: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+_RETIRED: List[torch.Tensor] = []
 
 
 def _scratch(device: torch.device, stream: int, rows: int, ws_words: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The tickets (one a (b, kv head) row) and the splits' f32 partials,
-    kept per device and stream and grown as needed: every launch leaves
-    its tickets at 0 again (the last split of a row resets its own), and
-    a later launch on the stream runs only after this one has read its
-    partials."""
+    """The tickets (``rows`` of them) and the splits' f32 partials
+    (``ws_words``, :func:`scratch_size`), kept per device and stream:
+    every launch leaves its tickets at 0 again (the last split of a row
+    resets its own), and a later launch on the stream runs only after
+    this one has read its partials. A buffer that is too small is
+    replaced by a larger one, and the old one is kept alive: a captured
+    CUDA graph holds its address. Replacing one while the stream is
+    capturing raises: a compiled step sizes the buffers by warming up on
+    its capture stream first."""
     key = (device, stream)
     tickets, ws = _SCRATCH.get(key, (None, None))
-    if tickets is None or tickets.numel() < rows:
+    grow_t = tickets is None or tickets.numel() < rows
+    grow_w = ws is None or ws.numel() < ws_words
+    if (grow_t or grow_w) and _build.capturing(device):
+        raise RuntimeError(
+            "ff_decode_attention: scratch would be allocated during CUDA "
+            "graph capture; run the step once on the capture stream first")
+    if grow_t:
+        if tickets is not None:
+            _RETIRED.append(tickets)
         tickets = torch.zeros(max(rows, 1024), dtype=torch.int32,
                               device=device)
-    if ws is None or ws.numel() < ws_words:
+    if grow_w:
+        if ws is not None:
+            _RETIRED.append(ws)
         ws = torch.empty(max(ws_words, 1 << 16), dtype=torch.float32,
                          device=device)
     _SCRATCH[key] = (tickets, ws)
@@ -255,11 +282,11 @@ def _launch(paged: bool, q, out, lens, kvh: int, d: int, s: int, depth: int,
     arguments."""
     b, h = q.shape[0], q.shape[1]
     group = h // kvh
-    plan = _plan(b, kvh, d, q.dtype, s, _sms(q.device.index))
+    sms = _sms(q.device.index)
+    plan = _plan(b, kvh, d, q.dtype, s, sms)
     stream = _build.stream_ptr(q.device)
-    tickets, ws = _scratch(q.device, stream, b * kvh,
-                           b * kvh * plan.split * group * (d + 2)
-                           if plan.split > 1 else 0)
+    tickets, ws = _scratch(q.device, stream,
+                           *scratch_size(b, kvh, group, d, q.dtype, s, sms))
     name = "ff_paged_decode_attention" if paged else "ff_decode_attention"
     ptrs, sizes = operands[:2], operands[2:]
     rc = _entry(paged, q.dtype)(

@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -312,19 +312,42 @@ def _launch(kernel: str, dtype, device, *args) -> None:
     _build.check("ff_layer", kernel, rc)
 
 
+def ring_size(m: int, stages, sm_count: int) -> Tuple[list, int, int]:
+    """What bf16 launches of ``stages`` ``[(kind, n, k), ...]`` at ``m``
+    rows need: each stage's k split, the f32 workspace words of the
+    splits' partial tiles (the largest stage's) and the tickets (two
+    words of the MLP tail's grid barrier, then one a column tile of the
+    widest stage). A pure function of the shapes and the SM count."""
+    plans = [(_plan(n, k, sm_count), _PARTIAL_COLS[kind])
+             for kind, n, k in stages]
+    words = max(pl.tiles * pl.split * m * cols if pl.split > 1 else 0
+                for pl, cols in plans)
+    return ([pl.split for pl, _ in plans], words,
+            max(pl.tiles for pl, _ in plans) + 2)
+
+
 _TICKETS: Dict[tuple, torch.Tensor] = {}
+_RETIRED: List[torch.Tensor] = []
 
 
 def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """Two words of the MLP tail's grid barrier, then the split
-    reduction's tickets, one a column tile; zeroed once per device and
-    stream: every launch leaves the count and the tickets at 0 again (the
-    last block to arrive resets them), so no launch clears them."""
+    """``n`` ticket words (:func:`ring_size`), zeroed once per device and
+    stream: every launch leaves the barrier count and the tickets at 0
+    again (the last block to arrive resets them), so no launch clears
+    them. A buffer that is too small is replaced by a larger one, and the
+    old one is kept alive: a captured CUDA graph holds its address.
+    Replacing one while the stream is capturing raises: a compiled step
+    sizes the buffer by warming up on its capture stream first."""
     key = (device, _build.stream_ptr(device))
     buf = _TICKETS.get(key)
-    if buf is None or buf.numel() < n + 2:
-        buf = torch.zeros(max(n + 2, 1024), dtype=torch.int32,
-                          device=device)
+    if buf is None or buf.numel() < n:
+        if _build.capturing(device):
+            raise RuntimeError(
+                "ff_layer: tickets would be allocated during CUDA graph "
+                "capture; run the step once on the capture stream first")
+        if buf is not None:
+            _RETIRED.append(buf)
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _TICKETS[key] = buf
     return buf
 
@@ -332,19 +355,15 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
 def _ring(dtype, device, m: int, stages) -> Tuple[list, Optional[
         torch.Tensor], Optional[torch.Tensor]]:
     """Each stage's k split, the workspace of the splits' f32 partial tiles
-    (the largest stage's) and the tickets, for launches of ``stages``
-    ``[(kind, n, k), ...]`` at ``m`` rows. f32 does not split."""
+    (allocated per call: under capture it lives in the graph's pool) and
+    the tickets, for launches of ``stages`` ``[(kind, n, k), ...]`` at
+    ``m`` rows (:func:`ring_size`). f32 does not split."""
     if dtype != torch.bfloat16:
         return [1] * len(stages), None, None
-    sms = _sm_count(device.index)
-    plans = [(_plan(n, k, sms), _PARTIAL_COLS[kind])
-             for kind, n, k in stages]
-    words = max(pl.tiles * pl.split * m * cols if pl.split > 1 else 0
-                for pl, cols in plans)
+    splits, words, tickets = ring_size(m, stages, _sm_count(device.index))
     ws = (torch.empty(words, dtype=torch.float32, device=device)
           if words else None)
-    return ([pl.split for pl, _ in plans], ws,
-            _tickets(device, max(pl.tiles for pl, _ in plans)))
+    return splits, ws, _tickets(device, tickets)
 
 
 def _launch_matmul(a, b, out, *, norm_weight, eps, epilogue, bias, pos,

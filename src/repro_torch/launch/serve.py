@@ -22,6 +22,11 @@ the dense path's KV tile is pinned to the page size
 contiguous path and the two schedulers emit token-for-token equal
 sequences. :func:`decode_parity_probe` checks the bitwise claim.
 
+On the card every step is compiled (``launch/steps.py``): prefill is
+captured as a CUDA graph once per (batch, bucket) and decode once per
+cache signature, then replayed, as the reference jits both; weights are
+cast to the compute type once (``model.cast_params``).
+
 With ``--layer-graph`` the lockstep scheduler's decode steps go through
 the whole-layer ``decode_layer`` kernels instead; their rounding points
 differ from the per-op layer's in bf16, so the probe then reports a small
@@ -50,7 +55,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ARCH_IDS, get_config, smoke_config
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import build_model
-from repro_torch.runtime.paged_kv import PagedKVCache
+from repro_torch.runtime.paged_kv import PagedKVCache, to_device
 
 
 def resolve_device(name: str) -> torch.device:
@@ -71,7 +76,8 @@ def _sync(device: torch.device) -> None:
 
 
 def _ints(x, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x, np.int32), device=device)
+    """Host ints on ``device`` as int32, copied without a host sync."""
+    return to_device(np.asarray(x, np.int32), device)
 
 
 def pad_cache_to(cache, s_from: int, s_max: int, seq_dims):
@@ -362,7 +368,7 @@ def run_continuous(model, params, cfg, requests: List[Request], *,
         clock += dt
         decode_s += dt
         steps += 1
-        kv.update_pool(new_caches["kv_pool"])
+        kv.update(new_caches)
         kv.append(act.astype(np.int32))
         for slot in np.nonzero(act)[0]:
             r = slot_req[slot]
@@ -431,7 +437,7 @@ def decode_parity_probe(model, params, cfg, *, page: int, n_steps: int = 3,
         np_, logits_p, new_caches = decode(
             params, {"token": cur_p, "lengths": _ints(kv.lengths, dev)},
             kv.cache_view())
-        kv.update_pool(new_caches["kv_pool"])
+        kv.update(new_caches)
         kv.append(np.ones(b, np.int32))
         diff = (logits_d.float() - logits_p.float()).abs().max().item()
         max_diff = max(max_diff, diff)
@@ -471,8 +477,8 @@ def serve_bench(args) -> Dict[str, object]:
         rate=args.rate, vocab=cfg.vocab, seed=args.seed)
     # weights from a fixed seed, as the reference's key(0); --seed is the
     # trace's
-    params = model.init(torch.Generator(device=device).manual_seed(0),
-                        device)
+    params = model.cast_params(model.init(
+        torch.Generator(device=device).manual_seed(0), device))
     lockstep = run_lockstep(model, params, cfg, requests,
                             n_slots=args.slots, page=args.page,
                             eos_id=args.eos_id)

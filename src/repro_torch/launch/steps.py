@@ -1,20 +1,40 @@
 """Step builders for serving (the port of ``make_prefill_step`` and
-``make_decode_step`` in ``repro/launch/steps.py``). PyTorch runs eagerly,
-so a step is the model call under ``torch.no_grad``."""
+``make_decode_step`` in ``repro/launch/steps.py``) and the port of the
+reference's ``jax.jit`` around them.
+
+The reference traces each step once per input signature and replays the
+XLA program after that. Here, on a CUDA device, a step is captured once
+per signature as a CUDA graph and replayed after that
+(:class:`CompiledStep`): the signature is the arguments' tree, shapes and
+dtypes (as ``jax.jit``'s cache key), which axes are broadcast (stride 0),
+the Python constants among them, and the params tree by address (the
+graph reads the weights where they lie; another params tree of the same
+shapes captures another graph). Every hand-written kernel of the step
+runs inside the graph, as it runs eagerly.
+
+On the CPU the steps run eagerly (the test path). ``compiled=False`` runs
+them eagerly on the card too: the eager side of a comparison.
+"""
 
 from __future__ import annotations
 
+from typing import Callable, Dict, List, Tuple
+
 import torch
 
+from repro_torch.kernels import launch_counters
 
-def make_prefill_step(model):
+
+def make_prefill_step(model, *, compiled: bool = True):
+    """prefill_step(params, batch) -> (last-token logits [B, V], cache)."""
     @torch.no_grad()
     def prefill_step(params, batch):
         return model.prefill(params, batch)
-    return prefill_step
+    return _compiled(model, "prefill", prefill_step) if compiled \
+        else prefill_step
 
 
-def make_decode_step(model):
+def make_decode_step(model, *, compiled: bool = True):
     """decode_step(params, batch, cache) -> (greedy next token [B] int32,
     logits [B, V], cache). ``argmax`` takes the first index on ties, as
     ``jnp.argmax`` does."""
@@ -23,4 +43,216 @@ def make_decode_step(model):
         logits, new_cache = model.decode_step(params, batch, cache)
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_tok, logits, new_cache
-    return decode_step
+    return _compiled(model, "decode", decode_step) if compiled \
+        else decode_step
+
+
+def _compiled(model, kind: str, fn) -> "CompiledStep":
+    """One compiled step of each kind a model: every ``make_*_step`` call
+    shares its graphs, as a jitted function shares its traces."""
+    steps = model.__dict__.setdefault("_compiled_steps", {})
+    if kind not in steps:
+        steps[kind] = CompiledStep(fn)
+    return steps[kind]
+
+
+# ---------------------------------------------------------------------------
+# pytrees of tensors
+# ---------------------------------------------------------------------------
+
+
+def _flatten(tree, leaves: List[torch.Tensor]):
+    """The hashable spec of ``tree`` (dicts, lists, tuples of tensors and
+    constants), appending its tensors to ``leaves`` in spec order."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, _flatten(tree[k], leaves))
+                              for k in sorted(tree)))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__,
+                tuple(_flatten(x, leaves) for x in tree))
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return ("tensor", tuple(tree.shape), tree.dtype,
+                tuple(s == 0 and n > 1
+                      for s, n in zip(tree.stride(), tree.shape)))
+    return ("const", tree)
+
+
+def _unflatten(spec, leaves):
+    """The tree of ``spec`` with the tensors taken from iterator
+    ``leaves``, in fresh containers."""
+    kind, body = spec[0], spec[1]
+    if kind == "dict":
+        return {k: _unflatten(v, leaves) for k, v in body}
+    if kind in ("list", "tuple"):
+        items = [_unflatten(v, leaves) for v in body]
+        return items if kind == "list" else tuple(items)
+    if kind == "tensor":
+        return next(leaves)
+    return body
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` without its broadcast (stride 0) axes: the memory it views."""
+    for axis, (s, n) in enumerate(zip(t.stride(), t.shape)):
+        if s == 0 and n > 1:
+            t = t.narrow(axis, 0, 1)
+    return t
+
+
+def _same_buffer(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.device == b.device and a.data_ptr() == b.data_ptr()
+            and a.stride() == b.stride())
+
+
+def _load(statics, leaves) -> int:
+    """Copy each input into its static buffer unless it is that buffer (a
+    cache the step returned); returns the copies made."""
+    copies = 0
+    for src, dst in zip(leaves, statics):
+        if not _same_buffer(src, dst):
+            _dense(dst).copy_(_dense(src), non_blocking=True)
+            copies += 1
+    return copies
+
+
+# ---------------------------------------------------------------------------
+# the compiled step
+# ---------------------------------------------------------------------------
+
+
+class _Graph:
+    """One captured signature: its static inputs, its replay, its outputs
+    and what its capture counted in each kernel wrapper's
+    ``launches``."""
+
+    def __init__(self, statics, replay: Callable[[], None], out, launches):
+        self.statics = statics
+        self.replay = replay
+        self.out_leaves: List[torch.Tensor] = []
+        self.out_spec = _flatten(out, self.out_leaves)
+        self.launches = launches
+
+    def run(self):
+        self.replay()
+        for wrapper, n in self.launches:
+            wrapper.launches += n
+        return _unflatten(self.out_spec, iter(self.out_leaves))
+
+
+_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+_POOLS: Dict[torch.device, tuple] = {}
+
+
+def _cuda_capture(run: Callable[[], object], reload: Callable[[], None],
+                  device: torch.device):
+    """Warm ``run`` up once eagerly on the capture stream, then capture it
+    as a CUDA graph on that stream in the pool every graph of the device
+    shares. Returns (replay, outputs, launches the capture counted).
+
+    The warm-up builds and loads the kernels, runs their one-time
+    attribute set-up (``cudaFuncSetAttribute``) and sizes their scratch
+    buffers (``ff_decode_attention.ops._scratch``,
+    ``ff_layer.ops._tickets``, kept per stream) on this stream, where the
+    capture finds them: a capture that would allocate one raises. It also
+    gives cuBLAS its workspace for the stream. Kernels that take a TMA
+    tensor map by value (``ff_attention``, ``ff_attention_proj``,
+    ``ff_matmul``) build it on the host at the launch; the captured node
+    keeps that map, which is right because the graph's buffers (static
+    inputs, weights, its pool) never move. A failed capture raises: there
+    is no eager fallback."""
+    stream = _STREAMS.get(device)
+    if stream is None:
+        stream = _STREAMS[device] = torch.cuda.Stream(device)
+        _POOLS[device] = torch.cuda.graph_pool_handle()
+    current = torch.cuda.current_stream(device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        run()
+    current.wait_stream(stream)
+    reload()                  # the warm-up wrote the cache in place
+    counters = launch_counters()
+    before = [w.launches for w in counters]
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, pool=_POOLS[device], stream=stream):
+            out = run()
+    finally:
+        # the capture launched nothing: its counts go to each replay
+        delta = [(w, w.launches - n) for w, n in zip(counters, before)]
+        for w, n in zip(counters, before):
+            w.launches = n
+    return graph.replay, out, [(w, n) for w, n in delta if n]
+
+
+class CompiledStep:
+    """``fn(params, *args)`` captured once per signature and replayed
+    after that, on the devices named in ``devices`` (CUDA); elsewhere it
+    runs eagerly.
+
+    Each signature keeps its own static input buffers; an input is copied
+    into its buffer before a replay unless it is that buffer, so a caller
+    that hands back the cache the step returned copies nothing (the
+    counterpart of the reference's buffer donation). The outputs are the
+    graph's own buffers, outside the pool the graphs share: the next call
+    of the same signature overwrites them (clone what you keep), and no
+    other graph's replay does. Caches the step updates in place are its
+    static inputs: use the returned cache, not the one passed in.
+    ``capture`` is :func:`_cuda_capture`, or a stand-in with its
+    signature (the CPU tests' bookkeeping)."""
+
+    def __init__(self, fn, *, capture=_cuda_capture,
+                 devices: Tuple[str, ...] = ("cuda",)):
+        self.fn = fn
+        self.capture = capture
+        self.devices = devices
+        self.graphs: Dict[tuple, _Graph] = {}
+        self.last_copies = 0
+
+    def __call__(self, params, *args):
+        p_leaves: List[torch.Tensor] = []
+        p_spec = _flatten(params, p_leaves)
+        device = p_leaves[0].device
+        if device.type not in self.devices:
+            return self.fn(params, *args)
+        leaves: List[torch.Tensor] = []
+        spec = _flatten(args, leaves)
+        key = (p_spec, tuple(t.data_ptr() for t in p_leaves), spec)
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = self._capture(params, spec, leaves,
+                                                     device)
+        self.last_copies = _load(graph.statics, leaves)
+        return graph.run()
+
+    def _capture(self, params, spec, leaves, device) -> _Graph:
+        statics = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                       device=device) for t in leaves]
+        args = _unflatten(spec, iter(statics))
+        _load(statics, leaves)
+        inputs = {t.untyped_storage().data_ptr() for t in statics}
+        holders: List = []
+
+        def run():
+            """The step on the static inputs, each output that is not one
+            of them copied into a buffer of its own, made at the first
+            (eager) run: the graphs share one pool, where a graph
+            captured later may place its outputs in an earlier one's
+            intermediates, so an output left there would be overwritten
+            by that graph's next replay."""
+            out = self.fn(params, *args)
+            outs: List[torch.Tensor] = []
+            out_spec = _flatten(out, outs)
+            if not holders:
+                holders.extend(
+                    None if t.untyped_storage().data_ptr() in inputs
+                    else torch.empty_like(t) for t in outs)
+            for h, t in zip(holders, outs):
+                if h is not None:
+                    h.copy_(t)
+            return _unflatten(out_spec, iter(
+                t if h is None else h for h, t in zip(holders, outs)))
+
+        replay, out, launches = self.capture(
+            run, lambda: _load(statics, leaves), device)
+        return _Graph(statics, replay, out, launches)

@@ -47,6 +47,28 @@ class BaseLM:
         (make it with ``torch.Generator(device=device).manual_seed(seed)``)."""
         return L.init_params(self.param_specs(), gen, device)
 
+    # The leaves that the forward also reads in f32, by path prefix: the
+    # norms' weights (and LayerNorm biases), which the norms take with
+    # ``.float()``. Every other leaf is only ever used through
+    # ``.to(cfg.cdtype)``.
+    F32_LEAVES = (("final_norm",), ("stack", "layers", "norm1"),
+                  ("stack", "layers", "norm2"))
+
+    def cast_params(self, params) -> Dict[str, Any]:
+        """The same params tree with every leaf outside
+        :attr:`F32_LEAVES` stored in ``cfg.cdtype``, cast once here: the
+        forward's per-use ``.to(cfg.cdtype)`` is then a no-op and the
+        logits are the same bits. Leaves in :attr:`F32_LEAVES` are the
+        given tensors."""
+        out: Dict[str, Any] = {}
+        for path, leaf in L.tree_leaves(params):
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            keep = any(path[:len(p)] == p for p in self.F32_LEAVES)
+            node[path[-1]] = leaf if keep else leaf.to(self.cfg.cdtype)
+        return out
+
     # forward ---------------------------------------------------------------
     def _unembed(self, params):
         return (params["embed"] if self.cfg.tie_embeddings
@@ -83,6 +105,14 @@ class ZambaLM(BaseLM):
     """zamba2 hybrid (Mamba2 + shared attention). A decode cache's
     ``attn[i]`` leaves must be longer than the prompt (see
     :mod:`repro_torch.models.hybrid`)."""
+
+    # the RMSNorm weights (the gated norm's norm_w too), the SSD's a_log
+    # (``.float()``) and dt_bias (added to the f32 dt)
+    F32_LEAVES = (("final_norm",), ("stack", "mamba_layers", "norm"),
+                  ("stack", "mamba_layers", "mixer", "a_log"),
+                  ("stack", "mamba_layers", "mixer", "dt_bias"),
+                  ("stack", "mamba_layers", "mixer", "norm_w"),
+                  ("stack", "shared", "norm1"), ("stack", "shared", "norm2"))
 
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
@@ -127,6 +157,12 @@ class ZambaLM(BaseLM):
 class RWKVLM(BaseLM):
     """rwkv6: token-shift time and channel mixing, attention-free. Its
     cache is the per-layer recurrent state, stacked ``[L, ...]``."""
+
+    # the LayerNorm weights and biases (``.float()``), the decay base w0
+    # (``.float()``) and the bonus u (the scan's f32 operand)
+    F32_LEAVES = (("ln0",), ("final_norm",), ("layers", "ln1"),
+                  ("layers", "ln2"), ("layers", "tm", "w0"),
+                  ("layers", "tm", "u"))
 
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg

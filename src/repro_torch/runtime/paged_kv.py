@@ -9,8 +9,11 @@
   * :func:`scatter_prefill` / :func:`scatter_token` write K/V into the
     pool through the tables. The reference's JAX scatters donate the pool
     and drop out-of-range ids (``mode="drop"``); torch indexing raises on
-    out-of-range ids, so the ids are filtered first, and the pool is
-    updated in place (the donated buffer's counterpart).
+    out-of-range ids, and filtering them out would size a tensor by the
+    data (a host sync, which a CUDA graph cannot capture). So every row
+    writes: a dropped row writes, where the first kept row writes, that
+    row's own value (or, with no row kept, the value already there), and
+    the pool is updated in place (the donated buffer's counterpart).
   * :func:`paged_decode_attention` — the wrapper of the paged CUDA kernel
     (``kernels/csrc/ff_decode_attention.cu``, which reads pages through the
     table itself; the reference fused an ``ff_gather`` producer into the
@@ -145,26 +148,64 @@ def paged_decode_unfused(q, kv_pool, idx, lengths) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def to_device(x, device) -> torch.Tensor:
+    """``x`` (a host array or a tensor) on ``device`` without a host sync:
+    a host-to-card copy goes through pinned memory, ``non_blocking``."""
+    t = torch.as_tensor(x)
+    device = torch.device(device)
+    if t.device.type == "cpu" and device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _masked_write(dst, index, vals, keep) -> None:
+    """``dst[..., blk, :, off] = vals`` (each row's K and V) for the rows
+    where ``keep`` holds, without sizing a tensor by ``keep``. ``dst`` is
+    one layer's pool [nb, 2, page, KVH, hd] or the stacked pool
+    [L, nb, ...]; ``index`` is (blk, off), [R] each, blk clipped into the
+    block axis; ``vals`` is [R, 2, KVH, hd] or [R, L, 2, KVH, hd]. A
+    dropped row writes where the first kept row writes, that row's
+    values: duplicate writes of equal bits, so their order does not
+    matter. With no row kept, every row writes back the values already
+    at row 0's place."""
+    blk, off = index
+    first = torch.argmax(keep.to(torch.int32)).view(1)   # on the device
+    b0, o0 = blk[first], off[first]
+    tb = torch.where(keep, blk, b0)
+    to = torch.where(keep, off, o0)
+    stacked = dst.dim() == 6
+    here = dst[:, b0, :, o0] if stacked else dst[b0, :, o0]  # [1, ...]
+    donor = torch.where(keep[first], vals.index_select(0, first), here)
+    vals = torch.where(keep.view(-1, *[1] * (vals.dim() - 1)), vals, donor)
+    if stacked:
+        dst[:, tb, :, to] = vals
+    else:
+        dst[tb, :, to] = vals
+
+
 def scatter_prefill(pool, k, v, block_tables, lengths, *, page: int,
                     n_blocks: int):
     """Write prefill KV into the pool (in place) through the block tables.
 
     pool: [L, nb, 2, page, KVH, hd]; k, v: [L, B, S_p, KVH, hd];
-    block_tables: [B, n_pages]; lengths: [B]. Positions past ``lengths``
-    and sentinel table entries (>= ``n_blocks``) drop. Returns ``pool``.
-    """
+    block_tables: [B, n_pages]; lengths: [B] (host arrays or tensors: a
+    host array is copied without a sync). Positions past ``lengths`` and
+    sentinel table entries (>= ``n_blocks``) drop. No host sync. Returns
+    ``pool``."""
     dev = pool.device
-    s_p = k.shape[2]
+    n_layers, b, s_p = k.shape[:3]
     pos = torch.arange(s_p, device=dev)
-    bt = torch.as_tensor(block_tables, device=dev).long()
-    lens = torch.as_tensor(lengths, device=dev).long()
+    bt = to_device(block_tables, dev).long()
+    lens = to_device(lengths, dev).long()
     blk = bt[:, (pos // page).clamp(0, bt.shape[1] - 1)]      # [B, S_p]
     blk = torch.where(pos[None] < lens[:, None], blk, n_blocks)
     off = (pos % page).expand_as(blk)
-    keep = (blk >= 0) & (blk < n_blocks)
-    bi, si = keep.nonzero(as_tuple=True)
-    pool[:, blk[bi, si], 0, off[bi, si]] = k[:, bi, si].to(pool.dtype)
-    pool[:, blk[bi, si], 1, off[bi, si]] = v[:, bi, si].to(pool.dtype)
+    keep = ((blk >= 0) & (blk < n_blocks)).reshape(-1)
+    index = (blk.reshape(-1).clamp(0, pool.shape[1] - 1), off.reshape(-1))
+    kv = torch.stack([k, v], dim=3).to(pool.dtype)   # [L, B, S_p, 2, ...]
+    _masked_write(pool, index,
+                  kv.reshape(n_layers, b * s_p, *kv.shape[3:]).transpose(
+                      0, 1), keep)
     return pool
 
 
@@ -173,17 +214,19 @@ def scatter_token(pool_layer, block_tables, lengths, k_new, v_new,
     """Append one token's K/V at position ``lengths`` (per row) into one
     layer's pool, in place. pool_layer: [nb, 2, page, KVH, hd]; k_new,
     v_new: [B, KVH, hd]. Sentinel table entries (>= n_blocks) drop the
-    write. Returns ``pool_layer``."""
+    write. No host sync: a CUDA graph captures it. Returns
+    ``pool_layer``."""
     page = pool_layer.shape[2]
     b = k_new.shape[0]
     bt = block_tables.long()
     lens = lengths.long()
     rows = torch.arange(b, device=bt.device)
     blk = bt[rows, (lens // page).clamp(0, bt.shape[1] - 1)]
-    off = lens % page
-    keep = ((blk >= 0) & (blk < n_blocks)).nonzero(as_tuple=True)[0]
-    pool_layer[blk[keep], 0, off[keep]] = k_new[keep].to(pool_layer.dtype)
-    pool_layer[blk[keep], 1, off[keep]] = v_new[keep].to(pool_layer.dtype)
+    keep = (blk >= 0) & (blk < n_blocks)
+    index = (blk.clamp(0, pool_layer.shape[0] - 1), lens % page)
+    _masked_write(pool_layer, index,
+                  torch.stack([k_new, v_new], dim=1).to(pool_layer.dtype),
+                  keep)
     return pool_layer
 
 
@@ -232,8 +275,13 @@ class PagedKVCache:
 
     The pool ``[L, n_blocks, 2, page, KVH, hd]`` is shared by all decode
     slots; each slot owns a block table (host array of block ids,
-    sentinel-filled). :meth:`cache_view` is the cache the model consumes:
-    ``{"kv_pool": pool, "block_tables": [L, n_slots, n_pages_max]}``.
+    sentinel-filled), mirrored in one device buffer that is rewritten only
+    when a table changes (admit, retire). :meth:`cache_view` is the cache
+    the model consumes: ``{"kv_pool": pool, "block_tables": [L, n_slots,
+    n_pages_max]}`` (the device buffer broadcast over layers). After a
+    decode step, :meth:`update` takes the pool and table buffer the step
+    returned as the cache's own, so a compiled step, whose graph reads
+    fixed addresses, gets back the buffers it wrote and copies nothing in.
     """
 
     def __init__(self, *, n_layers: int, n_blocks: int, page: int,
@@ -252,6 +300,7 @@ class PagedKVCache:
             device=self.device)
         self.allocator = BlockAllocator(n_blocks)
         self._tables = np.full((n_slots, n_pages_max), n_blocks, np.int32)
+        self._device_tables = torch.as_tensor(self._tables).to(self.device)
         self._owned: List[List[int]] = [[] for _ in range(n_slots)]
         self.lengths = np.zeros((n_slots,), np.int32)
         self._live_tokens = 0
@@ -278,9 +327,11 @@ class PagedKVCache:
         self._tables[slot, :n_pages] = ids
         self.lengths[slot] = length
         self._live_tokens += int(length)
+        self._sync_tables()
         scatter_prefill(self.pool, k_seq[:, None], v_seq[:, None],
-                        self._tables[slot:slot + 1], [length],
-                        page=self.page, n_blocks=self.n_blocks)
+                        self._device_tables[slot:slot + 1],
+                        np.array([length], np.int32), page=self.page,
+                        n_blocks=self.n_blocks)
 
     def append(self, n_per_slot) -> None:
         """Host bookkeeping after a decode step appended tokens on device."""
@@ -294,13 +345,19 @@ class PagedKVCache:
         self._owned[slot] = []
         self._tables[slot, :] = self.n_blocks
         self.lengths[slot] = 0
+        self._sync_tables()
 
     # -- device views --------------------------------------------------------
 
+    def _sync_tables(self) -> None:
+        """Copy the host tables into the device buffer (no host sync)."""
+        self._device_tables.copy_(to_device(self._tables, self.device))
+
     def device_tables(self) -> torch.Tensor:
         """Block tables broadcast over layers: [L, n_slots, n_pages_max]
-        (every layer shares one table; the pool's L axis separates them)."""
-        bt = torch.as_tensor(self._tables).to(self.device)
+        (every layer shares one table; the pool's L axis separates them),
+        a view of the one device buffer."""
+        bt = self._device_tables
         return bt.expand(self.n_layers, *bt.shape)
 
     def cache_view(self) -> Dict[str, torch.Tensor]:
@@ -308,8 +365,15 @@ class PagedKVCache:
         on every leaf, matching the layer stack)."""
         return {"kv_pool": self.pool, "block_tables": self.device_tables()}
 
-    def update_pool(self, new_pool) -> None:
-        self.pool = new_pool
+    def update(self, cache: Dict[str, torch.Tensor]) -> None:
+        """Adopt the cache a decode step returned: its pool, and its table
+        buffer (which holds this cache's tables: the step read them)."""
+        bt = cache["block_tables"]
+        if bt.stride(0) != 0:
+            raise ValueError("block_tables is not one [n_slots, n_pages] "
+                             "buffer broadcast over layers")
+        self.pool = cache["kv_pool"]
+        self._device_tables = bt[0]
 
     # -- metrics -------------------------------------------------------------
 

@@ -817,3 +817,161 @@ def test_chunk_scan_checks_depth_and_streams(cuda):
     for bad in (dict(depth=0), dict(streams=0), dict(streams=3)):
         with pytest.raises(ValueError):
             chunk_scan(x, x, x, x, **bad)
+
+
+# ---------------------------------------------------------------------------
+# the compiled step: CUDA graphs of the serve steps
+# ---------------------------------------------------------------------------
+
+
+def _serve_smoke(cuda, layer_graph=False):
+    """The smoke qwen in bf16 (KV tile 8, the page), weights cast once, and
+    two prompts (lengths 5 and 19) prefilled eagerly."""
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    cfg = smoke_config("qwen1_5_0p5b").replace(
+        compute_dtype="bfloat16", decode_block_kv=8, layer_graph=layer_graph)
+    model = build_model(cfg)
+    params = model.cast_params(
+        model.init(torch.Generator(device=cuda).manual_seed(0), cuda))
+    lens = torch.tensor([5, 19], dtype=torch.int32)
+    toks = torch.randint(1, cfg.vocab, (2, 19), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    _, dense = steps.make_prefill_step(model, compiled=False)(
+        params, {"tokens": toks.to(cuda)})
+    first = {"token": toks[torch.arange(2), lens - 1].to(cuda),
+             "lengths": (lens - 1).to(cuda)}
+    return cfg, model, params, dense, first
+
+
+def _paged(cfg, cuda, dense, lens=(5, 19), slots=3):
+    kv = paged_kv.PagedKVCache(n_layers=cfg.n_layers, n_blocks=10, page=8,
+                               kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                               n_slots=slots, n_pages_max=3,
+                               dtype=cfg.cdtype, device=cuda)
+    for i, n in enumerate(lens):
+        kv.admit(i, dense["k"][:, i], dense["v"][:, i], n, 24)
+    return kv
+
+
+def _cache(kind, cfg, cuda, dense):
+    from repro_torch.launch import serve
+    if kind == "paged":
+        return _paged(cfg, cuda, dense).cache_view()
+    return serve.pad_cache_to(dense, 19, 24, 2)
+
+
+def _batch(first, kind):
+    if kind != "paged":
+        return dict(first)
+    return {"token": torch.cat([first["token"], first["token"][:1] * 0]),
+            "lengths": torch.cat([first["lengths"],
+                                  first["lengths"][:1] * 0])}
+
+
+def _leaves(tree):
+    from repro_torch.launch.steps import _flatten
+    out = []
+    _flatten(tree, out)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged", "layer-graph"])
+def test_replayed_decode_step_equals_eager_bitwise(cuda, kind):
+    from repro_torch.launch import steps
+    cfg, model, params, dense, first = _serve_smoke(
+        cuda, layer_graph=kind == "layer-graph")
+    outs = {}
+    for compiled in (True, False):
+        decode = steps.make_decode_step(model, compiled=compiled)
+        b, cache, seen = _batch(first, kind), _cache(kind, cfg, cuda,
+                                                     dense), []
+        for _ in range(3):
+            nxt, lg, cache = decode(params, b, cache)
+            seen.append([t.clone() for t in _leaves((nxt, lg, cache))])
+            b = {"token": nxt,
+                 "lengths": b["lengths"] + (b["lengths"] > 0).int()}
+        outs[compiled] = seen
+    assert len(steps.make_decode_step(model).graphs) == 1
+    for got, want in zip(outs[True], outs[False]):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_replay_after_admit_and_retire_reads_the_new_table(cuda):
+    """Slot 0 retires and a new request takes slot 2 between replays: the
+    graph reads the table buffer the cache rewrote, as the eager step
+    reads it."""
+    from repro_torch.launch import steps
+    cfg, model, params, dense, first = _serve_smoke(cuda)
+    logits = {}
+    for compiled in (True, False):
+        decode = steps.make_decode_step(model, compiled=compiled)
+        kv = _paged(cfg, cuda, dense)
+        b = _batch(first, "paged")
+        seen = []
+        for i in range(4):
+            if i == 2:
+                kv.retire(0)
+                kv.admit(2, dense["k"][:, 1], dense["v"][:, 1], 19, 24)
+                # slot 2 re-feeds prompt 1's last token at its position,
+                # as slot 1 did at step 0
+                b = {"token": torch.stack([b["token"][0] * 0,
+                                           b["token"][1],
+                                           first["token"][1]]),
+                     "lengths": torch.stack([b["lengths"][0] * 0,
+                                             b["lengths"][1],
+                                             first["lengths"][1]])}
+            nxt, lg, cache = decode(params, b, kv.cache_view())
+            kv.update(cache)
+            seen.append(lg.clone())
+            b = {"token": nxt,
+                 "lengths": b["lengths"] + (b["lengths"] > 0).int()}
+        logits[compiled] = seen
+    for got, want in zip(logits[True], logits[False]):
+        assert torch.equal(got, want)
+    # slot 2 now decodes prompt 1 through its new blocks: its row equals
+    # slot 1's at step 0
+    assert torch.equal(logits[True][2][2], logits[True][0][1])
+
+
+def test_launch_counters_count_replays(cuda):
+    from repro_torch.kernels import launch_counters
+    from repro_torch.launch import steps
+    cfg, model, params, dense, first = _serve_smoke(cuda)
+    decode = steps.make_decode_step(model)
+    eager = steps.make_decode_step(model, compiled=False)
+    cache = _cache("dense", cfg, cuda, dense)
+    decode(params, dict(first), cache)                # capture
+    counters = launch_counters()
+
+    def counts(fn, n):
+        for w in counters:
+            w.launches = 0
+        for _ in range(n):
+            fn()
+        return {w.__name__: w.launches for w in counters if w.launches}
+
+    one = counts(lambda: eager(params, dict(first),
+                               _cache("dense", cfg, cuda, dense)), 1)
+    assert one.get("decode_attention") == cfg.n_layers
+    three = counts(lambda: decode(params, dict(first), cache), 3)
+    assert three == {name: 3 * n for name, n in one.items()}
+
+
+def test_a_later_graphs_outputs_survive_an_earlier_graphs_replay(cuda):
+    """The graphs share one pool, where a later capture may take an earlier
+    graph's intermediates: the outputs live in buffers of their own, so
+    the paged step's next token survives the dense step's replay (the
+    parity probe's order)."""
+    from repro_torch.launch import steps
+    cfg, model, params, dense, first = _serve_smoke(cuda)
+    decode = steps.make_decode_step(model)
+    dense_cache = _cache("dense", cfg, cuda, dense)
+    decode(params, dict(first), dense_cache)          # captured first
+    b = _batch(first, "paged")
+    nxt, lg, _ = decode(params, b, _cache("paged", cfg, cuda, dense))
+    kept = (nxt.clone(), lg.clone())
+    decode(params, dict(first), dense_cache)          # the earlier graph
+    torch.cuda.synchronize()
+    assert torch.equal(nxt, kept[0]) and torch.equal(lg, kept[1])
