@@ -25,7 +25,10 @@ Phases (any failure exits non-zero without the final result line):
      then the library kernels (matmul, gather, attention -> projection,
      MoE dispatch -> expert) at full width and at ragged shapes, float32
      within 5e-4 and bfloat16 within 2e-2 (relative and absolute), the
-     gather exactly, and each fused launch (attention_proj, the MoE
+     gather exactly (at both LIB shapes, a ragged n, a 7-element row and
+     6,144 short rows also at every ring depth up to its max_depth x
+     streams {1, 2}),
+     and each fused launch (attention_proj, the MoE
      dispatch, the paged kernel) equal to its staged composition bit for
      bit, and the bf16 kernels on the ring (the product, the dispatch,
      attention at the 256-token serve shape, attention_proj, and at the
@@ -77,9 +80,10 @@ Phases (any failure exits non-zero without the final result line):
      LIB shapes, the MoE dispatch, attention and attention_proj at q/k/v
      [64,256,64], the chunk scan at both models' prefill shapes, and the
      decode layer's q-projection, SwiGLU and MLP tail at B = 4, and both
-     decode-attention kernels at the prompt-256 and long shapes, at
-     every ring depth {1, 2, 3, 4, 6} x streams {1, 2} (a ``depth_sweep``
-     line);
+     decode-attention kernels at the prompt-256 and long shapes, and the
+     gather at both LIB shapes, at every ring depth {1, 2, 3, 4, 6} x
+     streams {1, 2}, and the gather also at streams 4, depth 8 and a
+     grid cut to 33 blocks (a ``depth_sweep`` line);
   then each step kind replayed from its CUDA graph against the same step
      run eagerly from the same inputs, bit for bit (qwen's dense, paged
      and layer-graph decode and a prefill bucket at full width; the smoke
@@ -506,7 +510,7 @@ def moe_operands(torch, dev, gen, t, d, n, f, t_out, dtype):
 def check_library_kernels(torch, dev, shapes):
     """The library kernels against their plain versions at the full-width
     shapes of LIB and at ragged ones (m, n, k not multiples of any tile,
-    odd gather n, a 7-element row), a float32 output within 5e-4 and a
+    odd gather n, a 7-element row, 6,144 short rows), a float32 output within 5e-4 and a
     bfloat16 one within 2e-2 (by the output's type: both sides get the
     same operand values), the gather exactly; every (A, B) type pair of the matmul;
     each fused launch equal to its staged composition bit for bit: the
@@ -553,16 +557,20 @@ def check_library_kernels(torch, dev, shapes):
                   f"max|kernel-plain|={e:.3e} tol={tol} (rel and abs)")
         cases = [(lbl, r, c, n) for lbl, r, c, n, t in LIB["gather"]
                  if t == tag] + [("ragged", 500, 7, 1001),
-                                 ("ragged", 500, 64, 333)]
+                                 ("ragged", 500, 64, 333),
+                                 ("short rows", 3000, 64, 6144)]
         for lbl, r, c, n in cases:
             table, idx = gather_operands(torch, dev, gen, r, c, n, dtype)
             out = gather(table, idx)
-            same = torch.equal(out, gather_ref(table, idx))
+            want = gather_ref(table, idx)
+            same = torch.equal(out, want)
             check(f"ff_gather {lbl} {tag} [{r},{c}] n={n} exact", same,
-                  f"max diff {err(out, gather_ref(table, idx))}")
+                  f"max diff {err(out, want)}")
             if main and lbl == LIB["gather"][0][0]:
-                main_err["ff_gather"] = err(out, gather_ref(table, idx))
-            del table, out
+                main_err["ff_gather"] = err(out, want)
+            check_gather_pipe(torch, f"ff_gather {lbl} {tag} [{r},{c}] n={n}",
+                              table, idx, want)
+            del table, out, want
         for lbl, (bh, s, d, d_out), causal in (
                 ("full", LIB["attention_proj"], True),
                 ("ragged", (6, 77, 64, 200), True),
@@ -636,6 +644,23 @@ def check_pipe_bitwise(torch, label, fn, want):
            if not torch.equal(fn(depth=d, streams=st), want)]
     check(f"{label} bitwise across depth x streams {PIPE_GRID}", not bad,
           f"differs at {bad}" if bad else "all equal")
+
+
+def check_gather_pipe(torch, label, table, idx, want):
+    """The gather at every ring depth up to its max_depth x streams {1, 2}
+    equals ``want`` (the plain version's) bit for bit."""
+    from repro_torch.kernels.ff_gather import gather, max_depth
+    n, c = idx.shape[0], table.shape[1]
+    bad, tried = [], 0
+    for st in (1, 2):
+        for d in range(1, max_depth(c, table.dtype,
+                                    max(1, min(st, n // 8))) + 1):
+            tried += 1
+            if not torch.equal(gather(table, idx, depth=d, streams=st), want):
+                bad.append((d, st))
+    check(f"{label} exact at every depth up to max_depth x streams {{1, 2}}",
+          not bad, f"differs at {bad[:8]} of {tried}" if bad
+          else f"all {tried} equal")
 
 
 def library_path(torch, dev, shapes, gen):
@@ -874,6 +899,22 @@ def time_library_kernels(torch, dev, shapes):
 
 SWEEP_DEPTHS = (1, 2, 3, 4, 6)
 SWEEP_STREAMS = (1, 2)
+# the gather's extra cases: (key, keyword arguments of gather, the SM
+# count its wrapper plans for: None for the card's own)
+GATHER_EXTRA = (("depth=3 streams=4", dict(depth=3, streams=4), None),
+                ("depth=4 grid=33", dict(), 33),
+                ("depth=8 streams=1", dict(depth=8), None))
+
+
+def gather_sms(sms):
+    """A context in which the gather's wrapper plans for ``sms`` SMs (one
+    block each, so a grid of ``sms`` blocks), or the card's own count."""
+    import contextlib
+    from unittest import mock
+    from repro_torch.kernels.ff_gather import ops as GO
+    if sms is None:
+        return contextlib.nullcontext()
+    return mock.patch.object(GO, "_sms", lambda index: sms)
 
 
 def depth_sweep(torch, dev, shapes):
@@ -881,10 +922,12 @@ def depth_sweep(torch, dev, shapes):
     and 8b, then row 1 and row 8a at q/k/v [64,256,64] (qwen's 4 x
     256-token prefill; 8a into d_model 1024), row 9 at both recurrent
     models' prefill shapes (chunk 64), then rows 4-6 at the serve
-    shape (B = 4), then rows 2 and 3 at ``decode_256`` and
-    ``decode_long``, device ms per call with L2 cold, at every depth of
-    SWEEP_DEPTHS that fits in shared memory and every streams of
-    SWEEP_STREAMS. Printed as one ``depth_sweep`` JSON line."""
+    shape (B = 4), row 7 (the gather) at both LIB shapes, then rows 2
+    and 3 at ``decode_256`` and ``decode_long``, device ms per call with
+    L2 cold, at every depth of SWEEP_DEPTHS that fits in shared memory
+    and every streams of SWEEP_STREAMS; then the gather at GATHER_EXTRA's
+    settings, through its wrapper. Printed as one ``depth_sweep`` JSON
+    line."""
     from repro_torch.kernels import ff_attention as A
     from repro_torch.kernels import ff_layer as FL
     from repro_torch.kernels.ff_layer import ops as FLO
@@ -943,6 +986,17 @@ def depth_sweep(torch, dev, shapes):
                                                            **kw))):
         cases.append((f"ff_layer {label} B={lay['b']} (serve)", fn, 100,
                       FLO.MAX_DEPTH))
+    from repro_torch.kernels import ff_gather as G
+    gather_cases = []     # (names of their own: the lambdas above bind late)
+    for lbl, g_r, g_c, g_n, g_t in LIB["gather"]:
+        g_table, g_idx = gather_operands(torch, dev, gen, g_r, g_c, g_n,
+                                         getattr(torch, g_t))
+        label = f"ff_gather table[{g_r},{g_c}] {g_t} idx[{g_n}] ({lbl})"
+        reps = 10 if g_n > 2 ** 16 else 100
+        fn = (lambda g_table=g_table, g_idx=g_idx, **kw:
+              G.gather(g_table, g_idx, **kw))
+        cases.append((label, fn, reps, G.max_depth(g_c, g_table.dtype, 2)))
+        gather_cases.append((label, fn, reps, G.gather_ref(g_table, g_idx)))
     from repro_torch.kernels.ff_decode_attention import ops as DO
     from repro_torch.runtime.paged_kv import paged_decode_attention
     for key in ("decode_256", "decode_long"):
@@ -972,6 +1026,8 @@ def depth_sweep(torch, dev, shapes):
                                "streams": SO.DEFAULT_STREAMS},
                  default_decode={"depth": DO.DEFAULT_DEPTH,
                                  "streams": DO.DEFAULT_STREAMS},
+                 default_gather={"depth": G.DEFAULT_DEPTH,
+                                 "streams": G.DEFAULT_STREAMS},
                  depths=list(SWEEP_DEPTHS), streams=list(SWEEP_STREAMS),
                  ms={})
     for label, fn, reps, max_depth in cases:
@@ -982,6 +1038,20 @@ def depth_sweep(torch, dev, shapes):
                 flush)
             for x in sweep["depths"] if x <= max_depth
             for st in sweep["streams"]}
+    # the gather beyond the sweep: wider words (streams 4), a deeper ring,
+    # and the grid cut to a quarter of the SMs at the default depth
+    sweep["gather_words_and_grid"] = {}
+    for label, fn, reps, want in gather_cases:
+        print(f"f. gather words and grid {label}", flush=True)
+        ms, bad = {}, []
+        for key, kw, sms in GATHER_EXTRA:
+            with gather_sms(sms):
+                if not torch.equal(fn(**kw), want):
+                    bad.append(key)
+                ms[key] = time_ms(torch, lambda kw=kw: fn(**kw), reps, flush)
+        check(f"{label} exact at every setting of GATHER_EXTRA", not bad,
+              f"differs at {bad}" if bad else "all equal")
+        sweep["gather_words_and_grid"][label] = ms
     print("depth_sweep " + json.dumps(sweep), flush=True)
 
 

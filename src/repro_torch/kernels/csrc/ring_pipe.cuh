@@ -38,7 +38,8 @@
 // bounds. Its swizzled layout and TMA maps carry bf16 tiles only; the f32
 // and mixed f32/bf16 products of ff_matmul keep the CUDA-core body, which
 // does not use it. ff_chunk_scan.cu takes only the barriers, Slot and
-// cp.async and lays its stages out itself (f32 rows among them).
+// cp.async and lays its stages out itself (f32 rows among them); so do
+// ff_decode_attention.cu and ff_gather.cu (gathered rows of any type).
 //
 // Tiles are stored as the 128-byte swizzle that TMA's SWIZZLE_128B writes
 // and wgmma's 128B layout reads: a tile of rows of 64 bf16 (128 bytes),

@@ -1,3 +1,5 @@
-from repro_torch.kernels.ff_gather.ops import gather, gather_ref
+from repro_torch.kernels.ff_gather.ops import (DEFAULT_DEPTH, DEFAULT_STREAMS,
+                                               gather, gather_ref, max_depth)
 
-__all__ = ["gather", "gather_ref"]
+__all__ = ["DEFAULT_DEPTH", "DEFAULT_STREAMS", "gather", "gather_ref",
+           "max_depth"]

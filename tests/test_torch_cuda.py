@@ -17,7 +17,8 @@ staged launches bit for bit.
 The library kernels and graphs (matmul, gather, attention_proj,
 moe_dispatch_ffn) are held at float32 5e-4 (the reference registry's tol
 of both graphs) and bfloat16 2e-2, each relative and absolute and chosen
-by the output's type; the gather, every fused launch against its staged
+by the output's type; the gather (at every ring depth and streams, and
+on rows cut into slabs), every fused launch against its staged
 composition, and the bf16 product and attention across the ring's depth
 and streams at exactly 0. The chunk scan is held at float32 3e-5 and
 bfloat16 2e-2 of max |plain| (the reference kernel test's bound) at every
@@ -46,6 +47,7 @@ from repro_torch.kernels.ff_layer import (ff_layer_matmul,
                                           ff_layer_swiglu_ref,
                                           mlp_tail_staged)
 from repro_torch.kernels.ff_gather import gather, gather_ref
+from repro_torch.kernels.ff_gather import max_depth as gather_max_depth
 from repro_torch.kernels.ff_matmul import (dispatch_matmul,
                                            dispatch_matmul_ref, matmul,
                                            matmul_ref)
@@ -574,19 +576,73 @@ def test_split_k_matmul_matches_plain(cuda):
     assert torch.equal(dispatch_matmul(tokens, idx, w), matmul(a, w))
 
 
+@pytest.mark.parametrize("streams", [1, 2])
+@pytest.mark.parametrize("depth", [1, 2, 4, "max"])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,c", [(1, 128), (333, 64), (1000, 7), (64, 1024)])
-def test_gather_is_an_exact_copy(cuda, dtype, n, c):
+def test_gather_is_an_exact_copy(cuda, dtype, n, c, depth, streams):
     """Repeated, unsorted indices; odd n; a row of 7 elements (copied in
-    4- or 2-byte units) and rows of 16-byte multiples."""
+    4- or 2-byte units) and rows of 16-byte multiples; at every ring depth
+    up to the deepest that fits, one and two streams."""
     g = torch.Generator(device=cuda).manual_seed(8)
     table = _randn(g, 500, c).to(dtype)
     idx = torch.randint(0, 500, (n,), generator=g, device=cuda,
                         dtype=torch.int32)
+    if depth == "max":
+        depth = gather_max_depth(c, dtype, max(1, min(streams, n // 8)))
     n0 = gather.launches
-    out = gather(table, idx)
+    out = gather(table, idx, depth=depth, streams=streams)
     assert gather.launches == n0 + 1
     assert torch.equal(out, gather_ref(table, idx))
+
+
+@pytest.mark.parametrize("depth", [4, "max"])
+@pytest.mark.parametrize("c,dtype", [(2816, torch.float32),
+                                     (30001, torch.float32),
+                                     (70001, torch.bfloat16)])
+def test_gather_rows_wider_than_a_slab_are_exact(cuda, c, dtype, depth):
+    """Rows cut into slabs (the MoE combine's d_ff in f32, and odd widths
+    copied in 4- or 2-byte units across the cuts), a ragged last word."""
+    from repro_torch.kernels.ff_gather.ops import _plan
+    g = torch.Generator(device=cuda).manual_seed(16)
+    table = _randn(g, 40, c).to(dtype)
+    idx = torch.randint(0, 40, (37,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    if depth == "max":
+        depth = gather_max_depth(c, dtype, 1)
+    assert _plan(37, c, dtype, depth, 1, 132).slabs > 1
+    n0 = gather.launches
+    out = gather(table, idx, depth=depth)
+    assert gather.launches == n0 + 1
+    assert torch.equal(out, gather_ref(table, idx))
+
+
+@pytest.mark.parametrize("depth", [1, 4])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,c", [(6144, 64), (1 << 17, 64), (1 << 17, 7)])
+def test_gather_words_of_many_short_rows_are_exact(cuda, dtype, n, c, depth):
+    """Short rows take words of more than 8 rows (the staged paged
+    baseline's 6,144 rows; past the 64 rows whose indices a producer
+    holds in registers; 7-element rows in element units)."""
+    from repro_torch.kernels.ff_gather.ops import _plan
+    g = torch.Generator(device=cuda).manual_seed(24)
+    table = _randn(g, 3000, c).to(dtype)
+    idx = torch.randint(0, 3000, (n,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    assert _plan(n, c, dtype, depth, 1, 132).rows > 8
+    n0 = gather.launches
+    out = gather(table, idx, depth=depth)
+    assert gather.launches == n0 + 1
+    assert torch.equal(out, gather_ref(table, idx))
+
+
+def test_gather_of_no_rows_launches_nothing(cuda):
+    table = torch.ones(10, 64, device=cuda)
+    n0 = gather.launches
+    out = gather(table, torch.zeros(0, dtype=torch.int32, device=cuda),
+                 depth=2, streams=2)
+    assert out.shape == (0, 64) and out.device.type == "cuda"
+    assert gather.launches == n0
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
