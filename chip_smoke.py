@@ -45,13 +45,22 @@ Phases (any failure exits non-zero without the final result line):
      across the ring's depth {1, 2, 4} x streams {1, 2}; attention and decode
      attention at zamba2's head dim 80, attention at head dim 128 (qwen2-
      72b's heads, GQA 8); the smoke rwkv6 and zamba2 models on the card
-     against the CPU (prefill, 3 greedy decode steps) and their f32
-     prefill -> decode handoff gap within 1e-3;
+     against the CPU (prefill, 3 greedy decode steps; rwkv6 also under
+     ``scan_impl="xla_tiled"``) and their f32 prefill -> decode handoff
+     gap within 1e-3; the smoke qwen model also under ``--impl xla``;
+     prefill and decode attention at grok-1's heads (48 of 128 over 8,
+     GQA 6) at its serve shapes, paged == contiguous bit for bit and both
+     bitwise across depth x streams; the smoke grok-1 and
+     deepseek-v2-lite models on the card against the CPU (prefill, 3
+     greedy decode steps, logits within MODEL_TOL) and their routing (the
+     top-k experts of every token, layer and step) equal;
   c. serve full-width qwen1.5-0.5B (random weights from seed 0, cast once)
      through ``repro_torch.launch.serve.serve_bench`` with the serve
      defaults, once more with 256-token prompts, and once with
-     ``--layer-graph``: every prefill bucket and decode step a CUDA graph
-     captured once per signature and replayed (``launch/steps.py``);
+     ``--layer-graph``; then full-width grok-1 cut to 2 of its 64 layers
+     (``--n-layers 2``) with the serve defaults: every prefill bucket and
+     decode step a CUDA graph captured once per signature and replayed
+     (``launch/steps.py``), required of every run;
   d. require equal token counts, and paged == dense decode bit for bit on
      the per-op runs (the layer graph rounds elsewhere in bf16: its
      difference is printed and must be finite);
@@ -68,7 +77,11 @@ Phases (any failure exits non-zero without the final result line):
      and (zamba2) attention launches; prefill and decode times, peak
      memory, the bf16 handoff gap, a prefill profile (device busy time
      and the scan's share of it) and a decode-step profile, each compiled
-     and eager (``compiled=False``) in the same call;
+     and eager (``compiled=False``) in the same call; then full-width,
+     full-depth deepseek-v2-lite (27 layers, bf16 drawn and cast leaf by
+     leaf) the same way, requiring finite logits, every compiled step
+     equal to its eager step bit for bit and no kernel of the port
+     launched (its MLA runs the reference's "xla" attention);
   f. time each kernel at the main path's shapes with CUDA events
      (attention also at the 256-token prefill, q/k/v [64,256,64], SDPA
      beside it; decode attention, contiguous and paged, at the default
@@ -103,8 +116,9 @@ Phases (any failure exits non-zero without the final result line):
 only phase f's decode-attention timing (one ``decode_timing`` line): run
 it in two trees in one call to compare their decode bodies.
 
-Output: one line per check, per serve run and per recurrent model
-(``model[...]``), a JSON ``kernels`` line, the
+Output: one line per check, per serve run (``serve[...]``, with its peak
+memory) and per model driven through the steps (``model[...]``), a JSON
+``kernels`` line, the
 card's name and power limit as ``nvidia-smi`` reports them, and as the
 last line ``{"ok": true, "device": {...}}``.
 """
@@ -129,7 +143,17 @@ HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 SERVE = dict(arch="qwen1_5_0p5b", smoke=False, requests=16, prompt_len=32,
              max_new=16, page=16, slots=4, rate=10.0, eos_id=None,
-             pool_blocks=None, seed=0, layer_graph=False, device="cuda")
+             pool_blocks=None, seed=0, layer_graph=False, device="cuda",
+             impl="ff", n_layers=None)
+# grok-1 served at full width, cut to 2 of its 64 layers (64 are 1,179 GiB
+# in f32): the serve defaults otherwise
+GROK = dict(arch="grok1_314b", n_layers=2)
+# deepseek-v2-lite at full width and depth (bf16, drawn and cast leaf by
+# leaf from seed 0) through launch/steps: 4 x 256-token prompts, then 16
+# greedy decode steps
+DEEPSEEK = dict(arch="deepseek_v2_lite_16b", batch=4, prompt=256,
+                decode_steps=16)
+MOE_ARCHS = ("grok1_314b", "deepseek_v2_lite_16b")
 KERNELS = {
     "ff_attention": dict(
         source="src/repro_torch/kernels/csrc/ff_attention.cu",
@@ -1091,15 +1115,19 @@ def check_decode_layer(torch, dev, shapes):
 
 
 
-def check_model_small(torch, dev):
+def check_model_small(torch, dev, impl="ff"):
     """The smoke model on the card against the same model (plain kernel
     versions) on the CPU: prefill, then 3 decode steps through the dense
-    cache, the paged pool and the layer graph (a dense cache)."""
+    cache, the paged pool and (under ``impl="ff"``) the layer graph (a
+    dense cache). Under ``impl="xla"`` the attention is the reference's
+    unfused plain path on both sides (``--impl xla``)."""
     from repro_torch.configs.base import smoke_config
     from repro_torch.launch import serve, steps
     from repro_torch.models import build_model
     from repro_torch.runtime.paged_kv import PagedKVCache
-    cfg = smoke_config("qwen1_5_0p5b").replace(decode_block_kv=8)
+    cfg = smoke_config("qwen1_5_0p5b").replace(attn_impl=impl)
+    if impl == "ff":
+        cfg = cfg.replace(decode_block_kv=8)
     model = build_model(cfg)
     graph_model = build_model(cfg.replace(layer_graph=True))
     params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
@@ -1137,13 +1165,15 @@ def check_model_small(torch, dev):
             lengths = lengths + 1
         return out
 
-    for kind in ("dense", "paged", "layer-graph"):
+    kinds = ("dense", "paged") + (("layer-graph",) if impl == "ff" else ())
+    for kind in kinds:
         got, want = run(dev, kind), run(torch.device("cpu"), kind)
         e = max(err(g, w) for g, w in zip(got, want))
         same = all(torch.equal(g.argmax(-1), w.argmax(-1))
                    for g, w in zip(got, want))
         finite = all(g.isfinite().all().item() for g in got)
-        check(f"smoke model on card vs cpu ({kind})",
+        tag = kind if impl == "ff" else f"{kind}, --impl {impl}"
+        check(f"smoke model on card vs cpu ({tag})",
               e <= MODEL_TOL and same and finite,
               f"max|logits diff|={e:.3e} tol={MODEL_TOL}, greedy equal: "
               f"{same}, finite: {finite}")
@@ -1336,13 +1366,29 @@ def check_attention_head_dims(torch, dev):
               f"max|kernel-plain|={e:.3e} tol={tol}")
 
 
-def ssm_generate(torch, model, params, tokens, n_steps, compiled=True):
-    """The recurrent families' path through ``launch/steps.py`` (compiled
-    steps on the card unless ``compiled`` is False): one prefill of
-    ``tokens`` [B, S], then ``n_steps`` greedy decode steps from its last
-    logits (the hybrid's attention caches padded to S + n_steps first).
-    Returns (logits of each step, prefill s, decode s)."""
-    from repro_torch.launch import serve, steps
+def decode_cache(model, cache, s, s_max):
+    """A prefill's cache of ``s`` rows ready for decode steps up to
+    ``s_max``: the attention and latent caches padded on their sequence
+    axis (the hybrid's ``attn[i]`` leaves on axis 1, the stacked
+    ``[L, B, S, ...]`` leaves of the dense and MoE families on axis 2);
+    recurrent states as they are."""
+    from repro_torch.launch import serve
+    family = model.cfg.family
+    if family == "hybrid":
+        return serve.pad_cache_to(cache, s, s_max,
+                                  {"mamba": None, "attn": 1})
+    if family in ("dense", "moe"):
+        return serve.pad_cache_to(cache, s, s_max, 2)
+    return cache
+
+
+def generate(torch, model, params, tokens, n_steps, compiled=True):
+    """A model's path through ``launch/steps.py`` (compiled steps on the
+    card unless ``compiled`` is False): one prefill of ``tokens`` [B, S],
+    then ``n_steps`` greedy decode steps from its last logits (the cache
+    padded to S + n_steps first). Returns (logits of each step, prefill
+    s, decode s)."""
+    from repro_torch.launch import steps
     prefill = steps.make_prefill_step(model, compiled=compiled)
     decode = steps.make_decode_step(model, compiled=compiled)
     b, s = tokens.shape
@@ -1351,9 +1397,7 @@ def ssm_generate(torch, model, params, tokens, n_steps, compiled=True):
     logits, cache = prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    if model.cfg.family == "hybrid":
-        cache = serve.pad_cache_to(cache, s, s + n_steps,
-                                   {"mamba": None, "attn": 1})
+    cache = decode_cache(model, cache, s, s + n_steps)
     cur = torch.argmax(logits, dim=-1).to(torch.int32)
     lengths = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
     out = [logits.clone()]
@@ -1369,15 +1413,14 @@ def ssm_generate(torch, model, params, tokens, n_steps, compiled=True):
 def handoff_gap(torch, model, params, tokens):
     """max |prefill(t[:S+1]) - (prefill(t[:S]) then one decode step of
     t[S])| over the logits: the prefill's final state handed to decode."""
-    from repro_torch.launch import serve, steps
+    from repro_torch.launch import steps
     prefill = steps.make_prefill_step(model)
     decode = steps.make_decode_step(model)
     b, s1 = tokens.shape
     s = s1 - 1
     whole, _ = prefill(params, {"tokens": tokens})
     _, cache = prefill(params, {"tokens": tokens[:, :s]})
-    if model.cfg.family == "hybrid":
-        cache = serve.pad_cache_to(cache, s, s1, {"mamba": None, "attn": 1})
+    cache = decode_cache(model, cache, s, s1)
     lengths = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
     _, step, _ = decode(params, {"token": tokens[:, s], "lengths": lengths},
                         cache)
@@ -1389,30 +1432,34 @@ def check_ssm_small(torch, dev):
     models (plain kernel versions) on the CPU: prefill of two 40-token
     prompts, then 3 greedy decode steps, logits within 1e-3 (the reference
     registry's ff_chunk_scan tolerance) and greedy tokens equal; and the
-    handoff gap on the card within 1e-3."""
+    handoff gap on the card within 1e-3. RWKV6 also under
+    ``scan_impl="xla_tiled"`` (the reference's chunked scan in plain
+    PyTorch), within the same tolerance."""
     from repro_torch.configs.base import smoke_config
     from repro_torch.models import build_model
-    for arch in SSM["archs"]:
-        cfg = smoke_config(arch)
+    for arch, scan in [(a, "ff") for a in SSM["archs"]] + [
+            ("rwkv6_7b", "xla_tiled")]:
+        cfg = smoke_config(arch).replace(scan_impl=scan)
+        tag = arch if scan == "ff" else f"{arch} scan_impl={scan}"
         model = build_model(cfg)
         params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
         toks = torch.randint(1, cfg.vocab, (2, 41), dtype=torch.int32,
                              generator=torch.Generator().manual_seed(1))
-        got, _, _ = ssm_generate(torch, model, tree_to(params_cpu, dev, torch),
-                                 toks[:, :40].to(dev), 3)
-        want, _, _ = ssm_generate(torch, model, params_cpu, toks[:, :40], 3)
+        got, _, _ = generate(torch, model, tree_to(params_cpu, dev, torch),
+                             toks[:, :40].to(dev), 3)
+        want, _, _ = generate(torch, model, params_cpu, toks[:, :40], 3)
         got = [g.cpu() for g in got]
         e = max(err(g, w) for g, w in zip(got, want))
         same = all(torch.equal(g.argmax(-1), w.argmax(-1))
                    for g, w in zip(got, want))
         finite = all(g.isfinite().all().item() for g in got)
-        check(f"smoke {arch} on card vs cpu (prefill, 3 decode steps)",
+        check(f"smoke {tag} on card vs cpu (prefill, 3 decode steps)",
               e <= SSM_MODEL_TOL and same and finite,
               f"max|logits diff|={e:.3e} tol={SSM_MODEL_TOL}, greedy equal: "
               f"{same}, finite: {finite}")
         gap = handoff_gap(torch, model, tree_to(params_cpu, dev, torch),
                           toks.to(dev))
-        check(f"smoke {arch} handoff gap f32 on card", gap <= HANDOFF_TOL,
+        check(f"smoke {tag} handoff gap f32 on card", gap <= HANDOFF_TOL,
               f"max|prefill(S+1) - prefill(S)+decode|={gap:.3e} "
               f"tol={HANDOFF_TOL}")
 
@@ -1442,8 +1489,8 @@ def run_ssm_models(torch, dev):
         cfg = get_config(arch)
         model = build_model(cfg)
         t0 = time.perf_counter()
-        params = model.cast_params(
-            model.init(torch.Generator(device=dev).manual_seed(0), dev))
+        params = model.init_cast(torch.Generator(device=dev).manual_seed(0),
+                                 dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         n_params = sum(x.numel() for _, x in L.tree_leaves(params))
@@ -1451,10 +1498,10 @@ def run_ssm_models(torch, dev):
                              device=dev,
                              generator=torch.Generator(device=dev)
                              .manual_seed(2))
-        ssm_generate(torch, model, params, toks[:, :s], 1)       # warm-up
+        generate(torch, model, params, toks[:, :s], 1)       # warm-up
         for w in wr.values():
             w.launches = 0
-        logits, prefill_s, decode_s = ssm_generate(torch, model, params,
+        logits, prefill_s, decode_s = generate(torch, model, params,
                                                    toks[:, :s], n_steps)
         launches = {name: w.launches for name, w in wr.items()
                     if w.launches}
@@ -1533,18 +1580,16 @@ def profile_ssm_prefill(torch, model, params, tokens, compiled=True):
 def profile_ssm_decode(torch, model, params, tokens, n_steps=8, rounds=3):
     """Where a full-width decode step's time goes, compiled and eager in
     turn (``profile_steps``), each from its own prefill of ``tokens``
-    (the hybrid's attention caches padded for every step)."""
-    from repro_torch.launch import serve, steps
+    (the attention and latent caches padded for every step)."""
+    from repro_torch.launch import steps
     b, s = tokens.shape
 
     def make_step(compiled):
         prefill = steps.make_prefill_step(model, compiled=compiled)
         decode = steps.make_decode_step(model, compiled=compiled)
         logits, cache = prefill(params, {"tokens": tokens})
-        if model.cfg.family == "hybrid":
-            cache = serve.pad_cache_to(
-                cache, s, s + (rounds + 2) * n_steps + 2,
-                {"mamba": None, "attn": 1})
+        cache = decode_cache(model, cache, s,
+                             s + (rounds + 2) * n_steps + 2)
         state = {"cur": torch.argmax(logits, dim=-1).to(torch.int32),
                  "len": torch.full((b,), s, dtype=torch.int32,
                                    device=tokens.device), "cache": cache}
@@ -1638,6 +1683,216 @@ def time_scan_kernel(torch, dev, scan_launches):
 
 
 # ---------------------------------------------------------------------------
+# b, e (slice 12). the MoE family: grok-1's attention heads, the smoke MoE
+# models, full-width deepseek-v2-lite
+# ---------------------------------------------------------------------------
+
+
+def check_moe_heads(torch, dev):
+    """Prefill and decode attention at grok-1's heads (48 of 128 over 8 KV
+    heads, GQA 6) at its default serve run's shapes (4 slots, its prefill
+    bucket, page 16, the lengths of its first lockstep batch halfway
+    through decode), against their plain versions; paged == contiguous bit
+    for bit, and both bitwise across depth x streams."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.ff_attention import attention, attention_ref
+    from repro_torch.kernels.ff_decode_attention import (decode_attention,
+                                                         decode_attention_ref)
+    from repro_torch.launch import serve
+    from repro_torch.runtime.paged_kv import (paged_decode_attention,
+                                              paged_decode_attention_ref)
+    cfg = get_config(GROK["arch"])
+    page, slots = SERVE["page"], SERVE["slots"]
+    reqs = serve.make_requests(
+        SERVE["requests"], prompt_len=SERVE["prompt_len"],
+        max_new=SERVE["max_new"], rate=SERVE["rate"], vocab=cfg.vocab,
+        seed=SERVE["seed"])
+    p_max = serve._bucket(max(len(r.prompt) for r in reqs))
+    n_pages = max(-(-(len(r.prompt) + r.max_new) // page) for r in reqs)
+    lengths = [len(r.prompt) + SERVE["max_new"] // 2 for r in reqs[:slots]]
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = h // kvh
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        tag = f"grok-1 heads {h}/{kvh} hd={d} {str(dtype).split('.')[1]}"
+        q, k, v = prefill_inputs(torch, dev, dtype, slots * h, g, p_max, d,
+                                 gen)
+        out = attention(q, k, v, kv_groups=g)
+        e = err(out, attention_ref(q, k, v, kv_groups=g))
+        check(f"ff_attention {tag} bh={slots * h} s={p_max}",
+              e <= tol and out.isfinite().all().item(),
+              f"max|kernel-plain|={e:.3e} tol={tol}")
+        q, pool, tables, lens, kc, vc = decode_inputs(
+            torch, dev, dtype, slots, h, kvh, d, page, n_pages,
+            slots * n_pages, lengths, gen)
+        out_c = decode_attention(q, kc, vc, lens, block_kv=page)
+        out_p = paged_decode_attention(q, pool, tables, lens)
+        e_c = err(out_c, decode_attention_ref(q, kc, vc, lens,
+                                              block_kv=page))
+        e_p = err(out_p, paged_decode_attention_ref(q, pool, tables, lens))
+        check(f"ff_decode_attention {tag} lengths={lengths}", e_c <= tol,
+              f"max|kernel-plain|={e_c:.3e} tol={tol}")
+        check(f"ff_paged_decode_attention {tag} page={page}", e_p <= tol,
+              f"max|kernel-plain|={e_p:.3e} tol={tol}")
+        check(f"paged == contiguous bitwise {tag}", torch.equal(out_c, out_p),
+              f"max diff {err(out_c, out_p)}")
+        check_decode_pipe(torch, tag, q, kc, vc, pool, tables, lens, page,
+                          out_c)
+
+
+def record_routing(model, calls):
+    """Make ``model``'s MoE FFN append each call's router probabilities
+    (on the CPU) to ``calls``: the stack's FFN hook, wrapped. Eager steps
+    only (a replayed graph runs no Python)."""
+    from repro_torch.models import moe
+    inner = model.stack._ffn_apply
+
+    def ffn_apply(cfg, p, x):
+        calls.append(moe.router_gates(p, x.reshape(-1, x.shape[-1])).cpu())
+        return inner(cfg, p, x)
+    model.stack._ffn_apply = ffn_apply
+
+
+def routing_flips(torch, got, want, k):
+    """(router call, token, the CPU's gate margin between its k-th and
+    (k+1)-th expert) for each token whose top-k experts differ."""
+    flips = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        ia = torch.topk(a, k).indices
+        ib = torch.topk(b, k).indices
+        for t in torch.nonzero((ia != ib).any(-1)).flatten().tolist():
+            top = torch.sort(b[t], descending=True).values
+            flips.append((i, t, (top[k - 1] - top[k]).item()))
+    return flips
+
+
+def check_moe_small(torch, dev):
+    """The smoke grok-1 and deepseek-v2-lite models (f32) on the card
+    against the same models on the CPU: prefill of two 24-token prompts
+    and 3 greedy decode steps through the compiled steps, logits within
+    MODEL_TOL and greedy tokens equal; then the same run eagerly with each
+    MoE layer's routing recorded on both sides: the top-k experts of
+    every token of every layer and step equal (a flip is reported with
+    its gate margin)."""
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.models import build_model
+    for arch in MOE_ARCHS:
+        cfg = smoke_config(arch)
+        model = build_model(cfg)
+        params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+        params = tree_to(params_cpu, dev, torch)
+        toks = torch.randint(1, cfg.vocab, (2, 24), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(3))
+        got = [g.cpu() for g in generate(torch, model, params, toks.to(dev),
+                                         3)[0]]
+        want = generate(torch, model, params_cpu, toks, 3)[0]
+        e = max(err(g, w) for g, w in zip(got, want))
+        same = all(torch.equal(g.argmax(-1), w.argmax(-1))
+                   for g, w in zip(got, want))
+        finite = all(g.isfinite().all().item() for g in got)
+        check(f"smoke {arch} on card vs cpu (prefill, 3 decode steps)",
+              e <= MODEL_TOL and same and finite,
+              f"max|logits diff|={e:.3e} tol={MODEL_TOL}, greedy equal: "
+              f"{same}, finite: {finite}")
+        calls = {}
+        for side, prm, tk in (("card", params, toks.to(dev)),
+                              ("cpu", params_cpu, toks)):
+            m = build_model(cfg)
+            calls[side] = []
+            record_routing(m, calls[side])
+            generate(torch, m, prm, tk, 3, compiled=False)
+        flips = routing_flips(torch, calls["card"], calls["cpu"], cfg.top_k)
+        n = len(calls["cpu"])
+        check(f"smoke {arch} routing on card == cpu",
+              not flips and n == len(calls["card"]) == 4 * cfg.n_layers,
+              f"{n} router calls ({cfg.n_layers} layers x prefill + 3 "
+              f"steps), top-{cfg.top_k} of {cfg.n_experts}; flips (call, "
+              f"token, gate margin): {flips[:8]}")
+
+
+def run_deepseek(torch, dev):
+    """Full-width, full-depth deepseek-v2-lite (27 layers, bf16, drawn and
+    cast leaf by leaf from seed 0) through ``launch/steps.py``: a warm-up,
+    then with every launch count set to 0 one prefill of DEEPSEEK's 4 x
+    256-token prompts and 16 greedy decode steps compiled, then the same
+    eagerly. Requires finite logits of the right shape, every compiled
+    step's logits equal to the eager step's bit for bit, and no kernel
+    of the port launched (MLA runs the reference's "xla" attention, the
+    MoE its batched products). Prints a ``model[...]`` line: prefill and
+    decode ms, compiled and eager, a profile of each (busy share, device
+    kernels), peak memory, and the bytes of weights a decode step reads
+    (every expert's: the reference runs all experts over the capacity
+    buffer)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    arch, b, s, n_steps = (DEEPSEEK["arch"], DEEPSEEK["batch"],
+                           DEEPSEEK["prompt"], DEEPSEEK["decode_steps"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_cast(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    leaves = list(L.tree_leaves(params))
+    n_params = sum(x.numel() for _, x in leaves)
+    weight_bytes = sum(x.numel() * x.element_size() for path, x in leaves
+                       if path[0] != "embed")
+    expert_bytes = sum(x.numel() * x.element_size() for path, x in leaves
+                       if path[-1] in ("w1", "w2"))
+    toks = torch.randint(1, cfg.vocab, (b, s), dtype=torch.int32,
+                         device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    generate(torch, model, params, toks, n_steps)   # warm-up: the captures
+    wr = wrappers()
+    for w in wr.values():
+        w.launches = 0
+    compiled, prefill_s, decode_s = generate(torch, model, params, toks,
+                                             n_steps)
+    launches = {name: w.launches for name, w in wr.items() if w.launches}
+    eager, prefill_e, decode_e = generate(torch, model, params, toks,
+                                          n_steps, compiled=False)
+    pre = {}
+    for mode in ("compiled", "eager"):
+        pre[mode] = profile_ssm_prefill(torch, model, params, toks,
+                                        compiled=mode == "compiled")
+        for key in [k for k in pre[mode] if k.startswith("scan_")]:
+            del pre[mode][key]
+    prof = profile_ssm_decode(torch, model, params, toks)
+    summary = dict(
+        arch=arch, params=n_params, init_s=init_s,
+        init_peak_memory_gib=init_peak, batch=b, prompt=s,
+        decode_steps=n_steps, prefill_ms=prefill_s * 1e3,
+        prefill_ms_eager=prefill_e * 1e3,
+        decode_ms_per_step=decode_s * 1e3 / n_steps,
+        decode_ms_per_step_eager=decode_e * 1e3 / n_steps,
+        decode_tokens_per_s=b * n_steps / decode_s,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        decode_weight_bytes_read=weight_bytes,
+        decode_expert_bytes_read=expert_bytes, launches=launches,
+        prefill_profile=pre, decode_profile=prof)
+    print(f"model[{arch}] " + json.dumps(summary), flush=True)
+    finite = all(lg.isfinite().all().item() for lg in compiled)
+    check(f"model[{arch}] logits finite and of shape "
+          f"[{b}, {cfg.padded_vocab}]",
+          finite and all(lg.shape == (b, cfg.padded_vocab)
+                         for lg in compiled), f"finite: {finite}")
+    same = [torch.equal(c, e) for c, e in zip(compiled, eager)]
+    check(f"model[{arch}] every compiled step == eager bitwise", all(same),
+          f"prefill and {n_steps} decode steps' logits: {same}")
+    check(f"model[{arch}] launches no kernel of the port (attn_impl "
+          f"{cfg.attn_impl!r}, as the reference)", not launches,
+          f"launches {launches}")
+    del params, model, compiled, eager
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # c-e. the main path
 # ---------------------------------------------------------------------------
 
@@ -1646,24 +1901,35 @@ def run_serve(torch, label, required, **overrides):
     """One serve run with every launch count set to 0 just before it and
     read just after; ``required`` names the kernels the run must launch.
     Paged == dense bit for bit is required of the per-op runs; under the
-    layer graph the difference is printed and must be finite."""
+    layer graph the difference is printed and must be finite. Every step
+    of a run on the card is compiled: the run must have captured prefill
+    and decode graphs (a capture that fails raises)."""
     from repro_torch.launch import serve
     wr = wrappers()
     for w in wr.values():
         w.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     result = serve.serve_bench(Namespace(**{**SERVE, **overrides}))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wr.items()}
-    summary = {k: result[k] for k in ("prompt_len", "bitwise_max_abs_diff",
-                                      "token_count_parity")}
+    summary = {k: result[k] for k in ("arch", "n_layers", "impl",
+                                      "prompt_len", "bitwise_max_abs_diff",
+                                      "token_count_parity",
+                                      "compiled_graphs")}
     for name in ("lockstep", "paged"):
         summary[name] = {k: result[name][k] for k in (
             "tokens", "tokens_per_s", "p50_ms", "p99_ms", "decode_steps",
             "decode_s", "prefill_s", "kv_util")}
-    summary.update(wall_s=wall, launches=launches)
+    summary.update(wall_s=wall, launches=launches,
+                   peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     print(f"serve[{label}] " + json.dumps(summary), flush=True)
+    graphs = result["compiled_graphs"]
+    check(f"serve[{label}] every step compiled",
+          graphs.get("prefill", 0) > 0 and graphs.get("decode", 0) > 0,
+          f"CUDA graphs captured: {graphs}")
     diff = result["bitwise_max_abs_diff"]
     if overrides.get("layer_graph"):
         check(f"serve[{label}] layer graph vs paged difference finite",
@@ -2116,8 +2382,8 @@ def check_compiled_steps(torch, dev):
     for arch in SSM["archs"]:
         scfg = smoke_config(arch).replace(compute_dtype="bfloat16")
         smodel = build_model(scfg)
-        sparams = smodel.cast_params(smodel.init(
-            torch.Generator(device=dev).manual_seed(0), dev))
+        sparams = smodel.init_cast(torch.Generator(device=dev).manual_seed(0),
+                                   dev)
         stoks = torch.randint(1, scfg.vocab, (2, 40), dtype=torch.int32,
                               device=dev, generator=torch.Generator(
                                   device=dev).manual_seed(1))
@@ -2263,8 +2529,7 @@ def profile_decode(torch, dev, n_steps=8, rounds=5):
     cfg = get_config(SERVE["arch"]).replace(decode_block_kv=page)
     model = build_model(cfg)
     graph_model = build_model(cfg.replace(layer_graph=True))
-    params = model.cast_params(
-        model.init(torch.Generator(device=dev).manual_seed(0), dev))
+    params = model.init_cast(torch.Generator(device=dev).manual_seed(0), dev)
     reqs = serve.make_requests(
         SERVE["requests"], prompt_len=SERVE["prompt_len"],
         max_new=SERVE["max_new"], rate=SERVE["rate"], vocab=cfg.vocab,
@@ -2385,18 +2650,23 @@ def main() -> int:
     main_err.update(check_library_kernels(torch, dev, shapes))
     check_decode_layer(torch, dev, shapes)
     check_model_small(torch, dev)
+    check_model_small(torch, dev, impl="xla")
     main_err.update(check_scan_kernel(torch, dev))
     check_attention_head_dims(torch, dev)
     check_ssm_small(torch, dev)
+    check_moe_heads(torch, dev)
+    check_moe_small(torch, dev)
 
     launches = run_serve(torch, "default", PER_OP)
     run_serve(torch, "prompt-256", PER_OP, prompt_len=256)
     launches.update({k: v for k, v in run_serve(
         torch, "layer-graph", LAYER_GRAPH, layer_graph=True).items()
         if k.startswith("ff_layer")})
+    grok_launches = run_serve(torch, GROK["arch"], PER_OP, **GROK)
     launches.update(run_library_path(torch, dev, shapes))
     scan_launches = run_ssm_models(torch, dev)
     launches["ff_chunk_scan"] = sum(scan_launches.values())
+    run_deepseek(torch, dev)
 
     rows = time_kernels(torch, dev, shapes)
     rows.update(time_layer_kernels(torch, dev, shapes))
@@ -2417,6 +2687,10 @@ def main() -> int:
                                    "by phase b")
         if name == "ff_chunk_scan":
             kernels[-1]["launches_by_path"] = scan_launches
+        if name in PER_OP:
+            kernels[-1]["launches_by_path"] = {
+                "serve[default]": launches[name],
+                f"serve[{GROK['arch']}]": grok_launches[name]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -2,11 +2,13 @@
 ``repro.configs.base``).
 
 ``ArchConfig`` keeps the reference's fields so configs read the same in
-both packages; ``cdtype``/``pdtype`` return torch dtypes. The port has one
-attention implementation, the CUDA kernels (with their plain PyTorch
-versions on the CPU), so ``attn_impl`` defaults to ``"ff"``; the
-reference's HLO path ``"xla"`` is not ported. The same holds for the
-gated linear-attention scan: ``scan_impl`` defaults to ``"ff"``.
+both packages; ``cdtype``/``pdtype`` return torch dtypes. ``attn_impl``
+and ``scan_impl`` take the reference's values: ``"ff"`` the CUDA kernels
+(with their plain PyTorch versions on the CPU), ``"xla"`` (and for the
+scan ``"xla_tiled"``) the reference's unfused formulations in plain
+PyTorch. The port's kernels are its point, so both default to ``"ff"``
+(the reference's default is ``"xla"``); a config whose model cannot run
+under ``"ff"`` pins ``"xla"`` (deepseek-v2-lite's MLA).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import torch
 
 ARCH_IDS = (
     "qwen1_5_0p5b",
+    "grok1_314b",
+    "deepseek_v2_lite_16b",
     "rwkv6_7b",
     "zamba2_2p7b",
 )
@@ -77,7 +81,7 @@ class ArchConfig:
     rule_overrides: Optional[Dict[str, object]] = None
 
     # implementation switches
-    attn_impl: str = "ff"                     # ff (the CUDA kernels)
+    attn_impl: str = "ff"                     # ff (the CUDA kernels) | xla
     decode_block_kv: Optional[int] = None     # pin the decode-attention KV
                                               # tile (None = heuristic);
                                               # serving pins it to the page
@@ -86,9 +90,7 @@ class ArchConfig:
                                               # paged path
     layer_graph: bool = False
     scan_impl: str = "ff"                     # ff (the CUDA chunk-scan
-                                              # kernel); the reference's
-                                              # "xla"/"xla_tiled" twins are
-                                              # not ported
+                                              # kernel) | xla | xla_tiled
     scan_layers: bool = True
     loss_chunk: int = 0
     scan_chunk: int = 64

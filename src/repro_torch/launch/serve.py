@@ -17,15 +17,17 @@ Two schedulers over the same Poisson request trace:
 Both replay the trace on a virtual clock advanced by measured step times
 (no sleeping, real compute costs; on the card each clock reading follows a
 ``torch.cuda.synchronize``), and both decode greedily with identical math:
-the dense path's KV tile is pinned to the page size
-(``cfg.decode_block_kv``), so paged decode is bitwise-identical to the
-contiguous path and the two schedulers emit token-for-token equal
-sequences. :func:`decode_parity_probe` checks the bitwise claim.
+under ``--impl ff`` the dense path's KV tile is pinned to the page size
+(``cfg.decode_block_kv``), under ``--impl xla`` both read the same rows
+densely, so paged decode is bitwise-identical to the contiguous path and
+the two schedulers emit token-for-token equal sequences.
+:func:`decode_parity_probe` checks the bitwise claim.
 
 On the card every step is compiled (``launch/steps.py``): prefill is
 captured as a CUDA graph once per (batch, bucket) and decode once per
 cache signature, then replayed, as the reference jits both; weights are
-cast to the compute type once (``model.cast_params``).
+cast to the compute type once, as they are drawn (``model.init_cast``,
+the bits of ``model.cast_params(model.init(...))``).
 
 With ``--layer-graph`` the lockstep scheduler's decode steps go through
 the whole-layer ``decode_layer`` kernels instead; their rounding points
@@ -37,6 +39,8 @@ Runs on the card unless asked for the CPU (the plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --layer-graph
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --arch grok1_314b --impl xla
 """
 
 from __future__ import annotations
@@ -401,7 +405,7 @@ def decode_parity_probe(model, params, cfg, *, page: int, n_steps: int = 3,
     """Run ``n_steps`` greedy decode steps from the same prefill state
     through (a) the dense right-padded cache and (b) the paged pool, and
     return the max abs logits difference (0.0 = bitwise identical).
-    Requires ``cfg.decode_block_kv == page``."""
+    Under "ff" it requires ``cfg.decode_block_kv == page``."""
     dev = params["embed"].device
     rng = np.random.default_rng(seed)
     b = 2
@@ -453,20 +457,27 @@ def decode_parity_probe(model, params, cfg, *, page: int, n_steps: int = 3,
 
 def serve_bench(args) -> Dict[str, object]:
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if cfg.family in ("ssm", "hybrid"):
-        # no dense "k" cache to pad or page, and a recurrent state would take
-        # the lockstep re-feed of the last prompt token twice; the
-        # reference's schedulers cannot run these families either
+    if cfg.family in ("ssm", "hybrid") or cfg.kv_lora_rank:
+        # no dense "k" cache to pad or page (MLA keeps a latent {"c",
+        # "k_rope"}), and a recurrent state would take the lockstep re-feed
+        # of the last prompt token twice; the reference's schedulers cannot
+        # run these families either
+        family = "MLA" if cfg.kv_lora_rank else cfg.family
         raise SystemExit(
-            f"serve: {args.arch} ({cfg.family}) is not served by these "
+            f"serve: {args.arch} ({family}) is not served by these "
             f"schedulers: they keep a dense or paged K/V cache, which the "
-            f"{cfg.family} family does not have. Drive it through "
+            f"{family} family does not have. Drive it through "
             f"repro_torch.launch.steps (make_prefill_step, "
             f"make_decode_step) instead.")
     device = resolve_device(args.device)
-    # pin the dense path's KV tile to the page so lockstep decode is
-    # bitwise-identical to the paged kernel
-    cfg = cfg.replace(attn_impl="ff", decode_block_kv=args.page)
+    if args.n_layers:
+        cfg = cfg.replace(n_layers=args.n_layers)
+    if args.impl != "cfg":
+        cfg = cfg.replace(attn_impl=args.impl)
+    if cfg.attn_impl == "ff":
+        # pin the dense path's KV tile to the page so lockstep decode is
+        # bitwise-identical to the paged kernel
+        cfg = cfg.replace(decode_block_kv=args.page)
     if args.layer_graph:
         # route dense-cache decode steps through the whole-layer
         # decode_layer kernels (the paged scheduler keeps the per-op path)
@@ -477,8 +488,8 @@ def serve_bench(args) -> Dict[str, object]:
         rate=args.rate, vocab=cfg.vocab, seed=args.seed)
     # weights from a fixed seed, as the reference's key(0); --seed is the
     # trace's
-    params = model.cast_params(model.init(
-        torch.Generator(device=device).manual_seed(0), device))
+    params = model.init_cast(torch.Generator(device=device).manual_seed(0),
+                             device)
     lockstep = run_lockstep(model, params, cfg, requests,
                             n_slots=args.slots, page=args.page,
                             eos_id=args.eos_id)
@@ -486,12 +497,14 @@ def serve_bench(args) -> Dict[str, object]:
                            page=args.page, eos_id=args.eos_id,
                            pool_blocks=args.pool_blocks)
     bitwise = decode_parity_probe(model, params, cfg, page=args.page)
+    compiled = model.__dict__.get("_compiled_steps", {})
     return {
         "arch": args.arch,
         "device": {"type": device.type,
                    "name": (torch.cuda.get_device_name(device)
                             if device.type == "cuda" else "cpu")},
         "smoke": bool(args.smoke),
+        "n_layers": cfg.n_layers,
         "impl": cfg.attn_impl,
         "requests": args.requests,
         "slots": args.slots,
@@ -508,12 +521,20 @@ def serve_bench(args) -> Dict[str, object]:
         "bitwise_max_abs_diff": bitwise,
         "bitwise_identical": bitwise == 0.0,
         "token_count_parity": lockstep["tokens"] == paged["tokens"],
+        # CUDA graphs captured per step kind (0 on the CPU: eager steps)
+        "compiled_graphs": {kind: len(step.graphs)
+                            for kind, step in compiled.items()},
     }
 
 
 def add_serve_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen1_5_0p5b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the config to this many layers, at full "
+                         "width (a model whose every layer does not fit "
+                         "one card: grok-1's 64 layers are 1,179 GiB in "
+                         "f32)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
@@ -530,6 +551,10 @@ def add_serve_args(ap: argparse.ArgumentParser) -> None:
                     help="paged pool size in blocks (default: slots x "
                          "max pages per request)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--impl", choices=("ff", "xla", "cfg"), default="ff",
+                    help="attention implementation: ff = the CUDA kernels "
+                         "(default), xla = the reference's unfused plain "
+                         "PyTorch path, cfg = whatever the arch config pins")
     ap.add_argument("--layer-graph", action="store_true",
                     help="run each dense-cache (lockstep) decode step "
                          "through the whole-layer decode_layer kernels: "

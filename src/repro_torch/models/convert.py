@@ -12,7 +12,12 @@ the port's ``param_specs`` of the same family:
   stacked ``[L, ...]``, ``final_norm``, ``unembed``;
 - hybrid (Zamba2): ``embed``, ``stack.mamba_layers.{norm, mixer.*}``
   stacked ``[L, ...]``, ``stack.shared.{norm1, attn.*, norm2, ffn.*}``,
-  ``final_norm``, ``unembed``.
+  ``final_norm``, ``unembed``;
+- moe (grok-1): the dense tree with ``stack.layers.ffn.{router, w1, w2}``
+  (and ``shared.{wi, wo}`` where the config has shared experts) in place
+  of the dense FFN;
+- moe_mla (deepseek-v2-lite): the moe tree with
+  ``stack.layers.mixer.{wq, wdkv, kv_norm, wuk, wuv, wo}``.
 
 Layouts are kept, so the port computes on exactly the reference's
 tensors.

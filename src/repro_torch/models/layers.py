@@ -5,9 +5,13 @@ Params are plain nested dicts of tensors, declared as :class:`ParamSpec`
 trees and laid out exactly as the reference's pytrees, so converted JAX
 parameters drop in unchanged (:mod:`repro_torch.models.convert`).
 
-The three attention dispatchers, :func:`decode_layer` and
-:func:`attention_proj` route to the CUDA kernel wrappers, which run their
-plain PyTorch versions for CPU tensors.
+The three attention dispatchers take the reference's ``impl`` switch:
+``"ff"`` (the port's default, as its configs') routes to the CUDA kernel
+wrappers, which run their plain PyTorch versions for CPU tensors;
+``"xla"`` runs the reference's unfused HLO-path formulation
+(:func:`attention_xla`) in plain PyTorch on any device. :func:`decode_layer`
+and :func:`attention_proj` route to their kernels. :func:`chunk_scan_op`
+picks the gated linear-attention scan by the same kind of switch.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from repro_torch import ops
 from repro_torch.kernels.ff_attention import attention as ff_attention
 from repro_torch.kernels.ff_attention import \
     attention_proj as ff_attention_proj
+from repro_torch.kernels.ff_chunk_scan.ref import chunk_scan_xla
 from repro_torch.kernels.ff_decode_attention import \
     decode_attention as ff_decode_attention
 from repro_torch.kernels.ff_layer import ff_layer_matmul, ff_layer_mlp_tail
@@ -47,10 +52,11 @@ class ParamSpec:
             return torch.zeros(self.shape, dtype=self.dtype, device=device)
         if self.init == "ones":
             return torch.ones(self.shape, dtype=self.dtype, device=device)
+        # scaled in place: a full-width leaf is drawn once, not twice
         x = torch.randn(self.shape, generator=gen, dtype=self.dtype,
                         device=device)
         if self.init == "small":
-            return 0.01 * x
+            return x.mul_(0.01)
         # fan-in = product of all non-output dims, skipping the stacked
         # layer dim (a [d, heads, hd] projection scales by 1/sqrt(d))
         dims = self.shape
@@ -59,7 +65,7 @@ class ParamSpec:
         fan_in = max(math.prod(dims[:-1]), 1) if len(dims) >= 2 else dims[-1]
         scale = self.scale if self.scale is not None else 1.0 / math.sqrt(
             fan_in)
-        return scale * x
+        return x.mul_(scale)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,13 +159,68 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 # ---------------------------------------------------------------------------
-# Attention dispatchers (kernel wrappers)
+# Attention: the reference's XLA path and the kernel path
 # ---------------------------------------------------------------------------
 
 
-def attention_op(q, k, v, *, causal: bool) -> torch.Tensor:
-    """q: [B,S,H,D]; k,v: [B,Skv,KVH,D] -> [B,S,H,D] through the prefill
-    kernel (which masks the ragged S edge itself: no padding)."""
+_Q_CHUNK = 1024
+ATTN_IMPLS = ("ff", "xla")
+
+
+def _attention_xla_block(q, k, v, *, causal: bool, q_offset: int,
+                         positions_q=None, lengths=None) -> torch.Tensor:
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                          k.float()) / math.sqrt(d)
+    skv = k.shape[1]
+    cols = torch.arange(skv, device=q.device)
+    if causal:
+        qpos = (positions_q if positions_q is not None
+                else q_offset + torch.arange(s, device=q.device))
+        scores = torch.where(qpos[:, None] >= cols[None, :], scores, -1e30)
+    if lengths is not None:
+        mask = cols[None, :] < lengths[:, None]                  # [B, Skv]
+        scores = torch.where(mask[:, None, None, None], scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    return out.reshape(b, s, h, v.shape[-1]).to(q.dtype)
+
+
+def attention_xla(q, k, v, *, causal: bool, positions_q=None,
+                  lengths=None) -> torch.Tensor:
+    """q: [B,S,H,D]; k: [B,Skv,KVH,D]; v: [B,Skv,KVH,Dv] -> [B,S,H,Dv]:
+    the reference's unfused baseline (``attention_xla``), in plain PyTorch
+    on any device. The scores are q·k in f32 over sqrt(D), masked to
+    -1e30 (causal, and past ``lengths``), an f32 softmax, then P·V in f32
+    cast to q's type. The output takes v's head dim (MLA's differs from
+    q's). A long S that is a multiple of 1024 runs in statically unrolled
+    q-chunks of 1024."""
+    b, s, h, d = q.shape
+    if s <= _Q_CHUNK or s % _Q_CHUNK != 0 or positions_q is not None:
+        return _attention_xla_block(q, k, v, causal=causal, q_offset=0,
+                                    positions_q=positions_q, lengths=lengths)
+    return torch.cat([
+        _attention_xla_block(q[:, i:i + _Q_CHUNK], k, v, causal=causal,
+                             q_offset=i, lengths=lengths)
+        for i in range(0, s, _Q_CHUNK)], dim=1)
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"attention impl {impl!r} is not one of "
+                         f"{ATTN_IMPLS}")
+
+
+def attention_op(q, k, v, *, causal: bool, impl: str = "ff",
+                 lengths=None) -> torch.Tensor:
+    """q: [B,S,H,D]; k,v: [B,Skv,KVH,D] -> [B,S,H,D]. ``impl="ff"`` runs
+    the prefill kernel (which masks the ragged S edge itself: no padding;
+    ``lengths`` is for ``"xla"`` only, as in the reference)."""
+    _check_impl(impl)
+    if impl == "xla":
+        return attention_xla(q, k, v, causal=causal, lengths=lengths)
     b, s, h, d = q.shape
     kvh = k.shape[2]
     qh = q.transpose(1, 2).reshape(b * h, s, d)
@@ -169,13 +230,17 @@ def attention_op(q, k, v, *, causal: bool) -> torch.Tensor:
     return out.reshape(b, h, s, d).transpose(1, 2)
 
 
-def decode_attention_op(q, k, v, lengths, *,
+def decode_attention_op(q, k, v, lengths, *, impl: str = "ff",
                         block_kv: Optional[int] = None) -> torch.Tensor:
     """q: [B,H,D] one token; k,v: [B,Skv,KVH,D] cache; lengths: [B].
-    ``block_kv`` pins the KV tile (serving pins it to the paged cache's
+    ``block_kv`` pins the ff KV tile (serving pins it to the paged cache's
     page size for bitwise parity); None picks the reference's heuristic.
-    The cache is padded up to a tile multiple (rows past ``lengths`` are
-    masked, so the padding is free of numerics)."""
+    Under ``"ff"`` the cache is padded up to a tile multiple (rows past
+    ``lengths`` are masked, so the padding is free of numerics)."""
+    _check_impl(impl)
+    if impl == "xla":
+        return attention_xla(q[:, None], k, v, causal=False,
+                             lengths=lengths)[:, 0]
     kh = k.transpose(1, 2)
     vh = v.transpose(1, 2)
     skv = k.shape[1]
@@ -192,12 +257,52 @@ def decode_attention_op(q, k, v, lengths, *,
     return ff_decode_attention(q, kh, vh, lengths, block_kv=block_kv)
 
 
-def paged_decode_attention_op(q, kv_pool, block_tables,
-                              lengths) -> torch.Tensor:
+def paged_decode_attention_op(q, kv_pool, block_tables, lengths, *,
+                              impl: str = "ff") -> torch.Tensor:
     """Decode attention through a paged KV pool (continuous batching).
     q: [B,H,D]; kv_pool: [nb, 2, page, KVH, D]; block_tables: [B, n_pages]
-    (entries >= nb are sentinels); lengths: [B] (0 = inactive slot)."""
-    return paged_decode_attention(q, kv_pool, block_tables, lengths)
+    (entries >= nb are sentinels); lengths: [B] (0 = inactive slot).
+    ``"ff"`` runs the fused paged kernel; ``"xla"`` clips the table into
+    the pool and reads it densely, as the reference does."""
+    _check_impl(impl)
+    if impl == "ff":
+        return paged_decode_attention(q, kv_pool, block_tables, lengths)
+    nb, _, page, kvh, d = kv_pool.shape
+    b, npg = q.shape[0], block_tables.shape[-1]
+    kv = kv_pool[block_tables.long().clamp(0, nb - 1)]  # [B,npg,2,page,..]
+    k = kv[:, :, 0].reshape(b, npg * page, kvh, d)
+    v = kv[:, :, 1].reshape(b, npg * page, kvh, d)
+    return attention_xla(q[:, None], k, v, causal=False,
+                         lengths=lengths)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# The gated linear-attention scan: the kernel or the reference's XLA form
+# ---------------------------------------------------------------------------
+
+
+SCAN_IMPLS = ("ff", "xla", "xla_tiled")
+
+
+def chunk_scan_op(q, k, v, log_w, u=None, *, impl: str, chunk: int,
+                  inclusive: bool) -> torch.Tensor:
+    """The scan of ``cfg.scan_impl``: ``"ff"`` the chunk-scan kernel;
+    ``"xla"`` / ``"xla_tiled"`` the reference's chunked formulation
+    (:func:`~repro_torch.kernels.ff_chunk_scan.ref.chunk_scan_xla`) with S
+    padded to a chunk multiple (decay 1, zero k and v), as the reference's
+    dispatch pads it. q,k,log_w: [BH,S,N]; v: [BH,S,P]; u: [BH,N]."""
+    if impl not in SCAN_IMPLS:
+        raise ValueError(f"scan impl {impl!r} is not one of {SCAN_IMPLS}")
+    if impl == "ff":
+        return ops.chunk_scan(q, k, v, log_w, u, inclusive=inclusive,
+                              chunk=chunk)
+    s = q.shape[1]
+    pad = -s % chunk
+    q, k, v, log_w = (F.pad(x, (0, 0, 0, pad)) if pad else x
+                      for x in (q, k, v, log_w))
+    return chunk_scan_xla(q, k, v, log_w, u, chunk=chunk,
+                          inclusive=inclusive,
+                          tiled=impl == "xla_tiled")[:, :s]
 
 
 # ---------------------------------------------------------------------------

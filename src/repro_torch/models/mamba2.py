@@ -2,7 +2,8 @@
 
 The SSD recurrence h_t = exp(A dt_t) h_{t-1} + dt_t B_t (x) x_t runs, at
 prefill, through the *inclusive* gated linear-attention scan
-(``ops.chunk_scan``, the CUDA kernel on the card): C is the scan's q, B its
+(``L.chunk_scan_op``: the CUDA kernel under ``scan_impl="ff"``, the
+reference's chunked form under ``"xla"`` / ``"xla_tiled"``): C is the scan's q, B its
 k, dt * x its v and A dt its log-decay, the last three broadcast across
 heads as in the reference. The final state for decode and the
 single-token decode recurrence are plain tensor code, as in the reference.
@@ -19,7 +20,6 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch import ops
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 
@@ -105,8 +105,8 @@ def mamba_apply(cfg: ArchConfig, p, x, *, cache=None
     lw_bh = log_w.transpose(1, 2).reshape(b * nh, s, 1).expand(b * nh, s, n)
 
     if cache is None:
-        y = ops.chunk_scan(q_bh, k_bh, v_bh, lw_bh, inclusive=True,
-                           chunk=cfg.scan_chunk)
+        y = L.chunk_scan_op(q_bh, k_bh, v_bh, lw_bh, impl=cfg.scan_impl,
+                            inclusive=True, chunk=cfg.scan_chunk)
         # final state for the prefill -> decode handoff, in f32:
         #   h_S = sum_s exp(cw_S - cw_s) k_s (x) v_s   (exponents <= 0)
         cw = torch.cumsum(lw_bh.float(), dim=1)                   # [BH,S,N]

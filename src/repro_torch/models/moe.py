@@ -1,23 +1,161 @@
-"""MoE dispatch -> expert matmul -> combine: the port of the
-``moe_dispatch_ffn`` StreamGraph of ``repro/models/moe.py``.
+"""Mixture-of-experts FFN (grok-1, deepseek-v2-lite) and the MoE
+dispatch -> expert matmul -> combine graph: the port of
+``repro/models/moe.py``.
 
+The layer (:func:`moe_ffn_apply`) routes by capacity-based top-k: tokens
+are scattered into an ``[E, C, d]`` dispatch buffer, the experts run as two
+batched products over the whole buffer (the reference's XLA einsums: every
+expert's weights are read whatever the routing), and the results gather
+back weighted by the router's probabilities. A token past its expert's
+capacity ``C`` is dropped (standard token-dropping MoE). Every shape is
+static and no step reads a value back to the host, so a compiled step
+captures the layer.
+
+``moe_dispatch_ffn`` is the port of the ``moe_dispatch_ffn`` StreamGraph:
 ``dispatch`` gathers the routed token rows, ``expert`` multiplies them by
 the expert weight, ``combine`` gathers the expert outputs back into token
 order. The dispatch->expert edge is one launch
 (:func:`repro_torch.kernels.ff_matmul.dispatch_matmul`: the A rows are
 read through the index, so the dispatched buffer never exists in HBM); the
 combine is an irregular gather of the expert output and is staged through
-HBM, as in the reference. The MoE layer (``moe_ffn_apply``, ``MoELM``) is
-not ported yet.
+HBM, as in the reference. It is a library entry point: the layer does not
+run through it, as the reference's layer does not.
 """
 
 from __future__ import annotations
 
+from typing import Any, Dict, Tuple
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch import ops
+from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ff_gather import gather, gather_ref
 from repro_torch.kernels.ff_matmul import dispatch_matmul, dispatch_matmul_ref
+from repro_torch.models import layers as L
+
+
+# ---------------------------------------------------------------------------
+# The MoE FFN
+# ---------------------------------------------------------------------------
+
+
+def moe_ffn_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    s = {
+        "router": L.ParamSpec((d, e), ("embed", None), scale=0.02),
+        "w1": L.ParamSpec((e, d, 2 * f), ("expert", "embed", "mlp")),
+        "w2": L.ParamSpec((e, f, d), ("expert", "mlp", "embed")),
+    }
+    if cfg.n_shared_experts:
+        s["shared"] = L.mlp_specs(d, cfg.n_shared_experts * cfg.moe_d_ff,
+                                  "swiglu")
+    return s
+
+
+def _one_hot(idx: torch.Tensor, e: int) -> torch.Tensor:
+    """[..., E] int64 one-hot rows, without the host check that
+    ``F.one_hot`` makes on some devices."""
+    return (idx[..., None] == torch.arange(e, device=idx.device)).long()
+
+
+def router_gates(p, xf: torch.Tensor) -> torch.Tensor:
+    """The router's probabilities [T, E] over tokens ``xf`` [T, D], in f32
+    on the f32 router, as the reference computes them."""
+    return torch.softmax(xf.float() @ p["router"].float(), dim=-1)
+
+
+def _dispatch_indices(gates: torch.Tensor, top_k: int, capacity: int):
+    """gates: [T, E] router probs. Returns (expert idx [T,k], probs [T,k],
+    slot [T,k], keep [T,k]) with capacity-ranked slots per expert: the
+    k-th choices of all tokens are ranked after the (k-1)-th."""
+    e = gates.shape[1]
+    probs, idx = torch.topk(gates, top_k, dim=-1)
+    probs = probs / (probs.sum(dim=-1, keepdim=True) + 1e-9)
+    count = torch.zeros(e, dtype=torch.long, device=gates.device)
+    slots = []
+    for k in range(top_k):
+        oh = _one_hot(idx[:, k], e)                              # [T,E]
+        rank = torch.cumsum(oh, dim=0) - 1
+        r = rank.gather(1, idx[:, k:k + 1])[:, 0]
+        slots.append(r + count[idx[:, k]])
+        count = count + oh.sum(dim=0)
+    slot = torch.stack(slots, dim=1)                             # [T,k]
+    return idx, probs, slot, slot < capacity
+
+
+def _capacity(t: int, cfg: ArchConfig, gran: int) -> int:
+    """Slots per expert: the reference's ``int(t // e * k * cf) + 1``
+    (integer division first), rounded up to ``gran``."""
+    c = int(t // cfg.n_experts * cfg.top_k * cfg.capacity_factor) + 1
+    return -(-c // gran) * gran
+
+
+def _apply(cfg: ArchConfig, p, x, capacity: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer at ``capacity`` slots per expert. The reference's scatter
+    drops an index past the buffer (``mode="drop"``) and its gather clamps
+    one: here a dropped slot's zero contribution goes to a dump row past
+    the buffer, and the gather clamps, so every kept row gets the
+    reference's bits."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    xf = x.reshape(t, d)
+    gates = router_gates(p, xf)
+    idx, probs, slot, keep = _dispatch_indices(gates, k, capacity)
+
+    # load-balance aux loss (Switch-style)
+    me = gates.mean(dim=0)                                       # [E]
+    ce = _one_hot(idx, e).float().sum(dim=1).mean(dim=0)
+    aux = e * torch.sum(me * ce)
+
+    # scatter the tokens into the dispatch buffer
+    n = e * capacity
+    flat_idx = (idx * capacity + slot).reshape(-1)               # [T*k]
+    contrib = xf[:, None, :] * keep[:, :, None].to(x.dtype)      # [T,k,D]
+    buf = torch.zeros(n + 1, d, dtype=x.dtype, device=x.device)
+    buf.index_add_(0, flat_idx.clamp(max=n), contrib.reshape(t * k, d))
+    buf = buf[:n].view(e, capacity, d)
+
+    # the experts (SwiGLU) as two batched products
+    dt = x.dtype
+    h = torch.bmm(buf, p["w1"].to(dt))
+    gate, up = torch.chunk(h, 2, dim=-1)
+    y = torch.bmm(F.silu(gate) * up, p["w2"].to(dt))
+
+    # gather and combine
+    picked = y.reshape(n, d)[flat_idx.clamp(max=n - 1)].view(t, k, d)
+    w = (probs * keep.float()).to(dt)                            # [T,k]
+    out = torch.einsum("tkd,tk->td", picked, w).reshape(b, s, d)
+    if cfg.n_shared_experts:
+        out = out + L.mlp_apply(p["shared"], x, "swiglu")
+    return out, aux
+
+
+def _local_dispatch_apply(cfg: ArchConfig, p, x
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's shard-local dispatch at one data shard, which is
+    what it runs without a mesh: the same routing, slots and products as
+    the global path, its capacity rounded to 8 whatever the token
+    count."""
+    return _apply(cfg, p, x, _capacity(x.shape[0] * x.shape[1], cfg, 8))
+
+
+def moe_ffn_apply(cfg: ArchConfig, p, x) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B,S,D] -> (out [B,S,D], aux load-balance loss, f32)."""
+    if cfg.moe_local_dispatch:
+        return _local_dispatch_apply(cfg, p, x)
+    t = x.shape[0] * x.shape[1]
+    # the reference rounds so the capacity dim stays mesh-divisible
+    return _apply(cfg, p, x, _capacity(t, cfg, 2048 if t >= 1 << 17 else 8))
+
+
+# ---------------------------------------------------------------------------
+# The dispatch -> expert matmul -> combine graph
+# ---------------------------------------------------------------------------
+
 
 _ROWS = 8        # the reference's gather row bundle (ff_gather _ROWS)
 

@@ -4,10 +4,13 @@ family with the serving entry points.
   prefill -> prefill(params, batch)            -> (last-token logits, cache)
   decode  -> decode_step(params, batch, cache) -> (logits, cache)
 
-Ported: the dense family (``DenseLM``), the ssm family (``RWKVLM``) and the
-hybrid family (``ZambaLM``), each with ``param_specs``, ``prefill`` and
-``decode_step`` (``loss`` waits for training); :func:`build_model` raises
-``NotImplementedError`` for the others.
+Ported: the dense family (``DenseLM``), the MoE families (``MoELM``:
+attention and the MoE FFN; ``MLAMoELM``: MLA and the MoE FFN), the ssm
+family (``RWKVLM``) and the hybrid family (``ZambaLM``), each with
+``param_specs``, ``prefill`` and ``decode_step`` (``loss`` waits for
+training); :func:`build_model` raises ``NotImplementedError`` for encdec
+and vlm, and ``ValueError`` for an implementation switch it does not
+know.
 """
 
 from __future__ import annotations
@@ -19,15 +22,36 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import hybrid
 from repro_torch.models import layers as L
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import mla, moe, rwkv6, transformer
 
 
 class BaseLM:
-    """Decoder-only LM over the dense :class:`~transformer.DecoderStack`."""
+    """Decoder-only LM over :class:`~transformer.DecoderStack`; the mixer
+    and FFN hooks cover dense, MoE and MLA."""
 
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
-        self.stack = transformer.DecoderStack(cfg)
+        self.stack = transformer.DecoderStack(
+            cfg, mixer_specs=self._mixer_specs(),
+            mixer_apply=self._mixer_apply(),
+            mixer_cache_spec=self._mixer_cache_spec(),
+            ffn_specs=self._ffn_specs(), ffn_apply=self._ffn_apply())
+
+    # hooks -----------------------------------------------------------------
+    def _mixer_specs(self):
+        return transformer.attn_specs
+
+    def _mixer_apply(self):
+        return transformer.attn_apply
+
+    def _mixer_cache_spec(self):
+        return transformer.attn_cache_spec
+
+    def _ffn_specs(self):
+        return transformer.ffn_specs
+
+    def _ffn_apply(self):
+        return transformer.ffn_apply
 
     # params ----------------------------------------------------------------
     def param_specs(self) -> Dict[str, Any]:
@@ -47,12 +71,26 @@ class BaseLM:
         (make it with ``torch.Generator(device=device).manual_seed(seed)``)."""
         return L.init_params(self.param_specs(), gen, device)
 
+    def init_cast(self, gen: torch.Generator, device="cpu") -> Dict[str, Any]:
+        """``cast_params(init(gen, device))``, bit for bit, drawn and cast
+        one leaf at a time: at most one leaf is ever held in f32, so a
+        model whose f32 tree does not fit the card (deepseek-v2-lite:
+        64.8 GB) still draws there."""
+        out: Dict[str, Any] = {}
+        for path, spec in L.tree_leaves(self.param_specs()):
+            _put(out, path, self._cast(path, spec.initializer(gen, device)))
+        return out
+
     # The leaves that the forward also reads in f32, by path prefix: the
     # norms' weights (and LayerNorm biases), which the norms take with
     # ``.float()``. Every other leaf is only ever used through
     # ``.to(cfg.cdtype)``.
     F32_LEAVES = (("final_norm",), ("stack", "layers", "norm1"),
                   ("stack", "layers", "norm2"))
+
+    def _cast(self, path, leaf: torch.Tensor) -> torch.Tensor:
+        keep = any(path[:len(p)] == p for p in self.F32_LEAVES)
+        return leaf if keep else leaf.to(self.cfg.cdtype)
 
     def cast_params(self, params) -> Dict[str, Any]:
         """The same params tree with every leaf outside
@@ -62,11 +100,7 @@ class BaseLM:
         given tensors."""
         out: Dict[str, Any] = {}
         for path, leaf in L.tree_leaves(params):
-            node = out
-            for k in path[:-1]:
-                node = node.setdefault(k, {})
-            keep = any(path[:len(p)] == p for p in self.F32_LEAVES)
-            node[path[-1]] = leaf if keep else leaf.to(self.cfg.cdtype)
+            _put(out, path, self._cast(path, leaf))
         return out
 
     # forward ---------------------------------------------------------------
@@ -79,7 +113,7 @@ class BaseLM:
         tokens = batch["tokens"]
         x = L.embed_lookup(params["embed"], tokens, cfg.cdtype)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, caches = self.stack(params["stack"], x, positions=positions)
+        x, caches, _ = self.stack(params["stack"], x, positions=positions)
         x = L.norm_apply(cfg.norm, x, params["final_norm"])
         logits = L.unembed_logits(x[:, -1:], self._unembed(params))[:, 0]
         return logits, caches
@@ -89,9 +123,9 @@ class BaseLM:
         lengths = batch["lengths"].to(torch.int32)
         x = L.embed_lookup(params["embed"], batch["token"][:, None],
                            cfg.cdtype)
-        x, new_caches = self.stack(params["stack"], x,
-                                   positions=lengths[:, None], caches=caches,
-                                   lengths=lengths)
+        x, new_caches, _ = self.stack(params["stack"], x,
+                                      positions=lengths[:, None],
+                                      caches=caches, lengths=lengths)
         x = L.norm_apply(cfg.norm, x, params["final_norm"])
         logits = L.unembed_logits(x, self._unembed(params))[:, 0]
         return logits, new_caches
@@ -99,6 +133,35 @@ class BaseLM:
 
 class DenseLM(BaseLM):
     pass
+
+
+class MoELM(BaseLM):
+    """grok-1: attention and the MoE FFN. The router is read in f32."""
+
+    F32_LEAVES = BaseLM.F32_LEAVES + (("stack", "layers", "ffn", "router"),)
+
+    def _ffn_specs(self):
+        return moe.moe_ffn_specs
+
+    def _ffn_apply(self):
+        return moe.moe_ffn_apply
+
+
+class MLAMoELM(MoELM):
+    """deepseek-v2: MLA and the MoE FFN. The latent's RMSNorm weight is
+    read in f32 too."""
+
+    F32_LEAVES = MoELM.F32_LEAVES + (("stack", "layers", "mixer",
+                                      "kv_norm"),)
+
+    def _mixer_specs(self):
+        return mla.mla_specs
+
+    def _mixer_apply(self):
+        return mla.mla_apply
+
+    def _mixer_cache_spec(self):
+        return mla.mla_cache_spec
 
 
 class ZambaLM(BaseLM):
@@ -227,21 +290,39 @@ class RWKVLM(BaseLM):
         return logits, new_caches
 
 
-_FAMILIES = {"dense": DenseLM, "ssm": RWKVLM, "hybrid": ZambaLM}
+def _put(tree: Dict[str, Any], path, leaf) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
+_FAMILIES = {"dense": DenseLM, "moe": MoELM, "moe_mla": MLAMoELM,
+             "ssm": RWKVLM, "hybrid": ZambaLM}
+_UNPORTED = ("encdec", "vlm")
 
 
 def build_model(cfg: ArchConfig):
-    if cfg.family not in _FAMILIES:
+    """The model class of ``cfg.family`` ("moe" with ``kv_lora_rank`` set is
+    "moe_mla", as in the reference)."""
+    family = cfg.family
+    if family == "moe" and cfg.kv_lora_rank:
+        family = "moe_mla"
+    if family in _UNPORTED:
         raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.arch_id}) is not ported to "
+            f"model family {family!r} ({cfg.arch_id}) is not ported to "
             f"repro_torch yet; ported: {sorted(_FAMILIES)}")
-    if cfg.attn_impl != "ff":
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r}: repro_torch runs attention "
-            f"through its kernels only (attn_impl='ff')")
-    if cfg.scan_impl != "ff":
-        raise NotImplementedError(
-            f"scan_impl={cfg.scan_impl!r}: repro_torch runs the gated "
-            f"linear-attention scan through its kernel only (scan_impl='ff')")
-    return _FAMILIES[cfg.family](cfg)
-
+    if family not in _FAMILIES:
+        raise ValueError(f"unknown model family {family!r}")
+    if cfg.attn_impl not in L.ATTN_IMPLS:
+        raise ValueError(f"attn_impl={cfg.attn_impl!r} is not one of "
+                         f"{L.ATTN_IMPLS}")
+    if cfg.scan_impl not in L.SCAN_IMPLS:
+        raise ValueError(f"scan_impl={cfg.scan_impl!r} is not one of "
+                         f"{L.SCAN_IMPLS}")
+    if family == "moe_mla" and cfg.attn_impl != "xla":
+        raise ValueError(
+            f"MLA ({cfg.arch_id}) runs only under attn_impl='xla': its v "
+            f"head dim ({cfg.v_head_dim}) differs from q's "
+            f"({cfg.qk_nope_dim + cfg.qk_rope_dim}), which the attention "
+            f"kernels, and the reference's 'ff' path, cannot take")
+    return _FAMILIES[family](cfg)

@@ -3,8 +3,9 @@
 
 Per layer: a time-mixing block whose wkv operator is the *exclusive* gated
 linear-attention scan with a per-channel decay w_t and a current-token
-bonus u (``ops.chunk_scan(..., inclusive=False)``, the CUDA kernel on the
-card), plus a squared-ReLU channel-mixing FFN. Token shift is the static
+bonus u (``L.chunk_scan_op(..., inclusive=False)``: the CUDA kernel under
+``scan_impl="ff"``, the reference's chunked form under ``"xla"`` /
+``"xla_tiled"``), plus a squared-ReLU channel-mixing FFN. Token shift is the static
 per-channel lerp, with a low-rank data-dependent term for the decay only,
 as in the reference.
 
@@ -20,7 +21,6 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch import ops
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 
@@ -107,8 +107,9 @@ def time_mix_apply(cfg: ArchConfig, p, x, *, cache=None
     u = p["u"][None].expand(b, nh, hd).reshape(b * nh, hd)
 
     if cache is None or s > 1:
-        y = ops.chunk_scan(heads(r), heads(k), heads(v), heads(log_w), u,
-                           inclusive=False, chunk=cfg.scan_chunk)
+        y = L.chunk_scan_op(heads(r), heads(k), heads(v), heads(log_w), u,
+                            impl=cfg.scan_impl, inclusive=False,
+                            chunk=cfg.scan_chunk)
         # final state for the prefill -> decode handoff (operands in the
         # compute type, f32 accumulation)
         lw = heads(log_w).float()

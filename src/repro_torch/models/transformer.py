@@ -1,8 +1,12 @@
-"""Dense decoder-only transformer (GQA + RoPE): the port of
-``repro/models/transformer.py`` for the serving path.
+"""Decoder-only transformer (GQA + RoPE), the backbone of the dense and
+MoE families: the port of ``repro/models/transformer.py`` for the serving
+path.
 
-Params keep the reference's stacked ``[L, ...]`` layout; the stack is a
-plain loop over layers (no scan, no remat: serving runs no backward).
+Layer math is injectable as in the reference (``mixer_specs`` /
+``mixer_apply`` / ``mixer_cache_spec`` for attention or MLA,
+``ffn_specs`` / ``ffn_apply`` for the dense or MoE FFN). Params keep the
+reference's stacked ``[L, ...]`` layout; the stack is a plain loop over
+layers (no scan, no remat: serving runs no backward).
 """
 
 from __future__ import annotations
@@ -43,16 +47,17 @@ def _project(x, w, b=None):
     return y if b is None else y + b.to(x.dtype)
 
 
-def _write_token(cache, k, v, lengths):
-    """Write this token's K/V ([B,1,KVH,hd]) into the dense cache at
-    ``lengths``, in place; returns the cache's k and v."""
-    ck, cv = cache["k"], cache["v"]
+def _write_token(cache, new, lengths):
+    """Write this token's rows (``new``: name -> [B,1,...]) into the cache
+    leaves of the same names ([B,Smax,...]) at ``lengths``, in place and
+    without a host sync; returns those leaves in ``new``'s order."""
+    leaves = [cache[name] for name in new]
     # dynamic_update_slice clamps the start so the row fits
-    idx = lengths.long().clamp(0, ck.shape[1] - 1)
-    rows = torch.arange(k.shape[0], device=k.device)
-    ck[rows, idx] = k[:, 0]
-    cv[rows, idx] = v[:, 0]
-    return ck, cv
+    idx = lengths.long().clamp(0, leaves[0].shape[1] - 1)
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    for leaf, t in zip(leaves, new.values()):
+        leaf[rows, idx] = t[:, 0]
+    return leaves
 
 
 def attn_apply(cfg: ArchConfig, p, x, *, positions, cache=None,
@@ -66,7 +71,7 @@ def attn_apply(cfg: ArchConfig, p, x, *, positions, cache=None,
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
     if cache is None:
-        out = L.attention_op(q, k, v, causal=True)
+        out = L.attention_op(q, k, v, causal=True, impl=cfg.attn_impl)
         new_cache = {"k": k, "v": v}
     elif "kv_pool" in cache:
         # paged decode: append this token's K/V through the block table,
@@ -76,11 +81,13 @@ def attn_apply(cfg: ArchConfig, p, x, *, positions, cache=None,
                              lengths, k[:, 0], v[:, 0],
                              n_blocks=cache["kv_pool"].shape[0])
         out = L.paged_decode_attention_op(
-            q[:, 0], pool, cache["block_tables"], lengths + 1)[:, None]
+            q[:, 0], pool, cache["block_tables"], lengths + 1,
+            impl=cfg.attn_impl)[:, None]
         new_cache = {"kv_pool": pool, "block_tables": cache["block_tables"]}
     else:
-        ck, cv = _write_token(cache, k, v, lengths)
+        ck, cv = _write_token(cache, {"k": k, "v": v}, lengths)
         out = L.decode_attention_op(q[:, 0], ck, cv, lengths + 1,
+                                    impl=cfg.attn_impl,
                                     block_kv=cfg.decode_block_kv)[:, None]
         new_cache = {"k": ck, "v": cv}
     b, s, h, hd = out.shape
@@ -108,7 +115,9 @@ def ffn_specs(cfg: ArchConfig) -> Dict[str, Any]:
 
 
 def ffn_apply(cfg: ArchConfig, p, x):
-    return L.mlp_apply(p, x, cfg.act)
+    """(out, aux loss): a dense FFN has none, a Python 0.0 (the reference's
+    f32 zero) that adds no kernel to a step."""
+    return L.mlp_apply(p, x, cfg.act), 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -117,19 +126,27 @@ def ffn_apply(cfg: ArchConfig, p, x):
 
 
 class DecoderStack:
-    """Stacked pre-norm decoder: params are stacked ``[L, ...]`` as in the
-    reference, and the layers run in a plain loop."""
+    """Stacked pre-norm decoder with an injectable mixer and FFN: params
+    are stacked ``[L, ...]`` as in the reference, and the layers run in a
+    plain loop."""
 
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, mixer_specs=attn_specs,
+                 mixer_apply=attn_apply, mixer_cache_spec=attn_cache_spec,
+                 ffn_specs=ffn_specs, ffn_apply=ffn_apply):
         self.cfg = cfg
+        self._mixer_specs = mixer_specs
+        self._mixer_apply = mixer_apply
+        self._mixer_cache_spec = mixer_cache_spec
+        self._ffn_specs = ffn_specs
+        self._ffn_apply = ffn_apply
 
     def layer_specs(self) -> Dict[str, Any]:
         cfg = self.cfg
         return {
             "norm1": L.norm_specs(cfg.norm, cfg.d_model),
-            "mixer": attn_specs(cfg),
+            "mixer": self._mixer_specs(cfg),
             "norm2": L.norm_specs(cfg.norm, cfg.d_model),
-            "ffn": ffn_specs(cfg),
+            "ffn": self._ffn_specs(cfg),
         }
 
     def specs(self) -> Dict[str, Any]:
@@ -139,22 +156,31 @@ class DecoderStack:
                                   s.dtype, s.init, s.scale),
             self.layer_specs())}
 
+    def cache_spec(self, batch: int, s_max: int):
+        """The decode cache's leaves stacked ``[L, ...]`` and their logical
+        axes."""
+        n = self.cfg.n_layers
+        one, one_axes = self._mixer_cache_spec(self.cfg, batch, s_max)
+        spec = L.tree_map(lambda s: L.CacheSpec((n, *s.shape), s.dtype), one)
+        axes = {name: ("layers", *a) for name, a in one_axes.items()}
+        return spec, axes
+
     def _layer(self, p, x, positions, cache, lengths):
         cfg = self.cfg
-        # the reference's routing (its mixer and FFN checks always hold
-        # here: the port's stack has the attention mixer and a dense FFN)
         if (cfg.layer_graph and cache is not None and "kv_pool" not in cache
                 and x.shape[1] == 1 and cfg.norm == "rmsnorm"
-                and cfg.act == "swiglu"):
+                and cfg.act == "swiglu"
+                and self._mixer_apply is attn_apply
+                and self._ffn_apply is ffn_apply):
             return self._decode_layer_graph(p, x, positions, cache, lengths)
         h = L.norm_apply(cfg.norm, x, p["norm1"])
-        attn_out, new_cache = attn_apply(cfg, p["mixer"], h,
-                                         positions=positions, cache=cache,
-                                         lengths=lengths)
+        attn_out, new_cache = self._mixer_apply(
+            cfg, p["mixer"], h, positions=positions, cache=cache,
+            lengths=lengths)
         x = x + attn_out
         h = L.norm_apply(cfg.norm, x, p["norm2"])
-        x = x + ffn_apply(cfg, p["ffn"], h)
-        return x, new_cache
+        ffn_out, aux = self._ffn_apply(cfg, p["ffn"], h)
+        return x + ffn_out, new_cache, aux
 
     def _decode_layer_graph(self, p, x, positions, cache, lengths):
         """One dense-cache decode step through :func:`L.decode_layer`
@@ -168,7 +194,7 @@ class DecoderStack:
         k = L.rope(_project(h1, mp["wk"], mp.get("bk")), positions,
                    cfg.rope_theta)
         v = _project(h1, mp["wv"], mp.get("bv"))
-        ck, cv = _write_token(cache, k, v, lengths)
+        ck, cv = _write_token(cache, {"k": k, "v": v}, lengths)
         d, h_q, hd = cfg.d_model, cfg.n_heads, cfg.hd
         wi = fp["wi"].to(dt)
         f = wi.shape[1] // 2
@@ -179,20 +205,23 @@ class DecoderStack:
             lengths + 1, mp["wo"].to(dt).reshape(h_q * hd, d),
             p["norm2"]["w"], wi[:, :f], wi[:, f:], fp["wo"].to(dt),
             rope_theta=cfg.rope_theta, block_kv=cfg.decode_block_kv)
-        return out[:, None], {"k": ck, "v": cv}
+        return out[:, None], {"k": ck, "v": cv}, 0.0
 
     def __call__(self, params, x, *, positions, caches=None, lengths=None):
         """x: [B,S,D]. caches: stacked ``[L, ...]`` leaves or None.
-        Returns (x, caches): prefill (``caches=None``) stacks the per-layer
-        K/V; decode returns the (in-place updated) caches."""
+        Returns (x, caches, aux loss summed over the layers): prefill
+        (``caches=None``) stacks the per-layer caches; decode returns the
+        (in-place updated) caches."""
         per_layer = []
+        aux = 0.0
         for i in range(self.cfg.n_layers):
             p = L.tree_map(lambda a: a[i], params["layers"])
             cache = (L.tree_map(lambda a: a[i], caches)
                      if caches is not None else None)
-            x, nc = self._layer(p, x, positions, cache, lengths)
+            x, nc, a = self._layer(p, x, positions, cache, lengths)
             per_layer.append(nc)
+            aux = aux + a
         if caches is not None:
-            return x, caches
+            return x, caches, aux
         return x, {name: torch.stack([c[name] for c in per_layer])
-                   for name in per_layer[0]}
+                   for name in per_layer[0]}, aux

@@ -166,8 +166,16 @@ def test_port_paged_equals_dense_bitwise(models, tokens):
 
 
 def test_build_model_refuses_unported_families(models):
+    """encdec and vlm are not ported; an unknown attn_impl or scan_impl is
+    an error; MLA runs only under "xla" (its v head dim is not q's)."""
     tcfg = models[3]
-    with pytest.raises(NotImplementedError, match="moe"):
-        t_build(tcfg.replace(family="moe"))
-    with pytest.raises(NotImplementedError, match="attn_impl"):
-        t_build(tcfg.replace(attn_impl="xla"))
+    for family in ("encdec", "vlm"):
+        with pytest.raises(NotImplementedError, match=family):
+            t_build(tcfg.replace(family=family))
+    with pytest.raises(ValueError, match="attn_impl"):
+        t_build(tcfg.replace(attn_impl="pallas"))
+    with pytest.raises(ValueError, match="scan_impl"):
+        t_build(tcfg.replace(scan_impl="tiled"))
+    with pytest.raises(ValueError, match="MLA"):
+        t_build(t_smoke("deepseek_v2_lite_16b").replace(attn_impl="ff"))
+    assert type(t_build(tcfg.replace(attn_impl="xla"))).__name__ == "DenseLM"

@@ -165,13 +165,16 @@ def test_cache_specs_match_the_caches(run):
 
 
 def test_build_model_takes_only_the_ff_scan():
+    """The configs default to the kernel ("ff"); the reference's "xla" and
+    "xla_tiled" scans are taken too, an unknown scan is refused."""
     assert "rwkv6_7b" in ARCH_IDS and "zamba2_2p7b" in ARCH_IDS
     for arch in ARCHS:
         cfg = t_smoke(arch)
         assert cfg.scan_impl == "ff"
         for impl in ("xla", "xla_tiled"):
-            with pytest.raises(NotImplementedError, match="scan_impl"):
-                t_build(cfg.replace(scan_impl=impl))
+            assert t_build(cfg.replace(scan_impl=impl)).cfg.scan_impl == impl
+        with pytest.raises(ValueError, match="scan_impl"):
+            t_build(cfg.replace(scan_impl="pallas"))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
