@@ -53,12 +53,25 @@ Phases (any failure exits non-zero without the final result line):
      bitwise across depth x streams; the smoke grok-1 and
      deepseek-v2-lite models on the card against the CPU (prefill, 3
      greedy decode steps, logits within MODEL_TOL) and their routing (the
-     top-k experts of every token, layer and step) equal;
+     top-k experts of every token, layer and step) equal; rows 1-3 at the
+     heads of llama3.2-1b (32/8 of 64, GQA 4), internvl2-1b (14/2 of 64,
+     GQA 7), starcoder2-15b (48/4 of 128, GQA 12) and qwen2-72b (64/8 of
+     128, GQA 8) at their serve shapes, paged == contiguous and both
+     decode kernels and prefill attention (bf16) bitwise across depth x
+     streams; the decode-layer kernels (rows 4-6) at llama3.2-1b's widths
+     (d 2048, f 8192 = the kernel's largest k), the MLP tail == its
+     staged launches bit for bit; the smoke llama3.2-1b, starcoder2-15b,
+     qwen2-72b, internvl2-1b (with and without patch embeddings) and
+     whisper-tiny (with frames) models on the card against the CPU;
   c. serve full-width qwen1.5-0.5B (random weights from seed 0, cast once)
      through ``repro_torch.launch.serve.serve_bench`` with the serve
      defaults, once more with 256-token prompts, and once with
      ``--layer-graph``; then full-width grok-1 cut to 2 of its 64 layers
-     (``--n-layers 2``) with the serve defaults: every prefill bucket and
+     (``--n-layers 2``) with the serve defaults; then full-width
+     llama3.2-1b (once more with ``--layer-graph``), starcoder2-15b (all
+     40 layers), qwen2-72b cut to 16 of its 80 layers and internvl2-1b on
+     text prompts, one model on the card at a time, each followed by its
+     steps compiled against eager bit for bit: every prefill bucket and
      decode step a CUDA graph captured once per signature and replayed
      (``launch/steps.py``), required of every run;
   d. require equal token counts, and paged == dense decode bit for bit on
@@ -81,7 +94,11 @@ Phases (any failure exits non-zero without the final result line):
      full-depth deepseek-v2-lite (27 layers, bf16 drawn and cast leaf by
      leaf) the same way, requiring finite logits, every compiled step
      equal to its eager step bit for bit and no kernel of the port
-     launched (its MLA runs the reference's "xla" attention);
+     launched (its MLA runs the reference's "xla" attention); then
+     internvl2-1b (4 x 32 tokens after 256 random patch embeddings, rows
+     1-2 launched) and whisper-tiny (4 x 32 tokens over 1500 random
+     frames, no kernel launched: its attention is the reference's unfused
+     path) the same way;
   f. time each kernel at the main path's shapes with CUDA events
      (attention also at the 256-token prefill, q/k/v [64,256,64], SDPA
      beside it; decode attention, contiguous and paged, at the default
@@ -153,7 +170,30 @@ GROK = dict(arch="grok1_314b", n_layers=2)
 # greedy decode steps
 DEEPSEEK = dict(arch="deepseek_v2_lite_16b", batch=4, prompt=256,
                 decode_steps=16)
+# internvl2-1b and whisper-tiny the same way, at full width and depth: 4
+# prompts of 32 tokens after 256 random patch embeddings (internvl2-1b) or
+# with 1500 random frames (whisper-tiny), then 16 greedy decode steps
+INTERNVL = dict(arch="internvl2_1b", batch=4, prompt=32, decode_steps=16)
+WHISPER = dict(arch="whisper_tiny", batch=4, prompt=32, decode_steps=16)
 MOE_ARCHS = ("grok1_314b", "deepseek_v2_lite_16b")
+# the other dense configs, the VLM and whisper: smoke models card vs CPU
+# ((arch, with the VLM's patch embeddings)), full-width serve runs
+# (label, overrides)
+NEW_SMALL = (("llama3_2_1b", False), ("starcoder2_15b", False),
+             ("qwen2_72b", False), ("internvl2_1b", True),
+             ("internvl2_1b", False), ("whisper_tiny", True))
+# rows 1-3 at each model's heads: (arch, name in the checks)
+HEADS = (("grok1_314b", "grok-1"), ("llama3_2_1b", "llama3.2-1b"),
+         ("internvl2_1b", "internvl2-1b"), ("starcoder2_15b", "starcoder2-15b"),
+         ("qwen2_72b", "qwen2-72b"))
+# qwen2-72b cut to 16 of its 80 layers (80 are 270.9 GiB in f32; 16 are
+# 33 GB in bf16, drawn with a 31 GB f32 wi leaf beside them)
+NEW_SERVE = (("llama3_2_1b", dict(arch="llama3_2_1b")),
+             ("llama3_2_1b-layer-graph", dict(arch="llama3_2_1b",
+                                              layer_graph=True)),
+             ("starcoder2_15b", dict(arch="starcoder2_15b")),
+             ("qwen2_72b", dict(arch="qwen2_72b", n_layers=16)),
+             ("internvl2_1b", dict(arch="internvl2_1b")))
 KERNELS = {
     "ff_attention": dict(
         source="src/repro_torch/kernels/csrc/ff_attention.cu",
@@ -400,12 +440,13 @@ def tail_args(t):
     return (t["a"], t["wo"], t["x"], t["nw2"], t["wg"], t["wu"], t["wo2"])
 
 
-def check_layer_kernels(torch, dev, shapes):
+def check_layer_kernels(torch, dev, shapes, name=None):
     """The three decode-layer kernels against their plain versions: the
-    main path's q-projection (RMSNorm, q bias, RoPE), SwiGLU and MLP tail
-    at B = 4, then B in {1, 13, 16} with RMSNorm off and on and each
-    epilogue; the tail also against its three staged launches, bit for
-    bit."""
+    main path's q-projection (RMSNorm, q bias where the config has one,
+    RoPE), SwiGLU and MLP tail at B = 4, then B in {1, 13, 16} with
+    RMSNorm off and on and each epilogue; the tail also against its three
+    staged launches, bit for bit. With ``name`` (another model's
+    ``shapes``), its B = 4 case alone, checks named after it."""
     from repro_torch.kernels.ff_layer import (ff_layer_matmul,
                                               ff_layer_matmul_ref,
                                               ff_layer_mlp_tail,
@@ -419,10 +460,13 @@ def check_layer_kernels(torch, dev, shapes):
     for dtype in (torch.bfloat16, torch.float32):
         tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
         tag = str(dtype).split(".")[1]
-        for label, m in (("serve", lay["b"]), ("wide", 1), ("wide", 13),
-                         ("wide", 16)):
+        cases = (("serve", lay["b"]),) + (
+            (("wide", 1), ("wide", 13), ("wide", 16)) if name is None else ())
+        for label, m in cases:
+            shown = label if name is None else f"{name} {label}"
             t = layer_inputs(torch, dev, dtype, m, lay, gen)
-            rope = dict(bias=t["bq"], positions=t["pos"],
+            rope = dict(bias=t["bq"] if lay["qkv_bias"] else None,
+                        positions=t["pos"],
                         rope_theta=lay["theta"], head_dim=lay["hd"])
             if label == "serve":
                 rope["positions"] = torch.tensor(lay["positions"], device=dev)
@@ -440,7 +484,7 @@ def check_layer_kernels(torch, dev, shapes):
                 ref = ff_layer_matmul_ref(t["x"], t["wq"], **kw)
                 torch.cuda.synchronize()
                 e = err(out, ref)
-                check(f"ff_layer_matmul {label} {tag} m={m} {norm} {epi}",
+                check(f"ff_layer_matmul {shown} {tag} m={m} {norm} {epi}",
                       e <= tol and out.isfinite().all().item(),
                       f"max|kernel-plain|={e:.3e} tol={tol}")
                 if label == "serve" and dtype == torch.bfloat16:
@@ -452,7 +496,7 @@ def check_layer_kernels(torch, dev, shapes):
                                           norm_weight=nw)
                 torch.cuda.synchronize()
                 e = err(out, ref)
-                check(f"ff_layer_swiglu {label} {tag} m={m} "
+                check(f"ff_layer_swiglu {shown} {tag} m={m} "
                       f"{'rmsnorm' if norm else 'plain'}",
                       e <= tol and out.isfinite().all().item(),
                       f"max|kernel-plain|={e:.3e} tol={tol}")
@@ -463,16 +507,16 @@ def check_layer_kernels(torch, dev, shapes):
             ref = ff_layer_mlp_tail_ref(*tail_args(t))
             torch.cuda.synchronize()
             e = err(fused, ref)
-            check(f"ff_layer_mlp_tail {label} {tag} m={m}",
+            check(f"ff_layer_mlp_tail {shown} {tag} m={m}",
                   e <= tol and fused.isfinite().all().item(),
                   f"max|kernel-plain|={e:.3e} tol={tol}")
-            check(f"ff_layer_mlp_tail == staged bitwise {label} {tag} m={m}",
+            check(f"ff_layer_mlp_tail == staged bitwise {shown} {tag} m={m}",
                   torch.equal(fused, staged),
                   f"max diff {err(fused, staged)}")
             if label == "serve" and dtype == torch.bfloat16:
                 main_err["ff_layer_mlp_tail"] = e
                 q_kw = dict(norm_weight=t["nw1"], **rope)
-                for name, fn in (
+                for kname, fn in (
                         ("ff_layer_matmul qproj", lambda **p: ff_layer_matmul(
                             t["x"], t["wq"], **q_kw, **p)),
                         ("ff_layer_swiglu", lambda **p: ff_layer_swiglu(
@@ -480,8 +524,8 @@ def check_layer_kernels(torch, dev, shapes):
                             **p)),
                         ("ff_layer_mlp_tail", lambda **p: ff_layer_mlp_tail(
                             *tail_args(t), **p))):
-                    check_pipe_bitwise(torch, f"{name} serve bf16 m={m}", fn,
-                                       fn())
+                    check_pipe_bitwise(torch, f"{kname} {shown} bf16 m={m}",
+                                       fn, fn())
     return main_err
 
 
@@ -1370,31 +1414,48 @@ def decode_cache(model, cache, s, s_max):
     """A prefill's cache of ``s`` rows ready for decode steps up to
     ``s_max``: the attention and latent caches padded on their sequence
     axis (the hybrid's ``attn[i]`` leaves on axis 1, the stacked
-    ``[L, B, S, ...]`` leaves of the dense and MoE families on axis 2);
-    recurrent states as they are."""
+    ``[L, B, S, ...]`` leaves of the dense, VLM and MoE families and the
+    encoder-decoder's self-attention cache on axis 2); recurrent states
+    and the cross-attention K/V as they are."""
     from repro_torch.launch import serve
     family = model.cfg.family
     if family == "hybrid":
         return serve.pad_cache_to(cache, s, s_max,
                                   {"mamba": None, "attn": 1})
-    if family in ("dense", "moe"):
+    if family == "encdec":
+        return serve.pad_cache_to(cache, s, s_max,
+                                  {"self": 2, "cross": None})
+    if family in ("dense", "moe", "vlm"):
         return serve.pad_cache_to(cache, s, s_max, 2)
     return cache
 
 
-def generate(torch, model, params, tokens, n_steps, compiled=True):
+def prefill_batch(tokens, extra):
+    """The prefill batch of ``tokens`` and ``extra`` (a VLM's
+    ``image_embeds``, whisper's ``frames``), and the cache rows it makes
+    (a VLM's patches come before its tokens)."""
+    batch = {"tokens": tokens, **(extra or {})}
+    rows = tokens.shape[1]
+    if "image_embeds" in batch:
+        rows += batch["image_embeds"].shape[1]
+    return batch, rows
+
+
+def generate(torch, model, params, tokens, n_steps, compiled=True,
+             extra=None):
     """A model's path through ``launch/steps.py`` (compiled steps on the
-    card unless ``compiled`` is False): one prefill of ``tokens`` [B, S],
-    then ``n_steps`` greedy decode steps from its last logits (the cache
-    padded to S + n_steps first). Returns (logits of each step, prefill
-    s, decode s)."""
+    card unless ``compiled`` is False): one prefill of ``tokens`` [B, S]
+    (with the ``extra`` inputs of the batch), then ``n_steps`` greedy
+    decode steps from its last logits (the cache padded by ``n_steps``
+    rows first). Returns (logits of each step, prefill s, decode s)."""
     from repro_torch.launch import steps
     prefill = steps.make_prefill_step(model, compiled=compiled)
     decode = steps.make_decode_step(model, compiled=compiled)
-    b, s = tokens.shape
+    b = tokens.shape[0]
+    batch, s = prefill_batch(tokens, extra)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": tokens})
+    logits, cache = prefill(params, batch)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     cache = decode_cache(model, cache, s, s + n_steps)
@@ -1542,7 +1603,8 @@ def run_ssm_models(torch, dev):
     return scan_launches
 
 
-def profile_ssm_prefill(torch, model, params, tokens, compiled=True):
+def profile_ssm_prefill(torch, model, params, tokens, compiled=True,
+                        extra=None):
     """Where a full-width prefill's time goes: its wall ms (host clock
     around one synchronised prefill, after one unclocked), then one
     profiled prefill: the device's busy ms (kernel and copy times from
@@ -1552,15 +1614,16 @@ def profile_ssm_prefill(torch, model, params, tokens, compiled=True):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import steps
     prefill = steps.make_prefill_step(model, compiled=compiled)
-    prefill(params, {"tokens": tokens})
+    batch = prefill_batch(tokens, extra)[0]
+    prefill(params, batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    prefill(params, {"tokens": tokens})
+    prefill(params, batch)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        prefill(params, {"tokens": tokens})
+        prefill(params, batch)
         torch.cuda.synchronize()
     p = device_profile(prof, 1)
     scan = sum(t for n, t in p["by_name"].items() if "scan_kernel" in n)
@@ -1577,17 +1640,19 @@ def profile_ssm_prefill(torch, model, params, tokens, compiled=True):
             "scan_share_of_wall": scan / wall}
 
 
-def profile_ssm_decode(torch, model, params, tokens, n_steps=8, rounds=3):
+def profile_ssm_decode(torch, model, params, tokens, n_steps=8, rounds=3,
+                       extra=None):
     """Where a full-width decode step's time goes, compiled and eager in
-    turn (``profile_steps``), each from its own prefill of ``tokens``
-    (the attention and latent caches padded for every step)."""
+    turn (``profile_steps``), each from its own prefill of ``tokens`` and
+    ``extra`` (the attention and latent caches padded for every step)."""
     from repro_torch.launch import steps
-    b, s = tokens.shape
+    b = tokens.shape[0]
+    batch, s = prefill_batch(tokens, extra)
 
     def make_step(compiled):
         prefill = steps.make_prefill_step(model, compiled=compiled)
         decode = steps.make_decode_step(model, compiled=compiled)
-        logits, cache = prefill(params, {"tokens": tokens})
+        logits, cache = prefill(params, batch)
         cache = decode_cache(model, cache, s,
                              s + (rounds + 2) * n_steps + 2)
         state = {"cur": torch.argmax(logits, dim=-1).to(torch.int32),
@@ -1688,44 +1753,40 @@ def time_scan_kernel(torch, dev, scan_launches):
 # ---------------------------------------------------------------------------
 
 
-def check_moe_heads(torch, dev):
-    """Prefill and decode attention at grok-1's heads (48 of 128 over 8 KV
-    heads, GQA 6) at its default serve run's shapes (4 slots, its prefill
-    bucket, page 16, the lengths of its first lockstep batch halfway
-    through decode), against their plain versions; paged == contiguous bit
-    for bit, and both bitwise across depth x streams."""
-    from repro_torch.configs.base import get_config
+def check_heads(torch, dev, arch, name):
+    """Prefill and decode attention at ``arch``'s heads at its default
+    serve run's shapes (4 slots, its prefill bucket, page 16, the lengths
+    of its first lockstep batch halfway through decode), against their
+    plain versions; paged == contiguous bit for bit, and both bitwise
+    across depth x streams (prefill attention too, in bf16)."""
     from repro_torch.kernels.ff_attention import attention, attention_ref
     from repro_torch.kernels.ff_decode_attention import (decode_attention,
                                                          decode_attention_ref)
-    from repro_torch.launch import serve
     from repro_torch.runtime.paged_kv import (paged_decode_attention,
                                               paged_decode_attention_ref)
-    cfg = get_config(GROK["arch"])
-    page, slots = SERVE["page"], SERVE["slots"]
-    reqs = serve.make_requests(
-        SERVE["requests"], prompt_len=SERVE["prompt_len"],
-        max_new=SERVE["max_new"], rate=SERVE["rate"], vocab=cfg.vocab,
-        seed=SERVE["seed"])
-    p_max = serve._bucket(max(len(r.prompt) for r in reqs))
-    n_pages = max(-(-(len(r.prompt) + r.max_new) // page) for r in reqs)
-    lengths = [len(r.prompt) + SERVE["max_new"] // 2 for r in reqs[:slots]]
-    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    g = h // kvh
+    shapes = main_path_shapes(torch, arch)
+    bh, g, p_max, d = shapes["prefill"]
+    dec = shapes["decode"]
+    h, kvh, page, lengths = dec["h"], dec["kvh"], dec["page"], \
+        dec["lengths"]
+    slots = dec["b"]
     gen = torch.Generator(device=dev).manual_seed(12)
     for dtype in (torch.bfloat16, torch.float32):
         tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
-        tag = f"grok-1 heads {h}/{kvh} hd={d} {str(dtype).split('.')[1]}"
-        q, k, v = prefill_inputs(torch, dev, dtype, slots * h, g, p_max, d,
-                                 gen)
+        tag = f"{name} heads {h}/{kvh} hd={d} {str(dtype).split('.')[1]}"
+        q, k, v = prefill_inputs(torch, dev, dtype, bh, g, p_max, d, gen)
         out = attention(q, k, v, kv_groups=g)
         e = err(out, attention_ref(q, k, v, kv_groups=g))
-        check(f"ff_attention {tag} bh={slots * h} s={p_max}",
+        check(f"ff_attention {tag} bh={bh} s={p_max}",
               e <= tol and out.isfinite().all().item(),
               f"max|kernel-plain|={e:.3e} tol={tol}")
+        if dtype == torch.bfloat16:
+            check_pipe_bitwise(
+                torch, f"ff_attention {tag} bh={bh} s={p_max}",
+                lambda **kw: attention(q, k, v, kv_groups=g, **kw), out)
         q, pool, tables, lens, kc, vc = decode_inputs(
-            torch, dev, dtype, slots, h, kvh, d, page, n_pages,
-            slots * n_pages, lengths, gen)
+            torch, dev, dtype, slots, h, kvh, d, page, dec["n_pages"],
+            dec["n_blocks"], lengths, gen)
         out_c = decode_attention(q, kc, vc, lens, block_kv=page)
         out_p = paged_decode_attention(q, pool, tables, lens)
         e_c = err(out_c, decode_attention_ref(q, kc, vc, lens,
@@ -1811,24 +1872,75 @@ def check_moe_small(torch, dev):
               f"token, gate margin): {flips[:8]}")
 
 
-def run_deepseek(torch, dev):
-    """Full-width, full-depth deepseek-v2-lite (27 layers, bf16, drawn and
-    cast leaf by leaf from seed 0) through ``launch/steps.py``: a warm-up,
-    then with every launch count set to 0 one prefill of DEEPSEEK's 4 x
-    256-token prompts and 16 greedy decode steps compiled, then the same
-    eagerly. Requires finite logits of the right shape, every compiled
-    step's logits equal to the eager step's bit for bit, and no kernel
-    of the port launched (MLA runs the reference's "xla" attention, the
-    MoE its batched products). Prints a ``model[...]`` line: prefill and
-    decode ms, compiled and eager, a profile of each (busy share, device
-    kernels), peak memory, and the bytes of weights a decode step reads
-    (every expert's: the reference runs all experts over the capacity
-    buffer)."""
+def check_new_models_small(torch, dev):
+    """The smoke llama3.2-1b, starcoder2-15b, qwen2-72b, internvl2-1b
+    (with and without patch embeddings) and whisper-tiny (with frames)
+    models (f32) on the card against the same models on the CPU: prefill
+    of two 24-token prompts and 3 greedy decode steps through the
+    compiled steps, logits within MODEL_TOL and greedy tokens equal."""
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.models import build_model
+    for arch, with_extra in NEW_SMALL:
+        cfg = smoke_config(arch)
+        model = build_model(cfg)
+        params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+        params = tree_to(params_cpu, dev, torch)
+        gen = torch.Generator().manual_seed(3)
+        toks = torch.randint(1, cfg.vocab, (2, 24), dtype=torch.int32,
+                             generator=gen)
+        extra, tag = {}, ""
+        if with_extra and cfg.family == "vlm":
+            extra["image_embeds"] = torch.randn(2, cfg.n_patches,
+                                                cfg.d_model, generator=gen)
+            tag = f", {cfg.n_patches} patch embeddings"
+        if cfg.family == "encdec":
+            extra["frames"] = torch.randn(2, cfg.n_frames, cfg.d_model,
+                                          generator=gen)
+            tag = f", {cfg.n_frames} frames"
+        got = [g.cpu() for g in generate(
+            torch, model, params, toks.to(dev), 3,
+            extra={k: v.to(dev) for k, v in extra.items()})[0]]
+        want = generate(torch, model, params_cpu, toks, 3, extra=extra)[0]
+        e = max(err(g, w) for g, w in zip(got, want))
+        same = all(torch.equal(g.argmax(-1), w.argmax(-1))
+                   for g, w in zip(got, want))
+        finite = all(g.isfinite().all().item() for g in got)
+        check(f"smoke {arch} on card vs cpu (prefill{tag}, 3 decode "
+              f"steps)", e <= MODEL_TOL and same and finite,
+              f"max|logits diff|={e:.3e} tol={MODEL_TOL}, greedy equal: "
+              f"{same}, finite: {finite}")
+
+
+def decode_weight_bytes(cfg, leaves):
+    """The weight bytes a decode step reads (each once), from (path,
+    tensor) leaves: every leaf but the embedding, which is gathered (a
+    tied one is read whole as the unembedding), whisper's learned
+    positions (a row a step) and its encoder (run at prefill only)."""
+    skip = {"dec_pos", "enc_layers", "enc_norm"}
+    return sum(x.numel() * x.element_size() for path, x in leaves
+               if (path[0] != "embed" or cfg.tie_embeddings)
+               and not skip & set(path))
+
+
+def run_steps_model(torch, dev, spec, required, no_kernel=None):
+    """A full-width model (bf16, drawn and cast leaf by leaf from seed 0)
+    through ``launch/steps.py``: a warm-up, then with every launch count
+    set to 0 one prefill of ``spec``'s prompts (with a VLM's random patch
+    embeddings or whisper's random frames, full size) and its greedy
+    decode steps compiled, then the same eagerly. Requires finite logits
+    of the right shape, every compiled step's logits equal to the eager
+    step's bit for bit, and the kernels in ``required`` launched, or, with
+    ``no_kernel`` (the reason), no kernel of the port launched. Prints a
+    ``model[...]`` line: prefill and decode ms, compiled and eager, a
+    profile of each (busy share, device kernels), peak memory, and the
+    bytes of weights a decode step reads (every expert's, for the MoE:
+    the reference runs all experts over the capacity buffer). Returns the
+    launches."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import build_model
     from repro_torch.models import layers as L
-    arch, b, s, n_steps = (DEEPSEEK["arch"], DEEPSEEK["batch"],
-                           DEEPSEEK["prompt"], DEEPSEEK["decode_steps"])
+    arch, b, s, n_steps = (spec["arch"], spec["batch"], spec["prompt"],
+                           spec["decode_steps"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config(arch)
@@ -1841,32 +1953,44 @@ def run_deepseek(torch, dev):
     torch.cuda.reset_peak_memory_stats()
     leaves = list(L.tree_leaves(params))
     n_params = sum(x.numel() for _, x in leaves)
-    weight_bytes = sum(x.numel() * x.element_size() for path, x in leaves
-                       if path[0] != "embed")
+    weight_bytes = decode_weight_bytes(cfg, leaves)
     expert_bytes = sum(x.numel() * x.element_size() for path, x in leaves
                        if path[-1] in ("w1", "w2"))
+    gen = torch.Generator(device=dev).manual_seed(2)
     toks = torch.randint(1, cfg.vocab, (b, s), dtype=torch.int32,
-                         device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(2))
-    generate(torch, model, params, toks, n_steps)   # warm-up: the captures
+                         device=dev, generator=gen)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["image_embeds"] = torch.randn(
+            b, cfg.n_patches, cfg.d_model, generator=gen,
+            device=dev).to(cfg.cdtype)
+    if cfg.family == "encdec":
+        extra["frames"] = torch.randn(b, cfg.n_frames, cfg.d_model,
+                                      generator=gen, device=dev
+                                      ).to(cfg.cdtype)
+    # warm-up: the captures
+    generate(torch, model, params, toks, n_steps, extra=extra)
     wr = wrappers()
     for w in wr.values():
         w.launches = 0
     compiled, prefill_s, decode_s = generate(torch, model, params, toks,
-                                             n_steps)
+                                             n_steps, extra=extra)
     launches = {name: w.launches for name, w in wr.items() if w.launches}
     eager, prefill_e, decode_e = generate(torch, model, params, toks,
-                                          n_steps, compiled=False)
+                                          n_steps, compiled=False,
+                                          extra=extra)
     pre = {}
     for mode in ("compiled", "eager"):
         pre[mode] = profile_ssm_prefill(torch, model, params, toks,
-                                        compiled=mode == "compiled")
+                                        compiled=mode == "compiled",
+                                        extra=extra)
         for key in [k for k in pre[mode] if k.startswith("scan_")]:
             del pre[mode][key]
-    prof = profile_ssm_decode(torch, model, params, toks)
+    prof = profile_ssm_decode(torch, model, params, toks, extra=extra)
     summary = dict(
         arch=arch, params=n_params, init_s=init_s,
         init_peak_memory_gib=init_peak, batch=b, prompt=s,
+        extra_inputs={k: list(v.shape) for k, v in extra.items()},
         decode_steps=n_steps, prefill_ms=prefill_s * 1e3,
         prefill_ms_eager=prefill_e * 1e3,
         decode_ms_per_step=decode_s * 1e3 / n_steps,
@@ -1874,8 +1998,11 @@ def run_deepseek(torch, dev):
         decode_tokens_per_s=b * n_steps / decode_s,
         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         decode_weight_bytes_read=weight_bytes,
-        decode_expert_bytes_read=expert_bytes, launches=launches,
+        decode_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+        launches=launches,
         prefill_profile=pre, decode_profile=prof)
+    if expert_bytes:
+        summary["decode_expert_bytes_read"] = expert_bytes
     print(f"model[{arch}] " + json.dumps(summary), flush=True)
     finite = all(lg.isfinite().all().item() for lg in compiled)
     check(f"model[{arch}] logits finite and of shape "
@@ -1885,11 +2012,15 @@ def run_deepseek(torch, dev):
     same = [torch.equal(c, e) for c, e in zip(compiled, eager)]
     check(f"model[{arch}] every compiled step == eager bitwise", all(same),
           f"prefill and {n_steps} decode steps' logits: {same}")
-    check(f"model[{arch}] launches no kernel of the port (attn_impl "
-          f"{cfg.attn_impl!r}, as the reference)", not launches,
-          f"launches {launches}")
+    if no_kernel is not None:
+        check(f"model[{arch}] launches no kernel of the port ({no_kernel})",
+              not launches, f"launches {launches}")
+    for name in required:
+        check(f"model[{arch}] {name} launched", launches.get(name, 0) > 0,
+              f"{launches.get(name, 0)} launches")
     del params, model, compiled, eager
     torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1947,11 +2078,36 @@ def run_serve(torch, label, required, **overrides):
     return launches
 
 
-def main_path_shapes(torch):
-    """The kernels' shapes on the default serve run, from its own trace."""
+def run_new_serves(torch, dev):
+    """The dense configs and the VLM served at full width (NEW_SERVE: the
+    serve defaults, qwen2-72b cut in depth, llama3.2-1b once more under
+    ``--layer-graph``), each with ``run_serve``'s gates; after each
+    per-op run, its steps compiled against eager bit for bit and its
+    compiled decode steps profiled (``check_compiled_serve``; llama3.2-1b's
+    layer graph too). One model on the card at a time. Returns each run's
+    launches by label."""
+    out = {}
+    for label, overrides in NEW_SERVE:
+        graph = overrides.get("layer_graph", False)
+        out[label] = run_serve(torch, label,
+                               LAYER_GRAPH if graph else PER_OP,
+                               **overrides)
+        if not graph:
+            arch = overrides["arch"]
+            check_compiled_serve(torch, dev, arch, label,
+                                 n_layers=overrides.get("n_layers"),
+                                 layer_graph=arch == "llama3_2_1b",
+                                 per_use=False, profile=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def main_path_shapes(torch, arch=SERVE["arch"]):
+    """The kernels' shapes on ``arch``'s default serve run (qwen1.5-0.5B's
+    unless another is named), from its own trace."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import serve
-    cfg = get_config(SERVE["arch"])
+    cfg = get_config(arch)
     page, slots = SERVE["page"], SERVE["slots"]
 
     def trace(prompt_len):
@@ -1985,6 +2141,7 @@ def main_path_shapes(torch):
                                 lengths=DECODE_LONG["lengths"]),
             "layer": dict(b=slots, d=cfg.d_model, hq=h * d, f=cfg.d_ff,
                           hd=d, theta=cfg.rope_theta,
+                          qkv_bias=cfg.qkv_bias,
                           positions=[n - 1 for n in lengths])}
 
 
@@ -2285,32 +2442,39 @@ def counted(torch, fn):
     return {name: w.launches for name, w in wr.items() if w.launches}
 
 
-def check_compiled_steps(torch, dev):
-    """Each step kind replayed from a CUDA graph against the same step run
-    eagerly (``compiled=False``) from the same inputs, bit for bit: the
-    logits, the greedy tokens and every cache leaf it returns, over two
-    steps (the first call warms up, captures and replays, the second only
-    replays). The kinds: qwen1.5-0.5B at full width (random weights from
-    seed 0, cast once) decoding through the dense cache, the paged pool
-    and the layer graph at the default serve shapes, and its prefill at
-    the default run's first bucket (4 x 32 tokens); rwkv6-7b and
-    zamba2-2.7b at smoke width in bf16, prefill and decode (phase e runs
-    them at full width). Then a replayed step's launch counts against an
-    eager step's (equal: the counts mean device launches), and the
-    cast-once weights against the per-use cast (eager prefill and decode
-    logits equal bit for bit)."""
+def check_compiled_serve(torch, dev, arch, name, n_layers=None,
+                         layer_graph=True, per_use=True, profile=False):
+    """``arch``'s serve steps at full width (random weights from seed 0,
+    cast once; ``n_layers`` cuts the depth) replayed from their CUDA
+    graphs against the same steps run eagerly, bit for bit: the default
+    run's first bucket prefill (4 x its first batch), then two decode
+    steps through the dense cache, the paged pool and (``layer_graph``)
+    the layer graph, and a replay's launch counts against an eager
+    step's. With ``per_use`` also the cast-once weights against the
+    per-use cast (the f32 tree must fit: qwen1.5-0.5B's does). With
+    ``profile``, a ``profile[name]`` line: each kind's compiled decode
+    step (``profile_steps``: wall, busy share, device kernels, the top
+    kernels)."""
     import numpy as np
-    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.configs.base import get_config
     from repro_torch.launch import serve, steps
     from repro_torch.models import build_model
+    from repro_torch.models import layers as L
     from repro_torch.runtime.paged_kv import PagedKVCache
     page, slots = SERVE["page"], SERVE["slots"]
-    cfg = get_config(SERVE["arch"]).replace(decode_block_kv=page)
+    cfg = get_config(arch).replace(decode_block_kv=page)
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
     model = build_model(cfg)
-    models = {"dense": model, "paged": model,
-              "layer-graph": build_model(cfg.replace(layer_graph=True))}
-    per_use = model.init(torch.Generator(device=dev).manual_seed(0), dev)
-    params = model.cast_params(per_use)
+    models = {"dense": model, "paged": model}
+    if layer_graph:
+        models["layer-graph"] = build_model(cfg.replace(layer_graph=True))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if per_use:
+        per_use = model.init(gen, dev)
+        params = model.cast_params(per_use)
+    else:
+        params = model.init_cast(gen, dev)
     reqs = serve.make_requests(
         SERVE["requests"], prompt_len=SERVE["prompt_len"],
         max_new=SERVE["max_new"], rate=SERVE["rate"], vocab=cfg.vocab,
@@ -2326,16 +2490,17 @@ def check_compiled_steps(torch, dev):
     want = tree_clone(prefill_e(params, batch))
     got = [tree_clone(steps.make_prefill_step(model)(params, batch))
            for _ in range(2)]
-    check(f"compiled qwen prefill ({slots} x {p_max}) == eager bitwise, "
+    check(f"compiled {name} prefill ({slots} x {p_max}) == eager bitwise, "
           f"capture and replay", all(tree_equal(torch, g, want)
                                      for g in got),
           "logits and K/V caches")
-    check("cast-once weights == per-use cast (qwen prefill logits)",
-          torch.equal(prefill_e(per_use, batch)[0], want[0]),
-          "bitwise, bf16")
+    if per_use:
+        check(f"cast-once weights == per-use cast ({name} prefill logits)",
+              torch.equal(prefill_e(per_use, batch)[0], want[0]),
+              "bitwise, bf16")
     dense = want[1]
 
-    def cache_for(kind):
+    def cache_for(kind, n_pages=n_pages):
         if kind != "paged":
             return serve.pad_cache_to(dense, p_max, n_pages * page, 2)
         kv = PagedKVCache(
@@ -2360,24 +2525,63 @@ def check_compiled_steps(torch, dev):
                 outs.append(tree_clone((nxt, lg, cache)))
                 b = {"token": nxt, "lengths": b["lengths"] + 1}
             sides[compiled] = outs
-        check(f"compiled qwen {kind} decode == eager bitwise, capture and "
-              f"replay", all(tree_equal(torch, c, e)
-                             for c, e in zip(sides[True], sides[False])),
+        check(f"compiled {name} {kind} decode == eager bitwise, capture "
+              f"and replay", all(tree_equal(torch, c, e) for c, e in
+                                 zip(sides[True], sides[False])),
               "next tokens, logits and the cache written, two steps")
         cache = cache_for(kind)
         eager = counted(torch, lambda: steps.make_decode_step(
             m, compiled=False)(params, dict(start), tree_clone(cache)))
         replay = counted(torch, lambda: steps.make_decode_step(m)(
             params, dict(start), cache))
-        check(f"compiled qwen {kind} decode: a replay counts the eager "
+        check(f"compiled {name} {kind} decode: a replay counts the eager "
               f"step's launches", replay == eager and replay,
               f"replay {replay}, eager {eager}")
-    cache = cache_for("dense")
-    check("cast-once weights == per-use cast (qwen dense decode logits)",
-          torch.equal(steps.make_decode_step(model, compiled=False)(
-              params, dict(start), tree_clone(cache))[1],
-              steps.make_decode_step(model, compiled=False)(
-              per_use, dict(start), cache)[1]), "bitwise, bf16")
+    if per_use:
+        cache = cache_for("dense")
+        check(f"cast-once weights == per-use cast ({name} dense decode "
+              f"logits)",
+              torch.equal(steps.make_decode_step(model, compiled=False)(
+                  params, dict(start), tree_clone(cache))[1],
+                  steps.make_decode_step(model, compiled=False)(
+                  per_use, dict(start), cache)[1]), "bitwise, bf16")
+    if profile:
+        n_steps, rounds = 8, 3
+        rows = p_max + (rounds + 2) * n_steps + 2   # every step's cache row
+        fns = {}
+        for kind, m in models.items():
+            state = {"b": dict(start),
+                     "cache": cache_for(kind, -(-rows // page))}
+
+            def step(decode=steps.make_decode_step(m), state=state):
+                nxt, _, state["cache"] = decode(params, state["b"],
+                                                state["cache"])
+                nxt.cpu()                    # as a scheduler reads it
+                state["b"] = {"token": nxt,
+                              "lengths": state["b"]["lengths"] + 1}
+            fns[f"{kind} compiled"] = step
+        out = profile_steps(torch, fns, n_steps, rounds)
+        for p in out.values():
+            del p["by_name"], p["count"]
+        nbytes = decode_weight_bytes(cfg, L.tree_leaves(params))
+        print(f"profile[{name}] " + json.dumps({
+            "decode_weight_bytes_read": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, **out}), flush=True)
+
+
+def check_compiled_steps(torch, dev):
+    """Each step kind replayed from a CUDA graph against the same step run
+    eagerly (``compiled=False``) from the same inputs, bit for bit: the
+    logits, the greedy tokens and every cache leaf it returns, over two
+    steps (the first call warms up, captures and replays, the second only
+    replays). The kinds: qwen1.5-0.5B at full width
+    (:func:`check_compiled_serve`); rwkv6-7b and zamba2-2.7b at smoke
+    width in bf16, prefill and decode (phase e runs them at full
+    width)."""
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import build_model
+    check_compiled_serve(torch, dev, SERVE["arch"], "qwen")
 
     for arch in SSM["archs"]:
         scfg = smoke_config(arch).replace(compute_dtype="bfloat16")
@@ -2654,8 +2858,12 @@ def main() -> int:
     main_err.update(check_scan_kernel(torch, dev))
     check_attention_head_dims(torch, dev)
     check_ssm_small(torch, dev)
-    check_moe_heads(torch, dev)
     check_moe_small(torch, dev)
+    for arch, name in HEADS:
+        check_heads(torch, dev, arch, name)
+    check_layer_kernels(torch, dev, main_path_shapes(torch, "llama3_2_1b"),
+                        name="llama3.2-1b")
+    check_new_models_small(torch, dev)
 
     launches = run_serve(torch, "default", PER_OP)
     run_serve(torch, "prompt-256", PER_OP, prompt_len=256)
@@ -2663,10 +2871,16 @@ def main() -> int:
         torch, "layer-graph", LAYER_GRAPH, layer_graph=True).items()
         if k.startswith("ff_layer")})
     grok_launches = run_serve(torch, GROK["arch"], PER_OP, **GROK)
+    new_launches = run_new_serves(torch, dev)
     launches.update(run_library_path(torch, dev, shapes))
     scan_launches = run_ssm_models(torch, dev)
     launches["ff_chunk_scan"] = sum(scan_launches.values())
-    run_deepseek(torch, dev)
+    run_steps_model(torch, dev, DEEPSEEK, (),
+                    "attn_impl 'xla', as the reference")
+    internvl_launches = run_steps_model(torch, dev, INTERNVL, PER_OP[:2])
+    run_steps_model(torch, dev, WHISPER, (),
+                    "every attention of encdec is the reference's unfused "
+                    "path, whatever attn_impl says")
 
     rows = time_kernels(torch, dev, shapes)
     rows.update(time_layer_kernels(torch, dev, shapes))
@@ -2690,7 +2904,16 @@ def main() -> int:
         if name in PER_OP:
             kernels[-1]["launches_by_path"] = {
                 "serve[default]": launches[name],
-                f"serve[{GROK['arch']}]": grok_launches[name]}
+                f"serve[{GROK['arch']}]": grok_launches[name],
+                **{f"serve[{label}]": n[name]
+                   for label, n in new_launches.items()},
+                f"model[{INTERNVL['arch']}]": internvl_launches.get(name, 0)}
+        if name in ("ff_layer_matmul", "ff_layer_mlp_tail"):
+            kernels[-1]["launches_by_path"] = {
+                "serve[layer-graph]": launches[name],
+                **{f"serve[{label}]": n[name]
+                   for label, n in new_launches.items()
+                   if label.endswith("layer-graph")}}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

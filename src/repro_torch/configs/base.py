@@ -8,7 +8,9 @@ and ``scan_impl`` take the reference's values: ``"ff"`` the CUDA kernels
 scan ``"xla_tiled"``) the reference's unfused formulations in plain
 PyTorch. The port's kernels are its point, so both default to ``"ff"``
 (the reference's default is ``"xla"``); a config whose model cannot run
-under ``"ff"`` pins ``"xla"`` (deepseek-v2-lite's MLA).
+under ``"ff"`` pins ``"xla"`` (deepseek-v2-lite's MLA). The reference's
+sharding presets (``rule_overrides`` of the newer configs, qwen2-72b's
+``OPTIMIZED``) are left out of the config files: the port has no mesh.
 """
 
 from __future__ import annotations
@@ -21,10 +23,15 @@ import torch
 
 ARCH_IDS = (
     "qwen1_5_0p5b",
+    "llama3_2_1b",
+    "starcoder2_15b",
+    "qwen2_72b",
     "grok1_314b",
     "deepseek_v2_lite_16b",
     "rwkv6_7b",
     "zamba2_2p7b",
+    "internvl2_1b",
+    "whisper_tiny",
 )
 
 

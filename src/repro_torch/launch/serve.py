@@ -23,6 +23,13 @@ densely, so paged decode is bitwise-identical to the contiguous path and
 the two schedulers emit token-for-token equal sequences.
 :func:`decode_parity_probe` checks the bitwise claim.
 
+The decoder-only K/V families are served: dense (qwen1.5, llama3.2,
+starcoder2, qwen2), MoE with attention (grok-1) and the VLM (internvl2,
+on text prompts, as the reference's ``serve_bench`` sends them: its
+prefill without ``image_embeds`` is the dense LM's). The others are
+refused (``SystemExit``): encdec (whisper) as the reference refuses it,
+and the recurrent families and MLA, whose caches are no K/V cache.
+
 On the card every step is compiled (``launch/steps.py``): prefill is
 captured as a CUDA graph once per (batch, bucket) and decode once per
 cache signature, then replayed, as the reference jits both; weights are
@@ -457,6 +464,9 @@ def decode_parity_probe(model, params, cfg, *, page: int, n_steps: int = 3,
 
 def serve_bench(args) -> Dict[str, object]:
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "encdec":
+        # the reference's refusal, word for word
+        raise SystemExit("serve driver targets decoder-only archs")
     if cfg.family in ("ssm", "hybrid") or cfg.kv_lora_rank:
         # no dense "k" cache to pad or page (MLA keeps a latent {"c",
         # "k_rope"}), and a recurrent state would take the lockstep re-feed
@@ -534,7 +544,7 @@ def add_serve_args(ap: argparse.ArgumentParser) -> None:
                     help="cut the config to this many layers, at full "
                          "width (a model whose every layer does not fit "
                          "one card: grok-1's 64 layers are 1,179 GiB in "
-                         "f32)")
+                         "f32, qwen2-72b's 80 are 270.9 GiB)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)

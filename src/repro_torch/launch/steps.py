@@ -18,6 +18,7 @@ them eagerly on the card too: the eager side of a comparison.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, List, Tuple
 
 import torch
@@ -159,8 +160,12 @@ def _cuda_capture(run: Callable[[], object], reload: Callable[[], None],
     tensor map by value (``ff_attention``, ``ff_attention_proj``,
     ``ff_matmul``) build it on the host at the launch; the captured node
     keeps that map, which is right because the graph's buffers (static
-    inputs, weights, its pool) never move. A failed capture raises: there
-    is no eager fallback."""
+    inputs, weights, its pool) never move. The cyclic garbage collector
+    is off during the capture: a model holds its compiled steps, whose
+    functions hold the model, so a dropped model's graphs are freed by
+    the collector, and a graph freed while another is being captured
+    invalidates that capture. A failed capture raises: there is no eager
+    fallback."""
     stream = _STREAMS.get(device)
     if stream is None:
         stream = _STREAMS[device] = torch.cuda.Stream(device)
@@ -174,10 +179,14 @@ def _cuda_capture(run: Callable[[], object], reload: Callable[[], None],
     counters = launch_counters()
     before = [w.launches for w in counters]
     graph = torch.cuda.CUDAGraph()
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         with torch.cuda.graph(graph, pool=_POOLS[device], stream=stream):
             out = run()
     finally:
+        if collecting:
+            gc.enable()
         # the capture launched nothing: its counts go to each replay
         delta = [(w, w.launches - n) for w, n in zip(counters, before)]
         for w, n in zip(counters, before):

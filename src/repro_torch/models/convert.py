@@ -17,7 +17,15 @@ the port's ``param_specs`` of the same family:
   (and ``shared.{wi, wo}`` where the config has shared experts) in place
   of the dense FFN;
 - moe_mla (deepseek-v2-lite): the moe tree with
-  ``stack.layers.mixer.{wq, wdkv, kv_norm, wuk, wuv, wo}``.
+  ``stack.layers.mixer.{wq, wdkv, kv_norm, wuk, wuv, wo}``;
+- dense with ``act="gelu"`` (starcoder2): ``stack.layers.ffn.{wi, bi, wo,
+  bo}`` and LayerNorm ``{w, b}`` under ``norm1``, ``norm2`` and
+  ``final_norm``;
+- vlm (internvl2): the dense tree and ``vision_proj``;
+- encdec (whisper): ``embed``, ``encdec.{enc_layers.{norm1, attn.*,
+  norm2, ffn.*}, enc_norm, dec_layers.{norm1, self_attn.*, norm_x,
+  cross_attn.*, norm2, ffn.*}, dec_norm, dec_pos}`` (layers stacked
+  ``[L, ...]``), ``unembed``.
 
 Layouts are kept, so the port computes on exactly the reference's
 tensors.

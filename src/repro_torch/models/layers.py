@@ -20,6 +20,7 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -156,6 +157,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x[..., :half], x[..., half:]
     rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return rot.to(x.dtype)
+
+
+def sinusoidal_positions(s: int, d: int) -> torch.Tensor:
+    """[s, d] absolute positions (sin then cos) on the CPU, computed in
+    numpy float64 as the reference computes them and cast once to
+    float32: the same bits at every shape (torch's float64 sin rounds
+    differently at a few large angles)."""
+    pos = np.arange(s)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * dim / d)
+    return torch.from_numpy(np.concatenate(
+        [np.sin(ang), np.cos(ang)], axis=-1).astype(np.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -349,18 +362,27 @@ attention_proj = ff_attention_proj
 
 
 def mlp_specs(d: int, f: int, act: str) -> Dict[str, ParamSpec]:
-    if act != "swiglu":
-        raise NotImplementedError(f"activation {act!r} is not ported")
-    return {"wo": ParamSpec((f, d), ("mlp", "embed")),
-            "wi": ParamSpec((d, 2 * f), ("embed", "mlp"))}
+    """SwiGLU: ``wi [d, 2f]`` (gate then up), ``wo [f, d]``; GELU:
+    ``wi [d, f]``, ``bi [f]``, ``wo [f, d]``, ``bo [d]`` (biases zero)."""
+    s = {"wo": ParamSpec((f, d), ("mlp", "embed"))}
+    if act == "swiglu":
+        s["wi"] = ParamSpec((d, 2 * f), ("embed", "mlp"))
+    else:
+        s["wi"] = ParamSpec((d, f), ("embed", "mlp"))
+        s["bi"] = ParamSpec((f,), ("mlp",), init="zeros")
+        s["bo"] = ParamSpec((d,), ("embed",), init="zeros")
+    return s
 
 
 def mlp_apply(p, x, act: str) -> torch.Tensor:
-    if act != "swiglu":
-        raise NotImplementedError(f"activation {act!r} is not ported")
+    """SwiGLU, or ``gelu(x @ wi + bi) @ wo + bo`` with the tanh-approximate
+    GELU (``jax.nn.gelu``'s default, which the reference calls)."""
     dt = x.dtype
-    gate, up = torch.chunk(x @ p["wi"].to(dt), 2, dim=-1)
-    return (F.silu(gate) * up) @ p["wo"].to(dt)
+    if act == "swiglu":
+        gate, up = torch.chunk(x @ p["wi"].to(dt), 2, dim=-1)
+        return (F.silu(gate) * up) @ p["wo"].to(dt)
+    h = F.gelu(x @ p["wi"].to(dt) + p["bi"].to(dt), approximate="tanh")
+    return h @ p["wo"].to(dt) + p["bo"].to(dt)
 
 
 def embed_specs(vocab: int, d: int) -> ParamSpec:

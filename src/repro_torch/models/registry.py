@@ -4,13 +4,14 @@ family with the serving entry points.
   prefill -> prefill(params, batch)            -> (last-token logits, cache)
   decode  -> decode_step(params, batch, cache) -> (logits, cache)
 
-Ported: the dense family (``DenseLM``), the MoE families (``MoELM``:
-attention and the MoE FFN; ``MLAMoELM``: MLA and the MoE FFN), the ssm
-family (``RWKVLM``) and the hybrid family (``ZambaLM``), each with
-``param_specs``, ``prefill`` and ``decode_step`` (``loss`` waits for
-training); :func:`build_model` raises ``NotImplementedError`` for encdec
-and vlm, and ``ValueError`` for an implementation switch it does not
-know.
+Every family of the reference is ported: dense (``DenseLM``), the MoE
+families (``MoELM``: attention and the MoE FFN; ``MLAMoELM``: MLA and the
+MoE FFN), ssm (``RWKVLM``), hybrid (``ZambaLM``), vlm (``VLM``: stubbed
+patch embeddings before the tokens) and encdec (``EncDecLM``: whisper's
+stubbed frames through an encoder, a decoder with cross-attention), each
+with ``param_specs``, ``prefill`` and ``decode_step`` (``loss`` waits for
+training). :func:`build_model` raises ``ValueError`` for a family or an
+implementation switch it does not know.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import hybrid
+from repro_torch.models import encdec, hybrid
 from repro_torch.models import layers as L
 from repro_torch.models import mla, moe, rwkv6, transformer
 
@@ -108,10 +109,17 @@ class BaseLM:
         return (params["embed"] if self.cfg.tie_embeddings
                 else params["unembed"])
 
+    def _extra_embeds(self, params, batch):
+        """Embeddings put before the tokens at prefill ([B, n, D]), or
+        None."""
+        return None
+
     def prefill(self, params, batch):
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = L.embed_lookup(params["embed"], tokens, cfg.cdtype)
+        x = L.embed_lookup(params["embed"], batch["tokens"], cfg.cdtype)
+        extra = self._extra_embeds(params, batch)
+        if extra is not None:
+            x = torch.cat([extra.to(cfg.cdtype), x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)
         x, caches, _ = self.stack(params["stack"], x, positions=positions)
         x = L.norm_apply(cfg.norm, x, params["final_norm"])
@@ -162,6 +170,25 @@ class MLAMoELM(MoELM):
 
     def _mixer_cache_spec(self):
         return mla.mla_cache_spec
+
+
+class VLM(DenseLM):
+    """internvl2: stubbed ViT patch embeddings ``image_embeds`` [B,
+    n_patches, D], projected by ``vision_proj``, prepended to the tokens
+    at prefill; positions and the cache run over patches then tokens. A
+    prefill without ``image_embeds`` is the dense LM's."""
+
+    def param_specs(self) -> Dict[str, Any]:
+        s = super().param_specs()
+        d = self.cfg.d_model
+        s["vision_proj"] = L.ParamSpec((d, d), ("embed", None))
+        return s
+
+    def _extra_embeds(self, params, batch):
+        if "image_embeds" not in batch:
+            return None
+        x = batch["image_embeds"].to(self.cfg.cdtype)
+        return x @ params["vision_proj"].to(x.dtype)
 
 
 class ZambaLM(BaseLM):
@@ -290,6 +317,54 @@ class RWKVLM(BaseLM):
         return logits, new_caches
 
 
+class EncDecLM(BaseLM):
+    """whisper-tiny: stubbed conv frontend (``frames`` [B, n_frames, D])
+    and the encoder-decoder of :mod:`repro_torch.models.encdec`. Prefill
+    takes {"tokens", "frames"}; its cache is {"self", "cross"} (pad the
+    self cache's axis 2 before decode steps; the cross K/V stay as they
+    are). Its attention is the reference's unfused path whatever
+    ``attn_impl`` says (see :mod:`~repro_torch.models.encdec`)."""
+
+    # every LayerNorm's weight and bias (``.float()``)
+    F32_LEAVES = tuple(("encdec", *p) for p in (
+        ("enc_layers", "norm1"), ("enc_layers", "norm2"), ("enc_norm",),
+        ("dec_layers", "norm1"), ("dec_layers", "norm_x"),
+        ("dec_layers", "norm2"), ("dec_norm",)))
+
+    def __init__(self, cfg: ArchConfig):
+        self.cfg = cfg
+
+    def param_specs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        return {
+            "embed": L.embed_specs(cfg.padded_vocab, cfg.d_model),
+            "encdec": encdec.specs(cfg),
+            "unembed": L.ParamSpec((cfg.padded_vocab, cfg.d_model),
+                                   ("vocab", "embed")),
+        }
+
+    def prefill(self, params, batch):
+        cfg = self.cfg
+        enc_out = encdec.encode(cfg, params["encdec"], batch["frames"])
+        x = L.embed_lookup(params["embed"], batch["tokens"], cfg.cdtype)
+        x = x + params["encdec"]["dec_pos"][:x.shape[1]].to(x.dtype)[None]
+        x, caches = encdec.decode_stack(cfg, params["encdec"], x, enc_out)
+        logits = L.unembed_logits(x[:, -1:], params["unembed"])[:, 0]
+        return logits, caches
+
+    def decode_step(self, params, batch, caches):
+        cfg = self.cfg
+        lengths = batch["lengths"].to(torch.int32)
+        x = L.embed_lookup(params["embed"], batch["token"][:, None],
+                           cfg.cdtype)
+        pos = params["encdec"]["dec_pos"][lengths.long()]
+        x = x + pos[:, None, :].to(x.dtype)
+        x, new_caches = encdec.decode_stack(cfg, params["encdec"], x, None,
+                                            caches=caches, lengths=lengths)
+        logits = L.unembed_logits(x, params["unembed"])[:, 0]
+        return logits, new_caches
+
+
 def _put(tree: Dict[str, Any], path, leaf) -> None:
     for k in path[:-1]:
         tree = tree.setdefault(k, {})
@@ -297,8 +372,8 @@ def _put(tree: Dict[str, Any], path, leaf) -> None:
 
 
 _FAMILIES = {"dense": DenseLM, "moe": MoELM, "moe_mla": MLAMoELM,
-             "ssm": RWKVLM, "hybrid": ZambaLM}
-_UNPORTED = ("encdec", "vlm")
+             "ssm": RWKVLM, "hybrid": ZambaLM, "encdec": EncDecLM,
+             "vlm": VLM}
 
 
 def build_model(cfg: ArchConfig):
@@ -307,10 +382,6 @@ def build_model(cfg: ArchConfig):
     family = cfg.family
     if family == "moe" and cfg.kv_lora_rank:
         family = "moe_mla"
-    if family in _UNPORTED:
-        raise NotImplementedError(
-            f"model family {family!r} ({cfg.arch_id}) is not ported to "
-            f"repro_torch yet; ported: {sorted(_FAMILIES)}")
     if family not in _FAMILIES:
         raise ValueError(f"unknown model family {family!r}")
     if cfg.attn_impl not in L.ATTN_IMPLS:

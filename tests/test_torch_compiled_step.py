@@ -391,3 +391,132 @@ def test_paged_cache_keeps_one_device_table():
     kv.retire(1)
     np.testing.assert_array_equal(view["block_tables"][0].numpy(),
                                   np.full((3, 3), 6))
+
+
+# ---------------------------------------------------------------------------
+# the VLM and encoder-decoder steps
+# ---------------------------------------------------------------------------
+
+
+def _new_family_state(arch):
+    """The smoke internvl2 (prefill batch with ``image_embeds``) or
+    whisper (with ``frames``) model in f32, its prefill batch, and its
+    decode cache padded by N_STEPS rows."""
+    cfg, model, params = _smoke(arch, "float32")
+    rng = np.random.default_rng(6)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        1, cfg.vocab, size=(2, 5)).astype(np.int32))}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_patches, cfg.d_model)).astype(np.float32))
+        s, dims = 5 + cfg.n_patches, 2
+    else:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_frames, cfg.d_model)).astype(np.float32))
+        s, dims = 5, {"self": 2, "cross": None}
+    logits, cache = t_steps.make_prefill_step(model, compiled=False)(
+        params, batch)
+    cache = t_serve.pad_cache_to(cache, s, s + N_STEPS, dims)
+    return model, params, batch, logits, cache, s
+
+
+@pytest.mark.parametrize("arch", ["internvl2_1b", "whisper_tiny"])
+def test_new_family_decode_step_has_no_host_sync(arch):
+    """The VLM's decode and whisper's (its self-attention append by
+    ``_write_token``, the learned position gathered by ``lengths``) read
+    nothing back to the host."""
+    model, params, _, logits, cache, s = _new_family_state(arch)
+    decode = t_steps.make_decode_step(model, compiled=False)
+    spy = _SyncSpy()
+    with spy:
+        decode(params, {"token": torch.argmax(logits, -1).to(torch.int32),
+                        "lengths": torch.full((2,), s, dtype=torch.int32)},
+               cache)
+    assert spy.seen == []
+
+
+@pytest.mark.parametrize("arch", ["internvl2_1b", "whisper_tiny"])
+def test_compiled_new_family_steps_with_a_stand_in(arch):
+    """CompiledStep over the VLM prefill ({"tokens", "image_embeds"}),
+    whisper's prefill ({"tokens", "frames"}) and whisper's decode (the
+    {"self", "cross"} cache): one capture a signature, and each replay
+    equal to the eager step bit for bit."""
+    model, params, batch, _, cache, s = _new_family_state(arch)
+    cache_e = _new_family_state(arch)[4]
+    counter = dec_ops.decode_attention
+    capture, calls = _stand_in(counter, 0)
+    prefill_e = t_steps.make_prefill_step(model, compiled=False)
+    prefill = t_steps.CompiledStep(prefill_e, capture=capture,
+                                   devices=("cpu",))
+    for _ in range(2):
+        lg, _ = prefill(params, batch)
+        lg_e, _ = prefill_e(params, batch)
+        assert torch.equal(lg, lg_e)
+    assert calls["capture"] == 1
+    decode_e = t_steps.make_decode_step(model, compiled=False)
+    decode = t_steps.CompiledStep(decode_e, capture=capture,
+                                  devices=("cpu",))
+    cur = cur_e = torch.argmax(lg_e, -1).to(torch.int32)
+    lens = torch.full((2,), s, dtype=torch.int32)
+    for _ in range(N_STEPS):
+        cur, lg, cache = decode(params, {"token": cur, "lengths": lens},
+                                cache)
+        cur_e, lg_e, cache_e = decode_e(
+            params, {"token": cur_e, "lengths": lens.clone()}, cache_e)
+        assert torch.equal(lg, lg_e) and torch.equal(cur, cur_e)
+        lens = lens + 1
+    assert calls["capture"] == 2
+    got, want = [], []
+    t_steps._flatten(cache, got)
+    t_steps._flatten(cache_e, want)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_capture_runs_with_the_collector_off(monkeypatch):
+    """A model and its compiled steps form a cycle, so a dropped model's
+    graphs are freed by the cyclic collector; a graph freed while another
+    is being captured invalidates that capture. ``_cuda_capture`` (here on
+    stand-ins for the CUDA stream and graph calls) keeps the collector
+    off inside the capture and turns it back on after, also when the
+    capture raises."""
+    import contextlib
+    import gc
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    class Graph:
+        def replay(self):
+            pass
+
+    seen = []
+
+    @contextlib.contextmanager
+    def graph(g, pool, stream):
+        seen.append(("capture", gc.isenabled()))
+        yield
+
+    dev = torch.device("cpu")
+    monkeypatch.setitem(t_steps._STREAMS, dev, Stream())
+    monkeypatch.setitem(t_steps._POOLS, dev, ())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: Stream())
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    assert gc.isenabled()
+
+    def run():
+        seen.append(("run", gc.isenabled()))
+        if len(seen) == 6:          # the second capture
+            raise RuntimeError("capture failed")
+        return torch.zeros(1)
+
+    t_steps._cuda_capture(run, lambda: None, dev)
+    assert seen == [("run", True), ("capture", False), ("run", False)]
+    assert gc.isenabled()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        t_steps._cuda_capture(run, lambda: None, dev)
+    assert seen[3:] == [("run", True), ("capture", False), ("run", False)]
+    assert gc.isenabled()

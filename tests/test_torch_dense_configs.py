@@ -1,0 +1,251 @@
+"""The port's remaining dense configs against the JAX reference at smoke
+size: llama3.2-1b (GQA 2, tied embeddings, RoPE θ 5e5), starcoder2-15b
+(LayerNorm, the GELU MLP with biases, QKV bias, GQA 3) and qwen2-72b (GQA
+4, QKV bias, RoPE θ 1e6), with the reference's parameters carried across
+by ``params_from_jax``.
+
+Prefill logits and caches, then 3 greedy decode steps through the dense
+cache, under ``attn_impl`` "ff" and "xla": f32 logits within 2e-4 and the
+same tokens. The reference runs its Pallas kernels in interpret mode
+outside ``use_sharding`` (see test_torch_model.py). Also: the GELU MLP
+alone against the reference's ``mlp_apply`` on inputs where the tanh and
+erf GELUs differ by more than the tolerance; starcoder2's LayerNorm
+weights and biases kept in f32 by ``cast_params``; the layer-graph guard
+sending starcoder2 down the per-op path.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from repro.configs.base import smoke_config as j_smoke
+from repro.core.program import PipePolicy
+from repro.launch import serve as j_serve
+from repro.launch import steps as j_steps
+from repro.models import build_model as j_build
+from repro.models import layers as j_layers
+from repro_torch.configs.base import ARCH_IDS
+from repro_torch.configs.base import smoke_config as t_smoke
+from repro_torch.launch import serve as t_serve
+from repro_torch.launch import steps as t_steps
+from repro_torch.models import build_model as t_build
+from repro_torch.models import layers as t_layers
+from repro_torch.models import transformer
+from repro_torch.models.convert import params_from_jax
+
+ARCHS = ("llama3_2_1b", "starcoder2_15b", "qwen2_72b")
+PAGE = 8
+TOL = 2e-4
+N_STEPS = 3
+POLICY = PipePolicy(mode="ff", interpret=True)
+LENS = np.array([5, 12], np.int32)
+
+
+def _close(port, ref):
+    np.testing.assert_allclose(port.float().numpy(), np.asarray(ref),
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.fixture(scope="module", params=[(a, i) for a in ARCHS
+                                        for i in ("ff", "xla")],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def pair(request):
+    arch, impl = request.param
+    pin = dict(decode_block_kv=PAGE) if impl == "ff" else {}
+    jcfg = j_smoke(arch).replace(attn_impl=impl, remat="none", **pin)
+    tcfg = t_smoke(arch).replace(attn_impl=impl, **pin)
+    jmodel = j_build(jcfg)
+    jparams = jmodel.init(jax.random.key(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
+    rng = np.random.default_rng(6)
+    toks = np.zeros((len(LENS), int(LENS.max())), np.int32)
+    for i, n in enumerate(LENS):
+        toks[i, :n] = rng.integers(1, jcfg.vocab, size=n)
+    return dict(jcfg=jcfg, jmodel=jmodel, jparams=jparams, tcfg=tcfg,
+                tmodel=t_build(tcfg), tparams=tparams, tokens=toks)
+
+
+def _jax_run(jmodel, jparams, tokens):
+    prefill = jax.jit(j_steps.make_prefill_step(jmodel, policy=POLICY))
+    decode = jax.jit(j_steps.make_decode_step(jmodel, policy=POLICY))
+    p_max = tokens.shape[1]
+    logits, cache = prefill(jparams, {"tokens": jnp.asarray(tokens)})
+    out = [np.asarray(logits)]
+    caches = {k: np.asarray(v) for k, v in cache.items()}
+    cache = j_serve.pad_cache_to(cache, p_max, p_max + N_STEPS, 2)
+    cur = jnp.asarray(tokens[np.arange(len(LENS)), LENS - 1])
+    lengths = jnp.asarray(LENS - 1)
+    toks = []
+    for _ in range(N_STEPS):
+        cur, lg, cache = decode(jparams, {"token": cur, "lengths": lengths},
+                                cache)
+        out.append(np.asarray(lg))
+        toks.append(np.asarray(cur))
+        lengths = lengths + 1
+    return out, caches, np.stack(toks, 1)
+
+
+def _port_run(tmodel, tparams, tokens):
+    prefill = t_steps.make_prefill_step(tmodel)
+    decode = t_steps.make_decode_step(tmodel)
+    p_max = tokens.shape[1]
+    logits, cache = prefill(tparams, {"tokens": torch.from_numpy(tokens)})
+    out = [logits]
+    caches = dict(cache)
+    cache = t_serve.pad_cache_to(cache, p_max, p_max + N_STEPS, 2)
+    cur = torch.from_numpy(tokens[np.arange(len(LENS)), LENS - 1])
+    lengths = torch.from_numpy(LENS - 1)
+    toks = []
+    for _ in range(N_STEPS):
+        cur, lg, cache = decode(tparams, {"token": cur, "lengths": lengths},
+                                cache)
+        out.append(lg)
+        toks.append(cur.numpy())
+        lengths = lengths + 1
+    return out, caches, np.stack(toks, 1)
+
+
+def test_prefill_and_decode_match_reference(pair):
+    """Prefill logits and K/V caches, then 3 greedy decode steps: logits
+    within 2e-4, the same tokens."""
+    jlog, jcache, jtoks = _jax_run(pair["jmodel"], pair["jparams"],
+                                   pair["tokens"])
+    tlog, tcache, ttoks = _port_run(pair["tmodel"], pair["tparams"],
+                                    pair["tokens"])
+    assert tlog[0].shape == (len(LENS), pair["tcfg"].padded_vocab)
+    for name in ("k", "v"):
+        assert tuple(tcache[name].shape) == jcache[name].shape
+        _close(tcache[name], jcache[name])
+    for t, j in zip(tlog, jlog):
+        _close(t, j)
+    np.testing.assert_array_equal(ttoks, jtoks)
+
+
+def test_new_configs_are_served_arch_ids():
+    for arch in ARCHS + ("internvl2_1b", "whisper_tiny"):
+        assert arch in ARCH_IDS
+        cfg = t_smoke(arch)
+        assert cfg.arch_id == arch and cfg.rule_overrides is None
+
+
+# ---------------------------------------------------------------------------
+# the GELU MLP with biases
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("scale", [1.0, 3.0], ids=["unit", "wide"])
+def test_gelu_mlp_matches_reference(scale):
+    """``gelu(x @ wi + bi) @ wo + bo`` with the tanh GELU, against the
+    reference's ``mlp_apply`` at f32. At the wide scale the erf GELU's
+    output is 7.6e-4 off the reference's (3.8x the tolerance): the test
+    tells the two apart, and the port follows tanh."""
+    d, f = 32, 48
+    rng = np.random.default_rng(3)
+    x = (scale * rng.standard_normal((2, 5, d))).astype(np.float32)
+    p = {"wi": rng.standard_normal((d, f)) / np.sqrt(d),
+         "bi": 0.5 * rng.standard_normal(f),
+         "wo": rng.standard_normal((f, d)) / np.sqrt(f),
+         "bo": 0.5 * rng.standard_normal(d)}
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    specs = t_layers.mlp_specs(d, f, "gelu")
+    assert {k: s.shape for k, s in specs.items()} == {
+        k: v.shape for k, v in p.items()}
+    assert specs["bi"].init == specs["bo"].init == "zeros"
+    want = np.asarray(j_layers.mlp_apply(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x), "gelu"))
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    got = t_layers.mlp_apply(tp, torch.from_numpy(x), "gelu")
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    h = torch.from_numpy(x) @ tp["wi"] + tp["bi"]
+    erf = F.gelu(h) @ tp["wo"] + tp["bo"]
+    gap = np.abs(erf.numpy() - want).max()
+    assert gap > (TOL if scale > 1 else 0), gap
+
+
+# ---------------------------------------------------------------------------
+# starcoder2: LayerNorm leaves in f32, the layer-graph guard
+# ---------------------------------------------------------------------------
+
+
+def test_starcoder2_cast_params_keeps_layernorm_f32():
+    """bf16 compute: every LayerNorm weight and bias (norm1, norm2,
+    final_norm) stays f32; everything else is cast; cast-once logits
+    equal per-use-cast logits bit for bit."""
+    cfg = t_smoke("starcoder2_15b").replace(compute_dtype="bfloat16")
+    model = t_build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    for layer in ("norm1", "norm2"):
+        for leaf in ("w", "b"):
+            params["stack"]["layers"][layer][leaf].normal_(
+                generator=torch.Generator().manual_seed(1))
+    params["final_norm"]["b"].normal_(
+        generator=torch.Generator().manual_seed(2))
+    cast = model.cast_params(params)
+    norms = [path for path, _ in t_layers.tree_leaves(cast)
+             if "norm" in "".join(path)]
+    assert len(norms) == 6
+    for path, leaf in t_layers.tree_leaves(cast):
+        want = torch.float32 if path in norms else torch.bfloat16
+        assert leaf.dtype == want, path
+    toks = torch.tensor([[3, 17, 9, 40, 2]], dtype=torch.int32)
+    a, _ = model.prefill(params, {"tokens": toks})
+    b, _ = model.prefill(cast, {"tokens": toks})
+    assert torch.equal(a, b)
+
+
+def test_starcoder2_layer_graph_takes_the_per_op_path(monkeypatch):
+    """LayerNorm and GELU are not the decode-layer graph's RMSNorm and
+    SwiGLU: with ``layer_graph=True`` the guard keeps starcoder2 on the
+    per-op layer, as the reference's guard does, while llama takes the
+    graph."""
+    called = []
+    inner = transformer.DecoderStack._decode_layer_graph
+
+    def spy(self, *a, **kw):
+        called.append(self.cfg.arch_id)
+        return inner(self, *a, **kw)
+    monkeypatch.setattr(transformer.DecoderStack, "_decode_layer_graph", spy)
+    toks = np.array([[5, 9, 2, 7]], np.int32)
+    for arch in ("starcoder2_15b", "llama3_2_1b"):
+        cfg = t_smoke(arch).replace(layer_graph=True)
+        model = t_build(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        _, cache = model.prefill(params, {"tokens": torch.from_numpy(toks)})
+        cache = t_serve.pad_cache_to(cache, 4, 8, 2)
+        one = torch.tensor([1], dtype=torch.int32)
+        model.decode_step(params, {"token": one, "lengths": 4 * one}, cache)
+    assert called == ["llama3_2_1b"] * t_smoke("llama3_2_1b").n_layers
+
+
+def test_qwen2_72b_layer_graph_matches_reference_at_smoke_size():
+    """The reference's decode-layer graph takes smoke qwen2-72b (d_ff 256)
+    and the port's layer graph gives its logits within 2e-4 and its token
+    after one decode step. (At full width the port's MLP tail refuses
+    d_ff 29568 on the card: its kernel stages k <= 8192.)"""
+    jcfg = j_smoke("qwen2_72b").replace(attn_impl="ff", remat="none",
+                                        layer_graph=True,
+                                        decode_block_kv=PAGE)
+    tcfg = t_smoke("qwen2_72b").replace(layer_graph=True,
+                                        decode_block_kv=PAGE)
+    jmodel = j_build(jcfg)
+    jparams = jmodel.init(jax.random.key(0))
+    tmodel = t_build(tcfg)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
+    toks = np.random.default_rng(0).integers(
+        1, jcfg.vocab, size=(2, 7)).astype(np.int32)
+    _, jc = jax.jit(j_steps.make_prefill_step(jmodel, policy=POLICY))(
+        jparams, {"tokens": jnp.asarray(toks)})
+    _, tc = t_steps.make_prefill_step(tmodel)(
+        tparams, {"tokens": torch.from_numpy(toks)})
+    jc = j_serve.pad_cache_to(jc, 7, 2 * PAGE, 2)
+    tc = t_serve.pad_cache_to(tc, 7, 2 * PAGE, 2)
+    step = {"token": toks[:, -1], "lengths": np.full(2, 6, np.int32)}
+    jn, jl, _ = jax.jit(j_steps.make_decode_step(jmodel, policy=POLICY))(
+        jparams, {k: jnp.asarray(v) for k, v in step.items()}, jc)
+    tn, tl, _ = t_steps.make_decode_step(tmodel)(
+        tparams, {k: torch.from_numpy(v) for k, v in step.items()}, tc)
+    _close(tl, jl)
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))

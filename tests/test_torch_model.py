@@ -9,6 +9,8 @@ caches: the attention kernels' registry tolerance, carried through two
 layers of f32 matmuls. Greedy tokens must be equal.
 """
 
+import argparse
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,8 @@ from repro.launch import serve as j_serve
 from repro.launch import steps as j_steps
 from repro.models import build_model as j_build
 from repro.runtime.paged_kv import PagedKVCache as JPaged
+from repro_torch.configs.base import ARCH_IDS
+from repro_torch.configs.base import get_config as t_config
 from repro_torch.configs.base import smoke_config as t_smoke
 from repro_torch.launch import serve as t_serve
 from repro_torch.launch import steps as t_steps
@@ -166,12 +170,19 @@ def test_port_paged_equals_dense_bitwise(models, tokens):
 
 
 def test_build_model_refuses_unported_families(models):
-    """encdec and vlm are not ported; an unknown attn_impl or scan_impl is
-    an error; MLA runs only under "xla" (its v head dim is not q's)."""
+    """Every family is ported now: encdec and vlm build (as every config
+    of the reference does, smoke and full width); an unknown family,
+    attn_impl or scan_impl is an error; MLA runs only under "xla" (its v
+    head dim is not q's); serve_bench refuses encdec (whisper-tiny), as
+    the reference's does."""
     tcfg = models[3]
-    for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match=family):
-            t_build(tcfg.replace(family=family))
+    for family, cls in (("encdec", "EncDecLM"), ("vlm", "VLM")):
+        assert type(t_build(tcfg.replace(family=family))).__name__ == cls
+    for arch in ARCH_IDS:
+        for cfg in (t_smoke(arch), t_config(arch)):
+            assert t_build(cfg).param_specs()
+    with pytest.raises(ValueError, match="family"):
+        t_build(tcfg.replace(family="diffusion"))
     with pytest.raises(ValueError, match="attn_impl"):
         t_build(tcfg.replace(attn_impl="pallas"))
     with pytest.raises(ValueError, match="scan_impl"):
@@ -179,3 +190,8 @@ def test_build_model_refuses_unported_families(models):
     with pytest.raises(ValueError, match="MLA"):
         t_build(t_smoke("deepseek_v2_lite_16b").replace(attn_impl="ff"))
     assert type(t_build(tcfg.replace(attn_impl="xla"))).__name__ == "DenseLM"
+    ap = argparse.ArgumentParser()
+    t_serve.add_serve_args(ap)
+    with pytest.raises(SystemExit, match="decoder-only"):
+        t_serve.serve_bench(ap.parse_args(
+            ["--arch", "whisper_tiny", "--smoke", "--device", "cpu"]))

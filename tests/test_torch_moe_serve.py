@@ -1,12 +1,14 @@
 """The smoke grok-1 model (attention and the MoE FFN) served by both of the
 port's schedulers against the reference's, under ``--impl ff`` and
-``--impl xla``: the same token counts in the same number of decode steps
-(rate 0, 3 requests, 2 slots, page 8, the reference's parameters carried
-across), the EOS set to the first token the reference emits for request
-0 so that retirement depends on the greedy token values; and the port's
-paged decode equal to its dense decode bit for bit under both. The
-reference runs outside ``use_sharding`` (see test_torch_model.py), its
-kernels in interpret mode.
+``--impl xla``, and the smoke llama3.2-1b and starcoder2-15b models (the
+dense family's other configs: tied embeddings; LayerNorm and the GELU
+MLP) under ``--impl ff``: the same token counts in the same number of
+decode steps (rate 0, 3 requests, 2 slots, page 8, the reference's
+parameters carried across), the EOS set to the first token the reference
+emits for request 0 so that retirement depends on the greedy token
+values; and the port's paged decode equal to its dense decode bit for
+bit in each case. The reference runs outside ``use_sharding`` (see
+test_torch_model.py), its kernels in interpret mode.
 """
 
 import argparse
@@ -45,12 +47,18 @@ def _first_token(jmodel, jparams, prompt):
     return int(np.asarray(nxt)[0])
 
 
-@pytest.fixture(scope="module", params=["ff", "xla"])
+# case id -> (arch, impl); grok-1's cases keep their ids
+SERVED = {"ff": (ARCH, "ff"), "xla": (ARCH, "xla"),
+          "llama3_2_1b-ff": ("llama3_2_1b", "ff"),
+          "starcoder2_15b-ff": ("starcoder2_15b", "ff")}
+
+
+@pytest.fixture(scope="module", params=list(SERVED))
 def served(request):
-    impl = request.param
+    arch, impl = SERVED[request.param]
     pin = dict(decode_block_kv=PAGE) if impl == "ff" else {}
-    jcfg = j_smoke(ARCH).replace(attn_impl=impl, remat="none", **pin)
-    tcfg = t_smoke(ARCH).replace(attn_impl=impl, **pin)
+    jcfg = j_smoke(arch).replace(attn_impl=impl, remat="none", **pin)
+    tcfg = t_smoke(arch).replace(attn_impl=impl, **pin)
     jmodel = j_build(jcfg)
     jparams = jmodel.init(jax.random.key(0))
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
