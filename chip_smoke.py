@@ -127,7 +127,24 @@ Phases (any failure exits non-zero without the final result line):
      decode-attention kernels' ms, launches and share of the busy time;
      for the layer graph the MLP tail's and the q-projection's launches
      (one each a layer, checked) and device ms per step (a ``profile``
-     line keyed "<kind> compiled" / "<kind> eager").
+     line keyed "<kind> compiled" / "<kind> eager"); the compiled steps
+     also under the pre-policy constants (depth 2, streams 1: every qwen
+     kernel's fixed ring before the pipe policy) and under ``baseline``
+     (depth 1), timed in the same rounds ("<kind> compiled constants" /
+     "<kind> compiled baseline"; "<kind> compiled" is the planner's
+     ``ff``);
+  h. the plan stack: full-width qwen1.5-0.5B served under ``ff`` (through
+     ``serve_bench`` with ``--record-profile`` and ``--metrics-json``),
+     ``baseline``, ``autotune`` and the constants, then ``python -m
+     repro_torch.plans sweep`` on the card from the recorded profile into
+     a PlanDB, then ``serve_bench --policy-mode autotune --plan-db`` from
+     a cold plan cache; requiring the same greedy tokens in every run,
+     paged == dense bit for bit in each, a metrics JSON that parses with
+     the reference's names, PlanDB hits > 0 and no measurement inside a
+     capture; with the planned (depth, streams) of every sweep case of
+     phase f against the sweep's best and ``estimate_feedforward``'s
+     prediction, the H100_SXM constants fitted from the gather's sweep,
+     and the host cost of a resolution (a ``plans`` line).
 
 ``python3 chip_smoke.py --decode-timing`` builds the kernels and runs
 only phase f's decode-attention timing (one ``decode_timing`` line): run
@@ -161,7 +178,8 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 SERVE = dict(arch="qwen1_5_0p5b", smoke=False, requests=16, prompt_len=32,
              max_new=16, page=16, slots=4, rate=10.0, eos_id=None,
              pool_blocks=None, seed=0, layer_graph=False, device="cuda",
-             impl="ff", n_layers=None)
+             impl="ff", n_layers=None, policy_mode=None,
+             record_profile=None, plan_db=None, metrics_json=None)
 # grok-1 served at full width, cut to 2 of its 64 layers (64 are 1,179 GiB
 # in f32): the serve defaults otherwise
 GROK = dict(arch="grok1_314b", n_layers=2)
@@ -254,6 +272,13 @@ DECODE_LONG = dict(n_pages=256, lengths=[4096, 3500, 2900, 2048])
 SCAN_F32_TOL = 3e-5          # relative to max |plain|, the reference's bound
 HANDOFF_TOL = 1e-3           # the reference registry's ff_chunk_scan tol
 SSM_MODEL_TOL = 1e-3         # smoke SSMs card vs CPU: the same tol
+# every qwen-path kernel's fixed ring before the pipe policy sized it
+# (attention, decode attention, the paged decode, the decode-layer
+# kernels: depth 2, streams 1), as one explicit policy
+CONSTANTS = dict(depth=2, streams=1)
+# the gather case the H100_SXM constants are fitted from
+FIT_CASE = ("ff_gather table[1048576,512] float32 idx[1048576] "
+            "(reference registry bench_kwargs)")
 
 failures = []
 
@@ -1000,9 +1025,7 @@ def depth_sweep(torch, dev, shapes):
     from repro_torch.kernels import ff_layer as FL
     from repro_torch.kernels.ff_layer import ops as FLO
     from repro_torch.kernels.ff_matmul import dispatch_matmul, matmul
-    from repro_torch.kernels.ff_matmul.ops import (DEFAULT_DEPTH,
-                                                   DEFAULT_STREAMS,
-                                                   MAX_DEPTH)
+    from repro_torch.kernels.ff_matmul.ops import MAX_DEPTH
     gen = torch.Generator(device=dev).manual_seed(10)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
     bf16 = torch.bfloat16
@@ -1084,20 +1107,10 @@ def depth_sweep(torch, dev, shapes):
                       **kw: paged_decode_attention(dq, pool, tables, lens,
                                                    **kw),
                       100, deepest))
-    sweep = dict(default={"depth": DEFAULT_DEPTH,
-                          "streams": DEFAULT_STREAMS},
-                 default_attention={"depth": A.DEFAULT_DEPTH,
-                                    "streams": A.DEFAULT_STREAMS},
-                 default_layer={"depth": FLO.DEFAULT_DEPTH,
-                                "streams": FLO.DEFAULT_STREAMS},
-                 default_scan={"depth": SO.DEFAULT_DEPTH,
-                               "streams": SO.DEFAULT_STREAMS},
-                 default_decode={"depth": DO.DEFAULT_DEPTH,
-                                 "streams": DO.DEFAULT_STREAMS},
-                 default_gather={"depth": G.DEFAULT_DEPTH,
-                                 "streams": G.DEFAULT_STREAMS},
+    sweep = dict(constants=CONSTANTS,
                  depths=list(SWEEP_DEPTHS), streams=list(SWEEP_STREAMS),
                  ms={})
+    sweep["planned"] = {}
     for label, fn, reps, max_depth in cases:
         print(f"f. depth sweep {label}", flush=True)
         sweep["ms"][label] = {
@@ -1106,6 +1119,8 @@ def depth_sweep(torch, dev, shapes):
                 flush)
             for x in sweep["depths"] if x <= max_depth
             for st in sweep["streams"]}
+        sweep["planned"][label] = planned_vs_best(
+            torch, fn, reps, flush, sweep["ms"][label])
     # the gather beyond the sweep: wider words (streams 4), a deeper ring,
     # and the grid cut to a quarter of the SMs at the default depth
     sweep["gather_words_and_grid"] = {}
@@ -1121,6 +1136,124 @@ def depth_sweep(torch, dev, shapes):
               f"differs at {bad}" if bad else "all equal")
         sweep["gather_words_and_grid"][label] = ms
     print("depth_sweep " + json.dumps(sweep), flush=True)
+    return sweep
+
+
+def spy_resolutions():
+    """Patch ``autotune.resolve_call`` (and with it ``resolve_graph``) to
+    record every resolution as (op, policy, keywords, choice); returns
+    the list and the function that restores the real one."""
+    from repro_torch.core import autotune
+    real, seen = autotune.resolve_call, []
+
+    def spy(op, policy, **kw):
+        choice = real(op, policy, **kw)
+        seen.append((op, policy, kw, choice))
+        return choice
+    autotune.resolve_call = spy
+    return seen, lambda: setattr(autotune, "resolve_call", real)
+
+
+def planned_vs_best(torch, fn, reps, flush, swept):
+    """One sweep case under the session policy (``ff``): the planner's
+    (depth, streams) for it, its device ms (timed as the sweep times), the
+    sweep's best and the constants' ms, and ``estimate_feedforward``'s
+    prediction for both the plan and the best."""
+    from repro_torch.core.pipe import Pipe
+    from repro_torch.core.pipeline_model import estimate_feedforward
+    seen, restore = spy_resolutions()
+    try:
+        fn()
+    finally:
+        restore()
+    op, pol, kw, choice = seen[-1]
+
+    def predicted(depth, streams):
+        pipe = Pipe(tile=tuple(kw["tile"]), dtype=kw["dtype"], depth=depth,
+                    streams=streams)
+        return estimate_feedforward(kw["workload"], pol.hw,
+                                    pipe).total_s * 1e3
+
+    best = min(swept, key=swept.get)
+    bd, bs = (int(x.split("=")[1]) for x in best.split())
+    key = f"depth={choice.depth} streams={choice.streams}"
+    planned_ms = swept.get(key) or time_ms(torch, fn, reps, flush)
+    const = f"depth={CONSTANTS['depth']} streams={CONSTANTS['streams']}"
+    return {"op": op, "depth_cap": kw["depth_cap"],
+            "word_bytes": kw["workload"].word_bytes,
+            "regular": kw["workload"].regular,
+            "stream_options": list(pol.stream_options),
+            "planned": key, "planned_ms": planned_ms,
+            "planned_predicted_ms": predicted(choice.depth, choice.streams),
+            "best": best, "best_ms": swept[best],
+            "best_predicted_ms": predicted(bd, bs),
+            "constants_ms": swept.get(const),
+            "planned_over_best": planned_ms / swept[best]}
+
+
+def fit_h100(sweep):
+    """The five fitted constants of ``H100_SXM`` from the gather's sweep
+    (FIT_CASE: 2^20 rows of 512 f32, words of 8 rows, each row read and
+    written once): ``irregular_eff`` the best bytes/s over 3.35 TB/s;
+    ``stream_bw_frac`` streams 1's best against the best (1.0 when within
+    2%); ``dma_latency_s`` the word time at depth 1, streams 1 (the whole
+    card streaming: an effective latency a word); ``contention_coeff``
+    from depth 1's streams 2 against streams 1 (the model's exposed
+    latency ``lat * (1 + c) / 2``); ``max_streams`` the most streams whose
+    best is within 2% of the best."""
+    ms = sweep["ms"][FIT_CASE]
+    n, cols, item = 1 << 20, 512, 4
+    words = n // 8
+    nbytes = 2 * n * cols * item + n * 4
+    best = min(ms.values())
+    by_streams = {}
+    for key, t in ms.items():
+        st = int(key.split()[1].split("=")[1])
+        by_streams[st] = min(by_streams.get(st, t), t)
+    frac = best / by_streams[1]
+    t1, t2 = ms["depth=1 streams=1"], ms["depth=1 streams=2"]
+    return {"case": FIT_CASE,
+            "irregular_eff": nbytes / (best * 1e-3) / HBM_BYTES_PER_S,
+            "stream_bw_frac": 1.0 if frac >= 0.98 else frac,
+            "dma_latency_s": t1 * 1e-3 / words,
+            "contention_coeff": max(0.0, 2 * t2 / t1 - 1),
+            "max_streams": max(st for st, t in by_streams.items()
+                               if t <= best * 1.02),
+            "best_ms": best, "depth1_ms": {"streams=1": t1,
+                                           "streams=2": t2}}
+
+
+def regular_fits(sweep):
+    """What the regular ring kernels' sweeps say of the same constants.
+    For each regular case: the shallowest depth within 2% of its best
+    (``d_min``) and the word's service time at the card's rate; the
+    planner's rule (depth = ceil(latency / service) + 1) then holds for a
+    latency in ((d_min - 2), (d_min - 1)] services (at most one service
+    when d_min is 1), per card word, and 132 times that per SM ring. Also
+    streams 1's best against the case's best."""
+    cases = {}
+    for label, ms in sweep["ms"].items():
+        plan = sweep["planned"][label]
+        if not plan["regular"]:
+            continue
+        by_depth, by_streams = {}, {}
+        for key, t in ms.items():
+            dep, st = (int(x.split("=")[1]) for x in key.split())
+            by_depth[dep] = min(by_depth.get(dep, t), t)
+            by_streams[st] = min(by_streams.get(st, t), t)
+        best = min(ms.values())
+        d_min = min(x for x, t in by_depth.items() if t <= best * 1.02)
+        svc = plan["word_bytes"] / HBM_BYTES_PER_S
+        cases[label] = {"d_min": d_min, "service_ns": svc * 1e9,
+                        "latency_ns": [max(d_min - 2, 0) * svc * 1e9,
+                                       max(d_min - 1, 1) * svc * 1e9],
+                        "streams1_over_best": by_streams[1] / best}
+    lo = max((c["latency_ns"][0] for c in cases.values()), default=None)
+    hi = min((c["latency_ns"][1] for c in cases.values()), default=None)
+    return {"cases": cases, "latency_ns_all": [lo, hi],
+            "streams1_over_best_worst": max(
+                (c["streams1_over_best"] for c in cases.values()),
+                default=None)}
 
 
 def split_bound(r):
@@ -1731,7 +1864,7 @@ def time_scan_kernel(torch, dev, scan_launches):
             launches_on_path=scan_launches.get(arch) if chunk == 64 else 0,
             blocks=plan.blocks, slices=plan.slices,
             blocks_per_sm=occupancy(n, int(args[3].dtype == torch.bfloat16),
-                                    plan.cols, SO.DEFAULT_DEPTH),
+                                    plan.cols, CONSTANTS["depth"]),
             ms_two_slices=two_slices_ms,
             ms=time_ms(torch, lambda: chunk_scan(*args, **kw), 100, flush),
             ms_hot=time_ms(torch, lambda: chunk_scan(*args, **kw), 100),
@@ -2659,7 +2792,18 @@ def device_profile(prof, n_steps):
             "by_name": by_name, "count": count}
 
 
-def profile_steps(torch, steps, n_steps, rounds):
+def profile_window(torch, step, n_steps):
+    """``device_profile`` of one window of ``n_steps`` calls of ``step``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+    return device_profile(prof, n_steps)
+
+
+def profile_steps(torch, steps, n_steps, rounds, fits=None):
     """Wall ms per step of each of ``steps`` (name -> a function running
     one step that ends in a host read, as a scheduler's does): two
     unclocked steps each, then ``rounds`` windows of ``n_steps`` steps,
@@ -2667,9 +2811,12 @@ def profile_steps(torch, steps, n_steps, rounds):
     speed drifts, so only windows of one call are compared), the median
     window with every window beside it; then one profiled window each
     (``device_profile``): busy ms and share, device kernels, host launch
-    calls per step and the top device ops."""
+    calls per step and the top device ops. ``fits(name, profile)`` says
+    whether a window holds every launch the step is known to make; a
+    window that does not (the profiler lost device events) is profiled
+    once more, and the lost one's device ops a step are kept beside the
+    new window's as ``lost_window``."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     names = list(steps)
     walls = {name: [] for name in names}
     for name in names:
@@ -2685,12 +2832,14 @@ def profile_steps(torch, steps, n_steps, rounds):
             walls[name].append((time.perf_counter() - t0) * 1e3 / n_steps)
     out = {}
     for name in names:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n_steps):
-                steps[name]()
-            torch.cuda.synchronize()
-        p = device_profile(prof, n_steps)
+        p = profile_window(torch, steps[name], n_steps)
+        lost = None
+        if fits is not None and not fits(name, p):
+            lost = {"device_ops_per_step": p["device_ops"],
+                    "device_kernels_per_step": p["device_kernels"]}
+            p = profile_window(torch, steps[name], n_steps)
+            lost["events_lost_per_step"] = (p["device_ops"]
+                                            - lost["device_ops_per_step"])
         wall = float(np.median(walls[name]))
         busy = p["device_ms"]
         top = sorted(p["by_name"].items(), key=lambda kv_: -kv_[1])[:8]
@@ -2707,6 +2856,7 @@ def profile_steps(torch, steps, n_steps, rounds):
             "top_kernels_ms_per_step": [[n[:80], t / n_steps,
                                          p["count"][n] / n_steps]
                                         for n, t in top],
+            "lost_window": lost,
             "by_name": p["by_name"], "count": p["count"]}
     return out
 
@@ -2748,10 +2898,14 @@ def profile_decode(torch, dev, n_steps=8, rounds=5):
     _, dense = prefill(params, {"tokens": torch.as_tensor(toks, device=dev)})
     dense = {k: x.clone() for k, x in dense.items()}
 
-    def make_step(kind, compiled):
+    from repro_torch.core.program import PipePolicy
+    policies = {"": None, " constants": PipePolicy(**CONSTANTS),
+                " baseline": PipePolicy(mode="baseline")}
+
+    def make_step(kind, compiled, policy=None):
         decode = steps.make_decode_step(
             graph_model if kind == "layer-graph" else model,
-            compiled=compiled)
+            compiled=compiled, policy=policy)
         if kind == "paged":
             kv = PagedKVCache(
                 n_layers=cfg.n_layers, n_blocks=slots * n_pages, page=page,
@@ -2776,10 +2930,21 @@ def profile_decode(torch, dev, n_steps=8, rounds=5):
             state["len"] = state["len"] + 1
         return step
 
+    def fits(name, p):
+        # the layer graph launches one MLP tail and one q-projection a
+        # layer every step, replayed or eager: fewer in a window means the
+        # profiler lost device events
+        return not name.startswith("layer-graph") or all(
+            sum(c for n, c in p["count"].items() if tag in n)
+            == cfg.n_layers * n_steps
+            for tag in ("mlp_tail_kernel", "matmul_kernel"))
+
     runs = profile_steps(torch, {
-        f"{kind} {mode}": make_step(kind, mode == "compiled")
-        for kind in kinds for mode in ("compiled", "eager")},
-        n_steps, rounds)
+        **{f"{kind} {mode}": make_step(kind, mode == "compiled")
+           for kind in kinds for mode in ("compiled", "eager")},
+        **{f"{kind} compiled{tag}": make_step(kind, True, pol)
+           for kind in kinds for tag, pol in policies.items() if pol}},
+        n_steps, rounds, fits)
     for name, r in runs.items():
         by_name, count = r.pop("by_name"), r.pop("count")
 
@@ -2809,6 +2974,254 @@ def profile_decode(torch, dev, n_steps=8, rounds=5):
                   f"{r['qproj_launches_per_step']} per step, "
                   f"{cfg.n_layers} layers")
     print("profile " + json.dumps(runs), flush=True)
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# h. the plan stack
+# ---------------------------------------------------------------------------
+
+
+def eager_autotune(torch, dev):
+    """One eager call under ``autotune`` with an empty plan cache: decode
+    attention at the serve run's shape, which measures its candidates on
+    the card (outside any capture) and must give the ``ff`` call's bits.
+    Returns whether the two outputs are equal."""
+    from repro_torch.core import autotune
+    from repro_torch.core.program import PipePolicy
+    from repro_torch.kernels.ff_decode_attention import ops as DO
+    gen = torch.Generator(device=dev).manual_seed(12)
+    bf = torch.bfloat16
+    q = torch.randn(4, 16, 64, generator=gen, device=dev).to(bf)
+    k = torch.randn(4, 16, 48, 64, generator=gen, device=dev).to(bf)
+    v = torch.randn(4, 16, 48, 64, generator=gen, device=dev).to(bf)
+    lens = torch.tensor([14, 23, 31, 19], dtype=torch.int32, device=dev)
+    autotune.tuned_cache_clear()
+    tuned = DO.decode_attention(q, k, v, lens, block_kv=16,
+                                policy=PipePolicy(mode="autotune"))
+    planned = DO.decode_attention(q, k, v, lens, block_kv=16)
+    return bool(torch.equal(tuned, planned))
+
+
+def plan_serves(torch, dev, tmp):
+    """Serve full-width qwen1.5-0.5B at the serve defaults under each
+    policy (``ff``, ``baseline``, ``autotune``, the old constants as the
+    session policy), record its traffic, sweep it on the card into a
+    PlanDB and serve again from it; then one eager ``autotune`` kernel
+    call. Returns the summary of the ``plans`` line. Admissions follow
+    the measured step times, so runs batch requests differently; each
+    request's own greedy tokens (by rid, per scheduler) must not move."""
+    import os
+    import warnings
+    import repro_torch
+    from repro_torch.core import autotune
+    from repro_torch.core.program import PipePolicy
+    from repro_torch.launch import serve
+    from repro_torch.plans import TrafficProfile
+    from repro_torch.plans import plandb as plandb_lib
+
+    os.environ["REPRO_TORCH_PLAN_CACHE"] = str(tmp / "host.json")
+    in_capture = []
+    real_measure = autotune.measure
+
+    def measure(fn, **kw):
+        in_capture.append(autotune.in_capture())
+        return real_measure(fn, **kw)
+    autotune.measure = measure
+    profile, metrics, db = (tmp / "traffic.json", tmp / "metrics.json",
+                            tmp / "plandb.json")
+    runs, outputs = {}, {}
+
+    def bench(label, session=None, **over):
+        autotune.plan_stats_clear()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(), repro_torch.policy(session):
+            # measured policies inside a capture fall back, warned
+            warnings.simplefilter("ignore", RuntimeWarning)
+            result = serve.serve_bench(Namespace(**{**SERVE, **over}))
+        torch.cuda.synchronize()
+        outputs[label] = {k: result[k]["outputs"]
+                          for k in ("lockstep", "paged")}
+        stats = autotune.plan_stats_snapshot()
+        runs[label] = {
+            "wall_s": time.perf_counter() - t0,
+            "policy_mode": result["policy_mode"],
+            "tokens": [result[k]["tokens"] for k in ("lockstep", "paged")],
+            "decode_steps": [result[k]["decode_steps"]
+                             for k in ("lockstep", "paged")],
+            "decode_ms": [1e3 * result[k]["decode_s"]
+                          / max(result[k]["decode_steps"], 1)
+                          for k in ("lockstep", "paged")],
+            "bitwise_max_abs_diff": result["bitwise_max_abs_diff"],
+            "plan_sources": {k: v for k, v in stats.items()
+                             if k not in ("lookups", "hits", "hit_rate")},
+            "plan_service": result.get("plan_service")}
+        check(f"plans[{label}]: paged == dense decode bit for bit",
+              result["bitwise_max_abs_diff"] == 0.0,
+              f"max |diff| {result['bitwise_max_abs_diff']}")
+
+    bench("ff", record_profile=str(profile), metrics_json=str(metrics))
+    bench("baseline", policy_mode="baseline")
+    bench("autotune", policy_mode="autotune")
+    bench("constants", session=PipePolicy(**CONSTANTS))
+    check("plans: the constants run served under the session policy",
+          runs["constants"]["policy_mode"] == "ff",
+          f"policy_mode {runs['constants']['policy_mode']}")
+    snap = json.loads(metrics.read_text())
+    names = {label.partition("{")[0] for kind in snap.values()
+             for label in kind}
+    check("plans: the metrics JSON parses with the reference's names",
+          names == {"plan_resolutions_total", "serve_token_latency_seconds",
+                    "serve_kv_utilization"}, f"{sorted(names)}")
+    recorded = TrafficProfile.load(str(profile))
+    t0 = time.perf_counter()
+    sweep = subprocess.run(
+        [sys.executable, "-m", "repro_torch.plans", "sweep", "--profile",
+         str(profile), "--db", str(db), "--budget-s", "30", "--iters", "3",
+         "--top-k", "4", "--scratch-cache", str(tmp / "scratch.json"),
+         "--device", SERVE["device"]],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, cwd=str(ROOT))
+    sweep_s = time.perf_counter() - t0
+    tail = sweep.stdout.strip().splitlines()[-40:]
+    check("plans: python -m repro_torch.plans sweep on the card",
+          sweep.returncode == 0 and db.exists(),
+          f"rc {sweep.returncode}, {sweep_s:.1f} s; "
+          f"{sweep.stderr.strip()[-500:]}")
+    os.environ["REPRO_TORCH_PLAN_CACHE"] = str(tmp / "fresh.json")
+    autotune.tuned_cache_clear()
+    plandb_lib.clear_cache()
+    bench("plan-db", policy_mode="autotune", plan_db=str(db))
+    hits = runs["plan-db"]["plan_sources"].get("plandb", 0)
+    check("plans: the PlanDB served the autotune run", hits > 0,
+          f"{hits} PlanDB hits")
+    same = {label: all(o[k] == outputs["ff"][k] for k in o)
+            for label, o in outputs.items()}
+    n_tokens = sum(map(len, outputs["ff"]["paged"].values()))
+    check("plans: each request's tokens the same in every run (by rid, "
+          "each scheduler)", all(same.values()) and n_tokens > 0,
+          f"{same}, {len(outputs['ff']['paged'])} requests, {n_tokens} "
+          f"paged tokens a run")
+    in_serves = len(in_capture)
+    os.environ["REPRO_TORCH_PLAN_CACHE"] = str(tmp / "eager.json")
+    eager_equal = eager_autotune(torch, dev)
+    autotune.measure = real_measure
+    check("plans: an eager autotune call measures on the card, with the "
+          "planned call's bits", len(in_capture) > in_serves and eager_equal,
+          f"{len(in_capture) - in_serves} measurements, equal "
+          f"{eager_equal}")
+    check("plans: no measurement inside a capture", not any(in_capture),
+          f"{len(in_capture)} measurements ({in_serves} in the serves), "
+          f"{sum(in_capture)} in captures")
+    return {"serves": runs, "tokens_equal": same,
+            "profile": {"buckets": len(recorded),
+                        "observations": recorded.total_count},
+            "sweep": {"rc": sweep.returncode, "wall_s": sweep_s,
+                      "stdout_tail": tail},
+            "measurements": len(in_capture),
+            "measurements_in_serves": in_serves,
+            "measurements_in_capture": sum(in_capture)}
+
+
+def resolution_us(torch, n=2000):
+    """Host microseconds of one plan resolution as an eager kernel call
+    pays it (``autotune.resolve_call`` under ``ff``, a cache hit: decode
+    attention at the serve run's shape), and of the whole eager call of
+    that kernel on the card (resolution, checks, launch; no sync)."""
+    from repro_torch.core import autotune
+    from repro_torch.core.program import PipePolicy
+    from repro_torch.kernels.ff_decode_attention import ops as DO
+    dev = torch.device("cuda", 0)
+    bf = torch.bfloat16
+    w, tile = DO.decode_attention_workload(4, 16, 16, 48, 64, dtype=bf)
+    pol = PipePolicy()
+    kw = dict(workload=w, tile=tile, dtype=bf, depth_cap=14,
+              extra_key="block_kv=16", site={"b": 4, "s": 48},
+              site_dynamic=("b", "s"))
+    autotune.resolve_call("ff_decode_attention", pol, **kw)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        autotune.resolve_call("ff_decode_attention", pol, **kw)
+    resolve = (time.perf_counter() - t0) / n * 1e6
+    q = torch.randn(4, 16, 64, device=dev).to(bf)
+    k = torch.randn(4, 16, 48, 64, device=dev).to(bf)
+    lens = torch.tensor([14, 23, 31, 19], dtype=torch.int32, device=dev)
+    DO.decode_attention(q, k, k, lens, block_kv=16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n // 10):
+        DO.decode_attention(q, k, k, lens, block_kv=16)
+    call = (time.perf_counter() - t0) / (n // 10) * 1e6
+    torch.cuda.synchronize()
+    return {"resolve_call_us": resolve, "eager_decode_call_us": call}
+
+
+def decode_waves(torch, shapes):
+    """Decode attention's one-wave depth cap (``ops.wave_depth``, from its
+    shared-memory and thread model of an SM) against the cap the card's
+    own occupancy gives (``ff_decode_attention_occupancy``: registers,
+    shared memory, threads), for both launches at the serve, ``decode_256``
+    and ``decode_long`` shapes; fails where they differ."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ff_decode_attention import ops as DO
+    occ = _build.load("ff_decode_attention").ff_decode_attention_occupancy
+    occ.argtypes = [ctypes.c_int] * 6
+    occ.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bf = torch.bfloat16
+    out = {}
+    for key in ("decode", "decode_256", "decode_long"):
+        dec = shapes[key]
+        b, kvh, d = dec["b"], dec["kvh"], dec["d"]
+        group, s = dec["h"] // kvh, dec["n_pages"] * dec["page"]
+        deepest = DO.max_depth(d, bf, group)
+        blocks = b * kvh * DO._plan(b, kvh, d, bf, s, sms).split
+        rows = DO._word_rows(d, bf)
+        card = {paged: [occ(1, paged, rows, d, group, x)
+                        for x in range(1, deepest + 1)] for paged in (0, 1)}
+
+        def cap(resident):
+            def waves(x):
+                return -(-blocks // (sms * max(resident[x - 1], 1)))
+            x = deepest
+            while x > 1 and waves(x) > waves(1):
+                x -= 1
+            return x
+        model = DO.wave_depth(b, kvh, d, bf, s, sms, group)
+        out[key] = {"blocks": blocks, "sms": sms,
+                    "resident_model": [DO.resident_blocks(x, d, bf, group)
+                                       for x in range(1, deepest + 1)],
+                    "resident_card": card[0], "resident_card_paged": card[1],
+                    "cap_model": model, "cap_card": [cap(card[0]),
+                                                     cap(card[1])]}
+        check(f"plans: decode {key}: the one-wave depth cap of the card's "
+              f"occupancy is the model's", out[key]["cap_card"] == [model,
+                                                                    model],
+              f"model {model}, card {out[key]['cap_card']}, {blocks} blocks")
+    return out
+
+
+def plan_phase(torch, dev, sweep, runs, shapes):
+    """Phase h: the ``plans`` line."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-plans-") as d:
+        out = plan_serves(torch, dev, Path(d))
+    steps = {}
+    for kind in ("dense", "paged", "layer-graph"):
+        row = {}
+        for tag, label in (("", "ff"), (" constants", "constants"),
+                           (" baseline", "baseline")):
+            r = runs[f"{kind} compiled{tag}"]
+            row[label] = {"wall_ms": r["wall_ms_per_step"],
+                          "device_ms": r["device_ms_per_step"]}
+        row["ff_over_constants_device"] = (row["ff"]["device_ms"]
+                                           / row["constants"]["device_ms"])
+        steps[kind] = row
+    out.update(compiled_steps=steps, fit=fit_h100(sweep),
+               fit_regular=regular_fits(sweep), planned=sweep["planned"],
+               decode_waves=decode_waves(torch, shapes),
+               host=resolution_us(torch))
+    print("plans " + json.dumps(out), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2885,10 +3298,11 @@ def main() -> int:
     rows = time_kernels(torch, dev, shapes)
     rows.update(time_layer_kernels(torch, dev, shapes))
     rows.update(time_library_kernels(torch, dev, shapes))
-    depth_sweep(torch, dev, shapes)
+    sweep = depth_sweep(torch, dev, shapes)
     rows.update(time_scan_kernel(torch, dev, scan_launches))
     check_compiled_steps(torch, dev)
-    profile_decode(torch, dev)
+    runs = profile_decode(torch, dev)
+    plan_phase(torch, dev, sweep, runs, shapes)
     kernels = []
     for name, meta in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", **meta,

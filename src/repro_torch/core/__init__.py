@@ -1,0 +1,15 @@
+"""The plan stack of the port (the counterpart of ``repro.core``):
+
+  pipe            :class:`~repro_torch.core.pipe.Pipe`, the shared-memory
+                  budget, ``required_depth``
+  pipeline_model  the analytic DAE model and the hardware descriptors
+                  (``ARRIA_CX``, ``TPU_V5E``, ``H100_SXM``)
+  meshspec        the topology token of plan keys
+  planner         ``plan_pipe`` and the per-call-site plan cache
+  profiling       the traffic-recording hook of the plan service
+  program         ``PipePolicy``, the session policy, ``make_entrypoint``
+  autotune        the measured lookup chain (memory, disk, PlanDB,
+                  measure, analytic)
+
+None of it imports a kernel: the kernels import it.
+"""

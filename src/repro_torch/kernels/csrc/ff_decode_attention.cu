@@ -532,6 +532,29 @@ int launch_rows(const Args<T>& a, int b, void* stream) {
   return cudaGetLastError();
 }
 
+// Blocks of ring_decode_kernel<T, Paged, R> that one SM holds at once
+// (registers, shared memory, threads) with a ring of ``depth`` stages.
+template <typename T, bool Paged, int R>
+int occupancy_rows(int d, int group, int depth) {
+  const size_t smem = Layout(d, group, depth, int(sizeof(T)), R).total;
+  cudaError_t err = repro::allow_smem(ring_decode_kernel<T, Paged, R>, smem);
+  int blocks = -1;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, ring_decode_kernel<T, Paged, R>, kThreads, smem);
+  return err == cudaSuccess ? blocks : -1;
+}
+
+template <typename T, bool Paged>
+int occupancy(int rows, int d, int group, int depth) {
+  switch (rows) {
+    case 16: return occupancy_rows<T, Paged, 16>(d, group, depth);
+    case 32: return occupancy_rows<T, Paged, 32>(d, group, depth);
+    case 64: return occupancy_rows<T, Paged, 64>(d, group, depth);
+  }
+  return -1;
+}
+
 // ``rows``: the cache rows of a ring word, 16, 32 or 64 (ops.py
 // _word_rows: as many as keep a stage within 16 KB).
 template <typename T, bool Paged>
@@ -624,3 +647,16 @@ int paged(const void* q, const void* pool, const void* tables,
 
 REPRO_DECODE_ENTRIES(f32, float)
 REPRO_DECODE_ENTRIES(bf16, __nv_bfloat16)
+
+// Blocks of the decode kernel (paged or contiguous, bf16 or f32, words of
+// ``rows`` cache rows) one SM holds at once at ``depth``; -1 on a shape
+// the kernel does not take.
+extern "C" int ff_decode_attention_occupancy(int w16, int paged, int rows,
+                                             int d, int group, int depth) {
+  if (depth < 1 || d < 1 || d > kMaxD || group < 1) return -1;
+  if (w16)
+    return paged ? occupancy<__nv_bfloat16, true>(rows, d, group, depth)
+                 : occupancy<__nv_bfloat16, false>(rows, d, group, depth);
+  return paged ? occupancy<float, true>(rows, d, group, depth)
+               : occupancy<float, false>(rows, d, group, depth);
+}

@@ -1,10 +1,7 @@
 from repro_torch.kernels.ff_attention.ops import (BLOCK_KV, BLOCK_Q,
-                                                 DEFAULT_DEPTH,
-                                                 DEFAULT_STREAMS, attention,
-                                                 attention_proj,
+                                                 attention, attention_proj,
                                                  attention_proj_ref,
                                                  attention_ref, max_depth)
 
-__all__ = ["BLOCK_KV", "BLOCK_Q", "DEFAULT_DEPTH", "DEFAULT_STREAMS",
-           "attention", "attention_proj", "attention_proj_ref",
-           "attention_ref", "max_depth"]
+__all__ = ["BLOCK_KV", "BLOCK_Q", "attention", "attention_proj",
+           "attention_proj_ref", "attention_ref", "max_depth"]

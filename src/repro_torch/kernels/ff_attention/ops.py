@@ -17,7 +17,13 @@ keywords: the stages of the shared-memory ring that carries the K and V
 tiles to the tensor cores (bf16), and the boxes each tile copy is split
 into (``depth=1`` is the synchronous copy-then-compute baseline). They
 are checked for both types and change when a tile lands, never what is
-computed.
+computed. Both entry points resolve them through the pipe policy
+(``policy=``, the session policy, or the ``depth=``/``streams=``
+keywords), as the reference's do: :func:`attention` as the kernel
+``ff_attention`` (:func:`attention_workload`), :func:`attention_proj` as
+the graph ``attention_proj`` (its two nodes' workloads summed). The f32
+body ignores them, but they still resolve and record, as the
+reference's do.
 """
 
 from __future__ import annotations
@@ -25,11 +31,17 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Tuple
 
 import torch
 
+from repro_torch.core import autotune
+from repro_torch.core.pipe import itemsize
+from repro_torch.core.pipeline_model import Workload
+from repro_torch.core.program import PipePolicy, make_entrypoint
 from repro_torch.kernels import _build
-from repro_torch.kernels.ff_matmul.ops import matmul_ref
+from repro_torch.kernels.ff_matmul.ops import matmul_ref, matmul_workload
+from repro_torch.kernels.registry import KernelCost, register_kernel
 
 # q rows per CUDA block and K/V rows per tile, by type (csrc/
 # ff_attention.cuh: bf16 the wgmma body wg, f32 the CUDA-core body f32)
@@ -43,8 +55,6 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _SLAB_BYTES = 64 * 64 * 2
 _MAX_SMEM = 232448                  # 227 KB of shared memory a block
 _MIN_STREAM_ROWS = 8                # one 128-byte swizzle atom of rows
-DEFAULT_DEPTH = 2
-DEFAULT_STREAMS = 1
 
 
 def _smem_bytes(d: int, depth: int) -> int:
@@ -64,14 +74,19 @@ def max_depth(d: int) -> int:
     return depth
 
 
+def stream_options(options) -> tuple:
+    """The stream counts of ``options`` this kernel can run: those that
+    split the 64-row tiles into boxes of at least 8 rows."""
+    rows = BLOCK_KV[torch.bfloat16]
+    return tuple(s for s in options
+                 if rows % s == 0 and rows // s >= _MIN_STREAM_ROWS)
+
+
 def _pipe(depth, streams, d):
-    """``depth`` and ``streams`` (None: the defaults), checked as the
-    reference's ``Pipe`` checks them against this kernel's tiles: each at
-    least 1, ``streams`` dividing the 64-row tiles into boxes of at least
-    8 rows (one swizzle atom), ``depth`` stages fitting in shared memory
-    at head dim ``d``."""
-    depth = DEFAULT_DEPTH if depth is None else depth
-    streams = DEFAULT_STREAMS if streams is None else streams
+    """``depth`` and ``streams`` checked as the reference's ``Pipe`` checks
+    them against this kernel's tiles: each at least 1, ``streams``
+    dividing the 64-row tiles into boxes of at least 8 rows (one swizzle
+    atom), ``depth`` stages fitting in shared memory at head dim ``d``."""
     if depth < 1:
         raise ValueError(f"pipe depth must be >= 1, got {depth}")
     if streams < 1:
@@ -87,6 +102,77 @@ def _pipe(depth, streams, d):
                          f"{max_depth(d)} stages fit in {_MAX_SMEM}")
     return depth, streams
 
+
+def _live_tiles(s: int, skv: int, causal: bool, bq: int, bkv: int) -> int:
+    """KV tiles the kernel streams for all q tiles of one head: every tile
+    of the cache, or under ``causal`` only those at or before each q
+    tile's last row (the kernel skips the rest)."""
+    nq, nkv = -(-s // bq), -(-skv // bkv)
+    if not causal:
+        return nq * nkv
+    return sum(min(nkv, -(-min(s, (qi + 1) * bq) // bkv))
+               for qi in range(nq))
+
+
+def attention_workload(bh: int, s: int, d: int, *, skv=None,
+                       causal: bool = True, dtype=torch.bfloat16
+                       ) -> Tuple[Workload, Tuple[int, int]]:
+    """The kernel's stream program in pipe words: one word per (head, q
+    tile, live KV tile), a K and a V tile of :data:`BLOCK_KV` rows (64
+    bf16, 32 f32). The reference counts every (q tile, KV tile) pair of
+    its 128-row blocks and halves the flops under ``causal``; the port's
+    kernel skips the tiles past a q tile's diagonal, so its words are the
+    live ones and each does a whole tile's flops. The output is written
+    once, spread over the words. Planning tile = the K tile."""
+    skv = s if skv is None else skv
+    item = itemsize(dtype)
+    bq, bkv = BLOCK_Q[dtype], BLOCK_KV[dtype]
+    n_words = max(bh * _live_tiles(s, skv, causal, bq, bkv), 1)
+    w = Workload(
+        n_words=n_words,
+        word_bytes=float(2 * bkv * d * item),
+        flops_per_word=4.0 * bq * bkv * d,
+        regular=True,
+        store_bytes_per_word=float(bh * s * d * item) / n_words,
+    )
+    return w, (bkv, d)
+
+
+def attention_cost(bh: int, s: int, d: int, *, skv=None,
+                   causal: bool = True, depth: int = 2,
+                   dtype=torch.bfloat16) -> KernelCost:
+    """Operations and bytes of one call by the kernel's tile schedule: the
+    live K/V tiles of every q tile, q read and the output written once."""
+    w, _ = attention_workload(bh, s, d, skv=skv, causal=causal, dtype=dtype)
+    item = itemsize(dtype)
+    hbm = w.n_words * w.word_bytes + 2 * bh * s * d * item
+    smem = _smem_bytes(d, depth) if dtype == torch.bfloat16 else 0
+    return KernelCost(flops=w.n_words * w.flops_per_word,
+                      hbm_bytes=float(hbm), smem_bytes=smem)
+
+
+def _resolve(op, pol, q, k, kv_groups, causal, run):
+    """(depth, streams) of one prefill attention call under ``pol``."""
+    bh, s, d = q.shape
+    skv = k.shape[1]
+    so = stream_options(pol.stream_options)
+    pol = pol if so == tuple(pol.stream_options) else \
+        pol.replace(stream_options=so)
+    w, tile = attention_workload(bh, s, d, skv=skv, causal=causal,
+                                 dtype=q.dtype)
+    choice = autotune.resolve_call(
+        op, pol, workload=w, tile=tile, dtype=q.dtype,
+        workload_fn=lambda tk: (w, tile),
+        runner=None if autotune.in_capture() else
+        lambda tk, dep, st: lambda: run(dep, st),
+        # the workload is built from the q shape only; skv/kv_groups
+        # change the measured kernel
+        extra_key=f"skv={skv}|groups={kv_groups}",
+        site={"bh": bh, "s": s, "d": d, "skv": skv,
+              "kv_groups": kv_groups, "causal": causal},
+        site_dynamic=("bh", "s", "skv"),
+        depth_cap=max_depth(d))
+    return _pipe(choice.depth, choice.streams, d)
 
 def attention_ref(q, k, v, *, kv_groups: int = 1, causal: bool = True,
                   block_kv=None) -> torch.Tensor:
@@ -160,23 +246,8 @@ def _pipe_args(dtype, depth, streams):
     return (depth, streams) if dtype == torch.bfloat16 else ()
 
 
-def attention(q, k, v, *, kv_groups: int = 1, causal: bool = True,
-              depth=None, streams=None) -> torch.Tensor:
-    """Flash attention over [BH, S, D] q and [BKVH, Skv, D] k/v (q head
-    ``bh`` reads KV head ``bh // kv_groups``). ``depth`` and ``streams``
-    (default :data:`DEFAULT_DEPTH`, :data:`DEFAULT_STREAMS`) size the ring
-    that feeds the tensor cores (bf16); they are checked for both types and
-    do not change the result. CPU tensors run :func:`attention_ref`; CUDA
-    tensors launch the kernel."""
-    _check(q, k, v, kv_groups)
-    depth, streams = _pipe(depth, streams, q.shape[2])
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, kv_groups=kv_groups, causal=causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"attention runs on cpu or cuda, not {q.device}")
+def _launch(q, k, v, kv_groups, causal, depth, streams) -> torch.Tensor:
     bh, s, d = q.shape
-    if d > _MAX_D:
-        raise ValueError(f"head dim {d} > {_MAX_D}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     rc = _entry(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -185,11 +256,40 @@ def attention(q, k, v, *, kv_groups: int = 1, causal: bool = True,
                          *_pipe_args(q.dtype, depth, streams),
                          _build.stream_ptr(q.device))
     _build.check("ff_attention", "ff_attention", rc)
-    attention.launches += 1
     return out
 
 
-attention.launches = 0
+def _apply(q, k, v, *, kv_groups: int = 1, causal: bool = True,
+           policy: PipePolicy) -> torch.Tensor:
+    """Flash attention over [BH, S, D] q and [BKVH, Skv, D] k/v (q head
+    ``bh`` reads KV head ``bh // kv_groups``). The ring that feeds the
+    tensor cores (bf16) is sized by ``policy`` (planned per call site
+    under "ff", measured under "autotune", depth 1 under "baseline");
+    it does not change the result. mode="ref" and CPU tensors run
+    :func:`attention_ref`; CUDA tensors launch the kernel."""
+    _check(q, k, v, kv_groups)
+    if policy.mode == "ref":
+        return attention_ref(q, k, v, kv_groups=kv_groups, causal=causal)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention runs on cpu or cuda, not {q.device}")
+    if q.device.type == "cuda" and q.shape[2] > _MAX_D:
+        raise ValueError(f"head dim {q.shape[2]} > {_MAX_D}")
+
+    def run(depth, streams):
+        if q.device.type == "cpu":
+            return attention_ref(q, k, v, kv_groups=kv_groups,
+                                 causal=causal)
+        return _launch(q, k, v, kv_groups, causal, depth, streams)
+
+    depth, streams = _resolve("ff_attention", policy, q, k, kv_groups,
+                              causal, run)
+    out = run(depth, streams)
+    if q.device.type == "cuda":
+        attention.launches += 1
+    return out
+
+
+attention = make_entrypoint("ff_attention", _apply, name="attention")
 
 
 def attention_proj_ref(q, k, v, w, *, causal: bool = True) -> torch.Tensor:
@@ -213,32 +313,73 @@ def _proj_entry(dtype: torch.dtype):
                         *pipe, p])
 
 
-def attention_proj(q, k, v, w, *, causal: bool = True, depth=None,
-                   streams=None) -> torch.Tensor:
+def attention_proj_nodes(bh: int, s: int, d: int, d_out: int, *,
+                         causal: bool = True, dtype=torch.bfloat16):
+    """The graph's nodes as ``(name, Workload, tile)``: the attention's
+    words, then the projection's (a [BH*S, D] @ [D, D_out] product in the
+    port's product tiles)."""
+    wa, ta = attention_workload(bh, s, d, causal=causal, dtype=dtype)
+    wm, tm = matmul_workload(bh * s, d_out, d, dtype=dtype)
+    return (("attention", wa, ta), ("proj", wm, tm))
+
+
+def _apply_proj(q, k, v, w, *, causal: bool = True,
+                policy: PipePolicy) -> torch.Tensor:
     """Attention over [BH, S, D] q and [BH, Skv, D] k/v (one KV head per q
     head, as the reference graph's), then the out-projection by w [D,
     D_out] (q's type), in one launch: the
     [BH, S, D] intermediate stays on chip. Returns [BH*S, D_out], equal
     bit for bit to ``matmul(attention(q, k, v).reshape(BH*S, D), w)`` at
     any ``depth`` and ``streams`` of either (as :func:`attention`'s: the
-    projection's words of w ride the same ring). CPU tensors run
-    :func:`attention_proj_ref`; CUDA tensors launch the kernel."""
+    projection's words of w ride the same ring). The ring is sized by
+    ``policy`` for the whole graph (``autotune.resolve_graph``).
+    mode="ref" and CPU tensors run :func:`attention_proj_ref`; CUDA
+    tensors launch the kernel."""
     _check(q, k, v, 1)
-    depth, streams = _pipe(depth, streams, q.shape[2])
     if w.dim() != 2 or w.shape[0] != q.shape[2]:
         raise ValueError(f"w {tuple(w.shape)} is not [{q.shape[2]}, D_out]")
     if w.dtype != q.dtype:
         raise TypeError(f"w must have q's type {q.dtype}, not {w.dtype}")
     if w.device != q.device:
         raise ValueError("w must be on q's device")
-    if q.device.type == "cpu":
+    if policy.mode == "ref":
         return attention_proj_ref(q, k, v, w, causal=causal)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention_proj runs on cpu or cuda, not "
                          f"{q.device}")
     bh, s, d = q.shape
-    if d > _MAX_D:
+    if q.device.type == "cuda" and d > _MAX_D:
         raise ValueError(f"head dim {d} > {_MAX_D}")
+
+    def run(depth, streams):
+        if q.device.type == "cpu":
+            return attention_proj_ref(q, k, v, w, causal=causal)
+        return _launch_proj(q, k, v, w, causal, depth, streams)
+
+    nodes = attention_proj_nodes(bh, s, d, w.shape[1], causal=causal,
+                                 dtype=q.dtype)
+    wl, tile = autotune.graph_workload(nodes)
+    so = stream_options(policy.stream_options)
+    pol = policy if so == tuple(policy.stream_options) else \
+        policy.replace(stream_options=so)
+    choice = autotune.resolve_graph(
+        "attention_proj", pol, workload=wl, tile=tile, dtype=q.dtype,
+        signature=autotune.graph_signature(nodes),
+        workload_fn=lambda tk: (wl, tile),
+        runner=None if autotune.in_capture() else
+        lambda tk, dep, st: lambda: run(dep, st),
+        site={"bh": bh, "s": s, "d": d, "d_out": w.shape[1],
+              "causal": bool(causal)},
+        site_dynamic=("bh", "s"),
+        depth_cap=max_depth(d))
+    out = run(*_pipe(choice.depth, choice.streams, d))
+    if q.device.type == "cuda":
+        attention_proj.launches += 1
+    return out
+
+
+def _launch_proj(q, k, v, w, causal, depth, streams) -> torch.Tensor:
+    bh, s, d = q.shape
     q, k, v, w = q.contiguous(), k.contiguous(), v.contiguous(), \
         w.contiguous()
     out = torch.empty((bh * s, w.shape[1]), dtype=q.dtype, device=q.device)
@@ -249,8 +390,49 @@ def attention_proj(q, k, v, w, *, causal: bool = True, depth=None,
                               *_pipe_args(q.dtype, depth, streams),
                               _build.stream_ptr(q.device))
     _build.check("ff_attention_proj", "ff_attention_proj", rc)
-    attention_proj.launches += 1
     return out
 
 
-attention_proj.launches = 0
+attention_proj = make_entrypoint("attention_proj", _apply_proj)
+
+
+def _make_inputs(gen, device):
+    q = torch.randn((2, 192, 64), generator=gen, device=device)
+    kv = torch.randn((1, 192, 64), generator=gen, device=device)
+    return (q, kv, kv), {"kv_groups": 2, "causal": True}
+
+
+def _sweep_inputs(gen, site, device):
+    # operands at a recorded call-site shape (plan sweep): the KV batch is
+    # bh / kv_groups, so bh snaps to a multiple of the group count; causal
+    # self-attention keeps s == skv
+    groups = int(site.get("kv_groups", 1))
+    kvb = max(1, int(site["bh"]) // groups)
+    bh, s, d = kvb * groups, int(site["s"]), int(site["d"])
+    skv = s if site.get("causal", True) else int(site.get("skv", s))
+    dt = getattr(torch, site.get("dtype", "float32"))
+    q = torch.randn((bh, s, d), generator=gen, device=device).to(dt)
+    kv = torch.randn((kvb, skv, d), generator=gen, device=device).to(dt)
+    return (q, kv, kv), {"kv_groups": groups,
+                         "causal": bool(site.get("causal", True))}
+
+
+# no tile knob: the kernel's tiles are fixed by the type (BLOCK_Q,
+# BLOCK_KV), so the tuner searches (depth, streams) only
+_TILE_OPTIONS = ()
+
+register_kernel(
+    name="ff_attention",
+    alias="attention",
+    op=attention,
+    ref=attention_ref,
+    cost=attention_cost,
+    workload=attention_workload,
+    make_inputs=_make_inputs,
+    bench_kwargs={"bh": 32, "s": 8192, "d": 128, "dtype": torch.bfloat16},
+    tile_options=_TILE_OPTIONS,
+    regular=True,
+    tol=2e-4,
+    doc="flash attention prefill, GQA, K/V on the shared-memory ring",
+    sweep_inputs=_sweep_inputs,
+)

@@ -1,12 +1,9 @@
-from repro_torch.kernels.ff_chunk_scan.ops import (DEFAULT_DEPTH,
-                                                   DEFAULT_STREAMS,
-                                                   chunk_scan,
+from repro_torch.kernels.ff_chunk_scan.ops import (chunk_scan,
                                                    chunk_scan_plain,
                                                    chunk_scan_ref,
                                                    max_depth,
                                                    ring_smem_bytes,
                                                    smem_bytes)
 
-__all__ = ["DEFAULT_DEPTH", "DEFAULT_STREAMS", "chunk_scan",
-           "chunk_scan_plain", "chunk_scan_ref", "max_depth",
+__all__ = ["chunk_scan", "chunk_scan_plain", "chunk_scan_ref", "max_depth",
            "ring_smem_bytes", "smem_bytes"]

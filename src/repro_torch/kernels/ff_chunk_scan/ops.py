@@ -21,10 +21,12 @@ products on the tensor cores, the state on chip) when q, k and v are
 bfloat16, N is 16, 32, 64 or 128, P a multiple of 16, ``chunk`` a multiple
 of 16 and the subtile 16; the CUDA-core body (``chunk_scan_kernel``, f32
 fmaf chains) otherwise. ``depth`` and ``streams`` are the reference's
-``chunk_scan_ff`` keywords (its ``Pipe``, default 2 and 1; ``depth=1`` is
-the synchronous copy-then-compute baseline), checked as its ``Pipe``
-checks them for every call; the CPU plain version and the CUDA-core body
-ignore them. :func:`_plan` cuts P into slices of columns so that the ring
+``chunk_scan_ff`` keywords (its ``Pipe``; ``depth=1`` is the synchronous
+copy-then-compute baseline), resolved through the pipe policy as the
+kernel ``ff_chunk_scan`` with the reference's workload (one word per
+chunk, :func:`chunk_scan_workload`) and checked as its ``Pipe`` checks
+them for every call; the CPU plain version and the CUDA-core body ignore
+them. :func:`_plan` cuts P into slices of columns so that the ring
 body's blocks cover the SMs.
 
 :func:`chunk_scan_ref` is the naive per-step scan (the oracle, reference
@@ -37,17 +39,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import autotune
+from repro_torch.core.pipe import itemsize
+from repro_torch.core.pipeline_model import Workload
+from repro_torch.core.program import PipePolicy, make_entrypoint
 from repro_torch.kernels import _build
+from repro_torch.kernels.registry import KernelCost, register_kernel
 
 _DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232448          # shared memory one block may use (227 KB)
-DEFAULT_DEPTH = 2            # the reference's chunk_scan_ff defaults
-DEFAULT_STREAMS = 1
 RING_N = (16, 32, 64, 128)   # N the ring body is built for
 _WORD_ROWS = 16              # rows of a ring word: one subtile
 _COLS = 16                   # columns of P per consumer warp
@@ -309,24 +314,101 @@ def _aligned(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def chunk_scan(q, k, v, log_w, u=None, *, chunk: int = 64, subtile: int = 16,
-               inclusive: bool = True, depth: int = DEFAULT_DEPTH,
-               streams: int = DEFAULT_STREAMS) -> torch.Tensor:
+def chunk_scan_workload(bh: int, s: int, n: int, p: int, *, chunk: int = 64,
+                        dtype=torch.bfloat16
+                        ) -> Tuple[Workload, Tuple[int, int]]:
+    """The reference's workload, word for word: one word per (bh, chunk),
+    q/k/w [L, N] and v [L, P] tiles, the chunk-boundary state the DLCD the
+    consumer carries. The port's ring body streams the chunk's rows 16 at
+    a time, but its pipe check and its ``streams`` are on the chunk's
+    rows, as the reference's."""
+    item = itemsize(dtype)
+    nc = max(-(-s // chunk), 1)
+    per_chunk = 2.0 * chunk * n * p * 2 + chunk * chunk * (n + p)
+    w = Workload(
+        n_words=bh * nc,
+        word_bytes=float(chunk * (3 * n + p) * item),
+        flops_per_word=per_chunk,
+        regular=True,
+        dlcd_cycles=2.0 * n,
+        store_bytes_per_word=float(chunk * p * item),
+    )
+    return w, (chunk, n)
+
+
+def chunk_scan_cost(bh: int, s: int, n: int, p: int, *, chunk: int = 64,
+                    depth: int = 2, dtype=torch.bfloat16) -> KernelCost:
+    w, _ = chunk_scan_workload(bh, s, n, p, chunk=chunk, dtype=dtype)
+    return KernelCost(
+        flops=w.n_words * w.flops_per_word,
+        hbm_bytes=float(bh * s * (3 * n + 2 * p) * itemsize(dtype)),
+        smem_bytes=ring_smem_bytes(n, min(p, _MAX_COLS), 4, depth))
+
+
+# chunk lengths the measured autotuner may search in mode="autotune" (the
+# kernel takes every one of them; a chunk changes the scan's summation, so
+# a compiled step, which never measures, never searches them)
+_TILE_OPTIONS = (
+    {"chunk": 32},
+    {"chunk": 128},
+    {"chunk": 256},
+)
+
+
+def _apply(q, k, v, log_w, u=None, *, chunk: int = 64, subtile: int = 16,
+           inclusive: bool = True, policy: PipePolicy) -> torch.Tensor:
     """The gated linear-attention scan: q, k, log_w [BH, S, N], v [BH, S,
     P], u [BH, N] (the exclusive mode's bonus) or None; each operand float32
     or bfloat16 on its own. Any S: the ragged last chunk is padded with
-    ``log_w = 0`` and ``k = v = 0``. ``log_w`` is clamped at 0. ``depth``
-    and ``streams``: the ring's stages and the parts each stage is copied
-    in (the reference's ``Pipe``; checked for every call, used by the ring
-    body only). Returns [BH, S, P] in q's type. CPU tensors run
+    ``log_w = 0`` and ``k = v = 0``. ``log_w`` is clamped at 0. The ring's
+    stages and the parts each stage is copied in are sized by ``policy``
+    (the reference's ``Pipe``; checked for every call, used by the ring
+    body only); mode="autotune" may also pick the chunk. Returns [BH, S,
+    P] in q's type. mode="ref" runs :func:`chunk_scan_ref`; CPU tensors run
     :func:`chunk_scan_plain`; CUDA tensors launch the body :func:`_body`
     picks (one launch)."""
-    st = _subtile(chunk, subtile)
-    _pipe(depth, streams, chunk)
+    _subtile(chunk, subtile)
     _check(q, k, v, log_w, u, inclusive)
-    if q.device.type == "cpu":
-        return chunk_scan_plain(q, k, v, log_w, u, chunk=chunk, subtile=st,
-                                inclusive=inclusive)
+    if policy.mode == "ref":
+        return chunk_scan_ref(q, k, v, log_w, u, inclusive=inclusive)
+    bh, s, n = q.shape
+    p = v.shape[2]
+
+    def run(ck, depth, streams):
+        _pipe(depth, streams, ck)
+        st = _subtile(ck, subtile)
+        if q.device.type == "cpu":
+            return chunk_scan_plain(q, k, v, log_w, u, chunk=ck,
+                                    subtile=st, inclusive=inclusive)
+        return _launch(q, k, v, log_w, u, ck, st, inclusive, depth, streams)
+
+    so = tuple(x for x in policy.stream_options if chunk % x == 0)
+    pol = policy if so == tuple(policy.stream_options) \
+        else policy.replace(stream_options=so)
+    w, tile = chunk_scan_workload(bh, s, n, p, chunk=chunk, dtype=q.dtype)
+    choice = autotune.resolve_call(
+        "ff_chunk_scan", pol, workload=w, tile=tile, dtype=q.dtype,
+        workload_fn=lambda tk: chunk_scan_workload(
+            bh, s, n, p, chunk=tk.get("chunk", chunk), dtype=q.dtype),
+        runner=None if autotune.in_capture() else
+        lambda tk, dep, st: lambda: run(tk.get("chunk", chunk), dep, st),
+        tile_options=_TILE_OPTIONS,
+        # statics outside the Workload that change the measured kernel
+        extra_key=f"subtile={subtile}|inclusive={int(inclusive)}"
+                  f"|u={int(u is not None)}",
+        site={"bh": bh, "s": s, "n": n, "p": p, "chunk": chunk,
+              "subtile": subtile, "inclusive": inclusive,
+              "has_u": u is not None},
+        site_dynamic=("bh", "s"),
+        depth_cap=max_depth(n, p, log_w.dtype))
+    out = run(choice.tile_kwargs.get("chunk", chunk), choice.depth,
+              choice.streams)
+    if q.device.type == "cuda":
+        chunk_scan.launches += 1
+    return out
+
+
+def _launch(q, k, v, log_w, u, chunk, st, inclusive, depth, streams):
     bh, s, n = q.shape
     p = v.shape[2]
     body = _body(q, k, v, chunk, st)
@@ -360,8 +442,53 @@ def chunk_scan(q, k, v, log_w, u=None, *, chunk: int = 64, subtile: int = 16,
                           types, slices, stream)
         name = "ff_chunk_scan"
     _build.check("ff_chunk_scan", name, rc)
-    chunk_scan.launches += 1
     return out
 
 
-chunk_scan.launches = 0
+chunk_scan = make_entrypoint("ff_chunk_scan", _apply, name="chunk_scan")
+
+
+def _make_inputs(gen, device):
+    bh, s, n, p = 2, 128, 16, 32
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    q, k, v = 0.5 * rn(bh, s, n), 0.5 * rn(bh, s, n), rn(bh, s, p)
+    lw = -0.5 * torch.exp(rn(bh, s, n))
+    return (q, k, v, lw), {"chunk": 64, "subtile": 16, "inclusive": True}
+
+
+def _sweep_inputs(gen, site, device):
+    # operands at a recorded call-site shape (plan sweep)
+    bh, s = int(site["bh"]), int(site["s"])
+    n, p = int(site["n"]), int(site["p"])
+    dt = getattr(torch, site.get("dtype", "float32"))
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    args = (0.5 * rn(bh, s, n), 0.5 * rn(bh, s, n), rn(bh, s, p),
+            -0.5 * torch.exp(rn(bh, s, n)))
+    args = tuple(x.to(dt) for x in args)
+    if site.get("has_u"):
+        args += (rn(bh, n).to(dt),)
+    return args, {"chunk": int(site.get("chunk", 64)),
+                  "subtile": int(site.get("subtile", 16)),
+                  "inclusive": bool(site.get("inclusive", True))}
+
+
+register_kernel(
+    name="ff_chunk_scan",
+    alias="chunk_scan",
+    op=chunk_scan,
+    ref=chunk_scan_ref,
+    cost=chunk_scan_cost,
+    workload=chunk_scan_workload,
+    make_inputs=_make_inputs,
+    bench_kwargs={"bh": 64, "s": 4096, "n": 64, "p": 64,
+                  "dtype": torch.bfloat16},
+    tile_options=_TILE_OPTIONS,
+    regular=True,
+    tol=1e-3,
+    doc="gated linear-attention scan (Mamba2 / RWKV6)",
+    sweep_inputs=_sweep_inputs,
+)

@@ -15,7 +15,7 @@ bound them, and what keeps them from it is latency. The body streams K/V
 through a ``ring_pipe.cuh`` ring of ``depth`` shared-memory stages, each a
 word of 16, 32 or 64 cache rows (:func:`_word_rows`: as many as fit 16
 KB; ``streams`` sub-copies a stage: the reference's ``Pipe`` arguments,
-default 2 and 1; ``depth=1`` is the synchronous copy-then-compute
+sized by the pipe policy; ``depth=1`` is the synchronous copy-then-compute
 baseline), one producer warp issuing ``cp.async`` ahead of four consumer
 warps that each own a quarter of a word's rows. A row's live words are
 split over up to :func:`_plan`'s ``split`` blocks, from the shapes both
@@ -26,9 +26,13 @@ in the same launch. ``depth`` and ``streams`` never change a bit.
 The wrapper of the contiguous kernel is :func:`decode_attention` here;
 the paged kernel's wrapper is
 :func:`repro_torch.runtime.paged_kv.paged_decode_attention`, beside the
-pool it reads. Both take ``depth`` and ``streams``, check them as the
+pool it reads. Both resolve ``depth`` and ``streams`` through the pipe
+policy (the contiguous one as the kernel ``ff_decode_attention``, the
+paged one as the graph ``paged_decode_attention``), check them as the
 reference's ``Pipe`` checks them, and on the CPU run the plain version,
-which ignores them.
+which ignores them. Their words are the port's (:func:`_word_rows`), not
+the reference's ``block_kv`` tiles: :func:`decode_attention_workload`
+says how they differ.
 """
 
 from __future__ import annotations
@@ -40,8 +44,13 @@ from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core import autotune
+from repro_torch.core.pipe import itemsize
+from repro_torch.core.pipeline_model import Workload
+from repro_torch.core.program import PipePolicy, make_entrypoint
 from repro_torch.kernels import _build
 from repro_torch.kernels.ff_matmul.ops import _sm_count
+from repro_torch.kernels.registry import KernelCost, register_kernel
 
 _NEG_INF = -1e30
 _MAX_D = 256
@@ -57,8 +66,10 @@ _WARPS = 4
 _MIN_SPLIT_ROWS = 128
 _BLOCKS_PER_SM = 4
 _MAX_SMEM = 232448              # 227 KB of shared memory a block
-DEFAULT_DEPTH = 2               # the reference's (kernel.py:34, :128)
-DEFAULT_STREAMS = 1
+_SM_SMEM = 233472               # 228 KB of shared memory an SM
+_BLOCK_SMEM = 1024              # what the runtime keeps of it a block
+_SM_THREADS = 2048
+_THREADS = 32 * (_WARPS + 1)    # four consumer warps and the producer
 
 
 class Plan(NamedTuple):
@@ -139,6 +150,40 @@ def max_depth(d: int, dtype: torch.dtype, group: int = 1) -> int:
     return depth
 
 
+def resident_blocks(depth: int, d: int, dtype: torch.dtype,
+                    group: int = 1) -> int:
+    """Blocks of the kernel one SM holds at once with a ring of ``depth``
+    stages, as its shared memory and threads allow. Registers are not
+    counted: on the card they hold the contiguous kernel to 5 blocks an
+    SM at depths 1 and 2 and the paged one to 6 at depth 1 (bf16, head
+    dim 64), which moves no :func:`wave_depth` at the serve,
+    ``decode_256`` and ``decode_long`` shapes (``chip_smoke.py``
+    ``decode_waves`` checks it against the card's occupancy)."""
+    return min(_SM_SMEM // (smem_bytes(depth, d, dtype, group) + _BLOCK_SMEM),
+               _SM_THREADS // _THREADS)
+
+
+@functools.lru_cache(maxsize=None)
+def wave_depth(b: int, kvh: int, d: int, dtype: torch.dtype, s: int,
+               sm_count: int, group: int = 1) -> int:
+    """The deepest ring at which the launch's grid (B x KVH rows, each cut
+    into :func:`_plan`'s split) runs in as few waves as at depth 1. The
+    pipe model sees one ring for the whole card; this kernel runs a ring a
+    block and aims at 4 blocks an SM, so a deeper ring that leaves room
+    for fewer blocks than the grid needs adds a wave (``decode_long``:
+    576 blocks on 132 SMs need 5 an SM; depth 2 holds 6, depth 3 only 4).
+    A grid within one block an SM is not capped."""
+    blocks = b * kvh * _plan(b, kvh, d, dtype, s, sm_count).split
+
+    def waves(depth):
+        return -(-blocks // (sm_count * max(
+            resident_blocks(depth, d, dtype, group), 1)))
+    depth = max_depth(d, dtype, group)
+    while depth > 1 and waves(depth) > waves(1):
+        depth -= 1
+    return depth
+
+
 @functools.lru_cache(maxsize=None)
 def _pipe(depth: int, streams: int, rows: int, d: int, dtype: torch.dtype,
           group: int) -> None:
@@ -160,6 +205,81 @@ def _pipe(depth: int, streams: int, rows: int, d: int, dtype: torch.dtype,
             f"needs {smem_bytes(depth, d, dtype, group)} bytes of shared "
             f"memory; at most {max_depth(d, dtype, group)} stages fit in "
             f"{_MAX_SMEM}")
+
+
+def stream_options(options, rows: int, d: int, dtype) -> tuple:
+    """The stream counts of ``options`` the ring can run: those dividing
+    the reference's K/V tile (``rows``: ``block_kv``, or ``2 * page`` for
+    the paged pool) and the port's word (:func:`_word_rows`)."""
+    word = _word_rows(d, dtype)
+    return tuple(s for s in options if rows % s == 0 and word % s == 0)
+
+
+def decode_attention_workload(b: int, h: int, kvh: int, s: int, d: int, *,
+                              dtype=torch.bfloat16
+                              ) -> Tuple[Workload, Tuple[int, int]]:
+    """The kernel's stream program in pipe words: one word per (b, kv head,
+    R cache rows), a K and a V tile of R = :func:`_word_rows` rows (64 at
+    head dim 64 in bf16, 32 at 80 or 128, 16 at 256; f32 half as many),
+    whatever ``block_kv`` or the page is. The reference's word is a
+    ``block_kv`` tile; the two are one workload where ``block_kv == R``.
+    The whole cache streams once: the paper's regular, DLCD-free case.
+    Planning tile = the K tile of a word."""
+    rows = _word_rows(d, dtype)
+    group = max(h // kvh, 1)
+    w = Workload(
+        n_words=max(b * kvh * -(-s // rows), 1),
+        word_bytes=float(2 * rows * d * itemsize(dtype)),
+        flops_per_word=4.0 * group * rows * d,
+        regular=True,
+    )
+    return w, (rows, d)
+
+
+def decode_attention_cost(b: int, h: int, kvh: int, s: int, d: int, *,
+                          depth: int = 2, dtype=torch.bfloat16
+                          ) -> KernelCost:
+    item = itemsize(dtype)
+    return KernelCost(
+        flops=4.0 * b * h * s * d,
+        hbm_bytes=float(b * kvh * 2 * s * d * item + 2 * b * h * d * item),
+        smem_bytes=smem_bytes(depth, d, dtype, max(h // kvh, 1)))
+
+
+def resolve_pipe(op: str, policy, q, kvh: int, s: int, d: int, rows: int,
+                 run, *, nodes=None, site=None, extra_key: str = ""
+                 ) -> Tuple[int, int]:
+    """(depth, streams) of one decode launch under ``policy``: the kernel
+    (``nodes=None``) or a graph of ``nodes`` (``(name, Workload, tile)``,
+    the paged decode), its stream options those :func:`stream_options`
+    keeps at ``rows``, its depth capped at :func:`wave_depth` (at most
+    :func:`max_depth`) for the card the launch runs on, or on the CPU for
+    ``policy.hw``'s SM count."""
+    b, h = q.shape[0], q.shape[1]
+    group = h // kvh
+    so = stream_options(policy.stream_options, rows, d, q.dtype)
+    pol = policy if so == tuple(policy.stream_options) \
+        else policy.replace(stream_options=so)
+    runner = None if autotune.in_capture() else \
+        (lambda tk, dep, st: lambda: run(dep, st))
+    sms = _sms(q.device.index) if q.device.type == "cuda" else policy.hw.sms
+    cap = wave_depth(b, kvh, d, q.dtype, s, sms, group)
+    if nodes is None:
+        w, tile = decode_attention_workload(b, h, kvh, s, d, dtype=q.dtype)
+        choice = autotune.resolve_call(
+            op, pol, workload=w, tile=tile, dtype=q.dtype,
+            workload_fn=lambda tk: (w, tile), runner=runner,
+            extra_key=extra_key, site=site, site_dynamic=("b", "s"),
+            depth_cap=cap)
+    else:
+        w, tile = autotune.graph_workload(nodes)
+        choice = autotune.resolve_graph(
+            op, pol, workload=w, tile=tile, dtype=q.dtype,
+            signature=autotune.graph_signature(nodes),
+            workload_fn=lambda tk: (w, tile), runner=runner, site=site,
+            site_dynamic=("b", "n_pages", "n_blocks"), depth_cap=cap)
+    _pipe(choice.depth, choice.streams, rows, d, q.dtype, group)
+    return choice.depth, choice.streams
 
 
 def decode_attention_ref(q, k, v, lengths, *, block_kv: int) -> torch.Tensor:
@@ -312,16 +432,15 @@ def check_decode_inputs(q, kv, lengths, *, kvh: int, d: int) -> None:
         raise ValueError(f"head dim {d} > {_MAX_D}")
 
 
-def decode_attention(q, k, v, lengths, *, block_kv: int,
-                     depth: int = DEFAULT_DEPTH,
-                     streams: int = DEFAULT_STREAMS) -> torch.Tensor:
+def _apply(q, k, v, lengths, *, block_kv: int,
+           policy: PipePolicy) -> torch.Tensor:
     """Decode attention for one new token against a contiguous cache.
 
     q: [B, H, D]; k, v: [B, KVH, S, D] with the last dim contiguous (a
     transposed view of a [B, S, KVH, D] cache is taken as it is);
-    lengths: [B] (0 = inactive row); ``S % block_kv == 0``. ``depth`` and
-    ``streams`` size the ring the kernel reads K/V through; they never
-    change the result. Returns [B, H, D]. CPU tensors run
+    lengths: [B] (0 = inactive row); ``S % block_kv == 0``. The ring the
+    kernel reads K/V through is sized by ``policy``; it never changes the
+    result. Returns [B, H, D]. mode="ref" and CPU tensors run
     :func:`decode_attention_ref`; CUDA tensors launch the kernel."""
     b, kvh, s, d = k.shape
     if v.shape != k.shape or k.shape[0] != q.shape[0]:
@@ -331,20 +450,35 @@ def decode_attention(q, k, v, lengths, *, block_kv: int,
     if s % block_kv or not 0 < block_kv <= _MAX_BLOCK_KV:
         raise ValueError(f"block_kv={block_kv} must be in "
                          f"(0, {_MAX_BLOCK_KV}] and divide S={s}")
-    _pipe(depth, streams, block_kv, d, q.dtype, q.shape[1] // kvh)
-    if q.device.type == "cpu":
+    if policy.mode == "ref":
         return decode_attention_ref(q, k, v, lengths, block_kv=block_kv)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"decode attention runs on cpu or cuda, "
                          f"not {q.device}")
-    if k.stride(3) != 1 or v.stride(3) != 1 or v.dtype != k.dtype:
+    if q.device.type == "cuda" and (k.stride(3) != 1 or v.stride(3) != 1
+                                    or v.dtype != k.dtype):
         raise ValueError("k and v need a contiguous last dim and one type")
-    out = launch_contiguous(q, k, v, lengths, depth=depth, streams=streams)
-    decode_attention.launches += 1
+
+    def run(depth, streams):
+        if q.device.type == "cpu":
+            return decode_attention_ref(q, k, v, lengths, block_kv=block_kv)
+        return launch_contiguous(q, k, v, lengths, depth=depth,
+                                 streams=streams)
+
+    depth, streams = resolve_pipe(
+        "ff_decode_attention", policy, q, kvh, s, d, block_kv, run,
+        site={"b": b, "h": q.shape[1], "kvh": kvh, "s": s, "d": d,
+              "block_kv": block_kv},
+        # the port's words do not depend on block_kv: it goes in the key
+        extra_key=f"block_kv={block_kv}")
+    out = run(depth, streams)
+    if q.device.type == "cuda":
+        decode_attention.launches += 1
     return out
 
 
-decode_attention.launches = 0
+decode_attention = make_entrypoint("ff_decode_attention", _apply,
+                                   name="decode_attention")
 
 
 def launch_contiguous(q, k, v, lengths, *, depth: int,
@@ -377,3 +511,46 @@ def launch_paged(q, kv_pool, block_tables, lengths, *, depth: int,
     _launch(True, q, out, lens, kvh, d, page * n_pages, depth, streams,
             kv_pool.data_ptr(), bt.data_ptr(), page, n_pages, nb)
     return out
+
+
+def _make_inputs(gen, device):
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    q, k, v = rn(2, 4, 64), rn(2, 2, 128, 64), rn(2, 2, 128, 64)
+    lens = torch.tensor([70, 128], dtype=torch.int32, device=device)
+    return (q, k, v, lens), {"block_kv": 64}
+
+
+def _sweep_inputs(gen, site, device):
+    # operands at a recorded call-site shape (plan sweep); h snaps to a
+    # multiple of the recorded KV-head count
+    kvh = int(site["kvh"])
+    h = max(1, int(site["h"]) // kvh) * kvh
+    b, s, d = int(site["b"]), int(site["s"]), int(site["d"])
+    dt = getattr(torch, site.get("dtype", "float32"))
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dt)
+    lens = torch.full((b,), s, dtype=torch.int32, device=device)
+    return (rn(b, h, d), rn(b, kvh, s, d), rn(b, kvh, s, d), lens), \
+        {"block_kv": int(site.get("block_kv", 64))}
+
+
+register_kernel(
+    name="ff_decode_attention",
+    alias="decode_attention",
+    op=decode_attention,
+    ref=decode_attention_ref,
+    cost=decode_attention_cost,
+    workload=decode_attention_workload,
+    make_inputs=_make_inputs,
+    bench_kwargs={"b": 8, "h": 64, "kvh": 8, "s": 32768, "d": 128,
+                  "dtype": torch.bfloat16},
+    # no tile knob: the word (_word_rows) is fixed by the head dim and the
+    # type, and block_kv is the caller's (serving pins it to the page)
+    tile_options=(),
+    regular=True,
+    tol=2e-4,
+    doc="decode attention against a contiguous cache, K/V on the ring",
+    sweep_inputs=_sweep_inputs,
+)

@@ -1,5 +1,3 @@
-from repro_torch.kernels.ff_gather.ops import (DEFAULT_DEPTH, DEFAULT_STREAMS,
-                                               gather, gather_ref, max_depth)
+from repro_torch.kernels.ff_gather.ops import gather, gather_ref, max_depth
 
-__all__ = ["DEFAULT_DEPTH", "DEFAULT_STREAMS", "gather", "gather_ref",
-           "max_depth"]
+__all__ = ["gather", "gather_ref", "max_depth"]

@@ -12,19 +12,27 @@ only where ``depth`` stages of whole rows do not fit in shared memory,
 gives rows shorter than 2 KB a multiple of that a word (up to a 16 KB
 stage), and runs one block an SM, each walking its words through a ring
 of ``depth`` stages (``depth = 1``: the synchronous baseline). ``depth``
-and ``streams`` default to the reference's (4, 1) and never change a
-bit.
+and ``streams`` never change a bit; :func:`gather` resolves them through
+the pipe policy as the kernel ``ff_gather`` with the reference's
+workload (:func:`gather_workload`: words of 8 rows, irregular), its
+stream options clamped to the rows ``n`` fills as the reference's
+``_apply`` clamps them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core import autotune
+from repro_torch.core.pipe import itemsize
+from repro_torch.core.pipeline_model import Workload
+from repro_torch.core.program import PipePolicy, make_entrypoint
 from repro_torch.kernels import _build
+from repro_torch.kernels.registry import KernelCost, register_kernel
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _UNITS = (16, 8, 4, 2)          # copy units of the kernel, in bytes
@@ -34,8 +42,6 @@ _BARRIERS = 16                  # bytes a stage: its full and empty mbarriers
 _MIN_SLAB = 2048                # bytes: a row is cut no finer (or whole)
 _STAGE = 16384                  # bytes a stage of short rows grows to: 8
                                 # rows of 2 KB, the reference's word there
-DEFAULT_DEPTH = 4               # the reference's (kernel.py:35, :67)
-DEFAULT_STREAMS = 1
 
 
 class Plan(NamedTuple):
@@ -64,7 +70,7 @@ def _fits(depth: int, rows: int, pitch: int) -> bool:
 
 
 def max_depth(c: int, dtype: torch.dtype,
-              streams: int = DEFAULT_STREAMS) -> int:
+              streams: int = 1) -> int:
     """The deepest ring that fits one block's shared memory for rows of
     ``c`` elements at ``streams`` (as the launch uses it, after the
     clamp): ``depth`` stages of ``8 * streams`` rows of the smallest slab
@@ -162,39 +168,90 @@ def check_gather_inputs(table, idx) -> None:
         raise ValueError("table and idx must be on one device")
 
 
-def gather(table, idx, *, depth: int = DEFAULT_DEPTH,
-           streams: int = DEFAULT_STREAMS) -> torch.Tensor:
+def gather_workload(n: int, cols: int, *, dtype=torch.float32
+                    ) -> Tuple[Workload, Tuple[int, int]]:
+    """The reference's workload, word for word: one word per 8-row bundle
+    of irregular single-row loads (latency per word, hidden by (depth-1) x
+    rows outstanding row copies), each row read and written once. The
+    port's word is the same bundle (8 * streams rows); rows under 2 KB take
+    a multiple of it (:func:`_plan`), which the planner does not see."""
+    item = itemsize(dtype)
+    w = Workload(
+        n_words=max(-(-n // _ROWS), 1),
+        word_bytes=float(_ROWS * cols * item),
+        flops_per_word=0.0,
+        regular=False,
+        store_bytes_per_word=float(_ROWS * cols * item),
+    )
+    return w, (_ROWS, cols)
+
+
+def gather_cost(n: int, cols: int, *, depth: int = 4,
+                dtype=torch.float32) -> KernelCost:
+    item = itemsize(dtype)
+    return KernelCost(flops=0.0,
+                      hbm_bytes=float(2 * n * cols * item + n * 4),
+                      smem_bytes=depth * (_ROWS * _pad16(cols * item)
+                                          + _BARRIERS))
+
+
+def _apply(table, idx, *, policy: PipePolicy) -> torch.Tensor:
     """``table[idx]``: table [R, C] float32 or bfloat16, idx [n] int32 or
     int64, any n. Returns [n, C], an exact copy of the indexed rows.
 
-    ``depth`` and ``streams`` are the reference's pipe arguments: a ring
-    of ``depth`` stages of words of ``8 * streams`` rows (``streams``
-    clamped to the rows ``n`` fills); each at least 1, and the stages must
-    fit (:func:`max_depth`). Neither changes a bit.
+    The ring (``depth`` stages of words of ``8 * streams`` rows,
+    ``streams`` clamped to the rows ``n`` fills) is sized by ``policy``;
+    explicit values must be at least 1 and fit (:func:`max_depth`).
+    Neither changes a bit.
 
     Every index must lie in ``[0, R)``: the plain version raises
     ``IndexError`` outside it (a negative index too), the kernel does not
     check (that would cost a host sync per call) and reads whatever lies
-    there. CPU tensors run :func:`gather_ref`; CUDA tensors launch the
-    kernel (none for n = 0 or C = 0)."""
+    there. mode="ref" and CPU tensors run :func:`gather_ref`; CUDA tensors
+    launch the kernel (none for n = 0 or C = 0)."""
     check_gather_inputs(table, idx)
-    _check_pipe(depth, streams)
+    if policy.mode == "ref":
+        return gather_ref(table, idx)
     n, c = idx.shape[0], table.shape[1]
     cuda = table.device.type == "cuda"
-    plan = _plan(n, c, table.dtype, depth, streams,
-                 _sms(table.device.index) if cuda else 1)
-    if table.device.type == "cpu":
-        return gather_ref(table, idx)
-    if not cuda:
+    if not cuda and table.device.type != "cpu":
         raise ValueError(f"gather runs on cpu or cuda, not {table.device}")
-    out = torch.empty((n, c), dtype=table.dtype, device=table.device)
-    if n == 0 or c == 0:
-        return out
-    if table.stride(1) != 1 or table.stride(0) != c:
-        table = table.contiguous()
-    _launch(table, idx.to(torch.int32).contiguous(), out, plan, depth)
-    gather.launches += 1
+
+    def run(depth, streams):
+        _check_pipe(depth, streams)
+        plan = _plan(n, c, table.dtype, depth, streams,
+                     _sms(table.device.index) if cuda else 1)
+        if not cuda:
+            return gather_ref(table, idx), False
+        out = torch.empty((n, c), dtype=table.dtype, device=table.device)
+        if n == 0 or c == 0:
+            return out, False
+        tab = table if table.stride(1) == 1 and table.stride(0) == c \
+            else table.contiguous()
+        _launch(tab, idx.to(torch.int32).contiguous(), out, plan, depth)
+        return out, True
+
+    # the tuner's streams: those the index stream can fill, as the
+    # reference's _apply clamps them
+    so = tuple(sorted({_streams(n, int(s)) for s in policy.stream_options}))
+    pol = policy if so == tuple(policy.stream_options) \
+        else policy.replace(stream_options=so)
+    w, tile = gather_workload(n, c, dtype=table.dtype)
+    choice = autotune.resolve_call(
+        "ff_gather", pol, workload=w, tile=tile, dtype=table.dtype,
+        workload_fn=lambda tk: (w, tile),
+        runner=None if autotune.in_capture() else
+        lambda tk, dep, st: lambda: run(dep, st),
+        site={"rows": table.shape[0], "cols": c, "n": n},
+        site_dynamic=("rows", "n"),
+        depth_cap=max(1, min(max_depth(c, table.dtype, s) for s in so)))
+    out, launched = run(choice.depth, choice.streams)
+    if launched:
+        gather.launches += 1
     return out
+
+
+gather = make_entrypoint("ff_gather", _apply, name="gather")
 
 
 def _launch(table, idx, out, plan: Plan, depth: int) -> None:
@@ -212,4 +269,34 @@ def _launch(table, idx, out, plan: Plan, depth: int) -> None:
     _build.check("ff_gather", "ff_gather", rc)
 
 
-gather.launches = 0
+def _make_inputs(gen, device):
+    tab = torch.randn((96, 128), generator=gen, device=device)
+    idx = torch.randint(0, 96, (52,), generator=gen, device=device)
+    return (tab, idx), {}
+
+
+def _sweep_inputs(gen, site, device):
+    # operands at a recorded call-site shape (plan sweep)
+    rows, cols, n = int(site["rows"]), int(site["cols"]), int(site["n"])
+    dt = getattr(torch, site.get("dtype", "float32"))
+    tab = torch.randn((rows, cols), generator=gen, device=device).to(dt)
+    idx = torch.randint(0, rows, (n,), generator=gen, device=device)
+    return (tab, idx), {}
+
+
+register_kernel(
+    name="ff_gather",
+    alias="gather",
+    op=gather,
+    ref=gather_ref,
+    cost=gather_cost,
+    workload=gather_workload,
+    make_inputs=_make_inputs,
+    bench_kwargs={"n": 1 << 20, "cols": 512, "dtype": torch.float32},
+    # no tile knob: the 8 * streams row bundle is the tile
+    tile_options=(),
+    regular=False,
+    tol=0.0,
+    doc="irregular row gather (embedding / MoE dispatch)",
+    sweep_inputs=_sweep_inputs,
+)

@@ -34,6 +34,13 @@ rounded to the input type before the product, f32 sums, the product
 rounded to the output type before the epilogue, SwiGLU rounded once), and
 the plain MLP tail is the staged composition of the other two, as the
 kernel's tail is of its stages.
+
+Each wrapper resolves its ring's ``depth`` and ``streams`` through the
+pipe policy (``policy=``, the session policy, or the ``depth=`` /
+``streams=`` keywords) as the op of its name, over the port's words
+(:func:`ff_layer_workload`); the decode layer
+(``repro_torch.models.layers.decode_layer``) resolves one plan for its
+three launches as the graph ``decode_layer`` and hands it down.
 """
 
 from __future__ import annotations
@@ -44,6 +51,10 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core import autotune
+from repro_torch.core.pipe import itemsize
+from repro_torch.core.pipeline_model import Workload
+from repro_torch.core.program import PipePolicy, make_entrypoint
 from repro_torch.kernels import _build
 from repro_torch.kernels.ff_matmul.ops import _sm_count
 
@@ -60,8 +71,6 @@ _MAX_SPLIT_ROWS = 2048          # a split's k rows staged: 4 x 2048 f32
 _MIN_SPLIT_ROWS = 32
 _MAX_SMEM = 232448              # 227 KB of shared memory a block
 _REF_BLOCK_M = 8                # the reference programs' row block
-DEFAULT_DEPTH = 2               # the reference's (kernel.py, layers.py)
-DEFAULT_STREAMS = 1
 
 
 class Plan(NamedTuple):
@@ -140,6 +149,64 @@ def _pipe(depth: int, streams: int) -> None:
         raise ValueError(f"depth {depth} needs {_smem_bytes(depth)} bytes "
                          f"of shared memory; at most {MAX_DEPTH} stages "
                          f"fit in {_MAX_SMEM}")
+
+
+def stream_options(options) -> tuple:
+    """The stream counts of ``options`` the kernels can run: those
+    dividing the reference's 8-row blocks."""
+    return tuple(s for s in options if _REF_BLOCK_M % s == 0)
+
+
+def ff_layer_workload(m: int, k: int, n: int, *, dtype=torch.bfloat16,
+                      gated: bool = False
+                      ) -> Tuple[Workload, Tuple[int, int]]:
+    """One product's stream program in the port's words: a 16 KB ring
+    stage of weight rows for one 64-column tile (128 rows of k in bf16,
+    64 in f32; a SwiGLU stage holds wg's and wu's columns, so half as
+    many), ``ceil(k / rows)`` of them a tile. The reference's words are
+    the activation's 8-row blocks against its weight blocks; the port
+    streams the weights, which is what bounds a decode step. Each word
+    does ``m`` rows' products over its rows; the output is written once.
+    Planning tile = (weight rows a word, 64)."""
+    item = itemsize(dtype)
+    cols = _TILE * (2 if gated else 1)
+    rows = max(_STAGE_BYTES // (cols * item), 1)
+    n_words = max(-(-n // _TILE) * -(-k // rows), 1)
+    w = Workload(
+        n_words=n_words,
+        word_bytes=float(rows * cols * item),
+        flops_per_word=2.0 * m * rows * cols,
+        regular=True,
+        store_bytes_per_word=float(m * n * item) / n_words,
+    )
+    return w, (rows, _TILE)
+
+
+def mlp_tail_nodes(m: int, hq: int, d: int, f: int, *,
+                   dtype=torch.bfloat16):
+    """The tail's three stages as ``(name, Workload, tile)``: the
+    out-projection [hq, d], gate/up [d, f] x 2, the down-projection
+    [f, d]."""
+    return (("oproj",) + ff_layer_workload(m, hq, d, dtype=dtype),
+            ("gateup",) + ff_layer_workload(m, d, f, dtype=dtype,
+                                            gated=True),
+            ("down",) + ff_layer_workload(m, f, d, dtype=dtype))
+
+
+def resolve_pipe(op: str, policy, dtype, w, tile, run, site
+                 ) -> Tuple[int, int]:
+    """(depth, streams) of one launch under ``policy``."""
+    so = stream_options(policy.stream_options)
+    pol = policy if so == tuple(policy.stream_options) \
+        else policy.replace(stream_options=so)
+    choice = autotune.resolve_call(
+        op, pol, workload=w, tile=tile, dtype=dtype,
+        workload_fn=lambda tk: (w, tile),
+        runner=None if autotune.in_capture() else
+        lambda tk, dep, st: lambda: run(dep, st),
+        site=site, site_dynamic=("m",), depth_cap=MAX_DEPTH)
+    _pipe(choice.depth, choice.streams)
+    return choice.depth, choice.streams
 
 
 # ---------------------------------------------------------------------------
@@ -405,10 +472,10 @@ def _launch_tail(a, wo, x, nw2, wg, wu, wo2, out, scratch, *, eps, depth,
 # ---------------------------------------------------------------------------
 
 
-def ff_layer_matmul(a, b, *, norm_weight=None, eps: float = 1e-6,
-                    bias=None, positions=None, rope_theta=None,
-                    head_dim=None, residual=None, depth: int = DEFAULT_DEPTH,
-                    streams: int = DEFAULT_STREAMS) -> torch.Tensor:
+def _apply_matmul(a, b, *, norm_weight=None, eps: float = 1e-6,
+                  bias=None, positions=None, rope_theta=None,
+                  head_dim=None, residual=None,
+                  policy: PipePolicy) -> torch.Tensor:
     """``out = epilogue(round(maybe_rmsnorm(a) @ b))``.
 
     a: [m, k]; b: [k, n] (f32 or bf16, one type); ``norm_weight``: [k] f32
@@ -417,11 +484,10 @@ def ff_layer_matmul(a, b, *, norm_weight=None, eps: float = 1e-6,
         multiple of it), optional q ``bias`` [n]: the value plus the bias
         in f32, rotated per head, rounded back;
       * ``residual`` [m, n]: added in the output type.
-    ``depth``/``streams``: the bf16 weight ring's stages and sub-copies a
-    stage (:func:`_pipe`); the result does not depend on them. Returns
-    [m, n] in a's type. CPU tensors run :func:`ff_layer_matmul_ref`; CUDA
-    tensors launch the kernel."""
-    _pipe(depth, streams)
+    ``policy`` sizes the bf16 weight ring's stages and sub-copies a stage
+    (:func:`_pipe`); the result does not depend on them. Returns [m, n] in
+    a's type. mode="ref" and CPU tensors run :func:`ff_layer_matmul_ref`;
+    CUDA tensors launch the kernel."""
     if a.dim() != 2:
         raise ValueError(f"a {tuple(a.shape)} is not [m, k]")
     m, k = a.shape
@@ -452,7 +518,12 @@ def ff_layer_matmul(a, b, *, norm_weight=None, eps: float = 1e-6,
     kw = dict(norm_weight=norm_weight, eps=eps, bias=bias,
               positions=positions, rope_theta=rope_theta, head_dim=head_dim,
               residual=residual)
-    if dev.type == "cpu":
+    if policy.mode == "ref" or dev.type == "cpu":
+        if policy.mode != "ref":
+            resolve_pipe("ff_layer_matmul", policy, dt,
+                         *ff_layer_workload(m, k, n, dtype=dt),
+                         lambda dep, st: ff_layer_matmul_ref(a, b, **kw),
+                         {"m": m, "k": k, "n": n})
         return ff_layer_matmul_ref(a, b, **kw)
     _check_k(k)
     _check_cuda_layout((a, norm_weight, bias, residual), (b,))
@@ -463,25 +534,31 @@ def ff_layer_matmul(a, b, *, norm_weight=None, eps: float = 1e-6,
                              f"of {_VEC[dt]} columns (one 16-byte load)")
         freqs = rope_freqs(float(rope_theta), head_dim // 2, dev)
         pos = positions.to(torch.int32).contiguous()
-    out = torch.empty(m, n, dtype=dt, device=dev)
     epi = "rope" if rope else "residual" if residual is not None else "none"
-    _launch_matmul(a, b, out, norm_weight=norm_weight, eps=eps, epilogue=epi,
-                   bias=bias, pos=pos, freqs=freqs, head_dim=head_dim,
-                   residual=residual, depth=depth, streams=streams)
+
+    def run(depth, streams):
+        out = torch.empty(m, n, dtype=dt, device=dev)
+        _launch_matmul(a, b, out, norm_weight=norm_weight, eps=eps,
+                       epilogue=epi, bias=bias, pos=pos, freqs=freqs,
+                       head_dim=head_dim, residual=residual, depth=depth,
+                       streams=streams)
+        return out
+
+    out = run(*resolve_pipe("ff_layer_matmul", policy, dt,
+                            *ff_layer_workload(m, k, n, dtype=dt), run,
+                            {"m": m, "k": k, "n": n}))
     ff_layer_matmul.launches += 1
     return out
 
 
-def ff_layer_swiglu(x, wg, wu, *, norm_weight=None, eps: float = 1e-6,
-                    depth: int = DEFAULT_DEPTH,
-                    streams: int = DEFAULT_STREAMS) -> torch.Tensor:
+def _apply_swiglu(x, wg, wu, *, norm_weight=None, eps: float = 1e-6,
+                  policy: PipePolicy) -> torch.Tensor:
     """``silu(maybe_rmsnorm(x) @ wg) * (maybe_rmsnorm(x) @ wu)`` in f32,
     rounded once. x: [m, k]; wg, wu: [k, f] with one row stride (the two
     halves of ``wi`` are taken as they are); ``norm_weight``: [k] f32;
-    ``depth``/``streams`` as :func:`ff_layer_matmul`. Returns [m, f]. CPU
-    tensors run :func:`ff_layer_swiglu_ref`; CUDA tensors launch the
-    kernel."""
-    _pipe(depth, streams)
+    ``policy`` as :func:`ff_layer_matmul`'s. Returns [m, f]. mode="ref"
+    and CPU tensors run :func:`ff_layer_swiglu_ref`; CUDA tensors launch
+    the kernel."""
     if x.dim() != 2:
         raise ValueError(f"x {tuple(x.shape)} is not [m, k]")
     m, k = x.shape
@@ -490,34 +567,48 @@ def ff_layer_swiglu(x, wg, wu, *, norm_weight=None, eps: float = 1e-6,
     _check_weight("wu", wu, dt, k, wg.shape[1])
     _check_norm(norm_weight, k)
     dev = _device_of(x, wg, wu, norm_weight)
-    if dev.type == "cpu":
-        return ff_layer_swiglu_ref(x, wg, wu, norm_weight=norm_weight,
-                                   eps=eps)
+    f = wg.shape[1]
+    site = {"m": m, "k": k, "f": f}
+    if policy.mode == "ref" or dev.type == "cpu":
+        def ref(*_):
+            return ff_layer_swiglu_ref(x, wg, wu, norm_weight=norm_weight,
+                                       eps=eps)
+        if policy.mode != "ref":
+            resolve_pipe("ff_layer_swiglu", policy, dt,
+                         *ff_layer_workload(m, k, f, dtype=dt, gated=True),
+                         ref, site)
+        return ref()
     _check_k(k)
     _check_cuda_layout((x, norm_weight), (wg, wu))
     if wg.stride(0) != wu.stride(0):
         raise ValueError("wg and wu need one row stride")
-    out = torch.empty(m, wg.shape[1], dtype=dt, device=dev)
-    _launch_swiglu(x, wg, wu, out, norm_weight=norm_weight, eps=eps,
-                   depth=depth, streams=streams)
+
+    def run(depth, streams):
+        out = torch.empty(m, f, dtype=dt, device=dev)
+        _launch_swiglu(x, wg, wu, out, norm_weight=norm_weight, eps=eps,
+                       depth=depth, streams=streams)
+        return out
+
+    out = run(*resolve_pipe("ff_layer_swiglu", policy, dt,
+                            *ff_layer_workload(m, k, f, dtype=dt,
+                                               gated=True), run, site))
     ff_layer_swiglu.launches += 1
     return out
 
 
-def ff_layer_mlp_tail(a, wo, x, nw2, wg, wu, wo2, *, eps: float = 1e-6,
-                      depth: int = DEFAULT_DEPTH,
-                      streams: int = DEFAULT_STREAMS) -> torch.Tensor:
+def _apply_tail(a, wo, x, nw2, wg, wu, wo2, *, eps: float = 1e-6,
+                policy: PipePolicy) -> torch.Tensor:
     """The decode layer after attention, in one launch:
     ``h = round(a @ wo) + x``; ``act = swiglu(rmsnorm(h, nw2))``;
     ``out = round(act @ wo2) + h``.
 
     a: [m, hq] attention output (heads flattened); wo: [hq, d]; x: [m, d]
     the layer input; nw2: [d] f32; wg, wu: [d, f] (one row stride); wo2:
-    [f, d]; ``depth``/``streams`` as :func:`ff_layer_matmul`, for all three
-    stages. Returns [m, d]. CPU tensors run :func:`ff_layer_mlp_tail_ref`;
-    CUDA tensors launch the cooperative kernel, whose grid is sized to what
-    can be resident at once (a refused launch raises)."""
-    _pipe(depth, streams)
+    [f, d]; ``policy`` as :func:`ff_layer_matmul`'s, one plan for all
+    three stages (their workloads summed). Returns [m, d]. mode="ref" and
+    CPU tensors run :func:`ff_layer_mlp_tail_ref`; CUDA tensors launch the
+    cooperative kernel, whose grid is sized to what can be resident at
+    once (a refused launch raises)."""
     if a.dim() != 2:
         raise ValueError(f"a {tuple(a.shape)} is not [m, hq]")
     m, hq = a.shape
@@ -531,20 +622,35 @@ def ff_layer_mlp_tail(a, wo, x, nw2, wg, wu, wo2, *, eps: float = 1e-6,
     _check_weight("wu", wu, dt, d, f)
     _check_weight("wo2", wo2, dt, f, d)
     dev = _device_of(a, wo, x, nw2, wg, wu, wo2)
-    if dev.type == "cpu":
-        return ff_layer_mlp_tail_ref(a, wo, x, nw2, wg, wu, wo2, eps=eps)
+    wl, tile = autotune.graph_workload(mlp_tail_nodes(m, hq, d, f,
+                                                      dtype=dt))
+    site = {"m": m, "hq": hq, "d": d, "f": f}
+    if policy.mode == "ref" or dev.type == "cpu":
+        def ref(*_):
+            return ff_layer_mlp_tail_ref(a, wo, x, nw2, wg, wu, wo2,
+                                         eps=eps)
+        if policy.mode != "ref":
+            resolve_pipe("ff_layer_mlp_tail", policy, dt, wl, tile, ref,
+                         site)
+        return ref()
     _check_k(max(hq, d, f))
     _check_cuda_layout((a, x, nw2), (wo, wg, wu, wo2))
     if wg.stride(0) != wu.stride(0):
         raise ValueError("wg and wu need one row stride")
-    scratch = torch.empty(m * (d + f), dtype=dt, device=dev)
-    out = torch.empty(m, d, dtype=dt, device=dev)
-    _launch_tail(a, wo, x, nw2, wg, wu, wo2, out, scratch, eps=eps,
-                 depth=depth, streams=streams)
+
+    def run(depth, streams):
+        scratch = torch.empty(m * (d + f), dtype=dt, device=dev)
+        out = torch.empty(m, d, dtype=dt, device=dev)
+        _launch_tail(a, wo, x, nw2, wg, wu, wo2, out, scratch, eps=eps,
+                     depth=depth, streams=streams)
+        return out
+
+    out = run(*resolve_pipe("ff_layer_mlp_tail", policy, dt, wl, tile, run,
+                            site))
     ff_layer_mlp_tail.launches += 1
     return out
 
 
-ff_layer_matmul.launches = 0
-ff_layer_swiglu.launches = 0
-ff_layer_mlp_tail.launches = 0
+ff_layer_matmul = make_entrypoint("ff_layer_matmul", _apply_matmul)
+ff_layer_swiglu = make_entrypoint("ff_layer_swiglu", _apply_swiglu)
+ff_layer_mlp_tail = make_entrypoint("ff_layer_mlp_tail", _apply_tail)

@@ -14,7 +14,11 @@ gathered launch equals ``gather`` then ``matmul`` bit for bit.
 stages of the shared-memory ring that feeds the tensor cores, and the
 sub-copies each tile copy is split into (``depth=1`` is the synchronous
 copy-then-compute baseline). :func:`_plan` picks the path, tile and k
-split from the shapes and types alone.
+split from the shapes and types alone. :func:`matmul` resolves
+``depth``/``streams`` through the pipe policy as the kernel ``ff_matmul``
+(:func:`matmul_workload`); :func:`dispatch_matmul` is the dispatch edge of
+the ``moe_dispatch_ffn`` graph, which resolves its plan
+(``repro_torch.models.moe``) and hands it down in ``policy``.
 """
 
 from __future__ import annotations
@@ -25,8 +29,13 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core import autotune
+from repro_torch.core.pipe import itemsize
+from repro_torch.core.pipeline_model import Workload
+from repro_torch.core.program import PipePolicy, make_entrypoint
 from repro_torch.kernels import _build
 from repro_torch.kernels.ff_gather.ops import check_gather_inputs, gather_ref
+from repro_torch.kernels.registry import KernelCost, register_kernel
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _MAX_GRID_Y = 65535
@@ -40,9 +49,6 @@ _MIN_STREAM_ROWS = 8                # one 128-byte swizzle atom of rows
 # k up to the attention's largest head dim is never split, so the
 # attention_proj launch (which does not split) equals its staged matmul
 _NO_SPLIT_K = 256
-# depth 3 leaves room for two blocks on an SM (PERF.md, depth sweep)
-DEFAULT_DEPTH = 3
-DEFAULT_STREAMS = 1
 
 
 class Plan(NamedTuple):
@@ -79,14 +85,21 @@ def _smem_bytes(depth: int) -> int:
 MAX_DEPTH = max(d for d in range(1, 64) if _smem_bytes(d) <= _MAX_SMEM)
 
 
+def stream_options(options) -> tuple:
+    """The stream counts of ``options`` this kernel can run: those that
+    split both tiles' leading dims (128 and 64 rows) into sub-copies of at
+    least 8 rows."""
+    return tuple(s for s in options
+                 if all(r % s == 0 and r // s >= _MIN_STREAM_ROWS
+                        for r in (_WG_TILE[0], _WG_TILE[2])))
+
+
 def _pipe(depth, streams) -> Tuple[int, int]:
-    """``depth`` and ``streams`` (None: the defaults), checked as the
-    reference's ``Pipe`` checks them against this kernel's tiles: each at
-    least 1, ``streams`` dividing the leading dimension of both tiles (A's
-    128 rows, B's 64 k rows) into sub-copies of at least 8 rows (one
-    swizzle atom), and ``depth`` stages fitting in shared memory."""
-    depth = DEFAULT_DEPTH if depth is None else depth
-    streams = DEFAULT_STREAMS if streams is None else streams
+    """``depth`` and ``streams`` checked as the reference's ``Pipe`` checks
+    them against this kernel's tiles: each at least 1, ``streams``
+    dividing the leading dimension of both tiles (A's 128 rows, B's 64 k
+    rows) into sub-copies of at least 8 rows (one swizzle atom), and
+    ``depth`` stages fitting in shared memory."""
     if depth < 1:
         raise ValueError(f"pipe depth must be >= 1, got {depth}")
     if streams < 1:
@@ -106,6 +119,67 @@ def _pipe(depth, streams) -> Tuple[int, int]:
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def matmul_workload(m: int, n: int, k: int, *, dtype=torch.bfloat16,
+                    b_dtype=None, out_dtype=None
+                    ) -> Tuple[Workload, Tuple[int, int]]:
+    """The kernel's stream program in pipe words: one word per (mi, ni,
+    ki) step of its own tile, an A tile and a B tile. The reference's
+    words are (128, 128, 128) blocks; the port's are the tile its path
+    runs: (128, 128, 64) on the tensor cores (bf16 x bf16), (64, 64, 16)
+    on the CUDA cores. C is written once, spread over the k steps.
+    Planning tile = the A tile."""
+    b_dtype = b_dtype or dtype
+    out_dtype = out_dtype or dtype
+    bm, bn, bk = (_WG_TILE if dtype == torch.bfloat16
+                  and b_dtype == torch.bfloat16 else _FMA_TILE)
+    nm, nn, nk = -(-m // bm), -(-n // bn), max(-(-k // bk), 1)
+    w = Workload(
+        n_words=max(nm * nn * nk, 1),
+        word_bytes=float(bm * bk * itemsize(dtype)
+                         + bk * bn * itemsize(b_dtype)),
+        flops_per_word=2.0 * bm * bn * bk,
+        regular=True,
+        store_bytes_per_word=float(bm * bn * itemsize(out_dtype)) / nk,
+    )
+    return w, (bm, bk)
+
+
+def matmul_cost(m: int, n: int, k: int, *, dtype=torch.bfloat16,
+                depth: int = 2) -> KernelCost:
+    """Operations and bytes by the kernel's tiles: A re-read once per
+    column tile, B once per row tile, C written once."""
+    w, (bm, bk) = matmul_workload(m, n, k, dtype=dtype)
+    bn = _WG_TILE[1] if bm == _WG_TILE[0] else _FMA_TILE[1]
+    item = itemsize(dtype)
+    nm, nn = -(-m // bm), -(-n // bn)
+    hbm = (m * k * nn + k * n * nm + m * n) * item
+    smem = _smem_bytes(depth) if dtype == torch.bfloat16 else 0
+    return KernelCost(flops=2.0 * m * n * k, hbm_bytes=float(hbm),
+                      smem_bytes=smem)
+
+
+def resolve_pipe(op: str, policy, a, b, m: int, out_dtype, run, *,
+                 site=None) -> Tuple[int, int]:
+    """(depth, streams) of one product launch under ``policy``."""
+    n, k = b.shape[1], b.shape[0]
+    so = stream_options(policy.stream_options)
+    pol = policy if so == tuple(policy.stream_options) else \
+        policy.replace(stream_options=so)
+    w, tile = matmul_workload(m, n, k, dtype=a.dtype, b_dtype=b.dtype,
+                              out_dtype=out_dtype)
+    choice = autotune.resolve_call(
+        op, pol, workload=w, tile=tile, dtype=a.dtype,
+        workload_fn=lambda tk: (w, tile),
+        runner=None if autotune.in_capture() else
+        lambda tk, dep, st: lambda: run(dep, st),
+        extra_key="" if out_dtype == a.dtype else
+        f"out={str(out_dtype).replace('torch.', '')}",
+        site=site or {"m": m, "n": n, "k": k},
+        site_dynamic=("m", "n", "k"),
+        depth_cap=MAX_DEPTH)
+    return _pipe(choice.depth, choice.streams)
 
 
 def matmul_ref(a, b, out_dtype=None) -> torch.Tensor:
@@ -181,50 +255,102 @@ def _launch(a, rows, b, m, out_dtype, depth, streams):
     return out
 
 
-def matmul(a, b, *, out_dtype=None, depth=None, streams=None
-           ) -> torch.Tensor:
+def _apply(a, b, *, out_dtype=None, policy: PipePolicy) -> torch.Tensor:
     """C = A @ B with f32 accumulation: a [m, k] and b [k, n], each float32
     or bfloat16 (separately); the output is ``out_dtype`` (default: A's
-    type), as the reference's. Any m, n, k. ``depth`` and ``streams``
-    (default :data:`DEFAULT_DEPTH`, :data:`DEFAULT_STREAMS`) size the ring
-    that feeds the tensor cores (bf16 x bf16); they are checked for every
-    pair and do not change the result. CPU tensors run :func:`matmul_ref`;
-    CUDA tensors launch the kernel (f32 operands stay f32: no TF32)."""
+    type), as the reference's. Any m, n, k. The ring that feeds the tensor
+    cores (bf16 x bf16) is sized by ``policy``; it does not change the
+    result. mode="ref" and CPU tensors run :func:`matmul_ref`; CUDA
+    tensors launch the kernel (f32 operands stay f32: no TF32)."""
     out_dtype = out_dtype or a.dtype
     _check(a, b, out_dtype)
-    depth, streams = _pipe(depth, streams)
-    if a.device.type == "cpu":
+    if policy.mode == "ref":
         return matmul_ref(a, b, out_dtype)
-    out = _launch(a, None, b, a.shape[0], out_dtype, depth, streams)
-    matmul.launches += 1
+
+    def run(depth, streams):
+        if a.device.type == "cpu":
+            return matmul_ref(a, b, out_dtype)
+        return _launch(a, None, b, a.shape[0], out_dtype, depth, streams)
+
+    out = run(*resolve_pipe("ff_matmul", policy, a, b, a.shape[0],
+                            out_dtype, run))
+    if a.device.type == "cuda":
+        matmul.launches += 1
     return out
 
 
-matmul.launches = 0
+matmul = make_entrypoint("ff_matmul", _apply, name="matmul")
 
 
-def dispatch_matmul(tokens, idx, b, *, depth=None, streams=None
-                    ) -> torch.Tensor:
+def _apply_dispatch(tokens, idx, b, *, policy: PipePolicy) -> torch.Tensor:
     """``tokens[idx] @ b`` in one launch, the rows of A read through
     ``idx`` (the dispatched buffer is never written): tokens [T, k], idx
     [n] int32 or int64 with every index in ``[0, T)`` (unchecked on the
     card, as :func:`repro_torch.kernels.ff_gather.gather`), b [k, d_ff] of
     the tokens' type. Returns [n, d_ff] in the tokens' type, equal bit for
     bit to ``matmul(gather(tokens, idx), b)`` at any ``depth`` and
-    ``streams`` (as :func:`matmul`'s). CPU tensors run
+    ``streams`` (as :func:`matmul`'s), which ``policy`` sizes as the op
+    ``ff_dispatch_matmul`` (the ``moe_dispatch_ffn`` graph passes its
+    plan's ints). mode="ref" and CPU tensors run
     :func:`dispatch_matmul_ref`; CUDA tensors launch the kernel."""
     check_gather_inputs(tokens, idx)
     _check(tokens, b, tokens.dtype)
     if b.dtype != tokens.dtype:
         raise TypeError(f"dispatch_matmul wants b of the tokens' type "
                         f"{tokens.dtype}, not {b.dtype}")
-    depth, streams = _pipe(depth, streams)
-    if tokens.device.type == "cpu":
+    if policy.mode == "ref":
         return dispatch_matmul_ref(tokens, idx, b)
-    out = _launch(tokens, idx.to(torch.int32).contiguous(), b, idx.shape[0],
-                  tokens.dtype, depth, streams)
-    dispatch_matmul.launches += 1
+
+    def run(depth, streams):
+        if tokens.device.type == "cpu":
+            return dispatch_matmul_ref(tokens, idx, b)
+        return _launch(tokens, idx.to(torch.int32).contiguous(), b,
+                       idx.shape[0], tokens.dtype, depth, streams)
+
+    n = idx.shape[0]
+    site = {"t": tokens.shape[0], "n": n, "k": b.shape[0], "f": b.shape[1]}
+    out = run(*resolve_pipe("ff_dispatch_matmul", policy, tokens, b, n,
+                            tokens.dtype, run, site=site))
+    if tokens.device.type == "cuda":
+        dispatch_matmul.launches += 1
     return out
 
 
-dispatch_matmul.launches = 0
+dispatch_matmul = make_entrypoint("ff_dispatch_matmul", _apply_dispatch,
+                                  name="dispatch_matmul")
+
+
+def _make_inputs(gen, device):
+    a = torch.randn((192, 136), generator=gen, device=device)
+    b = torch.randn((136, 160), generator=gen, device=device)
+    return (a, b), {}
+
+
+def _sweep_inputs(gen, site, device):
+    # operands at a recorded call-site shape (plan sweep)
+    m, n, k = int(site["m"]), int(site["n"]), int(site["k"])
+    dt = getattr(torch, site.get("dtype", "float32"))
+    a = torch.randn((m, k), generator=gen, device=device).to(dt)
+    b = torch.randn((k, n), generator=gen, device=device).to(dt)
+    return (a, b), {}
+
+
+# no tile knob: _plan fixes the path, tile and k split from the shapes and
+# types, so the tuner searches (depth, streams) only
+_TILE_OPTIONS = ()
+
+register_kernel(
+    name="ff_matmul",
+    alias="matmul",
+    op=matmul,
+    ref=matmul_ref,
+    cost=matmul_cost,
+    workload=matmul_workload,
+    make_inputs=_make_inputs,
+    bench_kwargs={"m": 4096, "n": 4096, "k": 4096, "dtype": torch.bfloat16},
+    tile_options=_TILE_OPTIONS,
+    regular=True,
+    tol=5e-4,
+    doc="tiled product, tensor cores fed by the shared-memory ring",
+    sweep_inputs=_sweep_inputs,
+)

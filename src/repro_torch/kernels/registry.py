@@ -1,0 +1,232 @@
+"""Kernel registry: one KernelSpec per ff_* op, a single interface for the
+planner, the generated ``repro_torch.ops`` namespace, the plan sweep and the
+tests (the port of ``repro/kernels/registry.py``).
+
+Each kernel package registers itself at import time with
+:func:`register_kernel` under the reference's name and alias, declaring:
+
+  op           public entry point generated by
+               :func:`repro_torch.core.program.make_entrypoint` — accepts
+               ``policy=PipePolicy(...)``, the session
+               ``repro_torch.policy`` context, and the per-kernel
+               ``mode``/``depth``/``streams`` keywords
+  alias        short name exposed as ``repro_torch.ops.<alias>``
+  ref          the plain PyTorch version
+  cost         the port's own cost model -> KernelCost
+  workload     Workload builder: call-site shapes -> (core.Workload, tile),
+               the planner's input, in the port's own words
+  make_inputs  tiny-input builder ``make_inputs(gen, device)``
+  tile_options tile overrides the measured autotuner may search (only
+               knobs the port's kernel really takes; ``()`` where none)
+  sweep_inputs ``sweep_inputs(gen, site, device) -> (args, kwargs)``:
+               operands at a recorded call-site shape (the plan sweep)
+
+Left out of the reference's spec: ``program`` (the StreamProgram builder:
+the port's kernels are written by hand, ``kernels/csrc``) and
+``shard_dims`` (the sharded harness waits for the distributed runtime).
+
+Registration is lazy: the five built-in packages are imported on first
+lookup, so ``import repro_torch.kernels.registry`` alone stays cheap.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelCost:
+    """Cost of one kernel call by the kernel's own schedule: operations,
+    device-memory bytes, and the shared memory of one block's ring."""
+
+    flops: float
+    hbm_bytes: float
+    smem_bytes: int
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelSpec:
+    """One registered kernel. ``bench_kwargs`` is a shape point accepted by
+    both ``cost`` and ``workload``."""
+
+    name: str
+    alias: str
+    op: Callable[..., Any]
+    ref: Callable[..., Any]
+    cost: Callable[..., KernelCost]
+    workload: Callable[..., Tuple[Any, Tuple[int, ...]]]
+    make_inputs: Callable[..., Tuple[tuple, dict]]
+    bench_kwargs: Mapping[str, Any]
+    tile_options: Tuple[Mapping[str, Any], ...] = ()
+    regular: bool = True
+    tol: float = 1e-4
+    doc: str = ""
+    sweep_inputs: Optional[Callable[..., Tuple[tuple, dict]]] = None
+
+
+_REGISTRY: Dict[str, KernelSpec] = {}
+_VERSION = 0    # bumped on every (re-)registration; lets caches invalidate
+
+_BUILTIN = (
+    "repro_torch.kernels.ff_matmul.ops",
+    "repro_torch.kernels.ff_attention.ops",
+    "repro_torch.kernels.ff_decode_attention.ops",
+    "repro_torch.kernels.ff_chunk_scan.ops",
+    "repro_torch.kernels.ff_gather.ops",
+)
+
+
+def register_kernel(**fields) -> KernelSpec:
+    """Register one kernel (keyword form of KernelSpec). Re-registration
+    under the same name replaces the entry (supports module reloads)."""
+    global _VERSION
+    spec = KernelSpec(**fields)
+    _REGISTRY[spec.name] = spec
+    _VERSION += 1
+    return spec
+
+
+def registry_version() -> int:
+    """Monotonic counter of (re-)registrations, for cache invalidation."""
+    return _VERSION
+
+
+def _ensure_loaded() -> None:
+    for mod in _BUILTIN:
+        importlib.import_module(mod)
+
+
+def kernel_names() -> Tuple[str, ...]:
+    _ensure_loaded()
+    return tuple(sorted(_REGISTRY))
+
+
+def all_kernels() -> Tuple[KernelSpec, ...]:
+    _ensure_loaded()
+    return tuple(_REGISTRY[n] for n in sorted(_REGISTRY))
+
+
+def get_kernel(name: str) -> KernelSpec:
+    _ensure_loaded()
+    if name not in _REGISTRY:
+        raise KeyError(
+            f"unknown kernel {name!r}; registered: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+# ---------------------------------------------------------------------------
+# Graph registry: the port's fused launches and launch chains
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphSpec:
+    """One registered multi-kernel graph.
+
+    ``op`` is the policy-accepting entry point, which resolves its plan
+    through ``autotune.resolve_graph`` at the call site's shapes;
+    ``make_inputs(gen, device)`` returns its operands; ``ref`` is the plain
+    version over the same operands; ``unfused`` runs the same computation
+    as separate ``repro_torch.ops`` calls. The reference's ``build`` (its
+    StreamGraph declaration) has no counterpart: each graph of the port is
+    one hand-written launch or a fixed chain of them.
+    """
+
+    name: str
+    op: Callable[..., Any]
+    make_inputs: Callable[..., tuple]
+    ref: Callable[..., Any]
+    unfused: Optional[Callable[..., Any]] = None
+    tile_options: Tuple[Mapping[str, Any], ...] = ()
+    tol: float = 1e-4
+    doc: str = ""
+    sweep_inputs: Optional[Callable[..., Tuple[tuple, dict]]] = None
+
+
+_GRAPHS: Dict[str, GraphSpec] = {}
+
+_BUILTIN_GRAPHS = (
+    "repro_torch.models.moe",
+    "repro_torch.models.layers",
+    "repro_torch.runtime.paged_kv",
+)
+
+
+def register_graph(**fields) -> GraphSpec:
+    """Register one multi-kernel graph (keyword form of GraphSpec)."""
+    global _VERSION
+    spec = GraphSpec(**fields)
+    _GRAPHS[spec.name] = spec
+    _VERSION += 1
+    return spec
+
+
+def _ensure_graphs_loaded() -> None:
+    for mod in _BUILTIN_GRAPHS:
+        importlib.import_module(mod)
+
+
+def graph_names() -> Tuple[str, ...]:
+    _ensure_graphs_loaded()
+    return tuple(sorted(_GRAPHS))
+
+
+def all_graphs() -> Tuple[GraphSpec, ...]:
+    _ensure_graphs_loaded()
+    return tuple(_GRAPHS[n] for n in sorted(_GRAPHS))
+
+
+def get_graph(name: str) -> GraphSpec:
+    _ensure_graphs_loaded()
+    if name not in _GRAPHS:
+        raise KeyError(
+            f"unknown graph {name!r}; registered: {sorted(_GRAPHS)}")
+    return _GRAPHS[name]
+
+
+def run_graph(spec: GraphSpec, args: tuple, *, policy=None, **kwargs):
+    """Run a registered graph under ``policy`` (default: the session's):
+    mode="ref" runs the plain version, everything else the entry point,
+    which resolves the joint plan (measured policies through the
+    graph-keyed tuner)."""
+    from repro_torch.core.program import current_policy
+
+    policy = current_policy() if policy is None else policy
+    if policy.mode == "ref":
+        return spec.ref(*args, **kwargs)
+    return spec.op(*args, policy=policy, **kwargs)
+
+
+def _max_err(out, ref) -> float:
+    if not out.numel():
+        return 0.0
+    return float((out.float() - ref.float()).abs().max())
+
+
+def run_smoke(spec: KernelSpec, *, policy=None, depth=None, streams=None,
+              seed: int = 0, device="cpu"):
+    """Run ``spec`` at its tiny smoke shapes against its plain version on
+    ``device``. Exercises the planned path by default (depth/streams
+    "auto"). Pass ``policy=PipePolicy(...)`` to pin a mode or sizing, or
+    depth/streams to build one — mixing both raises, like the entry
+    points. Returns (out, ref, max_abs_err)."""
+    import torch
+
+    from repro_torch.core.program import PipePolicy
+
+    legacy = {k: v for k, v in (("depth", depth), ("streams", streams))
+              if v is not None}
+    if policy is None:
+        policy = PipePolicy(mode="ff", depth=legacy.get("depth", "auto"),
+                            streams=legacy.get("streams", "auto"))
+    elif legacy:
+        raise TypeError(
+            f"run_smoke({spec.name}): pass either policy= or the "
+            f"{sorted(legacy)} keywords, not both")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    args, kw = spec.make_inputs(gen, torch.device(device))
+    out = spec.op(*args, **kw, policy=policy)
+    ref = spec.op(*args, **kw, policy=PipePolicy(mode="ref"))
+    return out, ref, _max_err(out, ref)

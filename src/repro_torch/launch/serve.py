@@ -41,8 +41,27 @@ the whole-layer ``decode_layer`` kernels instead; their rounding points
 differ from the per-op layer's in bf16, so the probe then reports a small
 non-zero difference (the reference's does too).
 
+The plan stack, as the reference's flags drive it:
+
+  * ``--policy-mode ff|baseline|autotune`` — the
+    :class:`~repro_torch.core.program.PipePolicy` mode of every step:
+    pipes planned per call site, the synchronous depth-1 strawman, or
+    measured plans (a compiled step never measures: it serves the plan
+    cache or the PlanDB, else the analytic plan). Without it the session
+    policy sizes the steps (``with repro_torch.policy(...)`` around
+    ``serve_bench``; ``ff`` by default);
+  * ``--plan-db PATH`` — the release PlanDB the measured lookup chain
+    consults (pre-warmed at start-up);
+  * ``--record-profile PATH`` — every plan resolution of the run into a
+    TrafficProfile (``python -m repro_torch.plans sweep`` tunes from it);
+  * ``--metrics-json PATH`` — live telemetry (per-token latency
+    histograms, the KV gauge, spans, plan-source counters), written as
+    ``obs.metrics_snapshot()`` at exit.
+
 Runs on the card unless asked for the CPU (the plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve
+  PYTHONPATH=src python -m repro_torch.launch.serve --policy-mode baseline \
+      --record-profile traffic.json --metrics-json metrics.json
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --layer-graph
@@ -53,6 +72,7 @@ Runs on the card unless asked for the CPU (the plain versions):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -63,6 +83,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import ARCH_IDS, get_config, smoke_config
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import build_model
@@ -203,13 +224,15 @@ def _summarize(emits: Dict[int, List[float]], requests: List[Request],
 
 
 def run_lockstep(model, params, cfg, requests: List[Request], *,
-                 n_slots: int, page: int,
-                 eos_id: Optional[int]) -> Dict[str, object]:
+                 n_slots: int, page: int, eos_id: Optional[int],
+                 policy=None) -> Dict[str, object]:
     """Static FIFO batches over a dense right-padded cache, on the device
-    the parameters live on."""
+    the parameters live on, every step under ``policy`` (default: the
+    session's). Returns the trace's summary and ``outputs``: each
+    request's greedy tokens, by rid."""
     dev = params["embed"].device
-    prefill = steps_lib.make_prefill_step(model)
-    decode = steps_lib.make_decode_step(model)
+    prefill = steps_lib.make_prefill_step(model, policy=policy)
+    decode = steps_lib.make_decode_step(model, policy=policy)
     p_max = _bucket(max(len(r.prompt) for r in requests))
     total_max = max(len(r.prompt) + r.max_new for r in requests)
     s_max = max(-(-total_max // page) * page, -(-p_max // page) * page)
@@ -226,7 +249,16 @@ def run_lockstep(model, params, cfg, requests: List[Request], *,
     prefill_s = decode_s = 0.0
     steps = 0
     emits: Dict[int, List[float]] = {}
+    outputs: Dict[int, List[int]] = {}     # rid -> its greedy tokens
     utils: List[float] = []
+    # live telemetry: one enabled check per run, then per-token histogram
+    # observes of exactly the quantity _summarize computes post hoc (first
+    # token from arrival, later tokens from the previous emit)
+    telemetry = obs.enabled()
+    hist = (obs.histogram("serve_token_latency_seconds",
+                          "per-token emit latency (live)",
+                          scheduler="lockstep") if telemetry else None)
+    prev_emit: Dict[int, float] = {}
     queue = deque(sorted(requests, key=lambda r: r.arrival))
     while queue:
         batch = [queue.popleft() for _ in range(min(n_slots, len(queue)))]
@@ -239,9 +271,11 @@ def run_lockstep(model, params, cfg, requests: List[Request], *,
             lens[i] = len(r.prompt)
 
         t0 = time.perf_counter()
-        _, cache = prefill(params, {"tokens": _ints(toks, dev)})
-        cache = pad_cache_to(cache, p_max, s_max, 2)
-        _sync(dev)
+        with obs.span("serve_prefill", scheduler="lockstep",
+                      batch=len(batch)):
+            _, cache = prefill(params, {"tokens": _ints(toks, dev)})
+            cache = pad_cache_to(cache, p_max, s_max, 2)
+            _sync(dev)
         dt = time.perf_counter() - t0
         clock += dt
         prefill_s += dt
@@ -256,10 +290,11 @@ def run_lockstep(model, params, cfg, requests: List[Request], *,
         # lockstep's cost: the batch steps until its slowest row finishes
         while active.any():
             t0 = time.perf_counter()
-            nxt, _, cache = decode(params, {"token": cur, "lengths": lengths},
-                                   cache)
-            nxt_np = nxt.cpu().numpy()
-            _sync(dev)
+            with obs.span("serve_decode_step", scheduler="lockstep"):
+                nxt, _, cache = decode(
+                    params, {"token": cur, "lengths": lengths}, cache)
+                nxt_np = nxt.cpu().numpy()
+                _sync(dev)
             dt = time.perf_counter() - t0
             clock += dt
             decode_s += dt
@@ -268,6 +303,10 @@ def run_lockstep(model, params, cfg, requests: List[Request], *,
                 r = batch[i]
                 tok = int(nxt_np[i])
                 emits.setdefault(r.rid, []).append(clock)
+                outputs.setdefault(r.rid, []).append(tok)
+                if telemetry:
+                    hist.observe(clock - prev_emit.get(r.rid, r.arrival))
+                    prev_emit[r.rid] = clock
                 produced[i] += 1
                 if tok == eos_id or produced[i] >= r.max_new:
                     active[i] = False      # retired; cache stays allocated
@@ -275,7 +314,9 @@ def run_lockstep(model, params, cfg, requests: List[Request], *,
             lengths = lengths + 1
             live = sum(lens[i] + produced[i] for i in range(len(batch)))
             utils.append(live / (n_slots * s_max))
-    return _summarize(emits, requests, utils, prefill_s, decode_s, steps)
+    out = _summarize(emits, requests, utils, prefill_s, decode_s, steps)
+    out["outputs"] = outputs
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -285,12 +326,15 @@ def run_lockstep(model, params, cfg, requests: List[Request], *,
 
 def run_continuous(model, params, cfg, requests: List[Request], *,
                    n_slots: int, page: int, eos_id: Optional[int],
-                   pool_blocks: Optional[int] = None) -> Dict[str, object]:
+                   policy=None, pool_blocks: Optional[int] = None
+                   ) -> Dict[str, object]:
     """Continuous batching over a :class:`PagedKVCache`: admit on arrival
-    into free slots, retire per step, recycle blocks."""
+    into free slots, retire per step, recycle blocks; every step under
+    ``policy`` (default: the session's). Returns the trace's summary, the
+    pool's, and ``outputs``: each request's greedy tokens, by rid."""
     dev = params["embed"].device
-    prefill = steps_lib.make_prefill_step(model)
-    decode = steps_lib.make_decode_step(model)
+    prefill = steps_lib.make_prefill_step(model, policy=policy)
+    decode = steps_lib.make_decode_step(model, policy=policy)
     n_pages_max = max(-(-(len(r.prompt) + r.max_new) // page)
                       for r in requests)
     if pool_blocks is None:
@@ -321,8 +365,17 @@ def run_continuous(model, params, cfg, requests: List[Request], *,
     prefill_s = decode_s = 0.0
     steps = 0
     emits: Dict[int, List[float]] = {}
+    outputs: Dict[int, List[int]] = {}     # rid -> its greedy tokens
     utils: List[float] = []
     utils_pool: List[float] = []
+    telemetry = obs.enabled()
+    hist = (obs.histogram("serve_token_latency_seconds",
+                          "per-token emit latency (live)",
+                          scheduler="paged") if telemetry else None)
+    kv_gauge = (obs.gauge("serve_kv_utilization",
+                          "paged KV pool utilization vs allocated blocks")
+                if telemetry else None)
+    prev_emit: Dict[int, float] = {}
     pending = deque(sorted(requests, key=lambda r: r.arrival))
     slot_req: List[Optional[Request]] = [None] * n_slots
     cur = np.zeros(n_slots, np.int32)
@@ -347,10 +400,12 @@ def run_continuous(model, params, cfg, requests: List[Request], *,
             toks = np.zeros((1, _bucket(plen)), np.int32)
             toks[0, :plen] = r.prompt
             t0 = time.perf_counter()
-            _, pc = prefill(params, {"tokens": _ints(toks, dev)})
-            kv.admit(slot, pc["k"][:, 0], pc["v"][:, 0], plen,
-                     plen + r.max_new)
-            _sync(dev)
+            with obs.span("serve_admit", scheduler="paged", rid=r.rid,
+                          slot=slot, prompt_len=plen):
+                _, pc = prefill(params, {"tokens": _ints(toks, dev)})
+                kv.admit(slot, pc["k"][:, 0], pc["v"][:, 0], plen,
+                         plen + r.max_new)
+                _sync(dev)
             dt = time.perf_counter() - t0
             clock += dt
             prefill_s += dt
@@ -369,12 +424,13 @@ def run_continuous(model, params, cfg, requests: List[Request], *,
             break
 
         t0 = time.perf_counter()
-        nxt, _, new_caches = decode(
-            params, {"token": _ints(cur, dev), "lengths": _ints(kv.lengths,
-                                                                dev)},
-            kv.cache_view())
-        nxt_np = nxt.cpu().numpy()
-        _sync(dev)
+        with obs.span("serve_decode_step", scheduler="paged"):
+            nxt, _, new_caches = decode(
+                params, {"token": _ints(cur, dev),
+                         "lengths": _ints(kv.lengths, dev)},
+                kv.cache_view())
+            nxt_np = nxt.cpu().numpy()
+            _sync(dev)
         dt = time.perf_counter() - t0
         clock += dt
         decode_s += dt
@@ -385,20 +441,29 @@ def run_continuous(model, params, cfg, requests: List[Request], *,
             r = slot_req[slot]
             tok = int(nxt_np[slot])
             emits.setdefault(r.rid, []).append(clock)
+            outputs.setdefault(r.rid, []).append(tok)
+            if telemetry:
+                hist.observe(clock - prev_emit.get(r.rid, r.arrival))
+                prev_emit[r.rid] = clock
             produced[slot] += 1
             if tok == eos_id or produced[slot] >= r.max_new:
-                kv.retire(slot)             # blocks recycle immediately
+                with obs.span("serve_retire", scheduler="paged",
+                              rid=r.rid, slot=int(slot)):
+                    kv.retire(slot)         # blocks recycle immediately
                 slot_req[slot] = None
             else:
                 cur[slot] = tok
         u = kv.utilization()
         utils.append(u["util_vs_allocated"])
         utils_pool.append(u["util_vs_pool"])
+        if telemetry:
+            kv_gauge.set(u["util_vs_allocated"])
     out = _summarize(emits, requests, utils, prefill_s, decode_s, steps)
     out["kv_util_pool"] = (float(np.mean(utils_pool))
                            if utils_pool else None)
     out["pool_blocks"] = pool_blocks
     out["page"] = page
+    out["outputs"] = outputs
     return out
 
 
@@ -408,7 +473,7 @@ def run_continuous(model, params, cfg, requests: List[Request], *,
 
 
 def decode_parity_probe(model, params, cfg, *, page: int, n_steps: int = 3,
-                        seed: int = 0) -> float:
+                        seed: int = 0, policy=None) -> float:
     """Run ``n_steps`` greedy decode steps from the same prefill state
     through (a) the dense right-padded cache and (b) the paged pool, and
     return the max abs logits difference (0.0 = bitwise identical).
@@ -424,8 +489,8 @@ def decode_parity_probe(model, params, cfg, *, page: int, n_steps: int = 3,
     n_pages = -(-(p_max + n_steps) // page)
     s_max = n_pages * page
 
-    prefill = steps_lib.make_prefill_step(model)
-    decode = steps_lib.make_decode_step(model)
+    prefill = steps_lib.make_prefill_step(model, policy=policy)
+    decode = steps_lib.make_decode_step(model, policy=policy)
 
     _, dense = prefill(params, {"tokens": _ints(toks, dev)})
     dense_cache = pad_cache_to(dense, p_max, s_max, 2)
@@ -492,23 +557,65 @@ def serve_bench(args) -> Dict[str, object]:
         # route dense-cache decode steps through the whole-layer
         # decode_layer kernels (the paged scheduler keeps the per-op path)
         cfg = cfg.replace(layer_graph=True)
+    from repro_torch.core.program import PipePolicy, current_policy
+    # --policy-mode sets the mode alone; without it the session's policy
+    # (``with repro_torch.policy(...)``, default ``ff``) sizes every step
+    mode = getattr(args, "policy_mode", None)
+    policy = PipePolicy(mode=mode) if mode else current_policy()
     model = build_model(cfg)
     requests = make_requests(
         args.requests, prompt_len=args.prompt_len, max_new=args.max_new,
         rate=args.rate, vocab=cfg.vocab, seed=args.seed)
-    # weights from a fixed seed, as the reference's key(0); --seed is the
-    # trace's
-    params = model.init_cast(torch.Generator(device=device).manual_seed(0),
-                             device)
-    lockstep = run_lockstep(model, params, cfg, requests,
-                            n_slots=args.slots, page=args.page,
-                            eos_id=args.eos_id)
-    paged = run_continuous(model, params, cfg, requests, n_slots=args.slots,
-                           page=args.page, eos_id=args.eos_id,
-                           pool_blocks=args.pool_blocks)
-    bitwise = decode_parity_probe(model, params, cfg, page=args.page)
+
+    # plan-service hooks: --plan-db points the autotune lookup chain at a
+    # release PlanDB (pre-warmed here so the first resolution is a dict
+    # hit, not file IO); --record-profile captures this run's traffic for
+    # an offline sweep (see repro_torch.plans)
+    from repro_torch.core import autotune
+    plan_service: Dict[str, object] = {}
+    # --metrics-json opts into live telemetry: per-token latency
+    # histograms and the kv gauge observe only while obs is enabled
+    metrics_path = getattr(args, "metrics_json", None)
+    trace_state = None
+    if metrics_path and not obs.enabled():
+        trace_state = obs.enable()      # in-memory ring, no JSONL sink
+    with contextlib.ExitStack() as stack:
+        if getattr(args, "plan_db", None):
+            from repro_torch.plans import plandb as plandb_lib
+            stack.enter_context(autotune.tuning_config(plan_db=args.plan_db))
+            plan_service["prewarm"] = plandb_lib.prewarm(args.plan_db)
+            print(f"# plan-db {args.plan_db}: "
+                  f"{plan_service['prewarm']['records_in_namespace']} "
+                  f"records for namespace "
+                  f"{plan_service['prewarm']['namespace']}")
+        profile = None
+        if getattr(args, "record_profile", None):
+            from repro_torch.plans import record_traffic
+            profile = stack.enter_context(
+                record_traffic(args.record_profile))
+
+        # weights from a fixed seed, as the reference's key(0); --seed is
+        # the trace's
+        params = model.init_cast(
+            torch.Generator(device=device).manual_seed(0), device)
+        lockstep = run_lockstep(model, params, cfg, requests,
+                                n_slots=args.slots, page=args.page,
+                                eos_id=args.eos_id, policy=policy)
+        paged = run_continuous(model, params, cfg, requests,
+                               n_slots=args.slots, page=args.page,
+                               eos_id=args.eos_id, policy=policy,
+                               pool_blocks=args.pool_blocks)
+        bitwise = decode_parity_probe(model, params, cfg, page=args.page,
+                                      policy=policy)
+        if profile is not None:
+            plan_service["recorded"] = {
+                "path": args.record_profile,
+                "buckets": len(profile),
+                "observations": profile.total_count}
+        if getattr(args, "plan_db", None) or profile is not None:
+            plan_service["stats"] = autotune.plan_stats_snapshot()
     compiled = model.__dict__.get("_compiled_steps", {})
-    return {
+    result = {
         "arch": args.arch,
         "device": {"type": device.type,
                    "name": (torch.cuda.get_device_name(device)
@@ -516,6 +623,7 @@ def serve_bench(args) -> Dict[str, object]:
         "smoke": bool(args.smoke),
         "n_layers": cfg.n_layers,
         "impl": cfg.attn_impl,
+        "policy_mode": policy.mode,
         "requests": args.requests,
         "slots": args.slots,
         "page": args.page,
@@ -535,6 +643,20 @@ def serve_bench(args) -> Dict[str, object]:
         "compiled_graphs": {kind: len(step.graphs)
                             for kind, step in compiled.items()},
     }
+    if plan_service:
+        result["plan_service"] = plan_service
+        if "recorded" in plan_service:
+            rec = plan_service["recorded"]
+            print(f"# recorded traffic profile: {rec['buckets']} buckets / "
+                  f"{rec['observations']} observations -> {rec['path']}")
+    if metrics_path:
+        with open(metrics_path, "w") as f:
+            json.dump(obs.metrics_snapshot(), f, indent=2, sort_keys=True)
+        result["metrics_json"] = metrics_path
+        print(f"# wrote live metrics snapshot -> {metrics_path}")
+        if trace_state is not None:
+            obs.restore(trace_state)
+    return result
 
 
 def add_serve_args(ap: argparse.ArgumentParser) -> None:
@@ -573,6 +695,27 @@ def add_serve_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu (the "
                          "kernels' plain versions)")
+    ap.add_argument("--policy-mode", choices=("ff", "baseline", "autotune"),
+                    default=None,
+                    help="PipePolicy mode of the prefill/decode step "
+                         "bodies (default: the session policy's, ff "
+                         "unless a caller installed another): ff = planned "
+                         "pipes, "
+                         "baseline = the synchronous depth-1 strawman, "
+                         "autotune = measured plans (served from the plan "
+                         "cache / PlanDB inside compiled steps)")
+    ap.add_argument("--record-profile", default=None, metavar="PATH",
+                    help="record every plan resolution into a "
+                         "TrafficProfile JSON at PATH (the input of "
+                         "`python -m repro_torch.plans sweep`)")
+    ap.add_argument("--plan-db", default=None, metavar="PATH",
+                    help="release PlanDB consulted after the per-host plan "
+                         "cache and before measuring (pre-warmed at "
+                         "startup; overrides $REPRO_TORCH_PLAN_DB)")
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="enable live telemetry (per-token latency "
+                         "histograms, plan-source counters) and write "
+                         "obs.metrics_snapshot() to PATH at exit")
 
 
 def main(argv=None):
@@ -583,7 +726,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     result = serve_bench(args)
     ls, pg = result["lockstep"], result["paged"]
-    print(f"impl={result['impl']} device={result['device']} "
+    print(f"impl={result['impl']} policy={result['policy_mode']} "
+          f"device={result['device']} "
           f"requests={args.requests} slots={args.slots} page={args.page}")
     for name, m in (("lockstep", ls), ("paged", pg)):
         print(f"{name:9s}: {m['tokens']} tokens, "

@@ -14,6 +14,16 @@ runs inside the graph, as it runs eagerly.
 
 On the CPU the steps run eagerly (the test path). ``compiled=False`` runs
 them eagerly on the card too: the eager side of a comparison.
+
+``policy=`` installs a :class:`~repro_torch.core.program.PipePolicy` as
+the session policy around the step body, as the reference's
+``_policy_scope`` does: every kernel of the step sizes its pipes by it. A
+compiled step resolves its plans when it captures (nothing is measured
+inside a capture: ``autotune.capture_scope``), so its graphs are keyed by
+the session policy and the plan generation too
+(``autotune.plans_generation``): a step run under another policy, or
+after the plan caches were cleared or redirected, captures anew instead
+of replaying plans resolved under the old ones.
 """
 
 from __future__ import annotations
@@ -23,19 +33,23 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
+from repro_torch.core import autotune
+from repro_torch.core.program import current_policy
+from repro_torch.core.program import policy as policy_ctx
 from repro_torch.kernels import launch_counters
 
 
-def make_prefill_step(model, *, compiled: bool = True):
+def make_prefill_step(model, *, compiled: bool = True, policy=None):
     """prefill_step(params, batch) -> (last-token logits [B, V], cache)."""
     @torch.no_grad()
     def prefill_step(params, batch):
         return model.prefill(params, batch)
-    return _compiled(model, "prefill", prefill_step) if compiled \
+    step = _compiled(model, "prefill", prefill_step) if compiled \
         else prefill_step
+    return step if policy is None else _PolicyStep(step, policy)
 
 
-def make_decode_step(model, *, compiled: bool = True):
+def make_decode_step(model, *, compiled: bool = True, policy=None):
     """decode_step(params, batch, cache) -> (greedy next token [B] int32,
     logits [B, V], cache). ``argmax`` takes the first index on ties, as
     ``jnp.argmax`` does."""
@@ -44,8 +58,22 @@ def make_decode_step(model, *, compiled: bool = True):
         logits, new_cache = model.decode_step(params, batch, cache)
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_tok, logits, new_cache
-    return _compiled(model, "decode", decode_step) if compiled \
+    step = _compiled(model, "decode", decode_step) if compiled \
         else decode_step
+    return step if policy is None else _PolicyStep(step, policy)
+
+
+class _PolicyStep:
+    """A step run under ``policy`` (the session policy around each
+    call)."""
+
+    def __init__(self, step, policy):
+        self.step = step
+        self.policy = policy
+
+    def __call__(self, *args):
+        with policy_ctx(self.policy):
+            return self.step(*args)
 
 
 def _compiled(model, kind: str, fn) -> "CompiledStep":
@@ -226,7 +254,10 @@ class CompiledStep:
             return self.fn(params, *args)
         leaves: List[torch.Tensor] = []
         spec = _flatten(args, leaves)
-        key = (p_spec, tuple(t.data_ptr() for t in p_leaves), spec)
+        # the graph holds the plans resolved at its capture: key it by
+        # what they were resolved under, as well as by its inputs
+        key = (p_spec, tuple(t.data_ptr() for t in p_leaves), spec,
+               current_policy(), autotune.plans_generation())
         graph = self.graphs.get(key)
         if graph is None:
             graph = self.graphs[key] = self._capture(params, spec, leaves,
@@ -262,6 +293,10 @@ class CompiledStep:
             return _unflatten(out_spec, iter(
                 t if h is None else h for h, t in zip(holders, outs)))
 
-        replay, out, launches = self.capture(
-            run, lambda: _load(statics, leaves), device)
+        # the warm-up and the capture resolve every kernel's plan; nothing
+        # may be measured in them (no candidate launch, no synchronize
+        # while the stream captures)
+        with autotune.capture_scope():
+            replay, out, launches = self.capture(
+                run, lambda: _load(statics, leaves), device)
         return _Graph(statics, replay, out, launches)

@@ -11,7 +11,10 @@ wrappers, which run their plain PyTorch versions for CPU tensors;
 ``"xla"`` runs the reference's unfused HLO-path formulation
 (:func:`attention_xla`) in plain PyTorch on any device. :func:`decode_layer`
 and :func:`attention_proj` route to their kernels. :func:`chunk_scan_op`
-picks the gated linear-attention scan by the same kind of switch.
+picks the gated linear-attention scan by the same kind of switch. Every
+kernel call sizes its pipes by the session pipe policy
+(``repro_torch.policy``); :func:`decode_layer` resolves one plan for its
+three launches, as the reference's ``decode_layer`` graph.
 """
 
 from __future__ import annotations
@@ -25,13 +28,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import ops
+from repro_torch.core import autotune
+from repro_torch.core.program import current_policy
 from repro_torch.kernels.ff_attention import attention as ff_attention
 from repro_torch.kernels.ff_attention import \
     attention_proj as ff_attention_proj
 from repro_torch.kernels.ff_chunk_scan.ref import chunk_scan_xla
 from repro_torch.kernels.ff_decode_attention import \
     decode_attention as ff_decode_attention
+from repro_torch.kernels.ff_decode_attention import ops as dec_ops
 from repro_torch.kernels.ff_layer import ff_layer_matmul, ff_layer_mlp_tail
+from repro_torch.kernels.ff_layer import ops as layer_ops
 from repro_torch.kernels.ff_layer.ops import rope_freqs
 from repro_torch.runtime.paged_kv import paged_decode_attention
 
@@ -350,10 +357,27 @@ def _attention_proj_unfused(q, k, v, w) -> torch.Tensor:
     return ops.matmul(a.reshape(bh * s, d), w)
 
 
-# The entry point is the fused launch itself: the reference's entry
-# resolves a graph plan first, the port has none to resolve. On the card
-# it equals _attention_proj_unfused bit for bit.
+# The entry point is the fused launch, which resolves the graph's plan
+# (``attention_proj``) itself. On the card it equals
+# _attention_proj_unfused bit for bit.
 attention_proj = ff_attention_proj
+
+
+def _attention_proj_inputs(gen, device, *, bh=2, s=128, d=64, d_out=96,
+                           dtype=torch.float32):
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    q, k = 0.3 * rn(bh, s, d), 0.3 * rn(bh, s, d)
+    v, w = rn(bh, s, d), rn(d, d_out) / math.sqrt(d)
+    return tuple(x.to(dtype) for x in (q, k, v, w))
+
+
+def _attention_proj_sweep_inputs(gen, site, device):
+    return _attention_proj_inputs(
+        gen, device, bh=int(site["bh"]), s=int(site["s"]),
+        d=int(site["d"]), d_out=int(site["d_out"]),
+        dtype=getattr(torch, site.get("dtype", "float32"))), \
+        {"causal": bool(site.get("causal", True))}
 
 
 # ---------------------------------------------------------------------------
@@ -413,8 +437,8 @@ def _pad_cache(c: torch.Tensor, block_kv: int) -> torch.Tensor:
 
 def decode_layer(x, nw1, wq, bq, positions, k_cache, v_cache, lengths, wo,
                  nw2, wg, wu, wo2, *, rope_theta: float = 10000.0,
-                 eps: float = 1e-6,
-                 block_kv: Optional[int] = None) -> torch.Tensor:
+                 eps: float = 1e-6, block_kv: Optional[int] = None,
+                 policy=None) -> torch.Tensor:
     """One transformer decode step (post cache-update) as the reference's
     whole-layer ``decode_layer`` graph computes it, in three launches:
     q-projection (RMSNorm prologue, q-bias + RoPE epilogue), decode
@@ -428,18 +452,74 @@ def decode_layer(x, nw1, wq, bq, positions, k_cache, v_cache, lengths, wo,
     post-update (views are taken as they are); lengths: [B] live prefix
     *including* the current token; wo: [H*hd, D]; wg/wu: [D, F]; wo2:
     [F, D]. Returns [B, D]. The query group is taken as it is and ragged
-    edges are masked: no padded heads, rows or projections."""
+    edges are masked: no padded heads, rows or projections.
+
+    The three launches share one plan: the session policy resolved for
+    the graph ``decode_layer`` (``autotune.resolve_graph``, the five
+    nodes' workloads summed, the depth capped at the shallowest of the
+    kernels' deepest rings, the streams those all three can run), handed
+    to each launch as explicit ints, as the reference compiles its graph
+    under one (depth, streams)."""
     b = x.shape[0]
     hd = k_cache.shape[3]
     h = wq.shape[1] // hd
-    q = ff_layer_matmul(x, wq, norm_weight=nw1.float(), eps=eps, bias=bq,
-                        positions=positions, rope_theta=rope_theta,
-                        head_dim=hd)
     bkv = int(block_kv or 128)
-    a = ff_decode_attention(q.view(b, h, hd), _pad_cache(k_cache, bkv),
-                            _pad_cache(v_cache, bkv), lengths, block_kv=bkv)
-    return ff_layer_mlp_tail(a.view(b, h * hd), wo, x, nw2.float(), wg, wu,
-                             wo2, eps=eps)
+    kc, vc = _pad_cache(k_cache, bkv), _pad_cache(v_cache, bkv)
+    pol = current_policy() if policy is None else policy
+
+    def run(pol):
+        q = ff_layer_matmul(x, wq, norm_weight=nw1.float(), eps=eps,
+                            bias=bq, positions=positions,
+                            rope_theta=rope_theta, head_dim=hd, policy=pol)
+        a = ff_decode_attention(q.view(b, h, hd), kc, vc, lengths,
+                                block_kv=bkv, policy=pol)
+        return ff_layer_mlp_tail(a.view(b, h * hd), wo, x, nw2.float(), wg,
+                                 wu, wo2, eps=eps, policy=pol)
+
+    if pol.mode == "ref":
+        return run(pol)
+    choice = _decode_layer_choice(pol, x, wq, kc, wo, wg, bkv, run)
+    mode = "ff" if pol.mode == "autotune" else pol.mode
+    return run(pol.replace(mode=mode, depth=choice.depth,
+                           streams=choice.streams))
+
+
+def decode_layer_nodes(b: int, d: int, h: int, kvh: int, hd: int, f: int,
+                       s: int, *, dtype=torch.bfloat16):
+    """The decode layer's nodes as ``(name, Workload, tile)``: the
+    q-projection, decode attention over the (padded) cache, and the MLP
+    tail's three stages."""
+    return ((("qproj",) + layer_ops.ff_layer_workload(b, d, h * hd,
+                                                      dtype=dtype),
+             ("attention",) + dec_ops.decode_attention_workload(
+                 b, h, kvh, s, hd, dtype=dtype))
+            + layer_ops.mlp_tail_nodes(b, h * hd, d, f, dtype=dtype))
+
+
+def _decode_layer_choice(pol, x, wq, k_cache, wo, wg, block_kv, run):
+    """The graph's one (depth, streams) under ``pol``."""
+    b, d = x.shape
+    _, kvh, s, hd = k_cache.shape
+    h, f = wq.shape[1] // hd, wg.shape[1]
+    so = tuple(st for st in layer_ops.stream_options(pol.stream_options)
+               if st in dec_ops.stream_options(pol.stream_options, block_kv,
+                                               hd, x.dtype))
+    pol = pol if so == tuple(pol.stream_options) \
+        else pol.replace(stream_options=so)
+    nodes = decode_layer_nodes(b, d, h, kvh, hd, f, s, dtype=x.dtype)
+    wl, tile = autotune.graph_workload(nodes)
+    return autotune.resolve_graph(
+        "decode_layer", pol, workload=wl, tile=tile, dtype=x.dtype,
+        signature=autotune.graph_signature(nodes),
+        workload_fn=lambda tk: (wl, tile),
+        runner=None if autotune.in_capture() else
+        lambda tk, dep, st: lambda: run(pol.replace(
+            mode="ff", depth=dep, streams=st)),
+        site={"b": b, "d_model": d, "h": h, "kvh": kvh, "hd": hd,
+              "d_ff": f, "s": s},
+        site_dynamic=("b", "s"),
+        depth_cap=min(layer_ops.MAX_DEPTH,
+                      dec_ops.max_depth(hd, x.dtype, h // kvh)))
 
 
 def decode_layer_ref(x, nw1, wq, bq, positions, k_cache, v_cache, lengths,
@@ -482,3 +562,58 @@ def decode_layer_ref(x, nw1, wq, bq, positions, k_cache, v_cache, lengths,
     u32 = torch.matmul(hn, wu.float())
     m = (g32 * torch.sigmoid(g32) * u32).to(dt)
     return torch.matmul(m.float(), wo2.float()).to(dt) + hh
+
+
+def _decode_layer_inputs(gen, device, *, b=2, d=64, h=4, kvh=2, hd=16,
+                         f=96, s=32, dtype=torch.float32):
+    """Operands of :func:`decode_layer` at one shape point (positional,
+    then keyword arguments)."""
+    def rn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen,
+                                    device=device)).to(dtype)
+    x = rn(b, d, scale=0.3)
+    nw1 = 1.0 + 0.1 * torch.randn(d, generator=gen, device=device)
+    nw2 = 1.0 + 0.1 * torch.randn(d, generator=gen, device=device)
+    lengths = torch.randint(1, s + 1, (b,), generator=gen,
+                            device=device).int()
+    args = (x, nw1, rn(d, h * hd, scale=d ** -0.5), rn(h * hd, scale=0.1),
+            lengths - 1, rn(b, kvh, s, hd), rn(b, kvh, s, hd), lengths,
+            rn(h * hd, d, scale=(h * hd) ** -0.5), nw2,
+            rn(d, f, scale=d ** -0.5), rn(d, f, scale=d ** -0.5),
+            rn(f, d, scale=f ** -0.5))
+    return args, {"block_kv": 16}
+
+
+def _decode_layer_sweep_inputs(gen, site, device):
+    return _decode_layer_inputs(
+        gen, device, b=int(site["b"]), d=int(site["d_model"]),
+        h=int(site["h"]), kvh=int(site["kvh"]), hd=int(site["hd"]),
+        f=int(site["d_ff"]), s=int(site["s"]),
+        dtype=getattr(torch, site.get("dtype", "float32")))
+
+
+def _register_graphs():
+    from repro_torch.kernels.registry import register_graph
+
+    register_graph(
+        name="attention_proj",
+        op=attention_proj,
+        make_inputs=_attention_proj_inputs,
+        ref=_attention_proj_ref,
+        unfused=_attention_proj_unfused,
+        tol=5e-4,
+        doc="causal attention -> out-projection, one launch",
+        sweep_inputs=_attention_proj_sweep_inputs,
+    )
+    register_graph(
+        name="decode_layer",
+        op=decode_layer,
+        make_inputs=lambda gen, device: _decode_layer_inputs(gen, device)[0],
+        ref=decode_layer_ref,
+        tol=5e-4,
+        doc="q-projection -> decode attention -> MLP tail, one plan",
+        sweep_inputs=_decode_layer_sweep_inputs,
+    )
+
+
+_register_graphs()

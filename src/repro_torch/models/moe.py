@@ -31,8 +31,16 @@ import torch.nn.functional as F
 
 from repro_torch import ops
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import autotune
+from repro_torch.core.program import current_policy
 from repro_torch.kernels.ff_gather import gather, gather_ref
+from repro_torch.kernels.ff_gather.ops import gather_workload
+from repro_torch.kernels.ff_gather.ops import max_depth as gather_max_depth
 from repro_torch.kernels.ff_matmul import dispatch_matmul, dispatch_matmul_ref
+from repro_torch.kernels.ff_matmul.ops import MAX_DEPTH as MM_MAX_DEPTH
+from repro_torch.kernels.ff_matmul.ops import matmul_workload
+from repro_torch.kernels.ff_matmul.ops import \
+    stream_options as mm_stream_options
 from repro_torch.models import layers as L
 
 
@@ -178,7 +186,17 @@ def _moe_graph_unfused(idx, tokens, w1, comb) -> torch.Tensor:
     return ops.gather(y, comb)
 
 
-def moe_dispatch_ffn(idx, tokens, w1, comb) -> torch.Tensor:
+def moe_graph_nodes(t: int, d: int, n: int, f: int, t_out: int, *,
+                    dtype=torch.bfloat16):
+    """The graph's nodes as ``(name, Workload, tile)``, as the reference
+    declares them: the dispatch gather, the expert product (the port's
+    product words), the combine gather."""
+    return (("dispatch",) + gather_workload(n, d, dtype=dtype),
+            ("expert",) + matmul_workload(n, f, d, dtype=dtype),
+            ("combine",) + gather_workload(t_out, f, dtype=dtype))
+
+
+def moe_dispatch_ffn(idx, tokens, w1, comb, *, policy=None) -> torch.Tensor:
     """Dispatch -> expert matmul -> combine at the caller's shapes.
 
     idx: [n_dispatch] int rows into ``tokens``; tokens: [T, d_model]; w1:
@@ -186,9 +204,80 @@ def moe_dispatch_ffn(idx, tokens, w1, comb) -> torch.Tensor:
     index in range (unchecked on the card). ``n_dispatch`` and ``t_out``
     must be multiples of 8, the reference's gather row bundle. Returns
     [t_out, d_ff] = ``(tokens[idx] @ w1)[comb]`` in the tokens' type,
-    equal bit for bit to :func:`_moe_graph_unfused` on the card."""
+    equal bit for bit to :func:`_moe_graph_unfused` on the card.
+
+    ``policy`` (default: the session's) is resolved once for the graph
+    ``moe_dispatch_ffn`` (its three nodes' workloads summed) and its
+    (depth, streams) handed to both launches: the dispatched product and
+    the combine gather. mode="ref" runs :func:`moe_dispatch_ffn_ref`."""
     n, t_out = idx.shape[0], comb.shape[0]
     if n % _ROWS or t_out % _ROWS:
         raise ValueError(f"n_dispatch={n} / t_out={t_out} must be "
                          f"multiples of the {_ROWS}-row gather bundle")
-    return gather(dispatch_matmul(tokens, idx, w1), comb)
+    pol = current_policy() if policy is None else policy
+    if pol.mode == "ref":
+        return moe_dispatch_ffn_ref(idx, tokens, w1, comb)
+
+    def run(p):
+        return gather(dispatch_matmul(tokens, idx, w1, policy=p), comb,
+                      policy=p)
+
+    t, d = tokens.shape
+    f = w1.shape[1]
+    # streams both launches can run: the product's, and the combine
+    # gather's (clamped to the rows it fills)
+    so = tuple(s for s in mm_stream_options(pol.stream_options)
+               if s <= max(1, t_out // _ROWS))
+    pol = pol if so == tuple(pol.stream_options) \
+        else pol.replace(stream_options=so)
+    nodes = moe_graph_nodes(t, d, n, f, t_out, dtype=tokens.dtype)
+    wl, tile = autotune.graph_workload(nodes)
+    choice = autotune.resolve_graph(
+        "moe_dispatch_ffn", pol, workload=wl, tile=tile, dtype=tokens.dtype,
+        signature=autotune.graph_signature(nodes),
+        workload_fn=lambda tk: (wl, tile),
+        runner=None if autotune.in_capture() else
+        lambda tk, dep, st: lambda: run(pol.replace(
+            mode="ff", depth=dep, streams=st)),
+        site={"t": t, "d": d, "n": n, "f": f, "t_out": t_out},
+        site_dynamic=("t", "n", "t_out"),
+        depth_cap=min(MM_MAX_DEPTH, gather_max_depth(f, tokens.dtype,
+                                                     max(so))))
+    mode = "ff" if pol.mode == "autotune" else pol.mode
+    return run(pol.replace(mode=mode, depth=choice.depth,
+                           streams=choice.streams))
+
+
+def _moe_graph_inputs(gen, device, *, t=64, d=64, n=32, f=96, t_out=16,
+                      dtype=torch.float32):
+    tokens = torch.randn((t, d), generator=gen, device=device).to(dtype)
+    w1 = (torch.randn((d, f), generator=gen, device=device)
+          / d ** 0.5).to(dtype)
+    idx = torch.randint(0, t, (n,), generator=gen, device=device).int()
+    comb = torch.randint(0, n, (t_out,), generator=gen, device=device).int()
+    return idx, tokens, w1, comb
+
+
+def _moe_graph_sweep_inputs(gen, site, device):
+    return _moe_graph_inputs(
+        gen, device, t=int(site["t"]), d=int(site["d"]), n=int(site["n"]),
+        f=int(site["f"]), t_out=int(site["t_out"]),
+        dtype=getattr(torch, site.get("dtype", "float32"))), {}
+
+
+def _register_graph():
+    from repro_torch.kernels.registry import register_graph
+
+    register_graph(
+        name="moe_dispatch_ffn",
+        op=moe_dispatch_ffn,
+        make_inputs=_moe_graph_inputs,
+        ref=moe_dispatch_ffn_ref,
+        unfused=_moe_graph_unfused,
+        tol=5e-4,
+        doc="MoE dispatch (irregular gather) -> expert matmul -> combine",
+        sweep_inputs=_moe_graph_sweep_inputs,
+    )
+
+
+_register_graph()

@@ -18,7 +18,9 @@
     (``kernels/csrc/ff_decode_attention.cu``, which reads pages through the
     table itself; the reference fused an ``ff_gather`` producer into the
     attention consumer for this), with :func:`paged_decode_attention_ref`
-    as its plain version.
+    as its plain version. It resolves its ring through the pipe policy
+    as the reference's graph ``paged_decode_attention``, from the words
+    the port's one launch streams (:func:`paged_decode_nodes`).
   * :func:`gather_indices` / :func:`paged_decode_unfused` — the staged
     baseline of the paged kernel: gather the step's pool rows
     (``ff_gather``), then contiguous decode.
@@ -31,6 +33,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from repro_torch.core.program import PipePolicy, make_entrypoint
 from repro_torch.kernels.ff_decode_attention import ops as dec_ops
 from repro_torch.kernels.ff_gather import gather
 
@@ -64,19 +67,34 @@ def paged_decode_attention_ref(q, kv_pool, block_tables,
                                         block_kv=kv_pool.shape[2])
 
 
-def paged_decode_attention(q, kv_pool, block_tables, lengths, *,
-                           depth: int = dec_ops.DEFAULT_DEPTH,
-                           streams: int = dec_ops.DEFAULT_STREAMS
-                           ) -> torch.Tensor:
+def paged_decode_nodes(b: int, h: int, kvh: int, n_pages: int, page: int,
+                       d: int, *, dtype=torch.bfloat16):
+    """The graph's nodes as ``(name, Workload, tile)``: one, the decode
+    over the ``n_pages * page`` rows the table maps
+    (:func:`~repro_torch.kernels.ff_decode_attention.ops.
+    decode_attention_workload`: regular words of R cache rows, K and V).
+    The reference declares two, an ``ff_gather`` of the step's page rows
+    in irregular 8-row words and the decode over the gathered cache; the
+    port runs no gather, its one kernel reads each page through the table
+    in its own R-row words, so the rows stream once, as the contiguous
+    cache's do."""
+    w, tile = dec_ops.decode_attention_workload(b, h, kvh, n_pages * page,
+                                                d, dtype=dtype)
+    return (("decode", w, tile),)
+
+
+def _apply(q, kv_pool, block_tables, lengths, *,
+           policy: PipePolicy) -> torch.Tensor:
     """Decode attention for one new token through the block table.
 
     q: [B, H, d]; kv_pool: [n_blocks, 2, page, KVH, d] (one layer's pool);
     block_tables: [B, n_pages] int (entries >= n_blocks are sentinels);
     lengths: [B] (0 = inactive slot, whose output is exactly 0).
-    ``depth`` and ``streams`` size the kernel's ring (the reference's
-    ``Pipe`` arguments on its merged ``2 * page``-row K+V word); they
-    never change the result. Returns [B, H, d]. CPU tensors run
-    :func:`paged_decode_attention_ref`; CUDA tensors launch the kernel."""
+    The kernel's ring (the reference's ``Pipe`` arguments on its merged
+    ``2 * page``-row K+V word) is sized by ``policy`` for the graph; it
+    never changes the result. Returns [B, H, d]. mode="ref" and CPU
+    tensors run :func:`paged_decode_attention_ref`; CUDA tensors launch
+    the kernel."""
     if kv_pool.dim() != 5 or kv_pool.shape[1] != 2:
         raise ValueError(f"kv_pool {tuple(kv_pool.shape)} is not "
                          f"[nb, 2, page, KVH, d]")
@@ -87,20 +105,35 @@ def paged_decode_attention(q, kv_pool, block_tables, lengths, *,
                          f"[{q.shape[0]}, n_pages]")
     if block_tables.device != q.device:
         raise ValueError("block_tables must be on q's device")
-    dec_ops._pipe(depth, streams, 2 * kv_pool.shape[2], d, q.dtype,
-                  q.shape[1] // kvh)
-    if q.device.type == "cpu":
+    if policy.mode == "ref":
         return paged_decode_attention_ref(q, kv_pool, block_tables, lengths)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"paged decode attention runs on cpu or cuda, "
                          f"not {q.device}")
-    out = dec_ops.launch_paged(q, kv_pool, block_tables, lengths,
-                               depth=depth, streams=streams)
-    paged_decode_attention.launches += 1
+
+    def run(depth, streams):
+        if q.device.type == "cpu":
+            return paged_decode_attention_ref(q, kv_pool, block_tables,
+                                              lengths)
+        return dec_ops.launch_paged(q, kv_pool, block_tables, lengths,
+                                    depth=depth, streams=streams)
+
+    nb, _, page = kv_pool.shape[:3]
+    b, h, n_pages = q.shape[0], q.shape[1], block_tables.shape[1]
+    depth, streams = dec_ops.resolve_pipe(
+        "paged_decode_attention", policy, q, kvh, n_pages * page, d,
+        2 * page, run,
+        nodes=paged_decode_nodes(b, h, kvh, n_pages, page, d,
+                                 dtype=kv_pool.dtype),
+        site={"b": b, "h": h, "kvh": kvh, "n_pages": n_pages, "page": page,
+              "d": d, "n_blocks": nb})
+    out = run(depth, streams)
+    if q.device.type == "cuda":
+        paged_decode_attention.launches += 1
     return out
 
 
-paged_decode_attention.launches = 0
+paged_decode_attention = make_entrypoint("paged_decode_attention", _apply)
 
 
 def gather_indices(block_tables, *, page: int, kv_heads: int,
@@ -391,3 +424,50 @@ class PagedKVCache:
                                   if alloc_tokens else 0.0),
             "util_vs_pool": self._live_tokens / pool_tokens,
         }
+
+
+def _graph_inputs(gen, device, *, b=2, h=4, kvh=2, page=16, n_pages=4,
+                  d=64, dtype=torch.float32):
+    nb = b * n_pages + 2
+    q = torch.randn((b, h, d), generator=gen, device=device).to(dtype)
+    pool = torch.randn((nb, 2, page, kvh, d), generator=gen,
+                       device=device).to(dtype)
+    tables = torch.randperm(nb, generator=gen, device=device)[
+        :b * n_pages].view(b, n_pages).int()
+    lens = torch.randint(1, n_pages * page + 1, (b,), generator=gen,
+                         device=device).int()
+    return q, pool, tables, lens
+
+
+def _graph_sweep_inputs(gen, site, device):
+    # operands at a recorded call-site shape (plan sweep)
+    kvh = int(site["kvh"])
+    return _graph_inputs(
+        gen, device, b=int(site["b"]), h=max(1, int(site["h"]) // kvh) * kvh,
+        kvh=kvh, page=int(site["page"]), n_pages=int(site["n_pages"]),
+        d=int(site["d"]),
+        dtype=getattr(torch, site.get("dtype", "float32"))), {}
+
+
+def _graph_unfused(q, kv_pool, block_tables, lengths):
+    nb, _, page, kvh, _ = kv_pool.shape
+    idx = gather_indices(block_tables, page=page, kv_heads=kvh, n_blocks=nb)
+    return paged_decode_unfused(q, kv_pool, idx, lengths)
+
+
+def _register_graph():
+    from repro_torch.kernels.registry import register_graph
+
+    register_graph(
+        name="paged_decode_attention",
+        op=paged_decode_attention,
+        make_inputs=_graph_inputs,
+        ref=paged_decode_attention_ref,
+        unfused=_graph_unfused,
+        tol=2e-4,
+        doc="block-table gather -> decode attention, one launch",
+        sweep_inputs=_graph_sweep_inputs,
+    )
+
+
+_register_graph()

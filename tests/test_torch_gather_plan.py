@@ -30,11 +30,12 @@ from repro.core.pipe import Pipe
 from repro.core.program import PipePolicy
 from repro.kernels.ff_gather import ops as RO
 from repro.kernels.ff_gather.kernel import build_program, gather_ff
-from repro_torch.kernels.ff_gather import (DEFAULT_DEPTH, DEFAULT_STREAMS,
-                                           gather, max_depth)
+from repro_torch.kernels.ff_gather import gather, max_depth
 from repro_torch.kernels.ff_gather import ops as G
 
 SMS = 132                      # the H100's SM count, passed in
+# the reference gather_ff's fixed ring (kernel.py:35, :67)
+REF_DEPTH, REF_STREAMS = 4, 1
 MAX_SMEM = 232448
 BF16, F32 = torch.bfloat16, torch.float32
 # (label, n, C, dtype)
@@ -95,7 +96,7 @@ def test_every_depth_up_to_max_depth_fits_and_the_next_raises(label, n, c,
 def test_words_hold_every_row_once_and_slabs_cover_it_once(label, n, c,
                                                            dtype, streams):
     row_bytes = c * (2 if dtype == BF16 else 4)
-    for depth in sorted({1, DEFAULT_DEPTH, max_depth(c, dtype, streams)}):
+    for depth in sorted({1, REF_DEPTH, max_depth(c, dtype, streams)}):
         plan = G._plan(n, c, dtype, depth, streams, SMS)
         r0, nr, off, length = _words(plan, n, row_bytes)
         assert (nr > 0).all() and (length > 0).all()
@@ -116,19 +117,19 @@ def test_words_hold_every_row_once_and_slabs_cover_it_once(label, n, c,
 
 
 def test_wide_rows_are_cut_into_slabs_only_where_whole_rows_do_not_fit():
-    qwen = G._plan(1024, 1024, BF16, DEFAULT_DEPTH, 1, SMS)
+    qwen = G._plan(1024, 1024, BF16, REF_DEPTH, 1, SMS)
     assert (qwen.slabs, qwen.slab, qwen.words, qwen.grid) == (1, 2048, 128,
                                                               128)
-    bench = G._plan(1 << 20, 512, F32, DEFAULT_DEPTH, 1, SMS)
+    bench = G._plan(1 << 20, 512, F32, REF_DEPTH, 1, SMS)
     assert (bench.slabs, bench.words, bench.grid) == (1, 131072, SMS)
-    combine = G._plan(512, 2816, F32, DEFAULT_DEPTH, 1, SMS)
+    combine = G._plan(512, 2816, F32, REF_DEPTH, 1, SMS)
     assert combine.slabs == 2 and combine.slab == 5632      # d_ff in halves
     assert G._plan(512, 2816, F32, 2, 1, SMS).slabs == 1    # two fit whole
     assert G._plan(512, 2816, F32, max_depth(2816, F32), 1,
                    SMS).slabs == 6
-    seven = G._plan(1001, 7, F32, DEFAULT_DEPTH, 1, SMS)
+    seven = G._plan(1001, 7, F32, REF_DEPTH, 1, SMS)
     assert (seven.slab, seven.pitch, seven.words) == (28, 32, 126)
-    assert G._plan(0, 7, F32, DEFAULT_DEPTH, 1, SMS).words == 0
+    assert G._plan(0, 7, F32, REF_DEPTH, 1, SMS).words == 0
 
 
 def test_short_rows_take_more_rows_a_word_up_to_a_16_kb_stage():
@@ -136,18 +137,18 @@ def test_short_rows_take_more_rows_a_word_up_to_a_16_kb_stage():
     take a multiple, enough for one word a block (the staged paged
     baseline: 6,144 rows of 128 bytes), at most a 16 KB stage, and no
     more than ``depth`` stages leave room for."""
-    paged = G._plan(6144, 64, BF16, DEFAULT_DEPTH, 1, SMS)
+    paged = G._plan(6144, 64, BF16, REF_DEPTH, 1, SMS)
     assert (paged.rows, paged.stage, paged.words, paged.grid) == (
         48, 6144, 128, 128)
-    assert G._plan(6144, 64, BF16, DEFAULT_DEPTH, 2, SMS).rows == 48
-    many = G._plan(1 << 20, 64, BF16, DEFAULT_DEPTH, 1, SMS)
+    assert G._plan(6144, 64, BF16, REF_DEPTH, 2, SMS).rows == 48
+    many = G._plan(1 << 20, 64, BF16, REF_DEPTH, 1, SMS)
     assert (many.rows, many.stage, many.grid) == (128, 16384, SMS)
-    assert G._plan(1 << 20, 4, F32, DEFAULT_DEPTH, 1, SMS).rows == 1024
-    assert G._plan(1 << 20, 512, F32, DEFAULT_DEPTH, 1, SMS).rows == 8
+    assert G._plan(1 << 20, 4, F32, REF_DEPTH, 1, SMS).rows == 1024
+    assert G._plan(1 << 20, 512, F32, REF_DEPTH, 1, SMS).rows == 8
     assert G._plan(6144, 64, BF16, max_depth(64, BF16), 1, SMS).rows == 8
-    fewer = G._plan(1001, 7, F32, DEFAULT_DEPTH, 1, 40)
+    fewer = G._plan(1001, 7, F32, REF_DEPTH, 1, 40)
     assert (fewer.rows, fewer.words, fewer.grid) == (32, 32, 32)
-    assert G._plan(5, 0, F32, DEFAULT_DEPTH, 1, SMS).rows == 8
+    assert G._plan(5, 0, F32, REF_DEPTH, 1, SMS).rows == 8
 
 
 def _pipe_raises(**kw):
@@ -177,10 +178,17 @@ def test_defaults_are_the_reference_kernels():
     for fn in (gather_ff, build_program):
         params = inspect.signature(fn).parameters
         assert (params["depth"].default, params["streams"].default) == (
-            DEFAULT_DEPTH, DEFAULT_STREAMS)
+            REF_DEPTH, REF_STREAMS)
+    # the entry point sizes its ring by the pipe policy: its keywords
+    # default to None (planned), and the reference's defaults pinned
+    # through them give the same rows
     params = inspect.signature(gather).parameters
     assert (params["depth"].default, params["streams"].default) == (
-        DEFAULT_DEPTH, DEFAULT_STREAMS)
+        None, None)
+    table = torch.arange(64.0).view(16, 4)
+    idx = torch.tensor([3, 1, 15, 0] * 5, dtype=torch.int32)
+    assert torch.equal(gather(table, idx, depth=REF_DEPTH,
+                              streams=REF_STREAMS), gather(table, idx))
 
 
 def test_streams_clamped_as_the_reference_apply(monkeypatch):

@@ -168,7 +168,8 @@ def test_depth_and_streams_are_checked_as_the_reference_pipe(depth,
 def test_depth_beyond_shared_memory_raises():
     assert L._smem_bytes(L.MAX_DEPTH) <= L._MAX_SMEM
     assert L._smem_bytes(L.MAX_DEPTH + 1) > L._MAX_SMEM
-    assert L.DEFAULT_DEPTH == 2 and L.DEFAULT_STREAMS == 1
+    # the reference's fixed ring (depth 2, streams 1) fits
+    assert L._smem_bytes(2) <= L._MAX_SMEM
     with pytest.raises(ValueError):
         ff_layer_matmul(torch.ones(4, 8), torch.ones(8, 8),
                         depth=L.MAX_DEPTH + 1)

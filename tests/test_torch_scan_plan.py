@@ -8,6 +8,7 @@ kernel test), bfloat16 streams within 2e-2 (both sides read the same bf16
 values, compute in f32 and round the output once).
 """
 
+import inspect
 import itertools
 
 import jax.numpy as jnp
@@ -17,10 +18,8 @@ import torch
 
 from repro.core.pipe import Pipe
 from repro.kernels.ff_chunk_scan.kernel import chunk_scan_ff
-from repro_torch.kernels.ff_chunk_scan import (DEFAULT_DEPTH,
-                                               DEFAULT_STREAMS, chunk_scan,
-                                               chunk_scan_plain, max_depth,
-                                               ring_smem_bytes)
+from repro_torch.kernels.ff_chunk_scan import (chunk_scan, chunk_scan_plain,
+                                               max_depth, ring_smem_bytes)
 from repro_torch.kernels.ff_chunk_scan import ops as O
 
 H100_SMS = 132
@@ -121,7 +120,19 @@ def test_depth_and_streams_are_checked_as_the_reference_pipe(depth, streams,
 
 
 def test_defaults_are_the_reference_keywords():
-    assert (DEFAULT_DEPTH, DEFAULT_STREAMS) == (2, 1)
+    """The port's entry point plans its ring (keywords default to None);
+    the reference's fixed keywords, depth 2 and streams 1, pinned through
+    it give the planned call's result."""
+    params = inspect.signature(chunk_scan_ff).parameters
+    assert (params["depth"].default, params["streams"].default) == (2, 1)
+    params = inspect.signature(chunk_scan).parameters
+    assert (params["depth"].default, params["streams"].default) == (
+        None, None)
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.standard_normal((2, 64, 16)).astype(np.float32))
+    lw = -torch.rand(2, 64, 16, generator=torch.Generator().manual_seed(2))
+    assert torch.equal(chunk_scan(q, q, q, lw, chunk=16, depth=2, streams=1),
+                       chunk_scan(q, q, q, lw, chunk=16))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
