@@ -146,6 +146,31 @@ Phases (any failure exits non-zero without the final result line):
      prediction, the H100_SXM constants fitted from the gather's sweep,
      and the host cost of a resolution (a ``plans`` line).
 
+  i. training, after the serve and steps runs (phase c-e): the smoke
+     llama3.2-1b, qwen1.5-0.5B, grok-1, deepseek-v2-lite, rwkv6-7b,
+     zamba2-2.7b, internvl2-1b and whisper-tiny models at f32 compute on
+     the "xla" path, card against CPU: the loss within 2e-4, every
+     gradient leaf within 1e-3 x its max |CPU value| (2e-3 the recurrent
+     pair), one AdamW and one Adafactor update given the same gradients
+     within 1e-5 of max |param|; full-width llama3.2-1b (the reference
+     trainer's default model) through ``launch/train.py`` at batch 8 x 128
+     tokens for 30 steps at lr 1e-3 in bf16 compute (f32 parameters,
+     gradients and AdamW moments): every loss finite and the last five's
+     mean below the first five's, with the median step, tokens/s, peak
+     memory and the final checkpoint's size and write time (a ``train``
+     line; the checkpoint goes to a temporary directory, removed after);
+     4 more steps with ``--accum 2 --quantized-accum``, finite; no kernel
+     of the port launched by either run (the "xla" path, as the
+     reference); a profiled window of the same train step (a
+     ``train_profile`` line: wall and device ms, kernels a step, the top
+     device ops, a bound); a smoke run crashed at step 12 and resumed to 20 equal
+     to a clean one bit for bit; a loss through the "ff" kernels with
+     gradients on refused before any launch.
+
+``python3 chip_smoke.py --train-lr-sweep`` builds nothing and trains
+full-width llama3.2-1b for phase i's 30 steps at lr 3e-4, 1e-3, 3e-3 and
+1e-2 (one ``train_lr`` line: each run's losses).
+
 ``python3 chip_smoke.py --decode-timing`` builds the kernels and runs
 only phase f's decode-attention timing (one ``decode_timing`` line): run
 it in two trees in one call to compare their decode bodies.
@@ -162,6 +187,7 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -276,6 +302,25 @@ SSM_MODEL_TOL = 1e-3         # smoke SSMs card vs CPU: the same tol
 # (attention, decode attention, the paged decode, the decode-layer
 # kernels: depth 2, streams 1), as one explicit policy
 CONSTANTS = dict(depth=2, streams=1)
+# phase i (training): the smoke models trained card vs CPU at f32 compute
+# (loss relative, each gradient leaf relative to its max |CPU value|, one
+# optimizer update given the same gradients relative to max |param|);
+# full-width llama3.2-1b through launch/train.py (the reference trainer's
+# default model), then its accumulation run; kill-and-resume at smoke
+# width with the reference test's settings
+TRAIN_SMALL = ("llama3_2_1b", "qwen1_5_0p5b", "grok1_314b",
+               "deepseek_v2_lite_16b", "rwkv6_7b", "zamba2_2p7b",
+               "internvl2_1b", "whisper_tiny")
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_SSM_GRAD_TOL = 2e-4, 1e-3, 2e-3
+TRAIN_OPT_TOL = 1e-5
+# lr 1e-3: at the trainer's default 3e-4 (20 warm-up steps) the last five
+# losses' mean sat 0.005 below the first five's, within the steps'
+# +-0.04 noise; 3e-3 and 1e-2 diverge in bf16 (--train-lr-sweep; PERF.md)
+TRAIN = dict(arch="llama3_2_1b", batch=8, seq=128, steps=30, lr=1e-3,
+             accum=2, accum_steps=4)
+TRAIN_LRS = (3e-4, 1e-3, 3e-3, 1e-2)    # --train-lr-sweep
+KILL_RESUME = dict(arch="qwen1_5_0p5b", smoke=True, steps=20, batch=2,
+                   seq=32, ckpt_every=5, fail_at=12)
 # the gather case the H100_SXM constants are fitted from
 FIT_CASE = ("ff_gather table[1048576,512] float32 idx[1048576] "
             "(reference registry bench_kwargs)")
@@ -3227,6 +3272,315 @@ def plan_phase(torch, dev, sweep, runs, shapes):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# i. training on one card
+# ---------------------------------------------------------------------------
+
+
+def smi_line():
+    """The card's name and power limit, as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi failed: {smi.stderr.strip()}")
+
+
+def train_batch(torch, cfg, batch, seq, step=0):
+    """The trainer's synthetic batch (``data.batch_at``) as CPU tensors."""
+    from repro_torch.data import SyntheticSpec, batch_at
+    spec = SyntheticSpec(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+        n_frames=cfg.n_frames if cfg.family == "encdec" else 0,
+        n_patches=cfg.n_patches if cfg.family == "vlm" else 0,
+        d_model=cfg.d_model)
+    return {k: torch.from_numpy(v) for k, v in batch_at(spec, step).items()}
+
+
+def leaf_errs(torch, got, want):
+    """max |got - want| / max |want| over each leaf pair (paths sorted)."""
+    from repro_torch.models import layers as L
+    w = dict(L.tree_leaves(want))
+    return {path: err(g.cpu(), w[path]) / max(w[path].abs().max().item(),
+                                              1e-30)
+            for path, g in L.tree_leaves(got)}
+
+
+def check_train_small(torch, dev, card):
+    """The smoke models of TRAIN_SMALL at f32 compute on the "xla" path:
+    loss and every gradient leaf on the card against the CPU, then one
+    AdamW and one Adafactor update of the card's copy and of the CPU's,
+    given the CPU's gradients."""
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import build_model
+    from repro_torch.optim import adafactor, adamw
+    for arch in TRAIN_SMALL:
+        cfg = smoke_config(arch).replace(attn_impl="xla", scan_impl="xla",
+                                         compute_dtype="float32")
+        model = build_model(cfg)
+        p_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+        p_dev = tree_to(p_cpu, dev, torch)
+        batch = train_batch(torch, cfg, 2, 32)
+        m_cpu, g_cpu = value_and_grad(model, p_cpu, batch)
+        m_dev, g_dev = value_and_grad(model, p_dev, tree_to(batch, dev,
+                                                            torch))
+        loss_e = abs(m_dev["loss"].item() - m_cpu["loss"].item()) / abs(
+            m_cpu["loss"].item())
+        g_errs = leaf_errs(torch, g_dev, g_cpu)
+        worst = max(g_errs, key=g_errs.get)
+        g_tol = (TRAIN_SSM_GRAD_TOL if cfg.family in ("ssm", "hybrid")
+                 else TRAIN_GRAD_TOL)
+        opt_e = {}
+        for name, opt in (("adamw", adamw), ("adafactor", adafactor)):
+            cfg_o = (opt.AdamWConfig() if name == "adamw"
+                     else opt.AdafactorConfig())
+            with torch.no_grad():
+                a = tree_clone(p_cpu)
+                b = tree_to(p_cpu, dev, torch)
+                opt.update(cfg_o, g_cpu, opt.init(a), a)
+                opt.update(cfg_o, tree_to(g_cpu, dev, torch), opt.init(b),
+                           b)
+            opt_e[name] = max(leaf_errs(torch, b, a).values())
+        check(f"train smoke {arch} card vs cpu ({card})",
+              loss_e <= TRAIN_LOSS_TOL and g_errs[worst] <= g_tol
+              and all(e <= TRAIN_OPT_TOL for e in opt_e.values()),
+              f"loss {m_dev['loss'].item():.6f} rel err {loss_e:.2e} "
+              f"(tol {TRAIN_LOSS_TOL}); grads {len(g_errs)} leaves, worst "
+              f"{'.'.join(worst)} {g_errs[worst]:.2e} of max|cpu| (tol "
+              f"{g_tol}); one update given the same grads: adamw "
+              f"{opt_e['adamw']:.2e}, adafactor {opt_e['adafactor']:.2e} of "
+              f"max|param| (tol {TRAIN_OPT_TOL})")
+
+
+def train_args(ckpt_dir, **kw):
+    from repro_torch.launch import train
+    argv = ["--ckpt-dir", ckpt_dir, "--log-every", "1", "--device", "cuda"]
+    for k, v in kw.items():
+        flag = "--" + k.replace("_", "-")
+        argv += [flag] if v is True else [flag, str(v)]
+    return train.build_parser().parse_args(argv)
+
+
+def train_full(torch, dev, card, tmp):
+    """Full-width llama3.2-1b (the reference trainer's default model)
+    through ``launch/train.py``: TRAIN's steps at its batch and sequence
+    on the "xla" path in bf16 compute, f32 params, gradients and AdamW
+    moments; then TRAIN's accumulation run. Returns the train path's
+    launches of every kernel wrapper (all must be 0)."""
+    from repro_torch.launch import train
+    wr = wrappers()
+    for w in wr.values():
+        w.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ck = str(Path(tmp) / "full")
+    r = train.run(train_args(ck, arch=TRAIN["arch"], steps=TRAIN["steps"],
+                             batch=TRAIN["batch"], seq=TRAIN["seq"],
+                             lr=TRAIN["lr"], ckpt_every=10 ** 6))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [m["loss"] for m in r["metrics"]]
+    first, last = (sum(losses[:5]) / 5, sum(losses[-5:]) / 5)
+    finite = all(math.isfinite(x) for x in losses)
+    step_ms = sorted(t * 1e3 for t in r["step_s"][1:])
+    med = step_ms[len(step_ms) // 2] if len(step_ms) % 2 else (
+        step_ms[len(step_ms) // 2 - 1] + step_ms[len(step_ms) // 2]) / 2
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    ckpt = r["checkpoint"]
+    from repro_torch.models import layers as L
+    n_params = sum(x.numel() for _, x in L.tree_leaves(r["state"]["params"]))
+    check(f"train[{TRAIN['arch']}] full width, {TRAIN['steps']} steps",
+          finite and last < first and len(losses) == TRAIN["steps"],
+          f"{n_params} params; losses finite: {finite}, first 5 mean "
+          f"{first:.4f}, last 5 mean {last:.4f}, margin {first - last:.4f}")
+    print("train " + json.dumps({
+        "arch": TRAIN["arch"], "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+        "steps": TRAIN["steps"], "lr": TRAIN["lr"], "params": n_params,
+        "losses": losses,
+        "median_step_ms_after_first": med, "first_step_ms":
+        r["step_s"][0] * 1e3, "tokens_per_s": tokens / (med / 1e3),
+        "peak_gib": peak / 2 ** 30,
+        "checkpoint_gb": ckpt["bytes"] / 1e9,
+        "checkpoint_write_s": ckpt["seconds"], "card": card}), flush=True)
+    del r
+    shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.empty_cache()
+    ck = str(Path(tmp) / "accum")
+    r = train.run(train_args(ck, arch=TRAIN["arch"],
+                             steps=TRAIN["accum_steps"],
+                             batch=TRAIN["batch"], seq=TRAIN["seq"],
+                             lr=TRAIN["lr"], accum=TRAIN["accum"],
+                             quantized_accum=True, ckpt_every=10 ** 6))
+    losses = [m["loss"] for m in r["metrics"]]
+    check(f"train[{TRAIN['arch']}] --accum {TRAIN['accum']} "
+          f"--quantized-accum, {TRAIN['accum_steps']} steps",
+          len(losses) == TRAIN["accum_steps"]
+          and all(math.isfinite(x) for x in losses),
+          f"losses {[round(x, 4) for x in losses]}; median step "
+          f"{sorted(r['step_s'])[len(r['step_s']) // 2] * 1e3:.1f} ms "
+          f"({card})")
+    del r
+    shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {name: w.launches for name, w in wr.items()}
+
+
+def train_kill_resume(torch, tmp):
+    """The reference's kill-and-resume gate on the card at smoke width:
+    crash at step 12, resume to 20, against a clean 20 steps; every leaf
+    of step 20's arrays.npz equal bit for bit."""
+    import numpy as np
+    from repro_torch.launch import train
+    a, b = str(Path(tmp) / "crash"), str(Path(tmp) / "clean")
+    kw = dict(KILL_RESUME)
+    fail_at = kw.pop("fail_at")
+    try:
+        train.run(train_args(a, fail_at=fail_at, **kw))
+        crashed = "no failure raised"
+    except RuntimeError as e:
+        crashed = str(e)
+    r = train.run(train_args(a, **kw))
+    train.run(train_args(b, **kw))
+    za = np.load(Path(a) / "step_00000020" / "arrays.npz")
+    zb = np.load(Path(b) / "step_00000020" / "arrays.npz")
+    differ = [k for k in za.files if not np.array_equal(za[k], zb[k])]
+    check("train kill-and-resume on the card (bitwise)",
+          "injected failure at step 12" in crashed and r["start"] == 10
+          and set(za.files) == set(zb.files) and not differ,
+          f"{kw['arch']} smoke: crash '{crashed}', resumed from step "
+          f"{r['start']}, {len(za.files)} leaves, differing: {differ[:5]}")
+
+
+def train_guard(torch, dev):
+    """A loss through the "ff" kernels with gradients on raises on the
+    card, before any launch."""
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import build_model
+    cfg = smoke_config("qwen1_5_0p5b").replace(attn_impl="ff")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    batch = tree_to(train_batch(torch, cfg, 2, 32), dev, torch)
+    msg = "no error"
+
+    def go():
+        nonlocal msg
+        try:
+            value_and_grad(model, params, batch)
+        except RuntimeError as e:
+            msg = str(e)
+    launches = counted(torch, go)
+    check("train guard: a loss through the 'ff' kernels with grads raises",
+          "no backward kernel" in msg and not launches,
+          f"{msg[:90]!r}; launches {launches}")
+
+
+def train_lr_sweep(torch, dev):
+    """Full-width llama3.2-1b for TRAIN's steps at each of TRAIN_LRS
+    through ``make_train_step`` (AdamW, 20 warm-up steps, the trainer's
+    batches, no checkpoint): the first and last five losses' means (a
+    ``train_lr`` line)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    cfg = get_config(TRAIN["arch"]).replace(attn_impl="xla", scan_impl="xla")
+    model = build_model(cfg)
+    out = {"card": smi_line(), "arch": TRAIN["arch"], "lr": {}}
+    for lr in TRAIN_LRS:
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        ocfg = adamw.AdamWConfig(lr_peak=lr, warmup_steps=20,
+                                 total_steps=TRAIN["steps"])
+        state = adamw.init(params)
+        step = steps.make_train_step(model, opt_cfg=ocfg)
+        losses = []
+        for s in range(TRAIN["steps"]):
+            batch = tree_to(train_batch(torch, cfg, TRAIN["batch"],
+                                        TRAIN["seq"], s), dev, torch)
+            losses.append(step(params, state, batch)[2]["loss"].item())
+        first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        out["lr"][str(lr)] = {"first5": first, "last5": last,
+                              "margin": first - last, "losses": losses}
+        del params, state
+        torch.cuda.empty_cache()
+    print("train_lr " + json.dumps(out), flush=True)
+
+
+def profile_train(torch, dev, card, n_steps=2):
+    """Full-width llama3.2-1b's train step (TRAIN's batch, AdamW) after two
+    warm-up steps: wall ms a step over three, then one profiled window of
+    ``n_steps``: device busy ms, kernels a step, the top device ops; beside
+    a bound: the products' 8 x params x tokens operations (forward,
+    rematerialized forward, backward) at the bf16 peak, and AdamW's bytes
+    (params, grads, both moments read; params and moments written; f32)
+    at HBM's rate (a ``train_profile`` line)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    cfg = get_config(TRAIN["arch"]).replace(attn_impl="xla", scan_impl="xla")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    state = adamw.init(params)
+    step = steps.make_train_step(model, opt_cfg=adamw.AdamWConfig(
+        lr_peak=TRAIN["lr"], warmup_steps=20, total_steps=TRAIN["steps"]))
+    batch = tree_to(train_batch(torch, cfg, TRAIN["batch"], TRAIN["seq"]),
+                    dev, torch)
+
+    def one():
+        step(params, state, batch)[2]["loss"].item()
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        one()
+    wall = (time.perf_counter() - t0) / 3 * 1e3
+    prof = profile_window(torch, one, n_steps)
+    n = model.param_count()
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    ops_ms = 8 * n * tokens / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    opt_ms = 7 * 4 * n / HBM_BYTES_PER_S * 1e3
+    top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:8]
+    print("train_profile " + json.dumps({
+        "card": card, "arch": TRAIN["arch"], "batch": TRAIN["batch"],
+        "seq": TRAIN["seq"], "wall_ms": wall,
+        "device_ms": prof["device_ms"],
+        "busy_share": prof["device_ms"] / wall if prof["device_ms"] else None,
+        "device_kernels": prof["device_kernels"],
+        "host_launch_calls": prof["host_launch_calls"],
+        "bound_ms": {"products_at_bf16_peak": ops_ms,
+                     "adamw_bytes_at_hbm": opt_ms},
+        "top_ms_per_step": {k: v / n_steps for k, v in top}}), flush=True)
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def train_phase(torch, dev):
+    """Phase i: the smoke models' training card vs CPU, full-width
+    llama3.2-1b through the trainer, kill-and-resume, the "ff" guard."""
+    import tempfile
+    t0 = time.perf_counter()
+    card = smi_line()
+    check_train_small(torch, dev, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        launches = train_full(torch, dev, card, tmp)
+        profile_train(torch, dev, card)
+        check("train path launches no kernel of the port ('xla', as the "
+              "reference)", not any(launches.values()), str(launches))
+        train_kill_resume(torch, tmp)
+    train_guard(torch, dev)
+    # the supervisor's counters live in the process-wide registry: drop
+    # them, so the serve runs after this phase report a serve process's
+    # metrics, as phase h requires
+    from repro_torch import obs
+    obs.metrics_clear("supervisor_")
+    print(f"i. train: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
@@ -3235,6 +3589,10 @@ def main() -> int:
                     help="build, then only time the decode-attention rows "
                     "(phase f's time_decode) and print them as one "
                     "decode_timing line: to compare two trees in one call")
+    ap.add_argument("--train-lr-sweep", action="store_true",
+                    help="build nothing; train full-width llama3.2-1b for "
+                    "phase i's steps at each of TRAIN_LRS and print one "
+                    "train_lr line")
     opts = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3244,6 +3602,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
+    if opts.train_lr_sweep:
+        train_lr_sweep(torch, dev)
+        return 0
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
@@ -3294,6 +3655,7 @@ def main() -> int:
     run_steps_model(torch, dev, WHISPER, (),
                     "every attention of encdec is the reference's unfused "
                     "path, whatever attn_impl says")
+    train_phase(torch, dev)
 
     rows = time_kernels(torch, dev, shapes)
     rows.update(time_layer_kernels(torch, dev, shapes))

@@ -27,7 +27,9 @@ modeled and achieved memory bandwidth that opens up. This module closes it:
   scopes tuned plans to the topology they were measured under. The disk cache fronts
   an in-memory dict the same way the planner's ``lru_cache`` fronts
   ``plan_pipe``, so a fresh process reloads tuned plans without
-  re-measuring.
+  re-measuring. Checkpoints carry them too: :func:`snapshot_plans` goes
+  into every checkpoint's ``extra`` (``runtime/fault_tolerance.py``) and
+  :func:`restore_snapshot` pre-warms a resumed job from it.
 
 Entry point for kernels: :func:`resolve_call` — a drop-in superset of
 ``PipePolicy.resolve`` that returns a :class:`TunedChoice` (tile override +
@@ -298,6 +300,46 @@ def tuned_cache_clear() -> None:
     _MEM_ORIGIN.clear()
     _DISK.clear()
     _LAST.clear()
+
+
+def snapshot_plans(path: Optional[str] = None) -> dict:
+    """Every tuned-plan record this process can serve for its plan-cache
+    path (the parsed disk cache overlaid with the in-memory front) as a
+    JSON-serializable snapshot keyed by :data:`PLAN_FORMAT_VERSION`.
+
+    The fault-tolerance supervisor embeds it in every checkpoint's
+    ``extra``, so a restarted job, possibly on another host with a cold
+    plan cache, pre-warms the autotune chain from the checkpoint and
+    measures nothing again (:func:`restore_snapshot`)."""
+    path = path or cache_path()
+    plans: Dict[str, dict] = dict(load_plans(path))
+    plans.update({k: rec for (p, k), rec in _MEM.items() if p == path})
+    return {"format": PLAN_FORMAT_VERSION, "plans": plans}
+
+
+def restore_snapshot(snapshot: Optional[Mapping[str, Any]],
+                     path: Optional[str] = None) -> int:
+    """Pre-warm the in-memory tuned-plan cache from a checkpoint's
+    snapshot (:func:`snapshot_plans`). A snapshot of another plan format
+    is ignored with a warning (its records could never be served, and the
+    restarted job then measures again). Records never overwrite ones this
+    process already holds. Returns the number of records installed."""
+    if not snapshot:
+        return 0
+    if snapshot.get("format") != PLAN_FORMAT_VERSION:
+        warnings.warn(
+            f"ignoring checkpoint plan snapshot with format "
+            f"{snapshot.get('format')!r} != {PLAN_FORMAT_VERSION}; tuned "
+            f"plans will be re-measured", RuntimeWarning, stacklevel=2)
+        return 0
+    path = path or cache_path()
+    installed = 0
+    for key, rec in dict(snapshot.get("plans") or {}).items():
+        if isinstance(rec, dict) and (path, key) not in _MEM:
+            _MEM[(path, key)] = rec
+            _MEM_ORIGIN[(path, key)] = "snapshot"
+            installed += 1
+    return installed
 
 
 def last_record(op: str) -> Optional[dict]:

@@ -165,6 +165,24 @@ def resolve_call_policy(op: str, call_policy: Optional[PipePolicy] = None,
     return dataclasses.replace(base, **given)
 
 
+def _refuse_autograd(op: str, args, kwargs) -> None:
+    """Raise where a kernel call would take part in a backward: on the
+    card a kernel's output has no ``grad_fn``, so a loss through it would
+    silently drop the gradient of everything upstream, while on the CPU
+    the plain version differentiates. Refusing on both devices keeps the
+    two the same."""
+    import torch
+    if not torch.is_grad_enabled():
+        return
+    if any(isinstance(a, torch.Tensor) and a.requires_grad
+           for a in (*args, *kwargs.values())):
+        raise RuntimeError(
+            f"{op}: no backward kernel exists, and an input requires grad; "
+            f"training runs attn_impl and scan_impl 'xla', as the "
+            f"reference does (call under torch.no_grad() to run the kernel "
+            f"on tensors that require grad)")
+
+
 def make_entrypoint(op: str, apply_fn: Callable[..., Any],
                     modes: Tuple[str, ...] = ("ff", "baseline", "ref",
                                               "autotune"),
@@ -190,6 +208,8 @@ def make_entrypoint(op: str, apply_fn: Callable[..., Any],
         if pol.mode not in modes:
             raise ValueError(
                 f"{op}: unknown mode {pol.mode!r}; supported: {modes}")
+        if pol.mode != "ref":
+            _refuse_autograd(op, args, kwargs)
         return apply_fn(*args, policy=pol, **kwargs)
 
     sig = inspect.signature(apply_fn)

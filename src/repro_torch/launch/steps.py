@@ -1,6 +1,12 @@
-"""Step builders for serving (the port of ``make_prefill_step`` and
-``make_decode_step`` in ``repro/launch/steps.py``) and the port of the
-reference's ``jax.jit`` around them.
+"""Step builders: train, prefill and decode (the port of
+``repro/launch/steps.py``), and the port of the reference's ``jax.jit``
+around the serving steps.
+
+The train step (:func:`make_train_step`) runs eagerly, through autograd:
+the loss, its gradients, then the optimizer update written in place into
+the parameters and the optimizer state under ``torch.no_grad()`` (the
+counterpart of the reference's donated buffers). The serving steps are
+compiled as follows.
 
 The reference traces each step once per input signature and replays the
 XLA program after that. Here, on a CUDA device, a step is captured once
@@ -37,6 +43,104 @@ from repro_torch.core import autotune
 from repro_torch.core.program import current_policy
 from repro_torch.core.program import policy as policy_ctx
 from repro_torch.kernels import launch_counters
+from repro_torch.models import layers as L
+from repro_torch.optim import adafactor, adamw
+from repro_torch.optim.compression import QuantizedAccumulator
+
+
+def opt_init_and_update(optimizer: str, opt_cfg=None):
+    """(init(params) -> state, update(grads, state, params) -> (params,
+    state, metrics)) of "adamw" (the default) or "adafactor"."""
+    if optimizer == "adafactor":
+        cfg = opt_cfg or adafactor.AdafactorConfig()
+        return (adafactor.init,
+                lambda g, s, p: adafactor.update(cfg, g, s, p))
+    cfg = opt_cfg or adamw.AdamWConfig()
+    return adamw.init, lambda g, s, p: adamw.update(cfg, g, s, p)
+
+
+def opt_state_axes(optimizer: str, param_axes):
+    """Logical axes of the optimizer state (they mirror the params')."""
+    if optimizer == "adafactor":
+        def st(ax):
+            if len(ax) >= 2:
+                return {"vr": tuple(ax[:-1]),
+                        "vc": tuple(ax[:-2]) + (ax[-1],)}
+            return {"v": tuple(ax)}
+        return {"v": L.tree_map(st, param_axes), "step": ()}
+    return {"m": param_axes, "v": param_axes, "step": ()}
+
+
+def value_and_grad(model, params, batch):
+    """(the loss's metrics, detached; the gradient of ``model.loss`` with
+    respect to every leaf of ``params``, in the params' tree). Marks every
+    leaf ``requires_grad``. A leaf the loss does not read (the VLM's
+    projection without patch embeddings) gets zeros, as ``jax.grad``
+    gives it."""
+    leaves = [leaf for _, leaf in L.tree_leaves(params)]
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    loss, metrics = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    out: Dict = {}
+    for (path, p), g in zip(L.tree_leaves(params), grads):
+        L._put(out, path, torch.zeros_like(p) if g is None else g)
+    return {k: v.detach() for k, v in metrics.items()}, out
+
+
+def make_train_step(model, *, optimizer: str = "adamw", opt_cfg=None,
+                    accum_steps: int = 1, quantized_accum: bool = False,
+                    policy=None):
+    """train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics): the loss's gradients with respect to every parameter leaf,
+    then one optimizer update, written in place (the returned trees are
+    the ones passed in). Metrics: the loss's (``loss``, and ``aux`` where
+    the model reports it) and the optimizer's (``grad_norm`` and ``lr``
+    for AdamW, ``lr`` for Adafactor), as 0-d tensors.
+
+    With ``accum_steps`` > 1 the batch splits into microbatches along dim
+    0 and their gradients are summed in f32 (or in int8 with error
+    feedback, ``quantized_accum``) before one update with their mean; the
+    loss metrics are the microbatches' means. ``policy`` is the session
+    :class:`~repro_torch.core.program.PipePolicy` around the step body."""
+    _, opt_update = opt_init_and_update(optimizer, opt_cfg)
+
+    def step(params, opt_state, batch):
+        if accum_steps == 1:
+            metrics, grads = value_and_grad(model, params, batch)
+        else:
+            if quantized_accum:
+                acc = QuantizedAccumulator.init(params)
+            else:
+                acc = L.tree_map(lambda p: torch.zeros(
+                    p.shape, dtype=torch.float32, device=p.device), params)
+            per_micro = []
+            for i in range(accum_steps):
+                mb = {k: v.chunk(accum_steps, dim=0)[i]
+                      for k, v in batch.items()}
+                m, g = value_and_grad(model, params, mb)
+                per_micro.append(m)
+                if quantized_accum:
+                    acc = QuantizedAccumulator.add(acc, g)
+                else:
+                    g_leaves = dict(L.tree_leaves(g))
+                    for path, a in L.tree_leaves(acc):
+                        a.add_(g_leaves[path].float())
+            if quantized_accum:
+                acc = QuantizedAccumulator.read(acc)
+            grads = L.tree_map(lambda a: a / accum_steps, acc)
+            metrics = {k: torch.mean(torch.stack([m[k] for m in per_micro]))
+                       for k in per_micro[0]}
+        params, opt_state, opt_metrics = opt_update(grads, opt_state, params)
+        return params, opt_state, {**metrics, **opt_metrics}
+
+    if policy is None:
+        return step
+
+    def train_step(params, opt_state, batch):
+        with policy_ctx(policy):
+            return step(params, opt_state, batch)
+    return train_step
 
 
 def make_prefill_step(model, *, compiled: bool = True, policy=None):

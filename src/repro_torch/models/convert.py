@@ -28,7 +28,11 @@ the port's ``param_specs`` of the same family:
   ``[L, ...]``), ``unembed``.
 
 Layouts are kept, so the port computes on exactly the reference's
-tensors.
+tensors. :func:`opt_state_from_jax` carries an optimizer state across
+(AdamW's ``{m, v, step}``, Adafactor's ``{v, step}`` with factored
+``{vr, vc}`` leaves), and :func:`tree_to_numpy` goes the way back, a port
+tree as ``{"a/b/c": numpy}``, so gradients and updated parameters can be
+held against the reference's leaf by leaf.
 """
 
 from __future__ import annotations
@@ -67,3 +71,50 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ArchConfig,
             node = node.setdefault(k, {})
         node[path[-1]] = torch.tensor(arr, dtype=spec.dtype, device=device)
     return out
+
+
+def opt_state_from_jax(np_state: Dict[str, Any], params,
+                       device="cpu") -> Dict[str, Any]:
+    """The port's optimizer state from the reference's (numpy): AdamW's
+    ``{"m", "v", "step"}`` or Adafactor's ``{"v", "step"}``, read along
+    the port's ``params`` tree (a moment leaf of its parameter's shape,
+    or Adafactor's factored ``{"vr", "vc"}`` / ``{"v"}``); raises if a
+    shape differs. ``step`` becomes a 0-d int32 tensor."""
+    def f32(a, shape, where):
+        if tuple(np.shape(a)) != tuple(shape):
+            raise ValueError(f"{where}: shape {np.shape(a)} != {shape}")
+        return torch.tensor(np.asarray(a), dtype=torch.float32,
+                            device=device)
+
+    out: Dict[str, Any] = {"step": torch.tensor(
+        np.asarray(np_state["step"]), dtype=torch.int32, device=device)}
+    for name in ("m", "v"):
+        if name not in np_state:
+            continue
+        out[name] = {}
+        for path, p in L.tree_leaves(params):
+            node = np_state[name]
+            for k in path:
+                node = node[k]
+            where = f"{name}.{'.'.join(path)}"
+            shape = tuple(p.shape)
+            if isinstance(node, dict):          # Adafactor
+                want = ({"vr": shape[:-1], "vc": shape[:-2] + shape[-1:]}
+                        if len(shape) >= 2 else {"v": shape})
+                if set(node) != set(want):
+                    raise ValueError(f"{where}: {sorted(node)} != "
+                                     f"{sorted(want)}")
+                leaf = {k: f32(node[k], want[k], f"{where}.{k}")
+                        for k in want}
+            else:
+                leaf = f32(node, shape, where)
+            L._put(out[name], path, leaf)
+    return out
+
+
+def tree_to_numpy(tree) -> Dict[str, np.ndarray]:
+    """A port tree as ``{"a/b/c": numpy}`` in the reference's flatten
+    order (the checkpointer's leaf keys)."""
+    return {"/".join(path): leaf.detach().cpu().numpy()
+            if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+            for path, leaf in L.tree_leaves(tree)}

@@ -16,8 +16,10 @@ whatever ``cfg.attn_impl`` says: the reference's ``_mha`` calls them
 directly, so this path launches no kernel of the port, on purpose. RoPE
 is skipped (whisper uses absolute positions) and the attention weights'
 biases, where a config has them, are not read (as in the reference).
-The layers run in a plain loop (the reference's ``scan_layers`` and
-remat are JAX trace devices).
+The layers run in a plain loop (the reference's ``scan_layers`` is a JAX
+trace device). Under autograd every encoder and decoder layer saves
+nothing for the backward unless ``cfg.remat`` is "none", as in the
+reference.
 """
 
 from __future__ import annotations
@@ -100,31 +102,32 @@ def encode(cfg: ArchConfig, params, frames: torch.Tensor) -> torch.Tensor:
     """frames: [B,F,D] stub embeddings -> encoder output [B,F,D]."""
     x = frames + _positions(frames.shape[1], cfg.d_model,
                             frames.device).to(frames.dtype)[None]
-    for i in range(cfg.n_enc_layers):
-        p = L.tree_map(lambda a: a[i], params["enc_layers"])
+
+    def body(p, x):
         h = L.norm_apply(cfg.norm, x, p["norm1"])
         x = x + _mha(p["attn"], h, h, causal=False)[0]
         h = L.norm_apply(cfg.norm, x, p["norm2"])
-        x = x + L.mlp_apply(p["ffn"], h, cfg.act)
+        return x + L.mlp_apply(p["ffn"], h, cfg.act)
+
+    if cfg.remat != "none":
+        body = L.remat(body, "full")
+    for p in L.unstack(params["enc_layers"], cfg.n_enc_layers):
+        x = body(p, x)
     return L.norm_apply(cfg.norm, x, params["enc_norm"])
 
 
 def decode_stack(cfg: ArchConfig, params, x: torch.Tensor,
                  enc_out: Optional[torch.Tensor], *, caches=None,
-                 lengths=None):
+                 lengths=None, want_cache: bool = True):
     """x: [B,S,D] token embeddings (positions added by the caller).
     Prefill (``caches=None``) attends across to ``enc_out`` and returns
     the per-layer caches stacked ``[L, ...]``: {"self": {"k","v"},
-    "cross": {"k","v"}}. Decode takes those caches (the self cache padded
-    to Smax), ``enc_out=None``, and ``lengths`` [B]; it updates the self
+    "cross": {"k","v"}}; the loss path (``want_cache=False``) returns
+    None instead. Decode takes those caches (the self cache padded to
+    Smax), ``enc_out=None``, and ``lengths`` [B]; it updates the self
     cache in place and returns the caches it was given."""
-    per_layer = []
-    for i in range(cfg.n_layers):
-        p = L.tree_map(lambda a: a[i], params["dec_layers"])
-        sc = cc = None
-        if caches is not None:
-            sc = L.tree_map(lambda a: a[i], caches["self"])
-            cc = L.tree_map(lambda a: a[i], caches["cross"])
+
+    def layer(p, x, sc, cc):
         h = L.norm_apply(cfg.norm, x, p["norm1"])
         a, new_self = _mha(p["self_attn"], h, h, causal=True, cache=sc,
                            lengths=lengths)
@@ -136,10 +139,23 @@ def decode_stack(cfg: ArchConfig, params, x: torch.Tensor,
         x = x + a
         h = L.norm_apply(cfg.norm, x, p["norm2"])
         x = x + L.mlp_apply(p["ffn"], h, cfg.act)
+        return x, new_self, new_cross
+
+    if caches is None and cfg.remat != "none":
+        layer = L.remat(layer, "full")
+    per_layer = []
+    for i, p in enumerate(L.unstack(params["dec_layers"], cfg.n_layers)):
+        sc = cc = None
+        if caches is not None:
+            sc = L.tree_map(lambda a: a[i], caches["self"])
+            cc = L.tree_map(lambda a: a[i], caches["cross"])
+        x, new_self, new_cross = layer(p, x, sc, cc)
         per_layer.append((new_self, new_cross))
     x = L.norm_apply(cfg.norm, x, params["dec_norm"])
     if caches is not None:
         return x, caches
+    if not want_cache:
+        return x, None
     return x, {kind: {name: torch.stack([c[j][name] for c in per_layer])
                       for name in ("k", "v")}
                for j, kind in enumerate(("self", "cross"))}

@@ -5,8 +5,10 @@ Layer layout (attn_every_n = k): segments of k Mamba2 blocks, each
 followed by one application of the *shared* transformer block (attention
 and MLP, one weight set, one KV cache per application). 54 Mamba2 layers
 / k = 6 -> 9 shared-block applications. The Mamba2 params are stacked
-``[L, ...]`` as in the reference; the layers run in a plain loop (no scan,
-no remat: serving runs no backward).
+``[L, ...]`` as in the reference; the layers run in a plain loop (the
+reference's ``scan_layers`` is a JAX trace device). Under autograd every
+Mamba2 layer and shared-block application saves nothing for the backward
+unless ``cfg.remat`` is "none", as in the reference.
 
 Decode writes each application's new K/V row at ``lengths`` in place
 (``transformer.attn_apply``), so its cache must be longer than the prompt:
@@ -67,25 +69,33 @@ def _shared_block(cfg, p, x, positions, cache, lengths):
 
 
 def forward(cfg: ArchConfig, params, x, *, positions, caches=None,
-            lengths=None):
+            lengths=None, want_cache: bool = True):
     """x: [B,S,D]. caches: {"mamba": stacked [L, ...] leaves, "attn": one
-    {"k", "v"} per segment}, or None (prefill). Returns (x, new_caches):
-    the new Mamba2 states stacked afresh, the attention caches (prefill's
-    as long as the prompt; decode's updated in place)."""
+    {"k", "v"} per segment}, or None (prefill, and the loss path with
+    ``want_cache=False``). Returns (x, new_caches): the new Mamba2 states
+    stacked afresh, the attention caches (prefill's as long as the prompt;
+    decode's updated in place); None on the loss path."""
     nseg = _n_segments(cfg)
     k = cfg.attn_every_n or cfg.n_layers
+    mamba_fn, shared_fn = _mamba_layer, _shared_block
+    if caches is None and cfg.remat != "none":
+        mamba_fn = L.remat(mamba_fn, "full")
+        shared_fn = L.remat(shared_fn, "full")
+    keep = want_cache or caches is not None
+    layers = L.unstack(params["mamba_layers"], cfg.n_layers)
     mamba_new, attn_new = [], []
     for seg in range(nseg):
         for i in range(seg * k, (seg + 1) * k):
-            p_i = L.tree_map(lambda a: a[i], params["mamba_layers"])
             c_i = (L.tree_map(lambda a: a[i], caches["mamba"])
                    if caches is not None else None)
-            x, nc = _mamba_layer(cfg, p_i, x, c_i)
+            x, nc = mamba_fn(cfg, layers[i], x, c_i)
             mamba_new.append(nc)
         attn_cache = caches["attn"][seg] if caches is not None else None
-        x, nac = _shared_block(cfg, params["shared"], x, positions,
-                               attn_cache, lengths)
+        x, nac = shared_fn(cfg, params["shared"], x, positions, attn_cache,
+                           lengths)
         attn_new.append(nac)
+    if not keep:
+        return x, None
     mamba = {name: torch.stack([c[name] for c in mamba_new])
              for name in mamba_new[0]}
     return x, {"mamba": mamba, "attn": attn_new}

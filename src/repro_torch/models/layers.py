@@ -1,5 +1,8 @@
-"""Shared building blocks of the dense decoder (the port of the parts of
-``repro/models/layers.py`` the serving path runs).
+"""Shared building blocks of the models (the port of the parts of
+``repro/models/layers.py`` that serving and training run): parameter
+specs, norms, RoPE, the attention and scan dispatchers, the MLP, the loss
+(:func:`cross_entropy`, :func:`chunked_unembed_loss`), the gradient casts
+and :func:`remat`.
 
 Params are plain nested dicts of tensors, declared as :class:`ParamSpec`
 trees and laid out exactly as the reference's pytrees, so converted JAX
@@ -20,12 +23,14 @@ three launches, as the reference's ``decode_layer`` graph.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import ops
 from repro_torch.core import autotune
@@ -100,17 +105,77 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def unstack(tree, n: int):
+    """The ``n`` per-layer trees of a tree of stacked ``[n, ...]`` leaves,
+    one ``torch.unbind`` a leaf: under autograd the backward of the whole
+    unbind is one stack, where indexing ``a[i]`` layer by layer would
+    zero-fill a stack-sized gradient for each layer."""
+    paths = list(tree_leaves(tree))
+    per_leaf = [torch.unbind(leaf, 0) for _, leaf in paths]
+    out = []
+    for i in range(n):
+        node: Dict[str, Any] = {}
+        for (path, _), parts in zip(paths, per_leaf):
+            _put(node, path, parts[i])
+        out.append(node)
+    return out
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn, policy: str):
+    """``fn`` rematerialized in the backward (``torch.utils.checkpoint``,
+    non-reentrant): ``"none"`` returns ``fn``; ``"dots"`` saves the
+    products' outputs (the reference's ``checkpoint_dots``) and recomputes
+    the rest; any other policy saves nothing inside ``fn`` (its
+    ``nothing_saveable``). Where no gradient is recorded, ``fn`` runs as
+    it is."""
+    if policy == "none":
+        return fn
+    context_fn = (functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                    _save_dots)
+                  if policy == "dots" else ckpt.noop_context_fn)
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               context_fn=context_fn, **kwargs)
+    return wrapped
+
+
+def _put(tree: Dict[str, Any], path, leaf) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
 def init_params(specs, gen: torch.Generator, device) -> Dict[str, Any]:
     """Materialize a spec tree from one seeded generator (leaves drawn in
     the reference's flatten order; the bits differ from JAX's)."""
     out: Dict[str, Any] = {}
     for path, spec in tree_leaves(specs):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = spec.initializer(gen, device)
+        _put(out, path, spec.initializer(gen, device))
     return out
 
+
+def abstract_params(specs) -> Dict[str, Any]:
+    """The spec tree as ``device="meta"`` tensors: shapes and types, no
+    memory (the reference's ``ShapeDtypeStruct`` stand-ins)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), specs)
+
+
+def param_count(specs) -> int:
+    return sum(math.prod(s.shape) for _, s in tree_leaves(specs))
 
 
 # ---------------------------------------------------------------------------
@@ -421,6 +486,84 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
 def unembed_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """x: [B,S,D] -> logits [B,S,V] over the padded vocab."""
     return x @ table.t().to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss and the gradient casts
+# ---------------------------------------------------------------------------
+
+
+class _BF16GradBarrier(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        if ct.dtype == torch.float32:
+            return ct.to(torch.bfloat16).to(torch.float32)
+        return ct
+
+
+class _BF16GradCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct.to(ctx.dtype)
+
+
+def bf16_grad_barrier(x: torch.Tensor) -> torch.Tensor:
+    """Identity; its backward rounds an f32 cotangent through bf16 (the
+    mantissa quantized, the type kept), as the reference's
+    ``custom_vjp``."""
+    return _BF16GradBarrier.apply(x)
+
+
+def bf16_grad_cast(x: torch.Tensor) -> torch.Tensor:
+    """Identity; its backward casts the cotangent to the primal's type
+    (the layer-boundary cotangent in bf16 where the activations are)."""
+    return _BF16GradCast.apply(x)
+
+
+def _token_ce(logits: torch.Tensor, labels: torch.Tensor,
+              z_loss: float) -> torch.Tensor:
+    """Per-token CE in f32 (logsumexp minus the label's logit), plus
+    ``z_loss * lse**2``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - gold
+    if z_loss:
+        loss = loss + z_loss * lse ** 2
+    return loss
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token CE in f32, with a z-loss regularizer (stabilizes bf16)."""
+    return torch.mean(_token_ce(logits, labels, z_loss))
+
+
+def chunked_unembed_loss(x: torch.Tensor, table: torch.Tensor,
+                         labels: torch.Tensor, n_chunks: int,
+                         z_loss: float = 1e-4) -> torch.Tensor:
+    """CE without the full [B,S,V] logits: the unembed product and the
+    softmax run per sequence chunk (unrolled), so the largest logits
+    tensor is ``n_chunks`` times smaller."""
+    b, s, _ = x.shape
+    assert s % n_chunks == 0, (s, n_chunks)
+    cs = s // n_chunks
+    wt = table.t().to(x.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        sl = slice(i * cs, (i + 1) * cs)
+        total = total + torch.sum(_token_ce(x[:, sl] @ wt, labels[:, sl],
+                                            z_loss))
+    return total / (b * s)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Model registry (the port of ``repro/models/registry.py``): one class per
-family with the serving entry points.
+family with the training and serving entry points.
 
+  train   -> loss(params, batch)               -> (loss, metrics)
   prefill -> prefill(params, batch)            -> (last-token logits, cache)
   decode  -> decode_step(params, batch, cache) -> (logits, cache)
 
@@ -9,9 +10,11 @@ families (``MoELM``: attention and the MoE FFN; ``MLAMoELM``: MLA and the
 MoE FFN), ssm (``RWKVLM``), hybrid (``ZambaLM``), vlm (``VLM``: stubbed
 patch embeddings before the tokens) and encdec (``EncDecLM``: whisper's
 stubbed frames through an encoder, a decoder with cross-attention), each
-with ``param_specs``, ``prefill`` and ``decode_step`` (``loss`` waits for
-training). :func:`build_model` raises ``ValueError`` for a family or an
-implementation switch it does not know.
+with ``param_specs``, ``loss``, ``prefill`` and ``decode_step``. The loss
+takes f32 parameters and casts each use to ``cfg.cdtype``, as the
+reference trains (``cast_params`` is for serving); it keeps no per-layer
+cache and rematerializes as ``cfg.remat`` says. :func:`build_model` raises
+``ValueError`` for a family or an implementation switch it does not know.
 """
 
 from __future__ import annotations
@@ -72,6 +75,22 @@ class BaseLM:
         (make it with ``torch.Generator(device=device).manual_seed(seed)``)."""
         return L.init_params(self.param_specs(), gen, device)
 
+    def abstract_params(self) -> Dict[str, Any]:
+        return L.abstract_params(self.param_specs())
+
+    def param_count(self) -> int:
+        return L.param_count(self.param_specs())
+
+    def active_param_count(self) -> int:
+        """Parameters a token runs through: an MoE config's experts past
+        its top-k are not counted."""
+        cfg = self.cfg
+        n = self.param_count()
+        if cfg.n_experts and cfg.top_k:
+            per_expert = cfg.d_model * 3 * cfg.moe_d_ff
+            n -= cfg.n_layers * (cfg.n_experts - cfg.top_k) * per_expert
+        return n
+
     def init_cast(self, gen: torch.Generator, device="cpu") -> Dict[str, Any]:
         """``cast_params(init(gen, device))``, bit for bit, drawn and cast
         one leaf at a time: at most one leaf is ever held in f32, so a
@@ -79,7 +98,7 @@ class BaseLM:
         64.8 GB) still draws there."""
         out: Dict[str, Any] = {}
         for path, spec in L.tree_leaves(self.param_specs()):
-            _put(out, path, self._cast(path, spec.initializer(gen, device)))
+            L._put(out, path, self._cast(path, spec.initializer(gen, device)))
         return out
 
     # The leaves that the forward also reads in f32, by path prefix: the
@@ -101,7 +120,7 @@ class BaseLM:
         given tensors."""
         out: Dict[str, Any] = {}
         for path, leaf in L.tree_leaves(params):
-            _put(out, path, self._cast(path, leaf))
+            L._put(out, path, self._cast(path, leaf))
         return out
 
     # forward ---------------------------------------------------------------
@@ -114,15 +133,36 @@ class BaseLM:
         None."""
         return None
 
-    def prefill(self, params, batch):
+    def _trunk(self, params, batch, *, want_cache: bool):
+        """Embeddings (after any extra ones), the stack, the final norm:
+        (x, caches, aux, number of extra positions)."""
         cfg = self.cfg
         x = L.embed_lookup(params["embed"], batch["tokens"], cfg.cdtype)
         extra = self._extra_embeds(params, batch)
+        n_extra = 0
         if extra is not None:
             x = torch.cat([extra.to(cfg.cdtype), x], dim=1)
+            n_extra = extra.shape[1]
         positions = torch.arange(x.shape[1], device=x.device)
-        x, caches, _ = self.stack(params["stack"], x, positions=positions)
+        x, caches, aux = self.stack(params["stack"], x, positions=positions,
+                                    want_cache=want_cache)
         x = L.norm_apply(cfg.norm, x, params["final_norm"])
+        return x, caches, aux, n_extra
+
+    def loss(self, params, batch):
+        """Mean next-token CE (f32, with the z-loss) over ``labels`` [B, S],
+        plus 0.01 x the MoE load-balance aux: (loss, {"loss", "aux"})."""
+        cfg = self.cfg
+        x, _, aux, n_extra = self._trunk(params, batch, want_cache=False)
+        if n_extra:
+            x = x[:, n_extra:]
+        loss = _lm_loss(cfg, x, self._unembed(params), batch["labels"])
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+        loss = loss + 0.01 * aux
+        return loss, {"loss": loss, "aux": aux}
+
+    def prefill(self, params, batch):
+        x, caches, _, _ = self._trunk(params, batch, want_cache=True)
         logits = L.unembed_logits(x[:, -1:], self._unembed(params))[:, 0]
         return logits, caches
 
@@ -217,7 +257,8 @@ class ZambaLM(BaseLM):
                                    ("vocab", "embed")),
         }
 
-    def _trunk(self, params, batch, *, caches=None, lengths=None):
+    def _trunk(self, params, batch, *, caches=None, lengths=None,
+               want_cache=True):
         cfg = self.cfg
         if "token" in batch:
             x = L.embed_lookup(params["embed"], batch["token"][:, None],
@@ -228,8 +269,15 @@ class ZambaLM(BaseLM):
             positions = torch.arange(x.shape[1], device=x.device)
         x, new_caches = hybrid.forward(cfg, params["stack"], x,
                                        positions=positions, caches=caches,
-                                       lengths=lengths)
+                                       lengths=lengths, want_cache=want_cache)
         return L.norm_apply(cfg.norm, x, params["final_norm"]), new_caches
+
+    def loss(self, params, batch):
+        x, _ = self._trunk(params, batch, want_cache=False)
+        loss = _lm_loss(self.cfg, x, params["unembed"], batch["labels"])
+        return loss, {"loss": loss,
+                      "aux": torch.zeros((), dtype=torch.float32,
+                                         device=loss.device)}
 
     def prefill(self, params, batch):
         x, caches = self._trunk(params, batch)
@@ -288,21 +336,35 @@ class RWKVLM(BaseLM):
                                                    cache=cache)
         return x + cm_out, {**tm_cache, **cm_cache}
 
-    def _trunk(self, params, x, caches):
+    def _trunk(self, params, x, caches, want_cache=True):
+        """The layers and the final norm: (x, the new states stacked, or
+        None on the loss path). Under autograd, without caches, each layer
+        saves nothing for the backward unless ``cfg.remat`` is "none"."""
+        cfg = self.cfg
+        layer = self._layer
+        if caches is None and cfg.remat != "none":
+            layer = L.remat(layer, "full")
         per_layer = []
-        for i in range(self.cfg.n_layers):
-            p = L.tree_map(lambda a: a[i], params["layers"])
+        for i, p in enumerate(L.unstack(params["layers"], cfg.n_layers)):
             c = (L.tree_map(lambda a: a[i], caches)
                  if caches is not None else None)
-            x, nc = self._layer(p, x, c)
+            x, nc = layer(p, x, c)
             per_layer.append(nc)
-        new_caches = {name: torch.stack([c[name] for c in per_layer])
-                      for name in per_layer[0]}
+        new_caches = None
+        if want_cache or caches is not None:
+            new_caches = {name: torch.stack([c[name] for c in per_layer])
+                          for name in per_layer[0]}
         return L.norm_apply("layernorm", x, params["final_norm"]), new_caches
 
     def _embed(self, params, tokens):
         x = L.embed_lookup(params["embed"], tokens, self.cfg.cdtype)
         return L.norm_apply("layernorm", x, params["ln0"])
+
+    def loss(self, params, batch):
+        x, _ = self._trunk(params, self._embed(params, batch["tokens"]),
+                           None, want_cache=False)
+        loss = _lm_loss(self.cfg, x, params["unembed"], batch["labels"])
+        return loss, {"loss": loss}
 
     def prefill(self, params, batch):
         x, caches = self._trunk(params, self._embed(params, batch["tokens"]),
@@ -343,11 +405,28 @@ class EncDecLM(BaseLM):
                                    ("vocab", "embed")),
         }
 
-    def prefill(self, params, batch):
+    def _decoder_in(self, params, batch):
+        """The frames through the encoder, and the tokens' embeddings with
+        their learned positions."""
         cfg = self.cfg
         enc_out = encdec.encode(cfg, params["encdec"], batch["frames"])
         x = L.embed_lookup(params["embed"], batch["tokens"], cfg.cdtype)
         x = x + params["encdec"]["dec_pos"][:x.shape[1]].to(x.dtype)[None]
+        return x, enc_out
+
+    def loss(self, params, batch):
+        """Full-vocab CE (the reference's encdec loss takes no
+        ``loss_chunk``)."""
+        x, enc_out = self._decoder_in(params, batch)
+        x, _ = encdec.decode_stack(self.cfg, params["encdec"], x, enc_out,
+                                   want_cache=False)
+        logits = L.unembed_logits(x, params["unembed"])
+        loss = L.cross_entropy(logits, batch["labels"])
+        return loss, {"loss": loss}
+
+    def prefill(self, params, batch):
+        cfg = self.cfg
+        x, enc_out = self._decoder_in(params, batch)
         x, caches = encdec.decode_stack(cfg, params["encdec"], x, enc_out)
         logits = L.unembed_logits(x[:, -1:], params["unembed"])[:, 0]
         return logits, caches
@@ -365,10 +444,13 @@ class EncDecLM(BaseLM):
         return logits, new_caches
 
 
-def _put(tree: Dict[str, Any], path, leaf) -> None:
-    for k in path[:-1]:
-        tree = tree.setdefault(k, {})
-    tree[path[-1]] = leaf
+def _lm_loss(cfg: ArchConfig, x, table, labels):
+    """The CE of hidden states ``x`` [B,S,D] against ``labels`` [B,S]
+    through the unembedding ``table``: chunked over the sequence where
+    ``cfg.loss_chunk > 1``."""
+    if cfg.loss_chunk > 1:
+        return L.chunked_unembed_loss(x, table, labels, cfg.loss_chunk)
+    return L.cross_entropy(L.unembed_logits(x, table), labels)
 
 
 _FAMILIES = {"dense": DenseLM, "moe": MoELM, "moe_mla": MLAMoELM,

@@ -6,12 +6,16 @@ Layer math is injectable as in the reference (``mixer_specs`` /
 ``mixer_apply`` / ``mixer_cache_spec`` for attention or MLA,
 ``ffn_specs`` / ``ffn_apply`` for the dense or MoE FFN). Params keep the
 reference's stacked ``[L, ...]`` layout; the stack is a plain loop over
-layers (no scan, no remat: serving runs no backward).
+layers (the reference's ``scan_layers`` is a JAX trace device). Under
+autograd each layer is rematerialized as ``cfg.remat`` says
+(:func:`remat`), and the loss path (``want_cache=False``) keeps no
+per-layer cache.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -165,7 +169,20 @@ class DecoderStack:
         axes = {name: ("layers", *a) for name, a in one_axes.items()}
         return spec, axes
 
-    def _layer(self, p, x, positions, cache, lengths):
+    def _mixer_half(self, p, x, positions, cache, lengths):
+        h = L.norm_apply(self.cfg.norm, x, p["norm1"])
+        return self._mixer_apply(self.cfg, p["mixer"], h, positions=positions,
+                                 cache=cache, lengths=lengths)
+
+    def _ffn_half(self, p, x):
+        h = L.norm_apply(self.cfg.norm, x, p["norm2"])
+        return self._ffn_apply(self.cfg, p["ffn"], h)
+
+    def _layer(self, p, x, positions, cache, lengths, want_cache=True,
+               halves=None):
+        """One pre-norm layer: (x, its cache or None, aux). ``halves``
+        replaces the mixer and FFN halves (``remat="collectives"``
+        checkpoints each on its own)."""
         cfg = self.cfg
         if (cfg.layer_graph and cache is not None and "kv_pool" not in cache
                 and x.shape[1] == 1 and cfg.norm == "rmsnorm"
@@ -173,14 +190,16 @@ class DecoderStack:
                 and self._mixer_apply is attn_apply
                 and self._ffn_apply is ffn_apply):
             return self._decode_layer_graph(p, x, positions, cache, lengths)
-        h = L.norm_apply(cfg.norm, x, p["norm1"])
-        attn_out, new_cache = self._mixer_apply(
-            cfg, p["mixer"], h, positions=positions, cache=cache,
-            lengths=lengths)
+        mixer_half, ffn_half = halves or (self._mixer_half, self._ffn_half)
+        attn_out, new_cache = mixer_half(p, x, positions, cache, lengths)
         x = x + attn_out
-        h = L.norm_apply(cfg.norm, x, p["norm2"])
-        ffn_out, aux = self._ffn_apply(cfg, p["ffn"], h)
-        return x + ffn_out, new_cache, aux
+        ffn_out, aux = ffn_half(p, x)
+        x = x + ffn_out
+        if cfg.bf16_grads:
+            x = L.bf16_grad_cast(x)   # backward: the boundary cotangent
+        if not want_cache and cache is None:
+            new_cache = None          # train mode: never keep a layer's K/V
+        return x, new_cache, aux
 
     def _decode_layer_graph(self, p, x, positions, cache, lengths):
         """One dense-cache decode step through :func:`L.decode_layer`
@@ -207,21 +226,43 @@ class DecoderStack:
             rope_theta=cfg.rope_theta, block_kv=cfg.decode_block_kv)
         return out[:, None], {"k": ck, "v": cv}, 0.0
 
-    def __call__(self, params, x, *, positions, caches=None, lengths=None):
+    def _remat_layer(self) -> Callable:
+        """The layer rematerialized as ``cfg.remat`` says (the reference's
+        ``_remat_layer``): "full" saves nothing inside a layer, "dots"
+        the products' outputs, "collectives" the mixer's and the FFN's
+        outputs (each half checkpointed on its own: what a backward keeps
+        of a layer is its input and ``x + attn_out``)."""
+        cfg = self.cfg
+        if cfg.remat == "collectives":
+            return functools.partial(self._layer, halves=(
+                L.remat(self._mixer_half, "full"),
+                L.remat(self._ffn_half, "full")))
+        return L.remat(self._layer, cfg.remat)
+
+    def __call__(self, params, x, *, positions, caches=None, lengths=None,
+                 want_cache: bool = False):
         """x: [B,S,D]. caches: stacked ``[L, ...]`` leaves or None.
         Returns (x, caches, aux loss summed over the layers): prefill
-        (``caches=None``) stacks the per-layer caches; decode returns the
-        (in-place updated) caches."""
+        (``caches=None, want_cache=True``) stacks the per-layer caches,
+        the loss path (``want_cache=False``) keeps none and returns None,
+        decode returns the (in-place updated) caches. Under autograd,
+        without caches, each layer is rematerialized as ``cfg.remat``
+        says."""
+        cfg = self.cfg
+        layer = self._layer
+        if caches is None and torch.is_grad_enabled() and cfg.remat != "none":
+            layer = self._remat_layer()
         per_layer = []
         aux = 0.0
-        for i in range(self.cfg.n_layers):
-            p = L.tree_map(lambda a: a[i], params["layers"])
+        for i, p in enumerate(L.unstack(params["layers"], cfg.n_layers)):
             cache = (L.tree_map(lambda a: a[i], caches)
                      if caches is not None else None)
-            x, nc, a = self._layer(p, x, positions, cache, lengths)
+            x, nc, a = layer(p, x, positions, cache, lengths, want_cache)
             per_layer.append(nc)
             aux = aux + a
         if caches is not None:
             return x, caches, aux
+        if not want_cache:
+            return x, None, aux
         return x, {name: torch.stack([c[name] for c in per_layer])
                    for name in per_layer[0]}, aux
