@@ -167,6 +167,35 @@ Phases (any failure exits non-zero without the final result line):
      to a clean one bit for bit; a loss through the "ff" kernels with
      gradients on refused before any launch.
 
+  j. (run right after the build, while this process holds nothing on
+     the card) the distributed runtime, several ranks sharing it (NCCL
+     refuses two ranks on one card, so they run gloo; every hop is
+     host-staged): first a probe of each collective the runtime and
+     DTensor issue on CUDA tensors over 4 gloo ranks (a ``dist_probe``
+     line; gloo's send/recv cannot take CUDA tensors, so the ring hops run
+     on ``gloo_staged``, probed too); then on 4 ranks every registry
+     kernel with ``shard_dims`` sharded over "data" against its unsharded
+     call (bit for bit, or within its tolerance where its launch plan is
+     chosen from the rows, the reason printed), ``allgather_matmul`` and
+     ``matmul_reducescatter`` with a policy at llama3.2-1b's widths
+     ([1024, 2048] @ [2048, 8192] bf16 over model=2; ``ff_matmul``
+     launched inside) against ``torch.matmul`` of the gathered operands;
+     NCCL at world size 1 (an all-reduce; a smoke train step on DTensor
+     state over the (1, 1) mesh against plain tensors, within 1e-6);
+     on 2 ranks a smoke checkpoint written from 4 ranks restored onto
+     ``survivable_mesh`` bit for bit, and llama3.2-1b's 16 full-width
+     layers as a 2-stage GPipe of 4 microbatches against the layers in
+     sequence (no_grad); last, full-width llama3.2-1b trained by
+     ``launch/train.py`` for 3 steps at batch 8 x 128 on 1 rank and then
+     under torchrun on 4 as (data 2, model 2): step-1 loss within 1e-3
+     relative of the 1-rank run and later steps within 5e-3, each rank's
+     parameter bytes as the rules say, each rank's peak below 0.75 x the
+     1-rank peak (a ``dist`` line: losses, step ms, tokens/s, peaks,
+     collective bytes a step, the collectives' wall ms and hop bytes).
+
+``python3 chip_smoke.py --dist`` builds the kernels and runs phase j
+alone.
+
 ``python3 chip_smoke.py --train-lr-sweep`` builds nothing and trains
 full-width llama3.2-1b for phase i's 30 steps at lr 3e-4, 1e-3, 3e-3 and
 1e-2 (one ``train_lr`` line: each run's losses).
@@ -184,6 +213,7 @@ last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import math
@@ -321,6 +351,32 @@ TRAIN = dict(arch="llama3_2_1b", batch=8, seq=128, steps=30, lr=1e-3,
 TRAIN_LRS = (3e-4, 1e-3, 3e-3, 1e-2)    # --train-lr-sweep
 KILL_RESUME = dict(arch="qwen1_5_0p5b", smoke=True, steps=20, batch=2,
                    seq=32, ckpt_every=5, fail_at=12)
+# phase j (distributed): 4 ranks share the one card over gloo (NCCL refuses
+# two ranks on one card); full-width llama3.2-1b trained by launch/train.py
+# on 1 rank, then on 4 as (data 2, model 2), the loss held to the 1-rank
+# run (step 1 relative, later steps relative); the collectives at
+# llama3.2-1b's MLP widths ([m, k] @ [k, n]); GPipe of its 16 layers over 2
+# stages of DIST["pipe_micro"] microbatches [pipe_mb, pipe_seq]
+DIST = dict(ranks=4, arch="llama3_2_1b", batch=8, seq=128, steps=3,
+            lr=1e-3, loss_tol=(1e-3, 5e-3), peak_frac=0.75,
+            collective=(1024, 2048, 8192), collective_reps=5,
+            pipe_micro=4, pipe_mb=2, pipe_seq=128, probe_timeout=40)
+# what the runtime and DTensor issue (the first five) and the ring hops
+DIST_PROBE = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+              "all_to_all_single", "broadcast", "batch_isend_irecv",
+              "send_recv")
+# registry kernels whose launch plan is chosen from the call's rows, so a
+# shard's call may sum in another order than the whole call (held to the
+# kernel's tolerance instead of bit for bit, with this reason printed)
+SHARD_NOT_BITWISE = {
+    "ff_matmul": "its tile and k split are chosen from m "
+                 "(kernels/ff_matmul/ops.py _plan)",
+    "ff_decode_attention": "its split of a row's live words over blocks is "
+                           "planned from B (kernels/ff_decode_attention/"
+                           "ops.py _plan)",
+    "ff_chunk_scan": "its split of P over blocks is planned from the "
+                     "rows (kernels/ff_chunk_scan/ops.py _plan)",
+}
 # the gather case the H100_SXM constants are fitted from
 FIT_CASE = ("ff_gather table[1048576,512] float32 idx[1048576] "
             "(reference registry bench_kwargs)")
@@ -3581,6 +3637,510 @@ def train_phase(torch, dev):
     print(f"i. train: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# j. the distributed runtime (several ranks on the one card)
+# ---------------------------------------------------------------------------
+
+
+def _j_rank_setup():
+    """A rank's card (every rank shares card 0) and the kernels' launch
+    counts zeroed."""
+    import torch
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for w in wrappers().values():
+        w.launches = 0
+    return torch, torch.device("cuda", 0)
+
+
+def j_probe(rank, world, ops):
+    """Each of ``ops`` once on CUDA tensors over the group, in order:
+    {op: "ok" | "wrong" | the error}. A collective gloo cannot take may
+    kill the process (gloo hands a device pointer to its TCP transport),
+    so each risky op runs in a group of its own."""
+    import torch.distributed as dist
+    torch, dev = _j_rank_setup()
+    x = torch.full((8, 4), float(rank + 1), device=dev)
+    total = float(sum(range(1, world + 1)))
+    out = {}
+    for op in ops:
+        try:
+            if op == "all_reduce":
+                y = x.clone()
+                dist.all_reduce(y)
+                ok = bool((y == total).all())
+            elif op == "broadcast":
+                y = x.clone()
+                dist.broadcast(y, 0)
+                ok = bool((y == 1).all())
+            elif op == "all_gather_into_tensor":
+                y = torch.empty(8 * world, 4, device=dev)
+                dist.all_gather_into_tensor(y, x)
+                ok = all(bool((y[8 * r:8 * r + 8] == r + 1).all())
+                         for r in range(world))
+            elif op == "reduce_scatter_tensor":
+                y = torch.empty(8 // world, 4, device=dev)
+                dist.reduce_scatter_tensor(y, x)
+                ok = bool((y == total).all())
+            elif op == "all_to_all_single":
+                y = torch.empty_like(x)
+                dist.all_to_all_single(y, x)
+                step = 8 // world
+                ok = all(bool((y[step * r:step * r + step] == r + 1).all())
+                         for r in range(world))
+            elif op == "batch_isend_irecv":
+                y = torch.empty_like(x)
+                reqs = dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, x, (rank + 1) % world),
+                    dist.P2POp(dist.irecv, y, (rank - 1) % world)])
+                for r in reqs:
+                    r.wait()
+                ok = bool((y == (rank - 1) % world + 1).all())
+            elif op == "send_recv":
+                y = torch.empty_like(x)
+                if rank % 2 == 0:
+                    dist.send(x, rank + 1)
+                    ok = True
+                else:
+                    dist.recv(y, rank - 1)
+                    ok = bool((y == rank).all())
+            torch.cuda.synchronize()
+            out[op] = "ok" if ok else "wrong"
+        except RuntimeError as e:
+            out[op] = f"{type(e).__name__}: {str(e)[:120]}"
+    return out
+
+
+def dist_probe(tmp):
+    """Which collectives the runtime and DTensor issue work on CUDA
+    tensors over DIST["ranks"] gloo ranks on the card, and the point-to-
+    point pair again under ``gloo_staged``: {"<backend> <op>": result}.
+    The groups run side by side; a group whose process died reports its
+    ops as crashed."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch.mesh import spawn_ranks
+    groups = [("gloo", DIST_PROBE[:5]), ("gloo", ("batch_isend_irecv",)),
+              ("gloo", ("send_recv",)),
+              ("gloo_staged", ("batch_isend_irecv", "send_recv"))]
+
+    def run(i):
+        backend, ops = groups[i]
+        try:
+            res = spawn_ranks(j_probe, DIST["ranks"], (ops,),
+                              init_file=f"{tmp}/probe{i}", backend=backend,
+                              timeout=DIST["probe_timeout"])
+            merged = {op: (res[0][op] if all(r[op] == res[0][op]
+                                             for r in res)
+                           else [r[op] for r in res]) for op in ops}
+        except RuntimeError as e:
+            why = "process died" if "gave no result" in str(e) else "raised"
+            merged = {op: f"crashed ({why})" for op in ops}
+        return {f"{backend} {op}": v for op, v in merged.items()}
+
+    out = {}
+    with ThreadPoolExecutor(len(groups)) as pool:
+        for res in pool.map(run, range(len(groups))):
+            out.update(res)
+    return out
+
+
+def j_sharded_smoke():
+    """Every registry kernel with shard_dims over a 4-way "data" mesh on
+    the card, held against its unsharded call."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels.registry import all_kernels, run_sharded_smoke
+    mesh = init_device_mesh("cuda", (DIST["ranks"],),
+                            mesh_dim_names=("data",))
+    out = {}
+    for spec in all_kernels():
+        if spec.shard_dims is None:
+            continue
+        sh, un, rf, err_un, err_ref = run_sharded_smoke(spec, mesh)
+        out[spec.name] = {"bitwise": bool((sh == un).all()),
+                          "err_unsharded": err_un, "err_plain": err_ref,
+                          "tol": spec.tol}
+    return out
+
+
+def j_collectives():
+    """allgather_matmul and matmul_reducescatter with a policy at
+    llama3.2-1b's widths ([m, k] @ [k, n], bf16) over the host mesh's
+    "model" axis: (outputs against torch.matmul of the gathered operands,
+    ff_matmul launches inside each, wall ms a call)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.program import PipePolicy
+    from repro_torch.kernels.ff_matmul import matmul
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import sharding as shlib
+    from repro_torch.runtime.collectives import (allgather_matmul,
+                                                 matmul_reducescatter)
+    dev = torch.device("cuda", 0)
+    m, k, n = DIST["collective"]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x, w = matmul_operands(torch, dev, gen, m, k, n, torch.bfloat16)
+    want = torch.matmul(x.float(), w.float())
+    mesh = make_host_mesh(device_type="cuda")
+    n_model = mesh.size(1)
+    idx = mesh.get_local_rank("model")
+    pol = PipePolicy()
+    out = {}
+    with shlib.use_sharding(mesh):
+        rows = m // n_model
+        for name, fn in (
+                ("allgather_matmul", lambda: allgather_matmul(
+                    x[idx * rows:(idx + 1) * rows], w, "model", policy=pol)),
+                ("matmul_reducescatter", lambda: matmul_reducescatter(
+                    x[:, idx * (k // n_model):(idx + 1) * (k // n_model)],
+                    w[idx * (k // n_model):(idx + 1) * (k // n_model)],
+                    "model", policy=pol))):
+            matmul.launches = 0
+            got = fn()
+            torch.cuda.synchronize()
+            launches = matmul.launches
+            ref = want if name == "allgather_matmul" else \
+                want[idx * rows:(idx + 1) * rows]
+            ok, e = within(got, ref, BF16_TOL)
+            times = []
+            for _ in range(DIST["collective_reps"]):
+                dist.barrier()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[name] = {"ok": ok, "max_abs_err": e, "launches": launches,
+                         "wall_ms": sorted(times)[len(times) // 2],
+                         "hops": n_model - 1,
+                         "hop_bytes": (rows * k if name == "allgather_matmul"
+                                       else rows * n) * 2}
+    return out
+
+
+def j_four(rank, world, ckpt_dir):
+    """Phase j's 4-rank spawn on the card (gloo_staged): the sharded smoke
+    of every registry kernel, the collectives at full width, and a smoke
+    llama3.2-1b checkpoint written from the (2, 2) mesh for the remesh."""
+    torch, dev = _j_rank_setup()
+    from repro_torch.checkpoint import save
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.runtime import sharding as shlib
+    out = {"smoke": j_sharded_smoke(),
+           "collectives": j_collectives()}
+    cfg = smoke_config(DIST["arch"])
+    model = build_model(cfg)
+    with shlib.use_sharding(make_host_mesh(device_type="cuda"),
+                            overrides=cfg.rule_overrides):
+        params = steps_lib.init_params(
+            model, torch.Generator(device=dev).manual_seed(0), dev)
+        save(ckpt_dir, 7, params)
+    return out if rank == 0 else None
+
+
+def j_nccl(rank, world):
+    """NCCL at world size 1 (the only NCCL world one card allows): an
+    all-reduce, then one AdamW step of smoke llama3.2-1b on DTensor state
+    over the (1, 1) host mesh against the same step on plain tensors."""
+    import torch.distributed as dist
+    torch, dev = _j_rank_setup()
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shlib
+    x = torch.full((4,), 3.0, device=dev)
+    dist.all_reduce(x)
+    cfg = smoke_config(DIST["arch"]).replace(attn_impl="xla")
+    model = build_model(cfg)
+    batch = train_batch(torch, cfg, 8, 32)
+    losses = []
+    for mesh in (None, make_host_mesh(device_type="cuda")):
+        ctx = (shlib.use_sharding(mesh, overrides=cfg.rule_overrides)
+               if mesh is not None else contextlib.nullcontext())
+        with ctx:
+            params = steps_lib.init_params(
+                model, torch.Generator(device=dev).manual_seed(0), dev)
+            b = shlib.place_tree({k: v.to(dev) for k, v in batch.items()},
+                                 {k: ("batch", "seq") for k in batch})
+            step = steps_lib.make_train_step(
+                model, opt_cfg=adamw.AdamWConfig(warmup_steps=1))
+            _, _, m = step(params, adamw.init(params), b)
+            losses.append(float(m["loss"]))
+    return {"all_reduce": x.tolist(), "loss_plain": losses[0],
+            "loss_mesh": losses[1], "backend": dist.get_backend()}
+
+
+def j_two(rank, world, ckpt_dir):
+    """Phase j's 2-rank spawn on the card: the smoke checkpoint restored
+    onto survivable_mesh of the 2 ranks (model axis kept at 2), and
+    full-width llama3.2-1b's 16 layers as a 2-stage GPipe of
+    DIST["pipe_micro"] microbatches against the same layers in sequence
+    (under no_grad)."""
+    torch, dev = _j_rank_setup()
+    import numpy as np
+
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.kernels.ff_attention import attention
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.runtime import elastic
+    from repro_torch.runtime import sharding as shlib
+    from repro_torch.runtime.pipeline_parallel import pipeline_apply
+    from torch.distributed.device_mesh import init_device_mesh
+    out = {}
+    # -- remesh 4 -> 2
+    smoke = build_model(smoke_config(DIST["arch"]))
+    mesh = elastic.survivable_mesh(range(world), model_axis=2,
+                                   device_type="cuda")
+    state, step = elastic.remesh_restore(
+        ckpt_dir, smoke.abstract_params(), smoke.param_axes(), mesh,
+        overrides=smoke.cfg.rule_overrides)
+    full = {"/".join(p): shlib.full_tensor(t).cpu().numpy()
+            for p, t in L.tree_leaves(state)}
+    with np.load(f"{ckpt_dir}/step_{step:08d}/arrays.npz") as ck:
+        bitwise = all(np.array_equal(full[k], ck[k]) for k in ck.files) \
+            and set(full) == set(ck.files)
+    rep = elastic.last_remesh()
+    out["remesh"] = {"bitwise": bitwise, "step": step, "mesh": rep.mesh.token,
+                     "placements": sorted({str(t.placements) for _, t in
+                                           L.tree_leaves(state)})}
+    del state, full
+    # -- GPipe of the 16 full-width layers over 2 stages
+    cfg = get_config(DIST["arch"])
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init_cast(gen, dev)
+    layers = L.unstack(params["stack"]["layers"], cfg.n_layers)
+    per = cfg.n_layers // world
+    mine = layers[rank * per:(rank + 1) * per]
+    b, s = DIST["pipe_mb"], DIST["pipe_seq"]
+    tok = torch.randint(0, cfg.vocab, (DIST["pipe_micro"], b, s),
+                        generator=gen, device=dev)
+    micro = L.embed_lookup(params["embed"], tok, cfg.cdtype)
+    positions = torch.arange(s, device=dev)
+
+    def stage(ps, x):
+        for p in ps:
+            x, _, _ = model.stack._layer(p, x, positions, None, None,
+                                         want_cache=False)
+        return x
+
+    pipe_mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("pod",))
+    with torch.no_grad():
+        attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = pipeline_apply(stage, mine, micro, "pod", mesh=pipe_mesh)
+        torch.cuda.synchronize()
+        pipe_ms = (time.perf_counter() - t0) * 1e3
+        launches = attention.launches
+        t0 = time.perf_counter()
+        want = torch.stack([stage(layers, x) for x in micro])
+        torch.cuda.synchronize()
+        seq_ms = (time.perf_counter() - t0) * 1e3
+    if rank == world - 1:
+        ok, e = within(outs, want, BF16_TOL)
+        out["pipeline"] = {"bitwise": bool(torch.equal(outs, want)),
+                           "ok": ok, "max_abs_err": e,
+                           "ff_attention_launches": launches,
+                           "pipe_ms": pipe_ms, "sequential_ms": seq_ms}
+    gathered = [None] * world
+    torch.distributed.all_gather_object(gathered, out)
+    if rank:
+        return None
+    return {"remesh": out["remesh"], "pipeline": gathered[-1]["pipeline"]}
+
+
+def train_cmd(nproc, ckpt_dir):
+    """The trainer's command line at DIST's settings: one process, or
+    ``nproc`` ranks under torchrun on the one card (gloo_staged: gloo's
+    collectives, counted)."""
+    args = ["-m", "repro_torch.launch.train", "--arch", DIST["arch"],
+            "--steps", str(DIST["steps"]), "--batch", str(DIST["batch"]),
+            "--seq", str(DIST["seq"]), "--lr", str(DIST["lr"]),
+            "--log-every", "1", "--ckpt-dir", ckpt_dir]
+    if nproc == 1:
+        return [sys.executable] + args
+    return ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(nproc)] + args
+            + ["--mesh", "host", "--dist-backend", "gloo_staged"])
+
+
+def run_train(nproc, ckpt_dir):
+    """Run the trainer as :func:`train_cmd` says; its ``# train_result``
+    JSON, with the command's wall seconds."""
+    import os
+    # 4 ranks' ~16 GiB peaks fill the card but for their segments' slack
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    t0 = time.perf_counter()
+    r = subprocess.run(train_cmd(nproc, ckpt_dir), env=env,
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in r.stdout.splitlines()
+             if ln.startswith("# train_result ")]
+    if r.returncode or not lines:
+        # rank 0's own lines (torchrun prefixes them), not DTensor's warnings
+        err = [ln for ln in r.stderr.splitlines()
+               if ln.startswith("[rank0]") or "Error" in ln]
+        raise RuntimeError(f"trainer ({nproc} rank(s)) exited "
+                           f"{r.returncode}:\n{r.stdout[-3000:]}\n"
+                           + "\n".join(err[-60:]))
+    return {**json.loads(lines[-1][len("# train_result "):]),
+            "wall_s": wall}
+
+
+def expected_param_bytes(cfg, mesh_shape):
+    """Bytes of f32 parameters one rank holds on ``mesh_shape`` by the
+    config's rules (each sharded dim divided by its mesh axes' sizes)."""
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.runtime import sharding as shlib
+    rules = shlib.prune_rules({**shlib.DEFAULT_RULES,
+                               **(cfg.rule_overrides or {})}, mesh_shape)
+    total = 0
+    for _, spec in L.tree_leaves(build_model(cfg).param_specs()):
+        n = 1
+        for size, axis in zip(spec.shape, spec.axes):
+            target = rules.get(axis) if axis else None
+            split = 1
+            for a in ((target,) if isinstance(target, str) else
+                      target or ()):
+                split *= mesh_shape[a]
+            n *= size // split
+        total += n * 4
+    return total
+
+
+def dist_phase(torch, dev):
+    """Phase j: the gloo-on-CUDA probe; the 4-rank spawn (sharded smoke,
+    the collectives at full width, the remesh checkpoint); NCCL at world
+    size 1; the 2-rank spawn (remesh restore, the 16-layer GPipe);
+    full-width llama3.2-1b trained by launch/train.py on 1 rank and then
+    4. This process makes no CUDA context of its own before the ranks
+    run (they need the whole card). Returns the dist paths' launches of
+    each kernel wrapper."""
+    import tempfile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+    t0 = time.perf_counter()
+    card = smi_line()
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        probe = dist_probe(tmp)
+        print("dist_probe " + json.dumps(probe), flush=True)
+        need = [f"gloo {op}" for op in DIST_PROBE[:4]] + [
+            "gloo_staged batch_isend_irecv", "gloo_staged send_recv"]
+        check("gloo on CUDA: every collective the runtime and DTensor "
+              "issue works (point-to-point through gloo_staged)",
+              all(probe[k] == "ok" for k in need),
+              "; ".join(f"{k}: {probe[k]}" for k in need))
+        t1 = time.perf_counter()
+        four = spawn_ranks(j_four, DIST["ranks"], (f"{tmp}/remesh",),
+                           init_file=f"{tmp}/four", backend="gloo_staged",
+                           timeout=300)[0]
+        for name, r in four["smoke"].items():
+            why = "" if r["bitwise"] else (
+                "; not bitwise: " + SHARD_NOT_BITWISE.get(
+                    name, "no reason known"))
+            check(f"sharded smoke {name} over data={DIST['ranks']} on the "
+                  f"card", r["bitwise"] or (
+                      r["err_unsharded"] <= r["tol"]
+                      and name in SHARD_NOT_BITWISE),
+                  f"max |sharded - unsharded| {r['err_unsharded']:.3e}, "
+                  f"vs plain {r['err_plain']:.3e} (tol {r['tol']}){why}")
+        for name, r in four["collectives"].items():
+            check(f"{name} with a policy at {DIST['collective']} bf16 over "
+                  f"model=2 == torch.matmul of the gathered operands",
+                  r["ok"] and r["launches"] > 0,
+                  f"max abs err {r['max_abs_err']:.3e} (tol {BF16_TOL}); "
+                  f"ff_matmul launches {r['launches']}")
+        launches["ff_matmul"] = {
+            f"dist[{n}]": r["launches"]
+            for n, r in four["collectives"].items()}
+        nccl = spawn_ranks(j_nccl, 1, init_file=f"{tmp}/nccl",
+                           backend="nccl", timeout=300)[0]
+        check("NCCL at world size 1: all_reduce, and a smoke llama3.2-1b "
+              "step on DTensor state over the (1, 1) mesh == on plain "
+              "tensors", nccl["all_reduce"] == [3.0] * 4
+              and abs(nccl["loss_mesh"] - nccl["loss_plain"])
+              <= 1e-6 * abs(nccl["loss_plain"]), json.dumps(nccl))
+        two = spawn_ranks(j_two, 2, (f"{tmp}/remesh",),
+                          init_file=f"{tmp}/two", backend="gloo_staged",
+                          timeout=300)[0]
+        check("remesh 4 ranks -> 2 (smoke llama3.2-1b) bit for bit",
+              two["remesh"]["bitwise"], json.dumps(two["remesh"]))
+        p = two["pipeline"]
+        check(f"pipeline_apply: {get_config(DIST['arch']).n_layers} "
+              f"full-width layers, 2 stages x {DIST['pipe_micro']} "
+              f"microbatches == sequential", p["ok"],
+              f"bitwise {p['bitwise']}, max abs err {p['max_abs_err']:.3e};"
+              f" ff_attention launches {p['ff_attention_launches']}")
+        launches["ff_attention"] = {
+            "dist[pipeline_apply]": p["ff_attention_launches"]}
+        spawn_s = time.perf_counter() - t1
+        # -- full-width training: 1 rank, then 4 on the one card
+        t1 = time.perf_counter()
+        one = run_train(1, f"{tmp}/train1")
+        shutil.rmtree(f"{tmp}/train1", ignore_errors=True)
+        many = run_train(DIST["ranks"], f"{tmp}/train4")
+        shutil.rmtree(f"{tmp}/train4", ignore_errors=True)
+        train_s = time.perf_counter() - t1
+    rel = [abs(a - b) / abs(b) for a, b in zip(many["loss"], one["loss"])]
+    margins = [DIST["loss_tol"][min(i, 1)] - r for i, r in enumerate(rel)]
+    check(f"train[{DIST['arch']}] full width on {DIST['ranks']} ranks "
+          f"{many['mesh']} vs 1 rank: step-1 loss within "
+          f"{DIST['loss_tol'][0]} relative, later steps within "
+          f"{DIST['loss_tol'][1]}",
+          len(rel) == DIST["steps"] and all(m >= 0 for m in margins),
+          f"relative diffs {rel}, margins {margins}")
+    cfg = get_config(DIST["arch"])
+    want = expected_param_bytes(cfg, many["mesh"])
+    got = [r["param_bytes"] for r in many["ranks"]]
+    check("each rank holds its parameters as the rules say",
+          got == [want] * DIST["ranks"],
+          f"{got} bytes, rules {want} (1 rank: "
+          f"{one['ranks'][0]['param_bytes']})")
+    peak1 = one["ranks"][0]["peak_bytes"]
+    peaks = [r["peak_bytes"] for r in many["ranks"]]
+    check(f"each rank's peak below {DIST['peak_frac']} x the 1-rank peak",
+          all(p < DIST["peak_frac"] * peak1 for p in peaks),
+          f"{[round(p / 2 ** 30, 2) for p in peaks]} GiB vs "
+          f"{peak1 / 2 ** 30:.2f} GiB")
+    tokens = DIST["batch"] * DIST["seq"]
+
+    def med(xs):
+        xs = sorted(xs[1:])
+        return xs[len(xs) // 2]
+
+    print("dist " + json.dumps({
+        "arch": DIST["arch"], "batch": DIST["batch"], "seq": DIST["seq"],
+        "steps": DIST["steps"], "mesh": many["mesh"],
+        "loss_1": one["loss"], "loss_n": many["loss"], "rel_diff": rel,
+        "step_ms_1": one["step_ms"], "step_ms_n": many["step_ms"],
+        "tokens_per_s_1": tokens / med(one["step_ms"]) * 1e3,
+        "tokens_per_s_n": tokens / med(many["step_ms"]) * 1e3,
+        "peak_gib_1": peak1 / 2 ** 30,
+        "peak_gib_n": [p / 2 ** 30 for p in peaks],
+        "param_bytes_n": got,
+        "comm_bytes_per_step_n": [r["comm_bytes"] for r in many["ranks"]],
+        "train_wall_s": [one["wall_s"], many["wall_s"]],
+        "collectives": four["collectives"], "pipeline": p,
+        "sharded_smoke": four["smoke"], "spawn_s": spawn_s,
+        "train_s": train_s, "card": card,
+        "note": "ranks share one card; every hop is host-staged gloo"}),
+        flush=True)
+    print(f"j. distributed: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
@@ -3589,6 +4149,9 @@ def main() -> int:
                     help="build, then only time the decode-attention rows "
                     "(phase f's time_decode) and print them as one "
                     "decode_timing line: to compare two trees in one call")
+    ap.add_argument("--dist", action="store_true",
+                    help="build, then run only phase j (the distributed "
+                    "runtime) and print its lines")
     ap.add_argument("--train-lr-sweep", action="store_true",
                     help="build nothing; train full-width llama3.2-1b for "
                     "phase i's steps at each of TRAIN_LRS and print one "
@@ -3617,6 +4180,11 @@ def main() -> int:
               flush=True)
     print(f"a. build: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # phase j first: its ranks share the card with this process, which
+    # holds nothing on it yet
+    dist_launches = dist_phase(torch, dev)
+    if opts.dist:
+        return 1 if failures else 0
     shapes = main_path_shapes(torch)
     if opts.decode_timing:
         rows = time_decode(torch, dev, shapes)
@@ -3690,6 +4258,9 @@ def main() -> int:
                 **{f"serve[{label}]": n[name]
                    for label, n in new_launches.items()
                    if label.endswith("layer-graph")}}
+        if name in dist_launches:
+            kernels[-1].setdefault("launches_by_path", {
+                "main path": launches[name]}).update(dist_launches[name])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -12,6 +12,14 @@ indices), as the reference flattens a pytree. Leaves are moved to the host
 as numpy before they are written (tensors on any device, numpy arrays,
 Python scalars).
 
+Sharded state: a DTensor leaf is gathered whole (``full_tensor``, a
+collective: every rank of a multi-rank job calls :func:`save`), and rank 0
+alone writes; the others wait at a barrier until the step is published. A
+checkpoint therefore holds whole host arrays, whatever mesh wrote it, as
+the reference's do. :func:`restore` places each leaf back as the mesh it
+is restored onto says (``shardings``, or a DTensor leaf of ``tree_like``),
+each rank keeping its own shard.
+
 Write protocol: serialize into ``step_N.tmp-<pid>`` -> fsync -> atomic
 rename -> update LATEST. A crash mid-write leaves only tmp dirs, which
 restore ignores (and the next save removes).
@@ -45,8 +53,21 @@ def _flatten_with_paths(tree, prefix=()):
 
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        from repro_torch.runtime.sharding import full_tensor
+        return full_tensor(leaf.detach()).cpu().numpy()
     return np.asarray(leaf)
+
+
+def _multi_rank() -> bool:
+    return (torch.distributed.is_available()
+            and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1)
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a multi-rank
+    job, or a lone process."""
+    return not _multi_rank() or torch.distributed.get_rank() == 0
 
 
 def _host_tree(tree):
@@ -61,12 +82,27 @@ def _host_tree(tree):
 def save(ckpt_dir: str, step: int, tree: Any, *, extra: Optional[Dict] = None,
          keep_last: int = 3) -> str:
     """Write ``tree`` as step ``step`` of ``ckpt_dir``; keep the newest
-    ``keep_last`` steps (0 keeps all). Returns the step's directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    ``keep_last`` steps (0 keeps all). Returns the step's directory. In a
+    multi-rank job every rank calls it (DTensor leaves are gathered) and
+    rank 0 writes; it returns on every rank once the step is published."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    writer = _writer()
+    arrays = {}
+    for k, v in _flatten_with_paths(tree):
+        a = _to_numpy(v)            # a collective for a DTensor leaf
+        if writer:
+            arrays[k] = a
+    if writer:
+        _write(ckpt_dir, final, step, arrays, extra, keep_last)
+    if _multi_rank():
+        torch.distributed.barrier()
+    return final
+
+
+def _write(ckpt_dir, final, step, arrays, extra, keep_last) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = f"{final}.tmp-{os.getpid()}"
     os.makedirs(tmp, exist_ok=True)
-    arrays = {k: _to_numpy(v) for k, v in _flatten_with_paths(tree)}
     manifest = {
         "step": step,
         "extra": extra or {},
@@ -89,7 +125,6 @@ def save(ckpt_dir: str, step: int, tree: Any, *, extra: Optional[Dict] = None,
         os.fsync(f.fileno())
     os.replace(latest_tmp, os.path.join(ckpt_dir, _LATEST))
     _gc(ckpt_dir, keep_last)
-    return final
 
 
 def save_async(ckpt_dir: str, step: int, tree: Any, **kw) -> threading.Thread:
@@ -123,32 +158,50 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return int(name.split("_")[1])
 
 
-def _unflatten_like(tree, arrays, device, prefix=()):
+def _unflatten_like(tree, arrays, device, shardings, prefix=()):
     if isinstance(tree, dict):
         return {k: _unflatten_like(tree[k], arrays, device,
-                                   prefix + (str(k),)) for k in tree}
+                                   _child(shardings, k), prefix + (str(k),))
+                for k in tree}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_unflatten_like(x, arrays, device,
+                                          _child(shardings, i),
                                           prefix + (str(i),))
                           for i, x in enumerate(tree))
     key = "/".join(prefix)
     a = arrays[key]
-    if tuple(a.shape) != tuple(np.shape(tree)):
+    if tuple(a.shape) != tuple(tree.shape if isinstance(tree, torch.Tensor)
+                               else np.shape(tree)):
         raise ValueError(f"checkpoint leaf {key}: shape {a.shape} != "
                          f"{tuple(np.shape(tree))}")
-    if isinstance(tree, torch.Tensor):
-        dev = device if device is not None else (
-            "cpu" if tree.device.type == "meta" else tree.device)
-        return torch.from_numpy(a).to(dev)
-    return a
+    if not isinstance(tree, torch.Tensor):
+        return a
+    from repro_torch.runtime.sharding import NamedSharding, is_dtensor
+    if shardings is None and is_dtensor(tree):
+        shardings = NamedSharding(tree.device_mesh, tuple(tree.placements))
+    if device is None:
+        device = (shardings.mesh.device_type if shardings is not None
+                  else "cpu" if tree.device.type == "meta" else tree.device)
+    full = torch.from_numpy(a).to(device)
+    return full if shardings is None else shardings.place(full)
+
+
+def _child(shardings, key):
+    if isinstance(shardings, (dict, list, tuple)) and not hasattr(
+            shardings, "placements"):
+        return shardings[key]
+    return shardings
 
 
 def restore(ckpt_dir: str, tree_like: Any, *, step: Optional[int] = None,
-            device=None, verify: bool = True):
+            device=None, verify: bool = True, shardings=None):
     """Restore into the structure of ``tree_like``: a tensor leaf (``meta``
     ones too) comes back as a tensor on ``device`` (default: the leaf's
-    own, the CPU for ``meta``), any other leaf as a numpy array. Returns
-    (tree, step, extra)."""
+    own, the CPU for ``meta``), any other leaf as a numpy array.
+    ``shardings`` (a tree of ``runtime.sharding.NamedSharding`` matching
+    ``tree_like``, as ``tree_shardings`` builds) places each tensor leaf
+    as a DTensor; without it a DTensor leaf of ``tree_like`` comes back
+    with its own mesh and placements. Returns (tree, step, extra)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -167,5 +220,5 @@ def restore(ckpt_dir: str, tree_like: Any, *, step: Optional[int] = None,
             if hashlib.sha256(a.tobytes()).hexdigest() != \
                     manifest["leaves"][k]["sha256"]:
                 raise IOError(f"checksum mismatch for {k} in {d}")
-    return (_unflatten_like(tree_like, arrays, device), step,
+    return (_unflatten_like(tree_like, arrays, device, shardings), step,
             manifest["extra"])

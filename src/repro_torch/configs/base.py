@@ -8,16 +8,18 @@ and ``scan_impl`` take the reference's values: ``"ff"`` the CUDA kernels
 scan ``"xla_tiled"``) the reference's unfused formulations in plain
 PyTorch. The port's kernels are its point, so both default to ``"ff"``
 (the reference's default is ``"xla"``); a config whose model cannot run
-under ``"ff"`` pins ``"xla"`` (deepseek-v2-lite's MLA). The reference's
-sharding presets (``rule_overrides`` of the newer configs, qwen2-72b's
-``OPTIMIZED``) are left out of the config files: the port has no mesh.
+under ``"ff"`` pins ``"xla"`` (deepseek-v2-lite's MLA). Each config's
+``rule_overrides`` are the reference's (its logical-axis sharding
+presets, read by ``runtime.sharding.use_sharding``); :data:`SHAPES` and
+:func:`shape_applicable` are the reference's shape cells. The reference's
+hillclimb presets (``OPTIMIZED``) are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -122,8 +124,50 @@ class ArchConfig:
     def pdtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
 
+    @property
+    def sub_quadratic(self) -> bool:
+        return self.family in ("hybrid", "ssm")
+
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+    # rule overrides applied when this shape is lowered (e.g. batch=1 decode
+    # cannot shard batch; shard the KV-cache sequence instead)
+    rule_overrides: Optional[Dict[str, object]] = None
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    # prefill emits a cache: shard its seq ("kv") over model so no device
+    # holds a replicated 32k cache
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill",
+                               rule_overrides={"kv": "model"}),
+    # decode: cache seq sharded over model (kv head counts rarely divide 16)
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode",
+                              rule_overrides={"kv": "model", "seq": None,
+                                              "kv_heads": None}),
+    # batch=1: nothing to DP; shard the long cache seq over data instead
+    "long_500k": ShapeConfig(
+        "long_500k", 524288, 1, "decode",
+        rule_overrides={"batch": None, "kv": "data", "seq": None,
+                        "state": None}),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Which (arch x shape) cells run: long_500k only on sub-quadratic
+    (recurrent) families."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("long_500k skipped: pure full-attention arch "
+                       "(see DESIGN.md)")
+    return True, ""
 
 
 def _module(arch_id: str):

@@ -2,9 +2,8 @@
 [hf:xai-org/grok-1; unverified]  64L d_model=6144 48H (GQA kv=8)
 d_ff=32768 vocab=131072, MoE 8e top-2.
 
-8 experts do not divide the reference's 16-way model axis, so its rule
-overrides keep experts replicated (kept here as the reference's fields;
-the port has no mesh)."""
+8 experts do not divide the 16-way model axis, so experts stay replicated
+and tensor parallelism runs *inside* each expert (rule override)."""
 
 from repro_torch.configs.base import ArchConfig
 

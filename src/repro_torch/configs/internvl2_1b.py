@@ -17,6 +17,8 @@ CONFIG = ArchConfig(
     qkv_bias=True,
     rope_theta=1000000.0,
     n_patches=256,
+    rule_overrides={"heads": None, "kv_heads": None,   # 14 heads vs 16-way axis
+                    "seq": "model"},                   # shard attention by seq instead
 )
 
 SMOKE = CONFIG.replace(

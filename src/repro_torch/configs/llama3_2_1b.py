@@ -15,6 +15,7 @@ CONFIG = ArchConfig(
     vocab=128256,
     tie_embeddings=True,
     rope_theta=500000.0,
+    rule_overrides={"kv_heads": None},   # 8 kv heads vs 16-way model axis
 )
 
 SMOKE = CONFIG.replace(

@@ -15,6 +15,7 @@ CONFIG = ArchConfig(
     vocab=152064,
     qkv_bias=True,
     rope_theta=1000000.0,
+    rule_overrides={"kv_heads": None},   # 8 kv heads vs 16-way model axis
 )
 
 SMOKE = CONFIG.replace(

@@ -17,6 +17,7 @@ CONFIG = ArchConfig(
     act="gelu",
     norm="layernorm",
     rope_theta=100000.0,
+    rule_overrides={"kv_heads": None},   # 4 kv heads vs 16-way model axis
 )
 
 SMOKE = CONFIG.replace(

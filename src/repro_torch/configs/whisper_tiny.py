@@ -18,6 +18,8 @@ CONFIG = ArchConfig(
     act="gelu",
     norm="layernorm",
     n_frames=1500,
+    rule_overrides={"heads": None, "kv_heads": None,   # 6 heads vs 16-way axis
+                    "seq": "model"},                   # shard attention by seq instead
 )
 
 SMOKE = CONFIG.replace(

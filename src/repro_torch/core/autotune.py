@@ -342,6 +342,36 @@ def restore_snapshot(snapshot: Optional[Mapping[str, Any]],
     return installed
 
 
+def _key_mesh_component(mesh: MeshSpec) -> str:
+    return f"|mesh{mesh.token}|dev{mesh.device_count}|"
+
+
+def invalidate_mesh(keep: MeshSpec, *, keep_single: bool = True) -> int:
+    """Drop in-memory tuned-plan entries keyed by a mesh other than
+    ``keep`` (the elastic-recovery hook, as
+    ``planner.invalidate_mesh_plans``).
+
+    Only the in-memory front is touched: the disk cache and the PlanDB are
+    partitioned by mesh token inside every key, so entries for other
+    topologies are never *served* to the surviving mesh; what goes is the
+    warm state (``_MEM``/``_LAST``) a long-lived process accumulated under
+    the lost topology. Returns the number of records dropped."""
+    kept_components = {_key_mesh_component(keep)}
+    kept_tokens = {keep.token}
+    if keep_single:
+        kept_components.add(_key_mesh_component(SINGLE_DEVICE))
+        kept_tokens.add(SINGLE_DEVICE.token)
+    stale = [mk for mk in _MEM
+             if not any(c in mk[1] for c in kept_components)]
+    for mk in stale:
+        del _MEM[mk]
+        _MEM_ORIGIN.pop(mk, None)
+    for op in [op for op, rec in _LAST.items()
+               if rec.get("mesh", SINGLE_DEVICE.token) not in kept_tokens]:
+        del _LAST[op]
+    return len(stale)
+
+
 def last_record(op: str) -> Optional[dict]:
     """The most recent tuned-plan record resolved for ``op`` (bench report
     hook; includes the candidate table and the measured analytic config)."""

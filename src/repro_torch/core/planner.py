@@ -190,6 +190,27 @@ def _plan_cached(op: str, w: Workload, tile: Tuple[int, ...],
     return plan
 
 
+def invalidate_mesh_plans(keep: MeshSpec, *,
+                          keep_single: bool = True) -> int:
+    """Drop every cached plan keyed by a mesh other than ``keep``.
+
+    The elastic-recovery hook: after a remesh the surviving topology is
+    ``keep``; plans sized under the lost topology must never be served
+    again, while plans for the surviving mesh (and, by default, the
+    topology-independent :data:`SINGLE_DEVICE` entries) stay warm.
+    ``last_plan`` entries for dropped meshes are cleared too. Returns the
+    number of plans dropped.
+    """
+    kept_meshes = {keep} | ({SINGLE_DEVICE} if keep_single else set())
+    stale = [k for k, p in _PLANS.items() if p.mesh not in kept_meshes]
+    for k in stale:
+        del _PLANS[k]
+    for op in [op for op, p in _LAST_PLAN.items()
+               if p.mesh not in kept_meshes]:
+        del _LAST_PLAN[op]
+    return len(stale)
+
+
 _LAST_PLAN: "dict[str, Plan]" = {}   # op -> most recent plan resolved
 
 
@@ -286,7 +307,9 @@ def resolve_policy(
     are cache-keyed by policy *and* topology, not just shape) and applies
     the mode semantics — ``baseline`` forces the synchronous depth=1 pipe
     after planning, exactly like the legacy per-kernel keyword plumbing
-    did. A policy without a mesh plans single-device. ``depth_cap`` and
+    did. A policy without a mesh plans under the ambient mesh (the
+    installed ``runtime.sharding`` context), else single-device.
+    ``depth_cap`` and
     ``stream_options`` (default: the policy's) are what the kernel can run:
     its deepest ring and its legal stream counts among the policy's. A
     kernel's ``depth_cap`` replaces the generic budget check (its own

@@ -434,5 +434,7 @@ register_kernel(
     regular=True,
     tol=2e-4,
     doc="flash attention prefill, GQA, K/V on the shared-memory ring",
+    shard_dims=(0, 0, 0),        # head-batch dim data-parallel (q and kv
+    shard_out_dim=0,             # shard together, preserving kv_groups)
     sweep_inputs=_sweep_inputs,
 )

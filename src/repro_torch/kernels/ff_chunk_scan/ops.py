@@ -490,5 +490,7 @@ register_kernel(
     regular=True,
     tol=1e-3,
     doc="gated linear-attention scan (Mamba2 / RWKV6)",
+    shard_dims=(0, 0, 0, 0),     # head-batch dim data-parallel
+    shard_out_dim=0,
     sweep_inputs=_sweep_inputs,
 )

@@ -552,5 +552,7 @@ register_kernel(
     regular=True,
     tol=2e-4,
     doc="decode attention against a contiguous cache, K/V on the ring",
+    shard_dims=(0, 0, 0, 0),     # request batch data-parallel
+    shard_out_dim=0,
     sweep_inputs=_sweep_inputs,
 )

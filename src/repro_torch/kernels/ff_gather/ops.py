@@ -298,5 +298,7 @@ register_kernel(
     regular=False,
     tol=0.0,
     doc="irregular row gather (embedding / MoE dispatch)",
+    shard_dims=(None, 0),        # table replicated, index rows split
+    shard_out_dim=0,
     sweep_inputs=_sweep_inputs,
 )

@@ -352,5 +352,7 @@ register_kernel(
     regular=True,
     tol=5e-4,
     doc="tiled product, tensor cores fed by the shared-memory ring",
+    shard_dims=(0, None),        # A rows data-parallel, B replicated
+    shard_out_dim=0,
     sweep_inputs=_sweep_inputs,
 )

@@ -20,10 +20,14 @@ Each kernel package registers itself at import time with
                knobs the port's kernel really takes; ``()`` where none)
   sweep_inputs ``sweep_inputs(gen, site, device) -> (args, kwargs)``:
                operands at a recorded call-site shape (the plan sweep)
+  shard_dims   the data-parallel decomposition: per positional operand the
+               dim it shards along under a data mesh axis, or None for a
+               replicated operand (weights, tables); ``shard_out_dim`` is
+               the output's. :func:`run_sharded_smoke` builds on it; None
+               opts the kernel out of the sharded harness
 
 Left out of the reference's spec: ``program`` (the StreamProgram builder:
-the port's kernels are written by hand, ``kernels/csrc``) and
-``shard_dims`` (the sharded harness waits for the distributed runtime).
+the port's kernels are written by hand, ``kernels/csrc``).
 
 Registration is lazy: the five built-in packages are imported on first
 lookup, so ``import repro_torch.kernels.registry`` alone stays cheap.
@@ -64,6 +68,8 @@ class KernelSpec:
     tol: float = 1e-4
     doc: str = ""
     sweep_inputs: Optional[Callable[..., Tuple[tuple, dict]]] = None
+    shard_dims: Optional[Tuple[Optional[int], ...]] = None
+    shard_out_dim: int = 0
 
 
 _REGISTRY: Dict[str, KernelSpec] = {}
@@ -230,3 +236,90 @@ def run_smoke(spec: KernelSpec, *, policy=None, depth=None, streams=None,
     out = spec.op(*args, **kw, policy=policy)
     ref = spec.op(*args, **kw, policy=PipePolicy(mode="ref"))
     return out, ref, _max_err(out, ref)
+
+
+# ---------------------------------------------------------------------------
+# The sharded harness
+# ---------------------------------------------------------------------------
+
+
+def sharded_inputs(spec: KernelSpec, n_shards: int, seed: int = 0,
+                   device="cpu") -> Tuple[tuple, dict]:
+    """Global operands for an ``n_shards``-way sharded run of ``spec``.
+
+    Shard ``i``'s slice is the kernel's smoke inputs drawn from seed
+    ``seed + i``, concatenated along the declared ``shard_dims``;
+    replicated operands (dim ``None``) come from shard 0. Every built-in
+    kernel is row-independent along its shard dim, so the global call
+    over the concatenation equals the per-shard calls."""
+    import torch
+
+    if spec.shard_dims is None:
+        raise ValueError(f"{spec.name} declares no shard_dims")
+    per = [spec.make_inputs(torch.Generator(device=device).manual_seed(
+        seed + i), torch.device(device)) for i in range(n_shards)]
+    kw = per[0][1]
+    args = []
+    for j, dim in enumerate(spec.shard_dims):
+        if dim is None:
+            args.append(per[0][0][j])
+        else:
+            args.append(torch.cat([p[0][j] for p in per], dim=dim))
+    return tuple(args), kw
+
+
+def shard_partition_specs(spec: KernelSpec, args: tuple, out_ndim: int,
+                          mesh, axis_name: str = "data"):
+    """(in_specs, out_spec): each operand's DTensor placements on ``mesh``
+    (``Shard`` along its ``shard_dims`` entry over ``axis_name``,
+    ``Replicate`` elsewhere), and the output's (along
+    ``shard_out_dim``)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if spec.shard_dims is None:
+        raise ValueError(f"{spec.name} declares no shard_dims")
+    names = list(mesh.mesh_dim_names)
+
+    def placements(dim):
+        out = [Replicate() for _ in names]
+        if dim is not None:
+            out[names.index(axis_name)] = Shard(dim)
+        return tuple(out)
+
+    return (tuple(placements(d) for d in spec.shard_dims),
+            placements(spec.shard_out_dim))
+
+
+def run_sharded_smoke(spec: KernelSpec, mesh, *, axis_name: str = "data",
+                      policy=None, seed: int = 0):
+    """Run ``spec`` on every rank of ``mesh`` against the unsharded op and
+    its plain version (each rank calls it; the operands live on the mesh's
+    device type).
+
+    Each rank draws the global operands from ``seed`` (shard ``i`` from
+    ``seed + i``, :func:`sharded_inputs`) and calls the op on its own
+    slice along ``shard_dims`` (``runtime.streams.shard_streams``) under
+    the policy tagged with ``mesh``'s topology, so the planner sizes the
+    per-shard call and keys its plan by the topology. Returns ``(sharded,
+    unsharded, ref, max |sharded-unsharded|, max |sharded-ref|)``: the
+    whole outputs as float32 CPU tensors and two floats."""
+    from repro_torch.core.meshspec import MeshSpec
+    from repro_torch.core.program import PipePolicy
+    from repro_torch.runtime.streams import shard_streams
+
+    n_shards = mesh.size(list(mesh.mesh_dim_names).index(axis_name))
+    args, kw = sharded_inputs(spec, n_shards, seed, mesh.device_type)
+    policy = PipePolicy() if policy is None else policy
+    # the explicit per-call policy bypasses the session policy the
+    # shard_streams wrapper installs, so it carries the mesh tag itself
+    policy = policy.replace(mesh=MeshSpec.from_mesh(mesh))
+
+    out0 = spec.op(*args, **kw, policy=policy.replace(mesh=None))
+    in_specs, out_spec = shard_partition_specs(spec, args, out0.ndim, mesh,
+                                               axis_name)
+    f = shard_streams(lambda *a: spec.op(*a, **kw, policy=policy),
+                      in_specs=in_specs, out_specs=out_spec, mesh=mesh)
+    sharded = f(*args).full_tensor()
+    ref = spec.op(*args, **kw, policy=PipePolicy(mode="ref"))
+    sh, un, rf = (t.float().cpu() for t in (sharded, out0, ref))
+    return sh, un, rf, _max_err(sh, un), _max_err(sh, rf)

@@ -22,8 +22,18 @@ On the CPU the steps run eagerly (the test path). ``compiled=False`` runs
 them eagerly on the card too: the eager side of a comparison.
 
 ``policy=`` installs a :class:`~repro_torch.core.program.PipePolicy` as
-the session policy around the step body, as the reference's
-``_policy_scope`` does: every kernel of the step sizes its pipes by it. A
+the session policy around the step body, tagged with the ambient mesh
+(``runtime.streams.mesh_policy``), as the reference's ``_policy_scope``
+does: every kernel of the step sizes its pipes by it, its plans keyed by
+the topology.
+
+Under a mesh (``runtime.sharding.use_sharding``) the train step takes
+DTensor parameters, optimizer state and batch, placed by the logical rules
+(:func:`shardings_for_cell`). The model runs under DTensor's
+``implicit_replication`` (a tensor the model makes, a mask or a position
+range, counts as replicated), and each gradient is redistributed to its
+parameter's placements before the update: for a parameter replicated over
+"data" that is the data-parallel all-reduce. A
 compiled step resolves its plans when it captures (nothing is measured
 inside a capture: ``autotune.capture_scope``), so its graphs are keyed by
 the session policy and the plan generation too
@@ -34,6 +44,7 @@ of replaying plans resolved under the old ones.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 from typing import Callable, Dict, List, Tuple
 
@@ -46,6 +57,39 @@ from repro_torch.kernels import launch_counters
 from repro_torch.models import layers as L
 from repro_torch.optim import adafactor, adamw
 from repro_torch.optim.compression import QuantizedAccumulator
+from repro_torch.runtime import sharding as shlib
+
+
+def _policy_scope(policy):
+    """The session-policy context of one step body, the policy tagged with
+    the ambient mesh (no-op without a policy)."""
+    if policy is None:
+        return contextlib.nullcontext()
+    from repro_torch.runtime.streams import mesh_policy
+    return policy_ctx(mesh_policy(policy))
+
+
+def _sharded_scope(params):
+    """``implicit_replication`` when the parameters are DTensors (plain
+    tensors the model makes then count as replicated), else nothing."""
+    if not any(shlib.is_dtensor(p) for _, p in L.tree_leaves(params)):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def reduce_grads(grads, params):
+    """Each DTensor gradient redistributed to its parameter's placements
+    (a partial sum over "data" becomes its all-reduce; over a sharded
+    "model" dim, its reduce-scatter); plain gradients as they are."""
+    p_leaves = dict(L.tree_leaves(params))
+    out: Dict = {}
+    for path, g in L.tree_leaves(grads):
+        p = p_leaves[path]
+        if shlib.is_dtensor(g):
+            g = g.redistribute(p.device_mesh, p.placements)
+        L._put(out, path, g)
+    return out
 
 
 def opt_init_and_update(optimizer: str, opt_cfg=None):
@@ -69,6 +113,21 @@ def opt_state_axes(optimizer: str, param_axes):
             return {"v": tuple(ax)}
         return {"v": L.tree_map(st, param_axes), "step": ()}
     return {"m": param_axes, "v": param_axes, "step": ()}
+
+
+def init_params(model, gen: torch.Generator, device):
+    """``model.init(gen, device)``, placed under the ambient mesh: each
+    leaf is drawn whole (the same bits on every rank, in ``model.init``'s
+    order) and replaced at once by this rank's shard, so one full leaf at
+    most is held. Without a mesh context it is ``model.init``."""
+    ctx = shlib.current()
+    if ctx is None:
+        return model.init(gen, device)
+    out: Dict = {}
+    for path, spec in L.tree_leaves(model.param_specs()):
+        L._put(out, path, shlib.sharding_for(spec.axes, ctx).place(
+            spec.initializer(gen, device)))
+    return out
 
 
 def value_and_grad(model, params, batch):
@@ -102,7 +161,10 @@ def make_train_step(model, *, optimizer: str = "adamw", opt_cfg=None,
     0 and their gradients are summed in f32 (or in int8 with error
     feedback, ``quantized_accum``) before one update with their mean; the
     loss metrics are the microbatches' means. ``policy`` is the session
-    :class:`~repro_torch.core.program.PipePolicy` around the step body."""
+    :class:`~repro_torch.core.program.PipePolicy` around the step body.
+    With DTensor parameters the gradients are reduced to the parameters'
+    placements before the update (:func:`reduce_grads`) and the metrics
+    come back as plain tensors, the same on every rank."""
     _, opt_update = opt_init_and_update(optimizer, opt_cfg)
 
     def step(params, opt_state, batch):
@@ -112,8 +174,8 @@ def make_train_step(model, *, optimizer: str = "adamw", opt_cfg=None,
             if quantized_accum:
                 acc = QuantizedAccumulator.init(params)
             else:
-                acc = L.tree_map(lambda p: torch.zeros(
-                    p.shape, dtype=torch.float32, device=p.device), params)
+                acc = L.tree_map(lambda p: torch.zeros_like(
+                    p, dtype=torch.float32), params)
             per_micro = []
             for i in range(accum_steps):
                 mb = {k: v.chunk(accum_steps, dim=0)[i]
@@ -131,15 +193,15 @@ def make_train_step(model, *, optimizer: str = "adamw", opt_cfg=None,
             grads = L.tree_map(lambda a: a / accum_steps, acc)
             metrics = {k: torch.mean(torch.stack([m[k] for m in per_micro]))
                        for k in per_micro[0]}
+        grads = reduce_grads(grads, params)
         params, opt_state, opt_metrics = opt_update(grads, opt_state, params)
         return params, opt_state, {**metrics, **opt_metrics}
 
-    if policy is None:
-        return step
-
     def train_step(params, opt_state, batch):
-        with policy_ctx(policy):
-            return step(params, opt_state, batch)
+        with _policy_scope(policy), _sharded_scope(params):
+            params, opt_state, metrics = step(params, opt_state, batch)
+        return params, opt_state, {k: shlib.full_tensor(v)
+                                   for k, v in metrics.items()}
     return train_step
 
 
@@ -176,7 +238,7 @@ class _PolicyStep:
         self.policy = policy
 
     def __call__(self, *args):
-        with policy_ctx(self.policy):
+        with _policy_scope(self.policy):
             return self.step(*args)
 
 
@@ -404,3 +466,23 @@ class CompiledStep:
             replay, out, launches = self.capture(
                 run, lambda: _load(statics, leaves), device)
         return _Graph(statics, replay, out, launches)
+
+
+# ---------------------------------------------------------------------------
+# Shardings of the step entry points
+# ---------------------------------------------------------------------------
+
+
+def shardings_for_cell(model, shape, ctx, *, optimizer: str = "adamw"):
+    """The NamedShardings (``runtime.sharding``) of each step input for
+    the mesh context ``ctx``: {"params", "batch"} and, for a train shape,
+    "opt", for a decode shape, "cache"."""
+    sh = lambda axes_tree: shlib.tree_shardings(axes_tree, ctx)   # noqa: E731
+    p_axes = model.param_axes()
+    out = {"params": sh(p_axes), "batch": sh(model.input_axes(shape))}
+    if shape.kind == "train":
+        out["opt"] = sh(opt_state_axes(optimizer, p_axes))
+    if shape.kind == "decode":
+        _, cache_axes = model.cache_spec(shape)
+        out["cache"] = sh(cache_axes)
+    return out

@@ -1,18 +1,33 @@
-"""End-to-end training driver (the port of ``repro/launch/train.py``) on one
-device.
+"""End-to-end training driver (the port of ``repro/launch/train.py``).
 
-Wires together the model registry, the host data pipe, the optimizer, the
-fault-tolerant supervisor (checkpoint, resume, preemption) and the
-straggler watchdog. Every flag of the reference's parser is taken, plus
-``--device``: the card unless asked for the CPU. ``--mesh host`` (one
-device) is the only mesh; ``pod`` and ``pod2`` wait for the distributed
-runtime. The model trains on the reference's default path, ``attn_impl``
-and ``scan_impl`` "xla" (plain PyTorch, differentiable): no kernel of the
-port has a backward, and neither has any Pallas kernel of the reference.
-The parameters stay f32 and each use casts to ``cfg.compute_dtype``.
+Wires together the model registry, logical sharding, the host data pipe,
+the optimizer, the fault-tolerant supervisor (checkpoint, resume,
+preemption) and the straggler watchdog. Every flag of the reference's
+parser is taken, plus ``--device`` (the card unless asked for the CPU) and
+``--dist-backend``. The model trains on the reference's default path,
+``attn_impl`` and ``scan_impl`` "xla" (plain PyTorch, differentiable): no
+kernel of the port has a backward, and neither has any Pallas kernel of
+the reference. The parameters stay f32 and each use casts to
+``cfg.compute_dtype``.
+
+One process is one rank. Under ``torchrun`` (``RANK``/``WORLD_SIZE``) the
+ranks join one process group and ``--mesh host`` is the ``(world // 2,
+2)`` ("data", "model") mesh; ``pod`` / ``pod2`` the 16 x 16 / 2 x 16 x 16
+production meshes, refused unless the world has 256 / 512 ranks. The
+parameters, the AdamW state and the batch are DTensors placed by the
+config's logical rules; each rank draws the same seeded parameters and the
+same global batch and keeps its shards. Rank 0 alone logs and writes
+checkpoints (every rank gathers them). At one rank the mesh shards
+nothing: the step runs on plain tensors.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_2_1b \\
       --smoke --device cpu --steps 300 --batch 8 --seq 128
+  python -m torch.distributed.run --nproc-per-node 4 \\
+      -m repro_torch.launch.train --mesh host --dist-backend gloo ...
+
+NCCL refuses two ranks on one card, so ranks sharing a card take
+``--dist-backend gloo`` (the compute stays on the card, the collectives go
+through the host).
 """
 
 from __future__ import annotations
@@ -29,12 +44,16 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.configs.base import ARCH_IDS, get_config, smoke_config
+from repro_torch.configs.base import (ARCH_IDS, ShapeConfig, get_config,
+                                      smoke_config)
 from repro_torch.data import HostPipeline, SyntheticSpec, batch_at
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.serve import resolve_device
 from repro_torch.models import build_model
 from repro_torch.optim import adafactor, adamw
+from repro_torch.runtime import gloo_staged
+from repro_torch.runtime import sharding as shlib
 from repro_torch.runtime.fault_tolerance import FTConfig, Supervisor
 from repro_torch.runtime.stragglers import (BatchRebalancer, StragglerConfig,
                                             StragglerWatchdog)
@@ -52,8 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--quantized-accum", action="store_true")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--mesh", choices=("host", "pod", "pod2"), default="host",
-                    help="host: this one device (the only mesh of the "
-                         "port so far)")
+                    help="host: (world // 2, 2) data x model over the "
+                         "torchrun world; pod / pod2: the 256 / 512-rank "
+                         "production meshes")
     ap.add_argument("--ckpt-dir",
                     default=os.path.join(tempfile.gettempdir(),
                                          "repro_torch_ckpt"))
@@ -79,6 +99,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "obs.metrics_snapshot() to PATH at exit")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--dist-backend", choices=mesh_lib.BACKENDS,
+                    default=None,
+                    help="process-group backend of a multi-rank run "
+                         "(default nccl on cuda, gloo on cpu); ranks "
+                         "sharing one card need gloo")
     return ap
 
 
@@ -124,18 +149,27 @@ def run(args) -> Dict[str, Any]:
     state ({"params", "opt", "data_step"}), the seconds and the metrics
     (floats) of each step this run took (``step_s``, ``metrics``), the
     step it started from and the newest checkpoint's step, path, bytes
-    and write seconds (``checkpoint``)."""
+    and write seconds (``checkpoint``), the mesh's axis sizes (``mesh``)
+    and, by rank, the peak device bytes, the parameter bytes held and the
+    collective payload bytes of each step under ``gloo_staged``
+    (``ranks``). Every rank returns its own state; rank 0 logs."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
     if args.mesh != "host":
-        raise SystemExit(
-            f"--mesh {args.mesh}: the port has one mesh so far, 'host' (this "
-            f"device); multi-device meshes come with the distributed "
-            f"runtime (ROADMAP A.3)")
+        try:
+            mesh_lib.check_production_world(world, args.mesh == "pod2")
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     device = resolve_device(args.device)
+    rank = 0
+    if world > 1:
+        rank, world, device = mesh_lib.init_distributed(
+            device, args.dist_backend)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     # the reference's default path: no kernel of either package has a
     # backward, and the port's kernel entry points refuse autograd
     cfg = cfg.replace(attn_impl="xla", scan_impl="xla")
     model = build_model(cfg)
+    log = print if rank == 0 else (lambda *a, **k: None)
     opt_cfg = _opt_cfg(cfg.optimizer, args)
     spec = SyntheticSpec(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
@@ -148,9 +182,25 @@ def run(args) -> Dict[str, Any]:
         policy = PipePolicy(mode=args.policy_mode)
 
     with contextlib.ExitStack() as stack:
-        profile = _plan_hooks(stack, args)
-        params = model.init(torch.Generator(device=device).manual_seed(0),
-                            device)
+        if world > 1:
+            stack.callback(torch.distributed.destroy_process_group)
+            mesh = (mesh_lib.make_production_mesh(
+                multi_pod=args.mesh == "pod2", device_type=device.type)
+                if args.mesh != "host" else
+                mesh_lib.make_host_mesh(device_type=device.type))
+            stack.enter_context(shlib.use_sharding(
+                mesh, overrides=cfg.rule_overrides))
+            mesh_shape = shlib.mesh_shape(mesh)
+        else:
+            shape, names = mesh_lib.host_mesh_shape(1)
+            mesh_shape = dict(zip(names, shape))
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        profile = _plan_hooks(stack, args) if rank == 0 else None
+        params = steps_lib.init_params(
+            model, torch.Generator(device=device).manual_seed(0), device)
+        input_axes = model.input_axes(
+            ShapeConfig("train", args.seq, args.batch, "train"))
         opt_init, _ = steps_lib.opt_init_and_update(cfg.optimizer, opt_cfg)
         opt_state = opt_init(params)
         train_step = steps_lib.make_train_step(
@@ -166,9 +216,9 @@ def run(args) -> Dict[str, Any]:
                        fail_at_step=args.fail_at))
         state, start = sup.resume()
         if start:
-            print(f"resumed from checkpoint at step {start}"
-                  + (f" ({sup.resume_prewarmed} tuned plans pre-warmed)"
-                     if sup.resume_prewarmed else ""))
+            log(f"resumed from checkpoint at step {start}"
+                + (f" ({sup.resume_prewarmed} tuned plans pre-warmed)"
+                   if sup.resume_prewarmed else ""))
         # the restored state replaces the fresh one: free it
         sup.state_like = None
         del params, opt_state
@@ -181,23 +231,27 @@ def run(args) -> Dict[str, Any]:
         # logged on one host
         def replan(host, share):
             from repro_torch.core import planner
-            print(f"# straggler {host}: share -> {share}; re-planning "
-                  f"local pipes ({planner.plan_cache_info().currsize} "
-                  f"cached plans)", flush=True)
+            log(f"# straggler {host}: share -> {share}; re-planning "
+                f"local pipes ({planner.plan_cache_info().currsize} "
+                f"cached plans)", flush=True)
             return share
 
         rebalancer = BatchRebalancer({"host0": max(args.batch, 1)},
                                      replan=replan)
         watchdog = StragglerWatchdog(
             StragglerConfig(), hosts=["host0"], rebalancer=rebalancer,
-            on_replace=lambda h: print(f"# straggler {h}: replace "
-                                       f"requested (needs a multi-host "
-                                       f"mesh)", flush=True))
-        t_hist, history = [], []
+            on_replace=lambda h: log(f"# straggler {h}: replace "
+                                     f"requested (a relaunch on the "
+                                     f"surviving ranks, "
+                                     f"elastic.replace_host)", flush=True))
+        t_hist, history, comm = [], [], []
 
         def step_fn(state, step):
-            batch = {k: torch.from_numpy(v).to(device)
-                     for k, v in pipe.get().items()}
+            # every rank holds the same global batch and keeps its shard
+            batch = shlib.place_tree({k: torch.from_numpy(v).to(device)
+                                      for k, v in pipe.get().items()},
+                                     input_axes)
+            sent = gloo_staged.traffic()
             t0 = time.perf_counter()
             params, opt_state, metrics = train_step(
                 state["params"], state["opt"], batch)
@@ -205,12 +259,14 @@ def run(args) -> Dict[str, Any]:
             dt = time.perf_counter() - t0
             t_hist.append(dt)
             history.append(metrics)
+            comm.append(sum(gloo_staged.traffic().values())
+                        - sum(sent.values()))
             watchdog.step({"host0": dt})
             if step % args.log_every == 0:
-                print(f"step {step:5d} loss={metrics['loss']:.4f} "
-                      f"gnorm={metrics.get('grad_norm', 0):.3f} "
-                      f"lr={metrics.get('lr', 0):.2e} {dt*1e3:.0f}ms",
-                      flush=True)
+                log(f"step {step:5d} loss={metrics['loss']:.4f} "
+                    f"gnorm={metrics.get('grad_norm', 0):.3f} "
+                    f"lr={metrics.get('lr', 0):.2e} {dt*1e3:.0f}ms",
+                    flush=True)
             return {"params": params, "opt": opt_state,
                     "data_step": np.asarray(step + 1, np.int64)}
 
@@ -221,17 +277,38 @@ def run(args) -> Dict[str, Any]:
         finally:
             pipe.stop()
         median = np.median(t_hist) * 1e3 if t_hist else float("nan")
-        print(f"done at step {args.steps}; median step {median:.0f} ms")
+        log(f"done at step {args.steps}; median step {median:.0f} ms")
+        ranks = _rank_report(state["params"], device, comm, world)
+        log("# train_result " + json.dumps({
+            "mesh": mesh_shape, "loss": [m["loss"] for m in history],
+            "step_ms": [t * 1e3 for t in t_hist], "ranks": ranks}))
         if sup.last_save:
             ck = sup.last_save
-            print(f"# checkpoint {os.path.basename(ck['path'])}: "
-                  f"{ck['bytes'] / 1e9:.3f} GB written in "
-                  f"{ck['seconds']:.2f} s")
+            log(f"# checkpoint {os.path.basename(ck['path'])}: "
+                f"{ck['bytes'] / 1e9:.3f} GB written in "
+                f"{ck['seconds']:.2f} s")
         if profile is not None:
-            print(f"# recorded traffic profile: {len(profile)} buckets -> "
-                  f"{args.record_profile}")
+            log(f"# recorded traffic profile: {len(profile)} buckets -> "
+                f"{args.record_profile}")
         return {"state": state, "step_s": t_hist, "metrics": history,
-                "start": start, "checkpoint": sup.last_save}
+                "start": start, "checkpoint": sup.last_save,
+                "mesh": mesh_shape, "ranks": ranks}
+
+
+def _rank_report(params, device, comm, world):
+    """Per rank (gathered on every rank): peak device bytes since the
+    run's start (None on the CPU), the parameter bytes the rank holds and
+    the collective payload bytes of each step (``gloo_staged`` counts
+    them; zeros under another backend)."""
+    mine = {"peak_bytes": (torch.cuda.max_memory_allocated(device)
+                           if device.type == "cuda" else None),
+            "param_bytes": shlib.local_bytes(params),
+            "comm_bytes": comm}
+    if world == 1:
+        return [mine]
+    out = [None] * world
+    torch.distributed.all_gather_object(out, mine)
+    return out
 
 
 def main(argv=None):

@@ -32,6 +32,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
+from repro_torch.runtime.sharding import constrain
 
 
 def specs(cfg: ArchConfig) -> Dict[str, Any]:
@@ -102,12 +103,14 @@ def encode(cfg: ArchConfig, params, frames: torch.Tensor) -> torch.Tensor:
     """frames: [B,F,D] stub embeddings -> encoder output [B,F,D]."""
     x = frames + _positions(frames.shape[1], cfg.d_model,
                             frames.device).to(frames.dtype)[None]
+    x = constrain(x, ("batch", "frames", "embed"))
 
     def body(p, x):
         h = L.norm_apply(cfg.norm, x, p["norm1"])
         x = x + _mha(p["attn"], h, h, causal=False)[0]
         h = L.norm_apply(cfg.norm, x, p["norm2"])
-        return x + L.mlp_apply(p["ffn"], h, cfg.act)
+        return constrain(x + L.mlp_apply(p["ffn"], h, cfg.act),
+                         ("batch", "frames", "embed"))
 
     if cfg.remat != "none":
         body = L.remat(body, "full")
@@ -139,6 +142,7 @@ def decode_stack(cfg: ArchConfig, params, x: torch.Tensor,
         x = x + a
         h = L.norm_apply(cfg.norm, x, p["norm2"])
         x = x + L.mlp_apply(p["ffn"], h, cfg.act)
+        x = constrain(x, ("batch", "seq", "embed"))
         return x, new_self, new_cross
 
     if caches is None and cfg.remat != "none":

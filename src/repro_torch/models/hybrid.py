@@ -26,6 +26,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2, transformer
+from repro_torch.runtime.sharding import constrain
 
 
 def _n_segments(cfg: ArchConfig) -> int:
@@ -65,7 +66,8 @@ def _shared_block(cfg, p, x, positions, cache, lengths):
         cfg, p["attn"], h, positions=positions, cache=cache, lengths=lengths)
     x = x + attn_out
     h = L.norm_apply(cfg.norm, x, p["norm2"])
-    return x + L.mlp_apply(p["ffn"], h, cfg.act), new_cache
+    return constrain(x + L.mlp_apply(p["ffn"], h, cfg.act),
+                     ("batch", "seq", "embed")), new_cache
 
 
 def forward(cfg: ArchConfig, params, x, *, positions, caches=None,

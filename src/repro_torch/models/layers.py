@@ -46,6 +46,7 @@ from repro_torch.kernels.ff_layer import ff_layer_matmul, ff_layer_mlp_tail
 from repro_torch.kernels.ff_layer import ops as layer_ops
 from repro_torch.kernels.ff_layer.ops import rope_freqs
 from repro_torch.runtime.paged_kv import paged_decode_attention
+from repro_torch.runtime.sharding import constrain, is_dtensor
 
 # ---------------------------------------------------------------------------
 # Param specs
@@ -165,6 +166,11 @@ def init_params(specs, gen: torch.Generator, device) -> Dict[str, Any]:
     for path, spec in tree_leaves(specs):
         _put(out, path, spec.initializer(gen, device))
     return out
+
+
+def param_axes(specs) -> Dict[str, Any]:
+    """The spec tree's logical sharding axes, one tuple a leaf."""
+    return tree_map(lambda s: s.axes, specs)
 
 
 def abstract_params(specs) -> Dict[str, Any]:
@@ -302,8 +308,12 @@ def attention_op(q, k, v, *, causal: bool, impl: str = "ff",
                  lengths=None) -> torch.Tensor:
     """q: [B,S,H,D]; k,v: [B,Skv,KVH,D] -> [B,S,H,D]. ``impl="ff"`` runs
     the prefill kernel (which masks the ragged S edge itself: no padding;
-    ``lengths`` is for ``"xla"`` only, as in the reference)."""
+    ``lengths`` is for ``"xla"`` only, as in the reference). DTensor
+    operands run on each rank's shards (:func:`_sharded_attention`)."""
     _check_impl(impl)
+    if is_dtensor(q):
+        return _sharded_attention(q, k, v, causal=causal, impl=impl,
+                                  lengths=lengths)
     if impl == "xla":
         return attention_xla(q, k, v, causal=causal, lengths=lengths)
     b, s, h, d = q.shape
@@ -313,6 +323,39 @@ def attention_op(q, k, v, *, causal: bool, impl: str = "ff",
     vh = v.transpose(1, 2).reshape(b * kvh, v.shape[1], d)
     out = ff_attention(qh, kh, vh, kv_groups=h // kvh, causal=causal)
     return out.reshape(b, h, s, d).transpose(1, 2)
+
+
+def _sharded_attention(q, k, v, **kw) -> torch.Tensor:
+    """:func:`attention_op` of DTensor operands as the body of a shard_map:
+    each rank attends its own batch rows and, where the query and K/V
+    head counts both divide over the mesh axes ``q``'s heads are sharded
+    on, its own heads and their K/V group (the GQA groups stay whole);
+    any other sharded dim of ``q`` (the sequence, the head dim) is
+    gathered first. The output keeps ``q``'s placements. DTensor's own
+    ops would flatten a sharded head dim into the batch inside the
+    products, which it refuses."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    head_split = 1
+    for i, p in enumerate(q.placements):
+        if p == Shard(2):
+            head_split *= mesh.size(i)
+    heads_ok = q.shape[2] % head_split == 0 and k.shape[2] % head_split == 0
+    q_pl, kv_pl = [], []
+    for p in q.placements:
+        keep = p == Shard(0) or (p == Shard(2) and heads_ok)
+        q_pl.append(p if keep else Replicate())
+        kv_pl.append(p if keep else Replicate())
+    lengths = kw.pop("lengths")
+    if lengths is not None:
+        raise NotImplementedError("lengths with DTensor attention operands")
+    # placements as lists: local_map reads a tuple as one per output
+    body = local_map(lambda q_, k_, v_: attention_op(q_, k_, v_, **kw),
+                     out_placements=q_pl, in_placements=(q_pl, kv_pl, kv_pl),
+                     device_mesh=mesh, redistribute_inputs=True)
+    return body(q, k, v)
 
 
 def decode_attention_op(q, k, v, lengths, *, impl: str = "ff",
@@ -480,12 +523,52 @@ def embed_specs(vocab: int, d: int) -> ParamSpec:
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  compute_dtype) -> torch.Tensor:
-    return table[tokens.long()].to(compute_dtype)
+    """``table[tokens]`` in ``compute_dtype``. A DTensor table (vocab
+    sharded) takes the vocab-parallel lookup of :func:`_sharded_embed`:
+    DTensor cannot place the backward of its own (an ``index_put`` into a
+    sharded table, a masked partial sum)."""
+    rows = (_sharded_embed(table, tokens) if is_dtensor(table)
+            else table[tokens.long()])
+    return constrain(rows.to(compute_dtype), ("batch", "seq", "embed"))
+
+
+def _sharded_embed(table, tokens):
+    """``table[tokens]`` of a DTensor table as the body of a shard_map
+    (the vocab-parallel lookup): each rank looks every token up in its own
+    vocab rows, zero where a token lies in another rank's, and the output
+    is the partial sum over the vocab's mesh axis (the caller's
+    ``constrain`` all-reduces it and keeps its batch rows). Each rank
+    takes the whole batch, so its shard's gradient is whole too (a
+    batch-sharded lookup would leave it a partial sum over "data"). A
+    table sharded otherwise (or over several axes) is gathered first."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    vocab = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    vocab = vocab if len(vocab) == 1 else []
+    tok_pl = [Replicate()] * mesh.ndim
+    table_pl = [Shard(0) if i in vocab else Replicate()
+                for i in range(mesh.ndim)]
+    out_pl = [Partial() if i in vocab else Replicate()
+              for i in range(mesh.ndim)]
+
+    def body(t, tok):
+        n = t.shape[0]
+        lo = mesh.get_local_rank(vocab[0]) * n if vocab else 0
+        idx = tok.long() - lo
+        mine = (idx >= 0) & (idx < n)
+        return t[idx.clamp(0, n - 1)] * mine[..., None].to(t.dtype)
+
+    return local_map(body, out_placements=out_pl,
+                     in_placements=(table_pl, tok_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
 
 
 def unembed_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """x: [B,S,D] -> logits [B,S,V] over the padded vocab."""
-    return x @ table.t().to(x.dtype)
+    """x: [B,S,D] -> logits [B,S,V] over the padded vocab (sharded batch x
+    vocab under a mesh)."""
+    return constrain(x @ table.t().to(x.dtype), ("batch", "seq", "vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -532,7 +615,10 @@ def bf16_grad_cast(x: torch.Tensor) -> torch.Tensor:
 def _token_ce(logits: torch.Tensor, labels: torch.Tensor,
               z_loss: float) -> torch.Tensor:
     """Per-token CE in f32 (logsumexp minus the label's logit), plus
-    ``z_loss * lse**2``."""
+    ``z_loss * lse**2``. DTensor logits (vocab-sharded) run as the body
+    of a shard_map (:func:`_sharded_token_ce`)."""
+    if is_dtensor(logits):
+        return _sharded_token_ce(logits, labels, z_loss)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
@@ -540,6 +626,22 @@ def _token_ce(logits: torch.Tensor, labels: torch.Tensor,
     if z_loss:
         loss = loss + z_loss * lse ** 2
     return loss
+
+
+def _sharded_token_ce(logits, labels, z_loss: float):
+    """:func:`_token_ce` of DTensor logits [B, S, V]: the vocab shards are
+    gathered (one all-gather of this rank's batch rows' logits), then each
+    rank takes its batch rows' CE on its own; the per-token losses keep
+    the batch sharding. DTensor's gather cannot take the label's logit
+    from a vocab-sharded dim."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = [p if p == Shard(0) else Replicate() for p in logits.placements]
+    return local_map(lambda lg, lb: _token_ce(lg, lb, z_loss),
+                     out_placements=pl, in_placements=(pl, pl),
+                     device_mesh=logits.device_mesh,
+                     redistribute_inputs=True)(logits, labels)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -561,8 +663,8 @@ def chunked_unembed_loss(x: torch.Tensor, table: torch.Tensor,
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_chunks):
         sl = slice(i * cs, (i + 1) * cs)
-        total = total + torch.sum(_token_ce(x[:, sl] @ wt, labels[:, sl],
-                                            z_loss))
+        logits = constrain(x[:, sl] @ wt, ("batch", "seq", "vocab"))
+        total = total + torch.sum(_token_ce(logits, labels[:, sl], z_loss))
     return total / (b * s)
 
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.runtime.sharding import constrain
 
 
 def _dims(cfg: ArchConfig):
@@ -127,6 +128,7 @@ def mamba_apply(cfg: ArchConfig, p, x, *, cache=None
     y = y + xs * p["d_skip"].to(dtype)[None, None, :, None]
     y = y.reshape(b, s, d_in)
     y = L.rmsnorm(y * F.silu(z), p["norm_w"])
+    y = constrain(y, ("batch", "seq", "mlp"))
     out = y @ p["out_proj"].to(dtype)
     return out, new_cache
 

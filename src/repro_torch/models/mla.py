@@ -24,6 +24,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _project, _write_token
+from repro_torch.runtime.sharding import constrain
 
 
 def mla_specs(cfg: ArchConfig) -> Dict[str, Any]:
@@ -68,6 +69,7 @@ def mla_apply(cfg: ArchConfig, p, x, *, positions, cache=None,
     c, k_rope = _compress(cfg, p, x)
     if cache is None:
         k, v = _decompress(cfg, p, c, k_rope, positions)
+        q = constrain(q, ("batch", "seq", "heads", None))
         out = L.attention_op(q, k, v, causal=True, impl=cfg.attn_impl)
         new_cache = {"c": c, "k_rope": k_rope}
     else:

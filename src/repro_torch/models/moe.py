@@ -42,6 +42,7 @@ from repro_torch.kernels.ff_matmul.ops import matmul_workload
 from repro_torch.kernels.ff_matmul.ops import \
     stream_options as mm_stream_options
 from repro_torch.models import layers as L
+from repro_torch.runtime.sharding import constrain
 
 
 # ---------------------------------------------------------------------------
@@ -125,13 +126,17 @@ def _apply(cfg: ArchConfig, p, x, capacity: int
     contrib = xf[:, None, :] * keep[:, :, None].to(x.dtype)      # [T,k,D]
     buf = torch.zeros(n + 1, d, dtype=x.dtype, device=x.device)
     buf.index_add_(0, flat_idx.clamp(max=n), contrib.reshape(t * k, d))
-    buf = buf[:n].view(e, capacity, d)
+    # "exp_cap" shards the capacity dim when experts themselves cannot be
+    # sharded (grok: 8 experts vs 16-way model axis)
+    buf = constrain(buf[:n].view(e, capacity, d),
+                    ("expert", "exp_cap", "embed"))
 
     # the experts (SwiGLU) as two batched products
     dt = x.dtype
     h = torch.bmm(buf, p["w1"].to(dt))
     gate, up = torch.chunk(h, 2, dim=-1)
     y = torch.bmm(F.silu(gate) * up, p["w2"].to(dt))
+    y = constrain(y, ("expert", "exp_cap", "embed"))
 
     # gather and combine
     picked = y.reshape(n, d)[flat_idx.clamp(max=n - 1)].view(t, k, d)

@@ -23,10 +23,14 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import encdec, hybrid
 from repro_torch.models import layers as L
 from repro_torch.models import mla, moe, rwkv6, transformer
+from repro_torch.runtime.sharding import constrain
+
+
+_TOKEN_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
 
 
 class BaseLM:
@@ -77,6 +81,21 @@ class BaseLM:
 
     def abstract_params(self) -> Dict[str, Any]:
         return L.abstract_params(self.param_specs())
+
+    def param_axes(self) -> Dict[str, Any]:
+        return L.param_axes(self.param_specs())
+
+    def input_axes(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """The logical axes of a batch of ``shape.kind``."""
+        if shape.kind == "train":
+            return dict(_TOKEN_AXES)
+        if shape.kind == "prefill":
+            return {"tokens": ("batch", "seq")}
+        return {"token": ("batch",), "lengths": ("batch",)}
+
+    def cache_spec(self, shape: ShapeConfig):
+        """(the decode cache's leaves as CacheSpecs, their logical axes)."""
+        return self.stack.cache_spec(shape.global_batch, shape.seq_len)
 
     def param_count(self) -> int:
         return L.param_count(self.param_specs())
@@ -224,6 +243,17 @@ class VLM(DenseLM):
         s["vision_proj"] = L.ParamSpec((d, d), ("embed", None))
         return s
 
+    def input_axes(self, shape: ShapeConfig) -> Dict[str, Any]:
+        a = super().input_axes(shape)
+        if shape.kind in ("train", "prefill"):
+            a["image_embeds"] = ("batch", "patches", "embed")
+        return a
+
+    def cache_spec(self, shape: ShapeConfig):
+        # the cache covers patches then tokens
+        return self.stack.cache_spec(shape.global_batch,
+                                     shape.seq_len + self.cfg.n_patches)
+
     def _extra_embeds(self, params, batch):
         if "image_embeds" not in batch:
             return None
@@ -291,6 +321,9 @@ class ZambaLM(BaseLM):
         logits = L.unembed_logits(x, params["unembed"])[:, 0]
         return logits, new_caches
 
+    def cache_spec(self, shape: ShapeConfig):
+        return hybrid.cache_spec(self.cfg, shape.global_batch, shape.seq_len)
+
 
 class RWKVLM(BaseLM):
     """rwkv6: token-shift time and channel mixing, attention-free. Its
@@ -334,7 +367,8 @@ class RWKVLM(BaseLM):
         h = L.norm_apply("layernorm", x, p["ln2"])
         cm_out, cm_cache = rwkv6.channel_mix_apply(cfg, p["cm"], h,
                                                    cache=cache)
-        return x + cm_out, {**tm_cache, **cm_cache}
+        x = constrain(x + cm_out, ("batch", "seq_sp", "embed"))
+        return x, {**tm_cache, **cm_cache}
 
     def _trunk(self, params, x, caches, want_cache=True):
         """The layers and the final norm: (x, the new states stacked, or
@@ -377,6 +411,14 @@ class RWKVLM(BaseLM):
         x, new_caches = self._trunk(params, x, caches)
         logits = L.unembed_logits(x, params["unembed"])[:, 0]
         return logits, new_caches
+
+    def cache_spec(self, shape: ShapeConfig):
+        cfg = self.cfg
+        one, one_axes = rwkv6.rwkv_cache_spec(cfg, shape.global_batch)
+        spec = L.tree_map(
+            lambda s: L.CacheSpec((cfg.n_layers, *s.shape), s.dtype), one)
+        axes = {name: ("layers", *a) for name, a in one_axes.items()}
+        return spec, axes
 
 
 class EncDecLM(BaseLM):
@@ -442,6 +484,15 @@ class EncDecLM(BaseLM):
                                             caches=caches, lengths=lengths)
         logits = L.unembed_logits(x, params["unembed"])[:, 0]
         return logits, new_caches
+
+    def input_axes(self, shape: ShapeConfig) -> Dict[str, Any]:
+        a = super().input_axes(shape)
+        if shape.kind in ("train", "prefill"):
+            a["frames"] = ("batch", "frames", "embed")
+        return a
+
+    def cache_spec(self, shape: ShapeConfig):
+        return encdec.cache_spec(self.cfg, shape.global_batch, shape.seq_len)
 
 
 def _lm_loss(cfg: ArchConfig, x, table, labels):

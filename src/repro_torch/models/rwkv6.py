@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.runtime.sharding import constrain
 
 _DECAY_LORA = 64
 
@@ -135,6 +136,7 @@ def time_mix_apply(cfg: ArchConfig, p, x, *, cache=None
     y = (y - mu) * torch.rsqrt(var + 64e-5)
     y = y.reshape(b, s, d) * p["ln_w"].to(dt) + p["ln_b"].to(dt)
     y = y * F.silu(g)
+    y = constrain(y, ("batch", "seq", "heads"))
     out = y @ p["wo"].to(dt)
     return out, {"shift_tm": new_prev, "h": h_new}
 
@@ -147,6 +149,7 @@ def channel_mix_apply(cfg: ArchConfig, p, x, *, cache=None
     xk = _lerp(x, x_prev, p["mu_k"])
     xr = _lerp(x, x_prev, p["mu_r"])
     k = torch.square(torch.relu(xk @ p["wk"].to(dt)))
+    k = constrain(k, ("batch", "seq", "mlp"))
     kv = k @ p["wv"].to(dt)
     out = torch.sigmoid(xr @ p["wr"].to(dt)) * kv
     return out, {"shift_cm": new_prev}

@@ -22,6 +22,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.runtime.paged_kv import scatter_token
+from repro_torch.runtime.sharding import constrain
 
 
 # ---------------------------------------------------------------------------
@@ -75,8 +76,11 @@ def attn_apply(cfg: ArchConfig, p, x, *, positions, cache=None,
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
     if cache is None:
+        q = constrain(q, ("batch", "seq", "heads", None))
         out = L.attention_op(q, k, v, causal=True, impl=cfg.attn_impl)
-        new_cache = {"k": k, "v": v}
+        # cache layout: seq dim re-sharded per the "kv" rule
+        new_cache = {"k": constrain(k, ("batch", "kv", "kv_heads", None)),
+                     "v": constrain(v, ("batch", "kv", "kv_heads", None))}
     elif "kv_pool" in cache:
         # paged decode: append this token's K/V through the block table,
         # then attend through it (sentinel entries drop the write and mask
@@ -195,6 +199,9 @@ class DecoderStack:
         x = x + attn_out
         ffn_out, aux = ffn_half(p, x)
         x = x + ffn_out
+        # residual saves use the SP axis (None by default; "model" enables
+        # Megatron sequence parallelism for layer-boundary activations)
+        x = constrain(x, ("batch", "seq_sp", "embed"))
         if cfg.bf16_grads:
             x = L.bf16_grad_cast(x)   # backward: the boundary cotangent
         if not want_cache and cache is None:

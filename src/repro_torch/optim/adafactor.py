@@ -34,6 +34,15 @@ def _factored(shape) -> bool:
 
 
 def init(params) -> Dict[str, Any]:
+    """Zero moments ({"vr", "vc"} for a matrix, {"v"} else) and a 0-d
+    step. Sharded (DTensor) parameters are refused: the factored moments'
+    placements are not derived yet; AdamW trains on a mesh."""
+    from repro_torch.runtime.sharding import is_dtensor
+    if any(is_dtensor(p) for _, p in L.tree_leaves(params)):
+        raise NotImplementedError(
+            "Adafactor on sharded (DTensor) parameters is not ported: "
+            "train this config on one rank, or with AdamW on a mesh")
+
     def st(p):
         kw = dict(dtype=torch.float32, device=p.device)
         if _factored(p.shape):

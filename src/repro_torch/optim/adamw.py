@@ -42,8 +42,9 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(params) -> Dict[str, Any]:
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros(p):     # a DTensor parameter's moments get its placements
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
     device = next(L.tree_leaves(params))[1].device
     return {"m": L.tree_map(zeros, params), "v": L.tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}

@@ -128,7 +128,9 @@ def test_new_configs_are_served_arch_ids():
     for arch in ARCHS + ("internvl2_1b", "whisper_tiny"):
         assert arch in ARCH_IDS
         cfg = t_smoke(arch)
-        assert cfg.arch_id == arch and cfg.rule_overrides is None
+        # the reference's sharding presets, read by runtime.sharding
+        assert cfg.arch_id == arch
+        assert cfg.rule_overrides == j_smoke(arch).rule_overrides
 
 
 # ---------------------------------------------------------------------------
