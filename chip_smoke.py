@@ -59,8 +59,11 @@ Phases (any failure exits non-zero without the final result line):
      128, GQA 8) at their serve shapes, paged == contiguous and both
      decode kernels and prefill attention (bf16) bitwise across depth x
      streams; the decode-layer kernels (rows 4-6) at llama3.2-1b's widths
-     (d 2048, f 8192 = the kernel's largest k), the MLP tail == its
-     staged launches bit for bit; the smoke llama3.2-1b, starcoder2-15b,
+     (d 2048, f 8192) and at qwen2-72b's (d 8192, f 29568: k past 8192,
+     bf16 and f32), the MLP tail == its staged launches bit for bit, the
+     bf16 kernels bitwise across depth x streams; the chunk scan also at
+     N = P = 256, chunk 256 (f32 and bf16); the smoke llama3.2-1b,
+     starcoder2-15b,
      qwen2-72b, internvl2-1b (with and without patch embeddings) and
      whisper-tiny (with frames) models on the card against the CPU;
   c. serve full-width qwen1.5-0.5B (random weights from seed 0, cast once)
@@ -69,7 +72,8 @@ Phases (any failure exits non-zero without the final result line):
      ``--layer-graph``; then full-width grok-1 cut to 2 of its 64 layers
      (``--n-layers 2``) with the serve defaults; then full-width
      llama3.2-1b (once more with ``--layer-graph``), starcoder2-15b (all
-     40 layers), qwen2-72b cut to 16 of its 80 layers and internvl2-1b on
+     40 layers), qwen2-72b cut to 16 of its 80 layers (once more with
+     ``--layer-graph``: its MLP tail at d_ff 29568) and internvl2-1b on
      text prompts, one model on the card at a time, each followed by its
      steps compiled against eager bit for bit: every prefill bucket and
      decode step a CUDA graph captured once per signature and replayed
@@ -193,6 +197,18 @@ Phases (any failure exits non-zero without the final result line):
      1-rank peak (a ``dist`` line: losses, step ms, tokens/s, peaks,
      collective bytes a step, the collectives' wall ms and hop bytes).
 
+  k. (run right after phase j, while this process holds nothing on the
+     card) ``python -m repro_torch.runtime.chaos suite --device cuda``
+     (kill-restart, sigterm-drain, evict-remesh on 8 ranks, slow-host on
+     2; each ``ok`` and ff_matmul launched in every worker), the four
+     ``examples/*_torch.py`` on the card (train_tiny_lm cut to 30 of its
+     300 steps), each required to reach its reference's last line, the
+     ``core/feedforward`` specs (a k-tiled product, a row gather) against
+     the ff_matmul and ff_gather kernels, and, beside them, the dry run of
+     one full-width cell (qwen1.5-0.5B x train_4k on a 256-rank fake
+     group) with its roofline row and wall (``chaos``, ``examples`` and
+     ``dryrun`` lines; each part's wall on the ``k.`` line).
+
 ``python3 chip_smoke.py --dist`` builds the kernels and runs phase j
 alone.
 
@@ -267,6 +283,9 @@ NEW_SERVE = (("llama3_2_1b", dict(arch="llama3_2_1b")),
                                               layer_graph=True)),
              ("starcoder2_15b", dict(arch="starcoder2_15b")),
              ("qwen2_72b", dict(arch="qwen2_72b", n_layers=16)),
+             # its MLP tail at d 8192, d_ff 29568: k past 8192 (PR 28)
+             ("qwen2_72b-layer-graph", dict(arch="qwen2_72b", n_layers=16,
+                                            layer_graph=True)),
              ("internvl2_1b", dict(arch="internvl2_1b")))
 KERNELS = {
     "ff_attention": dict(
@@ -1514,8 +1533,9 @@ def check_scan_kernel(torch, dev):
     """ff_chunk_scan against its plain version on the card: both models'
     prefill shapes (B = 4, S = 256, the models' stream types and f32) at
     chunk 64 and at chunk 256 (the reference autotuner's largest), then a
-    ragged S = 200 at chunk 32/64/128 and N = P = 128 at chunk 256 with S
-    = 300, f32 and bf16, with and without u, and the strong-decay case (lw
+    ragged S = 200 at chunk 32/64/128 and N = P = 128 and 256 at chunk 256
+    with S = 300, f32 and bf16, with and without u, and the strong-decay
+    case (lw
     = -3, a chunk's decay e^-192) in f32 and bf16. f32 within 3e-5 of max
     |plain|, bf16 within 2e-2; the f32 cases also against the naive scan.
     The bf16 scan (the ring body) at both models' prefill shapes is then
@@ -1543,6 +1563,10 @@ def check_scan_kernel(torch, dev):
     for dtype in (torch.bfloat16, torch.float32):
         for exclusive in (False, True):
             cases.append(("N=P=128 chunk=256", 4, 300, 128, 128, exclusive,
+                          256, dtype, False, 1))
+            # the CUDA-core body's cumsum carried a subtile at a time: N =
+            # 256 at chunk 256 fits (four slices of 64 columns)
+            cases.append(("N=P=256 chunk=256", 4, 300, 256, 256, exclusive,
                           256, dtype, False, 1))
     for (label, bh, s_, n, p, exclusive, chunk, dtype, model_types,
          heads) in cases:
@@ -1976,9 +2000,43 @@ def time_scan_kernel(torch, dev, scan_launches):
             library="none: no single PyTorch call computes this scan",
             bound=bound(nbytes, ops, "bfloat16")))
         del args, out
+    rows.append(time_scan_wide(torch, dev, gen, flush))
     first, *more = rows
     first["more"] = [split_bound(r) for r in more]
     return {"ff_chunk_scan": first}
+
+
+def time_scan_wide(torch, dev, gen, flush):
+    """The f32 scan (the CUDA-core body) at N = P = 256, chunk 256, S =
+    256, 16 rows, exclusive with u: no model's path runs it (their scans
+    are bf16 on the ring body); it is the shape the body refused before
+    its cumsum was carried a subtile at a time. Bound: the f32 bytes over
+    3.35 TB/s against the cost model's operations over the 67 TFLOP/s of
+    f32 outside the tensor cores."""
+    from repro_torch.kernels.ff_chunk_scan import chunk_scan, chunk_scan_plain
+    from repro_torch.kernels.ff_chunk_scan import ops as SO
+    bh, s, n, p, chunk = 16, 256, 256, 256, 256
+    args = scan_operands(torch, dev, gen, bh, s, n, p, True, torch.float32)
+    kw = dict(inclusive=False, chunk=chunk)
+    print("f. timing ff_chunk_scan f32 N=P=256 chunk 256", flush=True)
+    out = chunk_scan(*args, **kw)
+    nbytes = sum(x.numel() * x.element_size() for x in args) \
+        + out.numel() * out.element_size()
+    ops = bh * (s // chunk) * (2.0 * chunk * n * p * 2
+                               + chunk * chunk * (n + p))
+    return dict(
+        shape=(f"q/k/log_w[{bh},{s},{n}] v[{bh},{s},{p}] u[{bh},{n}] "
+               f"float32, exclusive+u, chunk {chunk}, subtile 16 (CUDA-core "
+               f"body, {SO._fma_slices(n, p, 16)} slices of P)"),
+        launches_on_path=0,
+        ms=time_ms(torch, lambda: chunk_scan(*args, **kw), 20, flush),
+        ms_hot=time_ms(torch, lambda: chunk_scan(*args, **kw), 20),
+        call_ms=call_ms(torch, lambda: chunk_scan(*args, **kw), 10),
+        plain_ms=time_ms(torch, lambda: chunk_scan_plain(*args, **kw), 3,
+                         flush),
+        library_ms=None,
+        library="none: no single PyTorch call computes this scan",
+        bound=bound(nbytes, ops, "float32"))
 
 
 # ---------------------------------------------------------------------------
@@ -4140,6 +4198,220 @@ def dist_phase(torch, dev):
     print(f"j. distributed: {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 
+# ---------------------------------------------------------------------------
+# k. the chaos harness, the examples, the feed-forward specs, the dry run
+# ---------------------------------------------------------------------------
+
+# the examples with their arguments on the card and the line each must end
+# with (the reference's last line; the port's trainer adds its result and
+# checkpoint lines, starting "# ", after it)
+EXAMPLES = (
+    ("quickstart", (), r"^quickstart done$"),
+    # cut from the example's 300 steps to 30 (~3 s of steps on the card)
+    ("train_tiny_lm", ("--steps", "30"),
+     r"^done at step 30; median step \d+ ms$"),
+    ("serve_pipelined", (),
+     r"^speedup x[\d.]+ tok/s, p99 x[\d.]+, bitwise diff 0\.0e\+00$"),
+    ("microbench_sweep", (), r"^ chunk_scan\[ff\] max\|err\| = "),
+)
+# the dry run's full-width cell
+DRY_CELL = ("qwen1_5_0p5b", "train_4k")
+
+
+def _sub_env():
+    import os
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+            "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+
+
+def chaos_check(tmp):
+    """``python -m repro_torch.runtime.chaos suite --device cuda``: every
+    scenario ``ok``, and every worker's report counts ff_matmul launches
+    (the state update's product ran as the kernel)."""
+    out = f"{tmp}/chaos.json"
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.runtime.chaos",
+                        "suite", "--device", "cuda", "--workdir",
+                        f"{tmp}/chaos", "--json", out], env=_sub_env(),
+                       capture_output=True, text=True, timeout=900,
+                       cwd=str(ROOT))
+    wall = time.perf_counter() - t0
+    if r.returncode != 0 and not Path(out).exists():
+        check("chaos suite --device cuda ran", False,
+              f"rc {r.returncode}: {r.stderr[-3000:]}")
+        return
+    suite = json.loads(Path(out).read_text())
+    for name, sc in suite["scenarios"].items():
+        launches = sc.get("ff_matmul_launches")
+        counts = (list(launches.values()) if isinstance(launches, dict)
+                  else [launches])
+        check(f"chaos {name} ok on the card", bool(sc.get("ok")),
+              json.dumps({k: v for k, v in sc.items()
+                          if k not in ("mitigations", "stderr")})
+              + (f" stderr: {sc['stderr'][-1500:]}" if "stderr" in sc
+                 else ""))
+        check(f"chaos {name}: ff_matmul launched in every worker",
+              all(isinstance(c, int) and c > 0 for c in counts),
+              f"ff_matmul launches {launches}")
+    print("chaos " + json.dumps({
+        "wall_s": wall, "suite_wall_s": suite["wall_s"],
+        "scenarios": {k: {f: v[f] for f in (
+            "ok", "recovery_s", "restart_wall_s", "wall_s",
+            "ff_matmul_launches", "bitwise_identical", "prewarmed",
+            "restart_plan_stats", "post_remesh_stats", "save_count")
+            if f in v} for k, v in suite["scenarios"].items()}}),
+        flush=True)
+
+
+def examples_check(tmp):
+    """Each ``examples/*_torch.py`` on the card (the four at the same
+    time: most of each one's wall is starting torch and the card),
+    required to exit 0 and to reach its reference's last line."""
+    import re
+    procs = {}
+    t0 = time.perf_counter()
+    for name, extra, _ in EXAMPLES:
+        args = list(extra)
+        if name == "train_tiny_lm":
+            args += ["--ckpt-dir", f"{tmp}/tiny_lm"]
+        procs[name] = subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / f"{name}_torch.py"),
+             *args], env=_sub_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=str(ROOT))
+    walls = {}
+    try:
+        for name, _, last in EXAMPLES:
+            out, errs = procs[name].communicate(timeout=600)
+            walls[name] = time.perf_counter() - t0
+            rc = procs[name].returncode
+            ours = [ln for ln in out.splitlines()
+                    if ln.strip() and not ln.startswith("# ")]
+            ok = rc == 0 and bool(ours) and bool(re.match(last, ours[-1]))
+            check(f"example {name}_torch.py on the card reaches its last "
+                  f"line", ok, (ours[-1] if ours else "no output")
+                  + f" ({walls[name]:.1f} s)"
+                  + ("" if ok else f"; rc {rc}: {errs[-2000:]}"))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print("examples " + json.dumps({"wall_s": walls}), flush=True)
+
+
+def feedforward_check(torch, dev):
+    """The core/feedforward specs against the kernels on the card: the
+    k-tiled product spec against ``ops.matmul`` (ff_matmul: f32, and bf16
+    on the ring), the row-gather spec against ``ops.gather`` (ff_gather),
+    each launched (counts zeroed before). f32 within 5e-4 (the registry's
+    ff_matmul tolerance: the spec sums k a tile at a time), bf16 within
+    2e-2, the gather exactly."""
+    from repro_torch import ops
+    from repro_torch.core import feedforward as ff
+    from repro_torch.kernels.ff_gather import gather
+    from repro_torch.kernels.ff_matmul import matmul
+    gen = torch.Generator(device=dev).manual_seed(13)
+    m, k, n, tk = 64, 1024, 512, 128
+    for dtype, tol in ((torch.float32, LIB_F32_TOL),
+                       (torch.bfloat16, BF16_TOL)):
+        a = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+        b = (torch.randn(k, n, generator=gen, device=dev)
+             / k ** 0.5).to(dtype)
+        spec = ff.ktiled_product_spec(m, k, n, tk, device=dev)
+        want = ff.run_reference(spec, (a, b))
+        matmul.launches = 0
+        got = ops.matmul(a, b)
+        torch.cuda.synchronize()
+        ok, e = within(got, want, tol)
+        check(f"ff_matmul {str(dtype)[6:]} [{m},{k}]@[{k},{n}] vs the "
+              f"k-tiled StreamSpec ({k // tk} words)",
+              ok and matmul.launches == 1,
+              f"max err {e:.3e} tol {tol}; launches {matmul.launches}")
+    table = torch.randn(4096, 256, generator=gen, device=dev)
+    idx = torch.randint(0, 4096, (1000,), generator=gen,
+                        device=dev).to(torch.int32)
+    spec = ff.row_gather_spec(1000, 256, 64, device=dev)
+    want = ff.run_reference(spec, (table, idx))
+    gather.launches = 0
+    got = ops.gather(table, idx)
+    torch.cuda.synchronize()
+    check("ff_gather table[4096,256] idx[1000] vs the row-gather StreamSpec "
+          "(16 words) exactly", torch.equal(got, want)
+          and gather.launches == 1, f"launches {gather.launches}")
+
+
+def start_dryrun(tmp):
+    """Start ``python -m repro_torch.launch.dryrun`` of one full-width cell
+    on a 256-rank fake group (host work only: it runs beside the rest of
+    phase k). Returns (process, start time)."""
+    arch, shape = DRY_CELL
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", f"{tmp}/dryrun"], env=_sub_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=str(ROOT)), time.perf_counter()
+
+
+def dryrun_check(tmp, started):
+    """The dry run's result (:func:`start_dryrun`), then its roofline row
+    (``launch/roofline.py``)."""
+    arch, shape = DRY_CELL
+    out_dir = f"{tmp}/dryrun"
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    r = Namespace(returncode=proc.returncode, stdout=stdout, stderr=stderr)
+    cell = Path(out_dir) / f"{arch}__{shape}__pod16x16.json"
+    result = json.loads(cell.read_text()) if cell.exists() else {}
+    check(f"dryrun {arch} x {shape} x pod16x16 (256 fake ranks)",
+          r.returncode == 0 and bool(result.get("ok")),
+          f"rc {r.returncode}, wall {wall:.1f} s: {r.stdout[-500:]}"
+          f"{result.get('error', '')}{r.stderr[-1500:]}")
+    if not result.get("ok"):
+        return
+    from repro_torch.launch import roofline
+    row = roofline.analyze_cell(result)
+    print("dryrun " + json.dumps({
+        "cell": result["cell"], "wall_s": wall,
+        "timings": result.get("timings"), "memory": result["memory"],
+        "cost_scan_program": result["cost_scan_program"],
+        "variants": result["variants"], "roofline": row,
+        "n_params": result["n_params"]}), flush=True)
+    print(roofline.markdown_table([row]), flush=True)
+
+
+def phase_k(torch, dev):
+    """Phase k: the chaos suite on the card, the four examples, the
+    feed-forward specs against the kernels, the full-width dry-run cell.
+    The subprocesses hold their own CUDA contexts; this process holds
+    nothing on the card yet."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_k_") as tmp:
+        walls = {}
+        dry = start_dryrun(tmp)
+        try:
+            for name, fn in (("chaos", lambda: chaos_check(tmp)),
+                             ("examples", lambda: examples_check(tmp)),
+                             ("feedforward",
+                              lambda: feedforward_check(torch, dev)),
+                             ("dryrun", lambda: dryrun_check(tmp, dry))):
+                t1 = time.perf_counter()
+                fn()
+                walls[name] = time.perf_counter() - t1
+        finally:
+            if dry[0].poll() is None:
+                dry[0].kill()
+                dry[0].wait()
+    print(f"k. chaos, examples, specs, dry run: "
+          f"{time.perf_counter() - t0:.1f} s {json.dumps(walls)}",
+          flush=True)
+
 
 def main() -> int:
     import argparse
@@ -4185,6 +4457,9 @@ def main() -> int:
     dist_launches = dist_phase(torch, dev)
     if opts.dist:
         return 1 if failures else 0
+    # phase k while this process still holds nothing on the card: the
+    # chaos suite starts 8 ranks on it
+    phase_k(torch, dev)
     shapes = main_path_shapes(torch)
     if opts.decode_timing:
         rows = time_decode(torch, dev, shapes)
@@ -4205,6 +4480,8 @@ def main() -> int:
         check_heads(torch, dev, arch, name)
     check_layer_kernels(torch, dev, main_path_shapes(torch, "llama3_2_1b"),
                         name="llama3.2-1b")
+    check_layer_kernels(torch, dev, main_path_shapes(torch, "qwen2_72b"),
+                        name="qwen2-72b")
     check_new_models_small(torch, dev)
 
     launches = run_serve(torch, "default", PER_OP)
@@ -4227,6 +4504,11 @@ def main() -> int:
 
     rows = time_kernels(torch, dev, shapes)
     rows.update(time_layer_kernels(torch, dev, shapes))
+    for name, row in time_layer_kernels(
+            torch, dev, main_path_shapes(torch, "qwen2_72b")).items():
+        row["launches_on_path"] = new_launches[
+            "qwen2_72b-layer-graph"][name]
+        rows[name]["more"] = [split_bound(row)]
     rows.update(time_library_kernels(torch, dev, shapes))
     sweep = depth_sweep(torch, dev, shapes)
     rows.update(time_scan_kernel(torch, dev, scan_launches))

@@ -10,6 +10,8 @@
   program         ``PipePolicy``, the session policy, ``make_entrypoint``
   autotune        the measured lookup chain (memory, disk, PlanDB,
                   measure, analytic)
+  feedforward     ``StreamSpec`` and its oracle ``run_reference``, the
+                  MLCD check: the contract the kernels are tested against
 
 None of it imports a kernel: the kernels import it.
 """

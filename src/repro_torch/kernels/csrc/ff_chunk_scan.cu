@@ -91,13 +91,18 @@
 // of the first port): one block of 512 threads per (bh row, slice of P),
 // walking the row's chunks, everything in f32 fmaf chains from shared
 // memory, expf (not the fast approximation). Nothing of a chunk is held
-// whole except its cumsum cw, so shared memory grows as chunk x (N+1) once
-// and otherwise as subtile x N; ops.py splits P when one block cannot hold
-// the state (N = P = 128 at chunk 256 runs as two slices of 64 columns).
+// whole, its cumsum cw neither: shared memory grows as subtile x N and
+// with the state N x p, never with the chunk, and ops.py splits P when one
+// block cannot hold the state (N = P = 256 at any chunk runs as four
+// slices of 64 columns). The cumsum is carried a subtile at a time: one
+// thread a column adds the subtile's lw rows (read from L2) to the
+// running sum it carries in an [N] vector, and where an earlier row's
+// cumsum is needed again (the earlier subtiles' k decayed to the
+// boundary, the state update) it is recomputed by the same additions in
+// the same order, so every exponent is the bits of a whole-chunk cumsum.
 // Per chunk:
-//   * the cumsum: lw staged a subtile of rows at a time, one thread per
-//     column carrying the running sum into cw;
-//   * per subtile of rows: its q, k, v and q-side exponent cq staged (each
+//   * per subtile of rows: its cumsum (from the boundary row's, carried);
+//     its q, k, v and q-side exponent cq staged (each
 //     stream f32 or bf16 on its own, a row past S read as zero), the scaled
 //     q tiles and the bonus; then the earlier subtiles of the chunk a block
 //     of subtile rows at a time, their k decayed to the boundary as it is
@@ -105,9 +110,9 @@
 //     of the intra sums, carried in shared memory; then the diagonal block
 //     by exact pairwise exponents, and the output rows;
 //   * the state update, in passes over h of kThreads * kPer elements held
-//     in registers, the chunk's k (decayed to its end) and v streamed again
-//     a subtile at a time; h itself is overwritten only after the chunk's
-//     outputs have read it.
+//     in registers, the chunk's k (decayed to its end by the cumsum
+//     carried again) and v streamed again a subtile at a time; h itself is
+//     overwritten only after the chunk's outputs have read it.
 // Every output is one fmaf chain in a fixed order: the inter sum over N,
 // the intra sum over the chunk's earlier rows in order, the bonus last.
 // Row-indexed [*, N] tiles have a padded stride N+1 so that threads on
@@ -134,29 +139,29 @@ __device__ __forceinline__ float ld(const void* p, bool b16, long long i) {
 }
 
 // The layout of the dynamic shared memory, in floats (mirrored by
-// ops.py:smem_bytes), p being the block's slice of columns: the chunk's
-// cumsum [chunk, N+1] and the state [N, p]; per subtile (st rows) q, k, cq
-// and the two scaled q tiles [st, N+1], a block of earlier k [st, N+1]
-// (also the lw rows of the cumsum and the k rows of the state update), the
-// subtile's v and a block of earlier v [st, p], the intra sums [st, p], the
-// scores [st, st], the bonus per row; and three [N] vectors.
+// ops.py:smem_bytes), p being the block's slice of columns: the state
+// [N, p]; per subtile (st rows) its cumsum, q, k, cq and the two scaled q
+// tiles [st, N+1], a block of earlier k [st, N+1] (also the k rows of the
+// state update), the subtile's v and a block of earlier v [st, p], the
+// intra sums [st, p], the scores [st, st], the bonus per row; and six [N]
+// vectors (the last row's cumsum and its decay, u, the cumsum carried to
+// the subtile's boundary and past it, and one carried over earlier rows).
 struct Smem {
-  float *cw, *h, *qs, *ks, *cq, *qi, *qd, *kp, *vs, *vp, *ia, *sc, *cu,
-      *cwl, *dl, *u;
+  float *cs, *h, *qs, *ks, *cq, *qi, *qd, *kp, *vs, *vp, *ia, *sc, *cu,
+      *cwl, *dl, *u, *cb, *cn, *cj;
 };
 
-__host__ __device__ inline long long smem_floats(int n, int p, int chunk,
-                                                 int st) {
+__host__ __device__ inline long long smem_floats(int n, int p, int st) {
   const long long np = n + 1;
-  return (long long)chunk * np + (long long)n * p + 6LL * st * np +
-         3LL * st * p + (long long)st * st + st + 3LL * n;
+  return (long long)n * p + 7LL * st * np + 3LL * st * p +
+         (long long)st * st + st + 6LL * n;
 }
 
-__device__ inline Smem carve(float* base, int n, int p, int chunk, int st) {
+__device__ inline Smem carve(float* base, int n, int p, int st) {
   const int np = n + 1;
   Smem m;
-  m.cw = base;
-  m.h = m.cw + chunk * np;
+  m.cs = base;
+  m.h = m.cs + st * np;
   m.qs = m.h + n * p;
   m.ks = m.qs + st * np;
   m.cq = m.ks + st * np;
@@ -171,6 +176,9 @@ __device__ inline Smem carve(float* base, int n, int p, int chunk, int st) {
   m.cwl = m.cu + st;
   m.dl = m.cwl + n;
   m.u = m.dl + n;
+  m.cb = m.u + n;
+  m.cn = m.cb + n;
+  m.cj = m.cn + n;
   return m;
 }
 
@@ -185,7 +193,7 @@ __global__ void __launch_bounds__(kThreads)
                       int s, int n, int p, int ldp, int chunk, int st,
                       int inclusive, int types) {
   extern __shared__ float smem[];
-  const Smem m = carve(smem, n, p, chunk, st);
+  const Smem m = carve(smem, n, p, st);
   const int np = n + 1;
   const int tid = threadIdx.x;
   const long long bh = blockIdx.x;
@@ -206,41 +214,50 @@ __global__ void __launch_bounds__(kThreads)
                  : 0.0f;
   };
 
+  // The cumsum of rows l0 .. l0+st-1 into kp, one thread a column carrying
+  // the running sum in run[c] (the cumsum of the row before l0) on to the
+  // subtile's last row; then kp is rewritten in place element by element.
+  auto cum_rows = [&](int l0, float* run) {
+    for (int c = tid; c < n; c += kThreads) {
+      float x = run[c];
+      for (int r = 0; r < st; ++r) {
+        x += lw_row(l0 + r, c);
+        m.kp[r * np + c] = x;
+      }
+      run[c] = x;
+    }
+    __syncthreads();
+  };
+
   for (int i = tid; i < n * p; i += kThreads) m.h[i] = 0.0f;
   if (has_u)
     for (int c = tid; c < n; c += kThreads) m.u[c] = ld(u, u16, bh * n + c);
 
   for (int c0 = 0; c0 < s; c0 += chunk) {
-    // ---- the cumsum, lw staged a subtile of rows at a time (into kp)
-    for (int b0 = 0; b0 < chunk; b0 += st) {
-      for (int i = tid; i < st * n; i += kThreads) {
-        const int r = i / n, c = i - r * n;
-        m.kp[r * np + c] = lw_row(c0 + b0 + r, c);
-      }
+    // cb: the cumsum at the subtile's boundary row t0 - 1 (0 before the
+    // chunk); cn: at the subtile's last row. They swap a subtile.
+    float* cb = m.cb;
+    float* cn = m.cn;
+    for (int c = tid; c < n; c += kThreads) cb[c] = 0.0f;
+    for (int t0 = 0; t0 < chunk; t0 += st) {
+      const float* cwb = t0 ? cb : nullptr;
+      // ---- the subtile's cumsum, one thread a column from the boundary's
       __syncthreads();
       for (int c = tid; c < n; c += kThreads) {
-        float run = b0 ? m.cw[(b0 - 1) * np + c] : 0.0f;
+        float run = cb[c];
         for (int r = 0; r < st; ++r) {
-          run += m.kp[r * np + c];
-          m.cw[(b0 + r) * np + c] = run;
+          run += lw_row(c0 + t0 + r, c);
+          m.cs[r * np + c] = run;
         }
+        cn[c] = run;
       }
       __syncthreads();
-    }
-    for (int c = tid; c < n; c += kThreads) {
-      const float run = m.cw[(chunk - 1) * np + c];
-      m.cwl[c] = run;
-      m.dl[c] = expf(run);
-    }
-
-    for (int t0 = 0; t0 < chunk; t0 += st) {
-      const float* cwb = t0 ? m.cw + (t0 - 1) * np : nullptr;
       // ---- this subtile's rows: q, k, the q-side exponent, and q decayed
       //      from the chunk start and from the boundary
       for (int i = tid; i < st * n; i += kThreads) {
         const int r = i / n, c = i - r * n, l = c0 + t0 + r;
         const float qv = qk_row(q, q16, l, c);
-        const float run = m.cw[(t0 + r) * np + c];
+        const float run = m.cs[r * np + c];
         const float e = inclusive ? run : run - lw_row(l, c);
         m.qs[r * np + c] = qv;
         m.ks[r * np + c] = qk_row(k, k16, l, c);
@@ -263,13 +280,16 @@ __global__ void __launch_bounds__(kThreads)
         }
 
       // ---- the earlier subtiles of the chunk, a block of st rows at a
-      //      time: k decayed to the boundary, the scores by the boundary
-      //      factorization, their terms of the intra sums
+      //      time: k decayed to the boundary (the rows' cumsum carried
+      //      again in cj), the scores by the boundary factorization, their
+      //      terms of the intra sums
+      for (int c = tid; c < n; c += kThreads) m.cj[c] = 0.0f;
       for (int j0 = 0; j0 < t0; j0 += st) {
+        cum_rows(c0 + j0, m.cj);
         for (int i = tid; i < st * n; i += kThreads) {
           const int j = i / n, c = i - j * n;
           m.kp[j * np + c] = qk_row(k, k16, c0 + j0 + j, c) *
-                             expf(cwb[c] - m.cw[(j0 + j) * np + c]);
+                             expf(cwb[c] - m.kp[j * np + c]);
         }
         for (int i = tid; i < st * p; i += kThreads) {
           const int j = i / p, c = i - j * p;
@@ -302,7 +322,7 @@ __global__ void __launch_bounds__(kThreads)
         if (inclusive ? r >= j : r > j) {
           const float* ql = m.qs + r * np;
           const float* cql = m.cq + r * np;
-          const float* cws = m.cw + (t0 + j) * np;
+          const float* cws = m.cs + j * np;
           const float* ks = m.ks + j * np;
           for (int c = 0; c < n; ++c)
             acc = fmaf(ql[c] * expf(fminf(cql[c] - cws[c], 0.0f)), ks[c],
@@ -332,6 +352,15 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
       __syncthreads();
+      float* const t = cb;
+      cb = cn;
+      cn = t;
+    }
+    // cb now holds the cumsum at the chunk's last row
+    for (int c = tid; c < n; c += kThreads) {
+      const float run = cb[c];
+      m.cwl[c] = run;
+      m.dl[c] = expf(run);
     }
 
     // ---- the state update: h = e^{cw_last} h + sum_l (k_l e^{cw_last -
@@ -340,11 +369,14 @@ __global__ void __launch_bounds__(kThreads)
       float acc[kPer];
 #pragma unroll
       for (int x = 0; x < kPer; ++x) acc[x] = 0.0f;
+      __syncthreads();  // the previous pass is done with cj and cwl is set
+      for (int c = tid; c < n; c += kThreads) m.cj[c] = 0.0f;
       for (int l0 = 0; l0 < chunk; l0 += st) {
+        cum_rows(c0 + l0, m.cj);
         for (int i = tid; i < st * n; i += kThreads) {
           const int r = i / n, c = i - r * n;
           m.kp[r * np + c] = qk_row(k, k16, c0 + l0 + r, c) *
-                             expf(m.cwl[c] - m.cw[(l0 + r) * np + c]);
+                             expf(m.cwl[c] - m.kp[r * np + c]);
         }
         for (int i = tid; i < st * p; i += kThreads) {
           const int r = i / p, c = i - r * p;
@@ -889,7 +921,7 @@ extern "C" int ff_chunk_scan(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   if (bh == 0 || s == 0) return 0;
   const int ps = p / slices;
-  const size_t smem = sizeof(float) * smem_floats(n, ps, chunk, subtile);
+  const size_t smem = sizeof(float) * smem_floats(n, ps, subtile);
   cudaError_t err = repro::allow_smem(chunk_scan_kernel, smem);
   if (err != cudaSuccess) return err;
   chunk_scan_kernel<<<dim3(bh, slices), kThreads, smem,

@@ -48,7 +48,10 @@
 // f32: the CUDA-core body of the first port. Each block owns one column
 // tile over all rows (two groups of 16 bytes per k-row, one per thread
 // column), walks k with 128 threads, and recomputes the rows' RMSNorm
-// itself; ``depth``, ``streams`` and the split do not apply.
+// itself; ``depth``, ``streams`` and the split do not apply. Up to 8192
+// rows of k are staged once a pass (128 KB); a deeper k (qwen2-72b's
+// down-projection, 29568) is staged in slabs of 8192 rows for each tile,
+// every k-lane summing its rows in the same order as when k is whole.
 //
 // Numerics follow the reference graph exactly where it rounds: the
 // normalised rows are rounded to the input type before the product, sums
@@ -134,8 +137,19 @@ __host__ __device__ constexpr int tile_cols() {
   return 2 * Vec<T>::n;
 }
 
+// k rows of the activations staged at a time: the whole of k up to
+// kSlab (one staging a pass over the rows), else slabs of kSlab rows
+// restaged for every column tile. A multiple of kKThreads, so a k-lane
+// sums the same rows in the same order whatever the slab.
+constexpr int kSlab = 8192;
+static_assert(kSlab % kKThreads == 0, "a slab keeps each k-lane's rows");
+
+__host__ __device__ __forceinline__ int slab_rows(int k) {
+  return k < kSlab ? k : kSlab;
+}
+
 size_t smem_floats(int k, int tn) {
-  return size_t(kRows) * k              // staged (normalised) rows
+  return size_t(kRows) * slab_rows(k)   // staged (normalised) rows
          + size_t(kWarps) * kRows * tn  // per-warp partial sums
          + size_t(kRows) * tn           // the tile's sums
          + kRows;                       // row rsqrt
@@ -153,37 +167,46 @@ __device__ Smem carve(float* smem, int k_max) {
   constexpr int TN = tile_cols<T>();
   Smem s;
   s.rows = smem;
-  s.red = s.rows + kRows * k_max;
+  s.red = s.rows + kRows * slab_rows(k_max);
   s.tile = s.red + kWarps * kRows * TN;
   s.rs = s.tile + kRows * TN;
   return s;
 }
 
-// Rows r0 .. r0+kRows-1 of a [m, k] (contiguous) into shared memory as f32,
-// through the RMSNorm when nw is given: f32 mean square, rsqrt(+eps), times
-// the f32 weight, rounded to T (the reference's _rms). Rows past m are 0.
+// The rsqrt of rows r0 .. r0+kRows-1 of a [m, k] (contiguous) for the
+// RMSNorm, over the whole of k: f32 mean square, rsqrt(+eps) (the
+// reference's _rms).
 template <typename T>
-__device__ void stage_rows(const T* a, int m, int k, int r0, const float* nw,
-                           float eps, Smem s) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  __syncthreads();  // the previous pass is done with the staged rows
-  if (nw != nullptr) {
-    for (int r = warp; r < kRows; r += kWarps) {
-      float ss = 0.f;
-      if (r0 + r < m) {
-        const T* row = a + size_t(r0 + r) * k;
-        for (int j = lane; j < k; j += 32) {
-          const float x = load_cg(row + j);
-          ss = fmaf(x, x, ss);
-        }
+__device__ void row_norms(const T* a, int m, int k, int r0, float eps,
+                          Smem s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // the previous pass is done with the rsqrt
+  for (int r = warp; r < kRows; r += kWarps) {
+    float ss = 0.f;
+    if (r0 + r < m) {
+      const T* row = a + size_t(r0 + r) * k;
+      for (int j = lane; j < k; j += 32) {
+        const float x = load_cg(row + j);
+        ss = fmaf(x, x, ss);
       }
-      ss = repro::warp_sum(ss);
-      if (lane == 0) s.rs[r] = rsqrtf(__fadd_rn(__fdiv_rn(ss, float(k)), eps));
     }
-    __syncthreads();
+    ss = repro::warp_sum(ss);
+    if (lane == 0) s.rs[r] = rsqrtf(__fadd_rn(__fdiv_rn(ss, float(k)), eps));
   }
-  for (int i = tid; i < kRows * k; i += kThreads) {
-    const int r = i / k, j = i - r * k;
+  __syncthreads();
+}
+
+// Columns [lo, hi) of rows r0 .. r0+kRows-1 of a [m, k] (contiguous) into
+// s.rows [kRows, hi - lo] as f32, through the RMSNorm when nw is given
+// (row_norms' rsqrt, times the f32 weight, rounded to T). Rows past m
+// are 0.
+template <typename T>
+__device__ void stage_rows(const T* a, int m, int k, int r0, int lo, int hi,
+                           const float* nw, Smem s) {
+  const int ks = hi - lo;
+  __syncthreads();  // the previous slab or pass is done with the rows
+  for (int i = threadIdx.x; i < kRows * ks; i += kThreads) {
+    const int r = i / ks, j = lo + i - r * ks;
     float x = 0.f;
     if (r0 + r < m) {
       x = load_cg(a + size_t(r0 + r) * k + j);
@@ -195,13 +218,34 @@ __device__ void stage_rows(const T* a, int m, int k, int r0, const float* nw,
   __syncthreads();
 }
 
-// The staged rows against columns [c0, c0+V) of w0 and [c1, c1+V) of w1
-// (column group 0 and 1): s.tile[r * TN + g * V + v] = f32 sum over k.
-// Thread (kl, g) sums k = kl, kl+128, ... in order; the 16 k-lanes of a
-// warp meet in a butterfly, the 8 warps in order 0..7.
+// The activation rows r0 .. of one pass, as the bodies read them: the
+// norms, and the whole of k staged once where it fits a slab (``whole``);
+// otherwise dot_tile stages each slab itself.
 template <typename T>
-__device__ void dot_tile(int k, const T* w0, const T* w1, long long ldw,
-                         int c0, int c1, int n, bool vec, Smem s) {
+struct Rows {
+  const T* a;
+  int m, k, r0;
+  const float* nw;
+  bool whole;
+};
+
+template <typename T>
+__device__ Rows<T> stage_pass(const T* a, int m, int k, int r0,
+                              const float* nw, float eps, Smem s) {
+  if (nw != nullptr) row_norms(a, m, k, r0, eps, s);
+  const bool whole = k <= kSlab;
+  if (whole) stage_rows(a, m, k, r0, 0, k, nw, s);
+  return {a, m, k, r0, nw, whole};
+}
+
+// The pass's rows against columns [c0, c0+V) of w0 and [c1, c1+V) of w1
+// (column group 0 and 1): s.tile[r * TN + g * V + v] = f32 sum over k.
+// Thread (kl, g) sums k = kl, kl+128, ... in order, across slabs; the 16
+// k-lanes of a warp meet in a butterfly, the 8 warps in order 0..7.
+template <typename T>
+__device__ void dot_tile(const Rows<T>& x, const T* w0, const T* w1,
+                         long long ldw, int c0, int c1, int n, bool vec,
+                         Smem s) {
   constexpr int V = Vec<T>::n, TN = tile_cols<T>();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = tid & 1, kl = tid >> 1;
@@ -212,25 +256,29 @@ __device__ void dot_tile(int k, const T* w0, const T* w1, long long ldw,
   for (int r = 0; r < kRows; ++r)
 #pragma unroll
     for (int v = 0; v < V; ++v) acc[r][v] = 0.f;
-  for (int j = kl; j < k; j += kKThreads) {
-    float b[V];
-    load_cols(w + j * ldw, col, n, vec, b);
+  for (int lo = 0; lo < x.k; lo += kSlab) {
+    const int hi = min(x.k, lo + kSlab), ks = hi - lo;
+    if (!x.whole) stage_rows(x.a, x.m, x.k, x.r0, lo, hi, x.nw, s);
+    for (int j = lo + kl; j < hi; j += kKThreads) {
+      float b[V];
+      load_cols(w + j * ldw, col, n, vec, b);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float x = s.rows[r * k + j];
+      for (int r = 0; r < kRows; ++r) {
+        const float xv = s.rows[r * ks + j - lo];
 #pragma unroll
-      for (int v = 0; v < V; ++v) acc[r][v] = fmaf(x, b[v], acc[r][v]);
+        for (int v = 0; v < V; ++v) acc[r][v] = fmaf(xv, b[v], acc[r][v]);
+      }
     }
   }
 #pragma unroll
   for (int r = 0; r < kRows; ++r)
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      float x = acc[r][v];
+      float y = acc[r][v];
 #pragma unroll
       for (int o = 2; o < 32; o <<= 1)
-        x += __shfl_xor_sync(0xffffffffu, x, o);
-      acc[r][v] = x;
+        y += __shfl_xor_sync(0xffffffffu, y, o);
+      acc[r][v] = y;
     }
   if (lane < 2) {
 #pragma unroll
@@ -309,11 +357,11 @@ __device__ void matmul_body(const MatmulArgs<T>& p, int k_max, int first,
   const int n_tiles = matmul_tiles(p);
   if (first >= n_tiles) return;
   for (int r0 = 0; r0 < p.m; r0 += kRows) {
-    stage_rows(p.a, p.m, p.k, r0, p.nw, p.eps, s);
+    const Rows<T> x = stage_pass(p.a, p.m, p.k, r0, p.nw, p.eps, s);
     for (int t = first; t < n_tiles; t += step) {
       int c0, c1;
       matmul_cols(p, t, &c0, &c1);
-      dot_tile(p.k, p.b, p.b, p.ldb, c0, c1, p.n, vec, s);
+      dot_tile(x, p.b, p.b, p.ldb, c0, c1, p.n, vec, s);
       for (int i = threadIdx.x; i < kRows * TN; i += kThreads) {
         const int r = i / TN, c = i - r * TN, g = c / V, v = c - g * V;
         const int row = r0 + r, col = (g ? c1 : c0) + v;
@@ -376,10 +424,10 @@ __device__ void swiglu_body(const SwigluArgs<T>& p, int k_max, int first,
   const int n_tiles = swiglu_tiles(p);
   if (first >= n_tiles) return;
   for (int r0 = 0; r0 < p.m; r0 += kRows) {
-    stage_rows(p.x, p.m, p.k, r0, p.nw, p.eps, s);
+    const Rows<T> x = stage_pass(p.x, p.m, p.k, r0, p.nw, p.eps, s);
     for (int t = first; t < n_tiles; t += step) {
       const int c0 = t * V;
-      dot_tile(p.k, p.wg, p.wu, p.ldw, c0, c0, p.f, vec, s);
+      dot_tile(x, p.wg, p.wu, p.ldw, c0, c0, p.f, vec, s);
       for (int i = threadIdx.x; i < kRows * V; i += kThreads) {
         const int r = i / V, v = i - r * V;
         const int row = r0 + r, col = c0 + v;

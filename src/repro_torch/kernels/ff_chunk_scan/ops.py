@@ -156,17 +156,17 @@ def _subtile(chunk: int, subtile: int) -> int:
     return st
 
 
-def smem_bytes(n: int, p: int, chunk: int, subtile: int) -> int:
+def smem_bytes(n: int, p: int, subtile: int) -> int:
     """Dynamic shared memory of one CUDA-core block holding ``p`` columns
-    (``csrc/ff_chunk_scan.cu`` ``smem_floats``): the chunk's cumsum
-    [chunk, N+1] and the state [N, p] in f32; per subtile q, k, the q-side
-    exponent, the two scaled q tiles and a block of earlier k [subtile,
-    N+1], the subtile's v, a block of earlier v and the intra sums
-    [subtile, p], the scores [subtile, subtile], the bonus per row, and
-    three [N] vectors. Only the cumsum grows with the chunk."""
+    (``csrc/ff_chunk_scan.cu`` ``smem_floats``): the state [N, p] in f32;
+    per subtile its cumsum, q, k, the q-side exponent, the two scaled q
+    tiles and a block of earlier k [subtile, N+1], the subtile's v, a block
+    of earlier v and the intra sums [subtile, p], the scores [subtile,
+    subtile], the bonus per row, and six [N] vectors (three of them the
+    cumsum carried a subtile at a time). Nothing grows with the chunk."""
     np_ = n + 1
-    floats = (chunk * np_ + n * p + 6 * subtile * np_ + 3 * subtile * p
-              + subtile * subtile + subtile + 3 * n)
+    floats = (n * p + 7 * subtile * np_ + 3 * subtile * p
+              + subtile * subtile + subtile + 6 * n)
     return 4 * floats
 
 
@@ -242,16 +242,15 @@ def _plan(bh: int, s: int, n: int, p: int, chunk: int,
     return Plan(slices=slices, cols=p // slices, blocks=bh * slices)
 
 
-def _fma_slices(n: int, p: int, chunk: int, st: int) -> int:
+def _fma_slices(n: int, p: int, st: int) -> int:
     """The CUDA-core body's split of P: the fewest slices (a divisor of P)
     whose block fits in shared memory."""
     for slices in range(1, p + 1):
-        if p % slices == 0 and smem_bytes(n, p // slices, chunk,
-                                          st) <= SMEM_LIMIT:
+        if p % slices == 0 and smem_bytes(n, p // slices, st) <= SMEM_LIMIT:
             return slices
-    raise ValueError(f"chunk_scan at N={n}, chunk={chunk}, subtile={st} "
-                     f"needs {smem_bytes(n, 1, chunk, st)} bytes of shared "
-                     f"memory per block even at one column; the H100 gives "
+    raise ValueError(f"chunk_scan at N={n}, subtile={st} needs "
+                     f"{smem_bytes(n, 1, st)} bytes of shared memory per "
+                     f"block even at one column; the H100 gives "
                      f"{SMEM_LIMIT}")
 
 
@@ -423,7 +422,7 @@ def _launch(q, k, v, log_w, u, chunk, st, inclusive, depth, streams):
                        _sm_count(q.device.index or 0)).slices
         q, k, v, log_w = (_aligned(x) for x in (q, k, v, log_w))
     else:
-        slices = _fma_slices(n, p, chunk, st)
+        slices = _fma_slices(n, p, st)
         q, k, v, log_w = (x.contiguous() for x in (q, k, v, log_w))
     u = u.contiguous() if u is not None else None
     out = torch.empty((bh, s, p), dtype=q.dtype, device=q.device)

@@ -25,7 +25,10 @@ rows through a ring of ``depth`` shared-memory stages (``streams``
 sub-copies a stage, the reference's ``Pipe`` arguments; ``depth=1`` is the
 synchronous copy-then-compute baseline), and the last block of a tile sums
 the splits' partials in split order from a workspace the wrapper
-allocates. The f32 kernels keep one column tile a block over all rows.
+allocates. The f32 kernels keep one column tile a block over all rows,
+staging k whole up to 8192 rows and in slabs of 8192 beyond. No k is
+refused: bf16 stages at most a split's rows (:func:`_plan` splits any k
+into pieces of at most 2048), f32 a slab.
 The tail keeps its intermediates in an L2-resident scratch buffer instead
 of a second and third launch. ``csrc/ff_layer.cu`` says more.
 
@@ -60,7 +63,6 @@ from repro_torch.kernels.ff_matmul.ops import _sm_count
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # columns per 16-byte load
-_MAX_K = 8192                                 # staged rows: 4 x k f32 smem
 _EPILOGUE = {"none": 0, "rope": 1, "residual": 2}
 # the bf16 ring (csrc/ff_layer.cu): tiles of 64 output columns, 16 KB ring
 # stages, the partial tile of a split [rows, 64] (SwiGLU: g and u, 128)
@@ -349,12 +351,6 @@ def _check_cuda_layout(acts, weights):
                              f"{w.stride()} has no contiguous last dim")
 
 
-def _check_k(k):
-    if k > _MAX_K:
-        raise ValueError(f"k={k} > {_MAX_K}: the kernel stages 4 rows of k "
-                         f"f32 values in shared memory")
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -525,7 +521,6 @@ def _apply_matmul(a, b, *, norm_weight=None, eps: float = 1e-6,
                          lambda dep, st: ff_layer_matmul_ref(a, b, **kw),
                          {"m": m, "k": k, "n": n})
         return ff_layer_matmul_ref(a, b, **kw)
-    _check_k(k)
     _check_cuda_layout((a, norm_weight, bias, residual), (b,))
     freqs = pos = None
     if rope:
@@ -578,7 +573,6 @@ def _apply_swiglu(x, wg, wu, *, norm_weight=None, eps: float = 1e-6,
                          *ff_layer_workload(m, k, f, dtype=dt, gated=True),
                          ref, site)
         return ref()
-    _check_k(k)
     _check_cuda_layout((x, norm_weight), (wg, wu))
     if wg.stride(0) != wu.stride(0):
         raise ValueError("wg and wu need one row stride")
@@ -633,7 +627,6 @@ def _apply_tail(a, wo, x, nw2, wg, wu, wo2, *, eps: float = 1e-6,
             resolve_pipe("ff_layer_mlp_tail", policy, dt, wl, tile, ref,
                          site)
         return ref()
-    _check_k(max(hq, d, f))
     _check_cuda_layout((a, x, nw2), (wo, wg, wu, wo2))
     if wg.stride(0) != wu.stride(0):
         raise ValueError("wg and wu need one row stride")

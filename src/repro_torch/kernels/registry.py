@@ -205,6 +205,35 @@ def run_graph(spec: GraphSpec, args: tuple, *, policy=None, **kwargs):
     return spec.op(*args, policy=policy, **kwargs)
 
 
+def run_graph_smoke(spec: GraphSpec, *, policy=None, seed: int = 0,
+                    device="cpu"):
+    """Run ``spec`` at its declared shapes on ``device`` against its plain
+    version. Returns ``(out, ref, max_abs_err, report)``. Where the
+    reference returns the compiled graph, the port reports what its
+    GraphSpec holds: ``report`` names the graph, and holds its staged
+    composition's output (``unfused``: the same computation as separate
+    ``repro_torch.ops`` calls, None if the graph declares none), whether
+    the fused launch equals it bit for bit, and the two errors against the
+    plain version."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    args = spec.make_inputs(gen, torch.device(device))
+    out = run_graph(spec, args, policy=policy)
+    ref = spec.ref(*args)
+    staged = spec.unfused(*args) if spec.unfused is not None else None
+    report = {
+        "graph": spec.name,
+        "doc": spec.doc,
+        "fused_err": _max_err(out, ref),
+        "staged": staged,
+        "staged_err": None if staged is None else _max_err(staged, ref),
+        "fused_equals_staged": None if staged is None
+        else bool(torch.equal(out, staged)),
+    }
+    return out, ref, report["fused_err"], report
+
+
 def _max_err(out, ref) -> float:
     if not out.numel():
         return 0.0

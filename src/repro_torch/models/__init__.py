@@ -1,3 +1,3 @@
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import build_model, build_model_by_id
 
-__all__ = ["build_model"]
+__all__ = ["build_model", "build_model_by_id"]

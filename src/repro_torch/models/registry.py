@@ -23,7 +23,7 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig, get_config
 from repro_torch.models import encdec, hybrid
 from repro_torch.models import layers as L
 from repro_torch.models import mla, moe, rwkv6, transformer
@@ -530,3 +530,7 @@ def build_model(cfg: ArchConfig):
             f"({cfg.qk_nope_dim + cfg.qk_rope_dim}), which the attention "
             f"kernels, and the reference's 'ff' path, cannot take")
     return _FAMILIES[family](cfg)
+
+
+def build_model_by_id(arch_id: str):
+    return build_model(get_config(arch_id))

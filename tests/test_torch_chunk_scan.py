@@ -181,17 +181,16 @@ def test_plain_version_is_the_wrapper_on_the_cpu_and_counts_no_launch():
 
 
 def test_shared_memory_fits_the_path_shapes():
-    """Every chunk the reference's autotuner tries, and the smaller ones,
-    fit one CUDA-core block's 227 KB at N = P = 64 (subtile 16): only the
-    cumsum grows with the chunk. N = P = 128 fits at chunk 128 in one
-    block, and at 256 once the wrapper splits P into two slices of 64
-    columns; the ring body's shared memory does not grow with the chunk
-    and fits at N = P = 128 at its default depth."""
-    for chunk in (16, 32, 64, 128, 256):
-        assert smem_bytes(64, 64, chunk, 16) < 232448
-    assert smem_bytes(64, 64, 256, 16) == 122048
-    assert smem_bytes(128, 128, 128, 16) < 232448
-    assert smem_bytes(128, 128, 256, 16) > 232448
-    assert scan_ops._fma_slices(128, 128, 256, 16) == 2
-    assert smem_bytes(128, 64, 256, 16) <= 232448
+    """One CUDA-core block's shared memory does not grow with the chunk
+    (the cumsum is carried a subtile at a time): N = P = 64 and 128 fit in
+    one block of 227 KB at every chunk, and N = P = 256 once the wrapper
+    splits P into four slices of 64 columns; the ring body's shared memory
+    does not grow with the chunk either and fits at N = P = 128 at its
+    default depth."""
+    assert smem_bytes(64, 64, 16) == 60416
+    assert smem_bytes(128, 128, 16) < 232448
+    assert scan_ops._fma_slices(128, 128, 16) == 1
+    assert smem_bytes(256, 128, 16) > 232448
+    assert smem_bytes(256, 64, 16) <= 232448
+    assert scan_ops._fma_slices(256, 256, 16) == 4
     assert scan_ops.ring_smem_bytes(128, 128, 4, 2) <= 232448

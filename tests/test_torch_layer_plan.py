@@ -105,13 +105,37 @@ def test_serve_shapes_fill_the_sms():
 
 
 @pytest.mark.parametrize("n,k", [(1, 1), (64, 8192), (5, 3000),
-                                 (100000, 16), (1000, 1000), (72, 31)])
+                                 (100000, 16), (1000, 1000), (72, 31),
+                                 (8192, 29568), (29568, 8192),
+                                 (64, 29568)])
 def test_splits_cover_every_row_once_within_the_staging(n, k):
     plan = L._plan(n, k, SMS)
     rows = L._split_rows(k, plan.split)
     assert [r for lo, hi in rows for r in range(lo, hi)] == list(range(k))
     assert all(0 < hi - lo <= L._MAX_SPLIT_ROWS + 8 for lo, hi in rows)
     assert all(lo % 8 == 0 for lo, _ in rows)
+
+
+@pytest.mark.parametrize("kind,n,k", [("matmul", 8192, 29568),
+                                      ("swiglu", 29568, 8192),
+                                      ("matmul", 8192, 8192)])
+def test_qwen2_72b_tail_widths_fit_the_ring(kind, n, k):
+    """qwen2-72b's MLP tail (d 8192, d_ff 29568): every split of k is
+    staged within a block's shared memory at the deepest ring, the
+    stages' splits cover k once in order, and the workspace and tickets
+    are sized; no k is refused."""
+    plan = L._plan(n, k, SMS)
+    rows = L._split_rows(k, plan.split)
+    most = max(hi - lo for lo, hi in rows)
+    assert most <= L._MAX_SPLIT_ROWS + 8
+    assert L._smem_bytes(L.MAX_DEPTH, most) <= L._MAX_SMEM
+    assert rows[0][0] == 0 and rows[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
+    splits, words, tickets = L.ring_size(4, [(kind, n, k)], SMS)
+    assert splits == [plan.split] and tickets == plan.tiles + 2
+    assert words == (plan.tiles * plan.split * 4 * L._PARTIAL_COLS[kind]
+                     if plan.split > 1 else 0)
+    assert not hasattr(L, "_check_k") and not hasattr(L, "_MAX_K")
 
 
 @pytest.mark.parametrize("n,head_dim", [(1024, None), (1000, None),

@@ -227,8 +227,8 @@ def test_body_is_picked_from_types_and_shapes():
 
 
 def test_fma_body_splits_p_only_to_fit():
-    assert O._fma_slices(64, 64, 256, 16) == 1
-    assert O._fma_slices(128, 128, 128, 16) == 1
-    assert O._fma_slices(128, 128, 256, 16) == 2
+    assert O._fma_slices(64, 64, 16) == 1
+    assert O._fma_slices(128, 128, 16) == 1
+    assert O._fma_slices(256, 256, 16) == 4
     with pytest.raises(ValueError, match="shared memory"):
-        O._fma_slices(256, 256, 256, 16)
+        O._fma_slices(1024, 256, 16)
