@@ -209,8 +209,30 @@ Phases (any failure exits non-zero without the final result line):
      group) with its roofline row and wall (``chaos``, ``examples`` and
      ``dryrun`` lines; each part's wall on the ``k.`` line).
 
+  l. (right after phase k) the StreamGraph layer and the mesh: each of
+     the four registered graphs compiled by ``core/graph.py``
+     ``compile_graph`` at its registered shapes in bf16, and the decode
+     layer's at full-width qwen1.5-0.5B's widths: the fused plan's output
+     == the direct ``spec.op`` launch bit for bit with one launch of the
+     hand-fused kernel per fused chain (wrapper counts and the profiler's
+     device kernels), ``prefer="staged"`` == ``spec.unfused`` bit for bit
+     (``graph_plan`` lines: each edge's mode, rationale and bytes kept
+     off device memory); full-width qwen1.5-0.5B (f32) served on 4 ranks
+     of the card as (data 2, model 2) over ``gloo_staged``, uncompiled
+     steps on DTensors: a prefill of 4 x 256 tokens and 8 greedy decode
+     steps within 1e-3 of the 1-rank steps with equal tokens (step ms,
+     peak GiB a rank); smoke grok-1 trained 3 steps with Adafactor on the
+     same 4 ranks against 1 rank within 1e-3; and, beside them, the dry
+     runs of qwen1.5-0.5B x prefill_32k and x decode_32k and grok-1 x
+     train_4k on a 256-rank fake group with their roofline rows, then
+     ``experiments/hillclimb_torch.py`` once on the prefill cell with one
+     ``--patch`` (``mesh_serve``, ``mesh_adafactor`` and ``dryrun`` lines;
+     each part's wall on the ``l.`` lines). The dry runs and the
+     hillclimb are host work and run beside phases b-h; their checks
+     come after phase h.
+
 ``python3 chip_smoke.py --dist`` builds the kernels and runs phase j
-alone.
+alone; ``--phase-l`` builds them and runs phase l alone.
 
 ``python3 chip_smoke.py --train-lr-sweep`` builds nothing and trains
 full-width llama3.2-1b for phase i's 30 steps at lr 3e-4, 1e-3, 3e-3 and
@@ -233,7 +255,9 @@ import contextlib
 import ctypes
 import json
 import math
+import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -2917,6 +2941,7 @@ def check_compiled_steps(torch, dev):
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
                 "cudaGraphLaunch", "cuGraphLaunch")
+PROFILE_GAP_S = 0.005
 COPY_CALLS = ("cudaMemcpyAsync", "cudaMemsetAsync", "cuMemcpyAsync",
               "cuMemsetD8Async", "cuMemsetD32Async")
 
@@ -2930,6 +2955,8 @@ def device_profile(prof, n_steps):
     by_name, count = {}, {}
     launches = copies = graphs = 0
     for e in prof.events():
+        if e.name.startswith("ProfilerStep"):
+            continue                # the window's own annotation, no op
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
@@ -2952,13 +2979,25 @@ def device_profile(prof, n_steps):
 
 
 def profile_window(torch, step, n_steps):
-    """``device_profile`` of one window of ``n_steps`` calls of ``step``."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_steps):
-            step()
-        torch.cuda.synchronize()
+    """``device_profile`` of one window of ``n_steps`` calls of ``step``,
+    after a warm-up window of as many calls that the profiler traces and
+    drops: device tracing is running before the counted window starts,
+    so its first kernels are not lost to the start of the trace. Each
+    window idles PROFILE_GAP_S on the host after its start and before its
+    end: the profiler keeps a device op only if its device times, mapped
+    onto the host's clock, fall inside the window, so a kernel launched
+    right at an edge could fall on the wrong side of it."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            time.sleep(PROFILE_GAP_S)
+            for _ in range(n_steps):
+                step()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_GAP_S)
+            prof.step()
     return device_profile(prof, n_steps)
 
 
@@ -4385,6 +4424,364 @@ def dryrun_check(tmp, started):
     print(roofline.markdown_table([row]), flush=True)
 
 
+# phase l: the graphs at full width, the mesh, the dry-run cells
+GRAPH_QWEN = dict(b=4, d=1024, h=16, kvh=16, hd=64, f=2816, s=256)
+GRAPH_KERNEL_SYMBOL = {"ff_dispatch_matmul": "wgmma_kernel",
+                       "ff_attention_proj": "attention_proj_wg_kernel",
+                       "ff_paged_decode_attention": "ring_decode_kernel",
+                       "ff_layer_mlp_tail": "ring_mlp_tail_kernel"}
+GRAPH_PROFILE_TRIES = 3
+MESH_SERVE = dict(arch="qwen1_5_0p5b", batch=4, prompt=256, steps=8,
+                  tol=1e-3, ranks=4)
+MESH_TRAIN = dict(arch="grok1_314b", batch=8, seq=32, steps=3, tol=1e-3)
+L_DRY_CELLS = (("qwen1_5_0p5b", "prefill_32k"), ("qwen1_5_0p5b", "decode_32k"),
+               ("grok1_314b", "train_4k"))
+L_HILLCLIMB = ("--cell", "qwen1_5_0p5b:prefill_32k", "--tag", "l_f32",
+               "--patch", "compute_dtype=float32")
+
+
+def graph_cases(torch, dev):
+    """(label, spec, op args, op keywords) of phase l's graphs: each
+    registered graph at its registered shapes in bf16, and the decode
+    layer at full-width qwen1.5-0.5B's widths (RoPE theta 1e6)."""
+    from repro_torch.kernels import registry as R
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.runtime import paged_kv as P
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(17)
+    make = {"attention_proj": L._attention_proj_inputs,
+            "moe_dispatch_ffn": M._moe_graph_inputs,
+            "paged_decode_attention": P._graph_inputs,
+            "decode_layer": lambda g, d, **kw: L._decode_layer_inputs(
+                g, d, **kw)[0]}
+    cases = [(name, R.get_graph(name), make[name](gen, dev, dtype=bf), {})
+             for name in R.graph_names()]
+    q = GRAPH_QWEN
+    args = L._decode_layer_inputs(gen, dev, b=q["b"], d=q["d"], h=q["h"],
+                                  kvh=q["kvh"], hd=q["hd"], f=q["f"],
+                                  s=q["s"], dtype=bf)[0]
+    cases.append(("decode_layer[qwen1.5-0.5B]", R.get_graph("decode_layer"),
+                  args, {"rope_theta": 1e6}))
+    return cases
+
+
+def graph_device_launches(torch, fn, fused_units, counts):
+    """Each fused chain's kernel as the profiler counts it on the device
+    over one call of ``fn`` (``profile_window``), and the windows that saw
+    fewer of them than the wrappers launched (``counts``): the profiler
+    lost device events there, so the window is traced again, at most
+    GRAPH_PROFILE_TRIES windows in all, as ``profile_steps`` does. A
+    window that sees more launches than the wrappers made is kept."""
+    lost = []
+    for _ in range(GRAPH_PROFILE_TRIES):
+        kern = profile_window(torch, fn, 1)["count"]
+        seen = {f: sum(c for n, c in kern.items()
+                       if GRAPH_KERNEL_SYMBOL[f] in n) for f in fused_units}
+        if all(seen[f] >= counts.get(f, 0) for f in fused_units):
+            break
+        lost.append(seen)
+    return seen, lost
+
+
+def check_graphs(torch, dev):
+    """Phase l's graphs: each case compiled fused and staged; fused ==
+    ``spec.op`` and staged == ``spec.unfused`` bit for bit, one launch of
+    each fused chain's kernel (by its wrapper and by the profiler)."""
+    from repro_torch.kernels import registry as R
+    for label, spec, args, kw in graph_cases(torch, dev):
+        cg, operands, view = R.compile_spec(spec, args, **kw)
+        fused_units = [u.launch for u in cg.units if u.kind == "fused"]
+        counts = counted(torch, lambda: cg(*operands))
+        on_device, lost = graph_device_launches(
+            torch, lambda: cg(*operands), fused_units, counts)
+        out = view(cg(*operands))
+        direct = spec.op(*args, **kw)
+        torch.cuda.synchronize()
+        check(f"graph {label}: compile_graph fused == {spec.name} op bit "
+              f"for bit", torch.equal(out, direct),
+              f"max diff {err(out, direct)}")
+        check(f"graph {label}: one launch of each fused chain's kernel",
+              bool(fused_units) and all(counts.get(f) == 1
+                                        and on_device[f] == 1
+                                        for f in fused_units),
+              f"fused {fused_units}; wrapper launches {counts}; device "
+              f"kernels {on_device}; windows that lost device events "
+              f"{lost}")
+        st, st_ops, st_view = R.compile_spec(spec, args, prefer="staged",
+                                             **kw)
+        staged = st_view(st(*st_ops))
+        unfused = spec.unfused(*args, **kw)
+        torch.cuda.synchronize()
+        check(f"graph {label}: prefer='staged' == {spec.name} unfused bit "
+              f"for bit ({len(st.units)} launches)",
+              torch.equal(staged, unfused)
+              and all(u.kind == "node" for u in st.units),
+              f"max diff {err(staged, unfused)}")
+        print("graph_plan " + json.dumps({
+            "graph": label, "units": [[u.kind, u.out_node, u.launch]
+                                      for u in cg.units],
+            "edges": [{"edge": e.edge.label, "mode": e.mode,
+                       "hbm_bytes_saved": e.hbm_bytes_saved,
+                       "rationale": e.rationale} for e in cg.plan.edges],
+            "hbm_bytes_saved": cg.plan.hbm_bytes_saved,
+            "estimate_us": {"graph": cg.plan.estimate.total_s * 1e6,
+                            "unfused": cg.plan.estimate.unfused_s * 1e6}}),
+            flush=True)
+
+
+def _serve_run(torch, model, params, tokens, place, n_steps):
+    """Uncompiled prefill of ``tokens`` and ``n_steps`` greedy decode
+    steps: each step's logits and tokens (whole) as numpy arrays (a
+    spawned rank returns them through a pipe), the prefill's wall ms (its
+    second call: the first resolves the plans) and each decode step's
+    (the first one resolves its plans)."""
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.runtime import sharding as shlib
+    b, s = tokens.shape
+    prefill = steps_lib.make_prefill_step(model, compiled=False)
+    decode = steps_lib.make_decode_step(model, compiled=False)
+    batch = place({"tokens": tokens}, ("batch", "seq"))
+    prefill(params, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    walls = [(time.perf_counter() - t0) * 1e3]
+    cache = serve_lib.pad_cache_to(cache, s, s + n_steps, 2)
+    cur = shlib.full_tensor(torch.argmax(logits, dim=-1).to(torch.int32))
+    out = {"logits": [shlib.full_tensor(logits).float().cpu().numpy()],
+           "tokens": []}
+    lengths = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        cur, logits, cache = decode(
+            params, place({"token": cur, "lengths": lengths}, ("batch",)),
+            cache)
+        cur = shlib.full_tensor(cur)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        out["logits"].append(shlib.full_tensor(logits).float().cpu().numpy())
+        out["tokens"].append(cur.cpu().numpy())
+        lengths = lengths + 1
+    out["wall_ms"] = walls
+    return out
+
+
+def _adafactor_run(model, params, batch, n_steps):
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import adafactor
+    opt = adafactor.init(params)
+    step = steps_lib.make_train_step(
+        model, optimizer="adafactor",
+        opt_cfg=adafactor.AdafactorConfig(warmup_steps=1))
+    losses = []
+    for _ in range(n_steps):
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+    return losses
+
+
+def _l_models():
+    from repro_torch.configs.base import get_config, smoke_config
+    serve_cfg = get_config(MESH_SERVE["arch"]).replace(
+        compute_dtype="float32")
+    train_cfg = smoke_config(MESH_TRAIN["arch"]).replace(attn_impl="xla")
+    return serve_cfg, train_cfg
+
+
+def _l_inputs(torch, serve_cfg, train_cfg, dev):
+    gen = torch.Generator().manual_seed(29)
+    tokens = torch.randint(1, serve_cfg.vocab, (MESH_SERVE["batch"],
+                                                MESH_SERVE["prompt"]),
+                           generator=gen).to(dev)
+    batch = {k: v.to(dev) for k, v in train_batch(
+        torch, train_cfg, MESH_TRAIN["batch"], MESH_TRAIN["seq"]).items()}
+    return tokens, batch
+
+
+def l_mesh(rank, world):
+    """Phase l's 4-rank spawn on the card: full-width qwen1.5-0.5B served
+    by the uncompiled steps on DTensors (params by ``init_params``: each
+    leaf drawn whole from seed 0, as ``model.init`` draws it), then smoke
+    grok-1 trained by Adafactor, on the (data 2, model 2) host mesh.
+    Every rank returns its peak memory; rank 0 the outputs."""
+    torch, dev = _j_rank_setup()
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.runtime import sharding as shlib
+    serve_cfg, train_cfg = _l_models()
+    tokens, batch = _l_inputs(torch, serve_cfg, train_cfg, dev)
+    mesh = make_host_mesh(device_type="cuda")
+    out = {}
+    for key, cfg in (("serve", serve_cfg), ("train", train_cfg)):
+        model = build_model(cfg)
+        with shlib.use_sharding(mesh, overrides=cfg.rule_overrides):
+            params = steps_lib.init_params(
+                model, torch.Generator(device=dev).manual_seed(0), dev)
+
+            def place(tree, axes):
+                return shlib.place_tree(tree, {k: axes for k in tree})
+            if key == "serve":
+                out[key] = _serve_run(torch, model, params, tokens, place,
+                                      MESH_SERVE["steps"])
+                out["serve_launches"] = {n: w.launches for n, w in
+                                         wrappers().items() if w.launches}
+            else:
+                out[key] = _adafactor_run(
+                    model, params,
+                    place(batch, ("batch", "seq")), MESH_TRAIN["steps"])
+        del params
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out if rank == 0 else {"peak_gib": out["peak_gib"]}
+
+
+def check_mesh(torch, dev, tmp):
+    """Phase l's mesh checks: the 4-rank spawn (:func:`l_mesh`) against
+    the same steps on 1 rank in this process."""
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import build_model
+    outs = spawn_ranks(l_mesh, MESH_SERVE["ranks"],
+                       init_file=f"{tmp}/mesh", backend="gloo_staged",
+                       timeout=600)
+    mesh = outs[0]
+    serve_cfg, train_cfg = _l_models()
+    tokens, batch = _l_inputs(torch, serve_cfg, train_cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(serve_cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    one = _serve_run(torch, model, params, tokens, lambda t, a: t,
+                     MESH_SERVE["steps"])
+    one_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, model
+    errs = [float(abs(a - b).max()) for a, b in zip(mesh["serve"]["logits"],
+                                                    one["logits"])]
+    same = all((a == b).all() for a, b in zip(mesh["serve"]["tokens"],
+                                              one["tokens"]))
+    check(f"mesh serving: full-width {MESH_SERVE['arch']} f32, prefill "
+          f"{MESH_SERVE['batch']} x {MESH_SERVE['prompt']} and "
+          f"{MESH_SERVE['steps']} decode steps on {MESH_SERVE['ranks']} "
+          f"ranks (data 2, model 2) vs 1 rank: logits within "
+          f"{MESH_SERVE['tol']}, tokens equal",
+          max(errs) <= MESH_SERVE["tol"] and same,
+          f"max |logits| err per step {errs}; tokens equal {same}")
+    print("mesh_serve " + json.dumps({
+        "card": smi_line(), "ranks": MESH_SERVE["ranks"],
+        "mesh": "data 2 x model 2", "backend": "gloo_staged",
+        "prefill_ms": {"mesh": mesh["serve"]["wall_ms"][0],
+                       "one_rank": one["wall_ms"][0]},
+        "decode_ms": {"mesh": mesh["serve"]["wall_ms"][1:],
+                      "one_rank": one["wall_ms"][1:]},
+        "peak_gib_a_rank": [o["peak_gib"] for o in outs],
+        "one_rank_peak_gib": one_peak, "max_logit_err": errs,
+        "launches_rank0": mesh["serve_launches"]}), flush=True)
+    model = build_model(train_cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    one_losses = _adafactor_run(model, params, batch,
+                                MESH_TRAIN["steps"])
+    diffs = [abs(a - b) for a, b in zip(mesh["train"], one_losses)]
+    check(f"Adafactor on the mesh: smoke {MESH_TRAIN['arch']} "
+          f"{MESH_TRAIN['steps']} steps on {MESH_SERVE['ranks']} ranks vs "
+          f"1 rank, losses within {MESH_TRAIN['tol']}",
+          max(diffs) <= MESH_TRAIN["tol"],
+          f"mesh {mesh['train']}, one rank {one_losses}")
+    print("mesh_adafactor " + json.dumps({
+        "mesh_losses": mesh["train"], "one_rank_losses": one_losses,
+        "max_diff": max(diffs)}), flush=True)
+
+
+def start_l_dryruns():
+    """The phase-l dry-run cells, each a subprocess on 256 fake ranks
+    writing ``experiments/dryrun_torch/``; the prefill cell's is followed
+    by the hillclimb on it (its base). Host work only: it runs beside the
+    phases after l. Returns [(cell, process, start time)]."""
+    dry = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    hill = " ".join([sys.executable, "experiments/hillclimb_torch.py",
+                     *L_HILLCLIMB])
+    started = []
+    for arch, shape in L_DRY_CELLS:
+        cmd = dry + ["--arch", arch, "--shape", shape]
+        if (arch, shape) == tuple(L_HILLCLIMB[1].split(":")):
+            cmd = ["bash", "-c", " ".join(cmd) + " && " + hill]
+        started.append(((arch, shape), subprocess.Popen(
+            cmd, env=_sub_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=str(ROOT),
+            start_new_session=True), time.perf_counter()))
+    return started
+
+
+def check_l_dryruns(started):
+    """Each phase-l cell's result and roofline row (:func:`start_l_dryruns`,
+    waited for here), and the hillclimb's table."""
+    from repro_torch.launch import roofline
+    from repro_torch.launch.dryrun import OUT_DIR
+    t0 = time.perf_counter()
+    rows = []
+    try:
+        for (arch, shape), proc, t1 in started:
+            stdout, stderr = proc.communicate(timeout=900)
+            wall = time.perf_counter() - t1
+            cell = Path(OUT_DIR) / f"{arch}__{shape}__pod16x16.json"
+            result = json.loads(cell.read_text()) if cell.exists() else {}
+            check(f"dryrun {arch} x {shape} x pod16x16 (256 fake ranks)",
+                  bool(result.get("ok")),
+                  f"wall {wall:.1f} s: {stdout[-300:]}"
+                  f"{result.get('error', '')}{stderr[-1500:]}")
+            if result.get("ok"):
+                row = roofline.analyze_cell(result)
+                rows.append(row)
+                print("dryrun " + json.dumps({
+                    "cell": result["cell"], "wall_s": wall,
+                    "timings": result.get("timings"),
+                    "memory": result["memory"], "roofline": row}),
+                    flush=True)
+            if "hillclimb_torch.py" in " ".join(proc.args):
+                check(f"experiments/hillclimb_torch.py "
+                      f"{' '.join(L_HILLCLIMB)}",
+                      proc.returncode == 0 and "bottleneck:" in stdout,
+                      f"rc {proc.returncode}: {stdout[-1200:]}"
+                      f"{stderr[-1500:]}")
+    finally:
+        for _, proc, _ in started:
+            if proc.poll() is None:     # the bash of a chain, and its child
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    if rows:
+        print(roofline.markdown_table(rows), flush=True)
+    print(f"l. dry runs and hillclimb (beside the phases after l): waited "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{time.perf_counter() - started[0][2]:.1f} s since their start",
+          flush=True)
+
+
+def phase_l(torch, dev):
+    """Phase l: the StreamGraph layer on the card and serving and
+    Adafactor on the 4-rank mesh; the dry-run cells start here and run
+    beside the later phases (:func:`check_l_dryruns` collects them).
+    Returns what :func:`start_l_dryruns` started."""
+    import tempfile
+    t0 = time.perf_counter()
+    walls = {}
+    started = start_l_dryruns()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_l_") as tmp:
+        for name, fn in (("mesh", lambda: check_mesh(torch, dev, tmp)),
+                         ("graphs", lambda: check_graphs(torch, dev))):
+            t1 = time.perf_counter()
+            try:
+                fn()
+            except Exception:   # noqa: BLE001 — a failed part fails
+                import traceback
+                check(f"phase l {name} ran to its end", False,
+                      traceback.format_exc()[-3000:])
+            walls[name] = time.perf_counter() - t1
+    print(f"l. graphs, mesh serving, Adafactor: "
+          f"{time.perf_counter() - t0:.1f} s {json.dumps(walls)}",
+          flush=True)
+    return started
+
+
 def phase_k(torch, dev):
     """Phase k: the chaos suite on the card, the four examples, the
     feed-forward specs against the kernels, the full-width dry-run cell.
@@ -4424,6 +4821,9 @@ def main() -> int:
     ap.add_argument("--dist", action="store_true",
                     help="build, then run only phase j (the distributed "
                     "runtime) and print its lines")
+    ap.add_argument("--phase-l", action="store_true",
+                    help="build, then run only phase l (graphs, the mesh "
+                    "serving steps and Adafactor, the dry-run cells)")
     ap.add_argument("--train-lr-sweep", action="store_true",
                     help="build nothing; train full-width llama3.2-1b for "
                     "phase i's steps at each of TRAIN_LRS and print one "
@@ -4452,6 +4852,9 @@ def main() -> int:
               flush=True)
     print(f"a. build: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    if opts.phase_l:
+        check_l_dryruns(phase_l(torch, dev))
+        return 1 if failures else 0
     # phase j first: its ranks share the card with this process, which
     # holds nothing on it yet
     dist_launches = dist_phase(torch, dev)
@@ -4460,6 +4863,9 @@ def main() -> int:
     # phase k while this process still holds nothing on the card: the
     # chaos suite starts 8 ranks on it
     phase_k(torch, dev)
+    # phase l: its ranks too want the card before this process fills it;
+    # its dry runs go on beside the phases below
+    l_dryruns = phase_l(torch, dev)
     shapes = main_path_shapes(torch)
     if opts.decode_timing:
         rows = time_decode(torch, dev, shapes)
@@ -4515,6 +4921,7 @@ def main() -> int:
     check_compiled_steps(torch, dev)
     runs = profile_decode(torch, dev)
     plan_phase(torch, dev, sweep, runs, shapes)
+    check_l_dryruns(l_dryruns)
     kernels = []
     for name, meta in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", **meta,

@@ -62,12 +62,22 @@ def graph_demo(dev):
     from repro_torch.kernels.registry import get_graph, run_graph_smoke
 
     # the registered MoE graph: an irregular gather (dispatch) feeding a
-    # regular matmul (expert FFN) in one launch, the dispatched rows read
-    # through the index and never written, then the combine gather (a
-    # gather edge cannot fuse: its addresses are data-dependent)
+    # regular matmul (expert FFN). compile_graph fuses dispatch->expert
+    # onto one launch (ff_matmul's dispatch path: the dispatched rows are
+    # read through the index and never written) and stages
+    # expert->combine (a gather edge cannot fuse: its addresses are
+    # data-dependent)
     spec = get_graph("moe_dispatch_ffn")
-    out, ref, err, report = run_graph_smoke(spec, device=dev)
-    print(f" {report['graph']}: {report['doc']}")
+    out, ref, err, compiled = run_graph_smoke(spec, device=dev)
+    print(f" units: {[(u.kind, u.out_node, u.launch) for u in compiled.units]}")
+    for ep in compiled.plan.edges:
+        print(f" edge {ep.edge.label}: {ep.mode}"
+              + (f" (saves {ep.hbm_bytes_saved / 1024:.0f} KiB of device "
+                 f"memory traffic)" if ep.mode == "fused" else ""))
+    est = compiled.plan.estimate
+    report = compiled.report
+    print(f" modeled: unfused {est.unfused_s * 1e6:.1f} us -> graph "
+          f"{est.total_s * 1e6:.1f} us ({est.overlap_speedup:.2f}x)")
     print(f" fused == staged composition bit for bit: "
           f"{report['fused_equals_staged']}; max|err| vs plain = {err:.2e} "
           f"(staged {report['staged_err']:.2e})")

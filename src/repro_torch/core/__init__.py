@@ -7,11 +7,17 @@
   meshspec        the topology token of plan keys
   planner         ``plan_pipe`` and the per-call-site plan cache
   profiling       the traffic-recording hook of the plan service
-  program         ``PipePolicy``, the session policy, ``make_entrypoint``
+  program         ``PipePolicy``, the session policy, ``make_entrypoint``;
+                  the StreamProgram declarations and ``compile_program``
+                  (a declaration bound to its hand-written launch)
+  graph           ``StreamGraph``, ``check_fusion``, ``compile_graph``
+                  (fused chains onto the hand-fused kernels)
   autotune        the measured lookup chain (memory, disk, PlanDB,
                   measure, analytic)
   feedforward     ``StreamSpec`` and its oracle ``run_reference``, the
                   MLCD check: the contract the kernels are tested against
 
-None of it imports a kernel: the kernels import it.
+None of it imports a kernel at import time: the kernels import it, and
+``compile_program`` / ``compile_graph`` import a launch when they bind
+it.
 """

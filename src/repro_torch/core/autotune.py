@@ -69,6 +69,8 @@ import torch
 from repro_torch import obs
 from repro_torch.core import planner, profiling
 from repro_torch.core.meshspec import MeshSpec, SINGLE_DEVICE, resolve_mesh
+# the graph tuner's keys live with the graph IR; callers reach them here
+from repro_torch.core.graph import graph_signature, graph_workload  # noqa: F401
 from repro_torch.core.pipe import DEFAULT_SMEM_BUDGET_BYTES, Pipe, \
     dtype_name, required_depth, smem_budget_ok
 from repro_torch.core.pipeline_model import estimate_feedforward
@@ -864,33 +866,3 @@ def resolve_graph(graph_name: str, policy, *, workload, tile, dtype,
                         extra_key=f"sig={signature}",
                         site=site, site_dynamic=site_dynamic,
                         depth_cap=depth_cap)
-
-
-def graph_workload(nodes) -> Tuple[Any, Tuple[int, ...]]:
-    """Summarize a graph's nodes as one Workload (the joint tuner's call
-    site), as the reference's ``core/graph.py`` ``graph_workload`` does:
-    total words, byte/flop averages weighted by words, irregular if any
-    node is. ``nodes`` is a sequence of ``(name, Workload, tile)`` in
-    launch order; the tile is the first node's."""
-    from repro_torch.core.pipeline_model import Workload
-
-    ws = [w for _, w, _ in nodes]
-    n_words = max(sum(w.n_words for w in ws), 1)
-    w = Workload(
-        n_words=n_words,
-        word_bytes=sum(w.word_bytes * w.n_words for w in ws) / n_words,
-        flops_per_word=sum(w.flops_per_word * w.n_words for w in ws)
-        / n_words,
-        regular=all(w.regular for w in ws),
-        store_bytes_per_word=sum(w.store_bytes_per_word * w.n_words
-                                 for w in ws) / n_words,
-    )
-    return w, tuple(nodes[0][2])
-
-
-def graph_signature(nodes) -> str:
-    """Structural identity of a graph of the port for the tuned-plan key:
-    each node's name, words, word tile and word bytes, in launch order."""
-    return ";".join(
-        f"{name}/{w.n_words}w/{'x'.join(map(str, tile))}/"
-        f"{w.word_bytes:g}B" for name, w, tile in nodes)

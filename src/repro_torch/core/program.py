@@ -17,14 +17,20 @@ Per-kernel ``depth=`` / ``streams=`` / ``mode=`` keywords keep working
 through :func:`resolve_call_policy`, which folds them into a PipePolicy and
 warns once per op, as the reference's.
 
-The other half of the reference's module, the StreamProgram IR and
-``compile_program`` (its Pallas lowering through the ring-pipe emitter), has
-no counterpart: each kernel of the port is written by hand
-(``kernels/csrc``), with ``depth`` and ``streams`` as its arguments. The
-reference's ``interpret`` field has no meaning here either and is left out:
-which version runs is chosen by the tensors' device (CPU tensors run the
-plain PyTorch version, CUDA tensors the kernel), and ``mode="ref"`` runs
-the plain version on any device.
+The other half is the reference's StreamProgram IR on the host: a kernel
+*declared* as producer stages (:class:`Stream` edges, :class:`BlockIn` and
+:class:`ScalarIn` operands) feeding a consumer, with its block schedules
+(``out_schedule``, ``stream_schedule``) as pure Python on ints, the same
+tuples as the reference's, so the graph fuser (:mod:`repro_torch.core.
+graph`) reads the same legality from them. A declaration carries no body:
+``StreamProgram.kernel`` names the hand-written launch it stands for
+(``kernels/csrc``), with the launch's keyword arguments, and
+:func:`compile_program` binds that launch to the program's shapes. The
+port has no generic emitter: a program naming a launch the port has not
+written is refused. The reference's ``interpret`` field has no meaning
+here either and is left out: which version runs is chosen by the tensors'
+device (CPU tensors run the plain PyTorch version, CUDA tensors the
+kernel), and ``mode="ref"`` runs the plain version on any device.
 """
 
 from __future__ import annotations
@@ -32,14 +38,20 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import importlib
 import inspect
+import math
 import threading
 import warnings
-from typing import Any, Callable, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
+
+import torch
 
 from repro_torch.core import planner
-from repro_torch.core.meshspec import MeshSpec
-from repro_torch.core.pipeline_model import H100_SXM, HardwareModel
+from repro_torch.core.meshspec import MeshSpec, resolve_sharding
+from repro_torch.core.pipe import Pipe, dtype_name, itemsize
+from repro_torch.core.pipeline_model import H100_SXM, HardwareModel, \
+    Workload
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,3 +235,316 @@ def make_entrypoint(op: str, apply_fn: Callable[..., Any],
     entrypoint.__qualname__ = name or op
     entrypoint.launches = 0
     return entrypoint
+
+
+# ---------------------------------------------------------------------------
+# The StreamProgram IR (declarations and their block schedules)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Stream:
+    """A producer stage and its pipe edge: operand ``name`` streams from
+    device memory into the ring ``spec`` describes.
+
+    ``gather=True`` marks an irregular per-row stream (data-dependent
+    addresses). ``index`` declares a regular stream's block schedule for
+    the graph fuser: ``index(word) -> block-index tuple`` names which tile
+    of the operand word ``word`` consumes, in the operand's own ``tile``
+    blocking, a pure function of the word index on Python ints, exactly the
+    reference's. A gather declares none, so an edge into it stages.
+    """
+
+    name: str
+    spec: Pipe
+    gather: bool = False
+    index: Optional[Callable[..., Tuple[int, ...]]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockIn:
+    """A block-delivered (non-streamed) operand: its ``block`` shape and
+    ``index_map(word, *scalars)`` block schedule; ``dtype`` sizes its ring
+    where a fused graph would promote it to a stream."""
+
+    name: str
+    block: Tuple[int, ...]
+    index_map: Callable[..., Any]
+    dtype: Any = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class ScalarIn:
+    """A scalar-prefetched operand (index and length vectors)."""
+
+    name: str
+
+
+@dataclasses.dataclass(frozen=True)
+class ScratchSpec:
+    """One consumer-owned carry of the declaration (accumulators etc.),
+    counted in a fused chain's declared footprint."""
+
+    name: str
+    shape: Tuple[int, ...]
+    dtype: Any = torch.float32
+
+
+InputSpec = Union[Stream, BlockIn, ScalarIn]
+
+
+class ScheduleOpaqueError(ValueError):
+    """A block schedule could not be evaluated statically (an index map
+    that reads a scalar operand, or a stream with no declared ``index``).
+    The graph fuser stages such an edge, with this as its rationale."""
+
+
+class _OpaqueScalar:
+    """Stand-in for a scalar operand during static schedule evaluation:
+    any attempt to *read* it proves the schedule is data-dependent."""
+
+    def _opaque(self, *_, **__):
+        raise ScheduleOpaqueError(
+            "schedule depends on a scalar-prefetch operand (data-dependent)")
+
+    __getitem__ = __getattr__ = __index__ = __int__ = _opaque
+    __add__ = __radd__ = __mul__ = __rmul__ = _opaque
+    __floordiv__ = __rfloordiv__ = __mod__ = __rmod__ = _opaque
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamProgram:
+    """A kernel declared as producer stages -> pipes -> consumer.
+
+    Attributes:
+      name: op name (planner key; the reference's ``name``).
+      n_words: trip count of the word schedule.
+      inputs: call-ordered operand specs, ScalarIn first (the reference's
+        scalar-prefetch convention).
+      kernel: the hand-written launch the program stands for (a key of
+        :data:`LAUNCHES`); ``kernel_kwargs`` are its keyword arguments.
+      out_shape / out_dtype / out_block / out_index_map: the output block
+        mapping, as the reference declares it.
+      scratch: consumer-owned carries of the declaration.
+
+    Where a hand-written kernel tiles otherwise than the reference's
+    program, the declaration keeps the reference's block schedule (its
+    tiles decide which graph edges are legal to fuse), and the launch
+    chooses its own tiles.
+    """
+
+    name: str
+    n_words: int
+    inputs: Tuple[InputSpec, ...]
+    kernel: str
+    out_shape: Tuple[int, ...]
+    out_dtype: Any
+    out_block: Tuple[int, ...]
+    out_index_map: Callable[..., Any]
+    scratch: Tuple[ScratchSpec, ...] = ()
+    kernel_kwargs: Mapping[str, Any] = dataclasses.field(
+        default_factory=dict)
+
+    def __post_init__(self):
+        names = [i.name for i in self.inputs] + [s.name for s in self.scratch]
+        if len(set(names)) != len(names):
+            raise ValueError(f"{self.name}: duplicate operand/scratch names "
+                             f"in {names}")
+        seen_tensor = False
+        for i in self.inputs:
+            if isinstance(i, ScalarIn):
+                if seen_tensor:
+                    raise ValueError(
+                        f"{self.name}: ScalarIn operands must precede tensor "
+                        f"operands (the scalar-prefetch convention)")
+            else:
+                seen_tensor = True
+        if not self.streams:
+            raise ValueError(f"{self.name}: a StreamProgram needs at least "
+                             f"one Stream edge")
+        if self.n_words < 1:
+            raise ValueError(f"{self.name}: n_words must be >= 1")
+
+    @property
+    def streams(self) -> Tuple[Stream, ...]:
+        return tuple(i for i in self.inputs if isinstance(i, Stream))
+
+    @property
+    def num_scalar_prefetch(self) -> int:
+        return sum(isinstance(i, ScalarIn) for i in self.inputs)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Ring bytes of all pipe edges as declared (the reference's
+        ``vmem_bytes``, on the port's shared-memory :class:`Pipe`)."""
+        return sum(s.spec.smem_bytes for s in self.streams)
+
+    def stream(self, name: str) -> Stream:
+        for s in self.streams:
+            if s.name == name:
+                return s
+        raise KeyError(f"{self.name}: no stream {name!r}; streams: "
+                       f"{[s.name for s in self.streams]}")
+
+    def out_schedule(self) -> Tuple[Tuple[int, ...], ...]:
+        """The output block schedule: ``out_index_map`` evaluated per word.
+        Raises :class:`ScheduleOpaqueError` when the map reads a scalar
+        operand (data-dependent output placement)."""
+        dummies = (_OpaqueScalar(),) * self.num_scalar_prefetch
+        sched = []
+        for g in range(self.n_words):
+            try:
+                idx = self.out_index_map(g, *dummies)
+                sched.append(tuple(int(i) for i in idx))
+            except ScheduleOpaqueError:
+                raise
+            except Exception as e:   # noqa: BLE001 — map not int-evaluable
+                raise ScheduleOpaqueError(
+                    f"{self.name}: out_index_map is not statically "
+                    f"evaluable at word {g}: {type(e).__name__}: {e}") from e
+        return tuple(sched)
+
+    def stream_schedule(self, name: str) -> Tuple[Tuple[int, ...], ...]:
+        """Stream ``name``'s declared block schedule, one tuple per word;
+        :class:`ScheduleOpaqueError` for a stream declaring no ``index``."""
+        st = self.stream(name)
+        if st.index is None:
+            raise ScheduleOpaqueError(
+                f"{self.name}: stream {name!r} declares no block schedule "
+                f"(Stream.index); its addresses are data-dependent")
+        try:
+            return tuple(tuple(int(i) for i in st.index(g))
+                         for g in range(self.n_words))
+        except ScheduleOpaqueError:
+            raise
+        except Exception as e:   # noqa: BLE001
+            raise ScheduleOpaqueError(
+                f"{self.name}: stream {name!r} index is not statically "
+                f"evaluable: {type(e).__name__}: {e}") from e
+
+
+def program_workload(program: StreamProgram) -> Workload:
+    """A conservative analytic Workload from a program's streams (words,
+    bytes a word, regularity, stores a word), as the reference's."""
+    store = (float(math.prod(program.out_shape))
+             * itemsize(program.out_dtype)) / program.n_words
+    return Workload(
+        n_words=program.n_words,
+        word_bytes=float(sum(s.spec.word_bytes for s in program.streams)),
+        flops_per_word=0.0,
+        regular=not any(s.gather for s in program.streams),
+        store_bytes_per_word=store,
+    )
+
+
+def _clamped_streams(tile0: int, streams: int) -> int:
+    """Largest power-of-two-reduced stream count dividing the tile's
+    leading dim (the planner's global choice refined per stream)."""
+    s = max(1, int(streams))
+    while s > 1 and tile0 % s:
+        s //= 2
+    return max(1, s)
+
+
+# ---------------------------------------------------------------------------
+# Binding a declaration to its hand-written launch
+# ---------------------------------------------------------------------------
+
+# kernel name -> "module:function" of its launch, imported on first use:
+# ``launch(program, operands: {input name: tensor}, policy) -> tensor``
+LAUNCHES: Dict[str, str] = {
+    "ff_attention": "repro_torch.kernels.ff_attention.program:launch",
+    "ff_decode_attention":
+        "repro_torch.kernels.ff_decode_attention.program:launch",
+    "ff_paged_decode_attention":
+        "repro_torch.kernels.ff_decode_attention.program:launch_paged",
+    "ff_gather": "repro_torch.kernels.ff_gather.program:launch",
+    "ff_matmul": "repro_torch.kernels.ff_matmul.program:launch",
+    "ff_layer_matmul": "repro_torch.kernels.ff_layer.program:launch_matmul",
+    "ff_layer_swiglu": "repro_torch.kernels.ff_layer.program:launch_swiglu",
+    "ff_chunk_scan": "repro_torch.kernels.ff_chunk_scan.program:launch",
+}
+
+
+# the epilogues each kernel implements (a graph node's Epilogue names one)
+EPILOGUES: Dict[str, Tuple[str, ...]] = {
+    "ff_layer_matmul": ("residual", "rope_bias"),
+}
+
+
+def launch_for(program: StreamProgram) -> Callable[..., Any]:
+    """The launch ``program.kernel`` names; a clear error where the port
+    has none (it has no generic emitter to lower a declaration with), or
+    where the program carries an epilogue its kernel does not implement."""
+    target = LAUNCHES.get(program.kernel)
+    if target is None:
+        raise NotImplementedError(
+            f"{program.name}: the port has no hand-written kernel "
+            f"{program.kernel!r} to launch this program with (it has no "
+            f"generic emitter); written: {sorted(LAUNCHES)}")
+    epi = program.kernel_kwargs.get("epilogue")
+    if epi is not None and epi not in EPILOGUES.get(program.kernel, ()):
+        raise NotImplementedError(
+            f"{program.name}: kernel {program.kernel!r} implements no "
+            f"epilogue {epi!r} (it implements "
+            f"{EPILOGUES.get(program.kernel, ())})")
+    module, fn = target.split(":")
+    return getattr(importlib.import_module(module), fn)
+
+
+def compile_program(program: StreamProgram, *,
+                    pipe_overrides: Optional[Mapping[str, Pipe]] = None,
+                    policy: Optional[PipePolicy] = None, sharding=None):
+    """Bind ``program`` to its hand-written launch at its shapes.
+
+    Returns a callable taking the program's operands in ``inputs`` order,
+    which launches the kernel ``program.kernel`` names through the same
+    policy-taking entry point ``repro_torch.ops`` exposes (on CPU tensors
+    its plain version). ``policy`` (default: the session policy) sizes the
+    ring as the entry point sizes it; ``sharding`` (a ShardingContext or a
+    MeshSpec; None: the ambient one) tags it with the mesh, so its plan is
+    keyed by the topology. ``pipe_overrides`` pins the ring instead: the
+    port's kernels run one ring a launch, so every override must name the
+    same ``depth`` and ``streams``, and keep its stream's tile and type
+    (a different tile is a different program)."""
+    run = launch_for(program)
+    if policy is not None and pipe_overrides is not None:
+        raise TypeError(f"{program.name}: pass either policy= or "
+                        f"pipe_overrides=, not both")
+    pol = current_policy() if policy is None else policy
+    if pipe_overrides:
+        specs = {s.name: s.spec for s in program.streams}
+        rings = set()
+        for name, pipe in pipe_overrides.items():
+            if name not in specs:
+                raise KeyError(f"{program.name}: pipe override for unknown "
+                               f"stream {name!r}; streams: {sorted(specs)}")
+            old = specs[name]
+            if tuple(pipe.tile) != tuple(old.tile) or \
+                    dtype_name(pipe.dtype) != dtype_name(old.dtype):
+                raise ValueError(
+                    f"{program.name}: pipe override for {name!r} must keep "
+                    f"tile/dtype ({old.tile}, {dtype_name(old.dtype)}); "
+                    f"rebuild the program for a different tile")
+            rings.add((pipe.depth, pipe.streams))
+        if len(rings) != 1:
+            raise ValueError(f"{program.name}: the port's kernels run one "
+                             f"ring a launch; overrides ask for {rings}")
+        (depth, streams), = rings
+        pol = pol.replace(mode="ff" if pol.mode == "autotune" else pol.mode,
+                          depth=depth, streams=streams)
+    if sharding is not None or pol.mesh is None:
+        mesh, _ = resolve_sharding(sharding if sharding is not None
+                                   else pol.mesh)
+        if mesh.device_count > 1:
+            pol = pol.replace(mesh=mesh)
+    names = tuple(i.name for i in program.inputs)
+
+    def call(*operands):
+        if len(operands) != len(names):
+            raise TypeError(f"{program.name}: expected {len(names)} "
+                            f"operands {list(names)}, got {len(operands)}")
+        return run(program, dict(zip(names, operands)), pol)
+
+    call.policy = pol
+    return call

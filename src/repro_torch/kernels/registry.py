@@ -26,8 +26,10 @@ Each kernel package registers itself at import time with
                the output's. :func:`run_sharded_smoke` builds on it; None
                opts the kernel out of the sharded harness
 
-Left out of the reference's spec: ``program`` (the StreamProgram builder:
-the port's kernels are written by hand, ``kernels/csrc``).
+Left out of the reference's spec: ``program`` (its StreamProgram builder
+hook): each kernel package's ``program.py`` declares the reference's
+programs (``build_program`` and kin), which ``core/program.py``
+``compile_program`` binds to the hand-written launch.
 
 Registration is lazy: the five built-in packages are imported on first
 lookup, so ``import repro_torch.kernels.registry`` alone stays cheap.
@@ -135,9 +137,12 @@ class GraphSpec:
     through ``autotune.resolve_graph`` at the call site's shapes;
     ``make_inputs(gen, device)`` returns its operands; ``ref`` is the plain
     version over the same operands; ``unfused`` runs the same computation
-    as separate ``repro_torch.ops`` calls. The reference's ``build`` (its
-    StreamGraph declaration) has no counterpart: each graph of the port is
-    one hand-written launch or a fixed chain of them.
+    as separate ``repro_torch.ops`` calls. ``build(**shapes)`` declares the
+    graph as a StreamGraph (the reference's builder, same name and
+    defaults) for :func:`~repro_torch.core.graph.compile_graph`;
+    ``graph_args(*args, **kwargs)`` turns ``op``'s operands into ``(build
+    keywords, the compiled graph's operands, a view of its output as
+    op's)``, so the compiled graph launches what ``op`` launches.
     """
 
     name: str
@@ -149,6 +154,8 @@ class GraphSpec:
     tol: float = 1e-4
     doc: str = ""
     sweep_inputs: Optional[Callable[..., Tuple[tuple, dict]]] = None
+    build: Optional[Callable[..., Any]] = None
+    graph_args: Optional[Callable[..., tuple]] = None
 
 
 _GRAPHS: Dict[str, GraphSpec] = {}
@@ -205,24 +212,41 @@ def run_graph(spec: GraphSpec, args: tuple, *, policy=None, **kwargs):
     return spec.op(*args, policy=policy, **kwargs)
 
 
-def run_graph_smoke(spec: GraphSpec, *, policy=None, seed: int = 0,
+def compile_spec(spec: GraphSpec, args: tuple, *, policy=None,
+                 prefer: Optional[str] = None, **kwargs):
+    """``spec``'s StreamGraph at the shapes of ``op``'s operands ``args``,
+    compiled: ``(CompiledGraph, its operands, a view of its output as
+    op's)``."""
+    from repro_torch.core.graph import compile_graph
+
+    build_kw, operands, view = spec.graph_args(*args, **kwargs)
+    cg = compile_graph(spec.build(**build_kw), policy=policy, prefer=prefer)
+    return cg, operands, view
+
+
+def run_graph_smoke(spec: GraphSpec, *, policy=None,
+                    prefer: Optional[str] = None, seed: int = 0,
                     device="cpu"):
-    """Run ``spec`` at its declared shapes on ``device`` against its plain
-    version. Returns ``(out, ref, max_abs_err, report)``. Where the
-    reference returns the compiled graph, the port reports what its
-    GraphSpec holds: ``report`` names the graph, and holds its staged
-    composition's output (``unfused``: the same computation as separate
-    ``repro_torch.ops`` calls, None if the graph declares none), whether
-    the fused launch equals it bit for bit, and the two errors against the
-    plain version."""
+    """Compile ``spec``'s StreamGraph at its declared shapes on ``device``
+    and run it against its plain version. Returns ``(out, ref,
+    max_abs_err, compiled)``, as the reference's: ``compiled`` is the
+    :class:`~repro_torch.core.graph.CompiledGraph` (its ``plan`` holds the
+    per-edge decisions). ``compiled.report`` holds what the port checks
+    beside it: the graph's name and doc, its staged composition's output
+    (``unfused``: the same computation as separate ``repro_torch.ops``
+    calls, None if the graph declares none), whether the compiled graph
+    equals it bit for bit, and the two errors against the plain
+    version."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(seed)
     args = spec.make_inputs(gen, torch.device(device))
-    out = run_graph(spec, args, policy=policy)
+    cg, operands, view = compile_spec(spec, args, policy=policy,
+                                      prefer=prefer)
+    out = view(cg(*operands))
     ref = spec.ref(*args)
     staged = spec.unfused(*args) if spec.unfused is not None else None
-    report = {
+    cg.report = {
         "graph": spec.name,
         "doc": spec.doc,
         "fused_err": _max_err(out, ref),
@@ -231,7 +255,7 @@ def run_graph_smoke(spec: GraphSpec, *, policy=None, seed: int = 0,
         "fused_equals_staged": None if staged is None
         else bool(torch.equal(out, staged)),
     }
-    return out, ref, report["fused_err"], report
+    return out, ref, cg.report["fused_err"], cg
 
 
 def _max_err(out, ref) -> float:

@@ -164,6 +164,9 @@ def _placed(tree, axes, ctx, device):
     ``device``, placed as DTensors by the logical ``axes``."""
     if isinstance(tree, dict):
         return {k: _placed(tree[k], axes[k], ctx, device) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_placed(t, a, ctx, device)
+                          for t, a in zip(tree, axes))
     full = torch.zeros(tuple(tree.shape), dtype=tree.dtype, device=device)
     sharding = shlib.sharding_for(axes, ctx)
     return full if sharding is None else sharding.place(full)

@@ -88,6 +88,7 @@ from repro_torch.configs.base import ARCH_IDS, get_config, smoke_config
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import build_model
 from repro_torch.runtime.paged_kv import PagedKVCache, to_device
+from repro_torch.runtime.sharding import is_dtensor, kept
 
 
 def resolve_device(name: str) -> torch.device:
@@ -121,7 +122,9 @@ def pad_cache_to(cache, s_from: int, s_max: int, seq_dims):
     = no sequence axis, left untouched); an int or None given for a
     subtree applies to each of its leaves. The hybrid family pads its
     ``attn[i]`` leaves and leaves its Mamba2 states alone:
-    ``{"mamba": None, "attn": 1}``."""
+    ``{"mamba": None, "attn": 1}``. A DTensor leaf is padded in a local
+    body with its sequence gathered (its other shards kept), then placed
+    back as it was."""
     if seq_dims is None:
         raise TypeError("pad_cache_to requires seq_dims (an int axis or a "
                         "per-leaf dict of axes); padding by shape match "
@@ -137,7 +140,16 @@ def pad_cache_to(cache, s_from: int, s_max: int, seq_dims):
                 f"cache leaf {tuple(x.shape)} has {x.shape[axis]} at "
                 f"declared seq axis {axis}, expected {s_from}")
         pads = [0, 0] * (x.dim() - 1 - axis) + [0, s_max - s_from]
-        return F.pad(x, pads)
+        if not is_dtensor(x):
+            return F.pad(x, pads)
+        from torch.distributed.tensor.experimental import local_map
+        pl = kept(x.placements, set(range(x.dim())) - {axis})
+        body = local_map(lambda t: F.pad(t, pads), out_placements=pl,
+                         in_placements=(pl,), device_mesh=x.device_mesh,
+                         redistribute_inputs=True)
+        out = body(x)
+        return out if tuple(pl) == tuple(x.placements) else \
+            out.redistribute(x.device_mesh, x.placements)
 
     def walk(node, dims):
         if isinstance(node, dict):

@@ -209,7 +209,8 @@ def make_prefill_step(model, *, compiled: bool = True, policy=None):
     """prefill_step(params, batch) -> (last-token logits [B, V], cache)."""
     @torch.no_grad()
     def prefill_step(params, batch):
-        return model.prefill(params, batch)
+        with _sharded_scope(params):
+            return model.prefill(params, batch)
     step = _compiled(model, "prefill", prefill_step) if compiled \
         else prefill_step
     return step if policy is None else _PolicyStep(step, policy)
@@ -221,12 +222,27 @@ def make_decode_step(model, *, compiled: bool = True, policy=None):
     ``jnp.argmax`` does."""
     @torch.no_grad()
     def decode_step(params, batch, cache):
-        logits, new_cache = model.decode_step(params, batch, cache)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        return next_tok, logits, new_cache
+        with _sharded_scope(params):
+            logits, new_cache = model.decode_step(params, batch, cache)
+            return _greedy(logits), logits, new_cache
     step = _compiled(model, "decode", decode_step) if compiled \
         else decode_step
     return step if policy is None else _PolicyStep(step, policy)
+
+
+def _greedy(logits) -> torch.Tensor:
+    """The greedy token of each row of ``logits`` [B, V], int32. A DTensor
+    takes its argmax in a local body over whole rows (a vocab sharded
+    over "model" is gathered first), its batch shards kept."""
+    if not shlib.is_dtensor(logits):
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    from torch.distributed.tensor.experimental import local_map
+    pl = shlib.kept(logits.placements, (0,))
+    body = local_map(lambda t: torch.argmax(t, dim=-1).to(torch.int32),
+                     out_placements=pl, in_placements=(pl,),
+                     device_mesh=logits.device_mesh,
+                     redistribute_inputs=True)
+    return body(logits)
 
 
 class _PolicyStep:
@@ -415,11 +431,16 @@ class CompiledStep:
     def __call__(self, params, *args):
         p_leaves: List[torch.Tensor] = []
         p_spec = _flatten(params, p_leaves)
+        leaves: List[torch.Tensor] = []
+        spec = _flatten(args, leaves)
+        if any(shlib.is_dtensor(t) for t in (*p_leaves, *leaves)):
+            raise NotImplementedError(
+                "a compiled (CUDA-graph) step under a mesh is not ported: "
+                "its capture would hold collectives; build the step with "
+                "compiled=False for DTensor operands")
         device = p_leaves[0].device
         if device.type not in self.devices:
             return self.fn(params, *args)
-        leaves: List[torch.Tensor] = []
-        spec = _flatten(args, leaves)
         # the graph holds the plans resolved at its capture: key it by
         # what they were resolved under, as well as by its inputs
         key = (p_spec, tuple(t.data_ptr() for t in p_leaves), spec,

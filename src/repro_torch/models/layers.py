@@ -46,7 +46,8 @@ from repro_torch.kernels.ff_layer import ff_layer_matmul, ff_layer_mlp_tail
 from repro_torch.kernels.ff_layer import ops as layer_ops
 from repro_torch.kernels.ff_layer.ops import rope_freqs
 from repro_torch.runtime.paged_kv import paged_decode_attention
-from repro_torch.runtime.sharding import constrain, is_dtensor
+from repro_torch.runtime.sharding import as_dtensor, constrain, \
+    follow, is_dtensor, kept, product_operand
 
 # ---------------------------------------------------------------------------
 # Param specs
@@ -224,7 +225,18 @@ def norm_specs(kind: str, d: int) -> Dict[str, ParamSpec]:
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
          ) -> torch.Tensor:
     """Rotary embedding in f32, cast back. x: [..., S, H, D];
-    positions: [..., S]."""
+    positions: [..., S]. A DTensor ``x`` rotates each rank's shard in a
+    local body (a sharded head dim is gathered first), with the positions
+    placed as ``x``'s leading dims are."""
+    if is_dtensor(x) or is_dtensor(positions):
+        from torch.distributed.tensor.experimental import local_map
+        x = as_dtensor(x, positions) if is_dtensor(positions) else x
+        x_pl = kept(x.placements, range(x.dim() - 1))
+        p_pl = follow(x_pl, x.dim() - 2 - positions.dim(), positions.dim())
+        body = local_map(lambda x_, p_: rope(x_, p_, theta),
+                         out_placements=x_pl, in_placements=(x_pl, p_pl),
+                         device_mesh=x.device_mesh, redistribute_inputs=True)
+        return body(x, as_dtensor(positions, x))
     d = x.shape[-1]
     half = d // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
@@ -349,13 +361,51 @@ def _sharded_attention(q, k, v, **kw) -> torch.Tensor:
         q_pl.append(p if keep else Replicate())
         kv_pl.append(p if keep else Replicate())
     lengths = kw.pop("lengths")
-    if lengths is not None:
-        raise NotImplementedError("lengths with DTensor attention operands")
-    # placements as lists: local_map reads a tuple as one per output
-    body = local_map(lambda q_, k_, v_: attention_op(q_, k_, v_, **kw),
-                     out_placements=q_pl, in_placements=(q_pl, kv_pl, kv_pl),
-                     device_mesh=mesh, redistribute_inputs=True)
-    return body(q, k, v)
+    if lengths is None:
+        # placements as lists: local_map reads a tuple as one per output
+        body = local_map(lambda q_, k_, v_: attention_op(q_, k_, v_, **kw),
+                         out_placements=q_pl,
+                         in_placements=(q_pl, kv_pl, kv_pl),
+                         device_mesh=mesh, redistribute_inputs=True)
+        return body(q, k, v)
+    # the lengths follow the batch rows
+    body = local_map(
+        lambda q_, k_, v_, n_: attention_op(q_, k_, v_, lengths=n_, **kw),
+        out_placements=q_pl,
+        in_placements=(q_pl, kv_pl, kv_pl, follow(q_pl, 0, 1)),
+        device_mesh=mesh, redistribute_inputs=True)
+    return body(q, k, v, as_dtensor(lengths, q))
+
+
+def _sharded_decode_attention(q, k, v, lengths, **kw) -> torch.Tensor:
+    """:func:`decode_attention_op` of DTensor operands as the body of a
+    shard_map: each rank attends its own batch rows and, where the query
+    and K/V head counts both divide over the mesh axes ``q``'s heads are
+    sharded on, its own heads with their K/V group. Any other sharded dim
+    is gathered first: a cache whose sequence is sharded (``decode_32k``
+    puts it on "model") is gathered whole, as :func:`_sharded_attention`
+    gathers any dim it cannot keep. The output keeps ``q``'s batch and
+    head placements."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    q = as_dtensor(q, k)
+    mesh = q.device_mesh
+    head_split = 1
+    for i, p in enumerate(q.placements):
+        if p == Shard(1):
+            head_split *= mesh.size(i)
+    heads_ok = q.shape[1] % head_split == 0 and k.shape[2] % head_split == 0
+    q_pl = kept(q.placements, (0, 1) if heads_ok else (0,))
+    # q [B, H, D] -> k/v [B, Skv, KVH, D]: the heads move to dim 2
+    kv_pl = [Shard(2) if p == Shard(1) else p for p in q_pl]
+    body = local_map(
+        lambda q_, k_, v_, n_: decode_attention_op(q_, k_, v_, n_, **kw),
+        out_placements=q_pl,
+        in_placements=(q_pl, kv_pl, kv_pl, follow(q_pl, 0, 1)),
+        device_mesh=mesh, redistribute_inputs=True)
+    return body(q, as_dtensor(k, q), as_dtensor(v, q),
+                as_dtensor(lengths, q))
 
 
 def decode_attention_op(q, k, v, lengths, *, impl: str = "ff",
@@ -366,6 +416,9 @@ def decode_attention_op(q, k, v, lengths, *, impl: str = "ff",
     Under ``"ff"`` the cache is padded up to a tile multiple (rows past
     ``lengths`` are masked, so the padding is free of numerics)."""
     _check_impl(impl)
+    if any(is_dtensor(t) for t in (q, k, v)):
+        return _sharded_decode_attention(q, k, v, lengths, impl=impl,
+                                         block_kv=block_kv)
     if impl == "xla":
         return attention_xla(q[:, None], k, v, causal=False,
                              lengths=lengths)[:, 0]
@@ -509,6 +562,7 @@ def mlp_specs(d: int, f: int, act: str) -> Dict[str, ParamSpec]:
 def mlp_apply(p, x, act: str) -> torch.Tensor:
     """SwiGLU, or ``gelu(x @ wi + bi) @ wo + bo`` with the tanh-approximate
     GELU (``jax.nn.gelu``'s default, which the reference calls)."""
+    x = product_operand(x)
     dt = x.dtype
     if act == "swiglu":
         gate, up = torch.chunk(x @ p["wi"].to(dt), 2, dim=-1)
@@ -568,6 +622,7 @@ def _sharded_embed(table, tokens):
 def unembed_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """x: [B,S,D] -> logits [B,S,V] over the padded vocab (sharded batch x
     vocab under a mesh)."""
+    x = product_operand(x)
     return constrain(x @ table.t().to(x.dtype), ("batch", "seq", "vocab"))
 
 
@@ -705,21 +760,15 @@ def decode_layer(x, nw1, wq, bq, positions, k_cache, v_cache, lengths, wo,
     kernels' deepest rings, the streams those all three can run), handed
     to each launch as explicit ints, as the reference compiles its graph
     under one (depth, streams)."""
-    b = x.shape[0]
-    hd = k_cache.shape[3]
-    h = wq.shape[1] // hd
     bkv = int(block_kv or 128)
     kc, vc = _pad_cache(k_cache, bkv), _pad_cache(v_cache, bkv)
     pol = current_policy() if policy is None else policy
 
     def run(pol):
-        q = ff_layer_matmul(x, wq, norm_weight=nw1.float(), eps=eps,
-                            bias=bq, positions=positions,
-                            rope_theta=rope_theta, head_dim=hd, policy=pol)
-        a = ff_decode_attention(q.view(b, h, hd), kc, vc, lengths,
-                                block_kv=bkv, policy=pol)
-        return ff_layer_mlp_tail(a.view(b, h * hd), wo, x, nw2.float(), wg,
-                                 wu, wo2, eps=eps, policy=pol)
+        return _layer_launches(x, nw1, wq, bq, positions, kc, vc, lengths,
+                               wo, nw2, wg, wu, wo2, rope_theta=rope_theta,
+                               eps=eps, block_kv=bkv,
+                               tail=ff_layer_mlp_tail, policy=pol)
 
     if pol.mode == "ref":
         return run(pol)
@@ -727,6 +776,40 @@ def decode_layer(x, nw1, wq, bq, positions, k_cache, v_cache, lengths, wo,
     mode = "ff" if pol.mode == "autotune" else pol.mode
     return run(pol.replace(mode=mode, depth=choice.depth,
                            streams=choice.streams))
+
+
+def _layer_launches(x, nw1, wq, bq, positions, kc, vc, lengths, wo, nw2,
+                    wg, wu, wo2, *, rope_theta, eps, block_kv, tail,
+                    policy=None) -> torch.Tensor:
+    """The decode layer's launches on a cache padded to ``block_kv``: the
+    q-projection, decode attention, then ``tail`` (the one-launch MLP tail,
+    or its three staged launches)."""
+    b, hd = x.shape[0], kc.shape[3]
+    h = wq.shape[1] // hd
+    q = ff_layer_matmul(x, wq, norm_weight=nw1.float(), eps=eps, bias=bq,
+                        positions=positions, rope_theta=rope_theta,
+                        head_dim=hd, policy=policy)
+    a = ff_decode_attention(q.view(b, h, hd), kc, vc, lengths,
+                            block_kv=block_kv, policy=policy)
+    return tail(a.view(b, h * hd), wo, x, nw2.float(), wg, wu, wo2, eps=eps,
+                policy=policy)
+
+
+def _decode_layer_unfused(x, nw1, wq, bq, positions, k_cache, v_cache,
+                          lengths, wo, nw2, wg, wu, wo2, *,
+                          rope_theta: float = 10000.0, eps: float = 1e-6,
+                          block_kv: Optional[int] = None) -> torch.Tensor:
+    """The decode layer as five launches (the port of the reference's
+    ``_decode_layer_unfused``): the MLP tail's three stages staged
+    (:func:`~repro_torch.kernels.ff_layer.mlp_tail_staged`), every
+    intermediate through device memory. On the card it equals
+    :func:`decode_layer` bit for bit."""
+    bkv = int(block_kv or 128)
+    return _layer_launches(x, nw1, wq, bq, positions,
+                           _pad_cache(k_cache, bkv), _pad_cache(v_cache, bkv),
+                           lengths, wo, nw2, wg, wu, wo2,
+                           rope_theta=rope_theta, eps=eps, block_kv=bkv,
+                           tail=layer_ops.mlp_tail_staged)
 
 
 def decode_layer_nodes(b: int, d: int, h: int, kvh: int, hd: int, f: int,
@@ -837,6 +920,156 @@ def _decode_layer_sweep_inputs(gen, site, device):
         dtype=getattr(torch, site.get("dtype", "float32")))
 
 
+# ---------------------------------------------------------------------------
+# The graphs' StreamGraph declarations (the reference's builders)
+# ---------------------------------------------------------------------------
+
+
+def build_attention_proj_graph(*, bh: int = 2, s: int = 256, d: int = 64,
+                               d_out: int = 256, causal: bool = True,
+                               dtype=torch.float32, depth: int = 2,
+                               streams: int = 1, block_q: int = 128):
+    """Declare the attention -> out-projection StreamGraph at one shape
+    point, as the reference does: the projection's M tile pinned to
+    ``block_q`` so the edge is fusable when the attention output schedule
+    lines up. Fused, it runs ``ff_attention_proj`` (one launch)."""
+    from repro_torch.core.graph import GraphEdge, GraphNode, StreamGraph
+    from repro_torch.kernels.ff_attention.ops import attention_workload
+    from repro_torch.kernels.ff_attention.program import \
+        build_program as attn_prog
+    from repro_torch.kernels.ff_matmul.ops import matmul_workload
+    from repro_torch.kernels.ff_matmul.program import \
+        build_program as matmul_prog
+
+    block = (block_q, min(128, d_out), d)
+    attn = attn_prog(bh, s, s, d, block_q=block_q, block_kv=128,
+                     causal=causal, dtype=dtype, depth=depth, streams=streams)
+    proj = matmul_prog(bh * s, d_out, d, block=block, dtype=dtype,
+                       depth=depth, streams=streams)
+    w_a, t_a = attention_workload(bh, s, d, causal=causal, dtype=dtype)
+    w_p, t_p = matmul_workload(bh * s, d_out, d, dtype=dtype)
+    return StreamGraph(
+        name="attention_proj",
+        nodes=(
+            GraphNode("attn", attn, workload=w_a, plan_tile=t_a),
+            GraphNode("proj", proj, workload=w_p, plan_tile=t_p),
+        ),
+        edges=(
+            GraphEdge("attn", "proj", "a", reshape=(bh * s, d)),
+        ),
+    )
+
+
+def _attention_proj_graph_args(q, k, v, w, *, causal: bool = True):
+    """:func:`attention_proj`'s operands as the graph's: (build kwargs,
+    operands in ``arg_names`` order, output view)."""
+    bh, s, d = q.shape
+    block_q = min(128, s)
+    return (dict(bh=bh, s=s, d=d, d_out=w.shape[1], causal=causal,
+                 dtype=q.dtype, block_q=block_q), (q, k, v, w),
+            lambda out: out)
+
+
+def build_decode_layer_graph(*, b: int = 16, d_model: int = 64,
+                             kvh: int = 1, g_pad: int = 8, hd: int = 16,
+                             d_ff: int = 128, s: int = 128,
+                             eps: float = 1e-6, dtype=torch.float32,
+                             depth: int = 2, streams: int = 1,
+                             block_m: int = 8, block_kv: int = 128,
+                             rope_theta: float = 10000.0):
+    """Declare the whole-decode-layer StreamGraph at one shape point, as
+    the reference does: q-projection (RMSNorm prologue, q bias + RoPE
+    epilogue) -> decode attention -> out-projection (+ residual) ->
+    SwiGLU gate/up (RMSNorm prologue) -> down-projection (+ residual, the
+    out-projection's output served in-chain). Fused, the last three run
+    ``ff_layer_mlp_tail`` (one launch); the two attention-adjacent edges
+    stage.
+
+    Where the reference's RoPE epilogue reads cos/sin tables, the port's
+    kernel computes the rotation from the positions and ``rope_theta``:
+    the ``rope_bias`` epilogue takes ``bq`` and ``positions``."""
+    from repro_torch.core.graph import Epilogue, GraphEdge, GraphNode, \
+        StreamGraph
+    from repro_torch.core.program import BlockIn
+    from repro_torch.kernels.ff_decode_attention.program import \
+        build_program as attn_prog
+    from repro_torch.kernels.ff_layer.program import build_matmul_program, \
+        build_swiglu_program
+
+    hpad = kvh * g_pad * hd
+    mm = functools.partial(build_matmul_program, block_m=block_m, eps=eps,
+                           dtype=dtype, depth=depth, streams=streams)
+    qprog = mm(b, hpad, d_model, norm=True, name="ff_layer_qproj")
+    attn = attn_prog(b, kvh, g_pad, s, hd, block_kv=block_kv, dtype=dtype,
+                     depth=depth, streams=streams)
+    oprog = mm(b, d_model, hpad, name="ff_layer_oproj")
+    gprog = build_swiglu_program(b, d_ff, d_model, block_m=block_m,
+                                 norm=True, eps=eps, dtype=dtype,
+                                 depth=depth, streams=streams)
+    dprog = mm(b, d_model, d_ff, name="ff_layer_down")
+
+    def residual(name):
+        return Epilogue("residual", inputs=(
+            BlockIn(name, (block_m, d_model), lambda g: (g, 0),
+                    dtype=dtype),))
+
+    def node(name, prog, w_t, **kw):
+        return GraphNode(name, prog, workload=w_t[0], plan_tile=w_t[1], **kw)
+
+    lw = layer_ops.ff_layer_workload
+    return StreamGraph(
+        name="decode_layer",
+        nodes=(
+            node("qproj", qprog, lw(b, d_model, hpad, dtype=dtype),
+                 epilogue=Epilogue("rope_bias", inputs=(
+                     BlockIn("bq", (block_m, hpad), lambda g: (0, 0)),
+                     BlockIn("positions", (block_m,), lambda g: (g,),
+                             dtype=torch.int32),
+                 ), params={"rope_theta": rope_theta, "head_dim": hd})),
+            node("attn", attn, dec_ops.decode_attention_workload(
+                b, kvh * g_pad, kvh, s, hd, dtype=dtype)),
+            node("oproj", oprog, lw(b, hpad, d_model, dtype=dtype),
+                 epilogue=residual("res1")),
+            node("gateup", gprog, lw(b, d_model, d_ff, dtype=dtype,
+                                     gated=True)),
+            node("down", dprog, lw(b, d_ff, d_model, dtype=dtype),
+                 epilogue=residual("res")),
+        ),
+        edges=(
+            # staged: attn's q is a block-delivered BlockIn operand
+            GraphEdge("qproj", "attn", "q", reshape=(b, kvh, g_pad, hd)),
+            # staged: (1, 1, g_pad, hd) attention blocks against the
+            # (block_m, hpad) row tiles
+            GraphEdge("attn", "oproj", "a", reshape=(b, hpad)),
+            # the fused chain oproj -> gateup -> down
+            GraphEdge("oproj", "gateup", "x"),
+            # oproj's output also feeds the final residual, in-chain
+            GraphEdge("oproj", "down", "res"),
+            GraphEdge("gateup", "down", "a"),
+        ),
+    )
+
+
+def _decode_layer_graph_args(x, nw1, wq, bq, positions, k_cache, v_cache,
+                             lengths, wo, nw2, wg, wu, wo2, *,
+                             rope_theta: float = 10000.0, eps: float = 1e-6,
+                             block_kv: Optional[int] = None):
+    """:func:`decode_layer`'s operands as the graph's: the query group
+    taken as it is (``g_pad`` = the group) and one row block of all ``b``
+    rows, as the port's kernels take them (the reference pads both to 8),
+    the cache padded to ``block_kv`` as :func:`decode_layer` pads it."""
+    b, d = x.shape
+    _, kvh, _, hd = k_cache.shape
+    h = wq.shape[1] // hd
+    bkv = int(block_kv or 128)
+    kc, vc = _pad_cache(k_cache, bkv), _pad_cache(v_cache, bkv)
+    kw = dict(b=b, d_model=d, kvh=kvh, g_pad=h // kvh, hd=hd,
+              d_ff=wg.shape[1], s=kc.shape[2], eps=eps, dtype=x.dtype,
+              block_m=b, block_kv=bkv, rope_theta=rope_theta)
+    return kw, (x, wq, nw1, bq, positions, lengths, kc, vc, wo, x, wg, wu,
+                nw2, wo2), lambda out: out
+
+
 def _register_graphs():
     from repro_torch.kernels.registry import register_graph
 
@@ -849,15 +1082,20 @@ def _register_graphs():
         tol=5e-4,
         doc="causal attention -> out-projection, one launch",
         sweep_inputs=_attention_proj_sweep_inputs,
+        build=build_attention_proj_graph,
+        graph_args=_attention_proj_graph_args,
     )
     register_graph(
         name="decode_layer",
         op=decode_layer,
         make_inputs=lambda gen, device: _decode_layer_inputs(gen, device)[0],
         ref=decode_layer_ref,
+        unfused=_decode_layer_unfused,
         tol=5e-4,
         doc="q-projection -> decode attention -> MLP tail, one plan",
         sweep_inputs=_decode_layer_sweep_inputs,
+        build=build_decode_layer_graph,
+        graph_args=_decode_layer_graph_args,
     )
 
 

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.runtime.sharding import constrain
+from repro_torch.runtime.sharding import batch_local, constrain
 
 
 def _dims(cfg: ArchConfig):
@@ -73,6 +73,44 @@ def _causal_conv(xbc, w, b, prev: Optional[torch.Tensor] = None):
     return y, new_prev
 
 
+def _ssd(cfg: ArchConfig, c_ssm, b_ssm, xs, log_w, dt, h):
+    """The SSD scan by head: c/b [B,S,N], xs [B,S,NH,HD], log_w and dt
+    [B,S,NH] (f32) -> (y [B,S,NH,HD], the final state [B*NH,N,HD] in
+    f32). ``h``: the carried state for the single-token recurrence, or
+    None for the chunked scan from an empty one."""
+    b, s, nh, hd = xs.shape
+    n = c_ssm.shape[-1]
+    dtype = xs.dtype
+
+    def to_bh(t):                                   # [B,S,*] -> [B*NH,S,*]
+        return t[:, :, None, :].expand(b, s, nh, t.shape[-1]) \
+            .transpose(1, 2).reshape(b * nh, s, t.shape[-1])
+
+    q_bh = to_bh(c_ssm)
+    k_bh = to_bh(b_ssm)
+    v_bh = xs.transpose(1, 2).reshape(b * nh, s, hd)
+    v_bh = (v_bh.float() * dt.transpose(1, 2).reshape(b * nh, s, 1)
+            ).to(dtype)
+    lw_bh = log_w.transpose(1, 2).reshape(b * nh, s, 1).expand(b * nh, s, n)
+
+    if h is None:
+        y = L.chunk_scan_op(q_bh, k_bh, v_bh, lw_bh, impl=cfg.scan_impl,
+                            inclusive=True, chunk=cfg.scan_chunk)
+        # final state for the prefill -> decode handoff, in f32:
+        #   h_S = sum_s exp(cw_S - cw_s) k_s (x) v_s   (exponents <= 0)
+        cw = torch.cumsum(lw_bh.float(), dim=1)                   # [BH,S,N]
+        k2 = k_bh.float() * torch.exp(cw[:, -1:, :] - cw)
+        h = torch.einsum("bsn,bsp->bnp", k2, v_bh.float())
+    else:
+        # the single-token recurrence
+        w1 = torch.exp(lw_bh[:, 0, :])                            # [B*NH,N]
+        kv = k_bh[:, 0, :, None] * v_bh[:, 0, None, :]            # [B*NH,N,HD]
+        h = w1[:, :, None] * h + kv.float()
+        y = torch.einsum("bn,bnp->bp", q_bh[:, 0].float(), h)
+        y = y[:, None, :].to(dtype)                               # [B*NH,1,HD]
+    return y.reshape(b, nh, s, hd).transpose(1, 2), h
+
+
 def mamba_apply(cfg: ArchConfig, p, x, *, cache=None
                 ) -> Tuple[torch.Tensor, Dict]:
     """x: [B,S,D]. cache (decode): {"conv": [B,W-1,C], "h": [B*NH,N,HD]}."""
@@ -93,38 +131,13 @@ def mamba_apply(cfg: ArchConfig, p, x, *, cache=None
     log_w = dt * a[None, None, :]                                 # <= 0, f32
 
     xs = x_ssm.reshape(b, s, nh, hd)
-
-    def to_bh(t):                                   # [B,S,*] -> [B*NH,S,*]
-        return t[:, :, None, :].expand(b, s, nh, t.shape[-1]) \
-            .transpose(1, 2).reshape(b * nh, s, t.shape[-1])
-
-    q_bh = to_bh(c_ssm)
-    k_bh = to_bh(b_ssm)
-    v_bh = xs.transpose(1, 2).reshape(b * nh, s, hd)
-    v_bh = (v_bh.float() * dt.transpose(1, 2).reshape(b * nh, s, 1)
-            ).to(dtype)
-    lw_bh = log_w.transpose(1, 2).reshape(b * nh, s, 1).expand(b * nh, s, n)
-
-    if cache is None:
-        y = L.chunk_scan_op(q_bh, k_bh, v_bh, lw_bh, impl=cfg.scan_impl,
-                            inclusive=True, chunk=cfg.scan_chunk)
-        # final state for the prefill -> decode handoff, in f32:
-        #   h_S = sum_s exp(cw_S - cw_s) k_s (x) v_s   (exponents <= 0)
-        cw = torch.cumsum(lw_bh.float(), dim=1)                   # [BH,S,N]
-        k2 = k_bh.float() * torch.exp(cw[:, -1:, :] - cw)
-        h_final = torch.einsum("bsn,bsp->bnp", k2, v_bh.float())
-        new_cache = {"conv": conv_new, "h": h_final}
-    else:
-        # the single-token recurrence
-        h = cache["h"]                                            # [B*NH,N,HD]
-        w1 = torch.exp(lw_bh[:, 0, :])                            # [B*NH,N]
-        kv = k_bh[:, 0, :, None] * v_bh[:, 0, None, :]            # [B*NH,N,HD]
-        h = w1[:, :, None] * h + kv.float()
-        y = torch.einsum("bn,bnp->bp", q_bh[:, 0].float(), h)
-        y = y[:, None, :].to(dtype)                               # [B*NH,1,HD]
-        new_cache = {"conv": conv_new, "h": h}
-
-    y = y.reshape(b, nh, s, hd).transpose(1, 2)                   # [B,S,NH,HD]
+    # the heads fold into the batch: a local body on each rank's batch rows
+    # where the operands are DTensors
+    y, h = batch_local(
+        lambda c_, b_, x_, lw_, dt_, h_: _ssd(cfg, c_, b_, x_, lw_, dt_, h_),
+        (c_ssm, b_ssm, xs, log_w, dt, None if cache is None else cache["h"]),
+        n_out=2)
+    new_cache = {"conv": conv_new, "h": h}
     y = y + xs * p["d_skip"].to(dtype)[None, None, :, None]
     y = y.reshape(b, s, d_in)
     y = L.rmsnorm(y * F.silu(z), p["norm_w"])

@@ -42,7 +42,7 @@ from repro_torch.kernels.ff_matmul.ops import matmul_workload
 from repro_torch.kernels.ff_matmul.ops import \
     stream_options as mm_stream_options
 from repro_torch.models import layers as L
-from repro_torch.runtime.sharding import constrain
+from repro_torch.runtime.sharding import as_dtensor, constrain, is_dtensor
 
 
 # ---------------------------------------------------------------------------
@@ -101,6 +101,24 @@ def _capacity(t: int, cfg: ArchConfig, gran: int) -> int:
     return -(-c // gran) * gran
 
 
+def _whole(fn, *tensors, n_out: int = 1):
+    """``fn(*tensors)``; with DTensor operands, a local body on every
+    rank over their whole values (the routing ranks every token, the
+    scatter into and the gather out of the dispatch buffer index across
+    every shard), its ``n_out`` results replicated."""
+    if not any(is_dtensor(t) for t in tensors):
+        return fn(*tensors)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    like = next(t for t in tensors if is_dtensor(t))
+    rep = [Replicate()] * like.device_mesh.ndim
+    body = local_map(fn, out_placements=rep if n_out == 1
+                     else (rep,) * n_out,
+                     in_placements=tuple(rep for _ in tensors),
+                     device_mesh=like.device_mesh, redistribute_inputs=True)
+    return body(*(as_dtensor(t, like) for t in tensors))
+
+
 def _apply(cfg: ArchConfig, p, x, capacity: int
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer at ``capacity`` slots per expert. The reference's scatter
@@ -113,7 +131,8 @@ def _apply(cfg: ArchConfig, p, x, capacity: int
     t = b * s
     xf = x.reshape(t, d)
     gates = router_gates(p, xf)
-    idx, probs, slot, keep = _dispatch_indices(gates, k, capacity)
+    idx, probs, slot, keep = _whole(
+        lambda g: _dispatch_indices(g, k, capacity), gates, n_out=4)
 
     # load-balance aux loss (Switch-style)
     me = gates.mean(dim=0)                                       # [E]
@@ -124,11 +143,18 @@ def _apply(cfg: ArchConfig, p, x, capacity: int
     n = e * capacity
     flat_idx = (idx * capacity + slot).reshape(-1)               # [T*k]
     contrib = xf[:, None, :] * keep[:, :, None].to(x.dtype)      # [T,k,D]
-    buf = torch.zeros(n + 1, d, dtype=x.dtype, device=x.device)
-    buf.index_add_(0, flat_idx.clamp(max=n), contrib.reshape(t * k, d))
+
+    def scatter(fi, c):
+        buf = torch.zeros(n + 1, d, dtype=c.dtype, device=c.device)
+        buf.index_add_(0, fi.clamp(max=n), c.reshape(t * k, d))
+        return buf[:n].view(e, capacity, d)
+
+    def combine(y_, fi):
+        return y_.reshape(n, d)[fi.clamp(max=n - 1)].view(t, k, d)
+
     # "exp_cap" shards the capacity dim when experts themselves cannot be
     # sharded (grok: 8 experts vs 16-way model axis)
-    buf = constrain(buf[:n].view(e, capacity, d),
+    buf = constrain(_whole(scatter, flat_idx, contrib),
                     ("expert", "exp_cap", "embed"))
 
     # the experts (SwiGLU) as two batched products
@@ -139,7 +165,7 @@ def _apply(cfg: ArchConfig, p, x, capacity: int
     y = constrain(y, ("expert", "exp_cap", "embed"))
 
     # gather and combine
-    picked = y.reshape(n, d)[flat_idx.clamp(max=n - 1)].view(t, k, d)
+    picked = _whole(combine, y, flat_idx)
     w = (probs * keep.float()).to(dt)                            # [T,k]
     out = torch.einsum("tkd,tk->td", picked, w).reshape(b, s, d)
     if cfg.n_shared_experts:
@@ -253,6 +279,55 @@ def moe_dispatch_ffn(idx, tokens, w1, comb, *, policy=None) -> torch.Tensor:
                            streams=choice.streams))
 
 
+def build_moe_graph(*, t_tokens: int = 96, n_dispatch: int = 64,
+                    d_model: int = 128, d_ff: int = 256, t_out: int = 64,
+                    dtype=torch.float32, depth: int = 2, streams: int = 1,
+                    bn: int = 128):
+    """Declare the MoE dispatch -> expert-matmul -> combine StreamGraph, as
+    the reference does: the expert matmul's M tile pinned to the gather's
+    ``8 * streams``-row bundle so dispatch -> expert fuses (it runs
+    ``ff_matmul``'s dispatch path, one launch), while expert -> combine
+    ends at an irregular gather and stages."""
+    from repro_torch.core.graph import GraphEdge, GraphNode, StreamGraph
+    from repro_torch.kernels.ff_gather.program import \
+        build_program as gather_prog
+    from repro_torch.kernels.ff_matmul.program import \
+        build_program as matmul_prog
+
+    rpw = _ROWS * streams
+    if n_dispatch % rpw or t_out % rpw:
+        raise ValueError(f"n_dispatch={n_dispatch} / t_out={t_out} must be "
+                         f"multiples of the {rpw}-row gather bundle")
+    block = (rpw, min(bn, d_ff), d_model)
+    dispatch = gather_prog(n_dispatch, d_model, dtype=dtype, depth=depth,
+                           streams=streams)
+    expert = matmul_prog(n_dispatch, d_ff, d_model, block=block, dtype=dtype,
+                         depth=depth, streams=streams)
+    combine = gather_prog(t_out, d_ff, dtype=dtype, depth=depth,
+                          streams=streams)
+    nodes = moe_graph_nodes(t_tokens, d_model, n_dispatch, d_ff, t_out,
+                            dtype=dtype)
+    progs = {"dispatch": dispatch, "expert": expert, "combine": combine}
+    return StreamGraph(
+        name="moe_dispatch_ffn",
+        nodes=tuple(GraphNode(name, progs[name], workload=w, plan_tile=t)
+                    for name, w, t in nodes),
+        edges=(
+            GraphEdge("dispatch", "expert", "a"),
+            GraphEdge("expert", "combine", "table"),
+        ),
+    )
+
+
+def _moe_graph_args(idx, tokens, w1, comb):
+    """:func:`moe_dispatch_ffn`'s operands as the graph's."""
+    t, d = tokens.shape
+    f = w1.shape[1]
+    return (dict(t_tokens=t, n_dispatch=idx.shape[0], d_model=d, d_ff=f,
+                 t_out=comb.shape[0], dtype=tokens.dtype, bn=min(128, f)),
+            (idx, tokens, w1, comb), lambda out: out)
+
+
 def _moe_graph_inputs(gen, device, *, t=64, d=64, n=32, f=96, t_out=16,
                       dtype=torch.float32):
     tokens = torch.randn((t, d), generator=gen, device=device).to(dtype)
@@ -282,6 +357,8 @@ def _register_graph():
         tol=5e-4,
         doc="MoE dispatch (irregular gather) -> expert matmul -> combine",
         sweep_inputs=_moe_graph_sweep_inputs,
+        build=build_moe_graph,
+        graph_args=_moe_graph_args,
     )
 
 

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.runtime.sharding import constrain
+from repro_torch.runtime.sharding import batch_local, constrain
 
 _DECAY_LORA = 64
 
@@ -82,6 +82,43 @@ def _lerp(x, x_prev, mu):
     return x + (x_prev - x) * mu[None, None, :].to(x.dtype)
 
 
+def _wkv(cfg: ArchConfig, r, k, v, log_w, h, u_p, *, step: bool):
+    """The wkv scan of [B,S,D] operands by head: (y [B,S,NH,HD], the new
+    state [B*NH,N,P]). ``h``: the carried state, or None from an empty
+    one; a single token on a carried state (``step``) takes the
+    recurrence."""
+    b, s, _ = r.shape
+    nh, hd = _dims(cfg)
+    dt = r.dtype
+
+    def heads(t):
+        return t.reshape(b, s, nh, hd).transpose(1, 2).reshape(b * nh, s, hd)
+
+    u = u_p[None].expand(b, nh, hd).reshape(b * nh, hd)
+
+    if not step or s > 1:
+        y = L.chunk_scan_op(heads(r), heads(k), heads(v), heads(log_w), u,
+                            impl=cfg.scan_impl, inclusive=False,
+                            chunk=cfg.scan_chunk)
+        # final state for the prefill -> decode handoff (operands in the
+        # compute type, f32 accumulation)
+        lw = heads(log_w).float()
+        cw = torch.cumsum(lw, dim=1)
+        k2 = heads(k) * torch.exp(cw[:, -1:, :] - cw).to(dt)
+        h_new = torch.einsum("bsn,bsp->bnp", k2.float(), heads(v).float())
+        if step:
+            # a window on top of a carried state: decay the state through it
+            h_new = h_new + torch.exp(cw[:, -1, :])[:, :, None] * h
+    else:
+        rr, kk, vv = heads(r)[:, 0], heads(k)[:, 0], heads(v)[:, 0]
+        lw = heads(log_w)[:, 0].float()
+        kv = kk[:, :, None].float() * vv[:, None, :].float()
+        y = torch.einsum("bn,bnp->bp", rr.float(),
+                         h + u[:, :, None] * kv)[:, None, :].to(dt)
+        h_new = torch.exp(lw)[:, :, None] * h + kv
+    return y.reshape(b, nh, s, hd).transpose(1, 2), h_new
+
+
 def time_mix_apply(cfg: ArchConfig, p, x, *, cache=None
                    ) -> Tuple[torch.Tensor, Dict]:
     b, s, d = x.shape
@@ -102,34 +139,13 @@ def time_mix_apply(cfg: ArchConfig, p, x, *, cache=None
         p["w0"][None, None, :].float() + w_dd.float(), -8.0, 8.0))
     log_w = log_w.to(dt)                                          # [B,S,D]
 
-    def heads(t):
-        return t.reshape(b, s, nh, hd).transpose(1, 2).reshape(b * nh, s, hd)
-
-    u = p["u"][None].expand(b, nh, hd).reshape(b * nh, hd)
-
-    if cache is None or s > 1:
-        y = L.chunk_scan_op(heads(r), heads(k), heads(v), heads(log_w), u,
-                            impl=cfg.scan_impl, inclusive=False,
-                            chunk=cfg.scan_chunk)
-        # final state for the prefill -> decode handoff (operands in the
-        # compute type, f32 accumulation)
-        lw = heads(log_w).float()
-        cw = torch.cumsum(lw, dim=1)
-        k2 = heads(k) * torch.exp(cw[:, -1:, :] - cw).to(dt)
-        h_new = torch.einsum("bsn,bsp->bnp", k2.float(), heads(v).float())
-        if cache is not None:
-            # a window on top of a carried state: decay the state through it
-            h_new = h_new + torch.exp(cw[:, -1, :])[:, :, None] * cache["h"]
-    else:
-        h = cache["h"]                                            # [B*NH,N,P]
-        rr, kk, vv = heads(r)[:, 0], heads(k)[:, 0], heads(v)[:, 0]
-        lw = heads(log_w)[:, 0].float()
-        kv = kk[:, :, None].float() * vv[:, None, :].float()
-        y = torch.einsum("bn,bnp->bp", rr.float(),
-                         h + u[:, :, None] * kv)[:, None, :].to(dt)
-        h_new = torch.exp(lw)[:, :, None] * h + kv
-
-    y = y.reshape(b, nh, s, hd).transpose(1, 2)                   # [B,S,NH,HD]
+    # the heads fold into the batch: a local body on each rank's batch rows
+    # where the operands are DTensors
+    y, h_new = batch_local(
+        lambda r_, k_, v_, lw_, h_, u_: _wkv(cfg, r_, k_, v_, lw_, h_, u_,
+                                             step=cache is not None),
+        (r, k, v, log_w, None if cache is None else cache["h"]), (p["u"],),
+        n_out=2)
     # per-head group norm
     mu = torch.mean(y, dim=-1, keepdim=True)
     var = torch.var(y, dim=-1, keepdim=True, unbiased=False)

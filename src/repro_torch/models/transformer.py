@@ -22,7 +22,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.runtime.paged_kv import scatter_token
-from repro_torch.runtime.sharding import constrain
+from repro_torch.runtime.sharding import as_dtensor, constrain, follow, \
+    is_dtensor, kept, product_operand
 
 
 # ---------------------------------------------------------------------------
@@ -47,6 +48,7 @@ def attn_specs(cfg: ArchConfig) -> Dict[str, Any]:
 
 def _project(x, w, b=None):
     """einsum("bsd,dhk->bshk") as one matmul, plus the optional bias."""
+    x = product_operand(x)
     d, h, k = w.shape
     y = (x @ w.reshape(d, h * k).to(x.dtype)).unflatten(-1, (h, k))
     return y if b is None else y + b.to(x.dtype)
@@ -57,12 +59,53 @@ def _write_token(cache, new, lengths):
     leaves of the same names ([B,Smax,...]) at ``lengths``, in place and
     without a host sync; returns those leaves in ``new``'s order."""
     leaves = [cache[name] for name in new]
+    if any(is_dtensor(t) for t in (*leaves, *new.values())):
+        return [_write_token_sharded(leaf, t, lengths)
+                for leaf, t in zip(leaves, new.values())]
     # dynamic_update_slice clamps the start so the row fits
     idx = lengths.long().clamp(0, leaves[0].shape[1] - 1)
     rows = torch.arange(idx.shape[0], device=idx.device)
     for leaf, t in zip(leaves, new.values()):
         leaf[rows, idx] = t[:, 0]
     return leaves
+
+
+def _write_token_sharded(leaf, t, lengths):
+    """:func:`_write_token` of one DTensor cache leaf, in place, as a local
+    body: each rank writes the rows of its batch shard whose position
+    falls in its slice of the sequence (``decode_32k`` shards the
+    sequence over "model"), so no rank gathers the cache."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = leaf.device_mesh
+    leaf_pl = list(leaf.placements)
+    # this rank's slice of the sequence: DTensor's even split, mesh dims
+    # outermost first
+    s_max = leaf.shape[1]
+    s_off, size = 0, s_max
+    for i, p in enumerate(leaf_pl):
+        if p == Shard(1):
+            chunk = -(-size // mesh.size(i))
+            start = min(mesh.get_coordinate()[i] * chunk, size)
+            s_off, size = s_off + start, min(chunk, size - start)
+    t_pl = kept(leaf_pl, (0, 2, 3))
+    n_pl = follow(t_pl, 0, 1)
+
+    def write(leaf_, t_, n_):
+        idx = n_.long().clamp(0, s_max - 1) - s_off
+        inside = (idx >= 0) & (idx < leaf_.shape[1])
+        idx = idx.clamp(0, leaf_.shape[1] - 1)
+        rows = torch.arange(idx.shape[0], device=idx.device)
+        keep = inside.view(-1, *([1] * (t_.dim() - 2)))
+        leaf_[rows, idx] = torch.where(keep, t_[:, 0].to(leaf_.dtype),
+                                       leaf_[rows, idx])
+        return leaf_
+
+    body = local_map(write, out_placements=leaf_pl,
+                     in_placements=(leaf_pl, t_pl, n_pl), device_mesh=mesh,
+                     redistribute_inputs=True)
+    return body(leaf, as_dtensor(t, leaf), as_dtensor(lengths, leaf))
 
 
 def attn_apply(cfg: ArchConfig, p, x, *, positions, cache=None,

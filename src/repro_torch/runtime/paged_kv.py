@@ -161,6 +161,77 @@ def gather_indices(block_tables, *, page: int, kv_heads: int,
     return rows.reshape(-1).int()
 
 
+def page_word_indices(block_tables, *, page: int, kv_heads: int,
+                      n_blocks: int) -> torch.Tensor:
+    """The same rows as :func:`gather_indices` in the reference's order
+    (its ``gather_indices``), int32: [B, KVH, n_pages, 2, page], so gather
+    word ``(b * KVH + h) * n_pages + p`` is page ``p``'s K rows then its V
+    rows, the merged word the paged graph's consumer reads."""
+    bt = torch.as_tensor(block_tables).long().clamp(0, n_blocks - 1)
+    dev = bt.device
+    which = torch.arange(2, device=dev).view(1, 1, 1, 2, 1)
+    off = torch.arange(page, device=dev).view(1, 1, 1, 1, page)
+    heads = torch.arange(kv_heads, device=dev).view(1, kv_heads, 1, 1, 1)
+    rows = ((bt[:, None, :, None, None] * 2 + which) * page + off) \
+        * kv_heads + heads
+    return rows.reshape(-1).int()
+
+
+def build_paged_decode_graph(*, b: int, kvh: int, g_pad: int, n_pages: int,
+                             page: int, d: int, dtype=torch.float32,
+                             kv_dtype=None, depth: int = 2,
+                             streams: int = 1):
+    """Declare the paged-decode StreamGraph at one shape point, as the
+    reference does: an ``ff_gather`` of the step's page rows (a word of
+    ``2 * page`` rows, one merged K+V page) feeding the paged consumer
+    through a fusable edge. Fused, it runs the paged ``ring_decode_kernel``
+    (one launch, the pages read through the block table the rows walk);
+    staged, the gather then the contiguous kernel at ``block_kv ==
+    page``."""
+    from repro_torch.core.graph import GraphEdge, GraphNode, StreamGraph
+    from repro_torch.kernels.ff_decode_attention.program import \
+        build_paged_program
+    from repro_torch.kernels.ff_gather.ops import _ROWS, gather_workload
+    from repro_torch.kernels.ff_gather.program import \
+        build_program as gather_prog
+
+    kv_dtype = kv_dtype or dtype
+    assert (2 * page) % _ROWS == 0, (page, _ROWS)
+    n_rows = b * kvh * n_pages * 2 * page
+    gather_p = gather_prog(n_rows, d, dtype=kv_dtype, depth=depth,
+                           streams=(2 * page) // _ROWS)
+    attn = build_paged_program(b, kvh, g_pad, n_pages, page, d, dtype=dtype,
+                               kv_dtype=kv_dtype, depth=depth,
+                               streams=streams)
+    w_g, t_g = gather_workload(n_rows, d, dtype=kv_dtype)
+    (_, w_a, t_a), = paged_decode_nodes(b, kvh * g_pad, kvh, n_pages, page,
+                                        d, dtype=kv_dtype)
+    return StreamGraph(
+        name="paged_decode_attention",
+        nodes=(
+            GraphNode("gather", gather_p, workload=w_g, plan_tile=t_g),
+            GraphNode("attn", attn, workload=w_a, plan_tile=t_a),
+        ),
+        edges=(
+            GraphEdge("gather", "attn", "kv"),
+        ),
+    )
+
+
+def _graph_args(q, kv_pool, block_tables, lengths):
+    """:func:`paged_decode_attention`'s operands as the graph's: the
+    table's row walk, the pool as rows, q by KV head."""
+    nb, _, page, kvh, d = kv_pool.shape
+    b, h, _ = q.shape
+    idx = page_word_indices(block_tables, page=page, kv_heads=kvh,
+                            n_blocks=nb)
+    kw = dict(b=b, kvh=kvh, g_pad=h // kvh, n_pages=block_tables.shape[1],
+              page=page, d=d, dtype=q.dtype, kv_dtype=kv_pool.dtype)
+    return kw, (idx, kv_pool.reshape(-1, d), lengths,
+                q.view(b, kvh, h // kvh, d)), \
+        lambda out: out.reshape(b, h, d)
+
+
 def paged_decode_unfused(q, kv_pool, idx, lengths) -> torch.Tensor:
     """Staged paged decode (the port of the reference's ``_paged_unfused``):
     gather the step's pool rows through ``idx`` (from
@@ -467,6 +538,8 @@ def _register_graph():
         tol=2e-4,
         doc="block-table gather -> decode attention, one launch",
         sweep_inputs=_graph_sweep_inputs,
+        build=build_paged_decode_graph,
+        graph_args=_graph_args,
     )
 
 

@@ -280,6 +280,88 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def as_dtensor(t, like):
+    """``t`` as a DTensor on ``like``'s mesh: a DTensor as it is, a plain
+    tensor replicated (each rank holds the whole of it)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if is_dtensor(t):
+        return t
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def kept(placements, dims):
+    """``placements`` with every shard of a dim outside ``dims`` (and any
+    partial sum) replaced by a replica: what a local body that needs those
+    other dims whole may see."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [p if isinstance(p, Shard) and p.dim in dims else Replicate()
+            for p in placements]
+
+
+def batch_local(fn, batch_args, rep_args=(), n_out: int = 1):
+    """``fn(*batch_args, *rep_args)``; where any operand is a DTensor, a
+    local body on each rank's batch rows (a shard_map): ``batch_args``
+    (each batch-major at dim 0, or None) keep the batch shards of the
+    first DTensor among them and are whole along every other dim,
+    ``rep_args`` (parameters) are whole on every rank, and each of the
+    ``n_out`` results is batch-major, placed as the batch. Under autograd
+    the parameters' gradients come back as partial sums over the batch's
+    mesh dims. For a computation that flattens a sharded dim into the
+    batch (the recurrent mixers' heads), which DTensor's own ops refuse."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    args = (*batch_args, *rep_args)
+    if not any(is_dtensor(a) for a in args):
+        return fn(*args)
+    like = next(a for a in args if is_dtensor(a))
+    bpl = [p if p == Shard(0) else Replicate() for p in next(
+        (a for a in batch_args if is_dtensor(a)), like).placements]
+    rpl = [Replicate()] * len(bpl)
+    gpl = [Partial() if p == Shard(0) else Replicate() for p in bpl]
+    n_b = len(batch_args)
+    placed = [None if a is None else as_dtensor(a, like) for a in args]
+    in_pl = tuple(None if a is None else (bpl if i < n_b else rpl)
+                  for i, a in enumerate(placed))
+    grad_pl = tuple(None if a is None else (bpl if i < n_b else gpl)
+                    for i, a in enumerate(placed))
+    body = local_map(fn, out_placements=bpl if n_out == 1
+                     else (bpl,) * n_out, in_placements=in_pl,
+                     in_grad_placements=grad_pl,
+                     device_mesh=like.device_mesh, redistribute_inputs=True)
+    return body(*placed)
+
+
+def product_operand(x):
+    """``x`` ready to be the left operand of a product over its last dim:
+    a DTensor sharded on more than one leading dim (a sequence-sharded
+    cache or stream beside its batch shards) keeps only its batch (and
+    last-dim) shards, since DTensor's product cannot take the strided
+    shards of the flattened leading dims; anything else as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Shard
+    lead = {p.dim for p in x.placements
+            if isinstance(p, Shard) and p.dim < x.dim() - 1}
+    if len(lead) <= 1:
+        return x
+    return x.redistribute(x.device_mesh, kept(x.placements,
+                                              {0, x.dim() - 1}))
+
+
+def follow(placements, offset: int, ndim: int):
+    """Placements of an operand whose dim ``j`` is dim ``j + offset`` of
+    the tensor placed by ``placements``: its shards where the dim exists
+    in the operand, replicated elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for p in placements:
+        j = p.dim - offset if isinstance(p, Shard) else -1
+        out.append(Shard(j) if 0 <= j < ndim else Replicate())
+    return out
+
+
 def full_tensor(x):
     """The whole tensor behind a DTensor (a collective on every rank of
     its mesh); any other value as it is."""

@@ -239,3 +239,103 @@ def sharded_streams(rank, world, coll_in):
     out["pipeline"] = {"last": last[-1].numpy(),
                        "mesh": stage_plan.mesh.token}
     return None if rank else out
+
+
+def _serve_steps(model, params, tokens, n_steps, s_max, place):
+    """Prefill ``tokens`` [B, S], then ``n_steps`` greedy decode steps from
+    its last logits, each step's batch passed through ``place`` (the
+    mesh's placement, or nothing): the logits of every step and the greedy
+    tokens, as numpy."""
+    from repro_torch.launch import serve as serve_lib
+    b, s = tokens.shape
+    prefill = steps_lib.make_prefill_step(model, compiled=False)
+    decode = steps_lib.make_decode_step(model, compiled=False)
+    logits, cache = prefill(params, place({"tokens": tokens},
+                                          ("batch", "seq")))
+    cache = serve_lib.pad_cache_to(cache, s, s_max, 2)
+    cur = shlib.full_tensor(torch.argmax(logits, dim=-1).to(torch.int32))
+    out = {"logits": [shlib.full_tensor(logits).numpy()], "tokens": []}
+    lengths = torch.full((b,), s, dtype=torch.int32)
+    for _ in range(n_steps):
+        step_in = place({"token": cur, "lengths": lengths}, ("batch",))
+        cur, logits, cache = decode(params, step_in, cache)
+        cur = shlib.full_tensor(cur)
+        out["logits"].append(shlib.full_tensor(logits).numpy())
+        out["tokens"].append(cur.numpy())
+        lengths = lengths + 1
+    return out
+
+
+def _recurrent_steps(model, params, tokens, n_steps, place):
+    """A recurrent model's prefill of ``tokens`` [B, S], then ``n_steps``
+    greedy decode steps on its carried state (no cache to pad): every
+    step's logits as numpy."""
+    b, s = tokens.shape
+    prefill = steps_lib.make_prefill_step(model, compiled=False)
+    decode = steps_lib.make_decode_step(model, compiled=False)
+    logits, cache = prefill(params, place({"tokens": tokens},
+                                          ("batch", "seq")))
+    out = [shlib.full_tensor(logits).numpy()]
+    cur = shlib.full_tensor(torch.argmax(logits, dim=-1).to(torch.int32))
+    lengths = torch.full((b,), s, dtype=torch.int32)
+    for _ in range(n_steps):
+        cur, logits, cache = decode(
+            params, place({"token": cur, "lengths": lengths}, ("batch",)),
+            cache)
+        cur = shlib.full_tensor(cur)
+        out.append(shlib.full_tensor(logits).numpy())
+        lengths = lengths + 1
+    return out
+
+
+def _adafactor_steps(model, params, batch, n_steps, opt_cfg):
+    """``n_steps`` Adafactor steps: the loss of each, the final params as
+    numpy."""
+    from repro_torch.optim import adafactor
+    opt = adafactor.init(params)
+    step = steps_lib.make_train_step(model, optimizer="adafactor",
+                                     opt_cfg=opt_cfg)
+    losses = []
+    for _ in range(n_steps):
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+    full = L.tree_map(shlib.full_tensor, params)
+    return losses, tree_to_numpy(L.tree_map(lambda t: t.detach(), full))
+
+
+def mesh_serve_and_adafactor(rank, world, serve_in, train_in, recur_in,
+                             mesh_shape):
+    """On a ``mesh_shape`` (data, model) mesh: the uncompiled prefill and
+    decode steps of ``serve_in`` = (cfg, numpy params, tokens, n_steps,
+    s_max) with params, batches and caches placed by the rules, the
+    Adafactor steps of ``train_in`` = (cfg, numpy params, numpy batch,
+    n_steps, AdafactorConfig), and a recurrent model's steps of
+    ``recur_in`` = (cfg, numpy params, tokens, n_steps). Returns {"serve":
+    ..., "train": (losses, params), "recurrent": logits} on rank 0."""
+    from repro_torch.models import build_model
+    mesh = _mesh(mesh_shape, mesh_lib.HOST_AXES)
+    out = {}
+    for key, fn, (cfg, np_params, *rest) in (
+            ("serve", _serve_steps, serve_in),
+            ("train", _adafactor_steps, train_in),
+            ("recurrent", _recurrent_steps, recur_in)):
+        model = build_model(cfg)
+        with shlib.use_sharding(mesh, overrides=cfg.rule_overrides):
+            params = shlib.place_tree(_tensors(np_params),
+                                      model.param_axes())
+
+            def place(tree, axes):
+                return shlib.place_tree(tree, {k: axes for k in tree})
+            if key == "serve":
+                tokens, n_steps, s_max = rest
+                out[key] = fn(model, params, torch.from_numpy(tokens),
+                              n_steps, s_max, place)
+            elif key == "recurrent":
+                tokens, n_steps = rest
+                out[key] = fn(model, params, torch.from_numpy(tokens),
+                              n_steps, place)
+            else:
+                np_batch, n_steps, opt_cfg = rest
+                batch = place(_tensors(np_batch), ("batch", "seq"))
+                out[key] = fn(model, params, batch, n_steps, opt_cfg)
+    return None if rank else out

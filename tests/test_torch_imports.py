@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``,
-and no module decides at import time whether a GPU exists."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py``, and no ``examples/*_torch.py`` or
+``experiments/*_torch.py`` imports JAX or anything of the JAX package
+``repro``, and no module decides at import time whether a GPU exists."""
 
 import ast
 from pathlib import Path
@@ -9,7 +10,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py")) \
+    + sorted((ROOT / "experiments").glob("*_torch.py"))
 BANNED = ("jax", "jaxlib", "repro")
 
 
