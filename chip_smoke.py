@@ -209,7 +209,18 @@ Phases (any failure exits non-zero without the final result line):
      group) with its roofline row and wall (``chaos``, ``examples`` and
      ``dryrun`` lines; each part's wall on the ``k.`` line).
 
-  l. (right after phase k) the StreamGraph layer and the mesh: each of
+  l. (right after phase k) ``python -m torch.distributed.run
+     --nproc-per-node 4 -m repro_torch.launch.serve --dist-backend
+     gloo_staged --json ...``: full-width qwen1.5-0.5B (24 layers, bf16 as
+     served), 8 requests of prompts <= 32 at rate 0, max-new 8, 4 slots,
+     page 16, on the (data 2, model 2) mesh of the one card: every rank
+     exits 0, rank 0's result has that mesh, paged == dense bit for bit,
+     equal token counts, every rank's tokens the same, and rows 1-3
+     launched on rank 0 (its wrappers' counts); beside it the same
+     arguments on 1 rank in this process (compiled steps): the decode
+     step ms of both and the share of tokens by rid equal (not gated; a
+     ``mesh_serve_cli`` line). Then the StreamGraph layer and the mesh:
+     each of
      the four registered graphs compiled by ``core/graph.py``
      ``compile_graph`` at its registered shapes in bf16, and the decode
      layer's at full-width qwen1.5-0.5B's widths: the fused plan's output
@@ -222,7 +233,10 @@ Phases (any failure exits non-zero without the final result line):
      steps on DTensors: a prefill of 4 x 256 tokens and 8 greedy decode
      steps within 1e-3 of the 1-rank steps with equal tokens (step ms,
      peak GiB a rank); smoke grok-1 trained 3 steps with Adafactor on the
-     same 4 ranks against 1 rank within 1e-3; and, beside them, the dry
+     same 4 ranks against 1 rank within 1e-3; ``serve_bench
+     --layer-graph`` cut to 4 layers on the same ranks (every rank's
+     tokens the same, rows 4 and 6 launched on rank 0; a
+     ``mesh_serve_layer_graph`` line); and, beside them, the dry
      runs of qwen1.5-0.5B x prefill_32k and x decode_32k and grok-1 x
      train_4k on a 256-rank fake group with their roofline rows, then
      ``experiments/hillclimb_torch.py`` once on the prefill cell with one
@@ -4434,6 +4448,20 @@ GRAPH_PROFILE_TRIES = 3
 MESH_SERVE = dict(arch="qwen1_5_0p5b", batch=4, prompt=256, steps=8,
                   tol=1e-3, ranks=4)
 MESH_TRAIN = dict(arch="grok1_314b", batch=8, seq=32, steps=3, tol=1e-3)
+# launch/serve.py under torchrun on 4 ranks of the card as (data 2, model
+# 2): full-width qwen1.5-0.5B (24 layers, bf16 as served), against the same
+# arguments on 1 rank; --layer-graph, cut to lg_layers layers, is served
+# by serve_bench inside phase l's spawn of 4 ranks (each rank runs the
+# decode-layer kernels on gathered weights, ~20 MB a layer a step through
+# the host)
+MESH_CLI = dict(ranks=4, backend="gloo_staged", timeout=600, lg_layers=4,
+                args=dict(requests=8, prompt_len=32, max_new=8, slots=4,
+                          page=16, rate=0.0))
+MESH_CLI_ROWS = {"ff_attention": "ff_attention",
+                 "ff_decode_attention": "ff_decode_attention",
+                 "ff_paged_decode_attention": "paged_decode_attention",
+                 "ff_layer_matmul": "ff_layer_matmul",
+                 "ff_layer_mlp_tail": "ff_layer_mlp_tail"}
 L_DRY_CELLS = (("qwen1_5_0p5b", "prefill_32k"), ("qwen1_5_0p5b", "decode_32k"),
                ("grok1_314b", "train_4k"))
 L_HILLCLIMB = ("--cell", "qwen1_5_0p5b:prefill_32k", "--tag", "l_f32",
@@ -4606,7 +4634,10 @@ def l_mesh(rank, world):
     by the uncompiled steps on DTensors (params by ``init_params``: each
     leaf drawn whole from seed 0, as ``model.init`` draws it), then smoke
     grok-1 trained by Adafactor, on the (data 2, model 2) host mesh.
-    Every rank returns its peak memory; rank 0 the outputs."""
+    Last, ``launch/serve.py``'s ``serve_bench`` with ``--layer-graph`` at
+    MESH_CLI's arguments, cut to its ``lg_layers`` layers, on the group
+    as torchrun would join it. Every rank returns its peak memory; rank 0
+    the outputs."""
     torch, dev = _j_rank_setup()
     from repro_torch.launch import steps as steps_lib
     from repro_torch.launch.mesh import make_host_mesh
@@ -4635,12 +4666,25 @@ def l_mesh(rank, world):
                     place(batch, ("batch", "seq")), MESH_TRAIN["steps"])
         del params
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    lg = serve.serve_bench(Namespace(**{
+        **SERVE, **MESH_CLI["args"], "layer_graph": True,
+        "n_layers": MESH_CLI["lg_layers"],
+        "dist_backend": MESH_CLI["backend"]}))
+    out["layer_graph"] = {k: lg[k] for k in (
+        "mesh", "bitwise_max_abs_diff", "token_count_parity", "ranks_agree",
+        "kernel_launches")}
+    out["layer_graph"]["wall_s"] = time.perf_counter() - t0
     return out if rank == 0 else {"peak_gib": out["peak_gib"]}
 
 
 def check_mesh(torch, dev, tmp):
     """Phase l's mesh checks: the 4-rank spawn (:func:`l_mesh`) against
-    the same steps on 1 rank in this process."""
+    the same steps on 1 rank in this process, and its layer-graph serve:
+    every rank's tokens the same, the paged vs dense difference finite,
+    rows 4 and 6 launched on rank 0. Returns rank 0's launches of rows 4
+    and 6 by path."""
     from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.models import build_model
     outs = spawn_ranks(l_mesh, MESH_SERVE["ranks"],
@@ -4690,6 +4734,117 @@ def check_mesh(torch, dev, tmp):
     print("mesh_adafactor " + json.dumps({
         "mesh_losses": mesh["train"], "one_rank_losses": one_losses,
         "max_diff": max(diffs)}), flush=True)
+    lg = mesh["layer_graph"]
+    n_layers = MESH_CLI["lg_layers"]
+    check(f"serve_bench --layer-graph on the mesh ({n_layers} layers of "
+          f"{MESH_SERVE['arch']}): ranks agree, token counts equal, paged vs "
+          f"dense difference finite",
+          lg["mesh"] == {"data": 2, "model": 2} and lg["ranks_agree"]
+          and lg["token_count_parity"]
+          and math.isfinite(lg["bitwise_max_abs_diff"]), json.dumps(lg))
+    out = {}
+    for row in ("ff_layer_matmul", "ff_layer_mlp_tail"):
+        n = lg["kernel_launches"].get(MESH_CLI_ROWS[row], 0)
+        check(f"serve_bench --layer-graph on the mesh: {row} launched on "
+              f"rank 0", n > 0, f"{n} launches")
+        out[row] = {f"serve[mesh 2x2 layer-graph {n_layers} layers]": n}
+    print("mesh_serve_layer_graph " + json.dumps(
+        {"card": smi_line(), "n_layers": n_layers, **lg}), flush=True)
+    return out
+
+
+def run_serve_cli(tmp, label, **over):
+    """``python -m torch.distributed.run --nproc-per-node 4 -m
+    repro_torch.launch.serve`` at MESH_CLI's arguments (and ``over``) on
+    the card: (return code, rank 0's --json result or None, wall s, the
+    output's tail). Every process it starts is gone when it returns."""
+    out = Path(tmp) / f"serve_{label}.json"
+    argv = []
+    for k, v in {**MESH_CLI["args"], **over}.items():
+        flag = "--" + k.replace("_", "-")
+        argv += [flag] if v is True else [flag, str(v)]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(MESH_CLI["ranks"]), "-m",
+           "repro_torch.launch.serve", "--dist-backend", MESH_CLI["backend"],
+           *argv, "--json", str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=_sub_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=str(ROOT),
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=MESH_CLI["timeout"])
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    wall = time.perf_counter() - t0
+    # rank 0's own lines (torchrun prefixes them), not DTensor's warnings
+    err = [ln for ln in stderr.splitlines()
+           if ln.startswith("[rank0]") or "Error" in ln]
+    result = (json.loads(out.read_text())
+              if proc.returncode == 0 and out.exists() else None)
+    return (proc.returncode, result, wall,
+            stdout[-1500:] + "\n".join(err[-40:]))
+
+
+def check_serve_cli(torch, tmp):
+    """Phase l's serve under torchrun (:func:`run_serve_cli`): every rank
+    exits 0, rank 0's result on the (data 2, model 2) mesh with paged ==
+    dense bit for bit, equal token counts, every rank's tokens the same
+    and rows 1-3 launched on rank 0; the decode step ms against the same
+    arguments on 1 rank in this process (compiled steps) and the share of
+    tokens by rid equal to it (not gated: in bf16 the sum over "model"
+    rounds otherwise than one rank's product). Returns rank 0's launches
+    of rows 1-3 by path."""
+    from repro_torch.launch import serve
+    ranks = MESH_CLI["ranks"]
+    rc, mesh, wall, tail = run_serve_cli(tmp, "mesh")
+    check(f"serve under torchrun: {ranks} ranks of the card "
+          f"({MESH_CLI['backend']}) serving full-width {SERVE['arch']}, "
+          f"every rank exits 0", rc == 0 and mesh is not None,
+          f"rc {rc}, wall {wall:.1f} s: {tail}")
+    if mesh is None:
+        return {}
+    launches = {row: mesh["kernel_launches"].get(op, 0)
+                for row, op in MESH_CLI_ROWS.items()}
+    check("serve under torchrun: rank 0's result on the (data 2, model 2) "
+          "mesh, paged == dense bitwise, token counts equal, ranks agree",
+          mesh["mesh"] == {"data": 2, "model": 2}
+          and mesh["bitwise_identical"] and mesh["token_count_parity"]
+          and mesh["ranks_agree"],
+          {k: mesh[k] for k in ("mesh", "bitwise_max_abs_diff",
+                                "token_count_parity", "ranks_agree")})
+    for row in PER_OP:
+        check(f"serve under torchrun: {row} launched on rank 0",
+              launches[row] > 0, f"{launches[row]} launches")
+    torch.cuda.reset_peak_memory_stats()
+    one = serve.serve_bench(Namespace(**{**SERVE, **MESH_CLI["args"]}))
+    same = total = 0
+    for kind in ("lockstep", "paged"):
+        for rid, toks in one[kind]["outputs"].items():
+            got = mesh[kind]["outputs"].get(str(rid), [])
+            same += sum(a == b for a, b in zip(got, toks))
+            total += len(toks)
+
+    def step_ms(r):
+        return {kind: 1e3 * r[kind]["decode_s"] / r[kind]["decode_steps"]
+                for kind in ("lockstep", "paged")}
+    print("mesh_serve_cli " + json.dumps({
+        "card": smi_line(), "ranks": ranks, "mesh": mesh["mesh"],
+        "backend": MESH_CLI["backend"], "args": MESH_CLI["args"],
+        "wall_s": wall,
+        "decode_step_ms": {"mesh": step_ms(mesh), "one_rank": step_ms(one)},
+        "prefill_s": {kind: {"mesh": mesh[kind]["prefill_s"],
+                             "one_rank": one[kind]["prefill_s"]}
+                      for kind in ("lockstep", "paged")},
+        "decode_steps": {kind: {"mesh": mesh[kind]["decode_steps"],
+                                "one_rank": one[kind]["decode_steps"]}
+                         for kind in ("lockstep", "paged")},
+        "tokens_equal_to_one_rank": same / max(total, 1),
+        "one_rank_compiled_graphs": one["compiled_graphs"],
+        "launches_rank0": launches}), flush=True)
+    return {row: {f"serve[mesh {ranks // 2}x2]": n}
+            for row, n in launches.items() if row in PER_OP}
 
 
 def start_l_dryruns():
@@ -4760,13 +4915,18 @@ def phase_l(torch, dev):
     """Phase l: the StreamGraph layer on the card and serving and
     Adafactor on the 4-rank mesh; the dry-run cells start here and run
     beside the later phases (:func:`check_l_dryruns` collects them).
-    Returns what :func:`start_l_dryruns` started."""
+    Returns what :func:`start_l_dryruns` started and the torchrun serve
+    runs' launches on rank 0 (:func:`check_serve_cli`)."""
     import tempfile
     t0 = time.perf_counter()
     walls = {}
+    cli_launches = {}
     started = start_l_dryruns()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_l_") as tmp:
-        for name, fn in (("mesh", lambda: check_mesh(torch, dev, tmp)),
+        for name, fn in (("serve_cli", lambda: cli_launches.update(
+                             check_serve_cli(torch, tmp))),
+                         ("mesh", lambda: cli_launches.update(
+                             check_mesh(torch, dev, tmp))),
                          ("graphs", lambda: check_graphs(torch, dev))):
             t1 = time.perf_counter()
             try:
@@ -4776,10 +4936,10 @@ def phase_l(torch, dev):
                 check(f"phase l {name} ran to its end", False,
                       traceback.format_exc()[-3000:])
             walls[name] = time.perf_counter() - t1
-    print(f"l. graphs, mesh serving, Adafactor: "
+    print(f"l. serve under torchrun, graphs, mesh serving, Adafactor: "
           f"{time.perf_counter() - t0:.1f} s {json.dumps(walls)}",
           flush=True)
-    return started
+    return started, cli_launches
 
 
 def phase_k(torch, dev):
@@ -4853,7 +5013,7 @@ def main() -> int:
     print(f"a. build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     if opts.phase_l:
-        check_l_dryruns(phase_l(torch, dev))
+        check_l_dryruns(phase_l(torch, dev)[0])
         return 1 if failures else 0
     # phase j first: its ranks share the card with this process, which
     # holds nothing on it yet
@@ -4865,7 +5025,7 @@ def main() -> int:
     phase_k(torch, dev)
     # phase l: its ranks too want the card before this process fills it;
     # its dry runs go on beside the phases below
-    l_dryruns = phase_l(torch, dev)
+    l_dryruns, cli_launches = phase_l(torch, dev)
     shapes = main_path_shapes(torch)
     if opts.decode_timing:
         rows = time_decode(torch, dev, shapes)
@@ -4950,6 +5110,9 @@ def main() -> int:
         if name in dist_launches:
             kernels[-1].setdefault("launches_by_path", {
                 "main path": launches[name]}).update(dist_launches[name])
+        if name in cli_launches:
+            kernels[-1].setdefault("launches_by_path", {
+                "main path": launches[name]}).update(cli_launches[name])
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -94,8 +94,13 @@ def check_production_world(world: int, multi_pod: bool = False) -> None:
 BACKENDS = ("nccl", "gloo", "gloo_staged")
 
 
-def default_backend(device: torch.device) -> str:
-    return "nccl" if torch.device(device).type == "cuda" else "gloo"
+def default_backend(device: torch.device, world: int = 1) -> str:
+    """``nccl`` where each of ``world`` ranks has a card of its own,
+    ``gloo_staged`` where ranks share a card (NCCL refuses two ranks on
+    one card), ``gloo`` on the CPU."""
+    if torch.device(device).type != "cuda":
+        return "gloo"
+    return "nccl" if world <= torch.cuda.device_count() else "gloo_staged"
 
 
 def _register(backend: str) -> None:
@@ -111,10 +116,11 @@ def init_distributed(device, backend: Optional[str] = None
     """Join the default process group as torchrun's environment says
     (``RANK``/``WORLD_SIZE``), else alone as rank 0 of 1. Returns (rank,
     world, this rank's device): on CUDA, card ``LOCAL_RANK`` modulo the
-    cards present. ``backend`` defaults to :func:`default_backend`. A
-    group already joined is kept as it is."""
+    cards present. ``backend`` defaults to :func:`default_backend` for
+    torchrun's world. A group already joined is kept as it is."""
     device = torch.device(device)
-    backend = backend or default_backend(device)
+    backend = backend or default_backend(
+        device, int(os.environ.get("WORLD_SIZE", "1")))
     _register(backend)
     if device.type == "cuda":
         local = int(os.environ.get("LOCAL_RANK", "0"))

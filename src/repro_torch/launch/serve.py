@@ -58,6 +58,19 @@ The plan stack, as the reference's flags drive it:
     histograms, the KV gauge, spans, plan-source counters), written as
     ``obs.metrics_snapshot()`` at exit.
 
+Under ``torchrun`` (``WORLD_SIZE`` > 1, or inside a process group of more
+than one rank) it serves on the host mesh, as the reference's
+``serve_bench`` does: ``launch/mesh.py``'s ``(N // m, m)`` over ``("data",
+"model")``, ``m = min(2, N)``, the parameters drawn from seed 0 on every
+rank and placed by the rules, the steps uncompiled (a CUDA-graph capture
+cannot hold the collectives), the paged pool's KV heads over "model". The
+schedulers' clock is one clock: every timed step is the most any rank
+took (one scalar all-reduce), so every rank admits the same requests and
+issues the same collectives. Rank 0 alone prints and writes ``--json``,
+``--metrics-json`` and ``--record-profile``; the result ends with
+``ranks_agree`` (every rank emitted the same tokens). At world 1 no
+process group is started and no DTensor made.
+
 Runs on the card unless asked for the CPU (the plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve
   PYTHONPATH=src python -m repro_torch.launch.serve --policy-mode baseline \
@@ -67,6 +80,10 @@ Runs on the card unless asked for the CPU (the plain versions):
       --layer-graph
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --arch grok1_314b --impl xla
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+      -m repro_torch.launch.serve --dist-backend gloo_staged --json out.json
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+      -m repro_torch.launch.serve --smoke --device cpu --dist-backend gloo
 """
 
 from __future__ import annotations
@@ -75,18 +92,23 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import time
 from collections import deque
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch import obs
 from repro_torch.configs.base import ARCH_IDS, get_config, smoke_config
+from repro_torch.kernels import launch_counters
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import build_model
+from repro_torch.runtime import sharding as shlib
 from repro_torch.runtime.paged_kv import PagedKVCache, to_device
 from repro_torch.runtime.sharding import is_dtensor, kept
 
@@ -111,6 +133,42 @@ def _sync(device: torch.device) -> None:
 def _ints(x, device) -> torch.Tensor:
     """Host ints on ``device`` as int32, copied without a host sync."""
     return to_device(np.asarray(x, np.int32), device)
+
+
+def _coll_device(device: torch.device) -> torch.device:
+    """Where a collective of the default group takes its tensors: the
+    card under NCCL, else the host."""
+    return device if dist.get_backend() == "nccl" else torch.device("cpu")
+
+
+def _make_steps(model, params, policy):
+    """(prefill, decode) under ``policy``; uncompiled when ``params`` are
+    DTensors (a CUDA-graph capture cannot hold the collectives)."""
+    compiled = not is_dtensor(params["embed"])
+    return (steps_lib.make_prefill_step(model, compiled=compiled,
+                                        policy=policy),
+            steps_lib.make_decode_step(model, compiled=compiled,
+                                       policy=policy))
+
+
+def _elapsed(t0: float, params) -> float:
+    """Seconds since ``t0`` on the trace clock. On a mesh (DTensor
+    ``params``) it is the most any rank of the default group took (one
+    scalar all-reduce): the mesh's step ends when its slowest rank does,
+    and every rank's clock, so every rank's admissions, stay the same."""
+    dt = time.perf_counter() - t0
+    if not is_dtensor(params["embed"]):
+        return dt
+    t = torch.tensor([dt], dtype=torch.float64,
+                     device=_coll_device(params["embed"].device))
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t.item())
+
+
+def _host_tokens(nxt) -> np.ndarray:
+    """The greedy tokens [B] on the host (a DTensor's batch shards
+    gathered first)."""
+    return shlib.full_tensor(nxt).cpu().numpy()
 
 
 def pad_cache_to(cache, s_from: int, s_max: int, seq_dims):
@@ -243,8 +301,7 @@ def run_lockstep(model, params, cfg, requests: List[Request], *,
     session's). Returns the trace's summary and ``outputs``: each
     request's greedy tokens, by rid."""
     dev = params["embed"].device
-    prefill = steps_lib.make_prefill_step(model, policy=policy)
-    decode = steps_lib.make_decode_step(model, policy=policy)
+    prefill, decode = _make_steps(model, params, policy)
     p_max = _bucket(max(len(r.prompt) for r in requests))
     total_max = max(len(r.prompt) + r.max_new for r in requests)
     s_max = max(-(-total_max // page) * page, -(-p_max // page) * page)
@@ -288,7 +345,7 @@ def run_lockstep(model, params, cfg, requests: List[Request], *,
             _, cache = prefill(params, {"tokens": _ints(toks, dev)})
             cache = pad_cache_to(cache, p_max, s_max, 2)
             _sync(dev)
-        dt = time.perf_counter() - t0
+        dt = _elapsed(t0, params)
         clock += dt
         prefill_s += dt
 
@@ -305,9 +362,9 @@ def run_lockstep(model, params, cfg, requests: List[Request], *,
             with obs.span("serve_decode_step", scheduler="lockstep"):
                 nxt, _, cache = decode(
                     params, {"token": cur, "lengths": lengths}, cache)
-                nxt_np = nxt.cpu().numpy()
+                nxt_np = _host_tokens(nxt)
                 _sync(dev)
-            dt = time.perf_counter() - t0
+            dt = _elapsed(t0, params)
             clock += dt
             decode_s += dt
             steps += 1
@@ -343,10 +400,11 @@ def run_continuous(model, params, cfg, requests: List[Request], *,
     """Continuous batching over a :class:`PagedKVCache`: admit on arrival
     into free slots, retire per step, recycle blocks; every step under
     ``policy`` (default: the session's). Returns the trace's summary, the
-    pool's, and ``outputs``: each request's greedy tokens, by rid."""
+    pool's, ``outputs`` (each request's greedy tokens, by rid) and
+    ``admissions`` (each admission's rid, slot and the decode steps run
+    before it)."""
     dev = params["embed"].device
-    prefill = steps_lib.make_prefill_step(model, policy=policy)
-    decode = steps_lib.make_decode_step(model, policy=policy)
+    prefill, decode = _make_steps(model, params, policy)
     n_pages_max = max(-(-(len(r.prompt) + r.max_new) // page)
                       for r in requests)
     if pool_blocks is None:
@@ -378,6 +436,7 @@ def run_continuous(model, params, cfg, requests: List[Request], *,
     steps = 0
     emits: Dict[int, List[float]] = {}
     outputs: Dict[int, List[int]] = {}     # rid -> its greedy tokens
+    admissions: List[List[int]] = []       # [rid, slot, steps before it]
     utils: List[float] = []
     utils_pool: List[float] = []
     telemetry = obs.enabled()
@@ -418,9 +477,10 @@ def run_continuous(model, params, cfg, requests: List[Request], *,
                 kv.admit(slot, pc["k"][:, 0], pc["v"][:, 0], plen,
                          plen + r.max_new)
                 _sync(dev)
-            dt = time.perf_counter() - t0
+            dt = _elapsed(t0, params)
             clock += dt
             prefill_s += dt
+            admissions.append([r.rid, slot, steps])
             slot_req[slot] = r
             cur[slot] = int(r.prompt[-1])
             produced[slot] = 0
@@ -441,9 +501,9 @@ def run_continuous(model, params, cfg, requests: List[Request], *,
                 params, {"token": _ints(cur, dev),
                          "lengths": _ints(kv.lengths, dev)},
                 kv.cache_view())
-            nxt_np = nxt.cpu().numpy()
+            nxt_np = _host_tokens(nxt)
             _sync(dev)
-        dt = time.perf_counter() - t0
+        dt = _elapsed(t0, params)
         clock += dt
         decode_s += dt
         steps += 1
@@ -476,6 +536,7 @@ def run_continuous(model, params, cfg, requests: List[Request], *,
     out["pool_blocks"] = pool_blocks
     out["page"] = page
     out["outputs"] = outputs
+    out["admissions"] = admissions
     return out
 
 
@@ -501,8 +562,7 @@ def decode_parity_probe(model, params, cfg, *, page: int, n_steps: int = 3,
     n_pages = -(-(p_max + n_steps) // page)
     s_max = n_pages * page
 
-    prefill = steps_lib.make_prefill_step(model, policy=policy)
-    decode = steps_lib.make_decode_step(model, policy=policy)
+    prefill, decode = _make_steps(model, params, policy)
 
     _, dense = prefill(params, {"tokens": _ints(toks, dev)})
     dense_cache = pad_cache_to(dense, p_max, s_max, 2)
@@ -527,7 +587,8 @@ def decode_parity_probe(model, params, cfg, *, page: int, n_steps: int = 3,
             kv.cache_view())
         kv.update(new_caches)
         kv.append(np.ones(b, np.int32))
-        diff = (logits_d.float() - logits_p.float()).abs().max().item()
+        diff = (shlib.full_tensor(logits_d).float()
+                - shlib.full_tensor(logits_p).float()).abs().max().item()
         max_diff = max(max_diff, diff)
         cur_d, cur_p = nd, np_
         len_d = len_d + 1
@@ -579,15 +640,29 @@ def serve_bench(args) -> Dict[str, object]:
         args.requests, prompt_len=args.prompt_len, max_new=args.max_new,
         rate=args.rate, vocab=cfg.vocab, seed=args.seed)
 
+    # on a mesh when torchrun (or a process group already joined) says so;
+    # at world 1 no process group is started and no DTensor made
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    mesh, rank = None, 0
+    if world > 1:
+        rank, world, device = mesh_lib.init_distributed(
+            device, getattr(args, "dist_backend", None))
+        mesh = mesh_lib.make_host_mesh(device_type=device.type)
+    shape, names = mesh_lib.host_mesh_shape(world)
+    lead = rank == 0
+    counters = launch_counters()
+    launches_before = [w.launches for w in counters]
+
     # plan-service hooks: --plan-db points the autotune lookup chain at a
     # release PlanDB (pre-warmed here so the first resolution is a dict
-    # hit, not file IO); --record-profile captures this run's traffic for
-    # an offline sweep (see repro_torch.plans)
+    # hit, not file IO; on every rank); --record-profile captures this
+    # run's traffic for an offline sweep (see repro_torch.plans; rank 0)
     from repro_torch.core import autotune
     plan_service: Dict[str, object] = {}
-    # --metrics-json opts into live telemetry: per-token latency
+    # --metrics-json opts into live telemetry (rank 0): per-token latency
     # histograms and the kv gauge observe only while obs is enabled
-    metrics_path = getattr(args, "metrics_json", None)
+    metrics_path = getattr(args, "metrics_json", None) if lead else None
     trace_state = None
     if metrics_path and not obs.enabled():
         trace_state = obs.enable()      # in-memory ring, no JSONL sink
@@ -596,20 +671,26 @@ def serve_bench(args) -> Dict[str, object]:
             from repro_torch.plans import plandb as plandb_lib
             stack.enter_context(autotune.tuning_config(plan_db=args.plan_db))
             plan_service["prewarm"] = plandb_lib.prewarm(args.plan_db)
-            print(f"# plan-db {args.plan_db}: "
-                  f"{plan_service['prewarm']['records_in_namespace']} "
-                  f"records for namespace "
-                  f"{plan_service['prewarm']['namespace']}")
+            if lead:
+                print(f"# plan-db {args.plan_db}: "
+                      f"{plan_service['prewarm']['records_in_namespace']} "
+                      f"records for namespace "
+                      f"{plan_service['prewarm']['namespace']}")
         profile = None
-        if getattr(args, "record_profile", None):
+        if getattr(args, "record_profile", None) and lead:
             from repro_torch.plans import record_traffic
             profile = stack.enter_context(
                 record_traffic(args.record_profile))
+        if mesh is not None:
+            stack.enter_context(shlib.use_sharding(
+                mesh, overrides=cfg.rule_overrides))
 
-        # weights from a fixed seed, as the reference's key(0); --seed is
-        # the trace's
+        # weights from a fixed seed on every rank, as the reference's
+        # key(0), then each rank keeps its shards; --seed is the trace's
         params = model.init_cast(
             torch.Generator(device=device).manual_seed(0), device)
+        if mesh is not None:
+            params = shlib.place_tree(params, model.param_axes())
         lockstep = run_lockstep(model, params, cfg, requests,
                                 n_slots=args.slots, page=args.page,
                                 eos_id=args.eos_id, policy=policy)
@@ -629,6 +710,7 @@ def serve_bench(args) -> Dict[str, object]:
     compiled = model.__dict__.get("_compiled_steps", {})
     result = {
         "arch": args.arch,
+        "mesh": dict(zip(names, shape)),
         "device": {"type": device.type,
                    "name": (torch.cuda.get_device_name(device)
                             if device.type == "cuda" else "cpu")},
@@ -651,9 +733,17 @@ def serve_bench(args) -> Dict[str, object]:
         "bitwise_max_abs_diff": bitwise,
         "bitwise_identical": bitwise == 0.0,
         "token_count_parity": lockstep["tokens"] == paged["tokens"],
-        # CUDA graphs captured per step kind (0 on the CPU: eager steps)
+        # CUDA graphs captured per step kind (none on the CPU or a mesh:
+        # eager steps)
         "compiled_graphs": {kind: len(step.graphs)
                             for kind, step in compiled.items()},
+        # this rank's kernel launches over the run, by op (0 on the CPU)
+        "kernel_launches": {w.op_name: w.launches - n
+                            for w, n in zip(counters, launches_before)
+                            if w.launches > n},
+        "ranks_agree": (True if mesh is None
+                        else _ranks_agree(requests, lockstep, paged,
+                                          device)),
     }
     if plan_service:
         result["plan_service"] = plan_service
@@ -669,6 +759,23 @@ def serve_bench(args) -> Dict[str, object]:
         if trace_state is not None:
             obs.restore(trace_state)
     return result
+
+
+def _ranks_agree(requests: List[Request], lockstep, paged,
+                 device: torch.device) -> bool:
+    """Whether every rank of the default group emitted the same tokens by
+    rid in both schedulers: one all-gather of each rank's outputs, laid
+    out [scheduler, request, its budget] (-1 past its last token)."""
+    row = {r.rid: j for j, r in enumerate(requests)}
+    mine = torch.full((2, len(requests), max(r.max_new for r in requests)),
+                      -1, dtype=torch.int64)
+    for i, run in enumerate((lockstep, paged)):
+        for rid, toks in run["outputs"].items():
+            mine[i, row[rid], :len(toks)] = torch.as_tensor(toks)
+    mine = mine.to(_coll_device(device))
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    return all(torch.equal(t, mine) for t in every)
 
 
 def add_serve_args(ap: argparse.ArgumentParser) -> None:
@@ -728,6 +835,11 @@ def add_serve_args(ap: argparse.ArgumentParser) -> None:
                     help="enable live telemetry (per-token latency "
                          "histograms, plan-source counters) and write "
                          "obs.metrics_snapshot() to PATH at exit")
+    ap.add_argument("--dist-backend", choices=mesh_lib.BACKENDS,
+                    default=None,
+                    help="process-group backend under torchrun (default: "
+                         "nccl with a card a rank, gloo_staged for ranks "
+                         "sharing a card, gloo on cpu)")
 
 
 def main(argv=None):
@@ -736,10 +848,18 @@ def main(argv=None):
     ap.add_argument("--json", default=None,
                     help="write the benchmark dict to this path")
     args = ap.parse_args(argv)
-    result = serve_bench(args)
+    joined = dist.is_initialized()
+    try:
+        result = serve_bench(args)
+        rank = dist.get_rank() if dist.is_initialized() else 0
+    finally:
+        if not joined and dist.is_initialized():
+            dist.destroy_process_group()
+    if rank:
+        return result                  # rank 0 alone prints and writes
     ls, pg = result["lockstep"], result["paged"]
     print(f"impl={result['impl']} policy={result['policy_mode']} "
-          f"device={result['device']} "
+          f"mesh={result['mesh']} device={result['device']} "
           f"requests={args.requests} slots={args.slots} page={args.page}")
     for name, m in (("lockstep", ls), ("paged", pg)):
         print(f"{name:9s}: {m['tokens']} tokens, "

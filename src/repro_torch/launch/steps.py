@@ -125,8 +125,8 @@ def init_params(model, gen: torch.Generator, device):
         return model.init(gen, device)
     out: Dict = {}
     for path, spec in L.tree_leaves(model.param_specs()):
-        L._put(out, path, shlib.sharding_for(spec.axes, ctx).place(
-            spec.initializer(gen, device)))
+        L._put(out, path, shlib.sharding_for(spec.axes, ctx, spec.shape)
+               .place(spec.initializer(gen, device)))
     return out
 
 

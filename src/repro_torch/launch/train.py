@@ -102,8 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dist-backend", choices=mesh_lib.BACKENDS,
                     default=None,
                     help="process-group backend of a multi-rank run "
-                         "(default nccl on cuda, gloo on cpu); ranks "
-                         "sharing one card need gloo")
+                         "(default nccl with a card a rank, gloo_staged "
+                         "for ranks sharing a card, gloo on cpu)")
     return ap
 
 

@@ -32,7 +32,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
-from repro_torch.runtime.sharding import constrain
+from repro_torch.runtime.sharding import constrain, product_output
 
 
 def specs(cfg: ArchConfig) -> Dict[str, Any]:
@@ -88,7 +88,7 @@ def _mha(p, xq, xkv, *, causal: bool, cache=None, lengths=None):
         cache = {"k": k, "v": v}
     b, s, h, hd = out.shape
     wo = p["wo"].reshape(h * hd, -1).to(xq.dtype)
-    return out.reshape(b, s, h * hd) @ wo, cache
+    return product_output(out.reshape(b, s, h * hd) @ wo), cache
 
 
 @functools.lru_cache(maxsize=None)

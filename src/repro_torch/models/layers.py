@@ -47,7 +47,7 @@ from repro_torch.kernels.ff_layer import ops as layer_ops
 from repro_torch.kernels.ff_layer.ops import rope_freqs
 from repro_torch.runtime.paged_kv import paged_decode_attention
 from repro_torch.runtime.sharding import as_dtensor, constrain, \
-    follow, is_dtensor, kept, product_operand
+    follow, is_dtensor, kept, product_operand, product_output
 
 # ---------------------------------------------------------------------------
 # Param specs
@@ -438,14 +438,57 @@ def decode_attention_op(q, k, v, lengths, *, impl: str = "ff",
     return ff_decode_attention(q, kh, vh, lengths, block_kv=block_kv)
 
 
+def _sharded_paged_attention(q, kv_pool, block_tables, lengths,
+                             **kw) -> torch.Tensor:
+    """:func:`paged_decode_attention_op` of a DTensor pool as the body of a
+    shard_map: each rank attends its own KV heads (the pool's shards) with
+    their query group, where the query heads divide as the pool's, and
+    its own batch rows where ``q`` keeps them on a mesh dim the pool does
+    not shard (the tables and lengths follow the rows). Anything else is
+    gathered. ``q``'s split is then the dense path's
+    (:func:`_sharded_decode_attention`), so each rank's kernel sees the
+    rows and heads it sees there: paged == dense bit for bit."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    q = as_dtensor(q, kv_pool)
+    mesh = q.device_mesh
+    split = 1
+    for i, p in enumerate(kv_pool.placements):
+        if p == Shard(3):
+            split *= mesh.size(i)
+    heads_ok = q.shape[1] % split == 0 and kv_pool.shape[3] % split == 0
+    q_pl, pool_pl = [], []
+    for p_pool, p_q in zip(kv_pool.placements, q.placements):
+        if p_pool == Shard(3) and heads_ok:
+            q_pl.append(Shard(1))
+            pool_pl.append(Shard(3))
+        else:
+            q_pl.append(p_q if p_q == Shard(0) and p_pool != Shard(3)
+                        else Replicate())
+            pool_pl.append(Replicate())
+    rows = kept(q_pl, (0,))
+    body = local_map(
+        lambda q_, p_, t_, n_: paged_decode_attention_op(q_, p_, t_, n_,
+                                                         **kw),
+        out_placements=q_pl, in_placements=(q_pl, pool_pl, rows, rows),
+        device_mesh=mesh, redistribute_inputs=True)
+    return body(q, kv_pool, as_dtensor(block_tables, q),
+                as_dtensor(lengths, q))
+
+
 def paged_decode_attention_op(q, kv_pool, block_tables, lengths, *,
                               impl: str = "ff") -> torch.Tensor:
     """Decode attention through a paged KV pool (continuous batching).
     q: [B,H,D]; kv_pool: [nb, 2, page, KVH, D]; block_tables: [B, n_pages]
     (entries >= nb are sentinels); lengths: [B] (0 = inactive slot).
     ``"ff"`` runs the fused paged kernel; ``"xla"`` clips the table into
-    the pool and reads it densely, as the reference does."""
+    the pool and reads it densely, as the reference does. A DTensor pool
+    runs on each rank's shards (:func:`_sharded_paged_attention`)."""
     _check_impl(impl)
+    if is_dtensor(kv_pool):
+        return _sharded_paged_attention(q, kv_pool, block_tables, lengths,
+                                        impl=impl)
     if impl == "ff":
         return paged_decode_attention(q, kv_pool, block_tables, lengths)
     nb, _, page, kvh, d = kv_pool.shape
@@ -565,10 +608,11 @@ def mlp_apply(p, x, act: str) -> torch.Tensor:
     x = product_operand(x)
     dt = x.dtype
     if act == "swiglu":
-        gate, up = torch.chunk(x @ p["wi"].to(dt), 2, dim=-1)
-        return (F.silu(gate) * up) @ p["wo"].to(dt)
-    h = F.gelu(x @ p["wi"].to(dt) + p["bi"].to(dt), approximate="tanh")
-    return h @ p["wo"].to(dt) + p["bo"].to(dt)
+        gate, up = torch.chunk(product_output(x @ p["wi"].to(dt)), 2, dim=-1)
+        return product_output((F.silu(gate) * up) @ p["wo"].to(dt))
+    h = F.gelu(product_output(x @ p["wi"].to(dt)) + p["bi"].to(dt),
+               approximate="tanh")
+    return product_output(h @ p["wo"].to(dt)) + p["bo"].to(dt)
 
 
 def embed_specs(vocab: int, d: int) -> ParamSpec:

@@ -23,7 +23,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.runtime.paged_kv import scatter_token
 from repro_torch.runtime.sharding import as_dtensor, constrain, follow, \
-    is_dtensor, kept, product_operand
+    is_dtensor, kept, product_operand, product_output
 
 
 # ---------------------------------------------------------------------------
@@ -50,7 +50,8 @@ def _project(x, w, b=None):
     """einsum("bsd,dhk->bshk") as one matmul, plus the optional bias."""
     x = product_operand(x)
     d, h, k = w.shape
-    y = (x @ w.reshape(d, h * k).to(x.dtype)).unflatten(-1, (h, k))
+    y = product_output(x @ w.reshape(d, h * k).to(x.dtype)).unflatten(
+        -1, (h, k))
     return y if b is None else y + b.to(x.dtype)
 
 
@@ -143,7 +144,7 @@ def attn_apply(cfg: ArchConfig, p, x, *, positions, cache=None,
         new_cache = {"k": ck, "v": cv}
     b, s, h, hd = out.shape
     wo = p["wo"].reshape(h * hd, -1).to(x.dtype)
-    return out.reshape(b, s, h * hd) @ wo, new_cache
+    return product_output(out.reshape(b, s, h * hd) @ wo), new_cache
 
 
 def attn_cache_spec(cfg: ArchConfig, batch: int, s_max: int):
@@ -265,16 +266,36 @@ class DecoderStack:
         v = _project(h1, mp["wv"], mp.get("bv"))
         ck, cv = _write_token(cache, {"k": k, "v": v}, lengths)
         d, h_q, hd = cfg.d_model, cfg.n_heads, cfg.hd
-        wi = fp["wi"].to(dt)
-        f = wi.shape[1] // 2
-        out = L.decode_layer(
-            x[:, 0], p["norm1"]["w"], mp["wq"].to(dt).reshape(d, h_q * hd),
-            mp["bq"].to(dt).reshape(h_q * hd) if cfg.qkv_bias else None,
-            positions[:, -1], ck.transpose(1, 2), cv.transpose(1, 2),
-            lengths + 1, mp["wo"].to(dt).reshape(h_q * hd, d),
-            p["norm2"]["w"], wi[:, :f], wi[:, f:], fp["wo"].to(dt),
-            rope_theta=cfg.rope_theta, block_kv=cfg.decode_block_kv)
-        return out[:, None], {"k": ck, "v": cv}, 0.0
+
+        def layer(x_, nw1, wq, bq, pos, ck_, cv_, n_, wo, nw2, wi, wo2):
+            wi = wi.to(dt)
+            f = wi.shape[1] // 2
+            return L.decode_layer(
+                x_[:, 0], nw1, wq.to(dt).reshape(d, h_q * hd),
+                None if bq is None else bq.to(dt).reshape(h_q * hd),
+                pos[:, -1], ck_.transpose(1, 2), cv_.transpose(1, 2), n_ + 1,
+                wo.to(dt).reshape(h_q * hd, d), nw2, wi[:, :f], wi[:, f:],
+                wo2.to(dt), rope_theta=cfg.rope_theta,
+                block_kv=cfg.decode_block_kv)[:, None]
+
+        args = (x, p["norm1"]["w"], mp["wq"],
+                mp["bq"] if cfg.qkv_bias else None, positions, ck, cv,
+                lengths, mp["wo"], p["norm2"]["w"], fp["wi"], fp["wo"])
+        if not is_dtensor(x):
+            return layer(*args), {"k": ck, "v": cv}, 0.0
+        # on a mesh every rank runs the three launches on whole operands
+        # (the reference's graph under GSPMD runs on gathered ones), and
+        # the output takes x's placements again
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor.experimental import local_map
+        rep = [Replicate()] * x.device_mesh.ndim
+        body = local_map(layer, out_placements=rep,
+                         in_placements=tuple(None if a is None else rep
+                                             for a in args),
+                         device_mesh=x.device_mesh, redistribute_inputs=True)
+        out = body(*(None if a is None else as_dtensor(a, x) for a in args))
+        return (out.redistribute(x.device_mesh, x.placements),
+                {"k": ck, "v": cv}, 0.0)
 
     def _remat_layer(self) -> Callable:
         """The layer rematerialized as ``cfg.remat`` says (the reference's

@@ -24,6 +24,12 @@
   * :func:`gather_indices` / :func:`paged_decode_unfused` — the staged
     baseline of the paged kernel: gather the step's pool rows
     (``ff_gather``), then contiguous decode.
+
+Under a mesh (``runtime.sharding.use_sharding``) the pool is a DTensor
+with its KV heads over "model" (the dense cache's ``kv_heads`` rule) and
+the block tables are replicated: every rank's host allocator makes the
+same choices, so each rank scatters into and attends over its own heads
+in a local body.
 """
 
 from __future__ import annotations
@@ -36,6 +42,11 @@ import torch
 from repro_torch.core.program import PipePolicy, make_entrypoint
 from repro_torch.kernels.ff_decode_attention import ops as dec_ops
 from repro_torch.kernels.ff_gather import gather
+from repro_torch.runtime import sharding as shlib
+
+# the pool [L, n_blocks, 2, page, KVH, hd]: its KV heads as the dense
+# cache's
+POOL_AXES = ("layers", None, None, None, "kv_heads", None)
 
 
 # ---------------------------------------------------------------------------
@@ -287,6 +298,32 @@ def _masked_write(dst, index, vals, keep) -> None:
         dst[tb, :, to] = vals
 
 
+def _on_heads(fn, pool, head_dim: int, kvs, kv_head_dim: int, rest):
+    """``fn(pool, *kvs, *rest)`` on a DTensor ``pool`` as a local body, in
+    place: each rank writes its own KV heads (the pool's shards on dim
+    ``head_dim``), the K/V operands ``kvs`` split on ``kv_head_dim`` as the
+    pool's heads and gathered on every other dim (every replica of the
+    pool takes every row), ``rest`` (tables, lengths: host arrays or
+    tensors) whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    pool_pl = tuple(p if p == Shard(head_dim) else Replicate()
+                    for p in pool.placements)
+    if pool_pl != tuple(pool.placements):
+        raise ValueError(f"the pool is placed {pool.placements}: only its "
+                         f"KV heads (dim {head_dim}) may be sharded")
+    kv_pl = [Shard(kv_head_dim) if p == Shard(head_dim) else Replicate()
+             for p in pool_pl]
+    rep = [Replicate()] * len(pool_pl)
+    body = local_map(
+        fn, out_placements=list(pool_pl),
+        in_placements=(pool_pl, *[kv_pl] * len(kvs),
+                       *[rep if shlib.is_dtensor(a) else None
+                         for a in rest]),
+        device_mesh=pool.device_mesh, redistribute_inputs=True)
+    return body(pool, *[shlib.as_dtensor(t, pool) for t in kvs], *rest)
+
+
 def scatter_prefill(pool, k, v, block_tables, lengths, *, page: int,
                     n_blocks: int):
     """Write prefill KV into the pool (in place) through the block tables.
@@ -295,7 +332,12 @@ def scatter_prefill(pool, k, v, block_tables, lengths, *, page: int,
     block_tables: [B, n_pages]; lengths: [B] (host arrays or tensors: a
     host array is copied without a sync). Positions past ``lengths`` and
     sentinel table entries (>= ``n_blocks``) drop. No host sync. Returns
-    ``pool``."""
+    ``pool``. A DTensor pool takes each rank's heads in a local body."""
+    if shlib.is_dtensor(pool):
+        return _on_heads(
+            lambda p, k_, v_, t, n: scatter_prefill(
+                p, k_, v_, t, n, page=page, n_blocks=n_blocks),
+            pool, 4, (k, v), 3, (block_tables, lengths))
     dev = pool.device
     n_layers, b, s_p = k.shape[:3]
     pos = torch.arange(s_p, device=dev)
@@ -319,7 +361,12 @@ def scatter_token(pool_layer, block_tables, lengths, k_new, v_new,
     layer's pool, in place. pool_layer: [nb, 2, page, KVH, hd]; k_new,
     v_new: [B, KVH, hd]. Sentinel table entries (>= n_blocks) drop the
     write. No host sync: a CUDA graph captures it. Returns
-    ``pool_layer``."""
+    ``pool_layer``. A DTensor pool takes each rank's heads in a local
+    body."""
+    if shlib.is_dtensor(pool_layer):
+        return _on_heads(
+            lambda p, k_, v_, t, n: scatter_token(p, t, n, k_, v_, n_blocks),
+            pool_layer, 3, (k_new, v_new), 1, (block_tables, lengths))
     page = pool_layer.shape[2]
     b = k_new.shape[0]
     bt = block_tables.long()
@@ -386,6 +433,12 @@ class PagedKVCache:
     decode step, :meth:`update` takes the pool and table buffer the step
     returned as the cache's own, so a compiled step, whose graph reads
     fixed addresses, gets back the buffers it wrote and copies nothing in.
+
+    Made under a mesh (``runtime.sharding.use_sharding``), the pool is
+    placed by :data:`POOL_AXES` (KV heads over "model" where they divide)
+    and :meth:`cache_view` hands the tables out replicated: each rank
+    keeps the same host tables, which agree while its scheduler's clock
+    does.
     """
 
     def __init__(self, *, n_layers: int, n_blocks: int, page: int,
@@ -399,9 +452,12 @@ class PagedKVCache:
         self.n_slots = n_slots
         self.n_pages_max = n_pages_max
         self.device = torch.device(device)
-        self.pool = torch.zeros(
-            (n_layers, n_blocks, 2, page, kv_heads, head_dim), dtype=dtype,
-            device=self.device)
+        shape = (n_layers, n_blocks, 2, page, kv_heads, head_dim)
+        self.pool = torch.zeros(shape, dtype=dtype, device=self.device)
+        sharding = shlib.sharding_for(POOL_AXES, shape=shape)
+        self._mesh = None if sharding is None else sharding.mesh
+        if sharding is not None:
+            self.pool = sharding.place(self.pool)
         self.allocator = BlockAllocator(n_blocks)
         self._tables = np.full((n_slots, n_pages_max), n_blocks, np.int32)
         self._device_tables = torch.as_tensor(self._tables).to(self.device)
@@ -460,9 +516,15 @@ class PagedKVCache:
     def device_tables(self) -> torch.Tensor:
         """Block tables broadcast over layers: [L, n_slots, n_pages_max]
         (every layer shares one table; the pool's L axis separates them),
-        a view of the one device buffer."""
+        a view of the one device buffer (replicated on a mesh)."""
         bt = self._device_tables
-        return bt.expand(self.n_layers, *bt.shape)
+        bt = bt.expand(self.n_layers, *bt.shape)
+        if self._mesh is None:
+            return bt
+        from torch.distributed.tensor import DTensor, Replicate
+        return DTensor.from_local(bt, self._mesh,
+                                  [Replicate()] * self._mesh.ndim,
+                                  run_check=False)
 
     def cache_view(self) -> Dict[str, torch.Tensor]:
         """The paged decode cache ``attn_apply`` consumes (leading L axis
@@ -471,8 +533,11 @@ class PagedKVCache:
 
     def update(self, cache: Dict[str, torch.Tensor]) -> None:
         """Adopt the cache a decode step returned: its pool, and its table
-        buffer (which holds this cache's tables: the step read them)."""
+        buffer (which holds this cache's tables: the step read them; on a
+        mesh, the replicated DTensor's local buffer)."""
         bt = cache["block_tables"]
+        if shlib.is_dtensor(bt):
+            bt = bt.to_local()
         if bt.stride(0) != 0:
             raise ValueError("block_tables is not one [n_slots, n_pages] "
                              "buffer broadcast over layers")

@@ -164,12 +164,17 @@ def partition_spec(logical_axes: Sequence[Optional[str]],
 
 
 def spec_for(logical_axes: Sequence[Optional[str]],
-             ctx: Optional[ShardingContext] = None) -> tuple:
+             ctx: Optional[ShardingContext] = None,
+             shape: Optional[Sequence[int]] = None) -> tuple:
     """The DTensor placements of a tensor with these logical axes: one per
     mesh dimension, ``Shard(d)`` for the tensor dim the rules send there,
     else ``Replicate()``. A dim over several mesh axes is split over them
-    in mesh order (the reference's ``P(("pod", "data"))``). ``()``
-    without a context."""
+    in mesh order (the reference's ``P(("pod", "data"))``). Given the
+    tensor's ``shape``, a dim its mesh axes do not divide is replicated
+    (a batch of 1 over "data" of 2), so no rank holds an empty or a
+    ragged shard, and so is a dim over axes of one rank (the same bits,
+    and DTensor's views keep a replicated dim of extent 1 where they
+    refuse a sharded one). ``()`` without a context."""
     from torch.distributed.tensor import Replicate, Shard
 
     ctx = ctx or current()
@@ -178,7 +183,13 @@ def spec_for(logical_axes: Sequence[Optional[str]],
     names = list(ctx.mesh.mesh_dim_names)
     out = [Replicate() for _ in names]
     for dim, part in enumerate(partition_spec(logical_axes, ctx)):
-        for axis in ((part,) if isinstance(part, str) else part or ()):
+        axes = (part,) if isinstance(part, str) else part or ()
+        n = 1
+        for axis in axes:
+            n *= ctx.axis_size(axis)
+        if shape is not None and (n == 1 or shape[dim] % n):
+            continue
+        for axis in axes:
             out[names.index(axis)] = Shard(dim)
     return tuple(out)
 
@@ -200,12 +211,13 @@ class NamedSharding:
 
 
 def sharding_for(logical_axes: Sequence[Optional[str]],
-                 ctx: Optional[ShardingContext] = None
+                 ctx: Optional[ShardingContext] = None,
+                 shape: Optional[Sequence[int]] = None
                  ) -> Optional[NamedSharding]:
     ctx = ctx or current()
     if ctx is None:
         return None
-    return NamedSharding(ctx.mesh, spec_for(logical_axes, ctx))
+    return NamedSharding(ctx.mesh, spec_for(logical_axes, ctx, shape))
 
 
 def constrain(x, logical_axes: Sequence[Optional[str]]):
@@ -220,7 +232,7 @@ def constrain(x, logical_axes: Sequence[Optional[str]]):
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
-    placements = spec_for(logical_axes, ctx)
+    placements = spec_for(logical_axes, ctx, x.shape)
     if tuple(x.placements) == placements and x.device_mesh == ctx.mesh:
         return x
     return x.redistribute(ctx.mesh, placements)
@@ -265,14 +277,14 @@ def tree_shardings(axes_tree, ctx: Optional[ShardingContext] = None):
 
 def place_tree(tree, axes_tree, ctx: Optional[ShardingContext] = None):
     """Every tensor leaf of ``tree`` as a DTensor on its logical sharding
-    (each rank must hold the same full leaves); the tree unchanged
-    without a context."""
+    (each rank must hold the same full leaves; a dim the mesh does not
+    divide is replicated); the tree unchanged without a context."""
     ctx = ctx or current()
     if ctx is None:
         return tree
     if isinstance(tree, dict):
         return {k: place_tree(v, axes_tree[k], ctx) for k, v in tree.items()}
-    return sharding_for(axes_tree, ctx).place(tree)
+    return sharding_for(axes_tree, ctx, tree.shape).place(tree)
 
 
 def is_dtensor(x) -> bool:
@@ -348,6 +360,18 @@ def product_operand(x):
         return x
     return x.redistribute(x.device_mesh, kept(x.placements,
                                               {0, x.dim() - 1}))
+
+
+def product_output(y):
+    """``y``, a product's output, with its gradient sent through
+    :func:`product_operand` on its way into the product's backward: a
+    cotangent sharded on more than one leading dim (a sequence sharded
+    over "model" beside the batch) keeps only its batch (and last-dim)
+    shards there, as the forward's left operand does. Anything but a
+    DTensor that requires grad as it is."""
+    if is_dtensor(y) and y.requires_grad:
+        y.register_hook(product_operand)
+    return y
 
 
 def follow(placements, offset: int, ndim: int):

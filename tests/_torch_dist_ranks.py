@@ -339,3 +339,27 @@ def mesh_serve_and_adafactor(rank, world, serve_in, train_in, recur_in,
                 batch = place(_tensors(np_batch), ("batch", "seq"))
                 out[key] = fn(model, params, batch, n_steps, opt_cfg)
     return None if rank else out
+
+
+def serve_mesh_cases(rank, world, cases, skewed):
+    """``launch/serve.py``'s ``serve_bench`` on the host mesh of the spawn
+    (the process group is already joined), once per ``(name, argv)`` of
+    ``cases``. In the cases named in ``skewed`` this rank's
+    ``time.perf_counter`` runs at ``1 + rank`` times real speed. Returns
+    {name: result} from every rank."""
+    import argparse
+    import time
+
+    from repro_torch.launch import serve
+    out = {}
+    real = time.perf_counter
+    for name, argv in cases:
+        ap = argparse.ArgumentParser()
+        serve.add_serve_args(ap)
+        if name in skewed:
+            serve.time.perf_counter = lambda: real() * (1 + rank)
+        try:
+            out[name] = serve.serve_bench(ap.parse_args(argv))
+        finally:
+            serve.time.perf_counter = real
+    return out

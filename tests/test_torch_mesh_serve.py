@@ -15,8 +15,10 @@ gloo ranks (spawned processes on the CPU) as (data 2, model 2).
   mesh against the port's one-rank steps within 1e-5;
 * the dry run lowers smoke ``prefill_32k`` and ``decode_32k`` cells of
   qwen1.5-0.5B, and ``train_4k`` of grok-1, on a fake 8-rank group with
-  the reference's keys, and ``decode_32k`` of rwkv6-7b, zamba2-2.7b and
-  deepseek-v2-lite;
+  the reference's keys, ``decode_32k`` of rwkv6-7b, zamba2-2.7b and
+  deepseek-v2-lite, and ``train_4k`` of whisper-tiny (its sequence over
+  "model": each product's output gradient keeps only its batch shards,
+  ``runtime.sharding.product_output``);
 * a compiled (CUDA-graph) step refuses DTensor operands.
 
 One spawn of ranks, joined with a 120 s limit.
@@ -181,7 +183,8 @@ def test_adafactor_places_its_moments_like_opt_state_axes():
 @pytest.mark.parametrize("arch,shape", [
     ("qwen1_5_0p5b", "prefill_32k"), ("qwen1_5_0p5b", "decode_32k"),
     ("grok1_314b", "train_4k"), ("rwkv6_7b", "decode_32k"),
-    ("zamba2_2p7b", "decode_32k"), ("deepseek_v2_lite_16b", "decode_32k")])
+    ("zamba2_2p7b", "decode_32k"), ("deepseek_v2_lite_16b", "decode_32k"),
+    ("whisper_tiny", "train_4k")])
 def test_dry_run_lowers_serving_and_adafactor_cells(arch, shape, tmp_path):
     patch = dataclasses.asdict(smoke_config(arch))
     r = dryrun.run_cell(arch, shape, multi_pod=False, mesh_axes=MESH,
