@@ -48,6 +48,12 @@ Phases (any failure exits non-zero without the final result line):
      against the CPU (prefill, 3 greedy decode steps; rwkv6 also under
      ``scan_impl="xla_tiled"``) and their f32 prefill -> decode handoff
      gap within 1e-3; the smoke qwen model also under ``--impl xla``;
+     the AdamW kernel (``csrc/adamw.cu``, hand-fused: no Pallas
+     counterpart) against its plain version on full-width llama3.2-1b's
+     f32 leaves after one clipped update, p, m and v within 1e-5 of their
+     max |plain| and grad_norm and lr within 1e-5 relative, with its time,
+     the plain version's and ``torch._fused_adamw_``'s (an ``adamw``
+     line);
      prefill and decode attention at grok-1's heads (48 of 128 over 8,
      GQA 6) at its serve shapes, paged == contiguous bit for bit and both
      bitwise across depth x streams; the smoke grok-1 and
@@ -163,13 +169,28 @@ Phases (any failure exits non-zero without the final result line):
      mean below the first five's, with the median step, tokens/s, peak
      memory and the final checkpoint's size and write time (a ``train``
      line; the checkpoint goes to a temporary directory, removed after);
-     4 more steps with ``--accum 2 --quantized-accum``, finite; no kernel
-     of the port launched by either run (the "xla" path, as the
-     reference); a profiled window of the same train step (a
-     ``train_profile`` line: wall and device ms, kernels a step, the top
-     device ops, a bound); a smoke run crashed at step 12 and resumed to 20 equal
-     to a clean one bit for bit; a loss through the "ff" kernels with
-     gradients on refused before any launch.
+     4 more steps with ``--accum 2 --quantized-accum``, finite (no
+     checkpoint: the first run's is the whole script's one full-width
+     checkpoint write); both runs'
+     steps compiled (one CUDA graph a signature) and the AdamW kernel the
+     only kernel of the port they launch, twice a step (the model on the
+     "xla" path, as the reference); the compiled step against the eager
+     one from one state, 4 calls (the capture's warm-up, then 3 replays):
+     full-width llama3.2-1b with the plain AdamW and with the kernel, and
+     the smoke models above under AdamW and Adafactor and the smoke
+     llama3.2-1b with int8 accumulation, params, optimizer
+     state and metrics bit for bit (the MoE pair within 1e-3 in every
+     metric and every leaf relative to its max: float atomics), one
+     graph, no operand copied (a ``train_compiled`` line); the full-width
+     kernel pair, after its checked calls, timed and profiled eager and
+     compiled on the same states, 7 more calls each, still compared bit
+     for bit (a ``train_profile`` line: wall and device ms, busy share,
+     kernels and host launch calls a step, the AdamW kernel's share, peak
+     memory, the top device ops, a bound; compiled: one graph launch a
+     step and no other launch); a smoke run crashed at step 12 and
+     resumed to 20 equal to a clean one bit for bit, the step compiled; a
+     loss through the "ff" kernels with gradients on refused before any
+     launch.
 
   j. (run right after the build, while this process holds nothing on
      the card) the distributed runtime, several ranks sharing it (NCCL
@@ -191,8 +212,11 @@ Phases (any failure exits non-zero without the final result line):
      layers as a 2-stage GPipe of 4 microbatches against the layers in
      sequence (no_grad); last, full-width llama3.2-1b trained by
      ``launch/train.py`` for 3 steps at batch 8 x 128 on 1 rank and then
-     under torchrun on 4 as (data 2, model 2): step-1 loss within 1e-3
+     under torchrun on 4 as (data 2, model 2), neither writing a
+     checkpoint: step-1 loss within 1e-3
      relative of the 1-rank run and later steps within 5e-3, each rank's
+     AdamW kernel launched twice a step (the 4 ranks on their shards, the
+     norm's partial sums all-reduced) and no other kernel of the port,
      parameter bytes as the rules say, each rank's peak below 0.75 x the
      1-rank peak (a ``dist`` line: losses, step ms, tokens/s, peaks,
      collective bytes a step, the collectives' wall ms and hop bytes).
@@ -359,6 +383,11 @@ KERNELS = {
     "ff_chunk_scan": dict(
         source="src/repro_torch/kernels/csrc/ff_chunk_scan.cu",
         replaces="src/repro/kernels/ff_chunk_scan/kernel.py:170"),
+    # hand-fused, no Pallas counterpart: the update XLA fuses into the
+    # reference's jitted train step
+    "adamw": dict(
+        source="src/repro_torch/kernels/csrc/adamw.cu",
+        replaces="src/repro/optim/adamw.py:60"),
 }
 PER_OP = ("ff_attention", "ff_decode_attention", "ff_paged_decode_attention")
 LAYER_GRAPH = PER_OP + ("ff_layer_matmul", "ff_layer_mlp_tail")
@@ -406,6 +435,29 @@ TRAIN_OPT_TOL = 1e-5
 TRAIN = dict(arch="llama3_2_1b", batch=8, seq=128, steps=30, lr=1e-3,
              accum=2, accum_steps=4)
 TRAIN_LRS = (3e-4, 1e-3, 3e-3, 1e-2)    # --train-lr-sweep
+# the compiled train step: 4 calls (the capture's eager warm-up, then 3
+# replays) against 4 eager steps from the same seed-0 state, at TRAIN's
+# batch and lr; full-width llama3.2-1b once with the plain AdamW (a policy
+# of mode "ref": the capture alone) and once with the kernel, bit for bit;
+# TRAIN_SMALL's smoke models (compute as the trainer's) under AdamW and
+# Adafactor at batch 2 x 32, the dense ones bit for bit, the MoE pair (whose
+# index_add_ sums by float atomics in an order that changes from run to
+# run, eager or replayed) reported and held to TRAIN_MOE_TOL relative in
+# every metric
+COMPILED_TRAIN_CALLS = 4
+TRAIN_MOE = ("grok1_314b", "deepseek_v2_lite_16b")
+TRAIN_MOE_TOL = 1e-3
+# phase b's AdamW kernel on full-width llama3.2-1b's leaves (f32 params):
+# one update from moments drawn at random at step ADAMW["step"], gradients
+# whose norm clips; p, m and v each within ADAMW_TOL of its max |plain|,
+# grad_norm and lr within ADAMW_TOL relative. The kernel sums the norm in
+# double and in another order than the plain version's f32 sums, so a
+# clipped step's scale moves by the plain sum's rounding (~1e-6); given
+# one scale, its update, with FMA contraction off, is the plain version's
+# bit for bit
+ADAMW = dict(arch="llama3_2_1b", step=9, grad_scale=1e-3, lr=1e-3,
+             reps=20, plain_reps=5)
+ADAMW_TOL = 1e-5
 KILL_RESUME = dict(arch="qwen1_5_0p5b", smoke=True, steps=20, batch=2,
                    seq=32, ckpt_every=5, fail_at=12)
 # phase j (distributed): 4 ranks share the one card over gloo (NCCL refuses
@@ -456,6 +508,7 @@ def wrappers():
                                               ff_layer_mlp_tail,
                                               ff_layer_swiglu)
     from repro_torch.kernels.ff_chunk_scan import chunk_scan
+    from repro_torch.kernels.adamw import adamw_update
     from repro_torch.runtime.paged_kv import paged_decode_attention
     return {"ff_attention": attention, "ff_decode_attention": decode_attention,
             "ff_paged_decode_attention": paged_decode_attention,
@@ -463,7 +516,8 @@ def wrappers():
             "ff_layer_swiglu": ff_layer_swiglu,
             "ff_layer_mlp_tail": ff_layer_mlp_tail, "ff_matmul": matmul,
             "ff_gather": gather, "ff_attention_proj": attention_proj,
-            "ff_dispatch_matmul": dispatch_matmul, "ff_chunk_scan": chunk_scan}
+            "ff_dispatch_matmul": dispatch_matmul, "ff_chunk_scan": chunk_scan,
+            "adamw": adamw_update}
 
 
 def err(a, b):
@@ -1420,6 +1474,107 @@ def split_bound(r):
     r = dict(r)
     r["bound_ms"], r["bound_by"] = r.pop("bound")
     return r
+
+
+def adamw_operands(torch, dev, model):
+    """Full-width f32 params (seed 0), gradients at ADAMW's scale, and an
+    AdamW state with random moments at ADAMW's step."""
+    from repro_torch.models import layers as L
+    from repro_torch.optim import adamw
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen, dev)
+    grads = L.tree_map(lambda p: torch.randn(
+        p.shape, generator=gen, device=dev).mul_(ADAMW["grad_scale"]),
+        params)
+    state = adamw.init(params)
+    for _, m in L.tree_leaves(state["m"]):
+        m.normal_(generator=gen).mul_(ADAMW["grad_scale"])
+    for _, v in L.tree_leaves(state["v"]):
+        v.uniform_(generator=gen).mul_(ADAMW["grad_scale"] ** 2)
+    state["step"].fill_(ADAMW["step"])
+    return params, grads, state
+
+
+def check_adamw_kernel(torch, dev):
+    """The AdamW kernel against its plain version on full-width
+    llama3.2-1b's leaves after one update (ADAMW, ADAMW_TOL); then its
+    time, the plain version's and ``torch._fused_adamw_``'s on the same
+    leaves (no clipping: the library yardstick, timed only), beside the
+    bound: every parameter, gradient and moment read once, the parameter
+    and both moments written once. Returns ({"adamw": max abs error of
+    the parameters}, the timing row)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.adamw import (MAX_LEAVES, adamw_ref,
+                                           adamw_update)
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.optim import adamw
+    model = build_model(get_config(ADAMW["arch"]))
+    ocfg = adamw.AdamWConfig(lr_peak=ADAMW["lr"], warmup_steps=20,
+                             total_steps=TRAIN["steps"])
+    params, grads, state = adamw_operands(torch, dev, model)
+    p_plain, s_plain = tree_clone(params), tree_clone(state)
+    adamw_update.launches = 0
+    _, _, mk = adamw_update(ocfg, grads, state, params)
+    _, _, mp = adamw_ref(ocfg, grads, s_plain, p_plain)
+    torch.cuda.synchronize()
+    launched = adamw_update.launches
+    rel, abs_p = {}, 0.0
+    for name, got, want in (("p", params, p_plain),
+                            ("m", state["m"], s_plain["m"]),
+                            ("v", state["v"], s_plain["v"])):
+        w = dict(L.tree_leaves(want))
+        errs = [err(g, w[path]) for path, g in L.tree_leaves(got)]
+        scale = max(w[path].abs().max().item() for path, _ in
+                    L.tree_leaves(got))
+        rel[name] = max(errs) / scale
+        if name == "p":
+            abs_p = max(errs)
+    rel.update({k: abs(mk[k].item() - mp[k].item()) / abs(mp[k].item())
+                for k in ("grad_norm", "lr")})
+    n = model.param_count()
+    leaves = len(list(L.tree_leaves(params)))
+    check(f"adamw kernel == plain on full-width {ADAMW['arch']} "
+          f"({n} params, {leaves} leaves, step {ADAMW['step'] + 1})",
+          all(e <= ADAMW_TOL for e in rel.values())
+          and launched == 2 * -(-leaves // MAX_LEAVES)
+          and mk["grad_norm"].item() > ocfg.clip_norm,
+          f"relative errors {json.dumps(rel)} (tol {ADAMW_TOL}); grad_norm "
+          f"{mk['grad_norm'].item():.6f} (clips at {ocfg.clip_norm}); "
+          f"launches {launched}")
+    ms = time_ms(torch, lambda: adamw_update(ocfg, grads, state, params),
+                 ADAMW["reps"])
+    plain_ms = time_ms(torch, lambda: adamw_ref(ocfg, grads, s_plain,
+                                                 p_plain),
+                       ADAMW["plain_reps"])
+    del p_plain, s_plain
+    torch.cuda.empty_cache()
+    pl = [p for _, p in L.tree_leaves(params)]
+    g_l = dict(L.tree_leaves(grads))
+    m_l, v_l = dict(L.tree_leaves(state["m"])), dict(L.tree_leaves(state["v"]))
+    paths = [path for path, _ in L.tree_leaves(params)]
+    steps_l = [torch.full((), float(ADAMW["step"] + 1), device=dev)
+               for _ in pl]
+
+    def library():
+        torch._fused_adamw_(
+            pl, [g_l[q] for q in paths], [m_l[q] for q in paths],
+            [v_l[q] for q in paths], [], steps_l, lr=ocfg.lr_peak,
+            beta1=ocfg.b1, beta2=ocfg.b2, weight_decay=ocfg.weight_decay,
+            eps=ocfg.eps, amsgrad=False, maximize=False)
+    library_ms = time_ms(torch, library, ADAMW["reps"])
+    nbytes = sum(p.numel() * (2 * p.element_size() + g_l[q].element_size()
+                              + 16) for q, p in zip(paths, pl))
+    row = {"shape": f"full-width {ADAMW['arch']}: {leaves} leaves, {n} "
+                    f"f32 params and gradients", "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound": bound(nbytes, 20 * n, "float32"),
+           "launches_a_call": launched}
+    print("adamw " + json.dumps({**split_bound(row), "rel_err": rel,
+                                 "card": smi_line()}), flush=True)
+    del params, grads, state, pl, g_l, m_l, v_l
+    torch.cuda.empty_cache()
+    return {"adamw": abs_p}, row
 
 
 def check_decode_layer(torch, dev, shapes):
@@ -3534,8 +3689,9 @@ def train_full(torch, dev, card, tmp):
     """Full-width llama3.2-1b (the reference trainer's default model)
     through ``launch/train.py``: TRAIN's steps at its batch and sequence
     on the "xla" path in bf16 compute, f32 params, gradients and AdamW
-    moments; then TRAIN's accumulation run. Returns the train path's
-    launches of every kernel wrapper (all must be 0)."""
+    moments, the step compiled (one CUDA graph, AdamW's kernel inside);
+    then TRAIN's accumulation run. Returns the train path's launches of
+    every kernel wrapper (the counts zeroed just before)."""
     from repro_torch.launch import train
     wr = wrappers()
     for w in wr.values():
@@ -3551,6 +3707,7 @@ def train_full(torch, dev, card, tmp):
     losses = [m["loss"] for m in r["metrics"]]
     first, last = (sum(losses[:5]) / 5, sum(losses[-5:]) / 5)
     finite = all(math.isfinite(x) for x in losses)
+    adamw_launches = wr["adamw"].launches
     step_ms = sorted(t * 1e3 for t in r["step_s"][1:])
     med = step_ms[len(step_ms) // 2] if len(step_ms) % 2 else (
         step_ms[len(step_ms) // 2 - 1] + step_ms[len(step_ms) // 2]) / 2
@@ -3570,7 +3727,8 @@ def train_full(torch, dev, card, tmp):
         r["step_s"][0] * 1e3, "tokens_per_s": tokens / (med / 1e3),
         "peak_gib": peak / 2 ** 30,
         "checkpoint_gb": ckpt["bytes"] / 1e9,
-        "checkpoint_write_s": ckpt["seconds"], "card": card}), flush=True)
+        "checkpoint_write_s": ckpt["seconds"], "compiled": True,
+        "adamw_launches": adamw_launches, "card": card}), flush=True)
     del r
     shutil.rmtree(ck, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -3579,7 +3737,7 @@ def train_full(torch, dev, card, tmp):
                              steps=TRAIN["accum_steps"],
                              batch=TRAIN["batch"], seq=TRAIN["seq"],
                              lr=TRAIN["lr"], accum=TRAIN["accum"],
-                             quantized_accum=True, ckpt_every=10 ** 6))
+                             quantized_accum=True, ckpt_every=0))
     losses = [m["loss"] for m in r["metrics"]]
     check(f"train[{TRAIN['arch']}] --accum {TRAIN['accum']} "
           f"--quantized-accum, {TRAIN['accum_steps']} steps",
@@ -3595,8 +3753,234 @@ def train_full(torch, dev, card, tmp):
     return {name: w.launches for name, w in wr.items()}
 
 
+def run_train_steps(torch, dev, model, state, batches, compiled, **kw):
+    """``make_train_step(model, compiled=compiled, **kw)`` on ``state``
+    ({"params", "opt"}, written in place) for each of ``batches`` (CPU
+    trees), each written into one set of device tensors as the trainer
+    writes them. Returns (each step's metrics as floats, the first call's
+    ms, ``one``: one more call on the last batch, synced)."""
+    from repro_torch.launch import steps
+    step = steps.make_train_step(model, compiled=compiled, **kw)
+    bufs = {k: torch.empty_like(v, device=dev) for k, v in
+            batches[0].items()}
+    metrics, first_ms = [], None
+    for b in batches:
+        for k, v in b.items():
+            bufs[k].copy_(v)
+        t0 = time.perf_counter()
+        _, _, m = step(state["params"], state["opt"], bufs)
+        metrics.append({k: v.item() for k, v in m.items()})
+        if first_ms is None:
+            first_ms = (time.perf_counter() - t0) * 1e3
+
+    def one():
+        step(state["params"], state["opt"], bufs)[2]["loss"].item()
+    one.step = getattr(step, "step", step)      # a policy's step wraps it
+    return metrics, first_ms, one
+
+
+def step_profile(torch, dev, one, first_ms, base, n_steps=2):
+    """After a run's checked calls: the wall ms a call over three more,
+    then one profiled window of ``n_steps`` (``profile_window``, which
+    makes 2 x ``n_steps`` calls): device busy ms and share, device
+    kernels and host launch calls a step, the AdamW kernel's share of the
+    device ms, the top device ops, and the run's peak memory above
+    ``base`` (what was allocated before its state was made)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        one()
+    wall = (time.perf_counter() - t0) / 3 * 1e3
+    prof = profile_window(torch, one, n_steps)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    busy = prof["device_ms"]
+    adamw_ms = sum(v for k, v in prof["by_name"].items()
+                   if "adamw" in k.lower()) / n_steps
+    top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall, "first_call_ms": first_ms, "device_ms": busy,
+            "busy_share": busy / wall if busy else None,
+            "device_kernels": prof["device_kernels"],
+            "host_launch_calls": prof["host_launch_calls"],
+            "host_graph_launches": prof["host_graph_launches"],
+            "host_copy_calls": prof["host_copy_calls"],
+            "adamw_ms": adamw_ms,
+            "adamw_share": adamw_ms / busy if busy else None,
+            "peak_gib": peak / 2 ** 30,
+            "top_ms_per_step": {k[:80]: v / n_steps for k, v in top}}
+
+
+def compiled_vs_eager(torch, dev, model, init, batches, profile=False,
+                      **kw):
+    """The same train steps eager and compiled, each from ``init()``:
+    {"bitwise", "max_rel" (of every leaf of the params and the optimizer
+    state, relative to its max |eager|), "metric_rel", the compiled
+    step's "graphs", "last_copies" and "launches" (by wrapper, over the
+    compiled calls)}. With ``profile`` each run goes on after its checked
+    calls with :func:`step_profile` (the same further calls on the last
+    batch in both, so the states still compare), under "profile"."""
+    from repro_torch.models import layers as L
+    profiles = {}
+
+    def run(compiled):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = init()
+        box = {}
+
+        def go():
+            box["out"] = run_train_steps(torch, dev, model, state, batches,
+                                         compiled, **kw)
+        counts = counted(torch, go)
+        metrics, first_ms, one = box["out"]
+        if profile:
+            profiles["compiled" if compiled else "eager"] = step_profile(
+                torch, dev, one, first_ms, base)
+        return state, metrics, one.step, counts
+    eager, em, _, _ = run(False)
+    comp, cm, step, counts = run(True)
+    torch.cuda.synchronize()
+    want = dict(L.tree_leaves(eager))
+    bitwise, worst = True, 0.0
+    for path, got in L.tree_leaves(comp):
+        w = want[path]
+        bitwise = bitwise and torch.equal(got, w)
+        if got.is_floating_point():
+            worst = max(worst, err(got, w) / max(w.abs().max().item(),
+                                                 1e-30))
+    metric_rel = max(abs(c[k] - e[k]) / max(abs(e[k]), 1e-30)
+                     for c, e in zip(cm, em) for k in e)
+    out = {"bitwise": bitwise and cm == em, "max_rel": worst,
+           "metric_rel": metric_rel, "graphs": len(step.graphs),
+           "last_copies": step.last_copies, "launches": counts,
+           "losses": [m["loss"] for m in cm]}
+    if profile:
+        out["profile"] = profiles
+    del eager, comp, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def report_train_profile(torch, card, profiles, model):
+    """The ``train_profile`` line of full-width llama3.2-1b's train step
+    (TRAIN's batch, AdamW's kernel), eager and compiled, from
+    :func:`compiled_vs_eager`'s kernel pair; beside a bound: the
+    products' 8 x params x tokens operations (forward, rematerialized
+    forward, backward) at the bf16 peak, and AdamW's bytes (params, grads,
+    both moments read; params and moments written; f32) at HBM's rate.
+    The compiled step must launch one graph a step and no kernel outside
+    it."""
+    n = model.param_count()
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    ops_ms = 8 * n * tokens / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    opt_ms = 7 * 4 * n / HBM_BYTES_PER_S * 1e3
+    c, e = profiles["compiled"], profiles["eager"]
+    check("compiled train step: one graph launch a step and no kernel "
+          "launched outside it",
+          c["host_graph_launches"] == 1 and c["host_launch_calls"] == 1,
+          f"graph launches {c['host_graph_launches']}, launch calls "
+          f"{c['host_launch_calls']} a step; wall {c['wall_ms']:.1f} ms vs "
+          f"eager {e['wall_ms']:.1f} ({card})")
+    print("train_profile " + json.dumps({
+        "card": card, "arch": TRAIN["arch"], "batch": TRAIN["batch"],
+        "seq": TRAIN["seq"], "calls_before_profile": COMPILED_TRAIN_CALLS,
+        **profiles,
+        "bound_ms": {"products_at_bf16_peak": ops_ms,
+                     "adamw_bytes_at_hbm": opt_ms}}), flush=True)
+
+
+def check_compiled_train(torch, dev, card):
+    """The compiled train step against the eager one (COMPILED_TRAIN_CALLS
+    calls from one state): full-width llama3.2-1b with the plain AdamW
+    and with the kernel (that pair profiled after its checked calls: the
+    ``train_profile`` line), then TRAIN_SMALL's smoke models under AdamW
+    and Adafactor."""
+    from repro_torch.configs.base import get_config, smoke_config
+    from repro_torch.core.program import PipePolicy
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.optim import adafactor, adamw
+    n = COMPILED_TRAIN_CALLS
+    cfg = get_config(TRAIN["arch"]).replace(attn_impl="xla", scan_impl="xla")
+    model = build_model(cfg)
+    batches = [train_batch(torch, cfg, TRAIN["batch"], TRAIN["seq"], s)
+               for s in range(n)]
+    ocfg = adamw.AdamWConfig(lr_peak=TRAIN["lr"], warmup_steps=20,
+                             total_steps=TRAIN["steps"])
+
+    def init(model=model, optimizer="adamw"):
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        opt_init, _ = steps.opt_init_and_update(optimizer)
+        return {"params": params, "opt": opt_init(params)}
+    results = {}
+    for impl, policy in (("plain", PipePolicy(mode="ref")), ("kernel", None)):
+        r = compiled_vs_eager(torch, dev, model, init, batches,
+                              profile=impl == "kernel", opt_cfg=ocfg,
+                              policy=policy)
+        if impl == "kernel":
+            report_train_profile(torch, card, r.pop("profile"), model)
+        results[f"{TRAIN['arch']} {impl}"] = r
+        want = 2 * n if impl == "kernel" else 0
+        check(f"train[{TRAIN['arch']}] compiled == eager bitwise, {impl} "
+              f"AdamW: {n} calls (the capture's warm-up, then {n - 1} "
+              f"replays) from one state"
+              + (", then 7 more calls each (timed, profiled)"
+                 if impl == "kernel" else "") + f" ({card})",
+              r["bitwise"] and r["graphs"] == 1 and r["last_copies"] == 0
+              and r["launches"].get("adamw", 0) == want,
+              f"params and moments max rel diff {r['max_rel']:.3e}, "
+              f"metrics {r['metric_rel']:.3e}; graphs {r['graphs']}, "
+              f"last_copies {r['last_copies']}, launches {r['launches']} "
+              f"(adamw {want} wanted); losses {r['losses']}")
+    del model
+    torch.cuda.empty_cache()
+    for arch in TRAIN_SMALL:
+        scfg = smoke_config(arch).replace(attn_impl="xla", scan_impl="xla")
+        smodel = build_model(scfg)
+        sb = [train_batch(torch, scfg, 2, 32, s) for s in range(n)]
+        for optimizer, o in (("adamw", ocfg),
+                             ("adafactor", adafactor.AdafactorConfig(
+                                 lr_peak=TRAIN["lr"], warmup_steps=20,
+                                 total_steps=TRAIN["steps"]))):
+            r = compiled_vs_eager(
+                torch, dev, smodel,
+                lambda: init(smodel, optimizer), sb, optimizer=optimizer,
+                opt_cfg=o)
+            results[f"{arch} {optimizer}"] = r
+            moe = arch in TRAIN_MOE
+            ok = (r["graphs"] == 1 and r["last_copies"] == 0
+                  and all(math.isfinite(x) for x in r["losses"])
+                  and (max(r["metric_rel"], r["max_rel"]) <= TRAIN_MOE_TOL
+                       if moe else r["bitwise"]))
+            check(f"train smoke {arch} {optimizer} compiled vs eager "
+                  f"({'MoE: within ' + str(TRAIN_MOE_TOL) + ' in every metric, parameter and state leaf' if moe else 'bitwise'})",
+                  ok, f"bitwise {r['bitwise']}, params and state max rel "
+                  f"diff {r['max_rel']:.3e}, metrics {r['metric_rel']:.3e}; "
+                  f"graphs {r['graphs']}, launches {r['launches']}")
+    # accumulation, captured as the unrolled loop it is (int8, the
+    # trainer's --accum 2 --quantized-accum)
+    scfg = smoke_config(TRAIN["arch"]).replace(attn_impl="xla",
+                                               scan_impl="xla")
+    smodel = build_model(scfg)
+    r = compiled_vs_eager(
+        torch, dev, smodel, lambda: init(smodel),
+        [train_batch(torch, scfg, 4, 32, s) for s in range(n)],
+        opt_cfg=ocfg, accum_steps=TRAIN["accum"], quantized_accum=True)
+    results[f"{TRAIN['arch']} accum int8"] = r
+    check(f"train smoke {TRAIN['arch']} --accum {TRAIN['accum']} "
+          f"--quantized-accum compiled vs eager (bitwise)",
+          r["bitwise"] and r["graphs"] == 1 and r["last_copies"] == 0,
+          f"bitwise {r['bitwise']}, params and state max rel diff "
+          f"{r['max_rel']:.3e}; graphs {r['graphs']}, launches "
+          f"{r['launches']}")
+    print("train_compiled " + json.dumps({
+        k: {kk: v for kk, v in r.items() if kk != "losses"}
+        for k, r in results.items()} | {"card": card}), flush=True)
+
+
 def train_kill_resume(torch, tmp):
-    """The reference's kill-and-resume gate on the card at smoke width:
+    """The reference's kill-and-resume gate on the card at smoke width,
+    the trainer's step compiled (the resumed run captures its own graph):
     crash at step 12, resume to 20, against a clean 20 steps; every leaf
     of step 20's arrays.npz equal bit for bit."""
     import numpy as np
@@ -3662,7 +4046,7 @@ def train_lr_sweep(torch, dev):
         ocfg = adamw.AdamWConfig(lr_peak=lr, warmup_steps=20,
                                  total_steps=TRAIN["steps"])
         state = adamw.init(params)
-        step = steps.make_train_step(model, opt_cfg=ocfg)
+        step = steps.make_train_step(model, opt_cfg=ocfg, compiled=False)
         losses = []
         for s in range(TRAIN["steps"]):
             batch = tree_to(train_batch(torch, cfg, TRAIN["batch"],
@@ -3676,68 +4060,24 @@ def train_lr_sweep(torch, dev):
     print("train_lr " + json.dumps(out), flush=True)
 
 
-def profile_train(torch, dev, card, n_steps=2):
-    """Full-width llama3.2-1b's train step (TRAIN's batch, AdamW) after two
-    warm-up steps: wall ms a step over three, then one profiled window of
-    ``n_steps``: device busy ms, kernels a step, the top device ops; beside
-    a bound: the products' 8 x params x tokens operations (forward,
-    rematerialized forward, backward) at the bf16 peak, and AdamW's bytes
-    (params, grads, both moments read; params and moments written; f32)
-    at HBM's rate (a ``train_profile`` line)."""
-    from repro_torch.configs.base import get_config
-    from repro_torch.launch import steps
-    from repro_torch.models import build_model
-    from repro_torch.optim import adamw
-    cfg = get_config(TRAIN["arch"]).replace(attn_impl="xla", scan_impl="xla")
-    model = build_model(cfg)
-    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
-    state = adamw.init(params)
-    step = steps.make_train_step(model, opt_cfg=adamw.AdamWConfig(
-        lr_peak=TRAIN["lr"], warmup_steps=20, total_steps=TRAIN["steps"]))
-    batch = tree_to(train_batch(torch, cfg, TRAIN["batch"], TRAIN["seq"]),
-                    dev, torch)
-
-    def one():
-        step(params, state, batch)[2]["loss"].item()
-    for _ in range(2):
-        one()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        one()
-    wall = (time.perf_counter() - t0) / 3 * 1e3
-    prof = profile_window(torch, one, n_steps)
-    n = model.param_count()
-    tokens = TRAIN["batch"] * TRAIN["seq"]
-    ops_ms = 8 * n * tokens / PEAK_OPS_PER_S["bfloat16"] * 1e3
-    opt_ms = 7 * 4 * n / HBM_BYTES_PER_S * 1e3
-    top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:8]
-    print("train_profile " + json.dumps({
-        "card": card, "arch": TRAIN["arch"], "batch": TRAIN["batch"],
-        "seq": TRAIN["seq"], "wall_ms": wall,
-        "device_ms": prof["device_ms"],
-        "busy_share": prof["device_ms"] / wall if prof["device_ms"] else None,
-        "device_kernels": prof["device_kernels"],
-        "host_launch_calls": prof["host_launch_calls"],
-        "bound_ms": {"products_at_bf16_peak": ops_ms,
-                     "adamw_bytes_at_hbm": opt_ms},
-        "top_ms_per_step": {k: v / n_steps for k, v in top}}), flush=True)
-    del params, state
-    torch.cuda.empty_cache()
-
-
 def train_phase(torch, dev):
     """Phase i: the smoke models' training card vs CPU, full-width
-    llama3.2-1b through the trainer, kill-and-resume, the "ff" guard."""
+    llama3.2-1b through the trainer (its step compiled), the compiled step
+    against the eager one, the profile of both, kill-and-resume, the "ff"
+    guard. Returns the trainer runs' launches by wrapper."""
     import tempfile
     t0 = time.perf_counter()
     card = smi_line()
     check_train_small(torch, dev, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         launches = train_full(torch, dev, card, tmp)
-        profile_train(torch, dev, card)
-        check("train path launches no kernel of the port ('xla', as the "
-              "reference)", not any(launches.values()), str(launches))
+        want = 2 * (TRAIN["steps"] + TRAIN["accum_steps"])
+        check("train path launches the AdamW kernel alone, twice a step "
+              "(the model on the 'xla' path, as the reference)",
+              launches["adamw"] == want
+              and not any(v for k, v in launches.items() if k != "adamw"),
+              f"{launches} (adamw {want} wanted)")
+        check_compiled_train(torch, dev, card)
         train_kill_resume(torch, tmp)
     train_guard(torch, dev)
     # the supervisor's counters live in the process-wide registry: drop
@@ -3746,6 +4086,7 @@ def train_phase(torch, dev):
     from repro_torch import obs
     obs.metrics_clear("supervisor_")
     print(f"i. train: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3980,7 +4321,8 @@ def j_nccl(rank, world):
             b = shlib.place_tree({k: v.to(dev) for k, v in batch.items()},
                                  {k: ("batch", "seq") for k in batch})
             step = steps_lib.make_train_step(
-                model, opt_cfg=adamw.AdamWConfig(warmup_steps=1))
+                model, opt_cfg=adamw.AdamWConfig(warmup_steps=1),
+                compiled=False)
             _, _, m = step(params, adamw.init(params), b)
             losses.append(float(m["loss"]))
     return {"all_reduce": x.tolist(), "loss_plain": losses[0],
@@ -4069,13 +4411,15 @@ def j_two(rank, world, ckpt_dir):
 
 
 def train_cmd(nproc, ckpt_dir):
-    """The trainer's command line at DIST's settings: one process, or
-    ``nproc`` ranks under torchrun on the one card (gloo_staged: gloo's
-    collectives, counted)."""
+    """The trainer's command line at DIST's settings, writing no
+    checkpoint (phase i's trainer writes the run's one full-width
+    checkpoint): one process, or ``nproc`` ranks under torchrun on the one
+    card (gloo_staged: gloo's collectives, counted)."""
     args = ["-m", "repro_torch.launch.train", "--arch", DIST["arch"],
             "--steps", str(DIST["steps"]), "--batch", str(DIST["batch"]),
             "--seq", str(DIST["seq"]), "--lr", str(DIST["lr"]),
-            "--log-every", "1", "--ckpt-dir", ckpt_dir]
+            "--log-every", "1", "--ckpt-dir", ckpt_dir, "--ckpt-every",
+            "0"]
     if nproc == 1:
         return [sys.executable] + args
     return ([sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -4219,6 +4563,23 @@ def dist_phase(torch, dev):
           got == [want] * DIST["ranks"],
           f"{got} bytes, rules {want} (1 rank: "
           f"{one['ranks'][0]['param_bytes']})")
+    want_adamw = 2 * DIST["steps"]
+    adamw_n = [r["kernel_launches"].get("adamw", 0)
+               for r in one["ranks"] + many["ranks"]]
+    check(f"the trainer on 1 rank and on each of {DIST['ranks']} ranks "
+          f"launches the AdamW kernel twice a step (on a mesh on the "
+          f"rank's shards) and no other kernel of the port",
+          adamw_n == [want_adamw] * (1 + DIST["ranks"])
+          and all(set(r["kernel_launches"]) <= {"adamw"}
+                  for r in one["ranks"] + many["ranks"]),
+          f"1 rank {one['ranks'][0]['kernel_launches']}, "
+          f"{DIST['ranks']} ranks "
+          f"{[r['kernel_launches'] for r in many['ranks']]} "
+          f"(adamw {want_adamw} wanted)")
+    launches["adamw"] = {
+        "dist[train 1 rank]": adamw_n[0],
+        **{f"dist[train {DIST['ranks']} ranks, rank {i}]": n
+           for i, n in enumerate(adamw_n[1:])}}
     peak1 = one["ranks"][0]["peak_bytes"]
     peaks = [r["peak_bytes"] for r in many["ranks"]]
     check(f"each rank's peak below {DIST['peak_frac']} x the 1-rank peak",
@@ -4603,7 +4964,7 @@ def _adafactor_run(model, params, batch, n_steps):
     opt = adafactor.init(params)
     step = steps_lib.make_train_step(
         model, optimizer="adafactor",
-        opt_cfg=adafactor.AdafactorConfig(warmup_steps=1))
+        opt_cfg=adafactor.AdafactorConfig(warmup_steps=1), compiled=False)
     losses = []
     for _ in range(n_steps):
         params, opt, metrics = step(params, opt, batch)
@@ -5035,6 +5396,8 @@ def main() -> int:
     main_err = check_kernels(torch, dev, shapes)
     main_err.update(check_layer_kernels(torch, dev, shapes))
     main_err.update(check_library_kernels(torch, dev, shapes))
+    adamw_err, adamw_row = check_adamw_kernel(torch, dev)
+    main_err.update(adamw_err)
     check_decode_layer(torch, dev, shapes)
     check_model_small(torch, dev)
     check_model_small(torch, dev, impl="xla")
@@ -5066,9 +5429,10 @@ def main() -> int:
     run_steps_model(torch, dev, WHISPER, (),
                     "every attention of encdec is the reference's unfused "
                     "path, whatever attn_impl says")
-    train_phase(torch, dev)
+    launches["adamw"] = train_phase(torch, dev)["adamw"]
 
     rows = time_kernels(torch, dev, shapes)
+    rows["adamw"] = adamw_row
     rows.update(time_layer_kernels(torch, dev, shapes))
     for name, row in time_layer_kernels(
             torch, dev, main_path_shapes(torch, "qwen2_72b")).items():
@@ -5094,6 +5458,11 @@ def main() -> int:
                                    "by phase b")
         if name == "ff_chunk_scan":
             kernels[-1]["launches_by_path"] = scan_launches
+        if name == "adamw":
+            kernels[-1]["note"] = ("hand-fused, no Pallas counterpart: the "
+                                   "update XLA fuses into the reference's "
+                                   "jitted train step; launches on the "
+                                   "train path (phase i's trainer runs)")
         if name in PER_OP:
             kernels[-1]["launches_by_path"] = {
                 "serve[default]": launches[name],

@@ -58,7 +58,7 @@ from repro_torch.core import autotune
 from repro_torch.core.pipe import itemsize
 from repro_torch.core.pipeline_model import Workload
 from repro_torch.core.program import PipePolicy, make_entrypoint
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, device_table
 from repro_torch.kernels.ff_matmul.ops import _sm_count
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -225,10 +225,11 @@ def rms_ref(x: torch.Tensor, nw: torch.Tensor, eps: float) -> torch.Tensor:
     return (x32 * nw.float()).to(x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
+@device_table
 def rope_freqs(theta: float, half: int, device: torch.device
                ) -> torch.Tensor:
-    """``theta ** (-j / half)`` for j < half, f32, made once per device."""
+    """``theta ** (-j / half)`` for j < half, f32, made once per device
+    (afresh under a fake mode: :func:`~repro_torch.kernels.device_table`)."""
     return theta ** (-torch.arange(half, dtype=torch.float32,
                                    device=device) / half)
 

@@ -231,7 +231,8 @@ def lower_cell(cfg, shape, mesh, overrides, *, device="cuda"):
         if shape.kind == "train":
             opt_init, _ = steps_lib.opt_init_and_update(cfg.optimizer)
             opt = opt_init(params)
-            step = steps_lib.make_train_step(model, optimizer=cfg.optimizer)
+            step = steps_lib.make_train_step(model, optimizer=cfg.optimizer,
+                                             compiled=False)
             return _trace(step, (params, opt, batch)), model
         if shape.kind == "prefill":
             step = steps_lib.make_prefill_step(model, compiled=False)

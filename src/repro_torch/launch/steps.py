@@ -1,12 +1,12 @@
 """Step builders: train, prefill and decode (the port of
 ``repro/launch/steps.py``), and the port of the reference's ``jax.jit``
-around the serving steps.
+around them.
 
-The train step (:func:`make_train_step`) runs eagerly, through autograd:
-the loss, its gradients, then the optimizer update written in place into
-the parameters and the optimizer state under ``torch.no_grad()`` (the
-counterpart of the reference's donated buffers). The serving steps are
-compiled as follows.
+The train step (:func:`make_train_step`) runs through autograd: the loss,
+its gradients, then the optimizer update written in place into the
+parameters and the optimizer state under ``torch.no_grad()`` (the
+counterpart of the reference's donated buffers; AdamW is one hand-written
+kernel on the card, ``kernels/adamw``).
 
 The reference traces each step once per input signature and replays the
 XLA program after that. Here, on a CUDA device, a step is captured once
@@ -15,8 +15,13 @@ per signature as a CUDA graph and replayed after that
 dtypes (as ``jax.jit``'s cache key), which axes are broadcast (stride 0),
 the Python constants among them, and the params tree by address (the
 graph reads the weights where they lie; another params tree of the same
-shapes captures another graph). Every hand-written kernel of the step
-runs inside the graph, as it runs eagerly.
+shapes captures another graph). A train step holds every operand by
+address (params, optimizer state and batch: it writes the first two in
+place, and the caller writes each batch into the same tensors), copies
+none, and applies one update a call: its first call of a signature is
+the eager warm-up, whose update is that call's, and the capture records
+without running. Every hand-written kernel of the step runs inside the
+graph, as it runs eagerly.
 
 On the CPU the steps run eagerly (the test path). ``compiled=False`` runs
 them eagerly on the card too: the eager side of a comparison.
@@ -46,7 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -81,10 +86,23 @@ def _sharded_scope(params):
 def reduce_grads(grads, params):
     """Each DTensor gradient redistributed to its parameter's placements
     (a partial sum over "data" becomes its all-reduce; over a sharded
-    "model" dim, its reduce-scatter); plain gradients as they are."""
+    "model" dim, its reduce-scatter); plain gradients as they are.
+
+    ``grads`` is consumed: each leaf leaves it as it is reduced, smallest
+    first, so a full-size partial sum is freed once its shard exists and
+    the largest leaf's collective (several times its size in transient
+    buffers) runs when the others are already reduced. At full-width
+    llama3.2-1b on (data 2, model 2) a rank's peak falls from 16.13 to
+    13.52 GiB (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase j's
+    ``dist`` line). Every rank takes the leaves in the same order."""
     p_leaves = dict(L.tree_leaves(params))
+    sizes = {path: g.numel() for path, g in L.tree_leaves(grads)}
     out: Dict = {}
-    for path, g in L.tree_leaves(grads):
+    for path in sorted(sizes, key=sizes.__getitem__):
+        node = grads
+        for k in path[:-1]:
+            node = node[k]
+        g = node.pop(path[-1])
         p = p_leaves[path]
         if shlib.is_dtensor(g):
             g = g.redistribute(p.device_mesh, p.placements)
@@ -149,13 +167,21 @@ def value_and_grad(model, params, batch):
 
 def make_train_step(model, *, optimizer: str = "adamw", opt_cfg=None,
                     accum_steps: int = 1, quantized_accum: bool = False,
-                    policy=None):
+                    compiled: bool = True, policy=None):
     """train_step(params, opt_state, batch) -> (params, opt_state,
     metrics): the loss's gradients with respect to every parameter leaf,
     then one optimizer update, written in place (the returned trees are
     the ones passed in). Metrics: the loss's (``loss``, and ``aux`` where
     the model reports it) and the optimizer's (``grad_norm`` and ``lr``
     for AdamW, ``lr`` for Adafactor), as 0-d tensors.
+
+    On a CUDA device the step is captured as a CUDA graph per signature
+    and replayed (:class:`CompiledStep` with ``in_place``): pass the same
+    params, optimizer state and batch tensors every call (write each
+    batch into them); new addresses capture a new graph. Its metrics are
+    the graph's buffers, overwritten by the next call. ``compiled=False``
+    runs it eagerly; CPU steps always do. DTensor operands (a mesh) need
+    ``compiled=False``.
 
     With ``accum_steps`` > 1 the batch splits into microbatches along dim
     0 and their gradients are summed in f32 (or in int8 with error
@@ -198,11 +224,13 @@ def make_train_step(model, *, optimizer: str = "adamw", opt_cfg=None,
         return params, opt_state, {**metrics, **opt_metrics}
 
     def train_step(params, opt_state, batch):
-        with _policy_scope(policy), _sharded_scope(params):
+        with _sharded_scope(params):
             params, opt_state, metrics = step(params, opt_state, batch)
         return params, opt_state, {k: shlib.full_tensor(v)
                                    for k, v in metrics.items()}
-    return train_step
+    if compiled:
+        train_step = CompiledStep(train_step, in_place=True)
+    return train_step if policy is None else _PolicyStep(train_step, policy)
 
 
 def make_prefill_step(model, *, compiled: bool = True, policy=None):
@@ -333,16 +361,18 @@ def _load(statics, leaves) -> int:
 
 
 class _Graph:
-    """One captured signature: its static inputs, its replay, its outputs
-    and what its capture counted in each kernel wrapper's
-    ``launches``."""
+    """One captured signature: its static inputs, its replay, its outputs,
+    what its capture counted in each kernel wrapper's ``launches``, and
+    the result of its eager warm-up (``first``)."""
 
-    def __init__(self, statics, replay: Callable[[], None], out, launches):
+    def __init__(self, statics, replay: Callable[[], None], out, launches,
+                 first):
         self.statics = statics
         self.replay = replay
         self.out_leaves: List[torch.Tensor] = []
         self.out_spec = _flatten(out, self.out_leaves)
         self.launches = launches
+        self.first = first
 
     def run(self):
         self.replay()
@@ -355,11 +385,16 @@ _STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
 _POOLS: Dict[torch.device, tuple] = {}
 
 
-def _cuda_capture(run: Callable[[], object], reload: Callable[[], None],
+def _cuda_capture(run: Callable[[], object],
+                  reload: Optional[Callable[[], None]],
                   device: torch.device):
-    """Warm ``run`` up once eagerly on the capture stream, then capture it
-    as a CUDA graph on that stream in the pool every graph of the device
-    shares. Returns (replay, outputs, launches the capture counted).
+    """Warm ``run`` up once eagerly on the capture stream, ``reload`` the
+    static inputs it wrote, then capture it as a CUDA graph on that stream
+    in the pool every graph of the device shares. Returns (replay,
+    outputs, launches the capture counted). ``reload`` None: the step
+    writes its operands in place (a train step), and the warm-up's result
+    is its call's (the capture runs nothing, so the call applies one
+    update).
 
     The warm-up builds and loads the kernels, runs their one-time
     attribute set-up (``cudaFuncSetAttribute``) and sizes their scratch
@@ -385,7 +420,8 @@ def _cuda_capture(run: Callable[[], object], reload: Callable[[], None],
     with torch.cuda.stream(stream):
         run()
     current.wait_stream(stream)
-    reload()                  # the warm-up wrote the cache in place
+    if reload is not None:
+        reload()              # the warm-up wrote the cache in place
     counters = launch_counters()
     before = [w.launches for w in counters]
     graph = torch.cuda.CUDAGraph()
@@ -417,14 +453,21 @@ class CompiledStep:
     of the same signature overwrites them (clone what you keep), and no
     other graph's replay does. Caches the step updates in place are its
     static inputs: use the returned cache, not the one passed in.
-    ``capture`` is :func:`_cuda_capture`, or a stand-in with its
-    signature (the CPU tests' bookkeeping)."""
+
+    ``in_place`` (a train step): every operand is held by address like
+    the params (keyed by it, read where it lies, never copied: no static
+    buffers), outputs that are operands come back as themselves, and the
+    first call of a signature returns its eager warm-up's result, so N
+    calls apply N updates. ``capture`` is :func:`_cuda_capture`, or a
+    stand-in with its signature (the CPU tests' bookkeeping)."""
 
     def __init__(self, fn, *, capture=_cuda_capture,
-                 devices: Tuple[str, ...] = ("cuda",)):
+                 devices: Tuple[str, ...] = ("cuda",),
+                 in_place: bool = False):
         self.fn = fn
         self.capture = capture
         self.devices = devices
+        self.in_place = in_place
         self.graphs: Dict[tuple, _Graph] = {}
         self.last_copies = 0
 
@@ -441,24 +484,34 @@ class CompiledStep:
         device = p_leaves[0].device
         if device.type not in self.devices:
             return self.fn(params, *args)
+        held = p_leaves + leaves if self.in_place else p_leaves
         # the graph holds the plans resolved at its capture: key it by
         # what they were resolved under, as well as by its inputs
-        key = (p_spec, tuple(t.data_ptr() for t in p_leaves), spec,
+        key = (p_spec, tuple(t.data_ptr() for t in held), spec,
                current_policy(), autotune.plans_generation())
         graph = self.graphs.get(key)
         if graph is None:
             graph = self.graphs[key] = self._capture(params, spec, leaves,
-                                                     device)
+                                                     held, device)
+            if self.in_place:
+                self.last_copies = 0
+                return graph.first
         self.last_copies = _load(graph.statics, leaves)
         return graph.run()
 
-    def _capture(self, params, spec, leaves, device) -> _Graph:
-        statics = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
-                                       device=device) for t in leaves]
-        args = _unflatten(spec, iter(statics))
-        _load(statics, leaves)
-        inputs = {t.untyped_storage().data_ptr() for t in statics}
+    def _capture(self, params, spec, leaves, held, device) -> _Graph:
+        if self.in_place:
+            statics: List[torch.Tensor] = []
+            args = _unflatten(spec, iter(leaves))
+        else:
+            statics = [torch.empty_strided(t.shape, t.stride(),
+                                           dtype=t.dtype, device=device)
+                       for t in leaves]
+            args = _unflatten(spec, iter(statics))
+            _load(statics, leaves)
+        inputs = {t.untyped_storage().data_ptr() for t in statics + held}
         holders: List = []
+        results: List = []
 
         def run():
             """The step on the static inputs, each output that is not one
@@ -477,16 +530,20 @@ class CompiledStep:
             for h, t in zip(holders, outs):
                 if h is not None:
                     h.copy_(t)
-            return _unflatten(out_spec, iter(
+            result = _unflatten(out_spec, iter(
                 t if h is None else h for h, t in zip(holders, outs)))
+            if not results:
+                results.append(result)      # the warm-up's
+            return result
 
         # the warm-up and the capture resolve every kernel's plan; nothing
         # may be measured in them (no candidate launch, no synchronize
         # while the stream captures)
         with autotune.capture_scope():
             replay, out, launches = self.capture(
-                run, lambda: _load(statics, leaves), device)
-        return _Graph(statics, replay, out, launches)
+                run, None if self.in_place else
+                (lambda: _load(statics, leaves)), device)
+        return _Graph(statics, replay, out, launches, results[0])
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,13 @@ same global batch and keeps its shards. Rank 0 alone logs and writes
 checkpoints (every rank gathers them). At one rank the mesh shards
 nothing: the step runs on plain tensors.
 
+On one rank the train step is compiled, as the reference jits it
+(``launch/steps.py`` ``make_train_step``): on the card one CUDA graph a
+signature, replayed every step, with each step's batch written into one
+set of device tensors the graph reads (a resume brings new parameter and
+optimizer buffers, so the step captures again); on the CPU it runs
+eagerly. Under a mesh the step runs eagerly on DTensors.
+
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_2_1b \\
       --smoke --device cpu --steps 300 --batch 8 --seq 128
   python -m torch.distributed.run --nproc-per-node 4 \\
@@ -77,7 +84,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir",
                     default=os.path.join(tempfile.gettempdir(),
                                          "repro_torch_ckpt"))
-    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="write a checkpoint every N steps and after the "
+                         "last; 0: none (but on preemption)")
     ap.add_argument("--fail-at", type=int, default=None,
                     help="inject a failure at this step (tests)")
     ap.add_argument("--log-every", type=int, default=10)
@@ -206,7 +215,7 @@ def run(args) -> Dict[str, Any]:
         train_step = steps_lib.make_train_step(
             model, optimizer=cfg.optimizer, opt_cfg=opt_cfg,
             accum_steps=args.accum, quantized_accum=args.quantized_accum,
-            policy=policy)
+            compiled=world == 1, policy=policy)
 
         sup = stack.enter_context(
             Supervisor(FTConfig(ckpt_dir=args.ckpt_dir,
@@ -245,12 +254,26 @@ def run(args) -> Dict[str, Any]:
                                      f"surviving ranks, "
                                      f"elastic.replace_host)", flush=True))
         t_hist, history, comm = [], [], []
+        batch_buffers: Dict[str, torch.Tensor] = {}
+
+        def load_batch():
+            """The next batch on the device: under a mesh each rank's
+            shards of the same global batch; on one rank written into the
+            same tensors every step (the compiled step reads it there)."""
+            host = {k: torch.from_numpy(v) for k, v in pipe.get().items()}
+            if world > 1:
+                return shlib.place_tree({k: v.to(device)
+                                         for k, v in host.items()},
+                                        input_axes)
+            if not batch_buffers:
+                batch_buffers.update({k: torch.empty_like(v, device=device)
+                                      for k, v in host.items()})
+            for k, v in host.items():
+                batch_buffers[k].copy_(v)
+            return batch_buffers
 
         def step_fn(state, step):
-            # every rank holds the same global batch and keeps its shard
-            batch = shlib.place_tree({k: torch.from_numpy(v).to(device)
-                                      for k, v in pipe.get().items()},
-                                     input_axes)
+            batch = load_batch()
             sent = gloo_staged.traffic()
             t0 = time.perf_counter()
             params, opt_state, metrics = train_step(
@@ -297,13 +320,17 @@ def run(args) -> Dict[str, Any]:
 
 def _rank_report(params, device, comm, world):
     """Per rank (gathered on every rank): peak device bytes since the
-    run's start (None on the CPU), the parameter bytes the rank holds and
+    run's start (None on the CPU), the parameter bytes the rank holds,
     the collective payload bytes of each step (``gloo_staged`` counts
-    them; zeros under another backend)."""
+    them; zeros under another backend) and the process's kernel launches
+    by op (``kernel_launches``; none on the CPU)."""
+    from repro_torch.kernels import launch_counters
     mine = {"peak_bytes": (torch.cuda.max_memory_allocated(device)
                            if device.type == "cuda" else None),
             "param_bytes": shlib.local_bytes(params),
-            "comm_bytes": comm}
+            "comm_bytes": comm,
+            "kernel_launches": {w.op_name: w.launches
+                                for w in launch_counters() if w.launches}}
     if world == 1:
         return [mine]
     out = [None] * world

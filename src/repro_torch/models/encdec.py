@@ -24,12 +24,12 @@ reference.
 
 from __future__ import annotations
 
-import functools
 from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import device_table
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
 from repro_torch.runtime.sharding import constrain, product_output
@@ -91,11 +91,13 @@ def _mha(p, xq, xkv, *, causal: bool, cache=None, lengths=None):
     return product_output(out.reshape(b, s, h * hd) @ wo), cache
 
 
-@functools.lru_cache(maxsize=None)
+@device_table
 def _positions(s: int, d: int, device: torch.device) -> torch.Tensor:
     """The sinusoidal table on ``device``, moved there once: the first
     (eager) call of a compiled step fills this, and its capture reads the
-    same tensor (a copy from host memory cannot be captured)."""
+    same tensor (a copy from host memory cannot be captured). Under a fake
+    mode (the dry run) it is made afresh and never cached
+    (:func:`~repro_torch.kernels.device_table`)."""
     return L.sinusoidal_positions(s, d).to(device)
 
 

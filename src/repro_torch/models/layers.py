@@ -138,7 +138,9 @@ def remat(fn, policy: str):
     products' outputs (the reference's ``checkpoint_dots``) and recomputes
     the rest; any other policy saves nothing inside ``fn`` (its
     ``nothing_saveable``). Where no gradient is recorded, ``fn`` runs as
-    it is."""
+    it is. The RNG state is not saved for the recomputation: no model
+    draws random numbers, and a compiled train step's capture cannot read
+    the card's generator."""
     if policy == "none":
         return fn
     context_fn = (functools.partial(ckpt.create_selective_checkpoint_contexts,
@@ -150,7 +152,8 @@ def remat(fn, policy: str):
         if not torch.is_grad_enabled():
             return fn(*args, **kwargs)
         return ckpt.checkpoint(fn, *args, use_reentrant=False,
-                               context_fn=context_fn, **kwargs)
+                               context_fn=context_fn,
+                               preserve_rng_state=False, **kwargs)
     return wrapped
 
 

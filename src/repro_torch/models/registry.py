@@ -176,7 +176,11 @@ class BaseLM:
         if n_extra:
             x = x[:, n_extra:]
         loss = _lm_loss(cfg, x, self._unembed(params), batch["labels"])
-        aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+        # a dense stack's aux is a Python 0.0: filled on the device (a copy
+        # from host memory could not be captured in a compiled step)
+        aux = (aux.to(torch.float32) if isinstance(aux, torch.Tensor)
+               else torch.full((), aux, dtype=torch.float32,
+                               device=loss.device))
         loss = loss + 0.01 * aux
         return loss, {"loss": loss, "aux": aux}
 

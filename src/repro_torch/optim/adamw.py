@@ -4,7 +4,8 @@
 The state is f32 and lives beside the parameters: ``{"m", "v"}`` trees of
 the params' shapes and a 0-d int32 ``step``. :func:`update` writes the
 parameters and the state in place under ``torch.no_grad()`` (the
-counterpart of the reference's buffer donation) and returns them.
+counterpart of the reference's buffer donation) and returns them; on the
+card it is one hand-written kernel (``kernels/adamw``, two launches).
 """
 
 from __future__ import annotations
@@ -62,28 +63,14 @@ def clip_by_global_norm(grads, max_norm: float):
     return L.tree_map(lambda g: g * scale, grads), norm
 
 
-@torch.no_grad()
 def update(cfg: AdamWConfig, grads, state, params
            ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step on ``params`` and ``state``, both written in place:
     (params, state, {"grad_norm", "lr"}). ``grads`` has the params' tree
-    and is read in f32, clipped to ``cfg.clip_norm``."""
-    grads, gnorm = clip_by_global_norm(
-        L.tree_map(lambda g: g.float(), grads), cfg.clip_norm)
-    state["step"].add_(1)
-    step = state["step"].float()
-    lr = schedule(cfg, state["step"])
-    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, device=step.device), step)
-    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, device=step.device), step)
-    g_leaves = dict(L.tree_leaves(grads))
-    m_leaves = dict(L.tree_leaves(state["m"]))
-    v_leaves = dict(L.tree_leaves(state["v"]))
-    for path, p in L.tree_leaves(params):
-        g, m, v = g_leaves[path], m_leaves[path], v_leaves[path]
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-        p32 = p.float()
-        p32 = p32 - lr * ((m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-                          + cfg.weight_decay * p32)
-        p.copy_(p32)
-    return params, state, {"grad_norm": gnorm, "lr": lr}
+    and is read in f32, clipped to ``cfg.clip_norm``.
+
+    ``kernels.adamw.adamw_update`` chooses: the hand-written kernel on
+    the card (on a mesh, on each rank's shards), its plain version on the
+    CPU, for fake tensors and under a policy of mode "ref"."""
+    from repro_torch.kernels.adamw import adamw_update
+    return adamw_update(cfg, grads, state, params)

@@ -33,7 +33,8 @@ from repro_torch.checkpoint import latest_step, restore, save
 @dataclasses.dataclass
 class FTConfig:
     ckpt_dir: str
-    ckpt_every: int = 50
+    ckpt_every: int = 50        # and after the last step; 0: only on
+                                # preemption
     keep_last: int = 3
     handle_sigterm: bool = True
     # embed autotune.snapshot_plans() in every checkpoint's extra (and
@@ -148,7 +149,8 @@ class Supervisor:
             step += 1
             if on_step:
                 on_step(step, state)
-            if step % self.cfg.ckpt_every == 0 or step == n_steps:
+            if self.cfg.ckpt_every and (step % self.cfg.ckpt_every == 0
+                                        or step == n_steps):
                 self._save(step, state)
             if self._preempted.is_set():
                 # drain: the step above finished; write the final

@@ -46,7 +46,8 @@ def train_step(rank, world, cfg, np_params, np_batch, mesh_shape,
         batch = shlib.place_tree(_tensors(np_batch),
                                  {k: ("batch", "seq") for k in np_batch})
         opt = adamw.init(params)
-        step = steps_lib.make_train_step(model, opt_cfg=OPT_CFG)
+        step = steps_lib.make_train_step(model, opt_cfg=OPT_CFG,
+                                         compiled=False)
         params, opt, metrics = step(params, opt, batch)
         full = L.tree_map(shlib.full_tensor, params)
         local = torch.tensor([shlib.local_bytes(params)])
@@ -54,11 +55,28 @@ def train_step(rank, world, cfg, np_params, np_batch, mesh_shape,
         torch.distributed.all_gather(gathered, local)
     out = {"params": tree_to_numpy(L.tree_map(lambda t: t.detach(), full)),
            "metrics": {k: float(v) for k, v in metrics.items()},
-           "param_bytes": [int(g) for g in gathered]}
+           "param_bytes": [int(g) for g in gathered],
+           "norm_sq": _mesh_norm_sq(params, mesh)}
     if keep:
         out["params_dtensor"] = params
         return out
     return None if rank else out
+
+
+def _mesh_norm_sq(tree, mesh):
+    """(the sum of squares of ``tree``'s DTensor leaves as the AdamW
+    kernel's wrapper sums it on a mesh: each rank's owned shards, summed
+    over the mesh; the same sum of the whole leaves), both in f64."""
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    owners = adamw_ops.norm_owners(tree, tree, mesh)
+    part = torch.zeros(1, dtype=torch.float64)
+    for own, (_, t) in zip(owners, L.tree_leaves(tree)):
+        if own:
+            part += torch.sum(torch.square(t.to_local().double()))
+    adamw_ops.mesh_sum(part, mesh)
+    whole = sum(float(torch.sum(torch.square(shlib.full_tensor(t).double())))
+                for _, t in L.tree_leaves(tree))
+    return float(part), whole
 
 
 def train_step_and_save(rank, world, cfg, np_params, np_batch, mesh_shape,
@@ -294,7 +312,7 @@ def _adafactor_steps(model, params, batch, n_steps, opt_cfg):
     from repro_torch.optim import adafactor
     opt = adafactor.init(params)
     step = steps_lib.make_train_step(model, optimizer="adafactor",
-                                     opt_cfg=opt_cfg)
+                                     opt_cfg=opt_cfg, compiled=False)
     losses = []
     for _ in range(n_steps):
         params, opt, metrics = step(params, opt, batch)

@@ -1031,3 +1031,176 @@ def test_a_later_graphs_outputs_survive_an_earlier_graphs_replay(cuda):
     decode(params, dict(first), dense_cache)          # the earlier graph
     torch.cuda.synchronize()
     assert torch.equal(nxt, kept[0]) and torch.equal(lg, kept[1])
+
+
+# ---------------------------------------------------------------------------
+# AdamW (kernels/adamw): the hand-fused update against its plain version
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's ADAMW_TOL: the kernel sums the norm in double in another
+# order than the plain version's f32 sums, so a clipped step's scale moves
+# by their rounding
+ADAMW_TOL = 1e-5
+ADAMW_SHAPES = {"ragged": [(4097,), (5,), (1,), (3, 4115), (64, 64)],
+                "groups": [(7 * i + 1,) for i in range(70)]}
+
+
+def _adamw_operands(cuda, shapes, p_dtype, g_dtype, grad_scale, offset=0):
+    """Params (``offset`` elements into a larger buffer: unaligned when
+    odd), gradients at ``grad_scale``, random moments at step 4."""
+    from repro_torch.optim import adamw
+    gen = torch.Generator(device=cuda).manual_seed(len(shapes))
+
+    def rn(shape, dtype, scale=1.0):
+        n = 1
+        for s in shape:
+            n *= s
+        buf = torch.empty(n + offset, dtype=dtype, device=cuda)
+        out = buf[offset:].view(shape)
+        out.copy_(torch.randn(shape, generator=gen, device=cuda) * scale)
+        return out
+    params = {f"l{i:03d}": rn(s, p_dtype) for i, s in enumerate(shapes)}
+    grads = {k: rn(p.shape, g_dtype, grad_scale) for k, p in params.items()}
+    state = adamw.init(params)
+    for m in state["m"].values():
+        m.normal_(generator=gen).mul_(grad_scale)
+    for v in state["v"].values():
+        v.uniform_(generator=gen).mul_(grad_scale ** 2)
+    state["step"].fill_(4)
+    return params, grads, state
+
+
+def _adamw_pair(cuda, shapes, p_dtype, g_dtype, grad_scale, offset=0):
+    """(kernel's, plain's) (params, state, metrics) after one update of
+    the same operands, and the kernel's launches."""
+    from repro_torch.kernels.adamw import adamw_ref, adamw_update
+    from repro_torch.optim import adamw
+    cfg = adamw.AdamWConfig(lr_peak=1e-3, warmup_steps=10, total_steps=30)
+    p, g, s = _adamw_operands(cuda, shapes, p_dtype, g_dtype, grad_scale,
+                              offset)
+    p2 = {k: v.clone() for k, v in p.items()}
+    s2 = {"m": {k: v.clone() for k, v in s["m"].items()},
+          "v": {k: v.clone() for k, v in s["v"].items()},
+          "step": s["step"].clone()}
+    adamw_update.launches = 0
+    _, _, mk = adamw_update(cfg, g, s, p)
+    _, _, mp = adamw_ref(cfg, g, s2, p2)
+    torch.cuda.synchronize()
+    return (p, s, mk), (p2, s2, mp), adamw_update.launches
+
+
+def _adamw_rel(got, want):
+    scale = max(w.float().abs().max().item() for w in want.values())
+    return max(_err(got[k], want[k]) for k in want) / scale
+
+
+@pytest.mark.parametrize("shapes", sorted(ADAMW_SHAPES))
+@pytest.mark.parametrize("p_dtype,g_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_adamw_kernel_matches_plain(cuda, shapes, p_dtype, g_dtype, offset):
+    (p, s, mk), (p2, s2, mp), launches = _adamw_pair(
+        cuda, ADAMW_SHAPES[shapes], p_dtype, g_dtype, 1.0, offset)
+    assert mk["grad_norm"].item() > 1.0          # the step clips
+    assert launches == 2 * (2 if shapes == "groups" else 1)
+    assert int(s["step"]) == int(s2["step"]) == 5
+    # a bf16 parameter rounds its update: one ulp of it at most
+    p_tol = ADAMW_TOL if p_dtype == torch.float32 else 2 ** -7
+    assert _adamw_rel(p, p2) <= p_tol
+    assert _adamw_rel(s["m"], s2["m"]) <= ADAMW_TOL
+    assert _adamw_rel(s["v"], s2["v"]) <= ADAMW_TOL
+    for k in ("grad_norm", "lr"):
+        assert abs(mk[k].item() - mp[k].item()) <= \
+            ADAMW_TOL * abs(mp[k].item()), k
+
+
+def test_adamw_unclipped_update_is_the_plain_versions_bit_for_bit(cuda):
+    """With the norm under ``clip_norm`` both scales are 1 exactly, and the
+    kernel's update, each operation rounded as PyTorch rounds it, equals
+    the plain version's bit for bit."""
+    (p, s, mk), (p2, s2, mp), _ = _adamw_pair(
+        cuda, ADAMW_SHAPES["ragged"], torch.float32, torch.float32, 1e-4)
+    assert mk["grad_norm"].item() < 1.0
+    assert mk["lr"].item() == mp["lr"].item()
+    for k in p2:
+        assert torch.equal(p[k], p2[k]), k
+        assert torch.equal(s["m"][k], s2["m"][k]), k
+        assert torch.equal(s["v"][k], s2["v"][k]), k
+
+
+def test_adamw_kernel_on_a_one_rank_mesh_equals_it_on_plain_tensors(
+        cuda, tmp_path):
+    """DTensor operands on a (1, 1) mesh (one gloo rank): the kernel runs
+    on the local shards, writes through to the DTensors, and its
+    zero-padded partial sums give the plain tensors' update bit for bit
+    (a clipped step)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels.adamw import adamw_update
+    from repro_torch.optim import adamw
+    cfg = adamw.AdamWConfig(lr_peak=1e-3, warmup_steps=10, total_steps=30)
+    p, g, s = _adamw_operands(cuda, ADAMW_SHAPES["ragged"], torch.float32,
+                              torch.float32, 1.0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+
+        def placed(t, k):
+            pl = [Replicate(), Shard(0) if k.endswith("0") else Replicate()]
+            return distribute_tensor(t.clone(), mesh, pl)
+        pd = {k: placed(v, k) for k, v in p.items()}
+        gd = {k: placed(v, k) for k, v in g.items()}
+        sd = {"m": {k: placed(v, k) for k, v in s["m"].items()},
+              "v": {k: placed(v, k) for k, v in s["v"].items()},
+              "step": s["step"].clone()}
+        adamw_update.launches = 0
+        _, _, md = adamw_update(cfg, gd, sd, pd)
+        assert adamw_update.launches == 2
+        _, _, mp = adamw_update(cfg, g, s, p)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert md["grad_norm"].item() > 1.0 and int(sd["step"]) == 5
+    assert md["grad_norm"].item() == mp["grad_norm"].item()
+    for k in p:
+        assert torch.equal(pd[k].to_local(), p[k]), k
+        assert torch.equal(sd["m"][k].to_local(), s["m"][k]), k
+        assert torch.equal(sd["v"][k].to_local(), s["v"][k]), k
+
+
+def test_adamw_kernel_is_captured_and_replayed_bit_for_bit(cuda):
+    """Both launches captured in a CUDA graph: three replays equal three
+    eager updates bit for bit (the norm's sums in a fixed order)."""
+    from repro_torch.kernels.adamw import adamw_update
+    from repro_torch.optim import adamw
+    cfg = adamw.AdamWConfig(lr_peak=1e-3, warmup_steps=2, total_steps=10)
+    shapes = ADAMW_SHAPES["ragged"]
+    p, g, s = _adamw_operands(cuda, shapes, torch.float32, torch.float32,
+                              1.0)
+    p2, g2, s2 = _adamw_operands(cuda, shapes, torch.float32, torch.float32,
+                                 1.0)
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        adamw_update(cfg, g, s, p)                 # warm-up: update 1
+    torch.cuda.current_stream(cuda).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = adamw_update(cfg, g, s, p)[2]
+    eager = [adamw_update(cfg, g2, s2, p2)[2]["grad_norm"].item()]
+    replayed = []
+    for _ in range(3):
+        graph.replay()
+        replayed.append(out["grad_norm"].item())
+        eager.append(adamw_update(cfg, g2, s2, p2)[2]["grad_norm"].item())
+    torch.cuda.synchronize()
+    assert int(s["step"]) == int(s2["step"]) == 4 + 4
+    assert replayed == eager[1:]
+    for k in p2:
+        assert torch.equal(p[k], p2[k]), k
+        assert torch.equal(s["v"][k], s2["v"][k]), k

@@ -161,6 +161,15 @@ def test_sharded_train_step_matches_reference_single_device(setup, sharded):
     assert abs(got["metrics"]["loss"] - loss) < 1e-4
 
 
+def test_adamw_norm_counts_each_element_once_over_the_mesh(sharded):
+    """The AdamW kernel's wrapper on a (data 4, model 2) mesh: each rank's
+    owned shards (a leaf replicated over an axis counted at its coordinate
+    0), all-reduced over both axes, sum to the whole tree's squares."""
+    got, want = sharded[0]["norm_sq"]
+    assert want > 0
+    assert abs(got - want) <= 1e-12 * want
+
+
 def test_sharded_params_split_over_model(setup, sharded):
     """Each rank holds the rules' share: the vocab, head and MLP dims
     halved over "model", the kv heads and norms whole."""

@@ -176,6 +176,15 @@ def test_supervisor_resume_after_injected_failure(tmp_path):
     assert sup2.last_save["step"] == 10 and sup2.last_save["bytes"] > 0
 
 
+def test_supervisor_with_ckpt_every_zero_writes_no_checkpoint(tmp_path):
+    cfg = FTConfig(ckpt_dir=str(tmp_path), ckpt_every=0,
+                   handle_sigterm=False)
+    sup = Supervisor(cfg, {"x": np.zeros((), np.int64)})
+    final = sup.run({"x": np.zeros((), np.int64)}, 0, 5, _counter_step)
+    assert int(final["x"]) == sum(range(1, 6))
+    assert sup.last_save is None and latest_step(str(tmp_path)) is None
+
+
 def test_supervisor_sigterm_drain_and_handler_restore(tmp_path):
     sentinel = lambda *_: None                  # noqa: E731
     prev = signal.signal(signal.SIGTERM, sentinel)
