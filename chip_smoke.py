@@ -71,7 +71,13 @@ Phases (any failure exits non-zero without the final result line):
      N = P = 256, chunk 256 (f32 and bf16); the smoke llama3.2-1b,
      starcoder2-15b,
      qwen2-72b, internvl2-1b (with and without patch embeddings) and
-     whisper-tiny (with frames) models on the card against the CPU;
+     whisper-tiny (with frames) models on the card against the CPU; the
+     f32 rings of the product and of attention bit for bit across
+     their depth {1, 2, 4, deepest} x streams: the f32 and f32 x bf16
+     products at the LIB and ragged shapes and row-strided, the gathered
+     f32 launch == gather then matmul and the f32 attention_proj ==
+     attention then matmul at each setting, f32 attention at the serve,
+     256-token and non-causal shapes and at head dims 80 and 128;
   c. serve full-width qwen1.5-0.5B (random weights from seed 0, cast once)
      through ``repro_torch.launch.serve.serve_bench`` with the serve
      defaults, once more with 256-token prompts, and once with
@@ -123,7 +129,12 @@ Phases (any failure exits non-zero without the final result line):
      decode-attention kernels at the prompt-256 and long shapes, and the
      gather at both LIB shapes, at every ring depth {1, 2, 3, 4, 6} x
      streams {1, 2}, and the gather also at streams 4, depth 8 and a
-     grid cut to 33 blocks (a ``depth_sweep`` line);
+     grid cut to 33 blocks (a ``depth_sweep`` line); the f32 rings in the
+     same sweep (the product at both LIB shapes and f32 x bf16 at wi,
+     the gathered f32 dispatch, attention at both serve shapes); every
+     f32 body at the shapes of its bf16 row, against its bound at 67
+     TFLOP/s, its plain version and the f32 library call (an
+     ``f32_bodies`` line; ``--f32-timing`` builds and runs it alone);
   then each step kind replayed from its CUDA graph against the same step
      run eagerly from the same inputs, bit for bit (qwen's dense, paged
      and layer-graph decode and a prefill bucket at full width; the smoke
@@ -593,6 +604,13 @@ def check_kernels(torch, dev, shapes):
                     torch, f"ff_attention {label} bh={bh} s={s}",
                     lambda **kw: attention(q, k, v, kv_groups=groups,
                                            causal=causal, **kw), out)
+            if label in ("serve", "serve-256", "wide-noncausal") \
+                    and dtype == torch.float32:
+                check_pipe_bitwise(
+                    torch, f"ff_attention {label} f32 bh={bh} s={s}",
+                    lambda **kw: attention(q, k, v, kv_groups=groups,
+                                           causal=causal, **kw), out,
+                    attention_f32_grid(torch, d))
         for label, (b, h, kvh, d, page, n_pages, nb, lengths) in (
                 *((lbl, tuple(shapes[key][f] for f in (
                     "b", "h", "kvh", "d", "page", "n_pages", "n_blocks",
@@ -820,7 +838,11 @@ def check_library_kernels(torch, dev, shapes):
     same operand values), the gather exactly; every (A, B) type pair of the matmul;
     each fused launch equal to its staged composition bit for bit: the
     MoE dispatch to gather then matmul, attention_proj to attention then
-    matmul, the paged kernel to gather then contiguous decode."""
+    matmul, the paged kernel to gather then contiguous decode. The f32
+    and mixed products (row-strided ones too), the gathered f32 launch and
+    the f32 attention_proj also at every f32 ring setting of
+    ``f32_grid``, bit for bit (the last two equal to their staged
+    compositions at each)."""
     from repro_torch.kernels.ff_attention import (attention, attention_proj,
                                                   attention_proj_ref)
     from repro_torch.kernels.ff_gather import gather, gather_ref
@@ -851,15 +873,26 @@ def check_library_kernels(torch, dev, shapes):
             if main and ta == tb:
                 check_pipe_bitwise(torch, f"ff_matmul {lbl} {m}x{k}x{n}",
                                    lambda **kw: matmul(a, b, **kw), out)
-        if main:
-            # rows TMA cannot describe: a row stride of 203 elements, B
-            # read from an odd column
+            elif not main:
+                check_pipe_bitwise(
+                    torch, f"ff_matmul {lbl} {tag} x {str(tb)[6:]} "
+                    f"{m}x{k}x{n}", lambda **kw: matmul(a, b, **kw), out,
+                    matmul_f32_grid(torch, a, b))
+        # rows TMA cannot describe: a row stride of 203 elements, B read
+        # from an odd column (f32: with a bf16 B too)
+        for tb in (dtype,) if main else (f32, bf16):
             a = rn(torch, gen, dev, 150, 203, dtype=dtype)[:, 3:195]
             b = rn(torch, gen, dev, 192, 300, scale=0.07,
-                   dtype=dtype)[:, 1:261]
-            ok, e = within(matmul(a, b), matmul_ref(a, b), tol)
-            check(f"ff_matmul row-strided {tag} 150x192x260", ok,
-                  f"max|kernel-plain|={e:.3e} tol={tol} (rel and abs)")
+                   dtype=tb)[:, 1:261]
+            out = matmul(a, b)
+            ok, e = within(out, matmul_ref(a, b), tol)
+            check(f"ff_matmul row-strided {tag} x {str(tb)[6:]} 150x192x260",
+                  ok, f"max|kernel-plain|={e:.3e} tol={tol} (rel and abs)")
+            if not main:
+                check_pipe_bitwise(
+                    torch, f"ff_matmul row-strided {tag} x {str(tb)[6:]}",
+                    lambda **kw: matmul(a, b, **kw), out,
+                    matmul_f32_grid(torch, a, b))
         cases = [(lbl, r, c, n) for lbl, r, c, n, t in LIB["gather"]
                  if t == tag] + [("ragged", 500, 7, 1001),
                                  ("ragged", 500, 64, 333),
@@ -899,6 +932,13 @@ def check_library_kernels(torch, dev, shapes):
                     torch, f"ff_attention_proj {lbl} bh={bh} s={s}",
                     lambda **kw: attention_proj(q, k, v, w, causal=causal,
                                                 **kw), fused)
+            if not main:
+                # == staged (checked above) at every f32 ring setting
+                check_pipe_bitwise(
+                    torch, f"ff_attention_proj == staged {lbl} f32 bh={bh} "
+                    f"s={s}", lambda **kw: attention_proj(
+                        q, k, v, w, causal=causal, **kw), staged,
+                    attention_f32_grid(torch, d))
         for lbl, (t, d, n, f, t_out) in (("full", LIB["moe"]),
                                          ("ragged", (100, 70, 24, 130, 16))):
             idx, tokens, w1, comb = moe_operands(torch, dev, gen, t, d, n, f,
@@ -917,6 +957,14 @@ def check_library_kernels(torch, dev, shapes):
                     torch, f"ff_dispatch_matmul {lbl}",
                     lambda **kw: dispatch_matmul(tokens, idx, w1, **kw),
                     fused)
+            else:
+                # == gather then matmul (checked above) at every f32 ring
+                # setting
+                check_pipe_bitwise(
+                    torch, f"ff_dispatch_matmul == gather then matmul {lbl} "
+                    f"f32", lambda **kw: dispatch_matmul(tokens, idx, w1,
+                                                         **kw), staged,
+                    matmul_f32_grid(torch, tokens, w1))
             out = M.moe_dispatch_ffn(idx, tokens, w1, comb)
             unf = M._moe_graph_unfused(idx, tokens, w1, comb)
             check(f"moe_dispatch_ffn == unfused bitwise {lbl} {tag}",
@@ -940,14 +988,34 @@ def check_library_kernels(torch, dev, shapes):
 PIPE_GRID = [(d, st) for d in (1, 2, 4) for st in (1, 2)]
 
 
-def check_pipe_bitwise(torch, label, fn, want):
-    """A bf16 kernel on the ring (the product, the dispatch, attention,
-    attention_proj) at every (depth, streams) of PIPE_GRID equals ``want``
-    (the default's) bit for bit: the ring changes when a tile lands, not
-    what is computed."""
-    bad = [(d, st) for d, st in PIPE_GRID
+def f32_grid(deepest, streams):
+    """The f32 rings' (depth, streams) cases: depth {1, 2, 4} and the
+    deepest that fits, each at every stream count the tiles take."""
+    return [(d, st) for d in sorted({1, 2, 4, deepest}) if d <= deepest
+            for st in streams]
+
+
+def matmul_f32_grid(torch, a, b):
+    from repro_torch.kernels.ff_matmul import ops as MO
+    return f32_grid(MO.max_depth(a.dtype, b.dtype),
+                    MO.stream_options((1, 2, 4, 8, 16), a.dtype, b.dtype))
+
+
+def attention_f32_grid(torch, d):
+    from repro_torch.kernels.ff_attention import ops as AO
+    return f32_grid(AO.max_depth(d, torch.float32),
+                    AO.stream_options((1, 2, 4), torch.float32))
+
+
+def check_pipe_bitwise(torch, label, fn, want, grid=None):
+    """A kernel on the ring (the product, the dispatch, attention,
+    attention_proj, bf16 and f32) at every (depth, streams) of ``grid``
+    (PIPE_GRID unless given) equals ``want`` (the default's) bit for bit:
+    the ring changes when a tile lands, not what is computed."""
+    grid = PIPE_GRID if grid is None else grid
+    bad = [(d, st) for d, st in grid
            if not torch.equal(fn(depth=d, streams=st), want)]
-    check(f"{label} bitwise across depth x streams {PIPE_GRID}", not bad,
+    check(f"{label} bitwise across depth x streams {grid}", not bad,
           f"differs at {bad}" if bad else "all equal")
 
 
@@ -1224,8 +1292,11 @@ def gather_sms(sms):
 
 def depth_sweep(torch, dev, shapes):
     """The paper's depth experiment on this card: rows 8 (both LIB shapes)
-    and 8b, then row 1 and row 8a at q/k/v [64,256,64] (qwen's 4 x
-    256-token prefill; 8a into d_model 1024), row 9 at both recurrent
+    and 8b, their f32 rings (both LIB shapes in f32, qwen's wi in f32 x
+    bf16, the gathered f32 dispatch) and f32 attention at both serve
+    shapes (q/k/v [64,32,64] and [64,256,64]), then row 1 and row 8a at
+    q/k/v [64,256,64] (qwen's 4 x 256-token prefill; 8a into d_model
+    1024), row 9 at both recurrent
     models' prefill shapes (chunk 64), then rows 4-6 at the serve
     shape (B = 4), row 7 (the gather) at both LIB shapes, then rows 2
     and 3 at ``decode_256`` and ``decode_long``, device ms per call with
@@ -1254,6 +1325,33 @@ def depth_sweep(torch, dev, shapes):
                   f"w1[{d},{f}]",
                   lambda **kw: dispatch_matmul(tokens, idx, w1, **kw), 100,
                   MAX_DEPTH))
+    # the f32 rings: both products, the f32 x bf16 pair at qwen's wi, the
+    # gathered dispatch, then attention at the serve shapes below
+    f32 = torch.float32
+    from repro_torch.kernels.ff_matmul import ops as MO
+    for (lbl, m, k, n), tb in ((LIB["matmul"][0], f32), (LIB["matmul"][0],
+                                                          bf16),
+                               (LIB["matmul"][1], f32)):
+        a, b = matmul_operands(torch, dev, gen, m, k, n, f32, tb)
+        cases.append((f"ff_matmul f32 x {str(tb)[6:]} a[{m},{k}] @ "
+                      f"b[{k},{n}] ({lbl})",
+                      lambda a=a, b=b, **kw: matmul(a, b, **kw),
+                      10 if m * n * k > 2 ** 34 else 100,
+                      MO.max_depth(f32, tb)))
+    t, d, n, f, t_out = LIB["moe"]
+    f_idx, f_tokens, f_w1, _ = moe_operands(torch, dev, gen, t, d, n, f,
+                                            t_out, f32)
+    cases.append((f"ff_dispatch_matmul f32 tokens[{t},{d}] idx[{n}] "
+                  f"w1[{d},{f}]",
+                  lambda **kw: dispatch_matmul(f_tokens, f_idx, f_w1, **kw),
+                  100, MO.max_depth(f32)))
+    for key in ("prefill", "prefill_256"):
+        a_bh, a_g, a_s, a_d = shapes[key]
+        aq, ak, av = prefill_inputs(torch, dev, f32, a_bh, a_g, a_s, a_d, gen)
+        cases.append((f"ff_attention f32 q[{a_bh},{a_s},{a_d}] causal",
+                      lambda aq=aq, ak=ak, av=av, g=a_g, **kw: A.attention(
+                          aq, ak, av, kv_groups=g, **kw), 100,
+                      A.max_depth(a_d, f32)))
     bh, s, d, d_out = LIB["attention_proj"]
     q, k, v, w = attn_proj_operands(torch, dev, gen, bh, s, d, d_out, bf16)
     cases.append((f"ff_attention q/k/v[{bh},{s},{d}] causal",
@@ -1822,7 +1920,8 @@ def check_attention_head_dims(torch, dev):
     cache of 256 + 16 rows (tiles of 16, split over 4 blocks a row), each
     against its plain version, and both decode kernels bitwise across
     depth x streams; then the prefill kernel at head dim 128 (HD128, GQA
-    8)."""
+    8); the f32 prefill kernel at both head dims also bitwise across its
+    ring's settings (``f32_grid``)."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.ff_attention import attention, attention_ref
     from repro_torch.kernels.ff_decode_attention import (decode_attention,
@@ -1839,6 +1938,10 @@ def check_attention_head_dims(torch, dev):
         check(f"ff_attention zamba2 hd={d} {tag} bh={b * h} s={s}",
               e <= tol and out.isfinite().all().item(),
               f"max|kernel-plain|={e:.3e} tol={tol}")
+        if dtype == torch.float32:
+            check_pipe_bitwise(torch, f"ff_attention zamba2 hd={d} f32",
+                               lambda **kw: attention(q, k, v, **kw), out,
+                               attention_f32_grid(torch, d))
         pages = -(-(s + SSM["decode_steps"]) // 16)
         skv = pages * 16
         q, pool, tables, lens, kc, vc = decode_inputs(
@@ -1859,6 +1962,11 @@ def check_attention_head_dims(torch, dev):
         check(f"ff_attention hd={HD128['d']} {tag} bh={hh} g={g} "
               f"s={HD128['s']}", e <= tol and out.isfinite().all().item(),
               f"max|kernel-plain|={e:.3e} tol={tol}")
+        if dtype == torch.float32:
+            check_pipe_bitwise(
+                torch, f"ff_attention hd={HD128['d']} f32 g={g}",
+                lambda **kw: attention(q, k, v, kv_groups=g, **kw), out,
+                attention_f32_grid(torch, HD128["d"]))
 
 
 def decode_cache(model, cache, s, s_max):
@@ -2230,6 +2338,164 @@ def time_scan_wide(torch, dev, gen, flush):
         library_ms=None,
         library="none: no single PyTorch call computes this scan",
         bound=bound(nbytes, ops, "float32"))
+
+
+def sdpa_backend(torch, q4, k4, v4, **kw):
+    """The first SDPA backend, in PyTorch's own order of preference, that
+    takes these operands when it is the only one allowed: the one the
+    default call runs."""
+    import warnings
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for name in ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION",
+                 "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # each refusal's reasons
+                F.scaled_dot_product_attention(q4, k4, v4, **kw)
+            torch.cuda.synchronize()
+            return name
+        except RuntimeError:
+            continue
+    return "none"
+
+
+def time_f32_bodies(torch, dev, shapes, scan=True):
+    """Every float32 body at the shapes of its bf16 row in PERF.md (rows 1,
+    4-6, 8 and its mixed f32 x bf16 pair, 8a, 8b, 9): device ms L2 cold
+    and warm, the plain version's ms, the PyTorch call computing the same
+    function in f32 (torch.matmul with TF32 off; SDPA, naming the backend
+    it ran; for rows 4-6 the products alone) and the bound: f32 bytes over
+    3.35 TB/s against the operations over 67 TFLOP/s; row 8b also the
+    product on rows gathered beforehand (``plain_a_ms``). One ``f32_bodies``
+    line. The wrappers run at their planned ring. ``scan=False`` leaves out
+    row 9 (time_scan_kernel times it in a full run)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ff_attention import (attention, attention_proj,
+                                                  attention_proj_ref,
+                                                  attention_ref)
+    from repro_torch.kernels.ff_layer import (ff_layer_matmul,
+                                              ff_layer_matmul_ref,
+                                              ff_layer_mlp_tail,
+                                              ff_layer_mlp_tail_ref,
+                                              ff_layer_swiglu,
+                                              ff_layer_swiglu_ref)
+    from repro_torch.kernels.ff_matmul import (dispatch_matmul,
+                                               dispatch_matmul_ref, matmul,
+                                               matmul_ref)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    f32 = torch.float32
+    rows = {}
+
+    def row(name, shape, kernel, plain, library, nbytes, ops, n,
+            library_note=None):
+        print(f"f. timing f32 {name} {shape}", flush=True)
+        r = dict(shape=shape, ms=time_ms(torch, kernel, n, flush),
+                 ms_hot=time_ms(torch, kernel, n),
+                 plain_ms=time_ms(torch, plain, max(n // 10, 3), flush),
+                 library_ms=(time_ms(torch, library, n, flush)
+                             if library is not None else None),
+                 bound=bound(nbytes, ops, "float32"))
+        if library_note:
+            r["library"] = library_note
+        rows.setdefault(name, []).append(split_bound(r))
+
+    for key in ("prefill", "prefill_256"):
+        bh, groups, s, d = shapes[key]
+        q, k, v = prefill_inputs(torch, dev, f32, bh, groups, s, d, gen)
+        b, h = SERVE["slots"], bh // SERVE["slots"]
+        q4, k4, v4 = (q.view(b, h, s, d), k.view(b, h // groups, s, d),
+                      v.view(b, h // groups, s, d))
+        kw = dict(is_causal=True, **gqa(groups))
+        row("ff_attention",
+            f"q[{bh},{s},{d}] kv[{bh // groups},{s},{d}] causal f32",
+            lambda: attention(q, k, v, kv_groups=groups),
+            lambda: attention_ref(q, k, v, kv_groups=groups),
+            lambda: F.scaled_dot_product_attention(q4, k4, v4, **kw),
+            (2 * q.numel() + k.numel() + v.numel()) * 4,
+            4 * d * bh * s * (s + 1) / 2, 200,
+            f"SDPA ({sdpa_backend(torch, q4, k4, v4, **kw)})")
+    for lbl, m, k, n in LIB["matmul"]:
+        reps = 10 if m * n * k > 2 ** 34 else 100
+        for tb in (f32, torch.bfloat16):
+            a, b = matmul_operands(torch, dev, gen, m, k, n, f32, tb)
+            tag = "f32" if tb == f32 else "f32 x bf16"
+            row("ff_matmul", f"a[{m},{k}] @ b[{k},{n}] {tag} ({lbl})",
+                lambda a=a, b=b: matmul(a, b),
+                lambda a=a, b=b: matmul_ref(a, b),
+                (lambda a=a, b=b: torch.matmul(a, b)) if tb == f32 else None,
+                m * k * 4 + k * n * b.element_size() + m * n * 4,
+                2 * m * n * k, reps,
+                None if tb == f32 else "none: torch.matmul wants one type")
+            del a, b
+    bh, s, d, d_out = LIB["attention_proj"]
+    q, k, v, w = attn_proj_operands(torch, dev, gen, bh, s, d, d_out, f32)
+    b_, h_ = SERVE["slots"], bh // SERVE["slots"]
+    q4, k4, v4 = (x.view(b_, h_, s, d) for x in (q, k, v))
+    row("ff_attention_proj", f"q/k/v[{bh},{s},{d}] causal, w[{d},{d_out}] f32",
+        lambda: attention_proj(q, k, v, w),
+        lambda: attention_proj_ref(q, k, v, w),
+        lambda: torch.matmul(F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True).reshape(bh * s, d), w),
+        (3 * bh * s * d + d * d_out + bh * s * d_out) * 4,
+        4 * d * bh * s * (s + 1) / 2 + 2 * bh * s * d * d_out, 100,
+        "SDPA then torch.matmul")
+    t, d, n, f, t_out = LIB["moe"]
+    idx, tokens, w1, _ = moe_operands(torch, dev, gen, t, d, n, f, t_out, f32)
+    row("ff_dispatch_matmul",
+        f"tokens[{t},{d}], idx[{n}], w1[{d},{f}] f32 (gathered A)",
+        lambda: dispatch_matmul(tokens, idx, w1),
+        lambda: dispatch_matmul_ref(tokens, idx, w1),
+        lambda: torch.matmul(torch.index_select(tokens, 0, idx), w1),
+        (uniq(idx) * d + d * f + n * f) * 4 + n * 4, 2 * n * d * f, 100,
+        "index_select then torch.matmul")
+    # the same product on the rows gathered beforehand (A by TMA)
+    gathered = tokens[idx.long()].contiguous()
+    rows["ff_dispatch_matmul"][-1]["plain_a_ms"] = time_ms(
+        torch, lambda: matmul(gathered, w1), 100, flush)
+    for arch in (SERVE["arch"], "qwen2_72b"):
+        lay = main_path_shapes(torch, arch)["layer"]
+        m, d, hq, f = lay["b"], lay["d"], lay["hq"], lay["f"]
+        t = layer_inputs(torch, dev, f32, m, lay, gen)
+        q_kw = dict(norm_weight=t["nw1"], bias=t["bq"],
+                    rope_theta=lay["theta"], head_dim=lay["hd"],
+                    positions=torch.tensor(lay["positions"], device=dev,
+                                           dtype=torch.int32))
+        note = "products alone (torch.matmul), not the fused function"
+        row("ff_layer_matmul", f"{arch} a[{m},{d}] @ wq[{d},{hq}], RMSNorm, "
+            f"q bias, RoPE f32",
+            lambda: ff_layer_matmul(t["x"], t["wq"], **q_kw),
+            lambda: ff_layer_matmul_ref(t["x"], t["wq"], **q_kw),
+            lambda: torch.matmul(t["x"], t["wq"]),
+            (m * d + d * hq + hq + m * hq) * 4 + d * 4 + m * 4,
+            2 * m * d * hq, 100, note)
+        row("ff_layer_swiglu", f"{arch} x[{m},{d}] @ wg, wu[{d},{f}], "
+            f"RMSNorm f32",
+            lambda: ff_layer_swiglu(t["x"], t["wg"], t["wu"],
+                                    norm_weight=t["nw2"]),
+            lambda: ff_layer_swiglu_ref(t["x"], t["wg"], t["wu"],
+                                        norm_weight=t["nw2"]),
+            lambda: torch.matmul(t["x"], t["wi"]),
+            (m * d + 2 * d * f + m * f) * 4 + d * 4, 4 * m * d * f, 50, note)
+        row("ff_layer_mlp_tail", f"{arch} a[{m},{hq}] @ wo + x; RMSNorm, "
+            f"SwiGLU [{d},{f}]; @ wo2 + h f32",
+            lambda: ff_layer_mlp_tail(*tail_args(t)),
+            lambda: ff_layer_mlp_tail_ref(*tail_args(t)),
+            lambda: (torch.matmul(t["a"], t["wo"]),
+                     torch.matmul(t["x"], t["wi"]),
+                     torch.matmul(t["act"], t["wo2"])),
+            (m * hq + hq * d + 2 * m * d + 2 * d * f + f * d) * 4 + d * 4,
+            2 * m * (hq * d + 2 * d * f + f * d), 50, note)
+        del t
+    if scan:
+        rows["ff_chunk_scan"] = [split_bound(time_scan_wide(torch, dev, gen,
+                                                            flush))]
+    print("f32_bodies " + json.dumps(rows), flush=True)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -5339,6 +5605,10 @@ def main() -> int:
                     help="build, then only time the decode-attention rows "
                     "(phase f's time_decode) and print them as one "
                     "decode_timing line: to compare two trees in one call")
+    ap.add_argument("--f32-timing", action="store_true",
+                    help="build, then only time the float32 bodies at the "
+                    "shapes of their bf16 rows (time_f32_bodies) and print "
+                    "one f32_bodies line: to compare two trees in one call")
     ap.add_argument("--dist", action="store_true",
                     help="build, then run only phase j (the distributed "
                     "runtime) and print its lines")
@@ -5373,6 +5643,10 @@ def main() -> int:
               flush=True)
     print(f"a. build: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    if opts.f32_timing:
+        time_f32_bodies(torch, dev, main_path_shapes(torch))
+        print(smi_line(), flush=True)
+        return 0
     if opts.phase_l:
         check_l_dryruns(phase_l(torch, dev)[0])
         return 1 if failures else 0
@@ -5440,6 +5714,9 @@ def main() -> int:
             "qwen2_72b-layer-graph"][name]
         rows[name]["more"] = [split_bound(row)]
     rows.update(time_library_kernels(torch, dev, shapes))
+    for name, more in time_f32_bodies(torch, dev, shapes,
+                                      scan=False).items():
+        rows[name].setdefault("more", []).extend(more)
     sweep = depth_sweep(torch, dev, shapes)
     rows.update(time_scan_kernel(torch, dev, scan_launches))
     check_compiled_steps(torch, dev)

@@ -657,14 +657,19 @@ def _dispatch_run(progs, edges, serves, ops, policy):
                            policy=policy)
 
 
+def _dispatch_types(progs):
+    """The expert product's operand types: the gathered rows', B's."""
+    return progs[0].out_dtype, progs[1].stream("b").spec.dtype
+
+
 def _dispatch_smem(progs, depth):
     from repro_torch.kernels.ff_matmul.ops import _smem_bytes
-    return _smem_bytes(depth)
+    return _smem_bytes(depth, *_dispatch_types(progs))
 
 
 def _dispatch_max_depth(progs):
-    from repro_torch.kernels.ff_matmul.ops import MAX_DEPTH
-    return MAX_DEPTH
+    from repro_torch.kernels.ff_matmul.ops import max_depth
+    return max_depth(*_dispatch_types(progs))
 
 
 def _attn_proj_accepts(progs, edges, serves):
@@ -688,12 +693,12 @@ def _attn_d(progs) -> int:
 
 def _attn_proj_smem(progs, depth):
     from repro_torch.kernels.ff_attention.ops import _smem_bytes
-    return _smem_bytes(_attn_d(progs), depth)
+    return _smem_bytes(_attn_d(progs), depth, progs[0].out_dtype)
 
 
 def _attn_proj_max_depth(progs):
     from repro_torch.kernels.ff_attention import max_depth
-    return max_depth(_attn_d(progs))
+    return max_depth(_attn_d(progs), progs[0].out_dtype)
 
 
 def _paged_geometry(progs):

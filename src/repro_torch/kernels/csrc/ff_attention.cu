@@ -24,10 +24,16 @@
 // >= 2 the next tile's fill overlaps this tile's products. The TPU's
 // sequential grid axis kj becomes the consumer's loop over the ring; the
 // TPU wrapper padded S to the block, here the ragged q and KV edges are
-// masked in the kernel, so no padded copy is made. f32 keeps the CUDA-core
-// body (namespace f32: 128 threads per 32-row tile, scalar fmaf products
-// from shared memory; depth and streams do not apply), which bounds it by
-// shared-memory bandwidth.
+// masked in the kernel, so no padded copy is made.
+//
+// f32 (no TF32; the body is namespace f32): the CUDA cores bound it, 67
+// TFLOP/s (0.00804 ms at q/k/v [64,256,64]). One block per (bh, q tile of
+// 64 rows), four consumer warps and one producer warp, which fills the
+// same kind of ring with K and V tiles of 32 rows (TMA, ``streams`` boxes
+// a tile, 128-byte swizzled 32-float slabs) or element copies. Each
+// consumer thread computes a 4 x 4 block of scores and of each output
+// slab from 16-byte shared loads (64 fmaf for every 8 of them). depth = 1
+// is again the synchronous baseline.
 
 #include "ff_attention.cuh"
 
@@ -38,39 +44,102 @@ namespace wg = repro::attn::wg;
 namespace f32 = repro::attn::f32;
 
 // ---------------------------------------------------------------------------
-// f32: the CUDA cores
+// f32: the ring pipe feeding the CUDA cores
 // ---------------------------------------------------------------------------
 
+template <int kSlabs>
 __global__ void __launch_bounds__(f32::kThreads)
-    attention_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ out,
-                         int s, int skv, int d, int kv_groups, int causal,
-                         float scale) {
-  extern __shared__ float smem[];
-  const f32::Tile t = f32::carve(smem, d);
+    attention_f32_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const f32::Args p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const f32::Ring rg = f32::carve(smem_raw, kSlabs, p.depth);
+  f32::init(rg, p.depth);
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * f32::kBlockQ;
-  const int rows = min(f32::kBlockQ, s - q0);
-  f32::attend(t, q, k, v, bh, q0, rows, s, skv, d, kv_groups, causal, scale);
-  float* ob = out + (size_t(bh) * s + q0) * d;
-  for (int i = threadIdx.x; i < rows * d; i += f32::kThreads)
-    ob[i] = f32::out_elem(t, i, d);
+  const int rows = min(f32::kBlockQ, p.s - q0);
+  const int n_kv = f32::kv_tiles(p, q0, rows);
+  if (threadIdx.x >= f32::kConsumers) {
+    f32::produce(p, &map_q, &map_k, &map_v, rg, kSlabs, bh, q0, n_kv);
+    return;
+  }
+  float o[kSlabs][4][4], l[4];
+  f32::attend<kSlabs>(p, rg, q0, n_kv, o, l);
+  // the finished tile: four columns as one store where d allows
+  const int t = threadIdx.x, c = f32::col_of(t);
+  float* ob = p.out + (size_t(bh) * p.s + q0) * p.d;
+  const bool vec = (p.d & 3) == 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = f32::row_of(t, i);
+    if (r >= rows) continue;
+#pragma unroll
+    for (int x = 0; x < kSlabs; ++x) {
+      const int col = 32 * x + 4 * c;
+      float y[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[e] = f32::finish(o[x][i][e], l[i]);
+      float* dst = ob + size_t(r) * p.d + col;
+      if (vec && col < p.d) {
+        *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
+      } else {
+        for (int e = 0; e < 4 && col + e < p.d; ++e) dst[e] = y[e];
+      }
+    }
+  }
+}
+
+template <int kSlabs>
+int launch_f32_slabs(const f32::Args& p, const CUtensorMap& mq,
+                     const CUtensorMap& mk, const CUtensorMap& mv, int bh,
+                     size_t smem, cudaStream_t stream) {
+  static const cudaError_t opted = cudaFuncSetAttribute(
+      attention_f32_kernel<kSlabs>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, f32::kMaxSmem);
+  if (opted != cudaSuccess) return opted;
+  dim3 grid((p.s + f32::kBlockQ - 1) / f32::kBlockQ, bh);
+  attention_f32_kernel<kSlabs><<<grid, f32::kThreads, smem, stream>>>(mq, mk,
+                                                                      mv, p);
+  return cudaGetLastError();
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* out, int bh,
                int s, int skv, int d, int kv_groups, int causal, float scale,
-               void* stream) {
+               int depth, int streams, void* stream) {
   if (bh == 0 || s == 0) return 0;
-  const size_t smem = sizeof(float) * f32::smem_floats(d);
-  cudaError_t err = repro::allow_smem(attention_f32_kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((s + f32::kBlockQ - 1) / f32::kBlockQ, bh);
-  attention_f32_kernel<<<grid, f32::kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), s, skv, d,
-      kv_groups, causal, scale);
-  return cudaGetLastError();
+  const int slabs = (d + 31) / 32;
+  if (d < 1 || slabs > f32::kMaxSlabs || depth < 1 || streams < 1 ||
+      f32::kBlockKV % streams || f32::kBlockKV / streams < 8)
+    return cudaErrorInvalidValue;
+  const size_t smem = f32::smem_bytes(slabs, depth);
+  if (smem > size_t(f32::kMaxSmem)) return cudaErrorInvalidValue;
+  f32::Args p{static_cast<const float*>(q), static_cast<const float*>(k),
+              static_cast<const float*>(v), nullptr,
+              static_cast<float*>(out), s, skv, d, 0, kv_groups, causal,
+              scale, depth, streams, f32::kElem, f32::kElem};
+  CUtensorMap mq{}, mk{}, mv{};
+  const int qbox = f32::kBlockQ / streams, kvbox = f32::kBlockKV / streams;
+  if (ring::tma_ok_bytes(q, d, 4))
+    p.q_copy = ring::encode_3d_typed(&mq, 4, q, d, s, bh, qbox) ? f32::kTma
+                                                                 : -1;
+  if (skv > 0 && ring::tma_ok_bytes(k, d, 4) && ring::tma_ok_bytes(v, d, 4))
+    p.kv_copy =
+        ring::encode_3d_typed(&mk, 4, k, d, skv, bh / kv_groups, kvbox) &&
+                ring::encode_3d_typed(&mv, 4, v, d, skv, bh / kv_groups, kvbox)
+            ? f32::kTma : -1;
+  if (p.q_copy < 0 || p.kv_copy < 0) return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (slabs) {
+    case 1: return launch_f32_slabs<1>(p, mq, mk, mv, bh, smem, st);
+    case 2: return launch_f32_slabs<2>(p, mq, mk, mv, bh, smem, st);
+    case 3: return launch_f32_slabs<3>(p, mq, mk, mv, bh, smem, st);
+    case 4: return launch_f32_slabs<4>(p, mq, mk, mv, bh, smem, st);
+    case 5: return launch_f32_slabs<5>(p, mq, mk, mv, bh, smem, st);
+    case 6: return launch_f32_slabs<6>(p, mq, mk, mv, bh, smem, st);
+    case 7: return launch_f32_slabs<7>(p, mq, mk, mv, bh, smem, st);
+    default: return launch_f32_slabs<8>(p, mq, mk, mv, bh, smem, st);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -171,13 +240,13 @@ int launch_wg(const void* q, const void* k, const void* v, void* out, int bh,
 }  // namespace
 
 // out [BH, S, D] = attention(q [BH, S, D], k/v [BH / kv_groups, Skv, D]),
-// all contiguous. The bf16 entry takes the ring's depth and streams.
+// all contiguous. Both entries take the ring's depth and streams.
 extern "C" int ff_attention_f32(const void* q, const void* k, const void* v,
                                 void* out, int bh, int s, int skv, int d,
                                 int kv_groups, int causal, float scale,
-                                void* stream) {
+                                int depth, int streams, void* stream) {
   return launch_f32(q, k, v, out, bh, s, skv, d, kv_groups, causal, scale,
-                    stream);
+                    depth, streams, stream);
 }
 
 extern "C" int ff_attention_bf16(const void* q, const void* k, const void* v,

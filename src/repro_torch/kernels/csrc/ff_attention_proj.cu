@@ -33,9 +33,15 @@
 // as whole 16-byte rows. Shared memory is the q tile and the ring alone
 // (41 KB at D 64, depth 2), so several blocks share an SM.
 //
-// f32: the CUDA-core bodies (ff_attention.cuh namespace f32, then the
-// product body of ff_matmul.cuh in 64-column tiles, every output one fmaf
-// chain over D in order); depth and streams do not apply.
+// f32: the prefill kernel's f32 block and body (ff_attention.cuh
+// namespace f32: four consumer warps on a 64-row q tile, the producer warp
+// filling a ring of ``depth`` K/V stages), so the finished tile is
+// ff_attention's bits; the consumers write it over the q tile, then run
+// the standalone matmul's CUDA-core product (ff_matmul.cuh fma_slab, every
+// output one fmaf chain over D in order) on 16-deep slabs of w that they
+// stage themselves through the freed ring, synchronously, the next slab's
+// values held in registers meanwhile. So the result equals ff_attention
+// followed by ff_matmul bit for bit at any depth and streams.
 
 #include "ff_attention.cuh"
 #include "ff_matmul.cuh"
@@ -48,65 +54,169 @@ namespace wg = repro::attn::wg;
 namespace f32 = repro::attn::f32;
 
 // ---------------------------------------------------------------------------
-// f32: the CUDA cores
+// f32: the attention body, then the projection from slabs of w staged in
+// turn
 // ---------------------------------------------------------------------------
 
-constexpr int kBN = 64;
-using ProjSlab = mm::Slab<f32::kBlockQ, kBN>;
+constexpr int kWSlabK = 16;    // k rows of w a staged slab: [16, 128] f32
+constexpr int kWPerThread = kWSlabK * mm::kWgN / f32::kConsumers;   // 16
 
-size_t f32_smem_bytes(int d) {
-  return sizeof(float) * f32::smem_floats(d) + sizeof(ProjSlab);
-}
-
+template <int kSlabs>
 __global__ void __launch_bounds__(f32::kThreads)
-    attention_proj_f32_kernel(const float* __restrict__ q,
-                              const float* __restrict__ k,
-                              const float* __restrict__ v,
-                              const float* __restrict__ w,
-                              float* __restrict__ out, int s, int skv, int d,
-                              int d_out, int causal, float scale) {
-  extern __shared__ float smem[];
-  const f32::Tile t = f32::carve(smem, d);
-  ProjSlab& slab =
-      *reinterpret_cast<ProjSlab*>(smem + f32::smem_floats(d));
+    attention_proj_f32_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              const f32::Args p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const f32::Ring rg = f32::carve(smem_raw, kSlabs, p.depth);
+  f32::init(rg, p.depth);
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * f32::kBlockQ;
-  const int rows = min(f32::kBlockQ, s - q0);
-  // one KV head per q head (kv_groups 1), as the reference graph's
-  f32::attend(t, q, k, v, bh, q0, rows, s, skv, d, 1, causal, scale);
-  float* ob = out + (size_t(bh) * s + q0) * d_out;
-  // the ring word: the finished attention tile (the q tile's shared memory
-  // is free again); rows past the ragged edge are 0
-  float* a_s = t.q_s;
-  for (int i = threadIdx.x; i < f32::kBlockQ * d; i += f32::kThreads)
-    a_s[i] = (i / d < rows) ? f32::out_elem(t, i, d) : 0.f;
-  __syncthreads();
-  auto load_a = [&](int r, int kk) -> float {
-    return kk < d ? a_s[r * d + kk] : 0.f;
-  };
-  for (int n0 = 0; n0 < d_out; n0 += kBN) {
-    float acc[mm::kTM][mm::kTN];
-    mm::product_tile<f32::kBlockQ, kBN, f32::kThreads>(acc, slab, load_a, w,
-                                                       d_out, d, n0, d_out);
-    mm::store_tile<f32::kBlockQ, kBN, f32::kThreads>(acc, ob, d_out, rows,
-                                                     n0, d_out);
+  const int rows = min(f32::kBlockQ, p.s - q0);
+  const int n_kv = f32::kv_tiles(p, q0, rows);
+  if (threadIdx.x >= f32::kConsumers) {
+    f32::produce(p, &map_q, &map_k, &map_v, rg, kSlabs, bh, q0, n_kv);
+    return;
   }
+  const int t = threadIdx.x;
+  {
+    float o[kSlabs][4][4], l[4];
+    f32::attend<kSlabs>(p, rg, q0, n_kv, o, l);
+    // the finished tile over the q tile's rows of this warp (which only
+    // it read), zeros past d and the ragged rows: the projection's A
+    const int c = f32::col_of(t);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = f32::row_of(t, i);
+#pragma unroll
+      for (int x = 0; x < kSlabs; ++x) {
+        const int col = 32 * x + 4 * c;
+        float y[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          y[e] = r < rows && col + e < p.d ? f32::finish(o[x][i][e], l[i])
+                                           : 0.f;
+        *reinterpret_cast<float4*>(rg.q + x * f32::kQSlab +
+                                   ring::sw128_f32(r, 4 * c)) =
+            make_float4(y[0], y[1], y[2], y[3]);
+      }
+    }
+  }
+  f32::consumers_sync();   // every row of A written, every stage consumed
+  // The projection: 64 x 128 output tiles, each thread rows tm + 8 i and
+  // mm::fma_slab's 8 columns; word g is k slab g % nk of column tile g /
+  // nk, staged by the consumers into the first ring stage (free now)
+  // while the next word's values wait in registers.
+  float* wbuf = reinterpret_cast<float*>(rg.stages);
+  const int lane = t & 31, tm = 2 * (t >> 5) + (lane >> 4), tn = lane & 15;
+  const int nk = (p.d + kWSlabK - 1) / kWSlabK;
+  const int words = (p.d_out + mm::kWgN - 1) / mm::kWgN * nk;
+  float wr[kWPerThread];
+  auto fetch = [&](int g) {
+    const int n0 = (g / nk) * mm::kWgN, k0 = (g % nk) * kWSlabK;
+#pragma unroll
+    for (int u = 0; u < kWPerThread; ++u) {
+      const int k = k0 + u, n = n0 + t;
+      wr[u] = k < p.d && n < p.d_out ? p.w[(long long)k * p.d_out + n] : 0.f;
+    }
+  };
+  float* ob = p.out + (size_t(bh) * p.s + q0) * p.d_out;
+  float acc[mm::kFmaRows][mm::kFmaCols];
+  fetch(0);
+  for (int g = 0; g < words; ++g) {
+    const int n0 = (g / nk) * mm::kWgN, k0 = (g % nk) * kWSlabK;
+    if (k0 == 0) {
+#pragma unroll
+      for (int i = 0; i < mm::kFmaRows; ++i)
+#pragma unroll
+        for (int j = 0; j < mm::kFmaCols; ++j) acc[i][j] = 0.f;
+    }
+    f32::consumers_sync();   // the last word's readers are done
+#pragma unroll
+    for (int u = 0; u < kWPerThread; ++u) wbuf[u * mm::kWgN + t] = wr[u];
+    f32::consumers_sync();
+    if (g + 1 < words) fetch(g + 1);
+    mm::fma_slab<kWSlabK / 4, mm::kFmaRows, mm::kFmaCols>(
+        acc,
+        [&](int i, int kc) {
+          const int k = k0 + 4 * kc;
+          return f32::lds4(rg.q + (k >> 5) * f32::kQSlab +
+                           ring::sw128_f32(tm + 8 * i, k & 31));
+        },
+        [&](int kk, float (&bv)[mm::kFmaCols]) {
+          const float* row = wbuf + kk * mm::kWgN;
+          const float4 x = *reinterpret_cast<const float4*>(row + 4 * tn);
+          const float4 y =
+              *reinterpret_cast<const float4*>(row + 64 + 4 * tn);
+          bv[0] = x.x; bv[1] = x.y; bv[2] = x.z; bv[3] = x.w;
+          bv[4] = y.x; bv[5] = y.y; bv[6] = y.z; bv[7] = y.w;
+        });
+    if (k0 + kWSlabK >= p.d) {
+      float* rows_out[mm::kFmaRows];
+#pragma unroll
+      for (int i = 0; i < mm::kFmaRows; ++i) {
+        const int r = tm + 8 * i;
+        rows_out[i] = r < rows ? ob + (long long)r * p.d_out : nullptr;
+      }
+      mm::store_fma<float, mm::kFmaRows, mm::kFmaCols>(acc, rows_out, tn, n0,
+                                                       p.d_out,
+                           (p.d_out & 3) == 0);
+    }
+  }
+}
+
+template <int kSlabs>
+int launch_f32_slabs(const f32::Args& p, const CUtensorMap& mq,
+                     const CUtensorMap& mk, const CUtensorMap& mv, int bh,
+                     size_t smem, cudaStream_t stream) {
+  static const cudaError_t opted = cudaFuncSetAttribute(
+      attention_proj_f32_kernel<kSlabs>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, f32::kMaxSmem);
+  if (opted != cudaSuccess) return opted;
+  dim3 grid((p.s + f32::kBlockQ - 1) / f32::kBlockQ, bh);
+  attention_proj_f32_kernel<kSlabs><<<grid, f32::kThreads, smem, stream>>>(
+      mq, mk, mv, p);
+  return cudaGetLastError();
 }
 
 int launch_f32(const void* q, const void* k, const void* v, const void* w,
                void* out, int bh, int s, int skv, int d, int d_out,
-               int causal, float scale, void* stream) {
+               int causal, float scale, int depth, int streams,
+               void* stream) {
   if (bh == 0 || s == 0 || d_out == 0) return 0;
-  const size_t smem = f32_smem_bytes(d);
-  cudaError_t err = repro::allow_smem(attention_proj_f32_kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((s + f32::kBlockQ - 1) / f32::kBlockQ, bh);
-  attention_proj_f32_kernel<<<grid, f32::kThreads, smem,
-                              (cudaStream_t)stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(w),
-      static_cast<float*>(out), s, skv, d, d_out, causal, scale);
-  return cudaGetLastError();
+  const int slabs = (d + 31) / 32;
+  if (d < 1 || slabs > f32::kMaxSlabs || depth < 1 || streams < 1 ||
+      f32::kBlockKV % streams || f32::kBlockKV / streams < 8)
+    return cudaErrorInvalidValue;
+  const size_t smem = f32::smem_bytes(slabs, depth);
+  if (smem > size_t(f32::kMaxSmem)) return cudaErrorInvalidValue;
+  // one KV head per q head (kv_groups 1), as the reference graph's
+  f32::Args p{static_cast<const float*>(q), static_cast<const float*>(k),
+              static_cast<const float*>(v), static_cast<const float*>(w),
+              static_cast<float*>(out), s, skv, d, d_out, 1, causal, scale,
+              depth, streams, f32::kElem, f32::kElem};
+  CUtensorMap mq{}, mk{}, mv{};
+  const int qbox = f32::kBlockQ / streams, kvbox = f32::kBlockKV / streams;
+  if (ring::tma_ok_bytes(q, d, 4))
+    p.q_copy = ring::encode_3d_typed(&mq, 4, q, d, s, bh, qbox) ? f32::kTma
+                                                                 : -1;
+  if (skv > 0 && ring::tma_ok_bytes(k, d, 4) && ring::tma_ok_bytes(v, d, 4))
+    p.kv_copy =
+        ring::encode_3d_typed(&mk, 4, k, d, skv, bh, kvbox) &&
+                ring::encode_3d_typed(&mv, 4, v, d, skv, bh, kvbox)
+            ? f32::kTma : -1;
+  if (p.q_copy < 0 || p.kv_copy < 0) return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (slabs) {
+    case 1: return launch_f32_slabs<1>(p, mq, mk, mv, bh, smem, st);
+    case 2: return launch_f32_slabs<2>(p, mq, mk, mv, bh, smem, st);
+    case 3: return launch_f32_slabs<3>(p, mq, mk, mv, bh, smem, st);
+    case 4: return launch_f32_slabs<4>(p, mq, mk, mv, bh, smem, st);
+    case 5: return launch_f32_slabs<5>(p, mq, mk, mv, bh, smem, st);
+    case 6: return launch_f32_slabs<6>(p, mq, mk, mv, bh, smem, st);
+    case 7: return launch_f32_slabs<7>(p, mq, mk, mv, bh, smem, st);
+    default: return launch_f32_slabs<8>(p, mq, mk, mv, bh, smem, st);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -309,13 +419,14 @@ int launch_wg(const void* q, const void* k, const void* v, const void* w,
 }  // namespace
 
 // out [BH*S, D_out] = attention(q, k, v [BH, S|Skv, D]) @ w [D, D_out], all
-// contiguous. The bf16 entry takes the ring's depth and streams.
+// contiguous. Both entries take the ring's depth and streams.
 extern "C" int ff_attention_proj_f32(const void* q, const void* k,
                                      const void* v, const void* w, void* out,
                                      int bh, int s, int skv, int d, int d_out,
-                                     int causal, float scale, void* stream) {
+                                     int causal, float scale, int depth,
+                                     int streams, void* stream) {
   return launch_f32(q, k, v, w, out, bh, s, skv, d, d_out, causal, scale,
-                    stream);
+                    depth, streams, stream);
 }
 
 extern "C" int ff_attention_proj_bf16(const void* q, const void* k,

@@ -16,7 +16,9 @@
 // moved. A 4096^3 product in bf16 (0.139 ms) and qwen's wi at 1024 rows
 // (0.0119 ms) are bound by the tensor cores (989 TFLOP/s); the MoE
 // dispatch (64 rows of d_model 2048 into d_ff 1408) by streaming B once
-// (3.35 TB/s, 0.0019 ms), with 11 output tiles for 132 SMs.
+// (3.35 TB/s, 0.0019 ms), with 11 output tiles for 132 SMs. In f32 (no
+// TF32) the CUDA cores bound all three (67 TFLOP/s: 2.051, 0.176 and
+// 0.0055 ms).
 //
 // bf16 x bf16 (out bf16 or f32), wgmma_kernel: one block of two consumer
 // warpgroups and one producer warp per 128 x 128 output tile. The A and B
@@ -35,9 +37,16 @@
 // _plan); each split writes an f32 partial to a workspace and
 // reduce_kernel sums them in split order.
 //
-// f32 x f32 and the mixed f32/bf16 pairs, fma_kernel: one block of 256
-// threads per 64 x 64 output tile, the CUDA-core body of ff_matmul.cuh
-// (no TF32; a register stage of prefetch; depth and streams do not apply).
+// f32 x f32 and the mixed f32/bf16 pairs, fma_ring_kernel: two consumer
+// warpgroups on a 128 x 128 tile and four producer warps, on the same
+// ring, in 32-deep k slabs: a stage is A [128, 32] and B [32, 128],
+// each in its own type (32 KB in f32, 24 KB with one bf16 operand), filled
+// as above (TMA boxes, per-row cp.async for a gathered A, element loads).
+// The consumers run ff_matmul.cuh's fma_slab on the CUDA cores (no TF32):
+// 8 x 8 outputs a thread in registers, A read as 16-byte runs along k and
+// B as runs along a row, 64 fmaf for every 4 shared loads, so the
+// products and not shared memory bound the body. k is never split.
+// depth = 1 is the synchronous baseline here too; one block fills an SM.
 //
 // The only difference between a gathered and a plain launch is how the
 // producer finds row r of A: m0 + r, or rows[m0 + r], read once into
@@ -54,60 +63,286 @@ namespace {
 namespace mm = repro::mm;
 namespace ring = repro::ring;
 
+// Both bodies: one block of two consumer warpgroups and one producer warp
+// per 128 x 128 output tile.
+constexpr int kConsumers = 2;                       // warpgroups
+constexpr int kTileM = kConsumers * mm::kWgM;       // 128
+constexpr int kTileN = mm::kWgN;                    // 128
+constexpr int kWgThreads = kConsumers * 128 + 32;   // + one producer warp
+constexpr int kMaxSmem = 232448;                    // 227 KB a block
+
+// How the producer fills a tile: TMA boxes, 16-byte cp.async per row
+// (gathered rows), or element loads and stores.
+enum Copy { kTma = 0, kAsync = 1, kElem = 2 };
+
 // ---------------------------------------------------------------------------
-// f32 and mixed pairs: the CUDA cores
+// f32 and mixed pairs: the ring pipe feeding the CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 64, kBN = 64, kThreads = 256;
+constexpr int kFmaSlabK = 32;                       // k per slab
+// producer warps: their lanes split a gathered tile's per-row copies
+// (one warp's cp.async alone held the MoE dispatch to a third of its
+// plain launch's rate)
+constexpr int kFmaProducers = 4;
+constexpr int kFmaThreads = kConsumers * 128 + 32 * kFmaProducers;
+constexpr int kFmaFullArrivals = 1 + 2 * 32 * kFmaProducers;
 
-template <typename TA, typename TB, typename TO, bool Gather>
-__global__ void __launch_bounds__(kThreads)
-    fma_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
-               const int32_t* __restrict__ rows, TO* __restrict__ c, int m,
-               int n, int k, long long lda, long long ldb, long long ldc) {
-  __shared__ mm::Slab<kBM, kBN> slab;
-  __shared__ long long row_off[kBM];
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int live = min(kBM, m - m0);
-  for (int r = threadIdx.x; r < kBM; r += kThreads) {
-    long long row = 0;
-    if (r < live) row = Gather ? (long long)rows[m0 + r] : (long long)m0 + r;
-    row_off[r] = row * lda;
+// A stage: the A tile [128, 32] in A's type, then the B tile [32, 128] in
+// B's. An f32 A tile is 128-byte swizzled (its rows are 128 bytes): a
+// warp's two rows at one k chunk then fall on different banks. A bf16 A
+// tile (64-byte rows) and both B tiles lie row-major: a half warp reads
+// one run of a B row, which no swizzle would help.
+template <typename TA, typename TB>
+struct FmaStage {
+  static constexpr int kA = kTileM * kFmaSlabK * int(sizeof(TA));
+  static constexpr int kBytes = kA + kFmaSlabK * kTileN * int(sizeof(TB));
+};
+
+template <typename TA>
+__device__ __forceinline__ uint32_t a_at(int r, int c) {
+  if constexpr (sizeof(TA) == 4) {
+    return ring::sw128_f32(r, c);
+  } else {
+    return r * kFmaSlabK * 2 + c * 2;
   }
-  __syncthreads();
-  auto load_a = [&](int r, int kk) -> float {
-    return (r < live && kk < k) ? repro::to_f(a[row_off[r] + kk]) : 0.f;
-  };
-  float acc[mm::kTM][mm::kTN];
-  mm::product_tile<kBM, kBN, kThreads>(acc, slab, load_a, b, ldb, k, n0, n);
-  mm::store_tile<kBM, kBN, kThreads>(acc, c + (long long)m0 * ldc, ldc, live,
-                                     n0, n);
+}
+template <typename TB>
+__device__ __forceinline__ uint32_t b_at(int r, int c) {
+  return (r * kTileN + c) * uint32_t(sizeof(TB));
 }
 
-template <typename TA, typename TB, typename TO, bool Gather>
-int launch_fma(const void* a, const void* b, const void* rows, void* c, int m,
-               int n, int k, long long lda, long long ldb, long long ldc,
-               void* stream) {
-  if (m == 0 || n == 0) return 0;
-  dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  fma_kernel<TA, TB, TO, Gather><<<grid, kThreads, 0,
-                                   (cudaStream_t)stream>>>(
-      static_cast<const TA*>(a), static_cast<const TB*>(b),
-      static_cast<const int32_t*>(rows), static_cast<TO*>(c), m, n, k, lda,
-      ldb, ldc);
+// Dynamic shared memory of a ring of ``depth`` stages of ``stage`` bytes:
+// 1024 bytes of alignment slack, the stages, full and empty barriers, the
+// tile's row offsets. kernels/ff_matmul/ops.py _smem_bytes computes the
+// same.
+constexpr size_t fma_smem_bytes(int depth, int stage) {
+  return 1024 + size_t(depth) * stage + 2 * 8 * size_t(depth) + 8 * kTileM;
+}
+
+struct FmaArgs {
+  const void* a;
+  const int32_t* rows;   // null: row r of the tile is m0 + r
+  const void* b;
+  void* c;
+  int m, n, k;
+  long long lda, ldb, ldc;
+  int depth, streams;
+  int a_copy, b_copy;
+};
+
+// The producer warp: word i is k slab i of the tile, in stage i % depth.
+// A by TMA boxes (``streams`` a tile, each of 128 / streams rows), by
+// per-row 16-byte cp.async through the row index, or by element loads; B
+// by TMA boxes (``streams`` of 32 / streams k rows) or element loads. The
+// per-row copies fill only the ``live`` rows the consumers keep (the
+// tile's, below m): the rest of the A tile is never stored from.
+template <typename TA, typename TB>
+__device__ __forceinline__ void produce_fma(const FmaArgs& p,
+                                            const CUtensorMap* map_a,
+                                            const CUtensorMap* map_b,
+                                            unsigned char* stages,
+                                            uint64_t* full, uint64_t* empty,
+                                            const long long* row_off, int m0,
+                                            int n0, int words, int live) {
+  using St = FmaStage<TA, TB>;
+  constexpr int kChunk = 16 / int(sizeof(TA));     // A elements a cp.async
+  constexpr int kRowChunks = kFmaSlabK / kChunk;
+  // this thread's place among the producer warps' lanes
+  const int pl = threadIdx.x - kConsumers * 128;
+  const int a_rows = kTileM / p.streams, b_rows = kFmaSlabK / p.streams;
+  const TA* a = static_cast<const TA*>(p.a);
+  const TB* b = static_cast<const TB*>(p.b);
+  for (int i = 0; i < words; ++i) {
+    const ring::Slot s(i, p.depth);
+    ring::wait(&empty[s.stage], s.phase ^ 1);
+    unsigned char* sa = stages + size_t(s.stage) * St::kBytes;
+    unsigned char* sb = sa + St::kA;
+    uint64_t* bar = &full[s.stage];
+    const int k0 = i * kFmaSlabK;
+    if (pl == 0) {
+      ring::arrive_expect_tx(bar, (p.a_copy == kTma ? St::kA : 0) +
+                                      (p.b_copy == kTma ? St::kBytes - St::kA
+                                                        : 0));
+      if (p.a_copy == kTma)
+        for (int j = 0; j < p.streams; ++j)
+          ring::tma_load_2d(sa + j * a_rows * kFmaSlabK * sizeof(TA), map_a,
+                            bar, k0, m0 + j * a_rows);
+      if (p.b_copy == kTma)
+        for (int j = 0; j < p.streams; ++j)
+          ring::tma_load_2d(sb + b_at<TB>(j * b_rows, 0), map_b, bar, n0,
+                            k0 + j * b_rows);
+    }
+    if (p.a_copy == kAsync) {
+      for (int j = 0; j < p.streams; ++j)
+        for (int e = pl; e < a_rows * kRowChunks; e += 32 * kFmaProducers) {
+          const int r = j * a_rows + e / kRowChunks;
+          if (r >= live) continue;
+          const int c = (e % kRowChunks) * kChunk;
+          const long long off = row_off[r];
+          const int bytes = max(0, min(16, int(sizeof(TA)) * (p.k - (k0 + c))));
+          ring::cp_async_16(sa + a_at<TA>(r, c), bytes ? a + off + k0 + c : a,
+                            bytes);
+        }
+    } else if (p.a_copy == kElem) {
+      for (int e = pl; e < live * kFmaSlabK; e += 32 * kFmaProducers) {
+        const int r = e / kFmaSlabK, c = e % kFmaSlabK;
+        *reinterpret_cast<TA*>(sa + a_at<TA>(r, c)) =
+            k0 + c < p.k ? a[row_off[r] + k0 + c] : repro::from_f<TA>(0.f);
+      }
+    }
+    if (p.b_copy == kElem) {
+      for (int e = pl; e < kFmaSlabK * kTileN; e += 32 * kFmaProducers) {
+        const int r = e / kTileN, c = e % kTileN;
+        const bool ok = k0 + r < p.k && n0 + c < p.n;
+        *reinterpret_cast<TB*>(sb + b_at<TB>(r, c)) =
+            ok ? b[(long long)(k0 + r) * p.ldb + n0 + c]
+               : repro::from_f<TB>(0.f);
+      }
+    }
+    ring::arrive(bar);
+    ring::arrive_cp_async(bar);
+  }
+}
+
+// The consumers: thread t of the two warpgroups owns rows tm + 16 i (tm =
+// 2 * warp + lane / 16) and the kC columns of mm::fma_slab (tn = lane %
+// 16) of a 16 kR x 16 kC output tile at (m0, n0); each slab is released
+// once its products are done. The producer fills the stage's A [128, 32]
+// from m0 and B [32, 128] from n0 whatever the tile (zeros past the
+// edges), so a 64 x 64 tile uses part of each. A warp releases a stage
+// with one arrival (256 arrivals a slab cost more than a 64 x 64 tile's
+// products).
+template <typename TA, typename TB, typename TO, int kR, int kC>
+__global__ void __launch_bounds__(kFmaThreads, 1)
+    fma_ring_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b,
+                    const FmaArgs p) {
+  using St = FmaStage<TA, TB>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* stages =
+      smem_raw + ((1024 - (ring::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(stages + size_t(p.depth) * St::kBytes);
+  uint64_t* empty = full + p.depth;
+  long long* row_off = reinterpret_cast<long long*>(empty + p.depth);
+  const int m0 = blockIdx.y * 16 * kR, n0 = blockIdx.x * 16 * kC;
+  const int words = (p.k + kFmaSlabK - 1) / kFmaSlabK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.depth; ++s) {
+      ring::init(&full[s], kFmaFullArrivals);
+      ring::init(&empty[s], kConsumers * 4);   // one arrival a warp
+    }
+    ring::fence_init();
+  }
+  for (int r = threadIdx.x; r < kTileM; r += kFmaThreads) {
+    const int row = m0 + r;
+    row_off[r] = row < p.m ? (p.rows ? (long long)p.rows[row] : row) * p.lda
+                           : -1;
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (warp >= kConsumers * 4) {
+    produce_fma<TA, TB>(p, &map_a, &map_b, stages, full, empty, row_off, m0,
+                        n0, words, min(16 * kR, p.m - m0));
+    return;
+  }
+  const int tm = 2 * warp + (lane >> 4), tn = lane & 15;
+  float acc[kR][kC];
+#pragma unroll
+  for (int i = 0; i < kR; ++i)
+#pragma unroll
+    for (int j = 0; j < kC; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < words; ++i) {
+    const ring::Slot s(i, p.depth);
+    ring::wait(&full[s.stage], s.phase);
+    const unsigned char* sa = stages + size_t(s.stage) * St::kBytes;
+    const unsigned char* sb = sa + St::kA;
+    mm::fma_slab<kFmaSlabK / 4, kR, kC>(
+        acc,
+        [&](int r, int kc) {
+          return mm::lds4(reinterpret_cast<const TA*>(
+              sa + a_at<TA>(tm + 16 * r, 4 * kc)));
+        },
+        [&](int kk, float (&bv)[kC]) {
+          const TB* row = reinterpret_cast<const TB*>(sb + b_at<TB>(kk, 0));
+#pragma unroll
+          for (int h = 0; h < kC / 4; ++h) {
+            const float4 x = mm::lds4(row + 64 * h + 4 * tn);
+            bv[4 * h] = x.x;
+            bv[4 * h + 1] = x.y;
+            bv[4 * h + 2] = x.z;
+            bv[4 * h + 3] = x.w;
+          }
+        });
+    __syncwarp();   // the warp's reads of the stage are done
+    if (lane == 0) ring::arrive(&empty[s.stage]);
+  }
+  TO* c = static_cast<TO*>(p.c);
+  TO* rows_out[kR];
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    const int row = m0 + tm + 16 * i;
+    rows_out[i] = row < p.m ? c + (long long)row * p.ldc : nullptr;
+  }
+  const bool vec = p.ldc % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(c) % (4 * sizeof(TO)) == 0;
+  mm::store_fma<TO, kR, kC>(acc, rows_out, tn, n0, p.n, vec);
+}
+
+template <typename TA, typename TB, typename TO, int kR, int kC>
+int launch_fma_tile(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                    const FmaArgs& p, size_t smem, cudaStream_t stream) {
+  static const cudaError_t opted = cudaFuncSetAttribute(
+      fma_ring_kernel<TA, TB, TO, kR, kC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (opted != cudaSuccess) return opted;
+  dim3 grid((p.n + 16 * kC - 1) / (16 * kC), (p.m + 16 * kR - 1) / (16 * kR));
+  fma_ring_kernel<TA, TB, TO, kR, kC><<<grid, kFmaThreads, smem, stream>>>(
+      map_a, map_b, p);
   return cudaGetLastError();
+}
+
+// ``tile``: 128 (8 x 8 outputs a thread) or 64 (4 x 4), ops.py _plan's
+// choice from the shapes and the SM count.
+template <typename TA, typename TB, typename TO>
+int launch_fma(const void* a, const void* rows, const void* b, void* c, int m,
+               int n, int k, long long lda, long long ldb, long long ldc,
+               int depth, int streams, int tile, void* stream) {
+  if (m == 0 || n == 0) return 0;
+  using St = FmaStage<TA, TB>;
+  const size_t smem = fma_smem_bytes(depth, St::kBytes);
+  if (depth < 1 || smem > kMaxSmem || streams < 1 || kTileM % streams ||
+      kTileM / streams < 8 || kFmaSlabK % streams ||
+      (tile != 128 && tile != 64))
+    return cudaErrorInvalidValue;
+  FmaArgs p{a, static_cast<const int32_t*>(rows), b, c, m, n, k, lda, ldb,
+            ldc, depth, streams, kElem, kElem};
+  CUtensorMap map_a{}, map_b{};
+  if (k > 0) {
+    if (ring::tma_ok_bytes(a, lda, sizeof(TA)))
+      p.a_copy = rows ? kAsync
+                      : (ring::encode_typed(&map_a, sizeof(TA), a, k, m, lda,
+                                            kFmaSlabK, kTileM / streams,
+                                            sizeof(TA) == 4)
+                             ? kTma : -1);
+    if (ring::tma_ok_bytes(b, ldb, sizeof(TB)))
+      p.b_copy = ring::encode_typed(&map_b, sizeof(TB), b, n, k, ldb, kTileN,
+                                    kFmaSlabK / streams, false)
+                     ? kTma : -1;
+    if (p.a_copy < 0 || p.b_copy < 0) return cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  return tile == 128
+             ? launch_fma_tile<TA, TB, TO, 8, 8>(map_a, map_b, p, smem, st)
+             : launch_fma_tile<TA, TB, TO, 4, 4>(map_a, map_b, p, smem, st);
 }
 
 // ---------------------------------------------------------------------------
 // bf16 x bf16: the ring pipe feeding wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kConsumers = 2;                       // warpgroups
-constexpr int kTileN = mm::kWgN;                    // 128
 constexpr int kSlabK = mm::kWgK;                    // 64
-constexpr int kWgThreads = kConsumers * 128 + 32;   // + one producer warp
-constexpr int kMaxSmem = 232448;                    // 227 KB a block
-constexpr int kTileM = kConsumers * mm::kWgM;       // 128
 constexpr int kATile = kTileM * kSlabK * 2;         // 16 KB
 constexpr int kStage = kATile + mm::kBSlab;         // 32 KB
 
@@ -118,10 +353,6 @@ constexpr size_t smem_bytes(int depth) {
   return 1024 + size_t(depth) * kStage + 2 * 8 * size_t(depth) +
          8 * kTileM;
 }
-
-// How the producer fills a tile: TMA boxes, 16-byte cp.async per row
-// (gathered rows), or element loads and stores.
-enum Copy { kTma = 0, kAsync = 1, kElem = 2 };
 
 struct Args {
   const __nv_bfloat16* a;
@@ -333,35 +564,30 @@ int launch_wgmma(const void* a, const void* rows, const void* b, void* c,
 
 }  // namespace
 
-// ff_matmul_<A>_<B>_<out>: c[m,n] = a[m,k] @ b[k,n] on the CUDA cores, for
-// every type pair but bf16 x bf16; ff_matmul_gather_f32: c[m,n] =
-// a[rows[0:m], :] @ b[k,n], all f32. ff_matmul_wgmma_<out>: bf16 x bf16
-// on the tensor cores through the ring, gathered where ``rows`` is not
-// null, k split ``split`` ways (``ws``: [split, m, n] f32 when split > 1).
-// Operands have unit column stride and the given row strides.
-#define REPRO_MATMUL_ENTRY(SA, TA, SB, TB, SO, TO)                           \
-  extern "C" int ff_matmul_##SA##_##SB##_##SO(                                \
-      const void* a, const void* b, void* c, int m, int n, int k,             \
-      long long lda, long long ldb, long long ldc, void* stream) {            \
-    return launch_fma<TA, TB, TO, false>(a, b, nullptr, c, m, n, k, lda, ldb, \
-                                         ldc, stream);                        \
+// ff_matmul_fma_<A>_<B>_<out>: c[m,n] = a[m,k] @ b[k,n] on the CUDA cores
+// through the ring, for every type pair but bf16 x bf16, gathered where
+// ``rows`` is not null, in output tiles of ``tile`` x ``tile`` (128 or 64).
+// ff_matmul_wgmma_<out>: bf16 x bf16 on the tensor
+// cores through the ring, gathered where ``rows`` is not null, k split
+// ``split`` ways (``ws``: [split, m, n] f32 when split > 1). Both take the
+// ring's depth and streams. Operands have unit column stride and the
+// given row strides.
+#define REPRO_MATMUL_FMA_ENTRY(SA, TA, SB, TB, SO, TO)                        \
+  extern "C" int ff_matmul_fma_##SA##_##SB##_##SO(                            \
+      const void* a, const void* rows, const void* b, void* c, int m, int n,  \
+      int k, long long lda, long long ldb, long long ldc, int depth,          \
+      int streams, int tile, void* stream) {                                  \
+    return launch_fma<TA, TB, TO>(a, rows, b, c, m, n, k, lda, ldb, ldc,      \
+                                  depth, streams, tile, stream);              \
   }
 
-#define REPRO_MATMUL_OUTS(SA, TA, SB, TB)                \
-  REPRO_MATMUL_ENTRY(SA, TA, SB, TB, f32, float)         \
-  REPRO_MATMUL_ENTRY(SA, TA, SB, TB, bf16, __nv_bfloat16)
+#define REPRO_MATMUL_FMA_OUTS(SA, TA, SB, TB)                \
+  REPRO_MATMUL_FMA_ENTRY(SA, TA, SB, TB, f32, float)         \
+  REPRO_MATMUL_FMA_ENTRY(SA, TA, SB, TB, bf16, __nv_bfloat16)
 
-REPRO_MATMUL_OUTS(f32, float, f32, float)
-REPRO_MATMUL_OUTS(f32, float, bf16, __nv_bfloat16)
-REPRO_MATMUL_OUTS(bf16, __nv_bfloat16, f32, float)
-
-extern "C" int ff_matmul_gather_f32(const void* a, const void* rows,
-                                    const void* b, void* c, int m, int n,
-                                    int k, long long lda, long long ldb,
-                                    long long ldc, void* stream) {
-  return launch_fma<float, float, float, true>(a, b, rows, c, m, n, k, lda,
-                                               ldb, ldc, stream);
-}
+REPRO_MATMUL_FMA_OUTS(f32, float, f32, float)
+REPRO_MATMUL_FMA_OUTS(f32, float, bf16, __nv_bfloat16)
+REPRO_MATMUL_FMA_OUTS(bf16, __nv_bfloat16, f32, float)
 
 #define REPRO_MATMUL_WGMMA_ENTRY(SO, TO)                                     \
   extern "C" int ff_matmul_wgmma_##SO(                                        \

@@ -18,10 +18,13 @@
 //   steps a slab) and accumulating in f32 registers. The only instruction
 //   shape is m64n128k16, in every kernel that uses this body.
 // * f32 x f32 and the mixed f32/bf16 pairs: the CUDA cores (no TF32, as
-//   the library matmul promises). One block computes a BM x BN tile: it
-//   walks k in slabs of kBK = 16, stages each slab in shared memory as
-//   f32, and each thread accumulates kTM x kTN outputs with fmaf; the next
-//   slab is loaded into registers while the current one is multiplied.
+//   the library matmul promises), fma_slab below. Each thread holds 8 x 8
+//   outputs in registers and walks the landed slab (each operand in its
+//   own type) 4 k at a time: its 8 rows of A as 16-byte runs along k, then
+//   for each of the 4 k its 8 columns of B, 64 fmaf. The library matmul
+//   feeds it from the same kind of ring as the tensor cores (ff_matmul.cu
+//   fma_ring_kernel); the attention->projection launch from slabs it
+//   stages itself.
 //
 // Reduction order, and with it the bit-for-bit contract between a fused
 // launch and its staged composition:
@@ -35,7 +38,8 @@
 //   whether A arrived by TMA, by cp.async, by element loads or through a
 //   row index.
 // * f32 and mixed: every output is one fmaf chain over k = 0, 1, ..., K-1
-//   from 0.f, whatever BM, BN and the block's place in the grid.
+//   from 0.f (then k past K, where both operands are 0), whatever the
+//   tile, the slab depth, the ring and the block's place in the grid.
 // Either way two launches that multiply the same operand values give the
 // same bits, even when one reads A from shared memory and the other from
 // HBM: that makes the fused launches equal their staged compositions.
@@ -49,103 +53,93 @@
 namespace repro {
 namespace mm {
 
-constexpr int kTM = 4;    // output rows per thread
-constexpr int kTN = 4;    // output columns per thread
-constexpr int kBK = 16;   // k rows per shared-memory slab
+// ---------------------------------------------------------------------------
+// f32 and mixed pairs on the CUDA cores
+// ---------------------------------------------------------------------------
 
-// One slab of A (transposed: a[kk][r], padded against bank conflicts on
-// the transposing stores) and of B.
-template <int BM, int BN>
-struct alignas(16) Slab {
-  float a[kBK][BM + 4];
-  float b[kBK][BN];
-};
+// A thread's outputs: kR rows (the caller's) by kC columns of a tile
+// 16 kC columns wide, columns 4 tn .. 4 tn + 3 (and, at kC = 8, 64 + 4 tn
+// .. 64 + 4 tn + 3) for tn = lane % 16, so that a half warp reads one
+// 256-byte run of a B row. 8 x 8 is the library matmul's and the
+// projection's tile; 4 x 4 the matmul's tile for grids too small to fill
+// the card.
+constexpr int kFmaRows = 8;
+constexpr int kFmaCols = 8;
 
-// acc += A[rows of this tile, :] @ B[:, n0:n0+BN], k = 0..K-1 in order.
-// ``load_a(r, kk)`` returns A's element (tile row r, column kk) as f32,
-// or 0 where r or kk is out of range; B is [K, N] with row stride ldb.
-// Every thread of the block must call this; it begins and ends with the
-// slab free for reuse.
-template <int BM, int BN, int Threads, typename LoadA, typename TB>
-__device__ __forceinline__ void product_tile(
-    float (&acc)[kTM][kTN], Slab<BM, BN>& s, LoadA load_a,
-    const TB* __restrict__ b, long long ldb, int k, int n0, int n) {
-  static_assert((BM / kTM) * (BN / kTN) == Threads, "one thread per 4x4");
-  static_assert((BM * kBK) % Threads == 0 && (BN * kBK) % Threads == 0,
-                "whole slabs per thread");
-  constexpr int kA = BM * kBK / Threads;   // A elements per thread per slab
-  constexpr int kB = BN * kBK / Threads;   // B elements per thread per slab
-  const int tid = threadIdx.x;
-  const int ty = tid / (BN / kTN), tx = tid % (BN / kTN);
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
 
-  float ra[kA], rb[kB];
-  auto fetch = [&](int k0) {
+// acc[i][j] += A[row i][k] * B[k][column j] for k = 0 .. 4 * kChunks - 1
+// of the landed slab, in order, one fmaf each. ``a4(i, kc)`` returns the
+// thread's row i at k = 4 kc .. 4 kc + 3 as a float4 (one 16-byte shared
+// load in f32, 8 bytes in bf16); ``b8(k, b)`` fills b with row k of B at
+// the thread's kC columns. A's chunks are read once for 4 k steps, B's
+// row once for the kR rows: at 8 x 8, 64 fmaf for every 4 shared loads.
+template <int kChunks, int kR, int kC, typename A4, typename B8>
+__device__ __forceinline__ void fma_slab(float (&acc)[kR][kC], A4 a4,
+                                         B8 b8) {
 #pragma unroll
-    for (int u = 0; u < kA; ++u) {
-      const int e = tid + u * Threads;
-      const int r = e / kBK, kk = e % kBK;   // consecutive threads: along k
-      ra[u] = load_a(r, k0 + kk);
+  for (int kc = 0; kc < kChunks; ++kc) {
+    float4 a[kR];
+#pragma unroll
+    for (int i = 0; i < kR; ++i) a[i] = a4(i, kc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float b[kC];
+      b8(4 * kc + kk, b);
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+        const float x = lane_of(a[i], kk);
+#pragma unroll
+        for (int j = 0; j < kC; ++j) acc[i][j] = fmaf(x, b[j], acc[i][j]);
+      }
     }
-#pragma unroll
-    for (int u = 0; u < kB; ++u) {
-      const int e = tid + u * Threads;
-      const int kk = e / BN, c = e % BN;     // consecutive threads: along n
-      const bool ok = k0 + kk < k && n0 + c < n;
-      rb[u] = ok ? to_f(b[(long long)(k0 + kk) * ldb + n0 + c]) : 0.f;
-    }
-  };
-
-  const int slabs = (k + kBK - 1) / kBK;
-  fetch(0);
-  for (int t = 0; t < slabs; ++t) {
-#pragma unroll
-    for (int u = 0; u < kA; ++u) {
-      const int e = tid + u * Threads;
-      s.a[e % kBK][e / kBK] = ra[u];
-    }
-#pragma unroll
-    for (int u = 0; u < kB; ++u) {
-      const int e = tid + u * Threads;
-      s.b[e / BN][e % BN] = rb[u];
-    }
-    __syncthreads();
-    if (t + 1 < slabs) fetch((t + 1) * kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&s.a[kk][ty * kTM]);
-      const float4 bv = *reinterpret_cast<const float4*>(&s.b[kk][tx * kTN]);
-      const float a4[kTM] = {av.x, av.y, av.z, av.w};
-      const float b4[kTN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a4[i], b4[j], acc[i][j]);
-    }
-    __syncthreads();
   }
 }
 
-// Store a thread's outputs of the tile whose row 0 is ``out`` (row stride
-// ldo), rounded to TO; rows >= ``rows`` and columns >= n are dropped.
-template <int BM, int BN, int Threads, typename TO>
-__device__ __forceinline__ void store_tile(const float (&acc)[kTM][kTN],
-                                           TO* __restrict__ out,
-                                           long long ldo, int rows, int n0,
-                                           int n) {
-  const int tid = threadIdx.x;
-  const int ty = tid / (BN / kTN), tx = tid % (BN / kTN);
+// Four elements of a shared-memory row as floats: one 16-byte load in f32,
+// one 8-byte load in bf16.
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 lds4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// Store a thread's kR x kC outputs: row i at ``rows_out[i]`` (null: past
+// the edge), columns n0 + 4 tn + j (and n0 + 64 + 4 tn + j), rounded to
+// TO, columns >= n dropped; four at once where ``vec`` (the row stride and
+// the base keep 4 elements aligned).
+template <typename TO, int kR, int kC>
+__device__ __forceinline__ void store_fma(const float (&acc)[kR][kC],
+                                          TO* const* rows_out, int tn,
+                                          int n0, int n, bool vec) {
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = ty * kTM + i;
-    if (r >= rows) continue;
+  for (int i = 0; i < kR; ++i) {
+    if (!rows_out[i]) continue;
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int c = n0 + tx * kTN + j;
-      if (c < n) out[(long long)r * ldo + c] = from_f<TO>(acc[i][j]);
+    for (int h = 0; h < kC / 4; ++h) {
+      const int c = n0 + 64 * h + 4 * tn;
+      TO* p = rows_out[i] + c;
+      const float* x = &acc[i][4 * h];
+      if (vec && c + 4 <= n) {
+        if constexpr (sizeof(TO) == 4) {
+          *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+        } else {
+          __nv_bfloat162 v[2] = {__floats2bfloat162_rn(x[0], x[1]),
+                                 __floats2bfloat162_rn(x[2], x[3])};
+          *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(v);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c + j < n) p[j] = from_f<TO>(x[j]);
+      }
     }
   }
 }

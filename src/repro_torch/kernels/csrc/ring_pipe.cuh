@@ -35,16 +35,20 @@
 // copy path (the bit-for-bit contract of ff_matmul.cuh). The ring bounds
 // nothing itself: it has to hide each stage's copy latency behind the
 // compute of the stages before it, and its users' notes give their
-// bounds. Its swizzled layout and TMA maps carry bf16 tiles only; the f32
-// and mixed f32/bf16 products of ff_matmul keep the CUDA-core body, which
-// does not use it. ff_chunk_scan.cu takes only the barriers, Slot and
-// cp.async and lays its stages out itself (f32 rows among them); so do
-// ff_decode_attention.cu and ff_gather.cu (gathered rows of any type).
+// bounds. The bf16 bodies' tiles use the swizzled layout and maps below;
+// the f32 bodies of ff_matmul and ff_attention (ff_matmul.cuh,
+// ff_attention.cuh) take the same layout in rows of 32 floats where their
+// CUDA-core consumers would otherwise conflict on banks, and row-major
+// boxes (encode_typed) where they would not. ff_chunk_scan.cu takes only
+// the barriers, Slot and cp.async and lays its stages out itself (f32 rows
+// among them); so do ff_decode_attention.cu and ff_gather.cu (gathered
+// rows of any type).
 //
 // Tiles are stored as the 128-byte swizzle that TMA's SWIZZLE_128B writes
-// and wgmma's 128B layout reads: a tile of rows of 64 bf16 (128 bytes),
-// where the 16-byte chunk c of row r sits at chunk c ^ (r % 8), in
-// 1024-byte aligned atoms of 8 rows.
+// and wgmma's 128B layout reads: a tile of rows of 128 bytes (64 bf16 or
+// 32 f32), where the 16-byte chunk c of row r sits at chunk c ^ (r % 8),
+// in 1024-byte aligned atoms of 8 rows; a box of such a tile is at least
+// one atom (8 rows).
 #pragma once
 
 #include <cuda.h>
@@ -166,6 +170,12 @@ __host__ __device__ __forceinline__ uint32_t sw128(int r, int c) {
   return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + ((c & 7) << 1);
 }
 
+// Byte offset of f32 element (r, c), c < 32, in a 128-byte swizzled tile
+// (rows of 32 floats: the 4-float chunk c / 4 of row r at c / 4 ^ r % 8).
+__host__ __device__ __forceinline__ uint32_t sw128_f32(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + ((c & 3) << 2);
+}
+
 // Word g of a ring of ``depth`` stages: its stage and mbarrier phase.
 struct Slot {
   int stage;
@@ -201,46 +211,69 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// TMA can describe a bf16 tensor with this base and row stride (elements).
-inline bool tma_ok(const void* p, long long ld) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (ld * 2) % 16 == 0;
+// TMA can describe a tensor of ``elem``-byte elements with this base and
+// row stride (elements).
+inline bool tma_ok_bytes(const void* p, long long ld, int elem) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (ld * elem) % 16 == 0;
+}
+inline bool tma_ok(const void* p, long long ld) {   // bf16
+  return tma_ok_bytes(p, ld, 2);
+}
+
+inline CUtensorMapDataType tma_type(int elem) {
+  return elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// A [rows, cols] tensor of f32 (elem 4) or bf16 (elem 2) with row stride
+// ld, read in boxes of box_cols x box_rows, zeros past the edges; with
+// ``swizzle`` in the 128-byte swizzle (box_cols * elem must be 128), else
+// row-major as it lies in memory.
+inline bool encode_typed(CUtensorMap* map, int elem, const void* base,
+                         int cols, int rows, long long ld, int box_cols,
+                         int box_rows, bool swizzle) {
+  EncodeTiled fn = encoder();
+  if (!fn) return false;
+  cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  cuuint64_t strides[1] = {cuuint64_t(ld) * elem};
+  cuuint32_t box[2] = {cuuint32_t(box_cols), cuuint32_t(box_rows)};
+  cuuint32_t unit[2] = {1, 1};
+  return fn(map, tma_type(elem), 2, const_cast<void*>(base), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // A [rows, cols] bf16 tensor with row stride ld, read in 128-byte swizzled
 // boxes of 64 columns by box_rows rows, zeros past the edges.
 inline bool encode(CUtensorMap* map, const void* base, int cols, int rows,
                    long long ld, int box_rows) {
-  EncodeTiled fn = encoder();
-  if (!fn) return false;
-  cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
-  cuuint64_t strides[1] = {cuuint64_t(ld) * 2};
-  cuuint32_t box[2] = {64, cuuint32_t(box_rows)};
-  cuuint32_t unit[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-            const_cast<void*>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_typed(map, 2, base, cols, rows, ld, 64, box_rows, true);
 }
 
-// A contiguous [slices, rows, cols] bf16 tensor (attention's heads), read
-// in 128-byte swizzled boxes of 64 columns by box_rows rows of one slice,
-// zeros past each slice's rows and past the columns.
-inline bool encode_3d(CUtensorMap* map, const void* base, int cols, int rows,
-                      int slices, int box_rows) {
+// A contiguous [slices, rows, cols] tensor of f32 (elem 4) or bf16 (elem
+// 2) (attention's heads), read in 128-byte swizzled boxes of 128 bytes of
+// columns by box_rows rows of one slice, zeros past each slice's rows and
+// past the columns.
+inline bool encode_3d_typed(CUtensorMap* map, int elem, const void* base,
+                            int cols, int rows, int slices, int box_rows) {
   EncodeTiled fn = encoder();
   if (!fn) return false;
   cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows),
                         cuuint64_t(slices)};
-  cuuint64_t strides[2] = {cuuint64_t(cols) * 2,
-                           cuuint64_t(cols) * 2 * cuuint64_t(rows)};
-  cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
+  cuuint64_t strides[2] = {cuuint64_t(cols) * elem,
+                           cuuint64_t(cols) * elem * cuuint64_t(rows)};
+  cuuint32_t box[3] = {cuuint32_t(128 / elem), cuuint32_t(box_rows), 1};
   cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-            const_cast<void*>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, tma_type(elem), 3, const_cast<void*>(base), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+inline bool encode_3d(CUtensorMap* map, const void* base, int cols, int rows,
+                      int slices, int box_rows) {   // bf16
+  return encode_3d_typed(map, 2, base, cols, rows, slices, box_rows);
 }
 
 }  // namespace ring

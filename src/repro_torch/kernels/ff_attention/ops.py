@@ -14,16 +14,16 @@ H100 and what its design does about that.
 
 ``depth`` and ``streams`` are the reference's ``flash_attention_ff``
 keywords: the stages of the shared-memory ring that carries the K and V
-tiles to the tensor cores (bf16), and the boxes each tile copy is split
-into (``depth=1`` is the synchronous copy-then-compute baseline). They
-are checked for both types and change when a tile lands, never what is
-computed. Both entry points resolve them through the pipe policy
-(``policy=``, the session policy, or the ``depth=``/``streams=``
+tiles to the consumers (the tensor cores in bf16, the CUDA cores in f32),
+and the boxes each tile copy is split into (``depth=1`` is the
+synchronous copy-then-compute baseline). Each type has its own tiles
+(:data:`BLOCK_Q`, :data:`BLOCK_KV`), so its own deepest ring
+(:func:`max_depth`) and stream counts. They change when a tile lands,
+never what is computed. Both entry points resolve them through the pipe
+policy (``policy=``, the session policy, or the ``depth=``/``streams=``
 keywords), as the reference's do: :func:`attention` as the kernel
 ``ff_attention`` (:func:`attention_workload`), :func:`attention_proj` as
-the graph ``attention_proj`` (its two nodes' workloads summed). The f32
-body ignores them, but they still resolve and record, as the
-reference's do.
+the graph ``attention_proj`` (its two nodes' workloads summed).
 """
 
 from __future__ import annotations
@@ -45,61 +45,68 @@ from repro_torch.kernels.registry import KernelCost, register_kernel
 
 # q rows per CUDA block and K/V rows per tile, by type (csrc/
 # ff_attention.cuh: bf16 the wgmma body wg, f32 the CUDA-core body f32)
-BLOCK_Q = {torch.bfloat16: 64, torch.float32: 32}
+BLOCK_Q = {torch.bfloat16: 64, torch.float32: 64}
 BLOCK_KV = {torch.bfloat16: 64, torch.float32: 32}
 _NEG_INF = -1e30
 _MAX_D = 256
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# the bf16 ring (csrc/ff_attention.cuh wg::smem_bytes): a stage holds a K
-# and a V tile of 64 rows by d padded to 64-column slabs of 8 KB each
-_SLAB_BYTES = 64 * 64 * 2
+# a stage holds a K and a V tile of BLOCK_KV rows by d padded to whole
+# 128-byte slabs (64 bf16 or 32 f32 columns); the q tile is BLOCK_Q rows
+# of the same slabs; the f32 body also keeps its p tile (BLOCK_Q x 32 f32)
+_SLAB_COLS = {torch.bfloat16: 64, torch.float32: 32}
 _MAX_SMEM = 232448                  # 227 KB of shared memory a block
 _MIN_STREAM_ROWS = 8                # one 128-byte swizzle atom of rows
 
 
-def _smem_bytes(d: int, depth: int) -> int:
-    """Shared memory of the bf16 block at head dim ``d`` and ring
-    ``depth``: 1024 bytes of alignment slack, the q tile, the stages, and
-    two mbarriers a stage plus the q tile's."""
-    slabs = -(-d // 64)
-    return 1024 + slabs * _SLAB_BYTES * (1 + 2 * depth) + 8 * (2 * depth + 1)
+def _smem_bytes(d: int, depth: int, dtype=torch.bfloat16) -> int:
+    """Shared memory of the block at head dim ``d``, ring ``depth`` and
+    type (csrc/ff_attention.cuh ``wg::smem_bytes``, ``f32::smem_bytes``):
+    1024 bytes of alignment slack, the q tile, the f32 body's p tile, the
+    stages, and two mbarriers a stage plus the q tile's."""
+    slabs = -(-d // _SLAB_COLS[dtype])
+    p_tile = BLOCK_Q[dtype] * 128 if dtype == torch.float32 else 0
+    return (1024 + slabs * 128 * (BLOCK_Q[dtype] + 2 * depth
+                                  * BLOCK_KV[dtype])
+            + p_tile + 8 * (2 * depth + 1))
 
 
-def max_depth(d: int) -> int:
+def max_depth(d: int, dtype=torch.bfloat16) -> int:
     """The deepest ring that fits one block's shared memory at head dim
-    ``d``."""
+    ``d`` in ``dtype``."""
     depth = 1
-    while _smem_bytes(d, depth + 1) <= _MAX_SMEM:
+    while _smem_bytes(d, depth + 1, dtype) <= _MAX_SMEM:
         depth += 1
     return depth
 
 
-def stream_options(options) -> tuple:
-    """The stream counts of ``options`` this kernel can run: those that
-    split the 64-row tiles into boxes of at least 8 rows."""
-    rows = BLOCK_KV[torch.bfloat16]
+def stream_options(options, dtype=torch.bfloat16) -> tuple:
+    """The stream counts of ``options`` this kernel can run in ``dtype``:
+    those that split its K/V tiles (64 rows bf16, 32 f32) into boxes of at
+    least 8 rows."""
+    rows = BLOCK_KV[dtype]
     return tuple(s for s in options
                  if rows % s == 0 and rows // s >= _MIN_STREAM_ROWS)
 
 
-def _pipe(depth, streams, d):
+def _pipe(depth, streams, d, dtype=torch.bfloat16):
     """``depth`` and ``streams`` checked as the reference's ``Pipe`` checks
-    them against this kernel's tiles: each at least 1, ``streams``
-    dividing the 64-row tiles into boxes of at least 8 rows (one swizzle
-    atom), ``depth`` stages fitting in shared memory at head dim ``d``."""
+    them against this kernel's tiles in ``dtype``: each at least 1,
+    ``streams`` dividing the K/V tiles' rows into boxes of at least 8 rows
+    (one swizzle atom), ``depth`` stages fitting in shared memory at head
+    dim ``d``."""
     if depth < 1:
         raise ValueError(f"pipe depth must be >= 1, got {depth}")
     if streams < 1:
         raise ValueError(f"pipe streams must be >= 1, got {streams}")
-    rows = BLOCK_KV[torch.bfloat16]
+    rows = BLOCK_KV[dtype]
     if rows % streams or rows // streams < _MIN_STREAM_ROWS:
         raise ValueError(f"streams={streams} must split the tile's {rows} "
                          f"rows into boxes of at least {_MIN_STREAM_ROWS} "
                          f"rows")
-    if d <= _MAX_D and depth > max_depth(d):
-        raise ValueError(f"depth {depth} needs {_smem_bytes(d, depth)} "
-                         f"bytes of shared memory at head dim {d}; at most "
-                         f"{max_depth(d)} stages fit in {_MAX_SMEM}")
+    if d <= _MAX_D and depth > max_depth(d, dtype):
+        raise ValueError(f"depth {depth} needs {_smem_bytes(d, depth, dtype)}"
+                         f" bytes of shared memory at head dim {d}; at most "
+                         f"{max_depth(d, dtype)} stages fit in {_MAX_SMEM}")
     return depth, streams
 
 
@@ -146,16 +153,16 @@ def attention_cost(bh: int, s: int, d: int, *, skv=None,
     w, _ = attention_workload(bh, s, d, skv=skv, causal=causal, dtype=dtype)
     item = itemsize(dtype)
     hbm = w.n_words * w.word_bytes + 2 * bh * s * d * item
-    smem = _smem_bytes(d, depth) if dtype == torch.bfloat16 else 0
     return KernelCost(flops=w.n_words * w.flops_per_word,
-                      hbm_bytes=float(hbm), smem_bytes=smem)
+                      hbm_bytes=float(hbm),
+                      smem_bytes=_smem_bytes(d, depth, dtype))
 
 
 def _resolve(op, pol, q, k, kv_groups, causal, run):
     """(depth, streams) of one prefill attention call under ``pol``."""
     bh, s, d = q.shape
     skv = k.shape[1]
-    so = stream_options(pol.stream_options)
+    so = stream_options(pol.stream_options, q.dtype)
     pol = pol if so == tuple(pol.stream_options) else \
         pol.replace(stream_options=so)
     w, tile = attention_workload(bh, s, d, skv=skv, causal=causal,
@@ -171,8 +178,9 @@ def _resolve(op, pol, q, k, kv_groups, causal, run):
         site={"bh": bh, "s": s, "d": d, "skv": skv,
               "kv_groups": kv_groups, "causal": causal},
         site_dynamic=("bh", "s", "skv"),
-        depth_cap=max_depth(d))
-    return _pipe(choice.depth, choice.streams, d)
+        depth_cap=max_depth(d, q.dtype))
+    return _pipe(choice.depth, choice.streams, d, q.dtype)
+
 
 def attention_ref(q, k, v, *, kv_groups: int = 1, causal: bool = True,
                   block_kv=None) -> torch.Tensor:
@@ -218,12 +226,11 @@ def attention_ref(q, k, v, *, kv_groups: int = 1, causal: bool = True,
 
 @functools.lru_cache(maxsize=None)
 def _entry(dtype: torch.dtype):
-    """ff_attention_bf16 takes the ring's depth and streams after the
-    scale; ff_attention_f32 does not."""
+    """ff_attention_<type>: the ring's depth and streams after the
+    scale."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    pipe = [i, i] if dtype == torch.bfloat16 else []
     return _build.bind("ff_attention", f"ff_attention_{_SUFFIX[dtype]}",
-                       [p, p, p, p, i, i, i, i, i, i, ctypes.c_float, *pipe,
+                       [p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i,
                         p])
 
 
@@ -242,18 +249,13 @@ def _check(q, k, v, kv_groups):
         raise ValueError("q, k and v must be on one device")
 
 
-def _pipe_args(dtype, depth, streams):
-    return (depth, streams) if dtype == torch.bfloat16 else ()
-
-
 def _launch(q, k, v, kv_groups, causal, depth, streams) -> torch.Tensor:
     bh, s, d = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     rc = _entry(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          out.data_ptr(), bh, s, k.shape[1], d, kv_groups,
-                         int(causal), 1.0 / math.sqrt(d),
-                         *_pipe_args(q.dtype, depth, streams),
+                         int(causal), 1.0 / math.sqrt(d), depth, streams,
                          _build.stream_ptr(q.device))
     _build.check("ff_attention", "ff_attention", rc)
     return out
@@ -263,9 +265,9 @@ def _apply(q, k, v, *, kv_groups: int = 1, causal: bool = True,
            policy: PipePolicy) -> torch.Tensor:
     """Flash attention over [BH, S, D] q and [BKVH, Skv, D] k/v (q head
     ``bh`` reads KV head ``bh // kv_groups``). The ring that feeds the
-    tensor cores (bf16) is sized by ``policy`` (planned per call site
-    under "ff", measured under "autotune", depth 1 under "baseline");
-    it does not change the result. mode="ref" and CPU tensors run
+    consumers is sized by ``policy`` within the type's ring (planned per
+    call site under "ff", measured under "autotune", depth 1 under
+    "baseline"); it does not change the result. mode="ref" and CPU tensors run
     :func:`attention_ref`; CUDA tensors launch the kernel."""
     _check(q, k, v, kv_groups)
     if policy.mode == "ref":
@@ -306,11 +308,10 @@ def attention_proj_ref(q, k, v, w, *, causal: bool = True) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _proj_entry(dtype: torch.dtype):
     p, i = ctypes.c_void_p, ctypes.c_int
-    pipe = [i, i] if dtype == torch.bfloat16 else []
     return _build.bind("ff_attention_proj",
                        f"ff_attention_proj_{_SUFFIX[dtype]}",
-                       [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float,
-                        *pipe, p])
+                       [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i,
+                        i, p])
 
 
 def attention_proj_nodes(bh: int, s: int, d: int, d_out: int, *,
@@ -359,7 +360,7 @@ def _apply_proj(q, k, v, w, *, causal: bool = True,
     nodes = attention_proj_nodes(bh, s, d, w.shape[1], causal=causal,
                                  dtype=q.dtype)
     wl, tile = autotune.graph_workload(nodes)
-    so = stream_options(policy.stream_options)
+    so = stream_options(policy.stream_options, q.dtype)
     pol = policy if so == tuple(policy.stream_options) else \
         policy.replace(stream_options=so)
     choice = autotune.resolve_graph(
@@ -371,8 +372,8 @@ def _apply_proj(q, k, v, w, *, causal: bool = True,
         site={"bh": bh, "s": s, "d": d, "d_out": w.shape[1],
               "causal": bool(causal)},
         site_dynamic=("bh", "s"),
-        depth_cap=max_depth(d))
-    out = run(*_pipe(choice.depth, choice.streams, d))
+        depth_cap=max_depth(d, q.dtype))
+    out = run(*_pipe(choice.depth, choice.streams, d, q.dtype))
     if q.device.type == "cuda":
         attention_proj.launches += 1
     return out
@@ -386,8 +387,7 @@ def _launch_proj(q, k, v, w, causal, depth, streams) -> torch.Tensor:
     rc = _proj_entry(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               w.data_ptr(), out.data_ptr(), bh, s,
                               k.shape[1], d, w.shape[1], int(causal),
-                              1.0 / math.sqrt(d),
-                              *_pipe_args(q.dtype, depth, streams),
+                              1.0 / math.sqrt(d), depth, streams,
                               _build.stream_ptr(q.device))
     _build.check("ff_attention_proj", "ff_attention_proj", rc)
     return out

@@ -19,8 +19,9 @@ moe_dispatch_ffn) are held at float32 5e-4 (the reference registry's tol
 of both graphs) and bfloat16 2e-2, each relative and absolute and chosen
 by the output's type; the gather (at every ring depth and streams, and
 on rows cut into slabs), every fused launch against its staged
-composition, and the bf16 product and attention across the ring's depth
-and streams at exactly 0. The chunk scan is held at float32 3e-5 and
+composition, and the product (bf16, f32 and the mixed pairs), the
+gathered product, attention and attention_proj (bf16 and f32) across the
+ring's depth and streams at exactly 0. The chunk scan is held at float32 3e-5 and
 bfloat16 2e-2 of max |plain| (the reference kernel test's bound) at every
 chunk up to 256 (N = P = 128 too), its strong-decay case at rtol 1e-4 /
 atol 1e-5, and the bf16 scan across the ring's depth and streams at
@@ -696,6 +697,97 @@ def test_attention_proj_is_bitwise_across_depth_and_streams(cuda):
         for streams in (1, 2):
             assert torch.equal(attention_proj(q, k, v, w, depth=depth,
                                               streams=streams), staged)
+
+
+F32_PIPES = [(d, st) for d in (1, 2, 4) for st in (1, 2, 4)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 20, 64, 80, 128, 256])
+def test_f32_attention_is_bitwise_across_depth_and_streams(cuda, d, causal):
+    """The f32 body on its ring (K/V tiles of 32 rows): the same bits at
+    every depth that fits the head dim x streams {1, 2, 4}, GQA 2, ragged
+    S, within 2e-4 of the plain version; d = 20 takes element copies (an
+    80-byte row TMA cannot stride)."""
+    from repro_torch.kernels.ff_attention import max_depth
+    g = torch.Generator(device=cuda).manual_seed(30)
+    q = _randn(g, 6, 150, d)
+    k, v = _randn(g, 3, 150, d), _randn(g, 3, 150, d)
+    base = attention(q, k, v, kv_groups=2, causal=causal, depth=1,
+                     streams=1)
+    deepest = max_depth(d, torch.float32)
+    for depth, streams in F32_PIPES + [(deepest, 2)]:
+        if depth <= deepest:
+            assert torch.equal(attention(q, k, v, kv_groups=2, causal=causal,
+                                         depth=depth, streams=streams), base)
+    assert _err(base, attention_ref(q, k, v, kv_groups=2,
+                                    causal=causal)) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("out_dtype", DTYPES, ids=["out_f32", "out_bf16"])
+@pytest.mark.parametrize("a_dtype,b_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32)], ids=["f32_f32", "f32_bf16", "bf16_f32"])
+@pytest.mark.parametrize("case", ["ragged", "row_strided"])
+def test_f32_and_mixed_matmul_is_bitwise_across_depth_and_streams(
+        cuda, a_dtype, b_dtype, out_dtype, case):
+    """The CUDA-core product on its ring: the same bits at every (depth,
+    streams), at a shape ragged against the 128 x 128 tile and the 32-deep
+    slab (TMA boxes, zeros past the edges) and at row-strided operands
+    that TMA cannot describe (element loads), within 5e-4 of the plain
+    version."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    if case == "ragged":
+        a = _randn(g, 200, 136).to(a_dtype)
+        b = _randn(g, 136, 264, scale=136 ** -0.5).to(b_dtype)
+    else:
+        a = _randn(g, 150, 203).to(a_dtype)[:, 3:195]
+        b = _randn(g, 192, 301, scale=0.07).to(b_dtype)[:, 1:261]
+    base = matmul(a, b, out_dtype=out_dtype, depth=1, streams=1)
+    for depth, streams in F32_PIPES + [(9 if a_dtype != b_dtype else 7, 16)]:
+        assert torch.equal(matmul(a, b, out_dtype=out_dtype, depth=depth,
+                                  streams=streams), base)
+    assert _within(base, matmul_ref(a, b, out_dtype), LIB_TOL[out_dtype])
+
+
+@pytest.mark.parametrize("n,d,f", [(64, 2048, 1408), (40, 96, 77),
+                                   (24, 70, 130)])
+def test_gathered_f32_matmul_equals_gather_then_matmul(cuda, n, d, f):
+    """The gathered f32 launch (per-row cp.async, or element loads where a
+    row of 70 floats is not 16-byte strided) equals gather then matmul bit
+    for bit at every (depth, streams)."""
+    g = torch.Generator(device=cuda).manual_seed(32)
+    tokens = _randn(g, 512, d)
+    idx = torch.randint(0, 512, (n,), generator=g, device=cuda)
+    w = _randn(g, d, f, scale=d ** -0.5)
+    staged = matmul(gather(tokens, idx), w)
+    for depth, streams in F32_PIPES:
+        assert torch.equal(dispatch_matmul(tokens, idx, w, depth=depth,
+                                           streams=streams), staged)
+    assert _within(staged, dispatch_matmul_ref(tokens, idx, w),
+                   LIB_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("bh,s,d,d_out,causal", [
+    (4, 200, 64, 300, True), (3, 70, 80, 130, True), (4, 45, 32, 64, False),
+    (2, 64, 256, 96, True)])
+def test_f32_attention_proj_equals_staged_at_every_pipe(cuda, bh, s, d,
+                                                        d_out, causal):
+    """The f32 fused launch runs the prefill kernel's f32 body on its ring,
+    then the product: equal to attention then matmul bit for bit at every
+    (depth, streams) that fits the head dim."""
+    from repro_torch.kernels.ff_attention import max_depth
+    g = torch.Generator(device=cuda).manual_seed(33)
+    q, k, v = (_randn(g, bh, s, d) for _ in range(3))
+    w = _randn(g, d, d_out, scale=d ** -0.5)
+    staged = matmul(attention(q, k, v, causal=causal).reshape(bh * s, d), w)
+    for depth, streams in F32_PIPES:
+        if depth <= max_depth(d, torch.float32):
+            assert torch.equal(attention_proj(q, k, v, w, causal=causal,
+                                              depth=depth, streams=streams),
+                               staged)
+    assert _within(staged, attention_proj_ref(q, k, v, w, causal=causal),
+                   LIB_TOL[torch.float32])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -92,8 +92,9 @@ def test_plain_attention_at_the_tensor_core_tiling(d, causal):
 
 
 def test_attention_pipe_keywords_are_checked_and_keep_the_result():
-    """``depth`` and ``streams`` are validated for both types and, on the
-    CPU, leave the plain result as it is."""
+    """``depth`` and ``streams`` are validated for both types against the
+    type's own tiles (K/V tiles of 64 rows bf16, 32 f32: streams up to 8
+    and 4) and ring, and, on the CPU, leave the plain result as it is."""
     rng = np.random.default_rng(7)
     q, k, v = (_t(rng.standard_normal((2, 40, 16)).astype(np.float32))
                for _ in range(3))
@@ -103,14 +104,16 @@ def test_attention_pipe_keywords_are_checked_and_keep_the_result():
         a, b, c, ww = (x.to(dtype) for x in (q, k, v, w))
         base = attention(a, b, c)
         base_p = attention_proj(a, b, c, ww)
+        most = BLOCK_KV[dtype] // 8
         for depth in (1, 2, 4):
-            for streams in (1, 2, 8):
+            for streams in (1, 2, most):
                 assert torch.equal(attention(a, b, c, depth=depth,
                                              streams=streams), base)
                 assert torch.equal(attention_proj(a, b, c, ww, depth=depth,
                                                   streams=streams), base_p)
         for bad in (dict(depth=0), dict(streams=0), dict(streams=3),
-                    dict(streams=16), dict(depth=max_depth(16) + 1)):
+                    dict(streams=2 * most), dict(streams=16),
+                    dict(depth=max_depth(16, dtype) + 1)):
             with pytest.raises(ValueError):
                 attention(a, b, c, **bad)
             with pytest.raises(ValueError):

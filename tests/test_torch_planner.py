@@ -330,7 +330,7 @@ def test_matmul_workload_at_the_ports_tile(m, n, k):
     a, ta = jw(m, n, k, block=(128, 128, 64), dtype=jnp.bfloat16)
     b, tb = tw(m, n, k, dtype=torch.bfloat16)
     assert _asdict(a) == _asdict(b) and ta == tb
-    a, ta = jw(m, n, k, block=(64, 64, 16), dtype=jnp.float32)
+    a, ta = jw(m, n, k, block=(128, 128, 32), dtype=jnp.float32)
     b, tb = tw(m, n, k, dtype=torch.float32)
     assert _asdict(a) == _asdict(b) and ta == tb
 

@@ -187,7 +187,8 @@ def test_ff_plans_every_call_within_its_kernel(setup, monkeypatch):
 
     def spy(op, policy, **kw):
         choice = real(op, policy, **kw)
-        seen.append((op, choice, kw["depth_cap"], policy.stream_options))
+        seen.append((op, choice, kw["depth_cap"], policy.stream_options,
+                     kw["dtype"]))
         return choice
 
     monkeypatch.setattr(autotune, "resolve_call", spy)
@@ -195,11 +196,11 @@ def test_ff_plans_every_call_within_its_kernel(setup, monkeypatch):
                          _port_requests(setup), n_slots=SLOTS, page=PAGE,
                          eos_id=None, policy=PipePolicy())
     assert seen
-    for op, choice, cap, so in seen:
+    for op, choice, cap, so, dtype in seen:
         assert choice.source == "analytic"
         assert 2 <= choice.depth <= cap and choice.streams in so
         if op == "ff_attention":
-            assert cap == att_max(setup["tcfg"].hd)
+            assert cap == att_max(setup["tcfg"].hd, dtype)
 
 
 def _serve_args(*extra):
