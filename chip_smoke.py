@@ -67,7 +67,10 @@ Phases (any failure exits non-zero without the final result line):
      streams; the decode-layer kernels (rows 4-6) at llama3.2-1b's widths
      (d 2048, f 8192) and at qwen2-72b's (d 8192, f 29568: k past 8192,
      bf16 and f32), the MLP tail == its staged launches bit for bit, the
-     bf16 kernels bitwise across depth x streams; the chunk scan also at
+     bf16 kernels bitwise across depth x streams, and at qwen's serve
+     shape the f32 ones (one ring body with bf16) bitwise across depth
+     {1, 2, 4, deepest} x streams {1, 2, 4, 8}, the f32 tail == its staged
+     launches at each of those settings; the chunk scan also at
      N = P = 256, chunk 256 (f32 and bf16); the smoke llama3.2-1b,
      starcoder2-15b,
      qwen2-72b, internvl2-1b (with and without patch embeddings) and
@@ -131,10 +134,12 @@ Phases (any failure exits non-zero without the final result line):
      streams {1, 2}, and the gather also at streams 4, depth 8 and a
      grid cut to 33 blocks (a ``depth_sweep`` line); the f32 rings in the
      same sweep (the product at both LIB shapes and f32 x bf16 at wi,
-     the gathered f32 dispatch, attention at both serve shapes); every
+     the gathered f32 dispatch, attention at both serve shapes, the f32
+     decode-layer kernels at B = 4 at qwen's and qwen2-72b's widths); every
      f32 body at the shapes of its bf16 row, against its bound at 67
-     TFLOP/s, its plain version and the f32 library call (an
-     ``f32_bodies`` line; ``--f32-timing`` builds and runs it alone);
+     TFLOP/s, its plain version and the f32 library call, the f32 MLP
+     tail also against its staged launches (an ``f32_bodies`` line;
+     ``--f32-timing`` builds and runs it alone);
   then each step kind replayed from its CUDA graph against the same step
      run eagerly from the same inputs, bit for bit (qwen's dense, paged
      and layer-graph decode and a prefill bucket at full width; the smoke
@@ -700,8 +705,11 @@ def check_layer_kernels(torch, dev, shapes, name=None):
     main path's q-projection (RMSNorm, q bias where the config has one,
     RoPE), SwiGLU and MLP tail at B = 4, then B in {1, 13, 16} with
     RMSNorm off and on and each epilogue; the tail also against its three
-    staged launches, bit for bit. With ``name`` (another model's
-    ``shapes``), its B = 4 case alone, checks named after it."""
+    staged launches, bit for bit. At B = 4 the three kernels bitwise
+    across the ring's settings: bf16 over PIPE_GRID, f32 (the same ring
+    body) over ``layer_f32_grid`` with the tail == staged at each. With
+    ``name`` (another model's ``shapes``), its B = 4 case alone, checks
+    named after it, its f32 kernels against the plain versions only."""
     from repro_torch.kernels.ff_layer import (ff_layer_matmul,
                                               ff_layer_matmul_ref,
                                               ff_layer_mlp_tail,
@@ -768,20 +776,39 @@ def check_layer_kernels(torch, dev, shapes, name=None):
             check(f"ff_layer_mlp_tail == staged bitwise {shown} {tag} m={m}",
                   torch.equal(fused, staged),
                   f"max diff {err(fused, staged)}")
-            if label == "serve" and dtype == torch.bfloat16:
+            if label != "serve" or (dtype == torch.float32 and name):
+                continue
+            q_kw = dict(norm_weight=t["nw1"], **rope)
+            pipe_fns = (
+                ("ff_layer_matmul qproj", lambda **p: ff_layer_matmul(
+                    t["x"], t["wq"], **q_kw, **p)),
+                ("ff_layer_swiglu", lambda **p: ff_layer_swiglu(
+                    t["x"], t["wg"], t["wu"], norm_weight=t["nw2"], **p)),
+                ("ff_layer_mlp_tail", lambda **p: ff_layer_mlp_tail(
+                    *tail_args(t), **p)))
+            if dtype == torch.bfloat16:
                 main_err["ff_layer_mlp_tail"] = e
-                q_kw = dict(norm_weight=t["nw1"], **rope)
-                for kname, fn in (
-                        ("ff_layer_matmul qproj", lambda **p: ff_layer_matmul(
-                            t["x"], t["wq"], **q_kw, **p)),
-                        ("ff_layer_swiglu", lambda **p: ff_layer_swiglu(
-                            t["x"], t["wg"], t["wu"], norm_weight=t["nw2"],
-                            **p)),
-                        ("ff_layer_mlp_tail", lambda **p: ff_layer_mlp_tail(
-                            *tail_args(t), **p))):
-                    check_pipe_bitwise(torch, f"{kname} {shown} bf16 m={m}",
-                                       fn, fn())
+                grid = None
+            else:
+                # the f32 ring (one body with bf16) at the serve shape:
+                # every kernel and the tail == staged at each setting
+                grid = layer_f32_grid()
+                check_pipe_bitwise(
+                    torch, f"ff_layer_mlp_tail == staged {shown} f32 m={m}",
+                    pipe_fns[2][1], staged, grid)
+            short = "bf16" if dtype == torch.bfloat16 else "f32"
+            for kname, fn in pipe_fns:
+                check_pipe_bitwise(torch, f"{kname} {shown} {short} m={m}",
+                                   fn, fn(), grid)
     return main_err
+
+
+def layer_f32_grid():
+    """The decode-layer ring's f32 cases (``f32_grid``): the stages and
+    sums take the same shared memory in both types, so the deepest is
+    ``MAX_DEPTH``; streams divide the reference's 8-row blocks."""
+    from repro_torch.kernels.ff_layer import ops as LO
+    return f32_grid(LO.MAX_DEPTH, LO.stream_options((1, 2, 4, 8)))
 
 
 def within(out, ref, tol):
@@ -1296,14 +1323,14 @@ def depth_sweep(torch, dev, shapes):
     bf16, the gathered f32 dispatch) and f32 attention at both serve
     shapes (q/k/v [64,32,64] and [64,256,64]), then row 1 and row 8a at
     q/k/v [64,256,64] (qwen's 4 x 256-token prefill; 8a into d_model
-    1024), row 9 at both recurrent
-    models' prefill shapes (chunk 64), then rows 4-6 at the serve
-    shape (B = 4), row 7 (the gather) at both LIB shapes, then rows 2
-    and 3 at ``decode_256`` and ``decode_long``, device ms per call with
-    L2 cold, at every depth of SWEEP_DEPTHS that fits in shared memory
-    and every streams of SWEEP_STREAMS; then the gather at GATHER_EXTRA's
-    settings, through its wrapper. Printed as one ``depth_sweep`` JSON
-    line."""
+    1024), row 9 at both recurrent models' prefill shapes (chunk 64),
+    then rows 4-6 at the serve shape (B = 4) in bf16, then in f32 there
+    and at qwen2-72b's widths, row 7 (the gather) at both LIB shapes,
+    then rows 2 and 3 at ``decode_256`` and ``decode_long``, device ms
+    per call with L2 cold, at every depth of SWEEP_DEPTHS that fits in
+    shared memory and every streams of SWEEP_STREAMS; then the gather at
+    GATHER_EXTRA's settings, through its wrapper. Printed as one
+    ``depth_sweep`` JSON line."""
     from repro_torch.kernels import ff_attention as A
     from repro_torch.kernels import ff_layer as FL
     from repro_torch.kernels.ff_layer import ops as FLO
@@ -1387,6 +1414,27 @@ def depth_sweep(torch, dev, shapes):
                                                            **kw))):
         cases.append((f"ff_layer {label} B={lay['b']} (serve)", fn, 100,
                       FLO.MAX_DEPTH))
+    # their f32 ring (one body with bf16) at the serve shape, and at
+    # qwen2-72b's widths (k 8192 and 29568)
+    for arch in (SERVE["arch"], "qwen2_72b"):
+        f_lay = main_path_shapes(torch, arch)["layer"]
+        ft = layer_inputs(torch, dev, f32, f_lay["b"], f_lay, gen)
+        f_kw = dict(norm_weight=ft["nw1"], bias=ft["bq"],
+                    rope_theta=f_lay["theta"], head_dim=f_lay["hd"],
+                    positions=torch.tensor(f_lay["positions"], device=dev,
+                                           dtype=torch.int32))
+        where = "serve" if arch == SERVE["arch"] else arch
+        for label, fn in (
+                ("qproj", lambda ft=ft, f_kw=f_kw, **kw: FL.ff_layer_matmul(
+                    ft["x"], ft["wq"], **f_kw, **kw)),
+                ("swiglu", lambda ft=ft, **kw: FL.ff_layer_swiglu(
+                    ft["x"], ft["wg"], ft["wu"], norm_weight=ft["nw2"],
+                    **kw)),
+                ("mlp_tail", lambda ft=ft, **kw: FL.ff_layer_mlp_tail(
+                    *tail_args(ft), **kw))):
+            cases.append((f"ff_layer {label} f32 B={f_lay['b']} ({where})",
+                          fn, 100 if where == "serve" else 10,
+                          FLO.MAX_DEPTH))
     from repro_torch.kernels import ff_gather as G
     gather_cases = []     # (names of their own: the lambdas above bind late)
     for lbl, g_r, g_c, g_n, g_t in LIB["gather"]:
@@ -2370,9 +2418,10 @@ def time_f32_bodies(torch, dev, shapes, scan=True):
     function in f32 (torch.matmul with TF32 off; SDPA, naming the backend
     it ran; for rows 4-6 the products alone) and the bound: f32 bytes over
     3.35 TB/s against the operations over 67 TFLOP/s; row 8b also the
-    product on rows gathered beforehand (``plain_a_ms``). One ``f32_bodies``
-    line. The wrappers run at their planned ring. ``scan=False`` leaves out
-    row 9 (time_scan_kernel times it in a full run)."""
+    product on rows gathered beforehand (``plain_a_ms``), row 6 its three
+    staged launches (``staged_ms``). One ``f32_bodies`` line. The
+    wrappers run at their planned ring. ``scan=False`` leaves out row 9
+    (time_scan_kernel times it in a full run)."""
     import torch.nn.functional as F
     from repro_torch.kernels.ff_attention import (attention, attention_proj,
                                                   attention_proj_ref,
@@ -2382,7 +2431,8 @@ def time_f32_bodies(torch, dev, shapes, scan=True):
                                               ff_layer_mlp_tail,
                                               ff_layer_mlp_tail_ref,
                                               ff_layer_swiglu,
-                                              ff_layer_swiglu_ref)
+                                              ff_layer_swiglu_ref,
+                                              mlp_tail_staged)
     from repro_torch.kernels.ff_matmul import (dispatch_matmul,
                                                dispatch_matmul_ref, matmul,
                                                matmul_ref)
@@ -2490,6 +2540,10 @@ def time_f32_bodies(torch, dev, shapes, scan=True):
                      torch.matmul(t["act"], t["wo2"])),
             (m * hq + hq * d + 2 * m * d + 2 * d * f + f * d) * 4 + d * 4,
             2 * m * (hq * d + 2 * d * f + f * d), 50, note)
+        # beside it its three staged launches (ROADMAP B.2: the bf16 tail
+        # lost to them at qwen2-72b's widths)
+        rows["ff_layer_mlp_tail"][-1]["staged_ms"] = time_ms(
+            torch, lambda: mlp_tail_staged(*tail_args(t)), 50, flush)
         del t
     if scan:
         rows["ff_chunk_scan"] = [split_bound(time_scan_wide(torch, dev, gen,
@@ -3570,7 +3624,7 @@ def profile_decode(torch, dev, n_steps=8, rounds=5):
         return not name.startswith("layer-graph") or all(
             sum(c for n, c in p["count"].items() if tag in n)
             == cfg.n_layers * n_steps
-            for tag in ("mlp_tail_kernel", "matmul_kernel"))
+            for tag in ("ring_mlp_tail_kernel", "ring_matmul_kernel"))
 
     runs = profile_steps(torch, {
         **{f"{kind} {mode}": make_step(kind, mode == "compiled")
@@ -3593,10 +3647,10 @@ def profile_decode(torch, dev, n_steps=8, rounds=5):
                                          / r["device_ms_per_step"]
                                          if r["device_ms_per_step"]
                                          else None),
-                 mlp_tail_launches_per_step=calls("mlp_tail_kernel"),
-                 mlp_tail_ms_per_step=ms("mlp_tail_kernel"),
-                 qproj_launches_per_step=calls("matmul_kernel"),
-                 qproj_ms_per_step=ms("matmul_kernel"))
+                 mlp_tail_launches_per_step=calls("ring_mlp_tail_kernel"),
+                 mlp_tail_ms_per_step=ms("ring_mlp_tail_kernel"),
+                 qproj_launches_per_step=calls("ring_matmul_kernel"),
+                 qproj_ms_per_step=ms("ring_matmul_kernel"))
         if name.startswith("layer-graph"):
             check(f"profile {name}: one MLP-tail launch per layer per step",
                   r["mlp_tail_launches_per_step"] == cfg.n_layers,
@@ -5067,6 +5121,8 @@ def dryrun_check(tmp, started):
 
 # phase l: the graphs at full width, the mesh, the dry-run cells
 GRAPH_QWEN = dict(b=4, d=1024, h=16, kvh=16, hd=64, f=2816, s=256)
+# the device symbol each fused launch profiles as (ff_layer.cu's ring
+# kernels are templates, ring_mlp_tail_kernel<T> in both types)
 GRAPH_KERNEL_SYMBOL = {"ff_dispatch_matmul": "wgmma_kernel",
                        "ff_attention_proj": "attention_proj_wg_kernel",
                        "ff_paged_decode_attention": "ring_decode_kernel",

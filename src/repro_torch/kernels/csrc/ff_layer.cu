@@ -10,105 +10,90 @@
 // pallas_call by src/repro/core/graph.py _compile_chain).
 //
 // Bound on this card: at decode a few rows (one per sequence) meet a whole
-// weight matrix, about 2 operations per weight byte in bf16, far under the
-// ~295 the tensor cores need, so every kernel here is bound by device
-// memory: the least time is the weight bytes over 3.35 TB/s (qwen's qproj,
-// 2 MB, 0.6 us). What keeps a kernel from it is latency: a cold read
-// under load takes microseconds, so streaming at 3.35 TB/s needs tens of
-// KB in flight on every SM, and the launch itself costs microseconds
-// before any byte moves. The TPU kernels kept k and n whole because
-// VMEM holds a whole weight; here the work is split so every SM streams:
+// weight matrix, about 2 operations per weight byte in bf16 (1 in f32), far
+// under the ~295 the tensor cores need or the ~20 of the f32 cores, so
+// every kernel here is bound by device memory: the least time is the
+// weight bytes over 3.35 TB/s (qwen's qproj, 2 MB in bf16, 0.6 us). What
+// keeps a kernel from it is latency: a cold read under load takes
+// microseconds, so streaming at 3.35 TB/s needs tens of KB in flight on
+// every SM, and the launch itself costs microseconds before any byte
+// moves. The TPU kernels kept k and n whole because VMEM holds a whole
+// weight; here the work is split so every SM streams.
 //
-// bf16 (ring_* kernels): the work unit is a tile of 64 output columns (one
-// 128-byte line of a weight row; a SwiGLU tile is the same 64 columns of
-// wg and of wu) times a split of k. ops.py _plan picks the split from
-// (n, k) and the SM count alone, one item a block on every SM (qwen's
-// qproj, oproj and down 16 x 8, gateup 44 x 3). A block of four consumer
-// warps and four producer warps walks its k rows through a ring_pipe.cuh
-// ring of ``depth`` 16 KB stages: the producers fill a stage with 16-byte
-// cp.async per row chunk (``streams`` sub-copies of the stage's rows
-// issued in turn), or with element loads where a weight's base or row
-// stride is not 16-byte aligned; the consumers wait on the stage, run an
-// f32 fmaf loop of their rows against it and release it. One warp issuing
-// cp.async cannot keep the stages filled, hence four producer warps (1-D
-// bulk copies, cp.async.bulk, of 64- and 128-byte rows were slower still).
-// The rows' RMSNorm is computed by every block over the whole of k (m x k
-// values, small), and only the block's k-slice of the normalised rows is
-// staged; splits start at multiples of 8 rows, so the slice loads 16 bytes
-// at a time. Each split writes its f32 partial tile to a workspace the
-// wrapper allocates; the last block of a tile to arrive (an atomic ticket
-// after __threadfence) sums the partials in split order 0, 1, 2, ... and
-// applies the epilogue. The tickets reset themselves, so no memset launch
-// is needed. In the MLP tail only the consumers wait at the grid barrier
-// between stages: the producers run on into the next stage's weights,
-// which do not depend on the stage before. No wgmma (at m = 4 a 64-row
-// tile would be 94% padding) and no tensor maps (their encoding per call
-// costs more host time than these kernels' device time).
-//
-// f32: the CUDA-core body of the first port. Each block owns one column
-// tile over all rows (two groups of 16 bytes per k-row, one per thread
-// column), walks k with 128 threads, and recomputes the rows' RMSNorm
-// itself; ``depth``, ``streams`` and the split do not apply. Up to 8192
-// rows of k are staged once a pass (128 KB); a deeper k (qwen2-72b's
-// down-projection, 29568) is staged in slabs of 8192 rows for each tile,
-// every k-lane summing its rows in the same order as when k is whole.
+// One body for both types (bf16 and f32, the template parameter T). The
+// work unit is a tile of 64 output columns (a SwiGLU tile is the same 64
+// columns of wg and of wu) times a split of k. ops.py _plan picks the
+// split from (n, k) and the SM count alone, one item a block on every SM
+// (qwen's qproj, oproj and down 16 x 8, gateup 44 x 3), whatever the type.
+// A block of four consumer warps and four producer warps walks its k rows
+// through a ring_pipe.cuh ring of ``depth`` 16 KB stages. A staged weight
+// row is the tile's columns in 16-byte chunks (8 bf16 or 4 f32 columns a
+// chunk): 128 or 256 bytes a matmul row, 256 or 512 a SwiGLU row, so a
+// stage holds 128 or 64 bf16 rows and 64 or 32 f32 rows. The producers
+// fill a stage with 16-byte cp.async per row chunk (``streams``
+// sub-copies of the stage's rows issued in turn), or with element loads
+// where a weight's base or row stride is not 16-byte aligned; the
+// consumers wait on the stage, run an f32 fmaf loop of their rows against
+// it and release it. One warp issuing cp.async cannot keep the stages
+// filled, hence four producer warps (1-D bulk copies, cp.async.bulk, of
+// 64- and 128-byte rows were slower still). The rows' RMSNorm is computed
+// by every block over the whole of k (m x k values, small), and only the
+// block's k-slice of the normalised rows is staged; splits start at
+// multiples of 8 rows, so the slice loads 16 bytes at a time. Each split
+// writes its f32 partial tile to a workspace the wrapper allocates; the
+// last block of a tile to arrive (an atomic ticket after __threadfence)
+// sums the partials in split order 0, 1, 2, ... and applies the epilogue.
+// The tickets reset themselves, so no memset launch is needed. In the MLP
+// tail only the consumers wait at the grid barrier between stages: the
+// producers run on into the next stage's weights, which do not depend on
+// the stage before. No wgmma (at m = 4 a 64-row tile would be 94%
+// padding) and no tensor maps (their encoding per call costs more host
+// time than these kernels' device time).
 //
 // Numerics follow the reference graph exactly where it rounds: the
-// normalised rows are rounded to the input type before the product, sums
-// are f32, the product is rounded to the output type and the epilogue sees
-// that rounded value (q-bias and RoPE in f32, rounded back; residual added
-// in the output type); SwiGLU computes silu(g) * u in f32 and rounds once.
-// Products are taken with explicit fmaf chains and fixed butterflies, and
-// the epilogues with _rn intrinsics (no contraction), so the same inputs
-// give the same bits wherever a tile is computed: in bf16 a k-lane sums
-// the rows of its split in order, the lanes and warps meet in a fixed
-// order, and the splits are summed in split order, whatever the ring's
-// depth or streams or the copy path. The MLP tail runs its three stages
-// through the same device functions as the standalone kernels (and, in
-// bf16, with the same splits), with grid-wide barriers between them, so
-// it equals the staged composition (matmul -> swiglu -> matmul) bit for
-// bit.
-// Its intermediates (h [m, d] and the SwiGLU activations [m, f]) sit in
-// one scratch buffer the wrapper allocates; they stay in L2 at decode
-// sizes.
-
-#include <cooperative_groups.h>
+// normalised rows are rounded to the input type before the product (the
+// identity in f32), sums are f32, the product is rounded to the output
+// type and the epilogue sees that rounded value (q-bias and RoPE in f32,
+// rounded back; residual added in the output type); SwiGLU computes
+// silu(g) * u in f32 and rounds once. Products are taken with explicit
+// fmaf chains and fixed butterflies, and the epilogues with _rn
+// intrinsics (no contraction), so the same inputs give the same bits
+// wherever a tile is computed: a k-lane sums the rows of its split in
+// order, the lanes and warps meet in a fixed order, and the splits are
+// summed in split order, whatever the ring's depth or streams or the copy
+// path. The MLP tail runs its three stages through the same device
+// functions as the standalone kernels, with the same splits, and grid-wide
+// barriers between them, so it equals the staged composition (matmul ->
+// swiglu -> matmul) bit for bit. Its intermediates (h [m, d] and the
+// SwiGLU activations [m, f]) sit in one scratch buffer the wrapper
+// allocates; they stay in L2 at decode sizes.
 
 #include "ring_pipe.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
 
-// ---------------------------------------------------------------------------
-// f32: the CUDA-core body (and the pieces both bodies share)
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kKThreads = kThreads / 2;  // threads along k; 2 column groups
-constexpr int kRows = 4;                 // rows per pass over the weights
+using bf16 = __nv_bfloat16;
+namespace ring = repro::ring;
 
 enum Epilogue { kNone = 0, kRope = 1, kResidual = 2 };
 
+constexpr int kRows = 4;                // activation rows a pass
+constexpr int kConsumers = 128;         // four consumer warps, one row each
+constexpr int kProducers = 128;         // four producer warps
+constexpr int kRingThreads = kConsumers + kProducers;
+constexpr int kStageBytes = 16384;      // one ring stage
+constexpr int kTile = 64;               // output columns of a tile
+constexpr int kMaxCols = 2 * kTile;     // SwiGLU: 64 columns of wg and wu
+static_assert(kConsumers / 32 == kRows, "one consumer warp a row's norm");
+
+// Columns of T in one 16-byte chunk: 8 bf16, 4 f32.
 template <typename T>
-struct Vec;
-template <>
-struct Vec<float> {
-  static constexpr int n = 4;
-  __device__ static void load(const float* p, float* o) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    o[0] = v.x;
-    o[1] = v.y;
-    o[2] = v.z;
-    o[3] = v.w;
-  }
-};
+constexpr int kVec = 16 / int(sizeof(T));
 
 // Activations are read around the tail's grid barriers, where another
 // block wrote them: load them at L2 (coherent), never through L1.
 __device__ __forceinline__ float load_cg(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float load_cg(const __nv_bfloat16* p) {
+__device__ __forceinline__ float load_cg(const bf16* p) {
   return __bfloat162float(__ushort_as_bfloat16(
       __ldcg(reinterpret_cast<const unsigned short*>(p))));
 }
@@ -118,182 +103,39 @@ __device__ __forceinline__ float round_f(float x) {
   return repro::to_f(repro::from_f<T>(x));
 }
 
-// VEC columns of one weight row from ``col``; columns past n read as 0.
+// The kVec<T> values of one 16-byte chunk as f32.
 template <typename T>
-__device__ __forceinline__ void load_cols(const T* row, int col, int n,
-                                          bool vec, float* o) {
-  constexpr int V = Vec<T>::n;
-  if (vec && col + V <= n) {
-    Vec<T>::load(row + col, o);
+__device__ __forceinline__ void unpack16(const uint4& raw, float* o);
+template <>
+__device__ __forceinline__ void unpack16<bf16>(const uint4& raw, float* o) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    o[2 * e] = f.x;
+    o[2 * e + 1] = f.y;
+  }
+}
+template <>
+__device__ __forceinline__ void unpack16<float>(const uint4& raw, float* o) {
+  o[0] = __uint_as_float(raw.x);
+  o[1] = __uint_as_float(raw.y);
+  o[2] = __uint_as_float(raw.z);
+  o[3] = __uint_as_float(raw.w);
+}
+
+// kVec<T> values from p as f32, of which the first n (any int) are read
+// and the rest are 0; one 16-byte load (at L2, as load_cg) where p is
+// aligned.
+template <typename T>
+__device__ __forceinline__ void load_vec_cg(const T* p, int n, float* o) {
+  constexpr int V = kVec<T>;
+  if (n >= V && reinterpret_cast<uintptr_t>(p) % 16 == 0) {
+    unpack16<T>(__ldcg(reinterpret_cast<const uint4*>(p)), o);
   } else {
 #pragma unroll
-    for (int v = 0; v < V; ++v)
-      o[v] = col + v < n ? repro::to_f(row[col + v]) : 0.f;
+    for (int e = 0; e < V; ++e) o[e] = e < n ? load_cg(p + e) : 0.f;
   }
-}
-
-template <typename T>
-__host__ __device__ constexpr int tile_cols() {
-  return 2 * Vec<T>::n;
-}
-
-// k rows of the activations staged at a time: the whole of k up to
-// kSlab (one staging a pass over the rows), else slabs of kSlab rows
-// restaged for every column tile. A multiple of kKThreads, so a k-lane
-// sums the same rows in the same order whatever the slab.
-constexpr int kSlab = 8192;
-static_assert(kSlab % kKThreads == 0, "a slab keeps each k-lane's rows");
-
-__host__ __device__ __forceinline__ int slab_rows(int k) {
-  return k < kSlab ? k : kSlab;
-}
-
-size_t smem_floats(int k, int tn) {
-  return size_t(kRows) * slab_rows(k)   // staged (normalised) rows
-         + size_t(kWarps) * kRows * tn  // per-warp partial sums
-         + size_t(kRows) * tn           // the tile's sums
-         + kRows;                       // row rsqrt
-}
-
-struct Smem {
-  float* rows;
-  float* red;
-  float* tile;
-  float* rs;
-};
-
-template <typename T>
-__device__ Smem carve(float* smem, int k_max) {
-  constexpr int TN = tile_cols<T>();
-  Smem s;
-  s.rows = smem;
-  s.red = s.rows + kRows * slab_rows(k_max);
-  s.tile = s.red + kWarps * kRows * TN;
-  s.rs = s.tile + kRows * TN;
-  return s;
-}
-
-// The rsqrt of rows r0 .. r0+kRows-1 of a [m, k] (contiguous) for the
-// RMSNorm, over the whole of k: f32 mean square, rsqrt(+eps) (the
-// reference's _rms).
-template <typename T>
-__device__ void row_norms(const T* a, int m, int k, int r0, float eps,
-                          Smem s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // the previous pass is done with the rsqrt
-  for (int r = warp; r < kRows; r += kWarps) {
-    float ss = 0.f;
-    if (r0 + r < m) {
-      const T* row = a + size_t(r0 + r) * k;
-      for (int j = lane; j < k; j += 32) {
-        const float x = load_cg(row + j);
-        ss = fmaf(x, x, ss);
-      }
-    }
-    ss = repro::warp_sum(ss);
-    if (lane == 0) s.rs[r] = rsqrtf(__fadd_rn(__fdiv_rn(ss, float(k)), eps));
-  }
-  __syncthreads();
-}
-
-// Columns [lo, hi) of rows r0 .. r0+kRows-1 of a [m, k] (contiguous) into
-// s.rows [kRows, hi - lo] as f32, through the RMSNorm when nw is given
-// (row_norms' rsqrt, times the f32 weight, rounded to T). Rows past m
-// are 0.
-template <typename T>
-__device__ void stage_rows(const T* a, int m, int k, int r0, int lo, int hi,
-                           const float* nw, Smem s) {
-  const int ks = hi - lo;
-  __syncthreads();  // the previous slab or pass is done with the rows
-  for (int i = threadIdx.x; i < kRows * ks; i += kThreads) {
-    const int r = i / ks, j = lo + i - r * ks;
-    float x = 0.f;
-    if (r0 + r < m) {
-      x = load_cg(a + size_t(r0 + r) * k + j);
-      if (nw != nullptr)
-        x = round_f<T>(__fmul_rn(__fmul_rn(x, s.rs[r]), nw[j]));
-    }
-    s.rows[i] = x;
-  }
-  __syncthreads();
-}
-
-// The activation rows r0 .. of one pass, as the bodies read them: the
-// norms, and the whole of k staged once where it fits a slab (``whole``);
-// otherwise dot_tile stages each slab itself.
-template <typename T>
-struct Rows {
-  const T* a;
-  int m, k, r0;
-  const float* nw;
-  bool whole;
-};
-
-template <typename T>
-__device__ Rows<T> stage_pass(const T* a, int m, int k, int r0,
-                              const float* nw, float eps, Smem s) {
-  if (nw != nullptr) row_norms(a, m, k, r0, eps, s);
-  const bool whole = k <= kSlab;
-  if (whole) stage_rows(a, m, k, r0, 0, k, nw, s);
-  return {a, m, k, r0, nw, whole};
-}
-
-// The pass's rows against columns [c0, c0+V) of w0 and [c1, c1+V) of w1
-// (column group 0 and 1): s.tile[r * TN + g * V + v] = f32 sum over k.
-// Thread (kl, g) sums k = kl, kl+128, ... in order, across slabs; the 16
-// k-lanes of a warp meet in a butterfly, the 8 warps in order 0..7.
-template <typename T>
-__device__ void dot_tile(const Rows<T>& x, const T* w0, const T* w1,
-                         long long ldw, int c0, int c1, int n, bool vec,
-                         Smem s) {
-  constexpr int V = Vec<T>::n, TN = tile_cols<T>();
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = tid & 1, kl = tid >> 1;
-  const T* w = g ? w1 : w0;
-  const int col = g ? c1 : c0;
-  float acc[kRows][V];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[r][v] = 0.f;
-  for (int lo = 0; lo < x.k; lo += kSlab) {
-    const int hi = min(x.k, lo + kSlab), ks = hi - lo;
-    if (!x.whole) stage_rows(x.a, x.m, x.k, x.r0, lo, hi, x.nw, s);
-    for (int j = lo + kl; j < hi; j += kKThreads) {
-      float b[V];
-      load_cols(w + j * ldw, col, n, vec, b);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float xv = s.rows[r * ks + j - lo];
-#pragma unroll
-        for (int v = 0; v < V; ++v) acc[r][v] = fmaf(xv, b[v], acc[r][v]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      float y = acc[r][v];
-#pragma unroll
-      for (int o = 2; o < 32; o <<= 1)
-        y += __shfl_xor_sync(0xffffffffu, y, o);
-      acc[r][v] = y;
-    }
-  if (lane < 2) {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int v = 0; v < V; ++v)
-        s.red[(warp * kRows + r) * TN + lane * V + v] = acc[r][v];
-  }
-  __syncthreads();
-  for (int i = tid; i < kRows * TN; i += kThreads) {
-    float sum = 0.f;
-    for (int w8 = 0; w8 < kWarps; ++w8) sum += s.red[w8 * kRows * TN + i];
-    s.tile[i] = sum;
-  }
-  __syncthreads();
 }
 
 template <typename T>
@@ -311,85 +153,10 @@ struct MatmulArgs {
   const float* freqs;  // kRope: [hd / 2] theta ** (-j / half)
   int hd;              // kRope: head dim
   const T* res;        // kResidual: [m, n] contiguous
-  int split;           // bf16: k split over this many blocks a tile
-  float* ws;           // bf16, split > 1: the splits' f32 partial tiles
-  unsigned* cnt;       // bf16, split > 1: a ticket a tile, left at 0
+  int split;           // k split over this many blocks a tile
+  float* ws;           // split > 1: the splits' f32 partial tiles
+  unsigned* cnt;       // split > 1: a ticket a tile, left at 0
 };
-
-template <typename T>
-__device__ __forceinline__ bool vec_ok(const T* p, long long ld, int n) {
-  constexpr int V = Vec<T>::n;
-  return n % V == 0 && ld % V == 0 &&
-         reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-template <typename T>
-__host__ __device__ __forceinline__ int matmul_tiles(
-    const MatmulArgs<T>& p) {
-  constexpr int TN = tile_cols<T>();
-  return (p.n + TN - 1) / TN;
-}
-
-// Column tile t: with RoPE, group 0 holds head columns [j, j+V) of the
-// first half and group 1 the same columns of the second half, so each
-// rotation pair meets in one block; otherwise the tile is 2V columns.
-template <typename T>
-__device__ __forceinline__ void matmul_cols(const MatmulArgs<T>& p, int t,
-                                            int* c0, int* c1) {
-  constexpr int V = Vec<T>::n;
-  if (p.epilogue == kRope) {
-    const int half = p.hd / 2, per_head = half / V;
-    const int head = t / per_head, j = (t - head * per_head) * V;
-    *c0 = head * p.hd + j;
-    *c1 = *c0 + half;
-  } else {
-    *c0 = t * 2 * V;
-    *c1 = *c0 + V;
-  }
-}
-
-template <typename T>
-__device__ void matmul_body(const MatmulArgs<T>& p, int k_max, int first,
-                            int step, float* smem) {
-  constexpr int V = Vec<T>::n, TN = tile_cols<T>();
-  const Smem s = carve<T>(smem, k_max);
-  const bool vec = vec_ok(p.b, p.ldb, p.n);
-  const int n_tiles = matmul_tiles(p);
-  if (first >= n_tiles) return;
-  for (int r0 = 0; r0 < p.m; r0 += kRows) {
-    const Rows<T> x = stage_pass(p.a, p.m, p.k, r0, p.nw, p.eps, s);
-    for (int t = first; t < n_tiles; t += step) {
-      int c0, c1;
-      matmul_cols(p, t, &c0, &c1);
-      dot_tile(x, p.b, p.b, p.ldb, c0, c1, p.n, vec, s);
-      for (int i = threadIdx.x; i < kRows * TN; i += kThreads) {
-        const int r = i / TN, c = i - r * TN, g = c / V, v = c - g * V;
-        const int row = r0 + r, col = (g ? c1 : c0) + v;
-        if (row >= p.m || col >= p.n) continue;
-        float val = round_f<T>(s.tile[i]);
-        if (p.epilogue == kRope) {
-          // the pair partner sits V columns away in the other group
-          const int pc = g ? c - V : c + V;
-          const int pcol = (g ? c0 : c1) + v;
-          float other = round_f<T>(s.tile[r * TN + pc]);
-          if (p.bias != nullptr) {
-            val = __fadd_rn(val, repro::to_f(p.bias[col]));
-            other = __fadd_rn(other, repro::to_f(p.bias[pcol]));
-          }
-          const int j = (c0 - (c0 / p.hd) * p.hd) + v;
-          const float ang = __fmul_rn(float(p.pos[row]), p.freqs[j]);
-          const float cs = cosf(ang), sn = sinf(ang);
-          const float x1 = g ? other : val, x2 = g ? val : other;
-          val = g ? __fadd_rn(__fmul_rn(x1, sn), __fmul_rn(x2, cs))
-                  : __fsub_rn(__fmul_rn(x1, cs), __fmul_rn(x2, sn));
-        } else if (p.epilogue == kResidual) {
-          val = __fadd_rn(val, load_cg(p.res + size_t(row) * p.n + col));
-        }
-        p.out[size_t(row) * p.n + col] = repro::from_f<T>(val);
-      }
-    }
-  }
-}
 
 template <typename T>
 struct SwigluArgs {
@@ -406,171 +173,31 @@ struct SwigluArgs {
   unsigned* cnt;
 };
 
-template <typename T>
-__host__ __device__ __forceinline__ int swiglu_tiles(
-    const SwigluArgs<T>& p) {
-  constexpr int V = Vec<T>::n;
-  return (p.f + V - 1) / V;
-}
-
-// Tile t: gate columns [tV, tV+V) in group 0, the same up columns in
-// group 1; out = silu(g) * u in f32, rounded once.
-template <typename T>
-__device__ void swiglu_body(const SwigluArgs<T>& p, int k_max, int first,
-                            int step, float* smem) {
-  constexpr int V = Vec<T>::n, TN = tile_cols<T>();
-  const Smem s = carve<T>(smem, k_max);
-  const bool vec = vec_ok(p.wg, p.ldw, p.f) && vec_ok(p.wu, p.ldw, p.f);
-  const int n_tiles = swiglu_tiles(p);
-  if (first >= n_tiles) return;
-  for (int r0 = 0; r0 < p.m; r0 += kRows) {
-    const Rows<T> x = stage_pass(p.x, p.m, p.k, r0, p.nw, p.eps, s);
-    for (int t = first; t < n_tiles; t += step) {
-      const int c0 = t * V;
-      dot_tile(x, p.wg, p.wu, p.ldw, c0, c0, p.f, vec, s);
-      for (int i = threadIdx.x; i < kRows * V; i += kThreads) {
-        const int r = i / V, v = i - r * V;
-        const int row = r0 + r, col = c0 + v;
-        if (row >= p.m || col >= p.f) continue;
-        const float gv = s.tile[r * TN + v], uv = s.tile[r * TN + V + v];
-        const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-gv)));
-        p.out[size_t(row) * p.f + col] =
-            repro::from_f<T>(__fmul_rn(__fmul_rn(gv, sig), uv));
-      }
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    matmul_kernel(MatmulArgs<T> p) {
-  extern __shared__ float smem[];
-  matmul_body(p, p.k, blockIdx.x, gridDim.x, smem);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    swiglu_kernel(SwigluArgs<T> p) {
-  extern __shared__ float smem[];
-  swiglu_body(p, p.k, blockIdx.x, gridDim.x, smem);
-}
-
-// The three stages of the MLP tail, each over all tiles of its output
-// (grid-stride), with grid-wide barriers between them: every block sees
-// the whole of h before stage 2 and the whole activation before stage 3.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    mlp_tail_kernel(MatmulArgs<T> oproj, SwigluArgs<T> gateup,
-                    MatmulArgs<T> down, int k_max) {
-  extern __shared__ float smem[];
-  cg::grid_group grid = cg::this_grid();
-  matmul_body(oproj, k_max, blockIdx.x, gridDim.x, smem);
-  grid.sync();
-  swiglu_body(gateup, k_max, blockIdx.x, gridDim.x, smem);
-  grid.sync();
-  matmul_body(down, k_max, blockIdx.x, gridDim.x, smem);
-}
-
-template <typename T>
-int launch_matmul(const MatmulArgs<T>& p, void* stream) {
-  constexpr int TN = tile_cols<T>();
-  if (p.m == 0 || p.n == 0) return 0;
-  const size_t smem = sizeof(float) * smem_floats(p.k, TN);
-  cudaError_t err = repro::allow_smem(matmul_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  matmul_kernel<T><<<matmul_tiles(p), kThreads, smem,
-                     (cudaStream_t)stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <typename T>
-int launch_swiglu(const SwigluArgs<T>& p, void* stream) {
-  constexpr int TN = tile_cols<T>();
-  if (p.m == 0 || p.f == 0) return 0;
-  const size_t smem = sizeof(float) * smem_floats(p.k, TN);
-  cudaError_t err = repro::allow_smem(swiglu_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  swiglu_kernel<T><<<swiglu_tiles(p), kThreads, smem,
-                     (cudaStream_t)stream>>>(p);
-  return cudaGetLastError();
-}
-
-// The cooperative grid: as many blocks as the most tiles of a stage, but
-// no more than can be resident at once (more is refused at launch with
-// cudaErrorCooperativeLaunchTooLarge).
-template <typename T>
-int launch_tail(const MatmulArgs<T>& oproj, const SwigluArgs<T>& gateup,
-                const MatmulArgs<T>& down, void* stream) {
-  constexpr int TN = tile_cols<T>();
-  if (oproj.m == 0) return 0;
-  int k_max = oproj.k > gateup.k ? oproj.k : gateup.k;
-  k_max = k_max > down.k ? k_max : down.k;
-  const size_t smem = sizeof(float) * smem_floats(k_max, TN);
-  cudaError_t err = repro::allow_smem(mlp_tail_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, mlp_tail_kernel<T>, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  int tiles = matmul_tiles(oproj);
-  const int t2 = swiglu_tiles(gateup), t3 = matmul_tiles(down);
-  tiles = tiles > t2 ? tiles : t2;
-  tiles = tiles > t3 ? tiles : t3;
-  int grid = per_sm * sms;
-  grid = grid < tiles ? grid : tiles;
-  if (grid < 1) grid = 1;  // nothing fits: let the launch report it
-  err = repro::launch_cooperative(mlp_tail_kernel<T>, grid, kThreads, smem,
-                                  stream, oproj, gateup, down, k_max);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// bf16: the weights through the ring, k split over blocks
-// ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
-namespace ring = repro::ring;
-
-constexpr int kConsumers = 128;         // four consumer warps, one row each
-constexpr int kProducers = 128;         // four producer warps
-constexpr int kRingThreads = kConsumers + kProducers;
-constexpr int kStageBytes = 16384;      // one ring stage
-constexpr int kChunk = 8;               // bf16 columns in 16 bytes
-constexpr int kTile = 64;               // output columns of a tile
-constexpr int kMaxChunks = 16;          // SwiGLU: 64 columns of wg and wu
-static_assert(kConsumers / 32 == kRows, "one consumer warp a row's norm");
-
 // ``depth`` stages of the ring; each stage's copy in ``streams`` parts.
 struct Pipe {
   int depth, streams;
 };
 
-// Per kind: 16-byte chunks a staged weight row holds (a matmul tile's 64
-// columns; a SwiGLU tile's 64 columns of wg then the same of wu), its
-// activations, output columns, weight row stride.
+// Per kind: the element type, 16-byte chunks a staged weight row holds (a
+// matmul tile's 64 columns; a SwiGLU tile's 64 columns of wg then the same
+// of wu), its activations, output columns, weight row stride.
 template <typename A>
 struct Kind;
-template <>
-struct Kind<MatmulArgs<bf16>> {
-  static constexpr int chunks = 8;
-  __device__ static const bf16* act(const MatmulArgs<bf16>& p) { return p.a; }
-  __host__ __device__ static int cols(const MatmulArgs<bf16>& p) {
-    return p.n;
-  }
-  __device__ static long long ld(const MatmulArgs<bf16>& p) { return p.ldb; }
+template <typename T>
+struct Kind<MatmulArgs<T>> {
+  using Elem = T;
+  static constexpr int chunks = kTile / kVec<T>;
+  __device__ static const T* act(const MatmulArgs<T>& p) { return p.a; }
+  __host__ __device__ static int cols(const MatmulArgs<T>& p) { return p.n; }
+  __device__ static long long ld(const MatmulArgs<T>& p) { return p.ldb; }
 };
-template <>
-struct Kind<SwigluArgs<bf16>> {
-  static constexpr int chunks = 16;
-  __device__ static const bf16* act(const SwigluArgs<bf16>& p) { return p.x; }
-  __host__ __device__ static int cols(const SwigluArgs<bf16>& p) {
-    return p.f;
-  }
-  __device__ static long long ld(const SwigluArgs<bf16>& p) { return p.ldw; }
+template <typename T>
+struct Kind<SwigluArgs<T>> {
+  using Elem = T;
+  static constexpr int chunks = kMaxCols / kVec<T>;
+  __device__ static const T* act(const SwigluArgs<T>& p) { return p.x; }
+  __host__ __device__ static int cols(const SwigluArgs<T>& p) { return p.f; }
+  __device__ static long long ld(const SwigluArgs<T>& p) { return p.ldw; }
 };
 
 // First k row of split s of ``split``: s * k / split, rounded down to a
@@ -584,65 +211,73 @@ __host__ __device__ __forceinline__ int ring_tiles(const A& p) {
   return (Kind<A>::cols(p) + kTile - 1) / kTile;
 }
 
-// First column of chunk ch (0..7) of matmul tile t, or -1 past the edge.
-// With RoPE, chunks 0-3 hold 32 columns of the first halves of heads and
-// chunks 4-7 the same columns of the second halves, so each rotation pair
-// meets in one tile (a head of 64 is exactly one tile); otherwise the tile
-// is 64 columns in order.
-__device__ __forceinline__ int mm_col(const MatmulArgs<bf16>& p, int t,
-                                      int ch) {
+// First column of chunk ch of matmul tile t, or -1 past the edge. With
+// RoPE, the first half of the tile's chunks holds 32 columns of the first
+// halves of heads and the second half the same columns of the second
+// halves, so each rotation pair meets in one tile, 32 tile columns apart
+// (a head of 64 is exactly one tile); otherwise the tile is 64 columns in
+// order.
+template <typename T>
+__device__ __forceinline__ int mm_col(const MatmulArgs<T>& p, int t, int ch) {
+  constexpr int V = kVec<T>, H = kTile / V / 2;  // chunks a half tile
   if (p.epilogue == kRope) {
-    const int half = p.hd / 2, per_head = half / kChunk;
-    const int pair = t * 4 + (ch & 3);
-    if (pair >= p.n / (2 * kChunk)) return -1;
+    const int half = p.hd / 2, per_head = half / V;
+    const int pair = t * H + ch % H;
+    if (pair >= p.n / (2 * V)) return -1;
     const int head = pair / per_head;
-    return head * p.hd + (pair - head * per_head) * kChunk +
-           (ch >= 4 ? half : 0);
+    return head * p.hd + (pair - head * per_head) * V + (ch >= H ? half : 0);
   }
-  const int c = t * kTile + ch * kChunk;
+  const int c = t * kTile + ch * V;
   return c < p.n ? c : -1;
 }
 
 // Where chunk ch of tile t is read: the chunk's columns at weight row 0,
-// and how many of its 8 columns are in range (0: none, the chunk is zeros).
+// and how many of its columns are in range (0: none, the chunk is zeros).
+template <typename T>
 struct ChunkSrc {
-  const bf16* w;
+  const T* w;
   int valid;
 };
-__device__ __forceinline__ ChunkSrc chunk_src(const MatmulArgs<bf16>& p,
-                                              int t, int ch) {
+template <typename T>
+__device__ __forceinline__ ChunkSrc<T> chunk_src(const MatmulArgs<T>& p,
+                                                 int t, int ch) {
   const int c = mm_col(p, t, ch);
   if (c < 0) return {p.b, 0};
-  return {p.b + c, min(kChunk, p.n - c)};
+  return {p.b + c, min(kVec<T>, p.n - c)};
 }
-__device__ __forceinline__ ChunkSrc chunk_src(const SwigluArgs<bf16>& p,
-                                              int t, int ch) {
-  const int c = t * kTile + (ch & 7) * kChunk;
+template <typename T>
+__device__ __forceinline__ ChunkSrc<T> chunk_src(const SwigluArgs<T>& p,
+                                                 int t, int ch) {
+  constexpr int V = kVec<T>, H = kTile / V;  // chunks of wg's columns
+  const int c = t * kTile + ch % H * V;
   if (c >= p.f) return {p.wg, 0};
-  return {(ch < 8 ? p.wg : p.wu) + c, min(kChunk, p.f - c)};
+  return {(ch < H ? p.wg : p.wu) + c, min(V, p.f - c)};
 }
 
 // cp.async takes 16-byte aligned chunks: an aligned base and a row stride
 // of whole chunks (ragged n is zero-filled by the copy's source size).
-__device__ __forceinline__ bool aligned16(const bf16* w, long long ld) {
-  return reinterpret_cast<uintptr_t>(w) % 16 == 0 && ld % kChunk == 0;
+template <typename T>
+__device__ __forceinline__ bool aligned16(const T* w, long long ld) {
+  return reinterpret_cast<uintptr_t>(w) % 16 == 0 && ld % kVec<T> == 0;
 }
-__device__ __forceinline__ bool ring_vec(const MatmulArgs<bf16>& p) {
+template <typename T>
+__device__ __forceinline__ bool ring_vec(const MatmulArgs<T>& p) {
   return aligned16(p.b, p.ldb);
 }
-__device__ __forceinline__ bool ring_vec(const SwigluArgs<bf16>& p) {
+template <typename T>
+__device__ __forceinline__ bool ring_vec(const SwigluArgs<T>& p) {
   return aligned16(p.wg, p.ldw) && aligned16(p.wu, p.ldw);
 }
 
 // Dynamic shared memory: the ring's stages, their full and empty
 // barriers, the block's k-slice of kRows activation rows, the per-warp
-// and the block's sums, the rows' rsqrt, the last-block flag.
-// kernels/ff_layer/ops.py _smem_bytes computes the same.
+// and the block's sums, the rows' rsqrt, the last-block flag. The same for
+// both types (the sums are f32 columns). kernels/ff_layer/ops.py
+// _smem_bytes computes the same.
 size_t ring_smem_bytes(int depth, int ks_max) {
   return size_t(depth) * kStageBytes + 16 * size_t(depth) +
          4 * (size_t(kRows) * ks_max +
-              size_t(kConsumers / 32 + 1) * kRows * kMaxChunks * kChunk +
-              kRows) +
+              size_t(kConsumers / 32 + 1) * kRows * kMaxCols + kRows) +
          16;
 }
 
@@ -651,14 +286,14 @@ struct RingSmem {
   uint64_t* full;
   uint64_t* empty;
   float* rows;  // [kRows, ks] the split's slice of the (normalised) rows
-  float* red;   // [warps, kRows, chunks * 8] per-warp sums
-  float* tile;  // [kRows, chunks * 8] the block's sums
+  float* red;   // [warps, kRows, tile columns] per-warp sums
+  float* tile;  // [kRows, tile columns] the block's sums
   float* rs;    // [kRows] row rsqrt
   int* flag;    // this block is the last of its tile
 };
 
 __device__ RingSmem ring_carve(unsigned char* raw, int depth, int ks_max) {
-  constexpr int kSums = kRows * kMaxChunks * kChunk;
+  constexpr int kSums = kRows * kMaxCols;
   RingSmem s;
   s.stages = raw;
   s.full = reinterpret_cast<uint64_t*>(raw + size_t(depth) * kStageBytes);
@@ -687,10 +322,12 @@ __device__ __forceinline__ void consumer_sync() {
 template <typename A>
 __device__ void produce(const A& p, Pipe pp, const RingSmem& sm, int t,
                         int k_lo, int ks, int passes, bool vec, int& g) {
+  using T = typename Kind<A>::Elem;
+  constexpr int V = kVec<T>;
   constexpr int CH = Kind<A>::chunks, RB = CH * 16, R = kStageBytes / RB;
   const int lane = threadIdx.x - kConsumers;
   const long long ld = Kind<A>::ld(p);
-  const ChunkSrc src = chunk_src(p, t, lane % CH);
+  const ChunkSrc<T> src = chunk_src(p, t, lane % CH);
   const int words = (ks + R - 1) / R, sub = R / pp.streams;
   for (int pass = 0; pass < passes; ++pass) {
     for (int q = 0; q < words; ++q, ++g) {
@@ -699,18 +336,18 @@ __device__ void produce(const A& p, Pipe pp, const RingSmem& sm, int t,
       const int rows = min(R, ks - q * R);
       unsigned char* dst =
           sm.stages + size_t(s.stage) * kStageBytes + (lane % CH) * 16;
-      const bf16* w = src.w + (long long)(k_lo + q * R) * ld;
+      const T* w = src.w + (long long)(k_lo + q * R) * ld;
       for (int j = 0; j < pp.streams; ++j) {
         const int end = min((j + 1) * sub, rows);
         for (int r = j * sub + lane / CH; r < end; r += kProducers / CH) {
           if (vec) {
             ring::cp_async_16(dst + r * RB, src.valid ? w + r * ld : src.w,
-                              2 * src.valid);
+                              int(sizeof(T)) * src.valid);
           } else {
-            bf16* d = reinterpret_cast<bf16*>(dst + r * RB);
+            T* d = reinterpret_cast<T*>(dst + r * RB);
 #pragma unroll
-            for (int v = 0; v < kChunk; ++v)
-              d[v] = v < src.valid ? w[r * ld + v] : __float2bfloat16_rn(0.f);
+            for (int v = 0; v < V; ++v)
+              d[v] = v < src.valid ? w[r * ld + v] : repro::from_f<T>(0.f);
           }
         }
       }
@@ -722,65 +359,49 @@ __device__ void produce(const A& p, Pipe pp, const RingSmem& sm, int t,
   }
 }
 
-// Eight bf16 from p as f32, of which the first n (any int) are read and
-// the rest are 0; one 16-byte load (at L2, as load_cg) where p is aligned.
-__device__ __forceinline__ void load8_cg(const bf16* p, int n, float* o) {
-  if (n >= kChunk && reinterpret_cast<uintptr_t>(p) % 16 == 0) {
-    const uint4 v = __ldcg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h[e]);
-      o[2 * e] = f.x;
-      o[2 * e + 1] = f.y;
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < kChunk; ++e) o[e] = e < n ? load_cg(p + e) : 0.f;
-  }
-}
-
 // Rows r0 .. r0+kRows-1 of a [m, k] (contiguous) at columns [k_lo,
 // k_lo+ks) into sm.rows as f32, through the RMSNorm when nw is given: the
 // mean square over the whole row (warp w sums row r0+w; lane l takes the
-// groups of 8 from 8l, 256 apart, in order, whatever the alignment),
-// rsqrt(+eps), times the f32 weight, rounded to bf16 (the reference's
-// _rms). Rows past m are 0. These reads are latency, not bandwidth: every
-// thread issues a batch of loads before it uses one, and where the rows
-// are 16-byte aligned (k % 8 == 0; split_lo aligns the slice) the slice's
-// first batch goes out beside the norm's.
-__device__ void stage_slice(const bf16* a, int m, int k, int r0, int k_lo,
+// 16-byte groups from group l, 32 groups apart, in order, whatever the
+// alignment), rsqrt(+eps), times the f32 weight, rounded to T (the
+// reference's _rms). Rows past m are 0. These reads are latency, not
+// bandwidth: every thread issues a batch of loads (32 values of its norm
+// row, 16 of the slice, in either type) before it uses one, and where the
+// rows are 16-byte aligned (k a multiple of a chunk; split_lo aligns the
+// slice) the slice's first batch goes out beside the norm's.
+template <typename T>
+__device__ void stage_slice(const T* a, int m, int k, int r0, int k_lo,
                             int ks, const float* nw, float eps,
                             const RingSmem& sm) {
-  constexpr int kGroups = 4, kBatch = 8, kVec = 2;
+  constexpr int V = kVec<T>;
+  constexpr int kGroups = 32 / V, kBatch = 8, kPer = 16 / V;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const bool vec =
-      k % kChunk == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
-  const int per_row = ks / kChunk, vtotal = vec ? kRows * per_row : 0;
-  float x[kVec][kChunk], w[kVec][kChunk];
+  const bool vec = k % V == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  const int per_row = ks / V, vtotal = vec ? kRows * per_row : 0;
+  float x[kPer][V], w[kPer][V];
   auto load_batch = [&](int i0) {
 #pragma unroll
-    for (int u = 0; u < kVec; ++u) {
+    for (int u = 0; u < kPer; ++u) {
       const int i = i0 + u * kConsumers, r = i / per_row;
-      const int j = k_lo + (i - r * per_row) * kChunk;
+      const int j = k_lo + (i - r * per_row) * V;
       const bool live = i < vtotal && r0 + r < m;
-      load8_cg(a + size_t(r0 + r) * k + j, live ? kChunk : 0, x[u]);
+      load_vec_cg(a + size_t(r0 + r) * k + j, live ? V : 0, x[u]);
 #pragma unroll
-      for (int e = 0; e < kChunk; ++e)
+      for (int e = 0; e < V; ++e)
         w[u][e] = live && nw != nullptr ? nw[j + e] : 0.f;
     }
   };
   auto store_batch = [&](int i0) {
 #pragma unroll
-    for (int u = 0; u < kVec; ++u) {
+    for (int u = 0; u < kPer; ++u) {
       const int i = i0 + u * kConsumers, r = i / per_row;
       if (i >= vtotal) break;
-      float* dst = sm.rows + r * ks + (i - r * per_row) * kChunk;
+      float* dst = sm.rows + r * ks + (i - r * per_row) * V;
 #pragma unroll
-      for (int e = 0; e < kChunk; ++e) {
+      for (int e = 0; e < V; ++e) {
         float v = x[u][e];
         if (nw != nullptr && r0 + r < m)
-          v = round_f<bf16>(__fmul_rn(__fmul_rn(v, sm.rs[r]), w[u][e]));
+          v = round_f<T>(__fmul_rn(__fmul_rn(v, sm.rs[r]), w[u][e]));
         dst[e] = v;
       }
     }
@@ -790,18 +411,18 @@ __device__ void stage_slice(const bf16* a, int m, int k, int r0, int k_lo,
   if (nw != nullptr) {
     float ss = 0.f;
     if (r0 + warp < m) {
-      const bf16* row = a + size_t(r0 + warp) * k;
-      for (int j0 = lane * kChunk; j0 < k; j0 += 32 * kChunk * kGroups) {
-        float y[kGroups][kChunk];
+      const T* row = a + size_t(r0 + warp) * k;
+      for (int j0 = lane * V; j0 < k; j0 += 32 * V * kGroups) {
+        float y[kGroups][V];
 #pragma unroll
         for (int u = 0; u < kGroups; ++u) {
-          const int j = j0 + u * 32 * kChunk;
-          load8_cg(row + j, k - j, y[u]);
+          const int j = j0 + u * 32 * V;
+          load_vec_cg(row + j, k - j, y[u]);
         }
 #pragma unroll
         for (int u = 0; u < kGroups; ++u)
 #pragma unroll
-          for (int e = 0; e < kChunk; ++e) ss = fmaf(y[u][e], y[u][e], ss);
+          for (int e = 0; e < V; ++e) ss = fmaf(y[u][e], y[u][e], ss);
       }
     }
     ss = repro::warp_sum(ss);
@@ -811,8 +432,8 @@ __device__ void stage_slice(const bf16* a, int m, int k, int r0, int k_lo,
   }
   if (vec) {
     store_batch(tid);
-    for (int i0 = tid + kVec * kConsumers; i0 < vtotal;
-         i0 += kVec * kConsumers) {
+    for (int i0 = tid + kPer * kConsumers; i0 < vtotal;
+         i0 += kPer * kConsumers) {
       load_batch(i0);
       store_batch(i0);
     }
@@ -838,7 +459,7 @@ __device__ void stage_slice(const bf16* a, int m, int k, int r0, int k_lo,
       if (i >= total) break;
       float v = xs[u];
       if (nw != nullptr && r0 + r < m)
-        v = round_f<bf16>(__fmul_rn(__fmul_rn(v, sm.rs[r]), ws[u]));
+        v = round_f<T>(__fmul_rn(__fmul_rn(v, sm.rs[r]), ws[u]));
       sm.rows[i] = v;
     }
   }
@@ -848,45 +469,39 @@ __device__ void stage_slice(const bf16* a, int m, int k, int r0, int k_lo,
 // One landed word: rows i0 .. i0+nrows-1 of the split. Thread (kl, cg)
 // takes chunk cg of the rows i with i % KL == kl, in order (R is a
 // multiple of KL, so that holds across words).
-template <int CH>
+template <typename T, int CH>
 __device__ __forceinline__ void consume_word(const unsigned char* stage,
                                              const float* rows, int ks,
                                              int i0, int nrows,
-                                             float (&acc)[kRows][kChunk]) {
-  constexpr int RB = CH * 16, KL = kConsumers / CH;
+                                             float (&acc)[kRows][kVec<T>]) {
+  constexpr int V = kVec<T>, RB = CH * 16, KL = kConsumers / CH;
   const int cg = threadIdx.x % CH, kl = threadIdx.x / CH;
   auto row = [&](int rr) {
-    const uint4 raw =
-        *reinterpret_cast<const uint4*>(stage + rr * RB + cg * 16);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    float w[kChunk];
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const float2 f = __bfloat1622float2(h[v]);
-      w[2 * v] = f.x;
-      w[2 * v + 1] = f.y;
-    }
+    float w[V];
+    unpack16<T>(*reinterpret_cast<const uint4*>(stage + rr * RB + cg * 16),
+                w);
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const float x = rows[r * ks + i0 + rr];
 #pragma unroll
-      for (int v = 0; v < kChunk; ++v) acc[r][v] = fmaf(x, w[v], acc[r][v]);
+      for (int v = 0; v < V; ++v) acc[r][v] = fmaf(x, w[v], acc[r][v]);
     }
   };
 #pragma unroll 2
   for (int rr = kl; rr < nrows; rr += KL) row(rr);
 }
 
-// The k-lanes' sums into sm.tile [kRows, CH * 8]: a butterfly over the
-// k-lanes of a warp, then the four warps in order 0..3.
-template <int CH>
-__device__ void reduce_tile(float (&acc)[kRows][kChunk], const RingSmem& sm) {
-  constexpr int CW = CH * kChunk;
+// The k-lanes' sums into sm.tile [kRows, CH * V]: a butterfly over the
+// k-lanes of a warp (none where a warp is one k-lane), then the four warps
+// in order 0..3.
+template <typename T, int CH>
+__device__ void reduce_tile(float (&acc)[kRows][kVec<T>], const RingSmem& sm) {
+  constexpr int V = kVec<T>, CW = CH * V;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 #pragma unroll
   for (int r = 0; r < kRows; ++r)
 #pragma unroll
-    for (int v = 0; v < kChunk; ++v) {
+    for (int v = 0; v < V; ++v) {
       float x = acc[r][v];
 #pragma unroll
       for (int o = CH; o < 32; o <<= 1)
@@ -897,8 +512,8 @@ __device__ void reduce_tile(float (&acc)[kRows][kChunk], const RingSmem& sm) {
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
 #pragma unroll
-      for (int v = 0; v < kChunk; ++v)
-        sm.red[(warp * kRows + r) * CW + lane * kChunk + v] = acc[r][v];
+      for (int v = 0; v < V; ++v)
+        sm.red[(warp * kRows + r) * CW + lane * V + v] = acc[r][v];
   }
   consumer_sync();
   for (int i = tid; i < kRows * CW; i += kConsumers) {
@@ -909,12 +524,14 @@ __device__ void reduce_tile(float (&acc)[kRows][kChunk], const RingSmem& sm) {
   consumer_sync();
 }
 
-// Rows r0 .. of matmul tile t from sm.tile: round to bf16, then q bias +
+// Rows r0 .. of matmul tile t from sm.tile: round to T, then q bias +
 // RoPE (the pair partner sits 32 columns away in the tile) or the
-// residual, as the CUDA-core body's epilogue. A thread's two outputs load
-// all their operands before either is computed (they are latency).
-__device__ void epilogue(const MatmulArgs<bf16>& p, int t, int r0,
+// residual. A thread's two outputs load all their operands before either
+// is computed (they are latency).
+template <typename T>
+__device__ void epilogue(const MatmulArgs<T>& p, int t, int r0,
                          const RingSmem& sm) {
+  constexpr int V = kVec<T>, HC = kTile / 2;
   constexpr int E = kRows * kTile / kConsumers;
   float val[E], other[E], add0[E], add1[E], pos[E], freq[E];
   int col[E], row[E];
@@ -923,18 +540,18 @@ __device__ void epilogue(const MatmulArgs<bf16>& p, int t, int r0,
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const int i = threadIdx.x + e * kConsumers;
-    const int r = i / kTile, c = i - r * kTile, ch = c / kChunk;
+    const int r = i / kTile, c = i - r * kTile, ch = c / V;
     const int c0 = mm_col(p, t, ch);
     row[e] = r0 + r;
-    col[e] = c0 + c - ch * kChunk;
+    col[e] = c0 + c - ch * V;
     live[e] = row[e] < p.m && c0 >= 0 && col[e] < p.n;
-    second[e] = ch >= 4;
-    val[e] = round_f<bf16>(sm.tile[i]);
+    second[e] = c >= HC;
+    val[e] = round_f<T>(sm.tile[i]);
     other[e] = add0[e] = add1[e] = pos[e] = freq[e] = 0.f;
     if (!live[e]) continue;
     if (p.epilogue == kRope) {
       const int pcol = second[e] ? col[e] - half : col[e] + half;
-      other[e] = round_f<bf16>(sm.tile[second[e] ? i - 32 : i + 32]);
+      other[e] = round_f<T>(sm.tile[second[e] ? i - HC : i + HC]);
       if (p.bias != nullptr) {
         add0[e] = repro::to_f(p.bias[col[e]]);
         add1[e] = repro::to_f(p.bias[pcol]);
@@ -963,22 +580,23 @@ __device__ void epilogue(const MatmulArgs<bf16>& p, int t, int r0,
     } else if (p.epilogue == kResidual) {
       v = __fadd_rn(v, add0[e]);
     }
-    p.out[size_t(row[e]) * p.n + col[e]] = repro::from_f<bf16>(v);
+    p.out[size_t(row[e]) * p.n + col[e]] = repro::from_f<T>(v);
   }
 }
 
 // Rows r0 .. of SwiGLU tile t: silu(g) * u in f32, rounded once.
-__device__ void epilogue(const SwigluArgs<bf16>& p, int t, int r0,
+template <typename T>
+__device__ void epilogue(const SwigluArgs<T>& p, int t, int r0,
                          const RingSmem& sm) {
   for (int i = threadIdx.x; i < kRows * kTile; i += kConsumers) {
     const int r = i / kTile, c = i - r * kTile;
     const int row = r0 + r, col = t * kTile + c;
     if (row >= p.m || col >= p.f) continue;
-    const float gv = sm.tile[r * 2 * kTile + c];
-    const float uv = sm.tile[r * 2 * kTile + kTile + c];
+    const float gv = sm.tile[r * kMaxCols + c];
+    const float uv = sm.tile[r * kMaxCols + kTile + c];
     const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-gv)));
     p.out[size_t(row) * p.f + col] =
-        repro::from_f<bf16>(__fmul_rn(__fmul_rn(gv, sig), uv));
+        repro::from_f<T>(__fmul_rn(__fmul_rn(gv, sig), uv));
   }
 }
 
@@ -987,7 +605,7 @@ __device__ void epilogue(const SwigluArgs<bf16>& p, int t, int r0,
 // and resets the ticket for the next launch.
 template <typename A>
 __device__ void finish_tile(const A& p, int t, const RingSmem& sm) {
-  constexpr int CW = Kind<A>::chunks * kChunk;
+  constexpr int CW = Kind<A>::chunks * kVec<typename Kind<A>::Elem>;
   const int S = p.split, tid = threadIdx.x;
   consumer_sync();  // every consumer's partials, then one fence for all
   if (tid == 0) {
@@ -1043,7 +661,9 @@ __device__ void finish_tile(const A& p, int t, const RingSmem& sm) {
 // (the MLP tail) through one ring.
 template <typename A>
 __device__ void ring_stage(const A& p, Pipe pp, const RingSmem& sm, int& g) {
-  constexpr int CH = Kind<A>::chunks, CW = CH * kChunk;
+  using T = typename Kind<A>::Elem;
+  constexpr int V = kVec<T>;
+  constexpr int CH = Kind<A>::chunks, CW = CH * V;
   constexpr int R = kStageBytes / (CH * 16);
   const int S = p.split, tiles = ring_tiles(p);
   const int passes = (p.m + kRows - 1) / kRows;
@@ -1060,19 +680,19 @@ __device__ void ring_stage(const A& p, Pipe pp, const RingSmem& sm, int& g) {
     const int words = (ks + R - 1) / R;
     for (int r0 = 0; r0 < p.m; r0 += kRows) {
       stage_slice(Kind<A>::act(p), p.m, p.k, r0, k_lo, ks, p.nw, p.eps, sm);
-      float acc[kRows][kChunk];
+      float acc[kRows][V];
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
 #pragma unroll
-        for (int v = 0; v < kChunk; ++v) acc[r][v] = 0.f;
+        for (int v = 0; v < V; ++v) acc[r][v] = 0.f;
       for (int q = 0; q < words; ++q, ++g) {
         const ring::Slot sl(g, pp.depth);
         ring::wait(&sm.full[sl.stage], sl.phase);
-        consume_word<CH>(sm.stages + size_t(sl.stage) * kStageBytes,
-                         sm.rows, ks, q * R, min(R, ks - q * R), acc);
+        consume_word<T, CH>(sm.stages + size_t(sl.stage) * kStageBytes,
+                            sm.rows, ks, q * R, min(R, ks - q * R), acc);
         ring::arrive(&sm.empty[sl.stage]);
       }
-      reduce_tile<CH>(acc, sm);
+      reduce_tile<T, CH>(acc, sm);
       if (S == 1) {
         epilogue(p, t, r0, sm);
         continue;
@@ -1101,16 +721,18 @@ __device__ RingSmem ring_setup(unsigned char* raw, Pipe pp, int ks_max) {
   return sm;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kRingThreads)
-    ring_matmul_kernel(MatmulArgs<bf16> p, Pipe pp, int ks_max) {
+    ring_matmul_kernel(MatmulArgs<T> p, Pipe pp, int ks_max) {
   extern __shared__ __align__(128) unsigned char ring_smem[];
   const RingSmem sm = ring_setup(ring_smem, pp, ks_max);
   int g = 0;
   ring_stage(p, pp, sm, g);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kRingThreads)
-    ring_swiglu_kernel(SwigluArgs<bf16> p, Pipe pp, int ks_max) {
+    ring_swiglu_kernel(SwigluArgs<T> p, Pipe pp, int ks_max) {
   extern __shared__ __align__(128) unsigned char ring_smem[];
   const RingSmem sm = ring_setup(ring_smem, pp, ks_max);
   int g = 0;
@@ -1149,9 +771,10 @@ __device__ void consumer_grid_sync(unsigned* bar) {
 // SM fetches the kernel's code cold at each launch (other kernels run in
 // between on a model's path), and with a copy for each stage the tail was
 // slower than its three staged launches.
+template <typename T>
 __global__ void __launch_bounds__(kRingThreads)
-    ring_mlp_tail_kernel(MatmulArgs<bf16> oproj, SwigluArgs<bf16> gateup,
-                         MatmulArgs<bf16> down, Pipe pp, int ks_max,
+    ring_mlp_tail_kernel(MatmulArgs<T> oproj, SwigluArgs<T> gateup,
+                         MatmulArgs<T> down, Pipe pp, int ks_max,
                          unsigned* bar) {
   extern __shared__ __align__(128) unsigned char ring_smem[];
   const RingSmem sm = ring_setup(ring_smem, pp, ks_max);
@@ -1161,7 +784,7 @@ __global__ void __launch_bounds__(kRingThreads)
     if (stage == 1) {
       ring_stage(gateup, pp, sm, g);
     } else {
-      const MatmulArgs<bf16> mm = stage == 0 ? oproj : down;
+      const MatmulArgs<T> mm = stage == 0 ? oproj : down;
       ring_stage(mm, pp, sm, g);
     }
     if (stage < 2 && consumer) consumer_grid_sync(bar);
@@ -1195,58 +818,36 @@ int launch_ring(Kernel kernel, const A& p, Pipe pp, void* stream) {
 }
 
 // The cooperative grid: as many blocks as the most items of a stage, but
-// no more than can be resident at once.
-int launch_ring_tail(const MatmulArgs<bf16>& oproj,
-                     const SwigluArgs<bf16>& gateup,
-                     const MatmulArgs<bf16>& down, Pipe pp, unsigned* bar,
+// no more than can be resident at once (more is refused at launch with
+// cudaErrorCooperativeLaunchTooLarge).
+template <typename T>
+int launch_ring_tail(const MatmulArgs<T>& oproj, const SwigluArgs<T>& gateup,
+                     const MatmulArgs<T>& down, Pipe pp, unsigned* bar,
                      void* stream) {
   if (oproj.m == 0) return 0;
   int ks_max = max(split_rows(oproj.k, oproj.split),
                    split_rows(gateup.k, gateup.split));
   ks_max = max(ks_max, split_rows(down.k, down.split));
   const size_t smem = ring_smem_bytes(pp.depth, ks_max);
-  cudaError_t err = repro::allow_smem(ring_mlp_tail_kernel, smem);
+  cudaError_t err = repro::allow_smem(ring_mlp_tail_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, ring_mlp_tail_kernel, kRingThreads, smem);
+      &per_sm, ring_mlp_tail_kernel<T>, kRingThreads, smem);
   if (err != cudaSuccess) return err;
   int items = max(ring_tiles(oproj) * oproj.split,
                   ring_tiles(gateup) * gateup.split);
   items = max(items, ring_tiles(down) * down.split);
   int grid = min(per_sm * sms, items);
   if (grid < 1) grid = 1;  // nothing fits: let the launch report it
-  err = repro::launch_cooperative(ring_mlp_tail_kernel, grid, kRingThreads,
-                                  smem, stream, oproj, gateup, down, pp,
-                                  ks_max, bar);
+  err = repro::launch_cooperative(ring_mlp_tail_kernel<T>, grid,
+                                  kRingThreads, smem, stream, oproj, gateup,
+                                  down, pp, ks_max, bar);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
-}
-
-// The entries' launch by type: f32 the CUDA-core body, bf16 the ring.
-int launch(const MatmulArgs<float>& p, Pipe, void* stream) {
-  return launch_matmul(p, stream);
-}
-int launch(const SwigluArgs<float>& p, Pipe, void* stream) {
-  return launch_swiglu(p, stream);
-}
-int launch(const MatmulArgs<bf16>& p, Pipe pp, void* stream) {
-  return launch_ring(ring_matmul_kernel, p, pp, stream);
-}
-int launch(const SwigluArgs<bf16>& p, Pipe pp, void* stream) {
-  return launch_ring(ring_swiglu_kernel, p, pp, stream);
-}
-int launch(const MatmulArgs<float>& oproj, const SwigluArgs<float>& gateup,
-           const MatmulArgs<float>& down, Pipe, void*, void* stream) {
-  return launch_tail(oproj, gateup, down, stream);
-}
-int launch(const MatmulArgs<bf16>& oproj, const SwigluArgs<bf16>& gateup,
-           const MatmulArgs<bf16>& down, Pipe pp, void* cnt, void* stream) {
-  return launch_ring_tail(oproj, gateup, down, pp,
-                          static_cast<unsigned*>(cnt), stream);
 }
 
 // The wrapper's ticket buffer (ops.py _tickets): words 0 and 1 are the
@@ -1309,8 +910,7 @@ SwigluArgs<T> swiglu_args(const void* x, const void* wg, const void* wu,
 }  // namespace
 
 // Every entry takes the ring's depth and streams and each stage's k split
-// with the split workspace and tickets (ops.py _ring); the f32 body
-// ignores them.
+// with the split workspace and tickets (ops.py _ring), in both types.
 
 #define REPRO_FF_LAYER_ENTRIES(SUFFIX, T)                                     \
   extern "C" int ff_layer_matmul_##SUFFIX(                                    \
@@ -1319,17 +919,20 @@ SwigluArgs<T> swiglu_args(const void* x, const void* wg, const void* wu,
       const void* pos, const void* freqs, int hd, const void* res,            \
       int depth, int streams, int split, void* ws, void* cnt,                 \
       void* stream) {                                                         \
-    return launch(matmul_args<T>(a, b, ldb, nw, out, m, n, k, eps, epilogue,  \
-                                 bias, pos, freqs, hd, res, split, ws, cnt),  \
-                  Pipe{depth, streams}, stream);                              \
+    return launch_ring(                                                       \
+        ring_matmul_kernel<T>,                                                \
+        matmul_args<T>(a, b, ldb, nw, out, m, n, k, eps, epilogue, bias, pos, \
+                       freqs, hd, res, split, ws, cnt),                       \
+        Pipe{depth, streams}, stream);                                        \
   }                                                                           \
   extern "C" int ff_layer_swiglu_##SUFFIX(                                    \
       const void* x, const void* wg, const void* wu, long long ldw,           \
       const void* nw, void* out, int m, int f, int k, float eps, int depth,   \
       int streams, int split, void* ws, void* cnt, void* stream) {            \
-    return launch(swiglu_args<T>(x, wg, wu, ldw, nw, out, m, f, k, eps,       \
-                                 split, ws, cnt),                             \
-                  Pipe{depth, streams}, stream);                              \
+    return launch_ring(ring_swiglu_kernel<T>,                                 \
+                       swiglu_args<T>(x, wg, wu, ldw, nw, out, m, f, k, eps,  \
+                                      split, ws, cnt),                        \
+                       Pipe{depth, streams}, stream);                         \
   }                                                                           \
   extern "C" int ff_layer_mlp_tail_##SUFFIX(                                  \
       const void* a, const void* wo, long long ldwo, const void* x,           \
@@ -1337,7 +940,7 @@ SwigluArgs<T> swiglu_args(const void* x, const void* wg, const void* wu,
       const void* wo2, long long ldwo2, void* h, void* act, void* out, int m, \
       int hq, int d, int f, float eps, int depth, int streams, int split1,    \
       int split2, int split3, void* ws, void* cnt, void* stream) {            \
-    return launch(                                                            \
+    return launch_ring_tail<T>(                                               \
         matmul_args<T>(a, wo, ldwo, nullptr, h, m, d, hq, eps, kResidual,     \
                        nullptr, nullptr, nullptr, 0, x, split1, ws, cnt),     \
         swiglu_args<T>(h, wg, wu, ldgu, nw2, act, m, f, d, eps, split2, ws,   \
@@ -1345,7 +948,7 @@ SwigluArgs<T> swiglu_args(const void* x, const void* wg, const void* wu,
         matmul_args<T>(act, wo2, ldwo2, nullptr, out, m, d, f, eps,           \
                        kResidual, nullptr, nullptr, nullptr, 0, h, split3,    \
                        ws, cnt),                                              \
-        Pipe{depth, streams}, cnt, stream);                                   \
+        Pipe{depth, streams}, static_cast<unsigned*>(cnt), stream);           \
   }
 
 REPRO_FF_LAYER_ENTRIES(f32, float)

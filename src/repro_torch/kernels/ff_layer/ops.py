@@ -18,19 +18,19 @@ oproj -> gateup -> down of the ``decode_layer`` StreamGraph
 What bounds them on the H100: at decode a few rows meet a whole weight
 matrix, about 2 operations per weight byte, so each is bound by device
 memory (the weight bytes over 3.35 TB/s), and what keeps it from that is
-the latency of getting enough bytes in flight. In bf16 the work is tiles
-of 64 output columns times a split of k (:func:`_plan`, from the shapes
-and the SM count alone, so every SM streams); each block feeds its weight
-rows through a ring of ``depth`` shared-memory stages (``streams``
-sub-copies a stage, the reference's ``Pipe`` arguments; ``depth=1`` is the
-synchronous copy-then-compute baseline), and the last block of a tile sums
-the splits' partials in split order from a workspace the wrapper
-allocates. The f32 kernels keep one column tile a block over all rows,
-staging k whole up to 8192 rows and in slabs of 8192 beyond. No k is
-refused: bf16 stages at most a split's rows (:func:`_plan` splits any k
-into pieces of at most 2048), f32 a slab.
-The tail keeps its intermediates in an L2-resident scratch buffer instead
-of a second and third launch. ``csrc/ff_layer.cu`` says more.
+the latency of getting enough bytes in flight. One body serves both
+types: the work is tiles of 64 output columns times a split of k
+(:func:`_plan`, from the shapes and the SM count alone, so every SM
+streams, the same plan in bf16 and f32); each block feeds its weight rows
+through a ring of ``depth`` 16 KB shared-memory stages (128 or 64 rows in
+bf16, 64 or 32 in f32; ``streams`` sub-copies a stage, the reference's
+``Pipe`` arguments; ``depth=1`` is the synchronous copy-then-compute
+baseline), and the last block of a tile sums the splits' partials in
+split order from a workspace the wrapper allocates. No k is refused: a
+block stages at most a split's rows (:func:`_plan` splits any k into
+pieces of at most 2048). The tail keeps its intermediates in an
+L2-resident scratch buffer instead of a second and third launch.
+``csrc/ff_layer.cu`` says more.
 
 Each plain version repeats its kernel's rounding points (normalised rows
 rounded to the input type before the product, f32 sums, the product
@@ -64,8 +64,9 @@ from repro_torch.kernels.ff_matmul.ops import _sm_count
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # columns per 16-byte load
 _EPILOGUE = {"none": 0, "rope": 1, "residual": 2}
-# the bf16 ring (csrc/ff_layer.cu): tiles of 64 output columns, 16 KB ring
-# stages, the partial tile of a split [rows, 64] (SwiGLU: g and u, 128)
+# the ring (csrc/ff_layer.cu), both types: tiles of 64 output columns, 16 KB
+# ring stages, the partial tile of a split [rows, 64] f32 (SwiGLU: g and u,
+# 128)
 _TILE = 64
 _STAGE_BYTES = 16384
 _PARTIAL_COLS = {"matmul": 64, "swiglu": 128}
@@ -81,10 +82,11 @@ class Plan(NamedTuple):
 
 
 def _plan(n: int, k: int, sm_count: int) -> Plan:
-    """The bf16 launch's tiles and k split, from the output columns ``n``,
-    the depth ``k`` and the SM count alone: the standalone kernels and the
-    MLP tail's stages get the same plan at the same shape, so they sum in
-    the same order. As many splits as keep tiles x splits within one block
+    """The launch's tiles and k split, from the output columns ``n``, the
+    depth ``k`` and the SM count alone (not the type: a 64-column tile is
+    one plan in bf16 and f32): the standalone kernels and the MLP tail's
+    stages get the same plan at the same shape, so they sum in the same
+    order. As many splits as keep tiles x splits within one block
     an SM (the cooperative tail's grid: 128 of 132 at qwen's projections,
     132 at its gate/up), no fewer than 32 rows a split, no more than 2048
     (what a block stages of its rows)."""
@@ -93,22 +95,25 @@ def _plan(n: int, k: int, sm_count: int) -> Plan:
     return Plan(tiles, max(split, -(-k // _MAX_SPLIT_ROWS)))
 
 
-def _tile_columns(n: int, t: int, head_dim: Optional[int] = None) -> list:
-    """The output columns of bf16 tile ``t`` in the tile's order, as
+def _tile_columns(n: int, t: int, head_dim: Optional[int] = None,
+                  dtype=torch.bfloat16) -> list:
+    """The output columns of tile ``t`` in the tile's order, as
     ``csrc/ff_layer.cu`` ``mm_col`` places them (a SwiGLU tile takes the
     same columns of wg and of wu): 64 in order, or with RoPE 32 columns of
     the first halves of heads, then the same columns of the second halves,
-    in chunks of 8. Columns past n are dropped."""
+    in 16-byte chunks (8 bf16 or 4 f32 columns). Columns past n are
+    dropped."""
     if head_dim is None:
         return list(range(t * _TILE, min(n, (t + 1) * _TILE)))
-    half = head_dim // 2
-    per_head = half // 8
+    vec = _VEC[dtype]
+    half, pairs = head_dim // 2, _TILE // 2 // vec   # chunks a half tile
+    per_head = half // vec
     cols = []
     for second in (0, half):
-        for pair in range(t * 4, min(t * 4 + 4, n // 16)):
+        for pair in range(t * pairs, min((t + 1) * pairs, n // (2 * vec))):
             head = pair // per_head
-            c0 = head * head_dim + (pair - head * per_head) * 8 + second
-            cols += range(c0, c0 + 8)
+            c0 = head * head_dim + (pair - head * per_head) * vec + second
+            cols += range(c0, c0 + vec)
     return cols
 
 
@@ -122,11 +127,11 @@ def _split_rows(k: int, split: int) -> list:
 
 
 def _smem_bytes(depth: int, split_rows: int = _MAX_SPLIT_ROWS + 8) -> int:
-    """Shared memory of a bf16 block (csrc/ff_layer.cu ring_smem_bytes):
-    the stages and their two mbarriers, 4 rows of the split's k slice in
-    f32 (by default the most a plan gives: ``_split_rows`` rounds bounds
-    down to 8), four warps' and the block's sums, the rows' rsqrt, a
-    flag."""
+    """Shared memory of a block (csrc/ff_layer.cu ring_smem_bytes), the
+    same in bf16 and f32: the 16 KB stages and their two mbarriers, 4 rows
+    of the split's k slice in f32 (by default the most a plan gives:
+    ``_split_rows`` rounds bounds down to 8), four warps' and the block's
+    f32 sums of 128 columns, the rows' rsqrt, a flag."""
     return (depth * (_STAGE_BYTES + 16) + 4 * (4 * split_rows + 5 * 512 + 4)
             + 16)
 
@@ -138,8 +143,9 @@ def _pipe(depth: int, streams: int) -> None:
     """``depth`` and ``streams`` checked as the reference's ``Pipe`` checks
     them on its programs' activation stream (a tile of 8 rows): each at
     least 1, ``streams`` dividing 8; ``depth`` stages must also fit in
-    shared memory. A 16 KB stage holds 64 or 128 weight rows, so each
-    sub-copy is at least 8 rows."""
+    shared memory (the same stages in bf16 and f32). A 16 KB stage holds
+    64 or 128 weight rows in bf16, 32 or 64 in f32, so each sub-copy is at
+    least 4 rows."""
     if depth < 1:
         raise ValueError(f"pipe depth must be >= 1, got {depth}")
     if streams < 1:
@@ -377,11 +383,11 @@ def _launch(kernel: str, dtype, device, *args) -> None:
 
 
 def ring_size(m: int, stages, sm_count: int) -> Tuple[list, int, int]:
-    """What bf16 launches of ``stages`` ``[(kind, n, k), ...]`` at ``m``
-    rows need: each stage's k split, the f32 workspace words of the
-    splits' partial tiles (the largest stage's) and the tickets (two
-    words of the MLP tail's grid barrier, then one a column tile of the
-    widest stage). A pure function of the shapes and the SM count."""
+    """What launches of ``stages`` ``[(kind, n, k), ...]`` at ``m`` rows
+    need, in either type: each stage's k split, the f32 workspace words
+    of the splits' partial tiles (the largest stage's) and the tickets
+    (two words of the MLP tail's grid barrier, then one a column tile of
+    the widest stage). A pure function of the shapes and the SM count."""
     plans = [(_plan(n, k, sm_count), _PARTIAL_COLS[kind])
              for kind, n, k in stages]
     words = max(pl.tiles * pl.split * m * cols if pl.split > 1 else 0
@@ -416,14 +422,12 @@ def _tickets(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def _ring(dtype, device, m: int, stages) -> Tuple[list, Optional[
-        torch.Tensor], Optional[torch.Tensor]]:
+def _ring(device, m: int, stages) -> Tuple[list, Optional[torch.Tensor],
+                                            torch.Tensor]:
     """Each stage's k split, the workspace of the splits' f32 partial tiles
     (allocated per call: under capture it lives in the graph's pool) and
     the tickets, for launches of ``stages`` ``[(kind, n, k), ...]`` at
-    ``m`` rows (:func:`ring_size`). f32 does not split."""
-    if dtype != torch.bfloat16:
-        return [1] * len(stages), None, None
+    ``m`` rows (:func:`ring_size`), the same in bf16 and f32."""
     splits, words, tickets = ring_size(m, stages, _sm_count(device.index))
     ws = (torch.empty(words, dtype=torch.float32, device=device)
           if words else None)
@@ -433,7 +437,7 @@ def _ring(dtype, device, m: int, stages) -> Tuple[list, Optional[
 def _launch_matmul(a, b, out, *, norm_weight, eps, epilogue, bias, pos,
                    freqs, head_dim, residual, depth, streams) -> None:
     (m, k), n = a.shape, b.shape[1]
-    (split,), ws, tickets = _ring(a.dtype, a.device, m, [("matmul", n, k)])
+    (split,), ws, tickets = _ring(a.device, m, [("matmul", n, k)])
     _launch("ff_layer_matmul", a.dtype, a.device, a.data_ptr(),
             b.data_ptr(), b.stride(0), _ptr(norm_weight), out.data_ptr(), m,
             n, k, eps, _EPILOGUE[epilogue], _ptr(bias), _ptr(pos),
@@ -444,7 +448,7 @@ def _launch_matmul(a, b, out, *, norm_weight, eps, epilogue, bias, pos,
 def _launch_swiglu(x, wg, wu, out, *, norm_weight, eps, depth,
                    streams) -> None:
     (m, k), f = x.shape, wg.shape[1]
-    (split,), ws, tickets = _ring(x.dtype, x.device, m, [("swiglu", f, k)])
+    (split,), ws, tickets = _ring(x.device, m, [("swiglu", f, k)])
     _launch("ff_layer_swiglu", x.dtype, x.device, x.data_ptr(),
             wg.data_ptr(), wu.data_ptr(), wg.stride(0), _ptr(norm_weight),
             out.data_ptr(), m, f, k, eps, depth, streams, split, _ptr(ws),
@@ -454,7 +458,7 @@ def _launch_swiglu(x, wg, wu, out, *, norm_weight, eps, depth,
 def _launch_tail(a, wo, x, nw2, wg, wu, wo2, out, scratch, *, eps, depth,
                  streams) -> None:
     (m, hq), d, f = a.shape, wo.shape[1], wg.shape[1]
-    splits, ws, tickets = _ring(a.dtype, a.device, m, [
+    splits, ws, tickets = _ring(a.device, m, [
         ("matmul", d, hq), ("swiglu", f, d), ("matmul", d, f)])
     h, act = scratch[:m * d], scratch[m * d:]
     _launch("ff_layer_mlp_tail", a.dtype, a.device, a.data_ptr(),
@@ -481,7 +485,7 @@ def _apply_matmul(a, b, *, norm_weight=None, eps: float = 1e-6,
         multiple of it), optional q ``bias`` [n]: the value plus the bias
         in f32, rotated per head, rounded back;
       * ``residual`` [m, n]: added in the output type.
-    ``policy`` sizes the bf16 weight ring's stages and sub-copies a stage
+    ``policy`` sizes the weight ring's stages and sub-copies a stage
     (:func:`_pipe`); the result does not depend on them. Returns [m, n] in
     a's type. mode="ref" and CPU tensors run :func:`ff_layer_matmul_ref`;
     CUDA tensors launch the kernel."""

@@ -12,8 +12,9 @@ Tolerances: float32 2e-4 (the reference registry's), bfloat16 2e-2; the
 paged kernel equals the contiguous one bit for bit at block_kv == page,
 both decode kernels equal themselves across the ring's depth and streams
 bit for bit (short and split rows, zamba2's head dim 80, pages of 1 to
-32 rows, unaligned caches), and the one-launch MLP tail equals its three
-staged launches bit for bit.
+32 rows, unaligned caches), the decode layer's three kernels (bf16 and
+f32: one ring body) too, and the one-launch MLP tail equals its three
+staged launches bit for bit at every ring setting.
 The library kernels and graphs (matmul, gather, attention_proj,
 moe_dispatch_ffn) are held at float32 5e-4 (the reference registry's tol
 of both graphs) and bfloat16 2e-2, each relative and absolute and chosen
@@ -40,6 +41,7 @@ from repro_torch.kernels.ff_chunk_scan import (chunk_scan, chunk_scan_plain,
                                                chunk_scan_ref, max_depth)
 from repro_torch.kernels.ff_decode_attention import (decode_attention,
                                                      decode_attention_ref)
+from repro_torch.kernels.ff_layer import ops as layer_ops
 from repro_torch.kernels.ff_layer import (ff_layer_matmul,
                                           ff_layer_matmul_ref,
                                           ff_layer_mlp_tail,
@@ -345,11 +347,12 @@ def test_mlp_tail_is_one_launch_equal_to_the_staged_kernels(cuda, dtype, m):
 PIPES = [(d, st) for d in (1, 2, 4) for st in (1, 2)]
 
 
-def _layer_calls(g, m, k=1024, n=1024, f=2816, hd=64):
-    """The bf16 decode-layer kernels at m rows: the qproj (RMSNorm, q bias,
+def _layer_calls(g, m, k=1024, n=1024, f=2816, hd=64,
+                 dtype=torch.bfloat16):
+    """The decode-layer kernels at m rows: the qproj (RMSNorm, q bias,
     RoPE), SwiGLU (RMSNorm) and the MLP tail, each as (call(**pipe),
     plain())."""
-    bf = torch.bfloat16
+    bf = dtype
     x = _randn(g, m, k).to(bf)
     wq = _randn(g, k, n, scale=k ** -0.5).to(bf)
     q_kw = dict(norm_weight=1 + 0.1 * _randn(g, k),
@@ -372,28 +375,68 @@ def _layer_calls(g, m, k=1024, n=1024, f=2816, hd=64):
     }
 
 
-@pytest.mark.parametrize("kernel", ["qproj", "swiglu", "tail"])
+# the f32 ring (one body with bf16): the bf16 grid, the deepest ring and
+# the most sub-copies a stage
+LAYER_PIPES = {torch.bfloat16: PIPES,
+               torch.float32: PIPES + [(layer_ops.MAX_DEPTH, 1), (2, 8)]}
+LAYER_KERNELS = ["qproj", "swiglu", "tail"]
+
+
+@pytest.mark.parametrize(
+    "kernel,dtype", [(k, torch.bfloat16) for k in LAYER_KERNELS]
+    + [(k, torch.float32) for k in LAYER_KERNELS],
+    ids=LAYER_KERNELS + [f"f32-{k}" for k in LAYER_KERNELS])
 def test_bf16_layer_kernels_are_bitwise_across_depth_and_streams(cuda,
-                                                                 kernel):
-    """The serve shape (4 rows, d 1024, 16 heads of 64, f 2816): the
-    weight ring's depth and streams change when rows land, not what is
-    summed."""
+                                                                 kernel,
+                                                                 dtype):
+    """The serve shape (4 rows, d 1024, 16 heads of 64, f 2816), bf16 and
+    f32: the weight ring's depth and streams change when rows land, not
+    what is summed."""
     call, plain = _layer_calls(torch.Generator(device=cuda).manual_seed(21),
-                               4)[kernel]
+                               4, dtype=dtype)[kernel]
     base = call(depth=1, streams=1)
-    for depth, streams in PIPES:
+    for depth, streams in LAYER_PIPES[dtype]:
         assert torch.equal(call(depth=depth, streams=streams), base)
-    assert _err(base, plain()) <= TOL[torch.bfloat16]
+    assert _err(base, plain()) <= TOL[dtype]
 
 
-@pytest.mark.parametrize("m", [1, 4, 13, 16])
-def test_bf16_mlp_tail_equals_staged_at_every_pipe(cuda, m):
+TAIL_ROWS = [1, 4, 13, 16]
+
+
+@pytest.mark.parametrize(
+    "m,dtype", [(m, torch.bfloat16) for m in TAIL_ROWS]
+    + [(m, torch.float32) for m in TAIL_ROWS],
+    ids=[str(m) for m in TAIL_ROWS] + [f"f32-{m}" for m in TAIL_ROWS])
+def test_bf16_mlp_tail_equals_staged_at_every_pipe(cuda, m, dtype):
     args = _tail_inputs(torch.Generator(device=cuda).manual_seed(22),
-                        torch.bfloat16, m)
-    for depth, streams in ((1, 1), (2, 1), (4, 2)):
+                        dtype, m)
+    pipes = ((1, 1), (2, 1), (4, 2)) + (
+        ((layer_ops.MAX_DEPTH, 8),) if dtype == torch.float32 else ())
+    for depth, streams in pipes:
         fused = ff_layer_mlp_tail(*args, depth=depth, streams=streams)
         assert torch.equal(fused, mlp_tail_staged(*args, depth=depth,
                                                   streams=streams))
+
+
+@pytest.mark.parametrize("kind", ["matmul", "swiglu"])
+def test_f32_layer_at_qwen2_72b_down_k_matches_plain(cuda, kind):
+    """k 29568 (qwen2-72b's down-projection): the f32 ring splits k into
+    pieces of at most 2048 rows, no slabs; a SwiGLU at the same depth
+    too. 64 + 5 output columns keep the weights small."""
+    g = torch.Generator(device=cuda).manual_seed(26)
+    f32 = torch.float32
+    m, k, n = 4, 29568, 69
+    a = _randn(g, m, k)
+    b = _randn(g, k, 2 * n, scale=k ** -0.5)
+    if kind == "matmul":
+        res = _randn(g, m, n)
+        out = ff_layer_matmul(a, b[:, :n], residual=res)
+        ref = ff_layer_matmul_ref(a, b[:, :n], residual=res)
+    else:
+        nw = 1 + 0.1 * _randn(g, k)
+        out = ff_layer_swiglu(a, b[:, :n], b[:, n:], norm_weight=nw)
+        ref = ff_layer_swiglu_ref(a, b[:, :n], b[:, n:], norm_weight=nw)
+    assert out.dtype == f32 and _err(out, ref) <= TOL[f32]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -926,13 +969,16 @@ def test_chunk_scan_strong_decay_stays_finite(cuda):
 
 
 def test_chunk_scan_refuses_what_does_not_fit(cuda):
-    """f32 N = 256 at chunk 256: the CUDA-core body's cumsum alone is 263
-    KB, whatever the split of P; and a bf16 ring deeper than
-    ``max_depth``. (N = P = 128 at chunk 256 runs: two slices of P on the
-    CUDA-core body, test_chunk_scan_kernel_matches_plain.)"""
-    x = torch.zeros(1, 256, 256, device=cuda)
+    """f32 N = 1024 at subtile 16: the CUDA-core body's block needs 489 KB
+    of shared memory even at one column of P, so no slice of P fits
+    (``_fma_slices``); and a bf16 ring deeper than ``max_depth``. (N = P
+    = 128 and 256 at chunk 256 run: two and four slices of P on the
+    CUDA-core body, test_chunk_scan_kernel_matches_plain and
+    chip_smoke.py.)"""
+    x = torch.zeros(1, 256, 1024, device=cuda)
+    v = torch.zeros(1, 256, 64, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        chunk_scan(x, x, x, x, chunk=256)
+        chunk_scan(x, x, v, x, chunk=256)
     b = torch.zeros(1, 256, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="shared memory"):
         chunk_scan(b, b, b, b, depth=max_depth(64, 64, b.dtype) + 1)
