@@ -42,7 +42,9 @@ Phases (any failure exits non-zero without the final result line):
      S = 200 with chunk 32/64/128, at N = P = 128 with chunk 256 and on a
      strong decay (f32 and bf16), float32 within 3e-5 of max |plain| and
      bfloat16 within 2e-2, and the bf16 scan at both models' shapes equal
-     across the ring's depth {1, 2, 4} x streams {1, 2}; attention and decode
+     across the ring's depth {1, 2, 4} x streams {1, 2}, the f32 scan (the
+     f32 ring body) at both models' shapes and at N = P = 256 across depth
+     {1, 2, 4, deepest} x streams {1, 2, 4}; attention and decode
      attention at zamba2's head dim 80, attention at head dim 128 (qwen2-
      72b's heads, GQA 8); the smoke rwkv6 and zamba2 models on the card
      against the CPU (prefill, 3 greedy decode steps; rwkv6 also under
@@ -124,10 +126,13 @@ Phases (any failure exits non-zero without the final result line):
      serve run's lengths, at the prompt-256 run's and on a long cache of
      4 x 16 KV heads at lengths 4096/3500/2900/2048, masked SDPA beside
      the contiguous one; the chunk scan at both recurrent models' prefill
-     shapes at chunk 64 and 256), and each fused launch against its staged
+     shapes at chunk 64 and 256, and its f32 ring body at N = P = 256 and
+     at both models' shapes in f32, with where a block's cycles go), and
+     each fused launch against its staged
      composition; then the paper's depth experiment: the matmul at both
      LIB shapes, the MoE dispatch, attention and attention_proj at q/k/v
-     [64,256,64], the chunk scan at both models' prefill shapes, and the
+     [64,256,64], the chunk scan at both models' prefill shapes (and in
+     f32 at N = P = 256), and the
      decode layer's q-projection, SwiGLU and MLP tail at B = 4, and both
      decode-attention kernels at the prompt-256 and long shapes, and the
      gather at both LIB shapes, at every ring depth {1, 2, 3, 4, 6} x
@@ -398,7 +403,10 @@ KERNELS = {
         replaces="src/repro/models/moe.py:222"),
     "ff_chunk_scan": dict(
         source="src/repro_torch/kernels/csrc/ff_chunk_scan.cu",
-        replaces="src/repro/kernels/ff_chunk_scan/kernel.py:170"),
+        replaces="src/repro/kernels/ff_chunk_scan/kernel.py:170",
+        # the tensor-core body (bf16 q/k/v, the models' paths) and the f32
+        # ring body (every other call)
+        symbols=["ring_scan_kernel", "f32_ring_scan_kernel"]),
     # hand-fused, no Pallas counterpart: the update XLA fuses into the
     # reference's jitted train step
     "adamw": dict(
@@ -1323,7 +1331,8 @@ def depth_sweep(torch, dev, shapes):
     bf16, the gathered f32 dispatch) and f32 attention at both serve
     shapes (q/k/v [64,32,64] and [64,256,64]), then row 1 and row 8a at
     q/k/v [64,256,64] (qwen's 4 x 256-token prefill; 8a into d_model
-    1024), row 9 at both recurrent models' prefill shapes (chunk 64),
+    1024), row 9 at both recurrent models' prefill shapes (chunk 64) and
+    row 9 f32 (N = P = 256, chunk 256),
     then rows 4-6 at the serve shape (B = 4) in bf16, then in f32 there
     and at qwen2-72b's widths, row 7 (the gather) at both LIB shapes,
     then rows 2 and 3 at ``decode_256`` and ``decode_long``, device ms
@@ -1405,6 +1414,13 @@ def depth_sweep(torch, dev, shapes):
                       lambda sargs=sargs, inc=not exclusive, **kw:
                       chunk_scan(*sargs, inclusive=inc, chunk=64, **kw),
                       100, SO.max_depth(n, p, sargs[3].dtype)))
+    # the f32 ring body at PERF.md's row 9 f32 shape
+    wargs = scan_operands(torch, dev, gen, 16, 256, 256, 256, True,
+                          torch.float32)
+    cases.append(("ff_chunk_scan f32 N=P=256 exclusive+u, chunk 256",
+                  lambda **kw: chunk_scan(*wargs, inclusive=False, chunk=256,
+                                          **kw),
+                  20, SO.f32_max_depth(256, 256)))
     for label, fn in (
             ("qproj", lambda **kw: FL.ff_layer_matmul(t["x"], t["wq"],
                                                       **q_kw, **kw)),
@@ -1878,10 +1894,16 @@ def check_scan_kernel(torch, dev):
     = -3, a chunk's decay e^-192) in f32 and bf16. f32 within 3e-5 of max
     |plain|, bf16 within 2e-2; the f32 cases also against the naive scan.
     The bf16 scan (the ring body) at both models' prefill shapes is then
-    equal bit for bit across the ring's depth x streams (PIPE_GRID)."""
+    equal bit for bit across the ring's depth x streams (PIPE_GRID), and
+    the f32 scan (the f32 ring body) at both models' prefill shapes and at
+    N = P = 256 across depth {1, 2, 4, its deepest} x streams {1, 2, 4}.
+    Last, the f32 body over a long row (S = 4096) at one decay near 1:
+    within SCAN_F32_TOL of the float64 scan, and no further from it than
+    the f32 naive scan."""
     from repro_torch.kernels.ff_chunk_scan import (chunk_scan,
                                                    chunk_scan_plain,
-                                                   chunk_scan_ref)
+                                                   chunk_scan_ref,
+                                                   f32_max_depth, max_depth)
     gen = torch.Generator(device=dev).manual_seed(9)
     s = SSM["prompt"]
     main_err = None
@@ -1903,10 +1925,13 @@ def check_scan_kernel(torch, dev):
         for exclusive in (False, True):
             cases.append(("N=P=128 chunk=256", 4, 300, 128, 128, exclusive,
                           256, dtype, False, 1))
-            # the CUDA-core body's cumsum carried a subtile at a time: N =
-            # 256 at chunk 256 fits (four slices of 64 columns)
+            # the f32 ring body in both types: N = 256 (8 slices of 32
+            # columns, at most three 51 KB stages in f32)
             cases.append(("N=P=256 chunk=256", 4, 300, 256, 256, exclusive,
                           256, dtype, False, 1))
+            # 16 state rows a thread, one stage in f32
+            cases.append(("N=512 P=64 chunk=128", 1, 200, 512, 64,
+                          exclusive, 128, dtype, False, 1))
     for (label, bh, s_, n, p, exclusive, chunk, dtype, model_types,
          heads) in cases:
         ops_ = scan_operands(torch, dev, gen, bh, s_, n, p, exclusive, dtype,
@@ -1935,6 +1960,13 @@ def check_scan_kernel(torch, dev):
             check_pipe_bitwise(torch, f"ff_chunk_scan {label} {mode}",
                                lambda **pk: chunk_scan(*ops_, **kw, **pk),
                                out)
+        if dtype == torch.float32 and (label.endswith("path")
+                                       or label.startswith("N=P=256")):
+            # the f32 ring body: every depth up to its deepest
+            check_pipe_bitwise(
+                torch, f"ff_chunk_scan f32 {label} {mode}",
+                lambda **pk: chunk_scan(*ops_, **kw, **pk), out,
+                f32_grid(f32_max_depth(n, p), (1, 2, 4)))
     ones = torch.ones(2, 256, 64, device=dev)
     lw = torch.full((2, 256, 64), -3.0, device=dev)
     for exclusive in (False, True):
@@ -1954,7 +1986,44 @@ def check_scan_kernel(torch, dev):
               bool(out.isfinite().all().item()) and e < BF16_TOL,
               f"finite, max|kernel-naive|/max|naive|={e:.3e} "
               f"tol={BF16_TOL}")
+    # a long row at one decay near 1: the carried state's decay must not
+    # drift with S. The f32 naive scan drifts by itself (the rounding of
+    # its per-row exp compounds), so the float64 scan is the yardstick and
+    # the kernel must lie no further from it than the naive scan
+    for lw_c in (-1e-3, -1e-4):
+        for exclusive in (False, True):
+            q, k, v, _, u = scan_operands(torch, dev, gen, 2, 4096, 64, 64,
+                                          exclusive, torch.float32)
+            lw_l = torch.full_like(q, lw_c)
+            inc = not exclusive
+            out = chunk_scan(q, k, v, lw_l, u, inclusive=inc)
+            exact = scan_f64(torch, q, k, v, lw_l, u, inc)
+            naive = chunk_scan_ref(q, k, v, lw_l, u, inclusive=inc)
+            e, e_naive = scan_err(out, exact), scan_err(naive, exact)
+            ok = e < SCAN_F32_TOL and e <= e_naive
+            detail = (f"vs float64 {e:.3e}, the f32 naive scan vs float64 "
+                      f"{e_naive:.3e}, kernel vs naive "
+                      f"{scan_err(out, naive):.3e}")
+            mode = "exclusive+u" if exclusive else "inclusive"
+            check(f"ff_chunk_scan f32 long row S=4096 lw={lw_c} {mode}", ok,
+                  f"{detail} tol={SCAN_F32_TOL}")
     return {"ff_chunk_scan": main_err}
+
+
+def scan_f64(torch, q, k, v, log_w, u, inclusive):
+    """The naive scan in float64: the exact result to f32's eyes."""
+    q, k, v = q.double(), k.double(), v.double()
+    lw = torch.clamp(log_w.double(), max=0.0)
+    h = torch.zeros(q.shape[0], q.shape[2], v.shape[2], dtype=torch.float64,
+                    device=q.device)
+    ys = []
+    for t in range(q.shape[1]):
+        kv = k[:, t, :, None] * v[:, t, None, :]
+        h_new = torch.exp(lw[:, t])[:, :, None] * h + kv
+        eff = h_new if inclusive else h + u.double()[:, :, None] * kv
+        ys.append(torch.einsum("bn,bnp->bp", q[:, t], eff))
+        h = h_new
+    return torch.stack(ys, dim=1)
 
 
 # a dense config's head dim 128: qwen2-72b's 64 q heads over 8 KV heads
@@ -2349,43 +2418,96 @@ def time_scan_kernel(torch, dev, scan_launches):
             library="none: no single PyTorch call computes this scan",
             bound=bound(nbytes, ops, "bfloat16")))
         del args, out
-    rows.append(time_scan_wide(torch, dev, gen, flush))
+    rows.extend(time_scan_f32(torch, dev, gen, flush))
     first, *more = rows
     first["more"] = [split_bound(r) for r in more]
     return {"ff_chunk_scan": first}
 
 
-def time_scan_wide(torch, dev, gen, flush):
-    """The f32 scan (the CUDA-core body) at N = P = 256, chunk 256, S =
-    256, 16 rows, exclusive with u: no model's path runs it (their scans
-    are bf16 on the ring body); it is the shape the body refused before
-    its cumsum was carried a subtile at a time. Bound: the f32 bytes over
-    3.35 TB/s against the cost model's operations over the 67 TFLOP/s of
-    f32 outside the tensor cores."""
+def scan_passes(torch, args, kw):
+    """Where a block of the f32 ring body spends its cycles, at the planned
+    ring of the call ``chunk_scan(*args, **kw)``: one more launch with the
+    kernel's clock counters on (thread 0's clock64 deltas a block: waiting
+    for a word, passes AB, C1 and C2), as shares of the block's cycles
+    averaged over the blocks, and cycles a word."""
+    from repro_torch.kernels.ff_chunk_scan import chunk_scan
+    from repro_torch.kernels.ff_chunk_scan import ops as SO
+    seen, restore = spy_resolutions()
+    try:
+        chunk_scan(*args, **kw)
+    finally:
+        restore()
+    choice = seen[-1][3]
+    q, k, v, lw, u = args
+    chunk = choice.tile_kwargs.get("chunk", kw["chunk"])
+    plan = SO._f32_plan(q.shape[0], v.shape[2])
+    clocks = torch.zeros(plan.blocks, 4, dtype=torch.int64, device=q.device)
+    SO._launch(q, k, v, lw, u, chunk, 16, kw["inclusive"], choice.depth,
+               choice.streams, clocks=clocks)
+    torch.cuda.synchronize()
+    c = clocks.double()
+    share = (c / c.sum(1, keepdim=True)).mean(0).tolist()
+    words = -(-q.shape[1] // 16)
+    return {"depth": choice.depth, "streams": choice.streams,
+            "share": dict(zip(("wait", "AB", "C1", "C2"), share)),
+            "cycles_per_word": c.sum(1).mean().item() / words}
+
+
+def time_scan_f32(torch, dev, gen, flush):
+    """The f32 scan (the f32 ring body) at N = P = 256, chunk 256, S = 256,
+    16 rows, exclusive with u (the timing shape of PERF.md's row 9 f32),
+    and at both models' prefill shapes in f32 (chunk 64): no model's path
+    runs it (their scans are bf16 on the tensor-core body). Each row names
+    the body, its plan and its planned ring, the blocks an SM holds there,
+    and where a block's cycles go (``scan_passes``). Bound: the f32 bytes
+    over 3.35 TB/s against the scan's operations, 4 bh S N P (a row's
+    carried-state product and state update, 2 N P each; the body takes no
+    chunk-squared term), over the 67 TFLOP/s of f32 outside the tensor
+    cores."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ff_chunk_scan import chunk_scan, chunk_scan_plain
     from repro_torch.kernels.ff_chunk_scan import ops as SO
-    bh, s, n, p, chunk = 16, 256, 256, 256, 256
-    args = scan_operands(torch, dev, gen, bh, s, n, p, True, torch.float32)
-    kw = dict(inclusive=False, chunk=chunk)
-    print("f. timing ff_chunk_scan f32 N=P=256 chunk 256", flush=True)
-    out = chunk_scan(*args, **kw)
-    nbytes = sum(x.numel() * x.element_size() for x in args) \
-        + out.numel() * out.element_size()
-    ops = bh * (s // chunk) * (2.0 * chunk * n * p * 2
-                               + chunk * chunk * (n + p))
-    return dict(
-        shape=(f"q/k/log_w[{bh},{s},{n}] v[{bh},{s},{p}] u[{bh},{n}] "
-               f"float32, exclusive+u, chunk {chunk}, subtile 16 (CUDA-core "
-               f"body, {SO._fma_slices(n, p, 16)} slices of P)"),
-        launches_on_path=0,
-        ms=time_ms(torch, lambda: chunk_scan(*args, **kw), 20, flush),
-        ms_hot=time_ms(torch, lambda: chunk_scan(*args, **kw), 20),
-        call_ms=call_ms(torch, lambda: chunk_scan(*args, **kw), 10),
-        plain_ms=time_ms(torch, lambda: chunk_scan_plain(*args, **kw), 3,
-                         flush),
-        library_ms=None,
-        library="none: no single PyTorch call computes this scan",
-        bound=bound(nbytes, ops, "float32"))
+    occupancy = _build.load("ff_chunk_scan").ff_chunk_scan_f32_ring_occupancy
+    occupancy.argtypes = [ctypes.c_int] * 4
+    rows = []
+    cases = [("N=P=256", 16, 256, 256, True, 256)] + [
+        (f"{label} prefill", bh, n, p, exclusive, 64)
+        for label, bh, n, p, exclusive in scan_shapes()]
+    for label, bh, n, p, exclusive, chunk in cases:
+        s = 256
+        args = scan_operands(torch, dev, gen, bh, s, n, p, exclusive,
+                             torch.float32)
+        kw = dict(inclusive=not exclusive, chunk=chunk)
+        print(f"f. timing ff_chunk_scan f32 {label} chunk {chunk}",
+              flush=True)
+        out = chunk_scan(*args, **kw)
+        nbytes = sum(x.numel() * x.element_size() for x in args
+                     if x is not None) + out.numel() * out.element_size()
+        ops = 4.0 * bh * s * n * p   # the state's products a row
+        plan = SO._f32_plan(bh, p)
+        passes = scan_passes(torch, args, kw)
+        reps = 20 if n == 256 else 100
+        rows.append(dict(
+            shape=(f"{label}: q/k/log_w[{bh},{s},{n}] v[{bh},{s},{p}]"
+                   f"{' u[%d,%d]' % (bh, n) if exclusive else ''} float32, "
+                   f"{'exclusive+u' if exclusive else 'inclusive'}, chunk "
+                   f"{chunk} (f32 ring body: {plan.slices} slices of "
+                   f"{plan.cols} columns, {plan.blocks} blocks, planned "
+                   f"depth {passes['depth']} streams {passes['streams']})"),
+            launches_on_path=0,
+            blocks=plan.blocks, slices=plan.slices,
+            blocks_per_sm=occupancy(n, 0, plan.cols, passes["depth"]),
+            passes=passes,
+            ms=time_ms(torch, lambda: chunk_scan(*args, **kw), reps, flush),
+            ms_hot=time_ms(torch, lambda: chunk_scan(*args, **kw), reps),
+            call_ms=call_ms(torch, lambda: chunk_scan(*args, **kw), 10),
+            plain_ms=time_ms(torch, lambda: chunk_scan_plain(*args, **kw), 3,
+                             flush),
+            library_ms=None,
+            library="none: no single PyTorch call computes this scan",
+            bound=bound(nbytes, ops, "float32")))
+        del args, out
+    return rows
 
 
 def sdpa_backend(torch, q4, k4, v4, **kw):
@@ -2546,8 +2668,8 @@ def time_f32_bodies(torch, dev, shapes, scan=True):
             torch, lambda: mlp_tail_staged(*tail_args(t)), 50, flush)
         del t
     if scan:
-        rows["ff_chunk_scan"] = [split_bound(time_scan_wide(torch, dev, gen,
-                                                            flush))]
+        rows["ff_chunk_scan"] = [split_bound(r) for r in
+                                 time_scan_f32(torch, dev, gen, flush)]
     print("f32_bodies " + json.dumps(rows), flush=True)
     return rows
 
@@ -5653,6 +5775,21 @@ def phase_k(torch, dev):
           flush=True)
 
 
+def ptxas_stack_frames(log):
+    """(entry, properties) for each kernel entry of a ptxas -v log whose
+    stack frame is not empty (its spills); the entry's mangled name, at
+    most 80 characters of it."""
+    out, entry = [], None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            entry = ln.split("Function properties for", 1)[1].strip()
+        elif entry and "bytes stack frame" in ln:
+            if not ln.strip().startswith("0 bytes stack frame"):
+                out.append((entry[:80], ln.strip()))
+            entry = None
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
@@ -5697,6 +5834,8 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         print(f"built {name}.cu in {secs:.1f} s; " + " | ".join(ptxas),
               flush=True)
+        for entry, props in ptxas_stack_frames(log):
+            print(f"  stack frame in {entry}: {props}", flush=True)
     print(f"a. build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     if opts.f32_timing:

@@ -6,51 +6,48 @@
 //   h_t = diag(exp(lw_t)) h_{t-1} + k_t (x) v_t
 //   inclusive: y_t = q_t . h_t
 //   exclusive: y_t = q_t . (h_{t-1} + diag(u) k_t (x) v_t)
-// with the [N,P] state carried in f32 across chunks of L rows. On the TPU the
-// grid walked (bh, chunk) words in order, four pipes streaming the q, k, v
-// and log_w tiles, and kept the state in VMEM scratch across grid steps;
-// blocks here run in no order, so a block owns a bh row (and a slice of P's
-// columns) and walks the row's chunks in a loop, the state on chip.
+// with the [N,P] state carried in f32. On the TPU the grid walked (bh,
+// chunk) words in order, four pipes streaming the q, k, v and log_w tiles,
+// and kept the state in VMEM scratch across grid steps; blocks here run in
+// no order, so a block owns a bh row (and a slice of P's columns) and
+// walks the row's rows in a loop, the state on chip. Both bodies stream the
+// row 16 rows at a time (a word: q, k and log_w [16, N], v [16, cols])
+// through a ring_pipe.cuh ring of ``depth`` shared-memory stages filled by
+// one producer warp, each stage in ``streams`` parts of its rows issued in
+// turn and completing on the stage's full mbarrier; rows past S arrive as
+// zeros, as the reference's padding gives. At depth 1 the producer cannot
+// fetch a word before the last one is released: the synchronous
+// copy-then-compute baseline. The kernels take the ring's mbarriers, Slot
+// and cp.async from ring_pipe.cuh and lay their stages out themselves, so
+// each stream arrives in its own type and the ring's other users are
+// untouched. Neither body's arithmetic depends on depth or streams: the
+// same bits at every setting.
 //
 // Numerics (the reference's decay-to-boundary factorization, kept so that
-// every exponent is <= 0 and a strong decay underflows to 0 instead of
-// overflowing): with cw the chunk's inclusive cumsum of lw and cq = cw
-// (inclusive) or cw - lw (exclusive),
-//   carried state:      (q_l e^{cq_l}) . h
-//   earlier subtiles:   through the boundary b = the last row before the
-//                       subtile, q_l e^{cq_l - cw_b} against k_s e^{cw_b -
-//                       cw_s}
-//   diagonal subtile:   sum_n q_l e^{min(cq_l - cw_s, 0)} k_s, masked
-//                       s <= l (inclusive) or s < l (exclusive)
-//   bonus:              (sum_n q_l u k_l) v_l
-//   state update:       h = e^{cw_last} h + sum_l (k_l e^{cw_last - cw_l}) v_l
+// every decay factor is e^x with x <= 0 and a strong decay underflows to 0
+// instead of overflowing): with cw the cumsum of lw from a boundary b and
+// cq = cw (inclusive) or cw - lw (exclusive),
+//   carried state:  (q_l e^{cq_l}) . h_b
+//   earlier rows s: q_l e^{cq_l - cw_s} . k_s, masked s <= l (inclusive)
+//                   or s < l (exclusive)
+//   bonus:          (sum_n q_l u k_l) v_l
+//   state update:   h_e = e^{cw_e} h_b + sum_s (k_s e^{cw_e - cw_s}) v_s
 //
 // Bound on this card: each input element is read once and each output
-// written once, bh*s*(3n+2p) elements; the work per chunk is about
-// 2*L*N*P*2 + L^2*(N+P) operations (reference ops.py:chunk_scan_cost), so
-// at N = P = 64 it is bound by bytes (42 MB at rwkv6-7b's 4 x 256 tokens,
-// about 12.5 us at the data sheet's 3.35 TB/s). What the bytes bound
-// leaves out is the diagonal subtile's exact exponents: 16 x 16 / 2 x N
-// of them per 16 rows, on the SM's 16 special-function lanes a clock.
-//
-// Two bodies; ops.py picks one from the types and shapes alone:
+// written once, bh*s*(3n+2p) elements; the work is about 2*N*P*2 operations
+// a row (the carried state's product and the update), so bf16 at N = P =
+// 64 is bound by bytes (42 MB at rwkv6-7b's 4 x 256 tokens, about 12.5 us
+// at the data sheet's 3.35 TB/s) and f32 at N = P = 256 by the 67 TFLOP/s
+// of f32 outside the tensor cores. ops.py picks a body from the types and
+// shapes alone:
 //
 // ring_scan_kernel (q, k and v bfloat16, N in {16, 32, 64, 128}, P a
-// multiple of 16, chunk a multiple of 16, subtile 16): one block per (bh
-// row, slice of P's columns, ops.py _plan), four consumer warps for 64
-// columns (one warp per 16) and one producer warp. The producer streams
-// the row's rows 16 at a time (one subtile: q, k and log_w [16, N], v [16,
-// cols]) through a ring_pipe.cuh ring of ``depth`` shared-memory stages,
-// by 16-byte cp.async with zero fill past S (so rows past S read as zero,
-// as the reference's padding gives), each stage in ``streams`` parts of
-// its rows issued in turn, completing on the stage's full mbarrier. The
-// kernel takes the ring's mbarriers and cp.async from ring_pipe.cuh but
-// lays its stages out itself (rows padded by 16 bytes, not the bf16
-// swizzle of the TMA users), so log_w arrives in its own type (f32 for
-// Mamba2, bf16 for RWKV6) in the producer's stage area and the other
-// users of the ring are untouched. At depth 1 the producer cannot fetch a
-// word before the last one is released: the synchronous baseline. Per
-// word the consumers
+// multiple of 16, chunk a multiple of 16, subtile 16): the tensor-core
+// body. One block per (bh row, slice of P's columns, ops.py _plan), four
+// consumer warps for 64 columns (one warp per 16) and one producer warp
+// copying by 16-byte cp.async with zero fill past S. Its stages: rows
+// padded by 16 bytes, not the bf16 swizzle of the TMA users, log_w in its
+// own type (f32 for Mamba2, bf16 for RWKV6). Per word the consumers
 //   A  carry the chunk's cumsum over the 16 rows (in log2 units, one thread
 //      a column; two roles of N threads each recompute it, so the cumsum
 //      and every exponent after it is the same value in both) and write q
@@ -87,37 +84,63 @@
 // Exponents use ex2.approx on log2-scaled cumsums (relative error ~2^-22,
 // under bf16's 2^-9).
 //
-// chunk_scan_kernel (every other case, f32 among them: the CUDA-core body
-// of the first port): one block of 512 threads per (bh row, slice of P),
-// walking the row's chunks, everything in f32 fmaf chains from shared
-// memory, expf (not the fast approximation). Nothing of a chunk is held
-// whole, its cumsum cw neither: shared memory grows as subtile x N and
-// with the state N x p, never with the chunk, and ops.py splits P when one
-// block cannot hold the state (N = P = 256 at any chunk runs as four
-// slices of 64 columns). The cumsum is carried a subtile at a time: one
-// thread a column adds the subtile's lw rows (read from L2) to the
-// running sum it carries in an [N] vector, and where an earlier row's
-// cumsum is needed again (the earlier subtiles' k decayed to the
-// boundary, the state update) it is recomputed by the same additions in
-// the same order, so every exponent is the bits of a whole-chunk cumsum.
-// Per chunk:
-//   * per subtile of rows: its cumsum (from the boundary row's, carried);
-//     its q, k, v and q-side exponent cq staged (each
-//     stream f32 or bf16 on its own, a row past S read as zero), the scaled
-//     q tiles and the bonus; then the earlier subtiles of the chunk a block
-//     of subtile rows at a time, their k decayed to the boundary as it is
-//     staged (k and v re-read from L2), each block's scores and its terms
-//     of the intra sums, carried in shared memory; then the diagonal block
-//     by exact pairwise exponents, and the output rows;
-//   * the state update, in passes over h of kThreads * kPer elements held
-//     in registers, the chunk's k (decayed to its end by the cumsum
-//     carried again) and v streamed again a subtile at a time; h itself is
-//     overwritten only after the chunk's outputs have read it.
-// Every output is one fmaf chain in a fixed order: the inter sum over N,
-// the intra sum over the chunk's earlier rows in order, the bonus last.
-// Row-indexed [*, N] tiles have a padded stride N+1 so that threads on
-// consecutive rows hit distinct banks. ``depth`` and ``streams`` do not
-// apply to this body.
+// f32_ring_scan_kernel (every other call: f32 or mixed streams, any N up to
+// what shared memory holds, any P, chunk and subtile): the CUDA-core body,
+// f32 arithmetic throughout (fmaf, no bf16 or TF32 rounding). One block per
+// (bh row, slice of at most 32 of P's columns, ops.py _f32_plan): W
+// consumer warps and one producer warp. Each stream arrives in its own
+// type: by 16-byte cp.async where its base and row stride are 16-byte
+// aligned, else (an odd N or P) by element loads and shared-memory stores.
+// The state is carried at every 4-row boundary of a word (the reference's
+// factorization with 4-row chunks): the chunk and subtile the caller
+// names change only the reference's order of summation, and this body
+// takes any of them with the same bits. The decay of a row is a_t =
+// e^{min(lw_t, 0)} (one ex2.approx an element of log_w) and every factor of
+// the factorization is a product of such a's (each <= 1): over a block of
+// rows b..e, qd_l = q_l a_b..a_l (inclusive; a_b..a_{l-1} exclusive), ke_s
+// = k_s a_{s+1}..a_e, sd = a_b..a_e, and the pair factor of (l, s) the a's
+// between them. No pairwise exponent is taken, and no earlier word is
+// read again. Per word the consumers
+//   AB one thread a state row n (looping where N > 32 W): loads its column
+//      of q, k and log_w, takes the 16 decays, writes qd, ke [16, N], sd
+//      [4, N] and the word's correction cr [N] (below) to shared memory in
+//      f32, and sums for each 4-row block
+//      the 10 pair scores (s <= l: inclusive q_l . k_s with the factor
+//      between them, exclusive s < l and the bonus q_l u k_l on the
+//      diagonal) over its rows; the 40 sums are reduced over the warp by
+//      butterflies of 16 (16 shuffles each) and left per warp in shared
+//      memory;
+//   C1 a thread carries the state's rows [n0, n0 + NT) of 4 columns in
+//      registers (NT = 1..16 from N, a template parameter): the 8 lanes of
+//      a quarter-warp share their rows (so their loads of qd, ke and sd
+//      broadcast) and split the 32 columns, the warp's 4 quarters and the
+//      W warps split the rows. For each 4-row block a thread adds its
+//      partial outputs qd_l . h over its rows for its 4 columns (16 values,
+//      each loaded value used 4 times), sums them over the warp's quarters
+//      by two butterfly folds and stores its row of them per warp; then
+//      h = sd h + sum_s ke_s v_s; after the word's four blocks h = h + cr
+//      h. 40 threads sum the pair scores over the warps;
+//   C2 every output is the sum of the W partials in warp order, then its
+//      block's pair scores times v in row order, stored in q's type.
+// The correction: sd, a product of four rounded ex2's, is off e^{sum lw}
+// by up to a few ulp, the same few for the same decays; carried from block
+// to block that error would grow with the rows a state remembers (S/4
+// roundings at a decay near 1, constant over time: past the f32 tolerance
+// at S = 4096, lw = -1e-4). So AB also takes cr = X - ln(sd_0 sd_1 sd_2
+// sd_3), X the sum of the word's 16 clamped log_w, the log by
+// log1pf of the product less one (built as q + s + q s from s = sd - 1,
+// exact while sd >= 1/2, so no rounding near 1 swamps it), and C1 scales
+// the state by 1 + cr once a word: the carried decay is then e^X to 2e-9
+// a word, whatever S. cr is 0 where the word decays below 1/2: the state
+// forgets half of itself each word there, and the roundings cannot build
+// up. A row of the word's own contributions takes that word's few ulp
+// once.
+// The sums' order is fixed by the block's shape alone. A word takes two
+// consumer barriers (after AB and after C1): AB of the next word writes
+// only what C1 has finished reading. The state never leaves the chip.
+// With a non-null ``clocks`` thread 0 adds the clock64 cycles it spends
+// waiting on the full barrier and in AB, C1 and C2 into four counters a
+// block (the passes' times apart; ops.py passes null).
 
 #include "ring_pipe.cuh"
 
@@ -125,289 +148,11 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// ===========================================================================
-// The CUDA-core body
-// ===========================================================================
-
-constexpr int kThreads = 512;
-constexpr int kPer = 8;   // state elements a thread carries in one pass
-
-// A stream element as f32, from a float or a bfloat16 array.
-__device__ __forceinline__ float ld(const void* p, bool b16, long long i) {
-  return b16 ? __bfloat162float(static_cast<const bf16*>(p)[i])
-             : static_cast<const float*>(p)[i];
-}
-
-// The layout of the dynamic shared memory, in floats (mirrored by
-// ops.py:smem_bytes), p being the block's slice of columns: the state
-// [N, p]; per subtile (st rows) its cumsum, q, k, cq and the two scaled q
-// tiles [st, N+1], a block of earlier k [st, N+1] (also the k rows of the
-// state update), the subtile's v and a block of earlier v [st, p], the
-// intra sums [st, p], the scores [st, st], the bonus per row; and six [N]
-// vectors (the last row's cumsum and its decay, u, the cumsum carried to
-// the subtile's boundary and past it, and one carried over earlier rows).
-struct Smem {
-  float *cs, *h, *qs, *ks, *cq, *qi, *qd, *kp, *vs, *vp, *ia, *sc, *cu,
-      *cwl, *dl, *u, *cb, *cn, *cj;
-};
-
-__host__ __device__ inline long long smem_floats(int n, int p, int st) {
-  const long long np = n + 1;
-  return (long long)n * p + 7LL * st * np + 3LL * st * p +
-         (long long)st * st + st + 6LL * n;
-}
-
-__device__ inline Smem carve(float* base, int n, int p, int st) {
-  const int np = n + 1;
-  Smem m;
-  m.cs = base;
-  m.h = m.cs + st * np;
-  m.qs = m.h + n * p;
-  m.ks = m.qs + st * np;
-  m.cq = m.ks + st * np;
-  m.qi = m.cq + st * np;
-  m.qd = m.qi + st * np;
-  m.kp = m.qd + st * np;
-  m.vs = m.kp + st * np;
-  m.vp = m.vs + st * p;
-  m.ia = m.vp + st * p;
-  m.sc = m.ia + st * p;
-  m.cu = m.sc + st * st;
-  m.cwl = m.cu + st;
-  m.dl = m.cwl + n;
-  m.u = m.dl + n;
-  m.cb = m.u + n;
-  m.cn = m.cb + n;
-  m.cj = m.cn + n;
-  return m;
-}
-
+// ``types`` bits: the stream is bfloat16 (else float32)
 enum : int { kQBf16 = 1, kKBf16 = 2, kVBf16 = 4, kWBf16 = 8, kUBf16 = 16 };
 
-// p: this block's columns (blockIdx.y's slice); ldp: v's and out's row
-// length.
-__global__ void __launch_bounds__(kThreads)
-    chunk_scan_kernel(const void* __restrict__ q, const void* __restrict__ k,
-                      const void* __restrict__ v, const void* __restrict__ w,
-                      const void* __restrict__ u, void* __restrict__ out,
-                      int s, int n, int p, int ldp, int chunk, int st,
-                      int inclusive, int types) {
-  extern __shared__ float smem[];
-  const Smem m = carve(smem, n, p, st);
-  const int np = n + 1;
-  const int tid = threadIdx.x;
-  const long long bh = blockIdx.x;
-  const long long qk_base = bh * s * n,
-                  v_base = bh * s * ldp + (long long)blockIdx.y * p;
-  const bool q16 = types & kQBf16, k16 = types & kKBf16, v16 = types & kVBf16,
-             w16 = types & kWBf16, u16 = types & kUBf16;
-  const bool has_u = u != nullptr;
-  // row l (of the sequence) of a stream, zero past S
-  auto qk_row = [&](const void* x, bool b16, int l, int c) {
-    return l < s ? ld(x, b16, qk_base + (long long)l * n + c) : 0.0f;
-  };
-  auto v_row = [&](int l, int c) {
-    return l < s ? ld(v, v16, v_base + (long long)l * ldp + c) : 0.0f;
-  };
-  auto lw_row = [&](int l, int c) {
-    return l < s ? fminf(ld(w, w16, qk_base + (long long)l * n + c), 0.0f)
-                 : 0.0f;
-  };
-
-  // The cumsum of rows l0 .. l0+st-1 into kp, one thread a column carrying
-  // the running sum in run[c] (the cumsum of the row before l0) on to the
-  // subtile's last row; then kp is rewritten in place element by element.
-  auto cum_rows = [&](int l0, float* run) {
-    for (int c = tid; c < n; c += kThreads) {
-      float x = run[c];
-      for (int r = 0; r < st; ++r) {
-        x += lw_row(l0 + r, c);
-        m.kp[r * np + c] = x;
-      }
-      run[c] = x;
-    }
-    __syncthreads();
-  };
-
-  for (int i = tid; i < n * p; i += kThreads) m.h[i] = 0.0f;
-  if (has_u)
-    for (int c = tid; c < n; c += kThreads) m.u[c] = ld(u, u16, bh * n + c);
-
-  for (int c0 = 0; c0 < s; c0 += chunk) {
-    // cb: the cumsum at the subtile's boundary row t0 - 1 (0 before the
-    // chunk); cn: at the subtile's last row. They swap a subtile.
-    float* cb = m.cb;
-    float* cn = m.cn;
-    for (int c = tid; c < n; c += kThreads) cb[c] = 0.0f;
-    for (int t0 = 0; t0 < chunk; t0 += st) {
-      const float* cwb = t0 ? cb : nullptr;
-      // ---- the subtile's cumsum, one thread a column from the boundary's
-      __syncthreads();
-      for (int c = tid; c < n; c += kThreads) {
-        float run = cb[c];
-        for (int r = 0; r < st; ++r) {
-          run += lw_row(c0 + t0 + r, c);
-          m.cs[r * np + c] = run;
-        }
-        cn[c] = run;
-      }
-      __syncthreads();
-      // ---- this subtile's rows: q, k, the q-side exponent, and q decayed
-      //      from the chunk start and from the boundary
-      for (int i = tid; i < st * n; i += kThreads) {
-        const int r = i / n, c = i - r * n, l = c0 + t0 + r;
-        const float qv = qk_row(q, q16, l, c);
-        const float run = m.cs[r * np + c];
-        const float e = inclusive ? run : run - lw_row(l, c);
-        m.qs[r * np + c] = qv;
-        m.ks[r * np + c] = qk_row(k, k16, l, c);
-        m.cq[r * np + c] = e;
-        m.qd[r * np + c] = qv * expf(e);
-        m.qi[r * np + c] = qv * expf(e - (cwb ? cwb[c] : 0.0f));
-      }
-      for (int i = tid; i < st * p; i += kThreads) {
-        const int r = i / p, c = i - r * p;
-        m.vs[i] = v_row(c0 + t0 + r, c);
-        m.ia[i] = 0.0f;
-      }
-      __syncthreads();
-      if (has_u)
-        for (int r = tid; r < st; r += kThreads) {
-          float acc = 0.0f;
-          for (int c = 0; c < n; ++c)
-            acc = fmaf(m.qs[r * np + c] * m.u[c], m.ks[r * np + c], acc);
-          m.cu[r] = acc;
-        }
-
-      // ---- the earlier subtiles of the chunk, a block of st rows at a
-      //      time: k decayed to the boundary (the rows' cumsum carried
-      //      again in cj), the scores by the boundary factorization, their
-      //      terms of the intra sums
-      for (int c = tid; c < n; c += kThreads) m.cj[c] = 0.0f;
-      for (int j0 = 0; j0 < t0; j0 += st) {
-        cum_rows(c0 + j0, m.cj);
-        for (int i = tid; i < st * n; i += kThreads) {
-          const int j = i / n, c = i - j * n;
-          m.kp[j * np + c] = qk_row(k, k16, c0 + j0 + j, c) *
-                             expf(cwb[c] - m.kp[j * np + c]);
-        }
-        for (int i = tid; i < st * p; i += kThreads) {
-          const int j = i / p, c = i - j * p;
-          m.vp[i] = v_row(c0 + j0 + j, c);
-        }
-        __syncthreads();
-        for (int i = tid; i < st * st; i += kThreads) {
-          const int r = i / st, j = i - r * st;
-          const float* a = m.qi + r * np;
-          const float* b = m.kp + j * np;
-          float acc = 0.0f;
-          for (int c = 0; c < n; ++c) acc = fmaf(a[c], b[c], acc);
-          m.sc[i] = acc;
-        }
-        __syncthreads();
-        for (int i = tid; i < st * p; i += kThreads) {
-          const int r = i / p, c = i - r * p;
-          float acc = m.ia[i];
-          for (int j = 0; j < st; ++j)
-            acc = fmaf(m.sc[r * st + j], m.vp[j * p + c], acc);
-          m.ia[i] = acc;
-        }
-        __syncthreads();
-      }
-
-      // ---- the diagonal block: exact pairwise exponents, masked
-      for (int i = tid; i < st * st; i += kThreads) {
-        const int r = i / st, j = i - r * st;
-        float acc = 0.0f;
-        if (inclusive ? r >= j : r > j) {
-          const float* ql = m.qs + r * np;
-          const float* cql = m.cq + r * np;
-          const float* cws = m.cs + j * np;
-          const float* ks = m.ks + j * np;
-          for (int c = 0; c < n; ++c)
-            acc = fmaf(ql[c] * expf(fminf(cql[c] - cws[c], 0.0f)), ks[c],
-                       acc);
-        }
-        m.sc[i] = acc;
-      }
-      __syncthreads();
-
-      // ---- the subtile's output rows
-      for (int i = tid; i < st * p; i += kThreads) {
-        const int r = i / p, c = i - r * p, l = c0 + t0 + r;
-        float inter = 0.0f;
-        for (int e = 0; e < n; ++e)
-          inter = fmaf(m.qd[r * np + e], m.h[e * p + c], inter);
-        float intra = m.ia[i];
-        for (int j = 0; j < st; ++j)
-          intra = fmaf(m.sc[r * st + j], m.vs[j * p + c], intra);
-        float y = inter + intra;
-        if (has_u) y = fmaf(m.cu[r], m.vs[r * p + c], y);
-        if (l < s) {
-          const long long g = v_base + (long long)l * ldp + c;
-          if (q16)
-            static_cast<bf16*>(out)[g] = __float2bfloat16_rn(y);
-          else
-            static_cast<float*>(out)[g] = y;
-        }
-      }
-      __syncthreads();
-      float* const t = cb;
-      cb = cn;
-      cn = t;
-    }
-    // cb now holds the cumsum at the chunk's last row
-    for (int c = tid; c < n; c += kThreads) {
-      const float run = cb[c];
-      m.cwl[c] = run;
-      m.dl[c] = expf(run);
-    }
-
-    // ---- the state update: h = e^{cw_last} h + sum_l (k_l e^{cw_last -
-    //      cw_l}) v_l, each element one chain over the chunk's rows
-    for (int g0 = 0; g0 < n * p; g0 += kThreads * kPer) {
-      float acc[kPer];
-#pragma unroll
-      for (int x = 0; x < kPer; ++x) acc[x] = 0.0f;
-      __syncthreads();  // the previous pass is done with cj and cwl is set
-      for (int c = tid; c < n; c += kThreads) m.cj[c] = 0.0f;
-      for (int l0 = 0; l0 < chunk; l0 += st) {
-        cum_rows(c0 + l0, m.cj);
-        for (int i = tid; i < st * n; i += kThreads) {
-          const int r = i / n, c = i - r * n;
-          m.kp[r * np + c] = qk_row(k, k16, c0 + l0 + r, c) *
-                             expf(m.cwl[c] - m.kp[r * np + c]);
-        }
-        for (int i = tid; i < st * p; i += kThreads) {
-          const int r = i / p, c = i - r * p;
-          m.vp[i] = v_row(c0 + l0 + r, c);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int x = 0; x < kPer; ++x) {
-          const int i = g0 + x * kThreads + tid;
-          if (i < n * p) {
-            const int e = i / p, c = i - e * p;
-            float a = acc[x];
-            for (int r = 0; r < st; ++r)
-              a = fmaf(m.kp[r * np + e], m.vp[r * p + c], a);
-            acc[x] = a;
-          }
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int x = 0; x < kPer; ++x) {
-        const int i = g0 + x * kThreads + tid;
-        if (i < n * p) m.h[i] = fmaf(m.dl[i / p], m.h[i], acc[x]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
 // ===========================================================================
-// The ring body
+// The tensor-core ring body
 // ===========================================================================
 
 constexpr int kRows = 16;        // rows of a ring word: one subtile
@@ -904,31 +649,664 @@ cudaError_t launch_ring_n(int n, const void* q, const void* k, const void* v,
 #undef REPRO_RING_N
 }
 
+// ===========================================================================
+// The CUDA-core ring body (f32 arithmetic)
+// ===========================================================================
+
+constexpr int kBlk = 4;                          // rows between boundaries
+constexpr int kBlks = kRows / kBlk;              // 4-row blocks a word
+constexpr int kPairs = kBlk * (kBlk + 1) / 2;    // (l, s <= l) a block: 10
+constexpr int kScores = kBlks * kPairs;          // 40 a word
+constexpr int kRed = 48;     // the scores padded to three butterflies of 16
+constexpr int kLanes = 32;   // columns of a block
+constexpr int kCT = 4;       // columns a consumer thread
+constexpr int kCG = kLanes / kCT;  // column groups: the lanes of a quarter
+constexpr int kNQ = 32 / kCG;      // state-row groups a warp: its quarters
+
+// The state rows a consumer thread carries at state width N (a template
+// parameter of the body), for each of its 4 columns: four warps up to N =
+// 128, eight up to 256, then 16 rows a thread.
+__host__ __device__ constexpr int f32_nt(int n) {
+  return n <= 16 ? 1 : n <= 32 ? 2 : n <= 64 ? 4 : n <= 256 ? 8 : 16;
+}
+
+// Byte offsets of the CUDA-core body's shared memory (mirrored by
+// ops.py:f32_ring_smem_bytes). A stage: q, k and log_w [16, NS] and v [16,
+// CS], each in its own type (NS, CS: N and the block's columns rounded up
+// to 8, so every row starts 16-byte aligned). Then, in f32: qd and ke [16,
+// NP], sd [4, NP], the word's decay correction [NP] and u [NP] (NP = 4 NT
+// W, the consumers' state rows; zeros past N), the warps' pair scores [W,
+// 48] and their sums [48], the warps' partial outputs [W, 16, 32]; the full
+// and empty mbarriers last.
+struct F32Layout {
+  int ns, cs, np, warps, o_k, o_w, o_v, stage, derived;
+  __host__ __device__ F32Layout(int n, int cols, int types, int nt) {
+    ns = (n + 7) / 8 * 8;
+    cs = (cols + 7) / 8 * 8;
+    warps = (n + kNQ * nt - 1) / (kNQ * nt);
+    np = warps * kNQ * nt;
+    o_k = kRows * ns * (types & kQBf16 ? 2 : 4);
+    o_w = o_k + kRows * ns * (types & kKBf16 ? 2 : 4);
+    o_v = o_w + kRows * ns * (types & kWBf16 ? 2 : 4);
+    stage = o_v + kRows * cs * (types & kVBf16 ? 2 : 4);
+    derived = 4 * ((2 * kRows + kBlks + 2) * np + kRed * warps + kRed +
+                   kRows * kLanes * warps);
+  }
+  __host__ __device__ size_t bytes(int depth) const {
+    return size_t(depth) * stage + derived + 16 * size_t(depth);
+  }
+};
+
+// Element i of a staged tile as f32: a float, or a bfloat16 where ``b16``
+// (ALL32: every stream is float32, nothing to test).
+template <bool ALL32>
+__device__ __forceinline__ float st_ld(const unsigned char* t, bool b16,
+                                       int i) {
+  if (!ALL32 && b16)
+    return __bfloat162float(reinterpret_cast<const bf16*>(t)[i]);
+  return reinterpret_cast<const float*>(t)[i];
+}
+
+// NT consecutive floats from shared memory (16-, 8- or 4-byte aligned as
+// NT is a multiple of 4, 2 or 1), in the widest loads that take them.
+template <int NT>
+__device__ __forceinline__ void lds_nt(float (&x)[NT], const float* p) {
+  if constexpr (NT % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < NT / 4; ++e) {
+      const float4 t = reinterpret_cast<const float4*>(p)[e];
+      x[4 * e] = t.x;
+      x[4 * e + 1] = t.y;
+      x[4 * e + 2] = t.z;
+      x[4 * e + 3] = t.w;
+    }
+  } else if constexpr (NT == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    x[0] = t.x;
+    x[1] = t.y;
+  } else {
+    x[0] = p[0];
+  }
+}
+
+// One step of a warp butterfly that sums 2 CNT values over the lanes that
+// differ in bit ``off``: the lane with that bit clear keeps the first CNT
+// (in x[0, CNT)), the other the last CNT, each adding its partner's.
+template <int CNT, int N>
+__device__ __forceinline__ void fold(float (&x)[N], int lane, int off) {
+  const bool up = lane & off;
+#pragma unroll
+  for (int i = 0; i < CNT; ++i) {
+    const float keep = up ? x[i + CNT] : x[i];
+    const float send = up ? x[i] : x[i + CNT];
+    x[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+  }
+}
+
+// Rows [r0, r0 + rows) of a word's tile: ``ncols`` elements of ``e`` bytes
+// a row, row l of the sequence at byte ``l * ld * e`` of ``src``, into
+// ``dst`` (row stride ``ds`` elements); rows at or past s are zeros. By
+// 16-byte cp.async (a row's last chunk partial, zero-filled) where
+// ``vec``, else by element loads and shared-memory stores.
+__device__ __forceinline__ void copy_rows(unsigned char* dst,
+                                          const unsigned char* src, int e,
+                                          long long ld, int ncols, int ds,
+                                          int l0, int r0, int rows, int s,
+                                          bool vec, int lane) {
+  const int rb = ncols * e, chunks = (rb + 15) / 16;
+  for (int r = r0; r < r0 + rows; ++r) {
+    const int l = l0 + r;
+    const bool ok = l < s;
+    const unsigned char* sr = src + (ok ? l : 0) * ld * e;
+    unsigned char* dr = dst + r * ds * e;
+    if (vec) {
+      for (int c = lane; c < chunks; c += 32)
+        repro::ring::cp_async_16(dr + c * 16, sr + c * 16,
+                                 ok ? min(16, rb - c * 16) : 0);
+    } else if (e == 2) {
+      for (int c = lane; c < ncols; c += 32)
+        reinterpret_cast<bf16*>(dr)[c] =
+            ok ? reinterpret_cast<const bf16*>(sr)[c]
+               : __float2bfloat16_rn(0.0f);
+    } else {
+      for (int c = lane; c < ncols; c += 32)
+        reinterpret_cast<float*>(dr)[c] =
+            ok ? reinterpret_cast<const float*>(sr)[c] : 0.0f;
+    }
+  }
+}
+
+// p: v's and out's row length; cols: the columns of a slice (blockIdx.y's
+// are [y cols, min(p, (y + 1) cols))).
+// The streams a word takes by TMA (``tma`` bits, kTmaQ..kTmaV), ``box``
+// rows a box, ``tx`` bytes a word; the others by cp.async or elements.
+enum : int { kTmaQ = 1, kTmaK = 2, kTmaW = 4, kTmaV = 8 };
+
+// The threads a block of the f32 body may take: W consumer warps and the
+// producer. NT = 8 covers N up to 256 (8 warps); NT = 16 up to 784 (bf16
+// streams; f32 to 576), past which not one stage fits: 13 warps. A bound
+// of 14 warps leaves ptxas 128 registers a thread (17 would leave 96).
+template <int NT>
+constexpr int f32_threads() {
+  return NT == 16 ? 448 : 288;
+}
+
+template <int NT, bool ALL32>
+__global__ void __launch_bounds__(f32_threads<NT>())
+    f32_ring_scan_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_w,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const void* __restrict__ q,
+                         const void* __restrict__ k,
+                         const void* __restrict__ v,
+                         const void* __restrict__ w,
+                         const void* __restrict__ u, void* __restrict__ out,
+                         int s, int n, int p, int cols, int inclusive,
+                         int types, int depth, int streams, int tma, int box,
+                         int tx, long long* __restrict__ clocks) {
+  const F32Layout lay(n, cols, types, NT);
+  const int nc = 32 * lay.warps, np = lay.np;
+  extern __shared__ __align__(1024) unsigned char f32_smem[];
+  unsigned char* stages = f32_smem;
+  float* qd = reinterpret_cast<float*>(stages + size_t(depth) * lay.stage);
+  float* ke = qd + kRows * np;
+  float* sd = ke + kRows * np;
+  float* cr = sd + kBlks * np;
+  float* us = cr + np;
+  float* red = us + np;
+  float* dsum = red + kRed * lay.warps;
+  float* ypart = dsum + kRed;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ypart + kRows * kLanes * lay.warps);
+  uint64_t* empty = full + depth;
+  const int tid = threadIdx.x;
+  const long long row = blockIdx.x;
+  const int p0 = blockIdx.y * cols, ccols = min(cols, p - p0);
+  const int words = (s + kRows - 1) / kRows;
+  const bool q16 = types & kQBf16, k16 = types & kKBf16,
+             v16 = types & kVBf16, w16 = types & kWBf16;
+
+  if (tid == 0) {
+    for (int d = 0; d < depth; ++d) {
+      // the TMA lane's expect_tx, and every producer lane twice a word:
+      // once when its cp.async copies land, once after its element stores
+      repro::ring::init(&full[d], repro::ring::kFullArrivals);
+      repro::ring::init(&empty[d], nc);  // one per consumer thread
+    }
+    repro::ring::fence_init();
+  }
+  for (int i = tid; i < np; i += blockDim.x) {
+    float x = 0.0f;
+    if (u != nullptr && i < n)
+      x = types & kUBf16
+              ? __bfloat162float(static_cast<const bf16*>(u)[row * n + i])
+              : static_cast<const float*>(u)[row * n + i];
+    us[i] = x;
+  }
+  __syncthreads();
+
+  if (tid >= nc) {
+    // ---- the producer warp: word g is rows [16g, 16g+16) of every stream
+    const int lane = tid - nc;
+    const int eq = q16 ? 2 : 4, ek = k16 ? 2 : 4, ew = w16 ? 2 : 4,
+              ev = v16 ? 2 : 4;
+    const auto* qg = static_cast<const unsigned char*>(q) + row * s * n * eq;
+    const auto* kg = static_cast<const unsigned char*>(k) + row * s * n * ek;
+    const auto* wg = static_cast<const unsigned char*>(w) + row * s * n * ew;
+    const auto* vg =
+        static_cast<const unsigned char*>(v) + (row * s * p + p0) * ev;
+    auto vec = [](const void* base, long long ld, int e) {
+      return reinterpret_cast<uintptr_t>(base) % 16 == 0 && ld * e % 16 == 0;
+    };
+    const bool vq = vec(q, n, eq), vk = vec(k, n, ek), vw = vec(w, n, ew),
+               vv = vec(vg, p, ev);
+    const int sub = (kRows + streams - 1) / streams;
+    for (int g = 0; g < words; ++g) {
+      const repro::ring::Slot sl(g, depth);
+      repro::ring::wait(&empty[sl.stage], sl.phase ^ 1);
+      unsigned char* st = stages + size_t(sl.stage) * lay.stage;
+      uint64_t* bar = &full[sl.stage];
+      if (lane == 0) repro::ring::arrive_expect_tx(bar, tx);
+      for (int j = 0; j < streams && j * sub < kRows; ++j) {
+        const int r0 = j * sub, rows = min(sub, kRows - r0), l0 = g * kRows;
+        if (lane == 0)  // boxes of ``box`` rows; rows past S arrive as 0
+          for (int r = r0; r < r0 + rows; r += box) {
+            if (tma & kTmaQ)
+              repro::ring::tma_load_3d(st + r * lay.ns * eq, &map_q, bar, 0,
+                                       l0 + r, int(row));
+            if (tma & kTmaK)
+              repro::ring::tma_load_3d(st + lay.o_k + r * lay.ns * ek,
+                                       &map_k, bar, 0, l0 + r, int(row));
+            if (tma & kTmaW)
+              repro::ring::tma_load_3d(st + lay.o_w + r * lay.ns * ew,
+                                       &map_w, bar, 0, l0 + r, int(row));
+            if (tma & kTmaV)
+              repro::ring::tma_load_3d(st + lay.o_v + r * lay.cs * ev,
+                                       &map_v, bar, p0, l0 + r, int(row));
+          }
+        if (!(tma & kTmaQ))
+          copy_rows(st, qg, eq, n, n, lay.ns, l0, r0, rows, s, vq, lane);
+        if (!(tma & kTmaK))
+          copy_rows(st + lay.o_k, kg, ek, n, n, lay.ns, l0, r0, rows, s, vk,
+                    lane);
+        if (!(tma & kTmaW))
+          copy_rows(st + lay.o_w, wg, ew, n, n, lay.ns, l0, r0, rows, s, vw,
+                    lane);
+        if (!(tma & kTmaV))
+          copy_rows(st + lay.o_v, vg, ev, p, ccols, lay.cs, l0, r0, rows, s,
+                    vv, lane);
+      }
+      repro::ring::arrive_cp_async(bar);
+      repro::ring::arrive(bar);
+    }
+    repro::ring::cp_async_wait_all();
+    return;
+  }
+
+  // ---- the consumers: lane = (nq, cg), nq = lane / 8 the quarter-warp;
+  //      the thread carries state rows [n0, n0 + NT) of columns [c0, c0 +
+  //      4), n0 = (4 wid + nq) NT, c0 = 4 cg
+  const int wid = tid / 32, lane = tid % 32, nq = lane / kCG,
+            cg = lane % kCG, n0 = (kNQ * wid + nq) * NT, c0 = kCT * cg;
+  float h[NT][kCT];
+#pragma unroll
+  for (int e = 0; e < NT; ++e)
+#pragma unroll
+    for (int cc = 0; cc < kCT; ++cc) h[e][cc] = 0.0f;
+  const bool prof = clocks != nullptr && tid == 0;
+  long long t0 = prof ? clock64() : 0, spent[4] = {0, 0, 0, 0};
+  auto tick = [&](int i) {
+    if (prof) {
+      const long long t = clock64();
+      spent[i] += t - t0;
+      t0 = t;
+    }
+  };
+
+  for (int g = 0; g < words; ++g) {
+    const repro::ring::Slot sl(g, depth);
+    const unsigned char* sq = stages + size_t(sl.stage) * lay.stage;
+    const unsigned char *sk = sq + lay.o_k, *sw = sq + lay.o_w,
+                        *sv = sq + lay.o_v;
+    repro::ring::wait(&full[sl.stage], sl.phase);
+    tick(0);
+
+    // ---- AB: a thread a state row c: the decays, qd, ke, sd, and each
+    //      4-row block's 10 pair scores summed over the thread's rows
+    float acc[kRed / 16][16];
+#pragma unroll
+    for (int i = 0; i < kRed; ++i) acc[i / 16][i % 16] = 0.0f;
+    for (int c = tid; c < np; c += nc) {
+      if (c >= n) {  // past N: rows of the state that stay zero
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) qd[r * np + c] = ke[r * np + c] = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kBlks; ++j) sd[j * np + c] = 0.0f;
+        cr[c] = 0.0f;
+        continue;
+      }
+      const float uc = us[c];
+      // the column's 16 rows first: the stores below may alias the stage
+      float q_c[kRows], k_c[kRows], a_c[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int x = r * lay.ns + c;
+        q_c[r] = st_ld<ALL32>(sq, q16, x);
+        k_c[r] = st_ld<ALL32>(sk, k16, x);
+        a_c[r] = st_ld<ALL32>(sw, w16, x);
+      }
+      // the row decays, and the word's log-decay X (for the correction
+      // below)
+      float lsum = 0.0f;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float lw = fminf(a_c[r], 0.0f);
+        lsum += lw;
+        a_c[r] = ex2(lw * kLog2e);
+      }
+      float pm1 = 0.0f;  // sd_0 .. sd_j less one, kept exact
+#pragma unroll
+      for (int j = 0; j < kBlks; ++j) {
+        const float* qv = q_c + j * kBlk;
+        const float* kv = k_c + j * kBlk;
+        const float* av = a_c + j * kBlk;
+        // q decayed from the block's start, k to its end, the block's decay
+        float pr = 1.0f, sf = 1.0f;
+#pragma unroll
+        for (int i = 0; i < kBlk; ++i) {
+          const int r = j * kBlk + i;
+          if (inclusive) pr *= av[i];
+          qd[r * np + c] = qv[i] * pr;
+          if (!inclusive) pr *= av[i];
+        }
+        sd[j * np + c] = pr;
+        const float s1 = pr - 1.0f;  // exact for pr >= 1/2
+        pm1 = fmaf(pm1, s1, pm1 + s1);
+#pragma unroll
+        for (int i = kBlk - 1; i >= 0; --i) {
+          ke[(j * kBlk + i) * np + c] = kv[i] * sf;
+          sf *= av[i];
+        }
+        // pair (l, s), s <= l: inclusive q_l a_{s+1}..a_l k_s; exclusive
+        // q_l a_{s+1}..a_{l-1} k_s below the diagonal and q_l u k_l on it
+#pragma unroll
+        for (int i = 0; i < kBlk; ++i) {
+          const int a = j * kPairs + i * (i + 1) / 2;
+          float& d = acc[(a + i) / 16][(a + i) % 16];
+          d = fmaf(inclusive ? qv[i] : qv[i] * uc, kv[i], d);
+          float f = inclusive ? av[i] : 1.0f;
+#pragma unroll
+          for (int s2 = i - 1; s2 >= 0; --s2) {
+            float& e = acc[(a + s2) / 16][(a + s2) % 16];
+            e = fmaf(qv[i] * f, kv[s2], e);
+            f *= av[s2];
+          }
+        }
+      }
+      // the carried state's decay over the word made exact: C1 scales h by
+      // 1 + cr after the word's four blocks, cr = X - ln(sd_0..sd_3) (a
+      // few ulp: 1 + cr is e^cr to ~1e-11), so the roundings of sd (and
+      // of ex2) do not compound from word to word; 0 where the word
+      // decays below 1/2 (its roundings cannot build up there)
+      cr[c] = pm1 > -0.5f ? lsum - log1pf(pm1) : 0.0f;
+    }
+    // the warp's sums: after the folds at 16, 8, 4 and 2 lane L holds value
+    // 8 L4 + 4 L3 + 2 L2 + L1 (L by bits) of each group of 16, summed over
+    // the 16 lanes that share bit 0; after offset 1 over all 32
+#pragma unroll
+    for (int grp = 0; grp < kRed / 16; ++grp) {
+      fold<8>(acc[grp], lane, 16);
+      fold<4>(acc[grp], lane, 8);
+      fold<2>(acc[grp], lane, 4);
+      fold<1>(acc[grp], lane, 2);
+      acc[grp][0] += __shfl_xor_sync(0xffffffffu, acc[grp][0], 1);
+      if (!(lane & 1))
+        red[wid * kRed + 16 * grp + ((lane >> 1) & 15)] = acc[grp][0];
+    }
+    consumer_sync(nc);
+    tick(1);
+
+    // ---- C1: the pair scores summed over the warps; per 4-row block this
+    //      thread's partial outputs over its state rows (summed over the
+    //      warp's four quarters by two folds, then stored per warp), and
+    //      its state carried to the block's end
+    for (int i = tid; i < kScores; i += nc) {  // one warp at N <= 16
+      float x = 0.0f;
+      for (int w2 = 0; w2 < lay.warps; ++w2) x += red[w2 * kRed + i];
+      dsum[i] = x;
+    }
+#pragma unroll
+    for (int j = 0; j < kBlks; ++j) {
+      float y[kBlk * kCT];  // row i, column cc at i * 4 + cc
+#pragma unroll
+      for (int i = 0; i < kBlk; ++i) {
+        float x[NT];
+        lds_nt(x, qd + (j * kBlk + i) * np + n0);
+#pragma unroll
+        for (int cc = 0; cc < kCT; ++cc) {
+          float t = 0.0f;
+#pragma unroll
+          for (int e = 0; e < NT; ++e) t = fmaf(x[e], h[e][cc], t);
+          y[i * kCT + cc] = t;
+        }
+      }
+      // rows 2 L4 + L3 = nq of the block, summed over the four quarters
+      fold<8>(y, lane, 16);
+      fold<4>(y, lane, 8);
+      *reinterpret_cast<float4*>(
+          ypart + (wid * kRows + j * kBlk + nq) * kLanes + c0) =
+          make_float4(y[0], y[1], y[2], y[3]);
+      float x[NT];
+      lds_nt(x, sd + j * np + n0);
+#pragma unroll
+      for (int e = 0; e < NT; ++e)
+#pragma unroll
+        for (int cc = 0; cc < kCT; ++cc) h[e][cc] *= x[e];
+#pragma unroll
+      for (int i = 0; i < kBlk; ++i) {
+        const int r = j * kBlk + i;
+        // columns past the slice's hold finite values or stale shared
+        // memory; every sum below stays within a column, and C2 stores
+        // only the slice's
+        float vv[kCT];
+        if constexpr (ALL32) {
+          const float4 t =
+              *reinterpret_cast<const float4*>(sv + (r * lay.cs + c0) * 4);
+          vv[0] = t.x;
+          vv[1] = t.y;
+          vv[2] = t.z;
+          vv[3] = t.w;
+        } else {
+#pragma unroll
+          for (int cc = 0; cc < kCT; ++cc)
+            vv[cc] = st_ld<ALL32>(sv, v16, r * lay.cs + c0 + cc);
+        }
+        lds_nt(x, ke + r * np + n0);
+#pragma unroll
+        for (int e = 0; e < NT; ++e)
+#pragma unroll
+          for (int cc = 0; cc < kCT; ++cc)
+            h[e][cc] = fmaf(x[e], vv[cc], h[e][cc]);
+      }
+    }
+    {  // the word's decay made exact (AB's cr)
+      float x[NT];
+      lds_nt(x, cr + n0);
+#pragma unroll
+      for (int e = 0; e < NT; ++e)
+#pragma unroll
+        for (int cc = 0; cc < kCT; ++cc)
+          h[e][cc] = fmaf(h[e][cc], x[e], h[e][cc]);
+    }
+    consumer_sync(nc);
+    tick(2);
+
+    // ---- C2: the outputs: the warps' partials in order, then the block's
+    //      pair scores times v in row order
+    for (int o = tid; o < kRows * kLanes; o += nc) {
+      const int r = o / kLanes, c = o % kLanes, l = g * kRows + r;
+      if (c >= ccols || l >= s) continue;
+      // the warps' partials loaded together, summed in a fixed tree
+      constexpr int kW = NT == 16 ? 16 : 8;
+      float part[kW];
+#pragma unroll
+      for (int w2 = 0; w2 < kW; ++w2)
+        part[w2] = w2 < lay.warps ? ypart[(w2 * kRows + r) * kLanes + c]
+                                  : 0.0f;
+#pragma unroll
+      for (int half = kW / 2; half >= 1; half /= 2)
+#pragma unroll
+        for (int w2 = 0; w2 < half; ++w2) part[w2] += part[w2 + half];
+      float y = part[0];
+      const int j = r / kBlk, i = r % kBlk;
+      const float* d = dsum + j * kPairs + i * (i + 1) / 2;
+      float dv[kBlk];
+#pragma unroll
+      for (int s2 = 0; s2 < kBlk; ++s2)
+        dv[s2] = s2 <= i ? d[s2] * st_ld<ALL32>(
+                               sv, v16, (j * kBlk + s2) * lay.cs + c)
+                         : 0.0f;
+#pragma unroll
+      for (int s2 = 0; s2 < kBlk; ++s2) y += dv[s2];
+      const long long gi = (row * s + l) * p + p0 + c;
+      if (q16)
+        static_cast<bf16*>(out)[gi] = __float2bfloat16_rn(y);
+      else
+        static_cast<float*>(out)[gi] = y;
+    }
+    tick(3);
+    repro::ring::arrive(&empty[sl.stage]);
+  }
+  if (prof)
+    for (int i = 0; i < 4; ++i)
+      clocks[(blockIdx.y * (long long)gridDim.x + blockIdx.x) * 4 + i] =
+          spent[i];
+}
+
+template <int NT, bool ALL32>
+cudaError_t f32_prepare(int n, int cols, int types, int depth, size_t* smem) {
+  *smem = F32Layout(n, cols, types, NT).bytes(depth);
+  cudaError_t err = repro::allow_smem(f32_ring_scan_kernel<NT, ALL32>, *smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(f32_ring_scan_kernel<NT, ALL32>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+struct F32Args {
+  const void *q, *k, *v, *w, *u;
+  void* out;
+  int bh, s, n, p, cols, inclusive, types, depth, streams;
+  long long* clocks;
+  cudaStream_t stream;
+};
+
+// A contiguous [bh, s, cols] tensor of ``elem``-byte elements read in
+// boxes of ``box_cols`` x ``box_rows`` rows of one bh row, row-major as it
+// lies in memory; rows past s (and columns past cols) arrive as zeros.
+bool encode_rows(CUtensorMap* map, int elem, const void* base, int cols,
+                 int s, int bh, int box_cols, int box_rows) {
+  const repro::ring::EncodeTiled fn = repro::ring::encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(s),
+                              cuuint64_t(bh)};
+  const cuuint64_t strides[2] = {cuuint64_t(cols) * elem,
+                                 cuuint64_t(cols) * elem * cuuint64_t(s)};
+  const cuuint32_t boxd[3] = {cuuint32_t(box_cols), cuuint32_t(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, repro::ring::tma_type(elem), 3, const_cast<void*>(base), dims,
+            strides, boxd, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NT, bool ALL32>
+cudaError_t f32_launch(const F32Args& a) {
+  size_t smem;
+  cudaError_t err = f32_prepare<NT, ALL32>(a.n, a.cols, a.types, a.depth,
+                                           &smem);
+  if (err != cudaSuccess) return err;
+  const F32Layout lay(a.n, a.cols, a.types, NT);
+  if (32 * (lay.warps + 1) > f32_threads<NT>()) return cudaErrorInvalidValue;
+  const int slices = (a.p + a.cols - 1) / a.cols;
+  // TMA where a box spans a whole row of q, k, log_w (N a multiple of 8 up
+  // to 256, so their stage rows are N wide) or the slice's CS columns of v,
+  // the tensor is 16-byte aligned and every box lands 128-byte aligned
+  const int box = kRows % a.streams == 0 ? kRows / a.streams : 1;
+  CUtensorMap maps[4] = {};
+  int tma = 0, tx = 0;
+  const void* base[4] = {a.q, a.k, a.w, a.v};
+  const int bits[4] = {kQBf16, kKBf16, kWBf16, kVBf16};
+  for (int i = 0; i < 4; ++i) {
+    const int e = a.types & bits[i] ? 2 : 4;
+    const int cols = i < 3 ? a.n : a.p, bc = i < 3 ? a.n : lay.cs;
+    const bool ok = (i < 3 ? a.n % 8 == 0 && a.n <= 256 : lay.cs <= 256) &&
+                    reinterpret_cast<uintptr_t>(base[i]) % 16 == 0 &&
+                    cols * e % 16 == 0 && box * bc * e % 128 == 0 &&
+                    encode_rows(&maps[i], e, base[i], cols, a.s, a.bh, bc,
+                                box);
+    if (ok) {
+      tma |= 1 << i;
+      tx += kRows * bc * e;
+    }
+  }
+  f32_ring_scan_kernel<NT, ALL32><<<dim3(a.bh, slices), 32 * (lay.warps + 1),
+                                    smem, a.stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a.q, a.k, a.v, a.w, a.u, a.out,
+      a.s, a.n, a.p, a.cols, a.inclusive, a.types, a.depth, a.streams, tma,
+      box, tx, a.clocks);
+  return cudaGetLastError();
+}
+
+template <int NT, bool ALL32>
+cudaError_t f32_occupancy(int n, int cols, int types, int depth,
+                          int* blocks) {
+  size_t smem;
+  cudaError_t err = f32_prepare<NT, ALL32>(n, cols, types, depth, &smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, f32_ring_scan_kernel<NT, ALL32>,
+      32 * (F32Layout(n, cols, types, NT).warps + 1), smem);
+}
+
+// The body's instance for N and the streams' types.
+template <int NT>
+cudaError_t f32_launch_t(const F32Args& a) {
+  return (a.types & (kQBf16 | kKBf16 | kVBf16 | kWBf16)) == 0
+             ? f32_launch<NT, true>(a)
+             : f32_launch<NT, false>(a);
+}
+
+cudaError_t f32_launch_any(const F32Args& a) {
+  switch (f32_nt(a.n)) {
+    case 1: return f32_launch_t<1>(a);
+    case 2: return f32_launch_t<2>(a);
+    case 4: return f32_launch_t<4>(a);
+    case 8: return f32_launch_t<8>(a);
+    default: return f32_launch_t<16>(a);
+  }
+}
+
+template <int NT>
+cudaError_t f32_occupancy_t(int n, int cols, int types, int depth,
+                            int* blocks) {
+  return (types & (kQBf16 | kKBf16 | kVBf16 | kWBf16)) == 0
+             ? f32_occupancy<NT, true>(n, cols, types, depth, blocks)
+             : f32_occupancy<NT, false>(n, cols, types, depth, blocks);
+}
+
+cudaError_t f32_occupancy_any(int n, int cols, int types, int depth,
+                              int* blocks) {
+  switch (f32_nt(n)) {
+    case 1: return f32_occupancy_t<1>(n, cols, types, depth, blocks);
+    case 2: return f32_occupancy_t<2>(n, cols, types, depth, blocks);
+    case 4: return f32_occupancy_t<4>(n, cols, types, depth, blocks);
+    case 8: return f32_occupancy_t<8>(n, cols, types, depth, blocks);
+    default: return f32_occupancy_t<16>(n, cols, types, depth, blocks);
+  }
+}
+
+// The body takes N whose warps fit its block: at most 16 of 64 state rows
+// (16 a thread) past N = 256; the slice's columns are at most 32.
+bool f32_takes(int n, int cols) {
+  return n >= 1 && n <= 16 * kNQ * 16 && cols >= 1 && cols <= kLanes;
+}
+
 }  // namespace
 
-// out [bh, s, p] (q's type) = the scan of q, k, w (log-decay) [bh, s, n] and
-// v [bh, s, p], all contiguous; u [bh, n] or null (exclusive mode's bonus).
-// ``types`` has bit 1 set if q is bfloat16 (else float32), 2 for k, 4 for v,
-// 8 for w, 16 for u. ``chunk`` must be a multiple of ``subtile``; P is cut
-// into ``slices`` blocks of p / slices columns each. The CUDA-core body.
-extern "C" int ff_chunk_scan(const void* q, const void* k, const void* v,
-                             const void* w, const void* u, void* out, int bh,
-                             int s, int n, int p, int chunk, int subtile,
-                             int inclusive, int types, int slices,
-                             void* stream) {
-  if (chunk < 1 || subtile < 1 || chunk % subtile != 0 || n < 1 || p < 1 ||
-      slices < 1 || p % slices != 0)
+// The f32 ring body: out [bh, s, p] (q's type) = the scan of q, k, w
+// (log-decay) [bh, s, n] and v [bh, s, p], all contiguous; u [bh, n] or
+// null (exclusive mode's bonus). ``types`` has bit 1 set if q is bfloat16
+// (else float32), 2 for k, 4 for v, 8 for w, 16 for u. P is cut into
+// slices of ``cols`` <= 32 columns (the last one may be narrower); ``depth``
+// ring stages of 16 rows, each copied in ``streams`` parts. Any chunk and
+// subtile give these bits, so neither is an argument. ``clocks`` null, or
+// 4 counters a block (see the file's note).
+extern "C" int ff_chunk_scan_f32_ring(const void* q, const void* k,
+                                      const void* v, const void* w,
+                                      const void* u, void* out, int bh, int s,
+                                      int n, int p, int cols, int inclusive,
+                                      int types, int depth, int streams,
+                                      long long* clocks, void* stream) {
+  if (!f32_takes(n, cols) || p < 1 || depth < 1 || streams < 1)
     return cudaErrorInvalidValue;
   if (bh == 0 || s == 0) return 0;
-  const int ps = p / slices;
-  const size_t smem = sizeof(float) * smem_floats(n, ps, subtile);
-  cudaError_t err = repro::allow_smem(chunk_scan_kernel, smem);
-  if (err != cudaSuccess) return err;
-  chunk_scan_kernel<<<dim3(bh, slices), kThreads, smem,
-                      (cudaStream_t)stream>>>(q, k, v, w, u, out, s, n, ps, p,
-                                              chunk, subtile, inclusive,
-                                              types);
-  return cudaGetLastError();
+  return f32_launch_any(F32Args{q, k, v, w, u, out, bh, s, n, p, cols,
+                                inclusive, types, depth, streams, clocks,
+                                (cudaStream_t)stream});
+}
+
+// Blocks of the f32 ring body that fit on one SM at once (registers,
+// shared memory, threads), for ``cols`` columns a block at ``depth``; -1
+// on a shape the body does not take.
+extern "C" int ff_chunk_scan_f32_ring_occupancy(int n, int types, int cols,
+                                                int depth) {
+  int blocks = -1;
+  if (!f32_takes(n, cols) || depth < 1) return -1;
+  return f32_occupancy_any(n, cols, types, depth, &blocks) == cudaSuccess
+             ? blocks
+             : -1;
 }
 
 // The ring body: q, k, v bfloat16 (``types`` bits 1, 2 and 4 set), w

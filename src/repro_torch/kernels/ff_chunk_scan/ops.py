@@ -15,19 +15,35 @@ every exponent is <= 0. The CUDA kernels are in ``csrc/ff_chunk_scan.cu``;
 its note says what bounds them on the H100.
 
 Which body a CUDA call runs is decided by the operands' types and shapes
-alone (:func:`_body`): the ring body (``ring_scan_kernel``: the rows
-streamed 16 at a time through a ``depth``-stage shared-memory ring, the
-products on the tensor cores, the state on chip) when q, k and v are
-bfloat16, N is 16, 32, 64 or 128, P a multiple of 16, ``chunk`` a multiple
-of 16 and the subtile 16; the CUDA-core body (``chunk_scan_kernel``, f32
-fmaf chains) otherwise. ``depth`` and ``streams`` are the reference's
-``chunk_scan_ff`` keywords (its ``Pipe``; ``depth=1`` is the synchronous
-copy-then-compute baseline), resolved through the pipe policy as the
-kernel ``ff_chunk_scan`` with the reference's workload (one word per
-chunk, :func:`chunk_scan_workload`) and checked as its ``Pipe`` checks
-them for every call; the CPU plain version and the CUDA-core body ignore
-them. :func:`_plan` cuts P into slices of columns so that the ring
-body's blocks cover the SMs.
+alone (:func:`_body`). Both stream the rows 16 at a time through a
+``depth``-stage shared-memory ring (``csrc/ring_pipe.cuh``), each stage
+copied in ``streams`` parts, and keep the state on chip:
+
+* ``"ring"``, the tensor-core body (``ring_scan_kernel``: bf16 products on
+  ``mma.sync``) when q, k and v are bfloat16, N is 16, 32, 64 or 128, P a
+  multiple of 16, ``chunk`` a multiple of 16 and the subtile 16; its grid
+  is :func:`_plan`'s, its shared memory :func:`ring_smem_bytes`, its
+  deepest ring :func:`max_depth`;
+* ``"f32_ring"``, the CUDA-core body (``f32_ring_scan_kernel``: f32
+  arithmetic throughout) for every other call: f32 or mixed streams, any
+  N that shared memory holds, any P. It carries the state at every 4-row
+  boundary, so the reference's ``chunk`` and ``subtile`` change only the
+  reference's order of summation and this body gives the same bits for
+  any of them (:func:`_subtile` still checks them as the reference does).
+  Each word it also scales the state once so that its decay over the word
+  is ``e^{sum lw}`` to a few 1e-9: the rounding of the per-row decays
+  does not compound over a long row. Its grid is :func:`_f32_plan`'s, its
+  shared memory :func:`f32_ring_smem_bytes`, its deepest ring
+  :func:`f32_max_depth`.
+
+``depth`` and ``streams`` are the reference's ``chunk_scan_ff`` keywords
+(its ``Pipe``; ``depth=1`` is the synchronous copy-then-compute baseline),
+resolved through the pipe policy as the kernel ``ff_chunk_scan`` with the
+reference's workload (one word per chunk, :func:`chunk_scan_workload`),
+capped at the deepest ring the body's shared memory holds
+(:func:`_deepest`) and checked as its ``Pipe`` checks them for every call;
+both bodies use them and neither's bits move with them. The CPU plain
+version ignores them.
 
 :func:`chunk_scan_ref` is the naive per-step scan (the oracle, reference
 ``ref.py:chunk_scan_ref``); :func:`chunk_scan_plain` is the kernel's
@@ -57,6 +73,7 @@ RING_N = (16, 32, 64, 128)   # N the ring body is built for
 _WORD_ROWS = 16              # rows of a ring word: one subtile
 _COLS = 16                   # columns of P per consumer warp
 _MAX_COLS = 128              # columns of one ring block (eight warps)
+_F32_COLS = 32               # columns of one f32 ring block (one a lane)
 
 
 def chunk_scan_ref(q, k, v, log_w, u=None, *,
@@ -156,20 +173,6 @@ def _subtile(chunk: int, subtile: int) -> int:
     return st
 
 
-def smem_bytes(n: int, p: int, subtile: int) -> int:
-    """Dynamic shared memory of one CUDA-core block holding ``p`` columns
-    (``csrc/ff_chunk_scan.cu`` ``smem_floats``): the state [N, p] in f32;
-    per subtile its cumsum, q, k, the q-side exponent, the two scaled q
-    tiles and a block of earlier k [subtile, N+1], the subtile's v, a block
-    of earlier v and the intra sums [subtile, p], the scores [subtile,
-    subtile], the bonus per row, and six [N] vectors (three of them the
-    cumsum carried a subtile at a time). Nothing grows with the chunk."""
-    np_ = n + 1
-    floats = (n * p + 7 * subtile * np_ + 3 * subtile * p
-              + subtile * subtile + subtile + 6 * n)
-    return 4 * floats
-
-
 def ring_smem_bytes(n: int, cols: int, w_bytes: int, depth: int) -> int:
     """Dynamic shared memory of one ring block of ``cols`` columns
     (``csrc/ff_chunk_scan.cu`` ``Layout``): ``depth`` stages of 16 rows (q
@@ -186,14 +189,60 @@ def ring_smem_bytes(n: int, cols: int, w_bytes: int, depth: int) -> int:
     return depth * stage + 2 * buf + 3 * n * 4 + n * cols * 4 + 16 * depth
 
 
+def _f32_nt(n: int) -> int:
+    """State rows a consumer thread of the f32 ring body carries in
+    registers for each of its 4 columns (``csrc/ff_chunk_scan.cu``
+    ``f32_nt``): four warps of 4 x NT rows up to N = 128, eight up to 256,
+    then 16 rows a thread."""
+    return (1 if n <= 16 else 2 if n <= 32 else 4 if n <= 64
+            else 8 if n <= 256 else 16)
+
+
+def f32_ring_smem_bytes(n: int, cols: int, depth: int,
+                        sizes: Tuple[int, int, int, int] = (4, 4, 4, 4)
+                        ) -> int:
+    """Dynamic shared memory of one f32 ring block of ``cols`` columns
+    (``csrc/ff_chunk_scan.cu`` ``F32Layout``), ``sizes`` the element bytes
+    of q, k, log_w and v: ``depth`` stages of 16 rows (q, k and log_w [16,
+    NS], v [16, CS], each in its own type; NS and CS are N and ``cols``
+    rounded up to 8); in f32 qd and ke [16, NP], the block decays [4, NP],
+    the word's decay correction [NP] and u [NP] (NP = 4 NT W, the consumer
+    warps' state rows), the warps' pair scores [W, 48] and their sums
+    [48], the warps' partial outputs [W, 16, 32]; two mbarriers a stage.
+    Nothing grows with the chunk."""
+    rows = 4 * _f32_nt(n)          # state rows a warp: four quarters
+    warps = -(-n // rows)
+    np_ = warps * rows
+    ns, cs = -(-n // 8) * 8, -(-cols // 8) * 8
+    eq, ek, ew, ev = sizes
+    stage = 16 * (ns * (eq + ek + ew) + cs * ev)
+    derived = 4 * ((2 * 16 + 4 + 2) * np_ + 48 * warps + 48
+                   + 16 * _F32_COLS * warps)
+    return depth * stage + derived + 16 * depth
+
+
 @functools.lru_cache(maxsize=None)
 def max_depth(n: int, p: int, w_dtype: torch.dtype = torch.float32) -> int:
-    """The deepest ring that fits one block's shared memory at state width
-    ``n`` and ``p`` columns (a block takes at most 128 of them) with log_w
-    of type ``w_dtype``."""
+    """The deepest ring of the tensor-core body that fits one block's
+    shared memory at state width ``n`` and ``p`` columns (a block takes at
+    most 128), log_w of type ``w_dtype``."""
     cols, w_bytes = min(p, _MAX_COLS), torch.finfo(w_dtype).bits // 8
     depth = 1
     while ring_smem_bytes(n, cols, w_bytes, depth + 1) <= SMEM_LIMIT:
+        depth += 1
+    return depth
+
+
+@functools.lru_cache(maxsize=None)
+def f32_max_depth(n: int, p: int, dtypes=None) -> int:
+    """The deepest ring of the f32 ring body that fits one block's shared
+    memory at state width ``n``, :func:`_f32_plan`'s columns of ``p``, q,
+    k, log_w and v of ``dtypes`` (each float32 unless given); 0 when not
+    even one stage fits."""
+    sizes = tuple(itemsize(d) for d in (dtypes or (torch.float32,) * 4))
+    cols = _f32_plan(1, p).cols
+    depth = 0
+    while f32_ring_smem_bytes(n, cols, depth + 1, sizes) <= SMEM_LIMIT:
         depth += 1
     return depth
 
@@ -212,10 +261,10 @@ def _pipe(depth: int, streams: int, chunk: int) -> None:
 
 
 class Plan(NamedTuple):
-    """The ring body's grid: ``slices`` blocks of ``cols`` columns (``cols
-    // 16`` consumer warps and one producer warp) for each of the ``bh``
-    rows, ``blocks`` in all, each walking all of its row's chunks in
-    order."""
+    """A body's grid: ``slices`` blocks of ``cols`` columns for each of the
+    ``bh`` rows, ``blocks`` in all, each walking all of its row's rows in
+    order (:func:`_plan` for the tensor-core body, :func:`_f32_plan` for
+    the f32 ring body)."""
     slices: int
     cols: int
     blocks: int
@@ -242,28 +291,43 @@ def _plan(bh: int, s: int, n: int, p: int, chunk: int,
     return Plan(slices=slices, cols=p // slices, blocks=bh * slices)
 
 
-def _fma_slices(n: int, p: int, st: int) -> int:
-    """The CUDA-core body's split of P: the fewest slices (a divisor of P)
-    whose block fits in shared memory."""
-    for slices in range(1, p + 1):
-        if p % slices == 0 and smem_bytes(n, p // slices, st) <= SMEM_LIMIT:
-            return slices
-    raise ValueError(f"chunk_scan at N={n}, subtile={st} needs "
-                     f"{smem_bytes(n, 1, st)} bytes of shared memory per "
-                     f"block even at one column; the H100 gives "
-                     f"{SMEM_LIMIT}")
+def _f32_plan(bh: int, p: int) -> Plan:
+    """The f32 ring body's split of P: ``ceil(P / 32)`` slices of ``cols``
+    columns (a multiple of 8, so that each slice of v starts 16-byte
+    aligned; the last slice may be narrower), one block per (row, slice),
+    each walking all of its row's words in order. A block's columns are
+    its consumer lanes, so a narrower slice would leave lanes idle without
+    shortening the block: the plan never splits P below 32 columns, and at
+    the timing shape (16 rows, P = 256) its 8 slices give 128 blocks for
+    the H100's 132 SMs; the models' prefill rows (256 and 320, P = 64)
+    alone cover the card. N, S and the chunk do not change it."""
+    slices = -(-p // _F32_COLS)
+    per = -(-p // slices)
+    cols = min(-(-per // 8) * 8, _F32_COLS)
+    slices = -(-p // cols)
+    return Plan(slices=slices, cols=cols, blocks=bh * slices)
 
 
 def _body(q, k, v, chunk: int, st: int) -> str:
     """``"ring"`` (the tensor-core body) when q, k and v are bfloat16, N is
     16, 32, 64 or 128, P a multiple of 16, the chunk a multiple of 16 and
-    the subtile 16; ``"fma"`` (the CUDA-core body) otherwise."""
+    the subtile 16; ``"f32_ring"`` (the CUDA-core body, f32 arithmetic)
+    otherwise."""
     bf = torch.bfloat16
     if (q.dtype == bf and k.dtype == bf and v.dtype == bf
             and q.shape[2] in RING_N and v.shape[2] % _COLS == 0
             and chunk % _WORD_ROWS == 0 and st == _WORD_ROWS):
         return "ring"
-    return "fma"
+    return "f32_ring"
+
+
+def _deepest(q, k, v, log_w, chunk: int, st: int) -> int:
+    """The deepest ring of the body this call runs (0: not one stage of
+    the f32 body fits)."""
+    n, p = q.shape[2], v.shape[2]
+    if _body(q, k, v, chunk, st) == "ring":
+        return max_depth(n, p, log_w.dtype)
+    return f32_max_depth(n, p, (q.dtype, k.dtype, log_w.dtype, v.dtype))
 
 
 def _check(q, k, v, log_w, u, inclusive):
@@ -297,8 +361,8 @@ def _entry(body: str):
     if body == "ring":
         return _build.bind("ff_chunk_scan", "ff_chunk_scan_ring",
                            [p, p, p, p, p, p] + [i] * 10 + [p])
-    return _build.bind("ff_chunk_scan", "ff_chunk_scan",
-                       [p, p, p, p, p, p] + [i] * 9 + [p])
+    return _build.bind("ff_chunk_scan", "ff_chunk_scan_f32_ring",
+                       [p, p, p, p, p, p] + [i] * 9 + [p, p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -338,10 +402,16 @@ def chunk_scan_workload(bh: int, s: int, n: int, p: int, *, chunk: int = 64,
 def chunk_scan_cost(bh: int, s: int, n: int, p: int, *, chunk: int = 64,
                     depth: int = 2, dtype=torch.bfloat16) -> KernelCost:
     w, _ = chunk_scan_workload(bh, s, n, p, chunk=chunk, dtype=dtype)
+    if (dtype == torch.bfloat16 and n in RING_N and p % _COLS == 0
+            and chunk % _WORD_ROWS == 0):
+        smem = ring_smem_bytes(n, min(p, _MAX_COLS), 4, depth)
+    else:
+        smem = f32_ring_smem_bytes(n, _f32_plan(bh, p).cols, depth,
+                                   (itemsize(dtype),) * 4)
     return KernelCost(
         flops=w.n_words * w.flops_per_word,
         hbm_bytes=float(bh * s * (3 * n + 2 * p) * itemsize(dtype)),
-        smem_bytes=ring_smem_bytes(n, min(p, _MAX_COLS), 4, depth))
+        smem_bytes=smem)
 
 
 # chunk lengths the measured autotuner may search in mode="autotune" (the
@@ -361,8 +431,8 @@ def _apply(q, k, v, log_w, u=None, *, chunk: int = 64, subtile: int = 16,
     or bfloat16 on its own. Any S: the ragged last chunk is padded with
     ``log_w = 0`` and ``k = v = 0``. ``log_w`` is clamped at 0. The ring's
     stages and the parts each stage is copied in are sized by ``policy``
-    (the reference's ``Pipe``; checked for every call, used by the ring
-    body only); mode="autotune" may also pick the chunk. Returns [BH, S,
+    (the reference's ``Pipe``; checked for every call, used by both CUDA
+    bodies); mode="autotune" may also pick the chunk. Returns [BH, S,
     P] in q's type. mode="ref" runs :func:`chunk_scan_ref`; CPU tensors run
     :func:`chunk_scan_plain`; CUDA tensors launch the body :func:`_body`
     picks (one launch)."""
@@ -399,7 +469,8 @@ def _apply(q, k, v, log_w, u=None, *, chunk: int = 64, subtile: int = 16,
               "subtile": subtile, "inclusive": inclusive,
               "has_u": u is not None},
         site_dynamic=("bh", "s"),
-        depth_cap=max_depth(n, p, log_w.dtype))
+        depth_cap=max(1, _deepest(q, k, v, log_w, chunk,
+                                  _subtile(chunk, subtile))))
     out = run(choice.tile_kwargs.get("chunk", chunk), choice.depth,
               choice.streams)
     if q.device.type == "cuda":
@@ -407,22 +478,28 @@ def _apply(q, k, v, log_w, u=None, *, chunk: int = 64, subtile: int = 16,
     return out
 
 
-def _launch(q, k, v, log_w, u, chunk, st, inclusive, depth, streams):
+def _launch(q, k, v, log_w, u, chunk, st, inclusive, depth, streams,
+            clocks=None):
+    """One launch of the body :func:`_body` picks. ``clocks``: None, or an
+    int64 CUDA tensor of 4 counters a block of the f32 body (the cycles
+    its thread 0 spends waiting for a word and in passes AB, C1 and C2;
+    ``csrc/ff_chunk_scan.cu``), for measurement."""
     bh, s, n = q.shape
     p = v.shape[2]
     body = _body(q, k, v, chunk, st)
+    deepest = _deepest(q, k, v, log_w, chunk, st)
+    if depth > deepest:
+        raise ValueError(
+            f"depth {depth} needs more than the {SMEM_LIMIT} bytes of "
+            f"shared memory of a block at N={n}, P={p}"
+            + (f"; at most {deepest} stages fit" if deepest else
+               f" ({body} body: not even one stage fits)"))
     if body == "ring":
-        deepest = max_depth(n, p, log_w.dtype)
-        if depth > deepest:
-            raise ValueError(
-                f"depth {depth} needs more than the {SMEM_LIMIT} bytes of "
-                f"shared memory of a block at N={n}, P={p}; at most "
-                f"{deepest} stages fit")
         slices = _plan(bh, s, n, p, chunk,
                        _sm_count(q.device.index or 0)).slices
         q, k, v, log_w = (_aligned(x) for x in (q, k, v, log_w))
     else:
-        slices = _fma_slices(n, p, st)
+        cols = _f32_plan(bh, p).cols
         q, k, v, log_w = (x.contiguous() for x in (q, k, v, log_w))
     u = u.contiguous() if u is not None else None
     out = torch.empty((bh, s, p), dtype=q.dtype, device=q.device)
@@ -437,9 +514,11 @@ def _launch(q, k, v, log_w, u, chunk, st, inclusive, depth, streams):
                           slices, depth, streams, stream)
         name = "ff_chunk_scan_ring"
     else:
-        rc = _entry(body)(*ptrs, bh, s, n, p, chunk, st, int(inclusive),
-                          types, slices, stream)
-        name = "ff_chunk_scan"
+        rc = _entry(body)(*ptrs, bh, s, n, p, cols, int(inclusive), types,
+                          depth, streams,
+                          clocks.data_ptr() if clocks is not None else None,
+                          stream)
+        name = "ff_chunk_scan_f32_ring"
     _build.check("ff_chunk_scan", name, rc)
     return out
 

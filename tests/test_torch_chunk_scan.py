@@ -19,7 +19,9 @@ import repro
 from repro.core.program import PipePolicy
 from repro_torch import ops
 from repro_torch.kernels.ff_chunk_scan import (chunk_scan, chunk_scan_plain,
-                                               chunk_scan_ref, smem_bytes)
+                                               chunk_scan_ref,
+                                               f32_max_depth,
+                                               f32_ring_smem_bytes)
 from repro_torch.kernels.ff_chunk_scan import ops as scan_ops
 
 FF = PipePolicy(mode="ff", interpret=True)
@@ -181,16 +183,15 @@ def test_plain_version_is_the_wrapper_on_the_cpu_and_counts_no_launch():
 
 
 def test_shared_memory_fits_the_path_shapes():
-    """One CUDA-core block's shared memory does not grow with the chunk
-    (the cumsum is carried a subtile at a time): N = P = 64 and 128 fit in
-    one block of 227 KB at every chunk, and N = P = 256 once the wrapper
-    splits P into four slices of 64 columns; the ring body's shared memory
-    does not grow with the chunk either and fits at N = P = 128 at its
+    """Neither body's shared memory grows with the chunk (both stream 16
+    rows a word and carry the state on chip): the f32 ring body's block
+    of 32 columns fits N = P = 64 and 128 at deep rings and N = P = 256 at
+    three stages of 51 KB; the tensor-core body fits N = P = 128 at its
     default depth."""
-    assert smem_bytes(64, 64, 16) == 60416
-    assert smem_bytes(128, 128, 16) < 232448
-    assert scan_ops._fma_slices(128, 128, 16) == 1
-    assert smem_bytes(256, 128, 16) > 232448
-    assert smem_bytes(256, 64, 16) <= 232448
-    assert scan_ops._fma_slices(256, 256, 16) == 4
+    assert f32_ring_smem_bytes(64, 32, 2) == 47584
+    assert f32_max_depth(64, 64) == 14
+    assert f32_max_depth(128, 128) >= 4
+    assert f32_ring_smem_bytes(256, 32, 3) <= 232448 < f32_ring_smem_bytes(
+        256, 32, 4)
+    assert scan_ops._f32_plan(2, 256).slices == 8
     assert scan_ops.ring_smem_bytes(128, 128, 4, 2) <= 232448

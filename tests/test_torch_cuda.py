@@ -24,9 +24,10 @@ composition, and the product (bf16, f32 and the mixed pairs), the
 gathered product, attention and attention_proj (bf16 and f32) across the
 ring's depth and streams at exactly 0. The chunk scan is held at float32 3e-5 and
 bfloat16 2e-2 of max |plain| (the reference kernel test's bound) at every
-chunk up to 256 (N = P = 128 too), its strong-decay case at rtol 1e-4 /
-atol 1e-5, and the bf16 scan across the ring's depth and streams at
-exactly 0. These
+chunk up to 256 (N = P = 128 and 256 too, and odd N and P), its
+strong-decay case at rtol 1e-4 / atol 1e-5, and the bf16 scan (the
+tensor-core body) and the f32 scan (the f32 ring body) across the ring's
+depth and streams at exactly 0. These
 tests take small and ragged shapes; chip_smoke.py checks the same kernels
 at full model width.
 """
@@ -38,7 +39,8 @@ from repro_torch.kernels.ff_attention import (attention, attention_proj,
                                              attention_proj_ref,
                                              attention_ref)
 from repro_torch.kernels.ff_chunk_scan import (chunk_scan, chunk_scan_plain,
-                                               chunk_scan_ref, max_depth)
+                                               chunk_scan_ref, f32_max_depth,
+                                               max_depth)
 from repro_torch.kernels.ff_decode_attention import (decode_attention,
                                                      decode_attention_ref)
 from repro_torch.kernels.ff_layer import ops as layer_ops
@@ -892,11 +894,15 @@ def _scan_err(out, plain):
 @pytest.mark.parametrize("bh,s,n,p,chunk", [
     (3, 200, 64, 64, 64), (2, 77, 16, 32, 32), (2, 300, 64, 64, 128),
     (1, 64, 16, 16, 16), (2, 600, 64, 64, 256), (2, 200, 128, 128, 128),
-    (2, 300, 128, 128, 256)])
+    (2, 300, 128, 128, 256), (2, 300, 256, 256, 256), (2, 70, 17, 20, 32),
+    (2, 150, 320, 64, 64), (1, 200, 512, 64, 128)])
 def test_chunk_scan_kernel_matches_plain(cuda, dtype, exclusive, bh, s, n, p,
                                          chunk):
     """float32 within 3e-5 of max |plain| (the reference kernel test's
-    bound), bfloat16 streams within 2e-2 of it."""
+    bound), bfloat16 streams within 2e-2 of it. N = P = 256 runs the f32
+    ring body in both types; N = 17, P = 20 its element copies (rows not
+    16-byte aligned); N = 320 and 512 its 16 state rows a thread (five and
+    eight consumer warps, one stage at N = 512)."""
     g = torch.Generator(device=cuda).manual_seed(13)
     q, k, v, lw, u = _scan_inputs(g, bh, s, n, p, exclusive)
     q, k, v, lw = (x.to(dtype) for x in (q, k, v, lw))
@@ -969,12 +975,11 @@ def test_chunk_scan_strong_decay_stays_finite(cuda):
 
 
 def test_chunk_scan_refuses_what_does_not_fit(cuda):
-    """f32 N = 1024 at subtile 16: the CUDA-core body's block needs 489 KB
-    of shared memory even at one column of P, so no slice of P fits
-    (``_fma_slices``); and a bf16 ring deeper than ``max_depth``. (N = P
-    = 128 and 256 at chunk 256 run: two and four slices of P on the
-    CUDA-core body, test_chunk_scan_kernel_matches_plain and
-    chip_smoke.py.)"""
+    """f32 N = 1024: not one 16-row stage of the f32 ring body fits in a
+    block's shared memory with its derived tiles (``f32_max_depth`` is
+    0); and a bf16 ring deeper than ``max_depth``.
+    (N = P = 128 and 256 at chunk 256 run: the f32 ring body at up to 3
+    stages, test_chunk_scan_kernel_matches_plain and chip_smoke.py.)"""
     x = torch.zeros(1, 256, 1024, device=cuda)
     v = torch.zeros(1, 256, 64, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
@@ -986,24 +991,106 @@ def test_chunk_scan_refuses_what_does_not_fit(cuda):
         chunk_scan(x, x.cpu(), x, x)
 
 
-@pytest.mark.parametrize("exclusive", [False, True],
-                         ids=["mamba2_types", "rwkv6_types"])
-def test_chunk_scan_is_bitwise_across_depth_and_streams(cuda, exclusive):
+@pytest.mark.parametrize("case", [
+    (False, "bf16", 64), (True, "bf16", 64), (False, "f32", 64),
+    (True, "f32", 64), (True, "f32", 256), (True, "f32", 512)],
+    ids=["mamba2_types", "rwkv6_types", "f32_inclusive", "f32_exclusive_u",
+         "f32_n_p_256", "f32_n_p_512"])
+def test_chunk_scan_is_bitwise_across_depth_and_streams(cuda, case):
     """The bf16 ring body at both models' stream types and N = P = 64 over
-    four 64-row chunks: the ring's depth and streams change when a word
-    lands, not what is computed."""
+    four 64-row chunks, and the f32 ring body at N = P = 64, 256 and 512
+    (chunk 256; depth {1, 2, 4} up to its f32_max_depth and the deepest;
+    N = 512 takes one stage, 16 state rows a thread): the ring's depth and
+    streams change when a word lands, not what is computed."""
+    exclusive, types, n = case
     g = torch.Generator(device=cuda).manual_seed(21)
     bf = torch.bfloat16
-    q, k, v, lw, u = _scan_inputs(g, 8, 256, 64, 64, exclusive)
-    q, k, v = q.to(bf), k.to(bf), v.to(bf)
-    lw = lw.to(bf) if exclusive else lw
-    kw = dict(inclusive=not exclusive)
+    q, k, v, lw, u = _scan_inputs(g, 8 if n == 64 else 4, 256, n, n,
+                                  exclusive)
+    if types == "bf16":
+        q, k, v = q.to(bf), k.to(bf), v.to(bf)
+        lw = lw.to(bf) if exclusive else lw
+        depths = (1, 2, 4)
+    else:
+        deepest = f32_max_depth(n, n)
+        depths = sorted({d for d in (1, 2, 4) if d <= deepest} | {deepest})
+    kw = dict(inclusive=not exclusive, chunk=64 if n == 64 else 256)
     want = chunk_scan(q, k, v, lw, u, **kw)
-    for depth in (1, 2, 4):
+    for depth in depths:
         for streams in (1, 2):
             got = chunk_scan(q, k, v, lw, u, depth=depth, streams=streams,
                              **kw)
             assert torch.equal(got, want), (depth, streams)
+
+
+def test_chunk_scan_bf16_streams_at_the_widest_n(cuda):
+    """N = 784 in bf16 streams: the widest N the f32 ring body takes (one
+    stage; 13 consumer warps of 64 state rows, the most its launch bound
+    allows), within 2e-2 of max |plain|; one more state row is refused."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    bf = torch.bfloat16
+    assert f32_max_depth(784, 32, (bf,) * 4) == 1
+    assert f32_max_depth(785, 32, (bf,) * 4) == 0
+    for exclusive in (False, True):
+        q, k, v, lw, u = _scan_inputs(g, 1, 80, 784, 32, exclusive)
+        q, k, v, lw = (x.to(bf) for x in (q, k, v, lw))
+        kw = dict(inclusive=not exclusive, chunk=16)
+        out = chunk_scan(q, k, v, lw, u, **kw)
+        assert _scan_err(out, chunk_scan_plain(q, k, v, lw, u, **kw)) < 2e-2
+
+
+def _scan_f64(q, k, v, lw, u, inclusive):
+    """The naive scan in float64: the exact result to f32's eyes."""
+    q, k, v, lw = q.double(), k.double(), v.double(), lw.double()
+    lw = torch.clamp(lw, max=0.0)
+    h = torch.zeros(q.shape[0], q.shape[2], v.shape[2], dtype=torch.float64,
+                    device=q.device)
+    ys = []
+    for t in range(q.shape[1]):
+        kv = k[:, t, :, None] * v[:, t, None, :]
+        h_new = torch.exp(lw[:, t])[:, :, None] * h + kv
+        eff = h_new if inclusive else h + u.double()[:, :, None] * kv
+        ys.append(torch.einsum("bn,bnp->bp", q[:, t], eff))
+        h = h_new
+    return torch.stack(ys, dim=1)
+
+
+@pytest.mark.parametrize("lw", [-1e-3, -1e-4], ids=["lw_1e-3", "lw_1e-4"])
+@pytest.mark.parametrize("exclusive", [False, True],
+                         ids=["inclusive", "exclusive_u"])
+def test_chunk_scan_f32_does_not_drift_over_a_long_row(cuda, lw, exclusive):
+    """S = 4096 with one decay near 1 in every row and channel: the f32
+    ring body's per-row decays are rounded ex2's, and carried from block to
+    block their error would grow with the rows the state remembers; each
+    word's correction keeps the carried decay exact. Within 3e-5 of the
+    float64 scan, and no further from it than chunk_scan_ref: the f32
+    naive scan is no yardstick at 3e-5 here, as the rounding of its
+    per-row exp compounds the same way (on the H100 it lies about as far
+    off the float64 scan as the tolerance at lw = -1e-3, further at
+    -1e-4)."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    q, k, v, _, u = _scan_inputs(g, 2, 4096, 64, 64, exclusive)
+    log_w = torch.full_like(q, lw)
+    out = chunk_scan(q, k, v, log_w, u, inclusive=not exclusive)
+    exact = _scan_f64(q, k, v, log_w, u, not exclusive)
+    assert _scan_err(out, exact) < 3e-5
+    ref = chunk_scan_ref(q, k, v, log_w, u, inclusive=not exclusive)
+    assert _scan_err(out, exact) <= _scan_err(ref, exact)
+
+
+def test_chunk_scan_f32_clocks_time_the_passes(cuda):
+    """The f32 ring body with its clock counters: the same bits as
+    without, and for every block positive cycles in passes AB, C1 and C2
+    (thread 0's clock64 deltas; the measurement chip_smoke.py reports)."""
+    from repro_torch.kernels.ff_chunk_scan import ops as SO
+    g = torch.Generator(device=cuda).manual_seed(22)
+    q, k, v, lw, u = _scan_inputs(g, 4, 96, 64, 64, True)
+    want = SO._launch(q, k, v, lw, u, 64, 16, False, 2, 1)
+    blocks = SO._f32_plan(4, 64).blocks
+    clocks = torch.zeros(blocks, 4, dtype=torch.int64, device=cuda)
+    got = SO._launch(q, k, v, lw, u, 64, 16, False, 2, 1, clocks=clocks)
+    assert torch.equal(got, want)
+    assert (clocks[:, 1:] > 0).all()
 
 
 def test_chunk_scan_checks_depth_and_streams(cuda):

@@ -217,18 +217,32 @@ def test_body_is_picked_from_types_and_shapes():
                    16) == "ring"
     assert O._body(t(16, bf), t(16, bf), t(16, bf, 48), 32, 16) == "ring"
     # f32 or mixed q/k/v, an N the ring is not built for, P not a multiple
-    # of 16, a chunk not a multiple of 16 or another subtile: CUDA cores
-    assert O._body(t(64, f32), t(64, f32), t(64, f32, 64), 64, 16) == "fma"
-    assert O._body(t(64, bf), t(64, bf), t(64, f32, 64), 64, 16) == "fma"
-    assert O._body(t(48, bf), t(48, bf), t(48, bf, 64), 64, 16) == "fma"
-    assert O._body(t(64, bf), t(64, bf), t(64, bf, 40), 64, 16) == "fma"
-    assert O._body(t(64, bf), t(64, bf), t(64, bf, 64), 40, 8) == "fma"
-    assert O._body(t(64, bf), t(64, bf), t(64, bf, 64), 64, 32) == "fma"
+    # of 16, a chunk not a multiple of 16 or another subtile: the f32 ring
+    # body (CUDA cores)
+    assert O._body(t(64, f32), t(64, f32), t(64, f32, 64), 64,
+                   16) == "f32_ring"
+    assert O._body(t(64, bf), t(64, bf), t(64, f32, 64), 64,
+                   16) == "f32_ring"
+    assert O._body(t(48, bf), t(48, bf), t(48, bf, 64), 64,
+                   16) == "f32_ring"
+    assert O._body(t(64, bf), t(64, bf), t(64, bf, 40), 64,
+                   16) == "f32_ring"
+    assert O._body(t(64, bf), t(64, bf), t(64, bf, 64), 40,
+                   8) == "f32_ring"
+    assert O._body(t(64, bf), t(64, bf), t(64, bf, 64), 64,
+                   32) == "f32_ring"
 
 
 def test_fma_body_splits_p_only_to_fit():
-    assert O._fma_slices(64, 64, 16) == 1
-    assert O._fma_slices(128, 128, 16) == 1
-    assert O._fma_slices(256, 256, 16) == 4
+    """The CUDA-core body (the f32 ring body since it replaced the first
+    port's) cuts P into slices of at most 32 columns, one a consumer lane,
+    whatever N is: N only sets its shared memory, and an N whose every
+    stage overflows it is refused (naming shared memory) before any CUDA
+    call."""
+    assert O._f32_plan(1, 64) == O.Plan(slices=2, cols=32, blocks=2)
+    assert O._f32_plan(1, 128) == O.Plan(slices=4, cols=32, blocks=4)
+    assert O._f32_plan(1, 256) == O.Plan(slices=8, cols=32, blocks=8)
+    assert O.f32_max_depth(256, 256) == 3
+    x, v = torch.zeros(1, 64, 1024), torch.zeros(1, 64, 256)
     with pytest.raises(ValueError, match="shared memory"):
-        O._fma_slices(1024, 256, 16)
+        O._launch(x, x, v, x, None, 256, 16, True, 1, 1)
